@@ -1,9 +1,13 @@
-"""Carry JAX-package parameters and env states over to the port.
+"""Carry JAX-package parameters, optimizer and env states over to the port.
 
-Both functions take plain numpy data (nested dicts of arrays, or an object
+Every function takes plain numpy data (nested dicts of arrays, or an object
 with array fields), so this module needs no JAX. Layout conversions:
 
 * flax ``Dense`` kernel ``(in, out)`` -> ``nn.Linear`` weight ``(out, in)``;
+* flax ``DenseGeneral`` of an attention module: a q/k/v kernel ``(dim,
+  heads, hd)`` with bias ``(heads, hd)``, or the output projection's kernel
+  ``(heads, hd, dim)``, flattened head-major to ``nn.Linear`` ``(out, in)``
+  and a flat bias;
 * flax ``Conv`` kernel HWIO -> ``F.conv2d`` weight OIHW;
 * a ``kernel`` the port keeps under the same name (the hand conv's HWIO
   filter bank) is copied unchanged, as are the packed MHA weights;
@@ -41,13 +45,22 @@ def to_state_dict(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Te
     parameter is missing on either side or a shape disagrees.
     """
     target = module.state_dict()
+    flat = _flatten(flax_params)
     out = {}
-    for path, a in _flatten(flax_params).items():
+    for path, a in flat.items():
         mod, _, leaf = path.rpartition(".")
         key = path
         if leaf == "kernel" and path not in target:
             key = f"{mod}.weight"
+            if a.ndim == 3:
+                # DenseGeneral: heads split out of the output (q/k/v, whose
+                # bias is (heads, hd)) or of the input (the out-projection).
+                split_out = flat[f"{mod}.bias"].ndim == 2
+                a = (a.reshape(a.shape[0], -1) if split_out
+                     else a.reshape(-1, a.shape[2]))
             a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+        elif leaf == "bias" and a.ndim == 2 and path in target:
+            a = a.reshape(-1)
         elif leaf == "scale":
             key = f"{mod}.weight"
         if key not in target:
@@ -61,6 +74,19 @@ def to_state_dict(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Te
     if missing:
         raise KeyError(f"port parameters with no flax counterpart: {missing}")
     return out
+
+
+def load_adam_state(opt: torch.optim.Adam, module: nn.Module, count: int,
+                    mu: Mapping, nu: Mapping) -> None:
+    """An optax ``ScaleByAdamState`` (``count`` and the ``mu`` / ``nu`` trees,
+    as numpy) into ``opt``, the ``torch.optim.Adam`` over ``module``'s
+    parameters, so a step in the port starts where one in optax would."""
+    first, second = to_state_dict(mu, module), to_state_dict(nu, module)
+    for name, p in module.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": first[name].to(p.device),
+            "exp_avg_sq": second[name].to(p.device)}
 
 
 def env_state_from_jax(state, device="cuda") -> EnvState:

@@ -1,9 +1,10 @@
 """Cross-modal fusion transformer: (camera tokens, LiDAR tokens) -> state.
 
 Counterpart of ``multimodal_sc_tpu/fusion/transformer.py``: the fused-block
-form (``FusedMHABlock`` layers, the c4/c5 default) in ``cross_attention``
-mode, and ``late_concat``. The unfused layers need ``camera_vit.MHA`` and
-wait for the c3 slice (ROADMAP item 13).
+form (``FusedMHABlock`` layers, the c4/c5 default) and the unfused form
+(LayerNorms around ``camera_vit.MHA``, whose attention is the packed
+kernel under ``use_pallas``) in ``cross_attention`` mode, and
+``late_concat``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.codec.camera_vit import MHA
 from multimodal_sc_torch.kernels.mha_block import (kernel_eligible, mha_block,
                                                    mha_block_reference)
 
@@ -69,48 +71,70 @@ class FusedMHABlock(nn.Module):
 
 
 class FusionLayer(nn.Module):
-    """Bidirectional cross-attention + per-modality self-attention + MLP."""
+    """Bidirectional cross-attention + per-modality self-attention + MLP.
 
-    def __init__(self, dim: int, heads: int, fused_block: bool = True,
-                 block_kernel: bool = True):
+    ``fused_block`` picks the parameter tree: ``FusedMHABlock``s (each LN +
+    q/k/v + attention + out-proj + residual span one op), or LayerNorms
+    around ``MHA`` modules with the residual outside. ``use_pallas`` reaches
+    only the unfused ``MHA``s; ``block_kernel`` only the fused blocks.
+    """
+
+    def __init__(self, dim: int, heads: int, use_pallas: bool = False,
+                 fused_block: bool = True, block_kernel: bool = True):
         super().__init__()
-        if not fused_block:
-            raise NotImplementedError(
-                "the unfused fusion layer needs camera_vit.MHA, ported with "
-                "the c3 slice (ROADMAP item 13)")
-        self.cam2lid_f = FusedMHABlock(dim, heads, use_kernel=block_kernel)
-        self.lid2cam_f = FusedMHABlock(dim, heads, use_kernel=block_kernel)
+        self.fused_block = fused_block
+        if fused_block:
+            self.cam2lid_f = FusedMHABlock(dim, heads, use_kernel=block_kernel)
+            self.lid2cam_f = FusedMHABlock(dim, heads, use_kernel=block_kernel)
+        else:
+            self.cam2lid = MHA(dim, heads, use_pallas)
+            self.lid2cam = MHA(dim, heads, use_pallas)
+            for name in ("c1", "l1", "l2", "c2"):
+                setattr(self, f"ln_{name}", nn.LayerNorm(dim, eps=_LN_EPS))
         for name in ("cam", "lid"):
-            setattr(self, f"{name}_self_f", FusedMHABlock(
-                dim, heads, self_attn=True, use_kernel=block_kernel))
+            if fused_block:
+                setattr(self, f"{name}_self_f", FusedMHABlock(
+                    dim, heads, self_attn=True, use_kernel=block_kernel))
+            else:
+                setattr(self, f"ln_{name}_sa", nn.LayerNorm(dim, eps=_LN_EPS))
+                setattr(self, f"{name}_self", MHA(dim, heads, use_pallas))
             setattr(self, f"ln_{name}_mlp", nn.LayerNorm(dim, eps=_LN_EPS))
             setattr(self, f"{name}_mlp1", nn.Linear(dim, 4 * dim))
             setattr(self, f"{name}_mlp2", nn.Linear(4 * dim, dim))
 
     def _self_mlp(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        x = getattr(self, f"{name}_self_f")(x)
+        if self.fused_block:
+            x = getattr(self, f"{name}_self_f")(x)
+        else:
+            x = x + getattr(self, f"{name}_self")(
+                getattr(self, f"ln_{name}_sa")(x))
         h = getattr(self, f"ln_{name}_mlp")(x)
         # flax nn.gelu is the tanh approximation.
         h = F.gelu(getattr(self, f"{name}_mlp1")(h), approximate="tanh")
         return x + getattr(self, f"{name}_mlp2")(h)
 
     def forward(self, cam: torch.Tensor, lid: torch.Tensor):
-        cam = self.cam2lid_f(cam, lid)
-        lid = self.lid2cam_f(lid, cam)
+        # The second cross direction reads the UPDATED camera stream.
+        if self.fused_block:
+            cam = self.cam2lid_f(cam, lid)
+            lid = self.lid2cam_f(lid, cam)
+        else:
+            cam = cam + self.cam2lid(self.ln_c1(cam), self.ln_l1(lid))
+            lid = lid + self.lid2cam(self.ln_l2(lid), self.ln_c2(cam))
         return self._self_mlp("cam", cam), self._self_mlp("lid", lid)
 
 
 class FusionTransformer(nn.Module):
     """Fuse camera + LiDAR token streams into one state embedding.
 
-    mode="cross_attention": fused-block layers + CLS pooling.
+    mode="cross_attention": fusion layers + CLS pooling.
     mode="late_concat": mean-pool each modality, concat, MLP.
     """
 
     def __init__(self, cam_in: int, lid_in: int, dim: int = 128,
                  depth: int = 2, heads: int = 4, state_dim: int = 128,
-                 mode: str = "cross_attention", fused_block: bool = True,
-                 block_kernel: bool = True):
+                 mode: str = "cross_attention", use_pallas: bool = False,
+                 fused_block: bool = True, block_kernel: bool = True):
         super().__init__()
         if mode not in ("cross_attention", "late_concat"):
             raise ValueError(f"unknown fusion mode {mode!r}")
@@ -126,7 +150,8 @@ class FusionTransformer(nn.Module):
         self.cls = nn.Parameter(0.02 * torch.randn(1, 1, dim))
         for i in range(depth):
             setattr(self, f"layer{i}", FusionLayer(
-                dim, heads, fused_block=fused_block, block_kernel=block_kernel))
+                dim, heads, use_pallas=use_pallas, fused_block=fused_block,
+                block_kernel=block_kernel))
         self.ln_out = nn.LayerNorm(dim, eps=_LN_EPS)
         self.state_head = nn.Linear(dim, state_dim)
 

@@ -115,6 +115,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned (a copy only when it is not):
+    the kernels read rows as float4."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -1,0 +1,215 @@
+"""Packed-head attention for small head dims: forward and backward kernels.
+
+Counterpart of ``multimodal_sc_tpu/kernels/attention_packed.py``. Inputs
+stay in the packed ``(B, L, H*d)`` layout a q/k/v projection produces, so
+the caller needs no ``(B,L,H,d) <-> (B,H,L,d)`` transposes. On a CUDA
+tensor ``packed_attention`` launches the forward kernel of
+``csrc/attention_packed.cu`` and its autograd backward launches the backward
+kernels (q, k, v and the output are saved; the softmax is recomputed). On a
+CPU tensor the plain version runs and autograd differentiates it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from multimodal_sc_torch.kernels import _build
+
+_LANES = 128
+_MAX_LK_PAD = 4096
+_KERNEL_HEAD_DIMS = (8, 16, 32, 64)
+
+# Calls that launched the CUDA forward kernel / the backward kernels (one
+# backward call runs two grid launches: dq with the softmax statistics,
+# then dk and dv).
+launches_fwd = 0
+launches_bwd = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIG = {
+    "packed_attention_fwd_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
+    "packed_attention_bwd_launch": (_P,) * 10 + (_I,) * 5 + (_F, _I, _P),
+}
+
+
+def packed_eligible(heads: int, head_dim: int, lk: int) -> bool:
+    """The JAX package's rule, kept identical so both packages pick the same
+    path for the same config: the model dim is whole 128-wide groups, heads
+    pack evenly into a group, padded Lk at most 4096."""
+    dm = heads * head_dim
+    lk_pad = -(-lk // _LANES) * _LANES
+    return (dm % _LANES == 0 and _LANES % head_dim == 0
+            and lk_pad <= _MAX_LK_PAD)
+
+
+def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, l, dm = x.shape
+    return x.reshape(b, l, heads, dm // heads).transpose(1, 2)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.bfloat16().float()
+
+
+def packed_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, heads: int,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version in float32: unpack heads, softmax attention, repack."""
+    if scale is None:
+        scale = (q.shape[-1] // heads) ** -0.5
+    qh, kh, vh = (_split(t.float(), heads) for t in (q, k, v))
+    probs = torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1)
+    return _merge(probs @ vh).to(q.dtype)
+
+
+def packed_attention_reference_bf16(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, heads: int,
+                                    scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """Plain version of the kernel's bf16 mode, rounding where it does:
+    q, k, v and the NORMALISED probabilities are rounded to bf16, every sum
+    is kept in f32. These are the JAX kernel's roundings too."""
+    if scale is None:
+        scale = (q.shape[-1] // heads) ** -0.5
+    qh, kh, vh = (_split(_bf16(t.float()), heads) for t in (q, k, v))
+    probs = torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1)
+    return _merge(_bf16(probs) @ vh).to(q.dtype)
+
+
+def packed_attention_bwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        dout: torch.Tensor, heads: int, scale: Optional[float] = None,
+        bf16: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: (dq, dk, dv) by the formulas
+    they evaluate, the softmax recomputed from q and k.
+
+        P = softmax(q k^T scale)     delta = rowsum(dO * O) per head
+        dV = P^T dO    dS = P * (dO V^T - delta) * scale
+        dQ = dS K      dK = dS^T Q
+
+    With ``bf16`` the matmul operands (q, k, v, dO, P, dS) are rounded to
+    bf16 where the kernels round them; delta uses the unrounded dO and O.
+    """
+    if scale is None:
+        scale = (q.shape[-1] // heads) ** -0.5
+    r = _bf16 if bf16 else (lambda t: t)
+    qh, kh, vh = (_split(r(t.float()), heads) for t in (q, k, v))
+    oh, doh = _split(out.float(), heads), _split(dout.float(), heads)
+    delta = (doh * oh).sum(-1, keepdim=True)
+    doh = r(doh)
+    p = torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1)
+    ds = r(p * (doh @ vh.transpose(-1, -2) - delta) * scale)
+    dv = r(p).transpose(-1, -2) @ doh
+    return _merge(ds @ kh), _merge(ds.transpose(-1, -2) @ qh), _merge(dv)
+
+
+def _check_cuda(heads: int, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Validate what the kernels take; returns (B, Lq, Lk, dm)."""
+    q, k, v = tensors[:3]
+    b, lq, dm = q.shape
+    lk = k.shape[1]
+    if k.shape != (b, lk, dm) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} disagree")
+    for t in tensors[3:]:
+        if t.shape != q.shape:
+            raise ValueError(f"expected shape {tuple(q.shape)}, got "
+                             f"{tuple(t.shape)}")
+    if dm % heads or not packed_eligible(heads, dm // heads, lk):
+        raise ValueError(f"packed kernel ineligible for dm={dm} heads={heads} "
+                         f"lk={lk}")
+    if dm // heads not in _KERNEL_HEAD_DIMS:
+        raise ValueError("the packed attention kernels take head dims "
+                         f"{_KERNEL_HEAD_DIMS}, got {dm // heads}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernels' grid limit 65535")
+    for t in tensors:
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError("the packed attention kernels take float32 "
+                            f"tensors on one device, got {t.dtype} on "
+                            f"{t.device}")
+    return b, lq, lk, dm
+
+
+def _fwd_cuda(q, k, v, heads: int, scale: float, bf16: bool) -> torch.Tensor:
+    global launches_fwd
+    b, lq, lk, dm = _check_cuda(heads, q, k, v)
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    lib = _build.load("attention_packed", _SIG)
+    err = lib.packed_attention_fwd_launch(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        b, lq, lk, dm, heads, scale, int(bf16), _build.stream_ptr(q.device))
+    _build.check(err, "packed_attention forward")
+    launches_fwd += 1
+    return out
+
+
+def _bwd_cuda(q, k, v, out, dout, heads: int, scale: float, bf16: bool):
+    global launches_bwd
+    b, lq, lk, dm = _check_cuda(heads, q, k, v, out, dout)
+    q, k, v, out, dout = (_build.aligned(t) for t in (q, k, v, out, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b, heads, lq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _build.load("attention_packed", _SIG)
+    err = lib.packed_attention_bwd_launch(
+        *(_build.ptr(t) for t in (q, k, v, out, dout, dq, dk, dv, lse, delta)),
+        b, lq, lk, dm, heads, scale, int(bf16), _build.stream_ptr(q.device))
+    _build.check(err, "packed_attention backward")
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Forward kernel; backward kernels on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, heads, scale, bf16, q, k, v):
+        out = _fwd_cuda(q, k, v, heads, scale, bf16)
+        ctx.heads, ctx.scale, ctx.bf16 = heads, scale, bf16
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        return (None, None, None) + _bwd_cuda(q, k, v, out, g, ctx.heads,
+                                              ctx.scale, ctx.bf16)
+
+
+def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     heads: int, scale: Optional[float] = None,
+                     mxu_bf16: Optional[bool] = None) -> torch.Tensor:
+    """Multi-head attention on the packed (B, L, H*d) layout.
+
+    Callers check ``packed_eligible`` first. ``mxu_bf16`` mirrors the JAX
+    function's flag: bf16 matmul operands with f32 sums (the default on the
+    card, as compiled on the TPU), or exact f32 when False. On a CPU tensor
+    the plain f32 version runs and the flag does not apply. On a CUDA
+    tensor the kernels run, or the call raises for a shape they do not take
+    (head dims other than 8-64).
+    """
+    dm = q.shape[-1]
+    if dm % heads:
+        raise ValueError(f"model dim {dm} not divisible by heads {heads}")
+    d = dm // heads
+    if not packed_eligible(heads, d, k.shape[1]):
+        raise ValueError(f"packed kernel ineligible for heads={heads} d={d} "
+                         f"lk={k.shape[1]}; use kernels.attention.attention")
+    if scale is None:
+        scale = d ** -0.5
+    if not q.is_cuda:
+        return packed_attention_reference(q, k, v, heads, scale)
+    if mxu_bf16 is None:
+        mxu_bf16 = True
+    return _PackedAttention.apply(heads, float(scale), bool(mxu_bf16), q, k, v)

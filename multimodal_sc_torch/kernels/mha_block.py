@@ -136,11 +136,6 @@ def mha_block_reference_bf16(x_q: torch.Tensor, x_kv: torch.Tensor,
     return ((x_q.float() + att @ r(p["wo"])) + p["bo"]).to(x_q.dtype)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
                     bf16: bool) -> torch.Tensor:
     global launches
@@ -162,8 +157,8 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
         want = (dm, dm) if name.startswith("w") else (dm,)
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
-    x_q, x_kv = _aligned(x_q), _aligned(x_kv)
-    flat = [_aligned(t) for t in flat]
+    x_q, x_kv = _build.aligned(x_q), _build.aligned(x_kv)
+    flat = [_build.aligned(t) for t in flat]
     kbuf = torch.empty((b, lk, dm), dtype=torch.float32, device=x_q.device)
     vbuf = torch.empty_like(kbuf)
     out = torch.empty((b, lq, dm), dtype=torch.float32, device=x_q.device)

@@ -57,7 +57,9 @@ class SemanticPerception(nn.Module):
         self.fusion = FusionTransformer(
             cam_in=fus.dim, lid_in=lid.pillar_dim, dim=fus.dim,
             depth=fus.depth, heads=fus.heads, state_dim=fus.state_dim,
-            mode=fus.mode, fused_block=cfg.pallas_mha_block,
+            mode=fus.mode,
+            use_pallas=cfg.use_pallas or cfg.pallas_attention,
+            fused_block=cfg.pallas_mha_block,
             block_kernel=cfg.mha_block_kernel)
 
     def _lidar_branch(self, pts, msk, snr_db, generator, noise):

@@ -6,12 +6,11 @@ functional updates, ``add_batch`` writes the rows IN PLACE into the stores
 (no second copy of a buffer of hundreds of MB) and returns the buffer with
 the advanced cursor. Cursor and size are Python ints: they depend only on
 how many rows were added, so keeping them on the host costs no device sync.
-``sample`` waits for the training slice (ROADMAP item 8).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -62,6 +61,15 @@ def add_batch(buf: ReplayBuffer, transitions: Any) -> ReplayBuffer:
                         size=min(buf.size + b, buf.capacity))
 
 
-def sample(buf: ReplayBuffer, generator: torch.Generator, batch_size: int):
-    raise NotImplementedError(
-        "replay.sample comes with the training slice (ROADMAP item 8)")
+def sample(buf: ReplayBuffer, generator: Optional[torch.Generator],
+           batch_size: int, indices: Optional[torch.Tensor] = None) -> Any:
+    """Uniform draw with replacement over the valid prefix.
+
+    ``indices`` (optional, (batch_size,) integer rows) takes the place of
+    the draw from ``generator``, as the env's draws can be handed in."""
+    if indices is None:
+        indices = torch.randint(0, max(buf.size, 1), (batch_size,),
+                                generator=generator,
+                                device=buf.data[0].device)
+    indices = indices.long()
+    return type(buf.data)(*(store[indices] for store in buf.data))

@@ -15,13 +15,18 @@ import torch
 
 from multimodal_sc_torch import bridge
 from multimodal_sc_torch.fusion.transformer import FusedMHABlock as TFusedMHABlock
+from multimodal_sc_torch.kernels import attention as tattn
+from multimodal_sc_torch.kernels import attention_packed as tpacked
 from multimodal_sc_torch.kernels import conv_block as tconv
 from multimodal_sc_torch.kernels import mha_block as tmha
 from multimodal_sc_torch.kernels import pillar_scatter as tscatter
 from multimodal_sc_tpu.fusion.transformer import FusedMHABlock as JFusedMHABlock
+from multimodal_sc_tpu.kernels import attention_packed as jpacked
 from multimodal_sc_tpu.kernels import conv_block as jconv
 from multimodal_sc_tpu.kernels import mha_block as jmha
 from multimodal_sc_tpu.kernels import pillar_scatter as jscatter
+from multimodal_sc_tpu.kernels.attention import (
+    attention_reference as j_attention_reference)
 
 
 def _mha_params(rng, dim):
@@ -193,3 +198,110 @@ def test_wrappers_backward_through_plain_version():
     y = tconv.conv_prelu(x, w, b, None, 2)
     y.square().sum().backward()
     assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
+# --- packed attention: plain versions against the JAX kernel --------------
+
+def _qkv(seed, b, lq, lk, dm):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((b, lq, dm), (b, lk, dm), (b, lk, dm)))
+
+
+@pytest.mark.parametrize("heads,lq,lk,dm", [
+    (4, 65, 256, 128), (4, 256, 65, 128), (4, 33, 70, 128), (8, 64, 64, 256),
+    (2, 17, 100, 128), (1, 40, 40, 128)])
+def test_packed_attention_plain_matches_jax(heads, lq, lk, dm):
+    q, k, v = _qkv(lq * 1000 + lk, 2, lq, lk, dm)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    j_kernel = jpacked.packed_attention(jq, jk, jv, heads, interpret=True)
+    j_ref = jpacked.packed_attention_reference(jq, jk, jv, heads)
+    before = (tpacked.launches_fwd, tpacked.launches_bwd)
+    out = tpacked.packed_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                                   heads).numpy()
+    # CPU tensors: no kernel launch.
+    assert (tpacked.launches_fwd, tpacked.launches_bwd) == before
+    # f32 on both sides, summed in another order: the JAX kernel test's gate.
+    np.testing.assert_allclose(out, np.asarray(j_kernel), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, np.asarray(j_ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("heads,lq,lk,dm", [
+    (4, 33, 70, 128), (8, 40, 24, 256), (4, 200, 48, 128)])
+def test_packed_attention_gradients_match_jax(heads, lq, lk, dm):
+    """Autograd of the CPU path, and the explicit backward formulas the CUDA
+    backward kernels evaluate, against the JAX backward kernel."""
+    q, k, v = _qkv(lq + lk, 1, lq, lk, dm)
+
+    def loss(q, k, v):
+        return jnp.sum(jpacked.packed_attention(q, k, v, heads,
+                                                interpret=True) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t)
+                                               for t in (q, k, v)))
+    ins = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = tpacked.packed_attention(*ins, heads)
+    got = torch.autograd.grad(out.square().sum(), ins)
+    with torch.no_grad():
+        explicit = tpacked.packed_attention_bwd_reference(
+            *ins, out, 2.0 * out, heads)
+    for a, e, w in zip(got, explicit, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(e.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_packed_attention_bf16_plain_matches_jax_bf16():
+    """The plain versions of the kernels' bf16 mode against the JAX kernels'
+    bf16 mode, forward and backward."""
+    heads = 4
+    q, k, v = _qkv(9, 2, 65, 256, 128)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+
+    def fwd(q, k, v):
+        return jpacked.packed_attention(q, k, v, heads, interpret=True,
+                                        mxu_bf16=True)
+
+    j_out, vjp = jax.vjp(fwd, jq, jk, jv)
+    do = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
+    j_grads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = tpacked.packed_attention_reference_bf16(tq, tk, tv, heads)
+    f32 = tpacked.packed_attention_reference(tq, tk, tv, heads)
+    # Both round q, k, v and the NORMALISED probabilities to bf16 and sum in
+    # f32: the roundings coincide, so the gate is far tighter than the 3e-2
+    # against exact f32 (a rare flip of one probability's rounding, a step
+    # of 2^-8 relative, is what 2e-3 leaves room for).
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_out), atol=2e-3,
+                               rtol=0)
+    np.testing.assert_allclose(got.numpy(), f32.numpy(), atol=3e-2, rtol=3e-2)
+    assert (got - f32).abs().max() > 1e-4      # the rounding really happens
+    t_grads = tpacked.packed_attention_bwd_reference(
+        tq, tk, tv, torch.from_numpy(np.array(j_out)), torch.from_numpy(do),
+        heads, bf16=True)
+    for a, w in zip(t_grads, j_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=5e-3, rtol=0)
+
+
+def test_packed_eligible_matches_jax_rule():
+    for args in ((4, 32, 256), (1, 128, 64), (3, 32, 64), (4, 48, 64),
+                 (4, 32, 100_000), (8, 32, 4096), (8, 32, 4097)):
+        assert tpacked.packed_eligible(*args) == jpacked.packed_eligible(*args)
+    assert tpacked.packed_eligible(4, 32, 256)
+    assert not tpacked.packed_eligible(3, 32, 64)
+    with pytest.raises(ValueError):
+        z = torch.zeros(1, 8, 96)
+        tpacked.packed_attention(z, z, z, heads=3)
+
+
+def test_attention_dispatch_matches_jax_reference():
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 3, 7, 24), (2, 3, 11, 24), (2, 3, 11, 24)))
+    want = j_attention_reference(*(jnp.asarray(t) for t in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    for use_pallas in (False, True):      # a CPU tensor: the plain version
+        got = tattn.attention(tq, tk, tv, use_pallas=use_pallas)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=2e-5)

@@ -15,10 +15,14 @@ import torch
 from multimodal_sc_torch import bridge
 from multimodal_sc_torch.channel import layer as tch
 from multimodal_sc_torch.codec import camera_cnn as tcam
+from multimodal_sc_torch.codec import camera_vit as tvit
 from multimodal_sc_torch.codec import lidar_bev as tlid
+from multimodal_sc_torch.fusion import transformer as tfus
 from multimodal_sc_tpu.channel import layer as jch
 from multimodal_sc_tpu.codec import camera_cnn as jcam
+from multimodal_sc_tpu.codec import camera_vit as jvit
 from multimodal_sc_tpu.codec import lidar_bev as jlid
+from multimodal_sc_tpu.fusion import transformer as jfus
 
 
 def _load(tmodule, params):
@@ -137,3 +141,77 @@ def test_pillar_net_and_backbone_match_jax():
         got = tb(t_bev)
     np.testing.assert_allclose(t_bev.numpy(), _np(j_bev), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5, rtol=1e-5)
+
+
+# --- the unfused fusion layer: MHA on the packed attention ----------------
+
+def _perturbed(params, seed):
+    """Fresh flax params moved off their init (zero biases, unit LayerNorm
+    scales), so a dropped bias or a swapped norm shows."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: a + 0.1 * jnp.asarray(
+            rng.standard_normal(a.shape).astype(np.float32)), params)
+
+
+@pytest.mark.parametrize("dim,heads,lq,lk,use_pallas", [
+    (128, 4, 9, 130, True),     # packed-eligible: the packed kernel's path
+    (128, 4, 33, 33, False),
+    (48, 3, 7, 12, True),       # ineligible: the generic attention dispatch
+])
+def test_mha_matches_jax(dim, heads, lq, lk, use_pallas):
+    rng = np.random.default_rng(20)
+    x_q = rng.standard_normal((2, lq, dim)).astype(np.float32)
+    x_kv = rng.standard_normal((2, lk, dim)).astype(np.float32)
+    # The JAX module takes its Pallas kernels only where they can run here:
+    # the packed one in interpret mode. The flash kernel of the ineligible
+    # shape is compared through its plain reference.
+    jm = jvit.MHA(dim, heads,
+                  use_pallas and jvit.packed_eligible(heads, dim // heads, lk))
+    params = _perturbed(jm.init(jax.random.key(0), jnp.asarray(x_q),
+                                jnp.asarray(x_kv))["params"], 21)
+    want = jm.apply({"params": params}, jnp.asarray(x_q), jnp.asarray(x_kv))
+    tm = _load(tvit.MHA(dim, heads, use_pallas), params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x_q), torch.from_numpy(x_kv)).numpy()
+    np.testing.assert_allclose(got, _np(want), atol=1e-4, rtol=1e-4)
+
+
+def test_unported_vit_classes_raise():
+    with pytest.raises(NotImplementedError):
+        tvit.ViTEncoderJSCC
+    with pytest.raises(AttributeError):
+        tvit.no_such_name
+
+
+def test_unfused_fusion_layer_matches_jax():
+    rng = np.random.default_rng(22)
+    cam = rng.standard_normal((2, 17, 128)).astype(np.float32)
+    lid = rng.standard_normal((2, 36, 128)).astype(np.float32)
+    jm = jfus.FusionLayer(128, 4, use_pallas=True, fused_block=False)
+    params = _perturbed(jm.init(jax.random.key(1), jnp.asarray(cam),
+                                jnp.asarray(lid))["params"], 23)
+    want = jm.apply({"params": params}, jnp.asarray(cam), jnp.asarray(lid))
+    tm = _load(tfus.FusionLayer(128, 4, use_pallas=True, fused_block=False),
+               params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(cam), torch.from_numpy(lid))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("fused_block", [False, True])
+def test_fusion_transformer_matches_jax(fused_block):
+    rng = np.random.default_rng(24)
+    cam = rng.standard_normal((2, 16, 24)).astype(np.float32)
+    lid = rng.standard_normal((2, 36, 16)).astype(np.float32)
+    kw = dict(dim=128, depth=2, heads=4, state_dim=32, use_pallas=True,
+              fused_block=fused_block, block_kernel=False)
+    jm = jfus.FusionTransformer(**kw)
+    params = _perturbed(jm.init(jax.random.key(2), jnp.asarray(cam),
+                                jnp.asarray(lid))["params"], 25)
+    want = jm.apply({"params": params}, jnp.asarray(cam), jnp.asarray(lid))
+    tm = _load(tfus.FusionTransformer(cam_in=24, lid_in=16, **kw), params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(cam), torch.from_numpy(lid)).numpy()
+    np.testing.assert_allclose(got, _np(want), atol=1e-4, rtol=1e-4)

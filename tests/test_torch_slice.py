@@ -116,9 +116,13 @@ def test_act_only_iterations_match_jax_bookkeeping():
 
 
 def test_learn_mode_raises():
+    """The learner is ported for the analog trunk; the digital (VQ) branches
+    of its loss are not, and asking for them raises."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError):
-        tdqn.make_iteration(tcfg, learn=True)
+    tdqn.make_iteration(tcfg, learn=True)
+    for flag in ("lidar.arch=vq", "camera.arch=vq"):
+        with pytest.raises(NotImplementedError):
+            tdqn.make_iteration(tcfg.override_str([flag]), learn=True)
 
 
 def test_no_jax_in_the_port():
