@@ -5,8 +5,9 @@
 
 Builds every CUDA kernel from ``multimodal_sc_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card at the
-shapes of the c4 paths, times both, then drives three paths through the
-port's entry points at 1024 envs, full widths, random weights from seed 0:
+shapes of the paths below, times both, then drives five paths through the
+port's entry points at full widths, random weights from seed 0. At 1024
+envs:
 
 * the c4 DQN act-only iteration;
 * arm A, act+learn on the c4 preset as it stands (fused blocks: the kernel
@@ -16,6 +17,19 @@ port's entry points at 1024 envs, full widths, random weights from seed 0:
   backward), plus one learn step on a fixed batch through the kernels in
   f32 mode against the same step through the plain versions.
 
+Then the c3 late-fusion JSCC train step (ViT camera codec + LiDAR BEV
+codec, batch 64, 64x64 images, 1024 points, 32x32 BEV) in two arms:
+
+* arm P, the c3 preset with ``pallas_attention=true``: the ViT's attention
+  (dim 128, 4 heads) on the packed attention kernels, forward and backward;
+* arm F, the same with ``camera.dim=192 camera.heads=3`` (head dim 64, a
+  model dim the packed kernels refuse): the flash attention kernels,
+  forward, dQ and dK/dV.
+
+Each arm takes a few dozen train steps (the loss must fall) and one loss
+and its gradients through the kernels are held against the same through
+the plain versions.
+
 Each path is driven with the launch counts set to 0 just before and read
 just after, and fails unless every kernel of that path ran the expected
 number of times and the outputs are finite. Prints the card, the
@@ -24,7 +38,7 @@ non-zero, printing no result, when CUDA is absent or any phase fails.
 Imports nothing of JAX.
 
 ``--profile`` adds, after each path, where its time goes: the layers of
-the act iteration and the parts of one learn step timed alone, the
+the act iteration and the parts of one learn or train step timed alone, the
 device's idle share (an unprofiled wall time against the device time a
 CUDA-only ``torch.profiler`` trace sees), and the trace's kernels by
 device time.
@@ -51,21 +65,20 @@ WARMUP_ITERS = 3
 TIMED_ITERS = 10
 # Per-act-step launches the c4 main path must show: 4 fused blocks x
 # depth 2; 5 encoder convs; one batched scatter.
-EXPECTED_LAUNCHES = {"mha_block": 8, "conv_prelu": 5, "scatter_max": 1,
-                     "packed_attention_fwd": 0, "packed_attention_bwd": 0}
+# (A kernel a table does not name must not run on that path at all.)
+EXPECTED_LAUNCHES = {"mha_block": 8, "conv_prelu": 5, "scatter_max": 1}
 FUSION_DEPTH = 2            # c4 fusion.depth: each block shape twice a step
 # Per act+learn iteration: the act forward at 1024 envs, then the learner's
 # three forwards (and, for the packed attention, one backward) at batch 128.
 # Arm A: the learner runs the fused blocks through the plain version.
 EXPECTED_LEARN_A = {"mha_block": 8, "conv_prelu": 5 + 15,
-                    "scatter_max": 1 + 3, "packed_attention_fwd": 0,
-                    "packed_attention_bwd": 0}
+                    "scatter_max": 1 + 3}
 # Arm B: four attentions x depth 2 per forward. The backward runs for six
 # of the eight: the last layer's LiDAR stream (lid2cam, lid_self) feeds
 # nothing after it (the state is read from the camera stream's CLS token),
 # so autograd never reaches those two.
 ATTN_BWD_PER_STEP = 4 * FUSION_DEPTH - 2
-EXPECTED_LEARN_B = {"mha_block": 0, "conv_prelu": 5 + 15,
+EXPECTED_LEARN_B = {"conv_prelu": 5 + 15,
                     "scatter_max": 1 + 3, "packed_attention_fwd": 8 + 24,
                     "packed_attention_bwd": ATTN_BWD_PER_STEP}
 ARM_B = ["pallas_mha_block=false", "pallas_attention=true"]
@@ -74,17 +87,37 @@ LEARN_TIMED_ITERS = 10
 LEARN_BATCH = 128           # c4 rl.batch_size
 C4_ATTN_SHAPES = ((65, 256), (256, 65), (65, 65), (256, 256))
 
+# The c3 late-fusion train step. Per step each arm runs one forward and one
+# backward through 4 encoder + 4 decoder ViT blocks (every attention's
+# inputs depend on parameters, so autograd reaches all eight) and one
+# batched scatter in the LiDAR encoder.
+C3_ARM_P = ["pallas_attention=true"]
+C3_ARM_F = C3_ARM_P + ["camera.dim=192", "camera.heads=3"]
+C3_ATTN_PER_STEP = 8
+EXPECTED_C3_P = {"packed_attention_fwd": C3_ATTN_PER_STEP,
+                 "packed_attention_bwd": C3_ATTN_PER_STEP, "scatter_max": 1}
+EXPECTED_C3_F = {"flash_attention_fwd": C3_ATTN_PER_STEP,
+                 "flash_attention_bwd_dq": C3_ATTN_PER_STEP,
+                 "flash_attention_bwd_dkv": C3_ATTN_PER_STEP, "scatter_max": 1}
+C3_BATCH = 64               # c3 train.batch_size
+C3_WARMUP_STEPS = 3
+C3_TIMED_STEPS = 30
+
 
 def _counters():
     """name -> (module, attribute) of every kernel wrapper's launch count."""
-    from multimodal_sc_torch.kernels import (attention_packed, conv_block,
-                                             mha_block, pillar_scatter)
+    from multimodal_sc_torch.kernels import (attention, attention_packed,
+                                             conv_block, mha_block,
+                                             pillar_scatter)
 
     return {"mha_block": (mha_block, "launches"),
             "conv_prelu": (conv_block, "launches"),
             "scatter_max": (pillar_scatter, "launches"),
             "packed_attention_fwd": (attention_packed, "launches_fwd"),
-            "packed_attention_bwd": (attention_packed, "launches_bwd")}
+            "packed_attention_bwd": (attention_packed, "launches_bwd"),
+            "flash_attention_fwd": (attention, "launches_fwd"),
+            "flash_attention_bwd_dq": (attention, "launches_bwd_dq"),
+            "flash_attention_bwd_dkv": (attention, "launches_bwd_dkv")}
 
 
 def _reset_counts():
@@ -97,7 +130,8 @@ def _read_counts():
 
 
 def _check_counts(launches, expected, iters, what):
-    for k, per_iter in expected.items():
+    for k in launches:
+        per_iter = expected.get(k, 0)
         if launches[k] != per_iter * iters:
             raise RuntimeError(
                 f"{what}: {k} launched {launches[k]} times in {iters} "
@@ -128,8 +162,9 @@ def _bound_ms(flops, nbytes, peak_ops):
 
 
 def _entry(name, route, source, replaces, rows):
-    """One kernel's line: times and bounds per act step, each shape's row
-    weighted by how often one act step launches it (``per_step``)."""
+    """One kernel's line: times and bounds per step of the path its rows
+    come from, each shape's row weighted by how often one step launches it
+    (``per_step``)."""
     def total(key):
         vals = [r[key] for r in rows]
         if any(v is None for v in vals):
@@ -294,12 +329,33 @@ def _pillar_inputs():
     return feats, cell, lid.bev_hw[0] * lid.bev_hw[1]
 
 
-def check_scatter_max():
+def _c3_pillar_inputs():
+    """Point features and cells as the c3 path makes them: a batch of the
+    synthetic clouds, voxelized onto the 32x32 grid (trash cells included)."""
+    import torch
+
+    from multimodal_sc_torch.codec.lidar_bev import voxelize
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs import datasets
+
+    lid = get_preset("c3").lidar
+    g = torch.Generator(device="cuda").manual_seed(4)
+    pts, mask = datasets.synthetic_pointcloud_batch(
+        datasets.draw_pointcloud(C3_BATCH, lid.max_points, g, "cuda",
+                                 lid.x_range, lid.y_range),
+        lid.x_range, lid.y_range)
+    _, cell = voxelize(pts, mask, lid.bev_hw, lid.x_range, lid.y_range)
+    feats = torch.randn(C3_BATCH, lid.max_points, lid.pillar_dim, generator=g,
+                        device="cuda")
+    return feats, cell, lid.bev_hw[0] * lid.bev_hw[1]
+
+
+def _scatter_case(what, feats, cell, cells, backward=False):
+    """One shape of scatter_max against its plain version; its row."""
     import torch
 
     from multimodal_sc_torch.kernels import pillar_scatter as ps
 
-    feats, cell, cells = _pillar_inputs()
     b, n, d = feats.shape
     ref = ps.scatter_max_reference(feats, cell, cells)
     out = ps.scatter_max(feats, cell, cells)
@@ -316,12 +372,28 @@ def check_scatter_max():
     valid = int((cell < cells).sum().item())
     nbytes = 4 * (b * n + valid * d + b * cells * d)
     bound, by = _bound_ms(valid * d, nbytes, PEAK_F32)
-    print(f"  scatter_max B={b} N={n} D={d} cells={cells} ({valid} of {b * n} "
-          f"points in range): err {err:.3e}; kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, scatter_reduce {lib:.4f} ms, bound {bound:.5f} ms "
-          f"({by})", flush=True)
-    row = {"per_step": 1, "err": err, "ms": ms, "plain_ms": plain,
-           "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    line = (f"  scatter_max ({what}) B={b} N={n} D={d} cells={cells} ({valid} "
+            f"of {b * n} points in range): err {err:.3e}; kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, scatter_reduce {lib:.4f} ms, bound "
+            f"{bound:.5f} ms ({by})")
+    if backward:
+        # The wrapper's backward recomputes through the plain version.
+        f = feats.clone().requires_grad_(True)
+        y = ps.scatter_max(f, cell, cells)
+        gy = torch.randn_like(y)
+        bwd = _ms(lambda: torch.autograd.grad(y, f, gy, retain_graph=True),
+                  iters=20)
+        line += f"; backward (through the plain version) {bwd:.4f} ms"
+    print(line, flush=True)
+    return {"per_step": 1, "err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib}
+
+
+def check_scatter_max():
+    """The c4 act shape (its row is the kernel's line) and the c3 training
+    shape, whose backward is timed too."""
+    row = _scatter_case("c4", *_pillar_inputs())
+    _scatter_case("c3", *_c3_pillar_inputs(), backward=True)
     return _entry("scatter_max", "cuda",
                   "multimodal_sc_torch/csrc/pillar_scatter.cu",
                   "multimodal_sc_tpu/kernels/pillar_scatter.py:79", [row])
@@ -370,9 +442,13 @@ def check_packed_attention():
         b, l, dm = t.shape
         return t.reshape(b, l, heads, dm // heads).transpose(1, 2).contiguous()
 
-    # (B, Lq, Lk, dm, heads, forward launches per iteration, backward ones)
+    # (B, Lq, Lk, dm, heads, forward launches per iteration, backward ones).
+    # A negative count marks the c3 arm-P shape: timed and printed per c3
+    # train step, kept out of the kernel's line, which stays arm B's.
     cases = [(NUM_ENVS, lq, lk, 128, 4, FUSION_DEPTH, 0)
              for lq, lk in C4_ATTN_SHAPES]
+    cases += [(C3_BATCH, 256, 256, 128, 4, -C3_ATTN_PER_STEP,
+               -C3_ATTN_PER_STEP)]
     # Backward: the camera-stream attentions (Lq = 65) in both layers, the
     # LiDAR-stream ones in all layers but the last (ATTN_BWD_PER_STEP).
     cases += [(LEARN_BATCH, lq, lk, 128, 4, 3 * FUSION_DEPTH,
@@ -440,9 +516,12 @@ def check_packed_attention():
                               4 * 2 * b * (lq + lk) * dm, PEAK_BF16)
         line += (f"; fwd kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
                  f"{lib:.3f} ms, bound {bound:.4f} ms ({by})")
-        fwd_rows.append({"per_step": n_fwd, "err": err, "ms": ms,
-                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                         "library_ms": lib})
+        if n_fwd > 0:
+            fwd_rows.append({"per_step": n_fwd, "err": err, "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": by, "library_ms": lib})
+        else:
+            line += f" (c3 arm P: x{-n_fwd} per train step)"
         if n_bwd:
             ms = _ms(lambda: ap._bwd_cuda(q, k, v, out_bf16, do, heads, scale,
                                           True))
@@ -458,9 +537,10 @@ def check_packed_attention():
                                   4 * 4 * b * (lq + lk) * dm, PEAK_BF16)
             line += (f"; bwd kernels {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
                      f"backward {lib:.3f} ms, bound {bound:.4f} ms ({by})")
-            bwd_rows.append({"per_step": n_bwd, "err": berr, "ms": ms,
-                             "plain_ms": plain, "bound_ms": bound,
-                             "bound_by": by, "library_ms": lib})
+            if n_bwd > 0:
+                bwd_rows.append({"per_step": n_bwd, "err": berr, "ms": ms,
+                                 "plain_ms": plain, "bound_ms": bound,
+                                 "bound_by": by, "library_ms": lib})
         print(line, flush=True)
         del q, k, v, do, ref, ref_bf16, out_f32, out_bf16, grads
     src = "multimodal_sc_torch/csrc/attention_packed.cu"
@@ -470,6 +550,130 @@ def check_packed_attention():
         _entry("packed_attention_bwd", "cuda", src,
                "multimodal_sc_tpu/kernels/attention_packed.py:201", bwd_rows)]
     entries[0]["max_abs_err"], entries[1]["max_abs_err"] = worst_fwd, worst_bwd
+    return entries
+
+
+def check_flash_attention():
+    """Forward, dQ and dK/dV kernels vs their plain versions: the c3 arm-F
+    shape on the transposed views the ViT's MHA hands in, plus ragged,
+    cross, odd-D and contiguous shapes. Times are per arm-F train step
+    (eight launches of each kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_sc_torch.kernels import attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def heads_view(b, h, l, d):
+        # As MHA makes it: a (B, L, H*D) projection seen as (B, H, L, D).
+        return torch.randn(b, l, h, d, generator=g,
+                           device="cuda").transpose(1, 2)
+
+    def contiguous(b, h, l, d):
+        return torch.randn(b, h, l, d, generator=g, device="cuda")
+
+    # (B, H, Lq, Lk, D, layout, launches of each kernel per train step)
+    cases = [(C3_BATCH, 3, 256, 256, 64, heads_view, C3_ATTN_PER_STEP),
+             (2, 4, 100, 70, 32, contiguous, 0),
+             (C3_BATCH, 3, 257, 257, 64, heads_view, 0),
+             (2, 4, 64, 64, 48, heads_view, 0),
+             (2, 2, 17, 17, 64, contiguous, 0),
+             (3, 2, 33, 130, 128, heads_view, 0),
+             (2, 3, 40, 24, 96, contiguous, 0),
+             (4, 5, 300, 7, 8, heads_view, 0)]
+    rows = {"fwd": [], "dq": [], "dkv": []}
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for b, h, lq, lk, d, make, per_step in cases:
+        q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
+        do = make(b, h, lq, d)
+        scale = d ** -0.5
+        ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+        out, lse = fa._fwd_cuda(q, k, v, scale)
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        # Through autograd, so the Function's backward is what is checked.
+        got = torch.autograd.grad(fa.attention(*ins, use_pallas=True), ins, do)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do,
+                                                scale)
+        # Exact f32 on both sides, sums of D and Lk products in another
+        # order; the gates of the JAX package's kernel tests: 2e-5 forward
+        # (and the logsumexp), 2e-4 backward.
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=2e-4, rtol=2e-4)
+        errs = {"fwd": (out - ref).abs().max().item(),
+                "dq": (got[0] - want[0]).abs().max().item(),
+                "dkv": max((got[1] - want[1]).abs().max().item(),
+                           (got[2] - want[2]).abs().max().item())}
+        for key, e in errs.items():
+            worst[key] = max(worst[key], e)
+        line = (f"  flash_attention B={b} H={h} Lq={lq} Lk={lk} D={d} "
+                f"({make.__name__}): err fwd {errs['fwd']:.3e}, lse "
+                f"{(lse - ref_lse).abs().max().item():.3e}, dq "
+                f"{errs['dq']:.3e}, dk/dv {errs['dkv']:.3e}")
+        if not per_step:
+            print(line, flush=True)
+            continue
+
+        _, delta = fa.flash_attention_dq_reference(q, k, v, ref, ref_lse, do,
+                                                   scale)
+        work = b * h * lq * lk * d
+        rows_bytes = 4 * b * h * d
+        ms = {
+            "fwd": _ms(lambda: fa._fwd_cuda(q, k, v, scale)),
+            "dq": _ms(lambda: fa._bwd_dq_cuda(q, k, v, out, lse, do, scale)),
+            "dkv": _ms(lambda: fa._bwd_dkv_cuda(q, k, v, lse, delta, do,
+                                                scale))}
+        plain = {
+            "fwd": _ms(lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                                scale)),
+            "dq": _ms(lambda: fa.flash_attention_dq_reference(
+                q, k, v, ref, ref_lse, do, scale)),
+            "dkv": _ms(lambda: fa.flash_attention_dkv_reference(
+                q, k, v, ref_lse, delta, do, scale))}
+        # Library yardstick: SDPA forward, and SDPA's backward, which gives
+        # dQ, dK and dV in one call: it stands beside both backward rows.
+        qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+        lib_fwd = _ms(lambda: F.scaled_dot_product_attention(qc, kc, vc))
+        lib_out = F.scaled_dot_product_attention(qc, kc, vc)
+        doc = do.contiguous()
+        lib_bwd = _ms(lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc,
+                                                  retain_graph=True))
+        lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+        # Operations: S and PV forward (4 per score and column); S, dP, dQ in
+        # the dQ kernel (6); S, dP, dV, dK in the dK/dV kernel (8). Bytes:
+        # every operand read once, every result written once.
+        bounds = {
+            "fwd": _bound_ms(4 * work, rows_bytes * (2 * lq + 2 * lk)
+                             + 4 * b * h * lq, PEAK_F32),
+            "dq": _bound_ms(6 * work, rows_bytes * (4 * lq + 2 * lk)
+                            + 8 * b * h * lq, PEAK_F32),
+            "dkv": _bound_ms(8 * work, rows_bytes * (2 * lq + 4 * lk)
+                             + 8 * b * h * lq, PEAK_F32)}
+        for key in rows:
+            bound, by = bounds[key]
+            line += (f"; {key} kernel {ms[key]:.3f} ms, plain "
+                     f"{plain[key]:.3f} ms, bound {bound:.4f} ms ({by})")
+            rows[key].append({"per_step": per_step, "err": errs[key],
+                              "ms": ms[key], "plain_ms": plain[key],
+                              "bound_ms": bound, "bound_by": by,
+                              "library_ms": lib[key]})
+        line += (f"; SDPA forward {lib_fwd:.3f} ms, backward (dQ, dK and dV "
+                 f"together) {lib_bwd:.3f} ms")
+        print(line, flush=True)
+        del q, k, v, do, ref, out, ins, got, want, qc, kc, vc, lib_out
+    src = "multimodal_sc_torch/csrc/flash_attention.cu"
+    entries = [
+        _entry("flash_attention_fwd", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention.py:103", rows["fwd"]),
+        _entry("flash_attention_bwd_dq", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention.py:221", rows["dq"]),
+        _entry("flash_attention_bwd_dkv", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention.py:252", rows["dkv"])]
+    for e, key in zip(entries, ("fwd", "dq", "dkv")):
+        e["max_abs_err"] = worst[key]
     return entries
 
 
@@ -485,7 +689,7 @@ def check_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         return [check_mha_block(), check_conv_prelu(), check_scatter_max(),
-                *check_packed_attention()]
+                *check_packed_attention(), *check_flash_attention()]
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
@@ -720,6 +924,211 @@ def compare_learn_routes(cfg, state):
           "tensors", flush=True)
 
 
+def drive_c3(name, overrides, expected):
+    """The c3 late-fusion train step at the preset's full widths through
+    ``train.fusion_jscc``: returns the launches of the timed run, the train
+    steps/s, and the config, state, train step and batch stream it ended
+    with."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.train import fusion_jscc as fj
+
+    cfg = get_preset("c3").override_str(overrides)
+    if cfg.train.batch_size != C3_BATCH:
+        raise RuntimeError(f"c3 batch size {cfg.train.batch_size}")
+    t0 = time.perf_counter()
+    state = fj.create_train_state(cfg, seed=0, device="cuda")
+    train_step = fj.make_train_step(cfg)
+    batches = fj.make_batches(cfg, "cuda")
+    before = _clone_params(state.params)
+    state, first = train_step(state, *next(batches))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(C3_WARMUP_STEPS - 1):
+        state, _ = train_step(state, *next(batches))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    print(f"  {n_params} parameters; init + first step {first_s:.2f} s", flush=True)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(C3_TIMED_STEPS):
+        state, metrics = train_step(state, *next(batches))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+
+    rate = C3_TIMED_STEPS / wall
+    print(f"  c3 train ({name}): {C3_TIMED_STEPS} steps x batch {C3_BATCH} in "
+          f"{wall:.3f} s = {rate:.2f} train steps/s", flush=True)
+    print(f"  launches in the timed run: {launches}", flush=True)
+    print(f"  first step: " + ", ".join(
+        f"{k}={float(v):.4f}" for k, v in first.items()), flush=True)
+    print(f"  last step:  " + ", ".join(
+        f"{k}={float(v):.4f}" for k, v in metrics.items()), flush=True)
+    _check_counts(launches, expected, C3_TIMED_STEPS, name)
+    for m in [first] + history:
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise RuntimeError(f"{name}: non-finite metrics: {m}")
+    if state.step != C3_WARMUP_STEPS + C3_TIMED_STEPS:
+        raise RuntimeError(f"{name}: step {state.step}")
+    if _same(state.params, before):
+        raise RuntimeError(f"{name}: the parameters did not change")
+    if not float(metrics["loss"]) < float(first["loss"]):
+        raise RuntimeError(
+            f"{name}: loss {float(metrics['loss']):.4f} after "
+            f"{state.step} steps, not below the first step's "
+            f"{float(first['loss']):.4f}")
+    recon_shape = (C3_BATCH, *cfg.camera.image_hw, 3)
+    with torch.no_grad():
+        img, pts, mask, _ = next(batches)
+        snr = torch.full((C3_BATCH,), cfg.channel.snr_db, device="cuda")
+        recon, logits, _ = state.params(img, pts, mask, snr, state.generator)
+    want_logits = (C3_BATCH, *cfg.lidar.bev_hw, cfg.lidar.seg_classes)
+    if recon.shape != recon_shape or logits.shape != want_logits:
+        raise RuntimeError(f"{name}: outputs {tuple(recon.shape)}, "
+                           f"{tuple(logits.shape)}")
+    print(f"  loss {float(first['loss']):.4f} -> {float(metrics['loss']):.4f}, "
+          f"PSNR {float(first['psnr']):.2f} -> {float(metrics['psnr']):.2f} dB, "
+          f"mIoU {float(first['miou']):.3f} -> {float(metrics['miou']):.3f}; "
+          f"reconstruction {tuple(recon.shape)}, BEV logits "
+          f"{tuple(logits.shape)}", flush=True)
+    return launches, rate, cfg, state, train_step, batches
+
+
+def _plain_attention(q, k, v, scale=None, use_pallas=False):
+    from multimodal_sc_torch.kernels.attention import attention_reference
+
+    return attention_reference(q, k, v, scale)
+
+
+def compare_c3_routes(cfg, state, batches, expected):
+    """One c3 loss and its gradients on a fixed batch and fixed channel
+    noise, twice: through the kernels (packed attention in its f32 mode)
+    and through every kernel's plain version."""
+    import torch
+
+    from multimodal_sc_torch.codec import camera_vit, lidar_bev
+    from multimodal_sc_torch.kernels import attention_packed, pillar_scatter
+    from multimodal_sc_torch.train import fusion_jscc as fj
+
+    img, pts, mask, cls = next(batches)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    model = state.params
+    noise = tuple(torch.randn(C3_BATCH, n, 2, generator=g, device="cuda")
+                  for n in (model.camera.k, model.lidar.k))
+    snr = torch.full((C3_BATCH,), cfg.channel.snr_db, device="cuda")
+    target = fj.bev_target(cfg, pts, mask, cls)
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss, _ = fj.loss_fn(cfg, model, img, pts, mask, target, snr,
+                             channel_noise=noise)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = _read_counts()
+        with mock.patch.object(camera_vit, "packed_attention",
+                               functools.partial(
+                                   attention_packed.packed_attention,
+                                   mxu_bf16=False)):
+            loss_k, grads_k = loss_and_grads()
+        ran = {k: v - before[k] for k, v in _read_counts().items()}
+        _check_counts(ran, expected, 1, "kernel route of the c3 train step")
+        before = _read_counts()
+        with mock.patch.object(camera_vit, "packed_attention",
+                               attention_packed.packed_attention_reference), \
+                mock.patch.object(camera_vit, "attention", _plain_attention), \
+                mock.patch.object(lidar_bev, "scatter_max",
+                                  pillar_scatter.scatter_max_reference):
+            loss_p, grads_p = loss_and_grads()
+        if _read_counts() != before:
+            raise RuntimeError("the plain route of the c3 train step launched "
+                               "a kernel")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    torch.cuda.synchronize()
+    # Exact f32 on both routes (TF32 off), each kernel within 1e-4 of its
+    # plain version, through ~30 layers: loss 1e-5, gradients rtol 1e-3
+    # (atol 1e-5 for the entries near zero), as for the c4 learn step.
+    torch.testing.assert_close(loss_k, loss_p, atol=1e-5, rtol=1e-5)
+    worst_abs = worst_rel = 0.0
+    for (pname, _), gk, gp in zip(model.named_parameters(), grads_k, grads_p):
+        torch.testing.assert_close(gk, gp, atol=1e-5, rtol=1e-3,
+                                   msg=lambda m: f"{pname}: {m}")
+        diff, top = (gk - gp).abs().max().item(), gp.abs().max().item()
+        worst_abs = max(worst_abs, diff)
+        if top > 1e-4:
+            worst_rel = max(worst_rel, diff / top)
+    print(f"  train step, kernels (f32 mode) vs plain versions: loss "
+          f"{loss_k.item():.6f} vs {loss_p.item():.6f}; worst gradient "
+          f"difference {worst_abs:.2e} absolute, {worst_rel:.2e} of its "
+          f"tensor's largest entry (tensors above 1e-4), over {len(params)} "
+          "tensors", flush=True)
+
+
+def profile_c3(cfg, state, train_step, batches):
+    """Where the time of one c3 train step goes: its parts timed alone on
+    one batch, then the device's busy share of whole steps (batch
+    generation included, as in ``run``)."""
+    import torch
+
+    from multimodal_sc_torch.train import fusion_jscc as fj
+
+    holder = [state]
+
+    def step_all():
+        holder[0], _ = train_step(holder[0], *next(batches))
+
+    img, pts, mask, cls = next(batches)
+    model, g = state.params, state.generator
+    snr = torch.full((C3_BATCH,), cfg.channel.snr_db, device="cuda")
+    target = fj.bev_target(cfg, pts, mask, cls)
+    params = list(model.parameters())
+
+    def loss():
+        return fj.loss_fn(cfg, model, img, pts, mask, target, snr, g)[0]
+
+    parts = {
+        "step incl. batch": _ms(step_all, warmup=1),
+        "train_step": _ms(lambda: train_step(holder[0], img, pts, mask, cls)),
+    }
+    with torch.no_grad():
+        z_cam = model.camera.encode(img, snr)
+        z_lid = model.lidar.encode((pts, mask))
+        parts.update({
+            "make batch": _ms(lambda: next(batches)),
+            "bev_target": _ms(lambda: fj.bev_target(cfg, pts, mask, cls)),
+            "forward_no_grad": _ms(loss),
+            "camera encode (no grad)": _ms(lambda: model.camera.encode(img,
+                                                                      snr)),
+            "camera decode (no grad)": _ms(lambda: model.camera.decode(z_cam,
+                                                                      snr)),
+            "lidar encode (no grad)": _ms(lambda: model.lidar.encode((pts,
+                                                                     mask))),
+            "lidar decode (no grad)": _ms(lambda: model.lidar.decode(z_lid)),
+        })
+    parts["forward_with_grad"] = _ms(loss)
+    parts["loss_and_backward"] = _ms(
+        lambda: torch.autograd.grad(loss(), params))
+    parts["backward (difference)"] = (parts["loss_and_backward"]
+                                      - parts["forward_with_grad"])
+    parts["target_clip_adamw_metrics (difference)"] = (
+        parts["train_step"] - parts["loss_and_backward"])
+    print("  ms per call, each part timed alone (CUDA events):", flush=True)
+    for k, v in parts.items():
+        print(f"    {k:40s} {v:9.3f}", flush=True)
+    _idle_share(step_all, parts["step incl. batch"])
+
+
 def profile_main_path(cfg, state, iteration):
     """Where the time of one act-only iteration goes: each layer timed alone
     on the main path's own inputs, then the device's busy share."""
@@ -917,12 +1326,30 @@ def main() -> int:
             profile_learn(cfg, state, iteration)
         del state, iteration
         torch.cuda.empty_cache()
+    c3_rates = {}
+    for name, overrides, expected in (
+            ("arm P: ViT on packed_attention", C3_ARM_P, EXPECTED_C3_P),
+            ("arm F: ViT dim 192 on flash_attention", C3_ARM_F,
+             EXPECTED_C3_F)):
+        print(f"main path (c3 late-fusion train, {name}):", flush=True)
+        launches, c3_rates[name], cfg, state, train_step, batches = drive_c3(
+            name, overrides, expected)
+        for k, v in launches.items():
+            totals[k] += v
+        compare_c3_routes(cfg, state, batches, expected)
+        if args.profile:
+            print(f"profile (c3 late-fusion train, {name}):", flush=True)
+            profile_c3(cfg, state, train_step, batches)
+        del state, train_step, batches
+        torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
             raise RuntimeError(f"{k['name']} was launched on no main path")
     print(f"agent steps/s at {NUM_ENVS} envs on {card}: " + "; ".join(
         f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
+    print(f"c3 train steps/s at batch {C3_BATCH} on {card}: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in c3_rates.items()), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,13 @@ with array fields), so this module needs no JAX. Layout conversions:
   and a flat bias;
 * flax ``Conv`` kernel HWIO -> ``F.conv2d`` weight OIHW;
 * a ``kernel`` the port keeps under the same name (the hand conv's HWIO
-  filter bank) is copied unchanged, as are the packed MHA weights;
+  filter bank) is copied unchanged, as are the packed MHA weights and bare
+  parameters such as a ViT's ``pos`` table;
 * LayerNorm ``scale`` -> ``weight``.
+
+The trees carried so far: the c4 ``QNetwork`` and the c3 ``LateFusionJSCC``
+(``camera.encoder.*``, ``camera.decoder.*``, ``lidar.*``), each with its
+Adam moments.
 """
 
 from __future__ import annotations
@@ -76,11 +81,13 @@ def to_state_dict(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Te
     return out
 
 
-def load_adam_state(opt: torch.optim.Adam, module: nn.Module, count: int,
+def load_adam_state(opt: torch.optim.Optimizer, module: nn.Module, count: int,
                     mu: Mapping, nu: Mapping) -> None:
     """An optax ``ScaleByAdamState`` (``count`` and the ``mu`` / ``nu`` trees,
-    as numpy) into ``opt``, the ``torch.optim.Adam`` over ``module``'s
-    parameters, so a step in the port starts where one in optax would."""
+    as numpy) into ``opt``, the ``torch.optim.Adam`` or ``AdamW`` over
+    ``module``'s parameters, so a step in the port starts where one in optax
+    would. In the state of ``optax.chain(clip_by_global_norm, adam)`` or
+    ``chain(clip_by_global_norm, adamw)`` it is ``opt_state[1][0]``."""
     first, second = to_state_dict(mu, module), to_state_dict(nu, module)
     for name, p in module.named_parameters():
         opt.state[p] = {

@@ -1,17 +1,19 @@
-"""LiDAR BEV pillar encoder: voxelize -> point MLP -> scatter-max -> convs.
+"""LiDAR BEV pillar encoder and semantic-occupancy JSCC codec.
 
-Counterpart of the RL trunk's half of ``multimodal_sc_tpu/codec/lidar_bev.py``:
-``voxelize``, ``PillarFeatureNet`` and ``BEVBackbone``. Static shapes: every
-point gets a cell, masked or out-of-range points the trash cell ``H*W``.
-The scatter is ``kernels/pillar_scatter.py`` (the CUDA kernel on the card);
-the 3x3 SAME convs are plain ``F.conv2d``, as they are plain XLA convs in
-the JAX package. The reconstruction codec (``LidarBEVCodec``, the targets)
-waits for the c3 slice (ROADMAP item 13).
+Counterpart of ``multimodal_sc_tpu/codec/lidar_bev.py``: ``voxelize``,
+``PillarFeatureNet`` and ``BEVBackbone`` (voxelize -> point MLP ->
+scatter-max -> convs), the ground-truth BEV targets, and ``LidarBEVCodec``
+(point cloud -> channel symbols -> semantic BEV logits). Static shapes:
+every point gets a cell, masked or out-of-range points the trash cell
+``H*W``. The scatter is ``kernels/pillar_scatter.py`` (the CUDA kernel on
+the card); the 3x3 SAME convs are plain ``F.conv2d``, as they are plain XLA
+convs in the JAX package. The digital codec (``LidarBEVVQCodec``) is not
+ported and raises (ROADMAP item 14).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +46,50 @@ def voxelize(points: torch.Tensor, mask: torch.Tensor,
     keep = in_range.unsqueeze(-1).to(points.dtype)
     aug = torch.cat([points, offs, keep], dim=-1) * keep
     return aug, cell
+
+
+def _cell_counts(cell: torch.Tensor, weight: torch.Tensor,
+                 slots: int) -> torch.Tensor:
+    """Per batch row, the sum of ``weight`` (B, N, ...) over the points of
+    each cell: (B, slots, ...), the trash cell last."""
+    out = torch.zeros((cell.shape[0], slots) + weight.shape[2:],
+                      dtype=weight.dtype, device=cell.device)
+    idx = cell.long().reshape(cell.shape + (1,) * (weight.dim() - 2))
+    return out.scatter_add_(1, idx.expand_as(weight), weight)
+
+
+def occupancy_target(points: torch.Tensor, mask: torch.Tensor,
+                     bev_hw: Tuple[int, int], x_range: Tuple[float, float],
+                     y_range: Tuple[float, float],
+                     min_points: int = 1) -> torch.Tensor:
+    """Ground-truth binary occupancy grid (B, H, W) float32 from a point cloud."""
+    _, cell = voxelize(points, mask, bev_hw, x_range, y_range)
+    h, w = bev_hw
+    cnt = _cell_counts(cell, torch.ones_like(cell), h * w + 1)[:, :h * w]
+    return (cnt >= min_points).float().reshape(-1, h, w)
+
+
+def semantic_bev_target(points: torch.Tensor, mask: torch.Tensor,
+                        classes: torch.Tensor, bev_hw: Tuple[int, int],
+                        x_range: Tuple[float, float],
+                        y_range: Tuple[float, float],
+                        num_classes: int = 4) -> torch.Tensor:
+    """Ground-truth semantic BEV grid (B, H, W) int32 from labeled points.
+
+    Cell class = majority point class, ties going to the higher class id;
+    0 = empty cell.
+    """
+    _, cell = voxelize(points, mask, bev_hw, x_range, y_range)
+    h, w = bev_hw
+    ids = torch.arange(1, num_classes, device=cell.device)
+    onehot = (classes.unsqueeze(-1) == ids).to(torch.int32)     # (B, N, C-1)
+    cnt = _cell_counts(cell, onehot, h * w + 1)[:, :h * w]      # (B, HW, C-1)
+    # The highest class id among those that reach the top count: no
+    # reliance on how argmax breaks a tie.
+    top = cnt == cnt.max(dim=-1, keepdim=True).values
+    best = (top * ids).max(dim=-1).values
+    return torch.where(cnt.sum(-1) > 0, best, 0).to(torch.int32).reshape(
+        -1, h, w)
 
 
 class PillarFeatureNet(nn.Module):
@@ -87,3 +133,71 @@ class BEVBackbone(nn.Module):
             x = getattr(self, f"conv{i}")(x.permute(0, 3, 1, 2))
             x = F.relu(getattr(self, f"ln{i}")(x.permute(0, 2, 3, 1)))
         return x
+
+
+class LidarBEVCodec(nn.Module):
+    """Point cloud -> channel symbols; symbols -> semantic BEV logits.
+
+    encode: (points (B,N,F), mask (B,N)) -> z (B, H*W*c_sym, 2)
+    decode: z_hat -> BEV logits (B, H, W, C) where C = max(seg_classes, 1);
+      seg_classes == 1 is the binary-occupancy mode (single logit + BCE),
+      seg_classes > 1 the semantic mode (softmax classes incl. 0 = empty).
+    tokens: intermediate BEV tokens (B, H*W, D) for the fusion transformer.
+    """
+
+    def __init__(self, pillar_dim: int = 64,
+                 bev_hw: Tuple[int, int] = (16, 16), c_sym: int = 4,
+                 seg_classes: int = 1,
+                 x_range: Tuple[float, float] = (0.0, 48.0),
+                 y_range: Tuple[float, float] = (-12.0, 12.0),
+                 point_features: int = 4):
+        super().__init__()
+        self.pillar_dim, self.bev_hw, self.c_sym = pillar_dim, tuple(bev_hw), c_sym
+        self.pfn = PillarFeatureNet(point_features, pillar_dim, bev_hw,
+                                    x_range, y_range)
+        feats = (pillar_dim, pillar_dim)
+        self.backbone = BEVBackbone(pillar_dim, feats)
+        self.sym_head = nn.Linear(pillar_dim, 2 * c_sym)
+        self.sym_embed = nn.Linear(2 * c_sym, pillar_dim)
+        self.dec_backbone = BEVBackbone(pillar_dim, feats)
+        self.occ_head = nn.Linear(pillar_dim, max(seg_classes, 1))
+
+    def bev_features(self, points: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+        return self.backbone(self.pfn(points, mask))
+
+    def encode(self, obs, snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+        points, mask = obs
+        x = self.sym_head(self.bev_features(points, mask))   # (B, H, W, 2c)
+        b, h, w, _ = x.shape
+        return x.reshape(b, h * w * self.c_sym, 2)
+
+    def _decoded(self, z_hat: torch.Tensor) -> torch.Tensor:
+        h, w = self.bev_hw
+        x = z_hat.float().reshape(z_hat.shape[0], h, w, 2 * self.c_sym)
+        return self.dec_backbone(self.sym_embed(x))
+
+    def decode(self, z_hat: torch.Tensor,
+               snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.occ_head(self._decoded(z_hat))           # (B, H, W, C)
+
+    def tokens(self, z_hat: torch.Tensor) -> torch.Tensor:
+        """Decoded symbols -> BEV tokens for cross-modal fusion."""
+        h, w = self.bev_hw
+        return self._decoded(z_hat).reshape(-1, h * w, self.pillar_dim)
+
+    def forward(self, obs, snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decode(self.encode(obs, snr_db), snr_db)
+
+    @property
+    def k(self) -> int:
+        return self.bev_hw[0] * self.bev_hw[1] * self.c_sym
+
+
+class LidarBEVVQCodec(nn.Module):
+    """The digital LiDAR codec (``lidar.arch="vq"``): not ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the digital LiDAR codec (lidar.arch='vq') is not ported yet "
+            "(ROADMAP item 14)")

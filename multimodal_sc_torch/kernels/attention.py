@@ -1,16 +1,42 @@
 """Generic multi-head attention on the (B, H, L, D) layout.
 
 Counterpart of ``multimodal_sc_tpu/kernels/attention.py``: the plain
-version and the ``attention`` dispatch. The flash kernels of that file
-(forward, dQ, fused dK/dV) are still to be ported (ROADMAP section 2, row
-5); they serve the shapes ``attention_packed.packed_eligible`` refuses.
+version, the flash kernels (forward, dQ, fused dK/dV; they serve the shapes
+``attention_packed.packed_eligible`` refuses) and the ``attention``
+dispatch. On a CUDA tensor ``flash_attention`` launches the forward kernel
+of ``csrc/flash_attention.cu`` and its autograd backward launches the two
+backward kernels on the saved q, k, v, output and logsumexp. On a CPU
+tensor the plain version runs and autograd differentiates it.
+
+The kernels read q, k, v and dO where they lie, through their (batch, head,
+row) strides, so the transposed views of a (B, L, H, D) projection need no
+copy; the output is allocated (B, L, H, D) and returned as its (B, H, L, D)
+view, so the caller's transpose back to (B, L, H*D) is free as well.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import torch
+
+from multimodal_sc_torch.kernels import _build
+
+_MAX_HEAD_DIM = 128
+
+# Launches of the CUDA forward, dQ and dK/dV kernels (one backward pass
+# launches the dQ kernel, which also writes delta, then the dK/dV kernel).
+launches_fwd = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIG = {
+    "flash_attention_fwd_launch": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "flash_attention_bwd_dq_launch": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    "flash_attention_bwd_dkv_launch": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -23,19 +49,209 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (probs @ v.float()).to(q.dtype)
 
 
+def flash_attention_fwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: ``(out, lse)``, lse (B, H, Lq)
+    the f32 logsumexp of the scaled scores of each row."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = q.float() @ k.float().transpose(-1, -2) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.exp(s - lse.unsqueeze(-1)) @ v.float()
+    return out.to(q.dtype), lse
+
+
+def flash_attention_dq_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, g: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dQ kernel: ``(dq, delta)``, the probabilities
+    recomputed from the saved logsumexp.
+
+        P = exp(q k^T scale - lse)     delta = rowsum(dO * O)   (B, H, Lq)
+        dS = P * (dO V^T - delta)      dQ = dS K scale
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse.unsqueeze(-1))
+    delta = (gf * out.float()).sum(-1)
+    ds = p * (gf @ vf.transpose(-1, -2) - delta.unsqueeze(-1))
+    return (ds @ kf * scale).to(q.dtype), delta
+
+
+def flash_attention_dkv_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+        delta: torch.Tensor, g: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused dK/dV kernel: ``(dk, dv)``.
+
+        dV = P^T dO                    dK = dS^T Q scale
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse.unsqueeze(-1))
+    ds = p * (gf @ vf.transpose(-1, -2) - delta.unsqueeze(-1))
+    dk = ds.transpose(-1, -2) @ qf * scale
+    return dk.to(k.dtype), (p.transpose(-1, -2) @ gf).to(v.dtype)
+
+
+def flash_attention_bwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, g: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward pass: (dq, dk, dv) from the saved
+    q, k, v, output and logsumexp, as the two backward kernels compute it."""
+    dq, delta = flash_attention_dq_reference(q, k, v, out, lse, g, scale)
+    dk, dv = flash_attention_dkv_reference(q, k, v, lse, delta, g, scale)
+    return dq, dk, dv
+
+
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels can read it in place: last dim contiguous, every
+    other stride a multiple of 4 floats, 16-byte aligned base (rows are read
+    as float4). A copy only when it is not."""
+    ok = (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+          and t.data_ptr() % 16 == 0)
+    return t if ok else _build.aligned(t)
+
+
+def _strides(*tensors: torch.Tensor):
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _check_cuda(*tensors: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """Validate what the kernels take; returns (B, H, Lq, Lk, D). The first
+    three tensors are q, k, v; any others have q's shape."""
+    q, k, v = tensors[:3]
+    if q.dim() != 4:
+        raise ValueError(f"q (B, H, Lq, D) expected, got {tuple(q.shape)}")
+    b, h, lq, d = q.shape
+    lk = k.shape[2] if k.dim() == 4 else -1
+    if k.shape != (b, h, lk, d) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} disagree")
+    for t in tensors[3:]:
+        if t.shape != q.shape:
+            raise ValueError(f"expected shape {tuple(q.shape)}, got "
+                             f"{tuple(t.shape)}")
+    if d % 4 or d > _MAX_HEAD_DIM:
+        raise ValueError("the flash attention kernels take a head dim that "
+                         f"is a multiple of 4 up to {_MAX_HEAD_DIM}, got {d}")
+    for t in tensors:
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError("the flash attention kernels take float32 "
+                            f"tensors on one device, got {t.dtype} on "
+                            f"{t.device}")
+    return b, h, lq, lk, d
+
+
+def _heads_inner(b: int, h: int, l: int, d: int, like: torch.Tensor):
+    """An uninitialised (B, H, L, D) tensor in the (B, L, H, D) memory order
+    of a projection's output, so a caller's transpose to (B, L, H*D), or
+    the one autograd applies on the way back, is a view."""
+    return torch.empty((b, l, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _fwd_cuda(q, k, v, scale: float):
+    global launches_fwd
+    b, h, lq, lk, d = _check_cuda(q, k, v)
+    q, k, v = (_readable(t) for t in (q, k, v))
+    out = _heads_inner(b, h, lq, d, q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention", _SIG)
+    err = lib.flash_attention_fwd_launch(
+        *(_build.ptr(t) for t in (q, k, v, out, lse)), _strides(q, k, v, out),
+        b, h, lq, lk, d, scale, _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention forward")
+    launches_fwd += 1
+    return out, lse
+
+
+def _bwd_dq_cuda(q, k, v, out, lse, dout, scale: float):
+    """dq, and delta = rowsum(dO * O) (B, H, Lq) for the dK/dV kernel."""
+    global launches_bwd_dq
+    b, h, lq, lk, d = _check_cuda(q, k, v, out, dout)
+    if lse.shape != (b, h, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse (B, H, Lq) float32 expected, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    q, k, v, out, dout = (_readable(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq = _heads_inner(b, h, lq, d, q)
+    delta = torch.empty_like(lse)
+    lib = _build.load("flash_attention", _SIG)
+    err = lib.flash_attention_bwd_dq_launch(
+        *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, delta)),
+        _strides(q, k, v, out, dout, dq),
+        b, h, lq, lk, d, scale, _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention dQ")
+    launches_bwd_dq += 1
+    return dq, delta
+
+
+def _bwd_dkv_cuda(q, k, v, lse, delta, dout, scale: float):
+    global launches_bwd_dkv
+    b, h, lq, lk, d = _check_cuda(q, k, v, dout)
+    q, k, v, dout = (_readable(t) for t in (q, k, v, dout))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dk, dv = _heads_inner(b, h, lk, d, q), _heads_inner(b, h, lk, d, q)
+    lib = _build.load("flash_attention", _SIG)
+    err = lib.flash_attention_bwd_dkv_launch(
+        *(_build.ptr(t) for t in (q, k, v, dout, lse, delta, dk, dv)),
+        _strides(q, k, v, dout, dk, dv),
+        b, h, lq, lk, d, scale, _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention dK/dV")
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel; backward kernels on the saved q, k, v, output and
+    logsumexp."""
+
+    @staticmethod
+    def forward(ctx, scale, q, k, v):
+        out, lse = _fwd_cuda(q, k, v, scale)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, delta = _bwd_dq_cuda(q, k, v, out, lse, g, ctx.scale)
+        dk, dv = _bwd_dkv_cuda(q, k, v, lse, delta, g, ctx.scale)
+        return None, dq, dk, dv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention, drop-in for ``attention_reference``.
+
+    On a CUDA tensor the kernels run, or the call raises for what they do
+    not take (a head dim above 128 or no multiple of 4, a type other than
+    float32). On a CPU tensor the plain version runs.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return attention_reference(q, k, v, scale)
+    return _FlashAttention.apply(float(scale), q, k, v)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None,
               use_pallas: bool = False) -> torch.Tensor:
-    """Dispatch: the flash kernel when asked for, else the plain version.
+    """Dispatch: the flash kernels when asked for, else the plain version.
 
     ``use_pallas`` keeps the JAX package's name for "run the hand-written
-    kernel". On a CUDA tensor that kernel does not exist yet, and the call
-    raises rather than give way to the plain version; on a CPU tensor the
-    plain version runs, as for every kernel of the port.
+    kernel": on a CUDA tensor it launches the kernels (or raises), on a CPU
+    tensor the plain version runs, as for every kernel of the port.
     """
-    if use_pallas and q.is_cuda:
-        raise NotImplementedError(
-            "the flash attention kernels (multimodal_sc_tpu/kernels/"
-            "attention.py, ROADMAP section 2 row 5) are not ported yet; "
-            "shapes packed_eligible accepts go through packed_attention")
+    if use_pallas:
+        return flash_attention(q, k, v, scale)
     return attention_reference(q, k, v, scale)

@@ -1,0 +1,337 @@
+"""Config-3 training loop: camera + LiDAR late-fusion semantic transmission.
+
+Counterpart of ``multimodal_sc_tpu/train/fusion_jscc.py``. Both codecs (the
+ViT camera codec and the LiDAR BEV codec) transmit through the same noisy
+channel; the joint loss is camera MSE + 0.5 x LiDAR BEV cross entropy (or
+occupancy BCE). Metrics: PSNR (camera) + mIoU (LiDAR BEV). The optimizer is
+optax's chain of the JAX package: global-norm clip, then AdamW with weight
+decay 1e-4 on every parameter.
+
+Unlike the JAX package's pure update, a train step writes the model and the
+optimizer moments IN PLACE: the returned state holds the same objects.
+
+Not ported yet, each raising: the CNN camera codec on this path
+(``camera.arch="cnn"``, ROADMAP item 12), the digital LiDAR codec
+(``lidar.arch="vq"``, item 14), ``train.bf16``, checkpoints and resume
+(``train.checkpoint_dir``, item 10). ``train.iters_per_dispatch`` has no
+counterpart: PyTorch runs eagerly, so there is no per-dispatch round trip to
+amortize, and the value is ignored.
+
+As a script it trains a preset:
+
+    python -m multimodal_sc_torch.train.fusion_jscc --config c3 \\
+        [--set train.steps=200 ...] [--device cuda]
+
+prints the card, then one JSON object: the result of ``run`` and the wall
+time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodal_sc_torch.channel import channel as channel_op
+from multimodal_sc_torch.channel import channel_kwargs
+from multimodal_sc_torch.codec.camera_vit import ViTJSCC
+from multimodal_sc_torch.codec.lidar_bev import (LidarBEVCodec,
+                                                 occupancy_target,
+                                                 semantic_bev_target)
+from multimodal_sc_torch.config.configs import ExperimentConfig
+from multimodal_sc_torch.device import resolve_device
+from multimodal_sc_torch.envs.datasets import (ImageDataset, draw_pointcloud,
+                                               synthetic_pointcloud_batch)
+from multimodal_sc_torch.evaluation.metrics import miou, psnr
+from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
+                                                    to_host)
+from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
+from multimodal_sc_torch.rl.dqn import clip_by_global_norm_
+
+ADAMW_WEIGHT_DECAY = 1e-4      # optax.adamw's default
+
+
+def _check_ported(cfg: ExperimentConfig) -> None:
+    if cfg.train.bf16:
+        raise NotImplementedError("train.bf16 activations are not ported")
+    if cfg.camera.arch != "vit":
+        raise NotImplementedError(
+            f"camera.arch={cfg.camera.arch!r} on the fusion path is not "
+            "ported yet: only the ViT codec is (CameraJSCC: ROADMAP item 12, "
+            "digital VQ: item 14)")
+    if cfg.lidar.arch != "analog":
+        raise NotImplementedError(
+            f"lidar.arch={cfg.lidar.arch!r} is not ported yet (ROADMAP "
+            "item 14)")
+
+
+def build_camera_codec(cfg: ExperimentConfig) -> ViTJSCC:
+    """The fusion pipeline's camera codec (no seg head: segmentation lives
+    on the LiDAR BEV side)."""
+    _check_ported(cfg)
+    cam = cfg.camera
+    return ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
+                   depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,
+                   snr_conditioning=cam.snr_conditioning,
+                   use_pallas=cfg.use_pallas or cfg.pallas_attention)
+
+
+def build_lidar_codec(cfg: ExperimentConfig) -> LidarBEVCodec:
+    """The fusion pipeline's LiDAR BEV codec."""
+    _check_ported(cfg)
+    lid = cfg.lidar
+    return LidarBEVCodec(pillar_dim=lid.pillar_dim, bev_hw=lid.bev_hw,
+                         c_sym=lid.c_sym, seg_classes=lid.seg_classes,
+                         x_range=lid.x_range, y_range=lid.y_range,
+                         point_features=lid.point_features)
+
+
+class LateFusionJSCC(nn.Module):
+    """Camera codec + LiDAR codec under one parameter tree (late fusion)."""
+
+    def __init__(self, cfg: ExperimentConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.camera = build_camera_codec(cfg)
+        self.lidar = build_lidar_codec(cfg)
+
+    def forward(self, img, points, mask, snr_db,
+                generator: Optional[torch.Generator] = None,
+                channel_noise: Optional[Sequence[torch.Tensor]] = None):
+        """Full late-fusion TX: both branches through the channel. Returns
+        ``(recon, occ_logits, lidar_aux)``; aux is empty for the analog
+        LiDAR codec. ``channel_noise`` (optional): the standard-normal draws
+        of the ``(camera, LiDAR)`` links, in place of draws from
+        ``generator``."""
+        ch = self.cfg.channel
+        n_cam, n_lid = channel_noise if channel_noise is not None else (None,
+                                                                        None)
+        z_cam = self.camera.encode(img, snr_db)
+        z_cam_hat = channel_op(z_cam, snr_db, ch.kind, generator, noise=n_cam,
+                               **channel_kwargs(ch))
+        recon = self.camera.decode(z_cam_hat, snr_db)
+        z_lid = self.lidar.encode((points, mask))
+        z_lid_hat = channel_op(z_lid, snr_db, ch.kind, generator, noise=n_lid,
+                               **channel_kwargs(ch))
+        return recon, self.lidar.decode(z_lid_hat), {}
+
+
+class TrainState(NamedTuple):
+    params: LateFusionJSCC
+    opt_state: torch.optim.AdamW   # over ``params``; holds the Adam moments
+    generator: torch.Generator     # SNR and channel-noise draws
+    step: int                      # train steps taken
+
+
+class StepDraws(NamedTuple):
+    """The random draws of one train step. A ``None`` noise is drawn from
+    the state's generator inside the forward."""
+    snr_db: Optional[torch.Tensor] = None          # (B,), channel.random_snr
+    channel_noise: Optional[Sequence[torch.Tensor]] = None   # (camera, LiDAR)
+
+
+def draw_step(cfg: ExperimentConfig, batch: int, generator: torch.Generator,
+              device) -> StepDraws:
+    ch = cfg.channel
+    if not ch.random_snr:
+        return StepDraws()
+    return StepDraws(snr_db=ch.snr_min_db + torch.rand(
+        (batch,), generator=generator, device=device) * (
+            ch.snr_max_db - ch.snr_min_db))
+
+
+def make_optimizer(cfg: ExperimentConfig,
+                   model: nn.Module) -> torch.optim.AdamW:
+    """AdamW as ``optax.adamw(lr)``: b1 0.9, b2 0.999, eps 1e-8 and a
+    decoupled weight decay of 1e-4 on EVERY parameter, biases and LayerNorm
+    included (torch's default would be 1e-2). Both subtract ``lr * wd * p``
+    computed on the parameter before the step, so one step is the same. The
+    global-norm clip of the chain is ``clip_by_global_norm_``, applied to
+    the gradients first."""
+    return torch.optim.AdamW(model.parameters(), lr=cfg.train.lr,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=ADAMW_WEIGHT_DECAY)
+
+
+def create_train_state(cfg: ExperimentConfig, seed: int = 0,
+                       device="cuda") -> TrainState:
+    """A fresh model, its weights drawn from ``seed`` (the global RNG is
+    left as it was), its optimizer and a generator on ``device``."""
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = LateFusionJSCC(cfg)
+    model = model.to(dev)
+    return TrainState(params=model, opt_state=make_optimizer(cfg, model),
+                      generator=torch.Generator(device=dev).manual_seed(seed),
+                      step=0)
+
+
+def bev_target(cfg: ExperimentConfig, pts, mask, cls) -> torch.Tensor:
+    """The LiDAR branch's ground truth: the semantic grid (int32) when
+    ``lidar.seg_classes > 1``, else the binary occupancy (float32)."""
+    lid = cfg.lidar
+    if lid.seg_classes > 1:
+        return semantic_bev_target(pts, mask, cls, lid.bev_hw, lid.x_range,
+                                   lid.y_range, num_classes=lid.seg_classes)
+    return occupancy_target(pts, mask, lid.bev_hw, lid.x_range, lid.y_range)
+
+
+def loss_fn(cfg: ExperimentConfig, model: LateFusionJSCC, img, pts, mask,
+            target, snr_db, generator=None, channel_noise=None):
+    """``(loss, (recon, logits, cam_loss, lidar_loss))`` of one batch."""
+    recon, logits, _ = model(img, pts, mask, snr_db, generator, channel_noise)
+    cam_loss = (recon - img).square().mean()
+    if cfg.lidar.seg_classes > 1:
+        # Classes last in the logits; F.cross_entropy wants them second.
+        lid_loss = F.cross_entropy(logits.permute(0, 3, 1, 2), target.long())
+    else:
+        l = logits[..., 0]
+        lid_loss = (torch.clamp(l, min=0) - l * target
+                    + torch.log1p(torch.exp(-l.abs()))).mean()
+    return cam_loss + 0.5 * lid_loss, (recon, logits, cam_loss, lid_loss)
+
+
+def make_train_step(cfg: ExperimentConfig):
+    """``train_step(state, img, pts, mask, cls, draws=None) -> (state,
+    metrics)``: one clip + AdamW step on one batch."""
+    _check_ported(cfg)
+    lid = cfg.lidar
+    semantic = lid.seg_classes > 1
+
+    def train_step(state: TrainState, img, pts, mask, cls,
+                   draws: Optional[StepDraws] = None):
+        model, opt = state.params, state.opt_state
+        if draws is None:
+            draws = draw_step(cfg, img.shape[0], state.generator, img.device)
+        snr_db = draws.snr_db
+        if snr_db is None:
+            snr_db = torch.full((img.shape[0],), cfg.channel.snr_db,
+                                dtype=torch.float32, device=img.device)
+        with torch.no_grad():
+            target = bev_target(cfg, pts, mask, cls)
+        loss, (recon, logits, cam_loss, lid_loss) = loss_fn(
+            cfg, model, img, pts, mask, target, snr_db, state.generator,
+            draws.channel_noise)
+        params = list(model.parameters())
+        # Parameters the loss does not reach get zero gradients, as jax.grad
+        # gives them: their moments and the weight decay then act as optax's.
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        with torch.no_grad():
+            clip_by_global_norm_(grads, cfg.train.grad_clip)
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            if semantic:
+                m = miou(logits.argmax(dim=-1), target, lid.seg_classes)
+            else:
+                m = miou((logits[..., 0] > 0).int(), target.int(), 2)
+            metrics = {"loss": loss.detach(), "cam_loss": cam_loss.detach(),
+                       "lidar_loss": lid_loss.detach(),
+                       "psnr": psnr(recon, img), "miou": m}
+        return state._replace(step=state.step + 1), metrics
+
+    return train_step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def make_batches(cfg: ExperimentConfig, device):
+    """The training stream: an endless iterator of ``(img, pts, mask, cls)``
+    batches on ``device``, images and point clouds each from a stream of
+    their own (apart from the channel's, the train state's generator)."""
+    lid, bs = cfg.lidar, cfg.train.batch_size
+    data = ImageDataset(cfg.train.dataset, bs, seed=cfg.train.seed,
+                        device=device)
+    cloud_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
+    while True:
+        pts, mask, cls = synthetic_pointcloud_batch(
+            draw_pointcloud(bs, lid.max_points, cloud_gen, device,
+                            lid.x_range, lid.y_range),
+            lid.x_range, lid.y_range, with_classes=True)
+        yield next(data), pts, mask, cls
+
+
+def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
+        device="cuda"):
+    """Train config-3 late fusion for ``cfg.train.steps`` steps on the
+    synthetic generators; returns ``(state, result)``."""
+    if cfg.train.checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoints and resume are not ported yet (ROADMAP item 10)")
+    dev = resolve_device(device)
+    state = create_train_state(cfg, cfg.train.seed, dev)
+    train_step = make_train_step(cfg)
+    batches = make_batches(cfg, dev)
+    writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
+    watchdog = NaNWatchdog()
+
+    # First-step wall (allocator warm-up, kernel build and load) recorded
+    # apart from the steady rate.
+    first_s = None
+    last = {}
+    with maybe_trace(cfg.train.profile_dir), Timer() as t:
+        for step in range(1, cfg.train.steps + 1):
+            t0 = time.perf_counter() if first_s is None else None
+            state, last = train_step(state, *next(batches))
+            if t0 is not None:
+                _sync(dev)
+                first_s = time.perf_counter() - t0
+            if step % cfg.train.log_every == 0:
+                writer.write(step, last)
+                watchdog.check(step, last)
+        _sync(dev)
+    out = to_host(last)
+    if first_s is not None and cfg.train.steps > 1 and t.elapsed > first_s:
+        out["first_dispatch_s"] = round(first_s, 2)
+        out["steady_steps_per_sec"] = round(
+            (cfg.train.steps - 1) / (t.elapsed - first_s), 2)
+    writer.write(cfg.train.steps, out)
+    writer.close()
+    return state, out
+
+
+def main(argv=None) -> int:
+    from multimodal_sc_torch.config import get_preset
+
+    ap = argparse.ArgumentParser(
+        description="Train a late-fusion JSCC preset.")
+    ap.add_argument("--config", default="c3")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="config override, e.g. train.steps=200 (repeatable)")
+    ap.add_argument("--metrics-path", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = get_preset(args.config).override_str(args.set)
+    dev = resolve_device(args.device)
+    card = "cpu"
+    if dev.type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    state, result = run(cfg, args.metrics_path, device=dev)
+    result["train_wall_s"] = round(time.perf_counter() - t0, 2)
+    result["train_steps"] = state.step
+    result["card"] = card
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
