@@ -54,9 +54,10 @@ import sys
 import time
 from unittest import mock
 
-# Published H100 SXM peaks (dense): bf16 tensor-core and f32 CUDA-core
-# FLOP/s, HBM bytes/s. A card below its 700 W limit runs slower.
+# Published H100 SXM peaks (dense): bf16 and TF32 tensor-core and f32
+# CUDA-core FLOP/s, HBM bytes/s. A card below its 700 W limit runs slower.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -258,20 +259,33 @@ def check_mha_block():
 
 
 def check_conv_prelu():
-    """Kernel vs plain version at the five camera-encoder conv shapes."""
+    """Kernel vs plain version at the five camera-encoder conv shapes, at
+    the act batch (1024; these rows are the kernel's line) and the learner's
+    batch (128), then at shapes that reach every predicate of the kernel:
+    odd maps, Cin that is no multiple of the 32-channel step, Cout that is
+    no multiple of 8 (masked columns of the tensor-core path) or of 4 (the
+    per-image path)."""
     import torch
     import torch.nn.functional as F
 
     from multimodal_sc_torch.kernels import conv_block as cb
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    b = NUM_ENVS
     # (H, W, Cin, Cout, stride, PReLU) of CameraEncoderCNN at c4 widths.
-    shapes = ((32, 32, 3, 32, 2, True), (16, 16, 32, 64, 2, True),
-              (8, 8, 64, 128, 1, True), (8, 8, 128, 128, 1, True),
-              (8, 8, 128, 16, 1, False))
+    encoder = ((32, 32, 3, 32, 2, True), (16, 16, 32, 64, 2, True),
+               (8, 8, 64, 128, 1, True), (8, 8, 128, 128, 1, True),
+               (8, 8, 128, 16, 1, False))
+    # (B, shape, timed, launches per act step)
+    cases = [(NUM_ENVS, shape, True, 1) for shape in encoder]
+    cases += [(LEARN_BATCH, shape, True, 0) for shape in encoder]
+    cases += [(64, shape, False, 0) for shape in (
+        (7, 9, 32, 64, 1, True), (7, 9, 32, 64, 2, True),
+        (9, 7, 40, 24, 2, False), (8, 8, 16, 12, 1, True),
+        (8, 8, 16, 10, 1, True), (5, 5, 4, 200, 1, True),
+        (3, 3, 132, 136, 2, True))]
     rows = []
-    for h, w, cin, cout, s, prelu in shapes:
+    worst = 0.0
+    for b, (h, w, cin, cout, s, prelu), timed, per_step in cases:
         x = torch.randn(b, h, w, cin, generator=g, device="cuda")
         wt = torch.randn(5, 5, cin, cout, generator=g,
                          device="cuda") / (25 * cin) ** 0.5
@@ -282,9 +296,18 @@ def check_conv_prelu():
         out = cb.conv_prelu(x, wt, bias, alpha, s)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        # Exact f32 on both sides (TF32 off), sums of up to 3200 products
-        # in another order: 1e-4.
+        worst = max(worst, err)
+        # The plain side is exact f32 (TF32 off); the kernel's 3xTF32
+        # products carry ~2^-22 each and sums of up to 3200 of them run in
+        # another order: 1e-4, a gate for exact-f32 arithmetic.
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+        path = ("tensor cores" if cb.tensor_core_path(cin, cout)
+                else "FMA units")
+        line = (f"  conv_prelu B={b} {h}x{w}x{cin}->{cout} s{s} ({path}): "
+                f"err {err:.3e}")
+        if not timed:
+            print(line, flush=True)
+            continue
         ms = _ms(lambda: cb.conv_prelu(x, wt, bias, alpha, s))
         plain = _ms(lambda: cb.conv_prelu_reference(x, wt, bias, alpha, s))
         # Library yardstick: one cuDNN convolution (+ bias) on the input
@@ -299,14 +322,21 @@ def check_conv_prelu():
         flops = 2 * b * oh * ow * cout * 25 * cin
         nbytes = 4 * (b * h * w * cin + 25 * cin * cout + 2 * cout
                       + b * oh * ow * cout)
-        bound, by = _bound_ms(flops, nbytes, PEAK_F32)
-        print(f"  conv_prelu B={b} {h}x{w}x{cin}->{cout} s{s}: err "
-              f"{err:.3e}; kernel {ms:.3f} ms, plain {plain:.3f} ms, cuDNN "
+        # The least time for f32-grade products on this card: three TF32
+        # tensor-core products for each one (the 3xTF32 split), or the
+        # bytes, whichever takes longer.
+        bound, by = _bound_ms(3 * flops, nbytes, PEAK_TF32)
+        print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, cuDNN "
               f"{lib:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
-        rows.append({"per_step": 1, "err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bound, "bound_by": by, "library_ms": lib})
-    return _entry("conv_prelu", "cuda", "multimodal_sc_torch/csrc/conv_prelu.cu",
-                  "multimodal_sc_tpu/kernels/conv_block.py:69", rows)
+        if per_step:
+            rows.append({"per_step": per_step, "err": err, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib})
+    entry = _entry("conv_prelu", "cuda",
+                   "multimodal_sc_torch/csrc/conv_prelu.cu",
+                   "multimodal_sc_tpu/kernels/conv_block.py:69", rows)
+    entry["max_abs_err"] = worst
+    return entry
 
 
 def _pillar_inputs():
@@ -425,7 +455,8 @@ def _gate_bf16(name, got, ref_bf16, ref_f32):
 def check_packed_attention():
     """Forward and backward kernels vs their plain versions: the four c4
     (Lq, Lk) pairs at the act batch (1024) and the learner batch (128),
-    plus ragged, two-group and d = 64 shapes. Times are per act+learn
+    plus ragged, two-group, d = 64, 16 and 8 shapes and Lk long enough for
+    several key splits (two of those timed as well). Times are per act+learn
     iteration of arm B: each c4 pair runs twice per forward (depth 2), one
     forward at 1024 and three at 128, and the backward of one forward."""
     import torch
@@ -457,6 +488,15 @@ def check_packed_attention():
     cases += [(64, 33, 70, 128, 4, 0, 0), (64, 64, 64, 256, 8, 0, 0),
               (64, 17, 100, 128, 2, 0, 0), (64, 200, 48, 128, 4, 0, 0),
               (64, 40, 24, 256, 8, 0, 0)]
+    # Lk > 1024 (five key splits, partial dQ summed), d = 64 over three
+    # splits, d = 16 and d = 8 (half a k-step of the bf16 mma).
+    cases += [(4, 100, 1100, 128, 4, 0, 0), (8, 130, 300, 128, 2, 0, 0),
+              (16, 70, 130, 128, 8, 0, 0), (16, 50, 300, 128, 16, 0, 0)]
+    # On no main path, timed all the same (backward count -1): what the
+    # partial dQ of several key splits costs. d = 64 at Lk = 256 takes two
+    # splits, d = 32 at Lk = 2048 eight.
+    cases += [(C3_BATCH, 256, 256, 128, 2, 0, -1),
+              (C3_BATCH, 256, 2048, 128, 4, 0, -1)]
     fwd_rows, bwd_rows = [], []
     worst_fwd = worst_bwd = 0.0     # bf16-mode errors over every case
     for b, lq, lk, dm, heads, n_fwd, n_bwd in cases:
@@ -473,18 +513,38 @@ def check_packed_attention():
         err_f32 = (out_f32 - ref).abs().max().item()
         err, mean = _gate_bf16("packed_attention forward", out_bf16, ref_bf16,
                                ref)
+        # The logsumexp the forward hands the backward, both modes: the
+        # flash kernels' gate, 2e-5.
+        scale = (dm // heads) ** -0.5
+        lse_err = 0.0
+        lses = {}
+        for mode in (False, True):
+            _, lses[mode] = ap._fwd_cuda(q, k, v, heads, scale, mode,
+                                         want_lse=True)
+            _, ref_lse = ap.packed_attention_fwd_reference(q, k, v, heads,
+                                                           scale, bf16=mode)
+            torch.testing.assert_close(lses[mode], ref_lse, atol=2e-5,
+                                       rtol=2e-5)
+            lse_err = max(lse_err, (lses[mode] - ref_lse).abs().max().item())
         line = (f"  packed_attention B={b} Lq={lq} Lk={lk} dm={dm} h={heads}: "
                 f"fwd err bf16 {err:.3e} mean {mean:.2e}, f32 mode "
-                f"{err_f32:.3e}")
+                f"{err_f32:.3e}, lse {lse_err:.3e}")
 
         # Backward through autograd, so the Function's backward is what is
         # checked: gradients of sum(out * do) with respect to q, k, v.
-        scale = (dm // heads) ** -0.5
         grads = {}
         for mode in (False, True):
             ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
             out = ap.packed_attention(*ins, heads, mxu_bf16=mode)
             grads[mode] = torch.autograd.grad(out, ins, do)
+            # No atomics: a second run gives the same bits.
+            again = ap._bwd_cuda(q, k, v, out.detach(), lses[mode], do, heads,
+                                 scale, mode)
+            if not all(torch.equal(a, b_) for a, b_ in zip(again,
+                                                           grads[mode])):
+                raise AssertionError(
+                    f"packed_attention backward (bf16={mode}): two runs on "
+                    "the same inputs differ")
         torch.cuda.synchronize()
         ref_g = ap.packed_attention_bwd_reference(q, k, v, ref, do, heads,
                                                   scale)
@@ -520,11 +580,11 @@ def check_packed_attention():
             fwd_rows.append({"per_step": n_fwd, "err": err, "ms": ms,
                              "plain_ms": plain, "bound_ms": bound,
                              "bound_by": by, "library_ms": lib})
-        else:
+        elif n_fwd < 0:
             line += f" (c3 arm P: x{-n_fwd} per train step)"
         if n_bwd:
-            ms = _ms(lambda: ap._bwd_cuda(q, k, v, out_bf16, do, heads, scale,
-                                          True))
+            ms = _ms(lambda: ap._bwd_cuda(q, k, v, out_bf16, lses[True], do,
+                                          heads, scale, True))
             plain = _ms(lambda: ap.packed_attention_bwd_reference(
                 q, k, v, ref, do, heads, scale))
             for t in (qh, kh, vh):
@@ -533,9 +593,13 @@ def check_packed_attention():
             doh = heads_first(do, heads)
             lib = _ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                                   retain_graph=True))
+            # Five products of 2 Lq Lk d operations per head on the bf16
+            # tensor cores; q, k, v, o, dO, lse read and dq, dk, dv written
+            # once, in f32.
             bound, by = _bound_ms(10 * b * lq * lk * dm,
-                                  4 * 4 * b * (lq + lk) * dm, PEAK_BF16)
-            line += (f"; bwd kernels {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
+                                  4 * (4 * b * (lq + lk) * dm
+                                       + b * heads * lq), PEAK_BF16)
+            line += (f"; bwd kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
                      f"backward {lib:.3f} ms, bound {bound:.4f} ms ({by})")
             if n_bwd > 0:
                 bwd_rows.append({"per_step": n_bwd, "err": berr, "ms": ms,

@@ -4,9 +4,12 @@ Counterpart of ``multimodal_sc_tpu/kernels/attention_packed.py``. Inputs
 stay in the packed ``(B, L, H*d)`` layout a q/k/v projection produces, so
 the caller needs no ``(B,L,H,d) <-> (B,H,L,d)`` transposes. On a CUDA
 tensor ``packed_attention`` launches the forward kernel of
-``csrc/attention_packed.cu`` and its autograd backward launches the backward
-kernels (q, k, v and the output are saved; the softmax is recomputed). On a
-CPU tensor the plain version runs and autograd differentiates it.
+``csrc/attention_packed.cu``, which also hands back the softmax's logsumexp
+when a gradient is wanted, and its autograd backward launches the backward
+kernel on the saved q, k, v, output and logsumexp: in bf16 mode one kernel
+on the tensor cores (bf16 ``mma``, f32 sums), in f32 mode the exact-f32 dQ
+and dK/dV kernels on the FMA units. On a CPU tensor the plain version runs
+and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -23,15 +26,17 @@ _MAX_LK_PAD = 4096
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
 
 # Calls that launched the CUDA forward kernel / the backward kernels (one
-# backward call runs two grid launches: dq with the softmax statistics,
-# then dk and dv).
+# backward call is one count: in bf16 mode one kernel, plus the sum of the
+# key splits' partial dQ when Lk takes more than one block; in f32 mode the
+# dQ kernel, then the dK/dV kernel).
 launches_fwd = 0
 launches_bwd = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
-    "packed_attention_fwd_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
+    "packed_attention_fwd_launch": (_P,) * 5 + (_I,) * 5 + (_F, _I, _P),
     "packed_attention_bwd_launch": (_P,) * 10 + (_I,) * 5 + (_F, _I, _P),
+    "packed_attention_bwd_splits": (_I,) * 3,
 }
 
 
@@ -84,20 +89,40 @@ def packed_attention_reference_bf16(q: torch.Tensor, k: torch.Tensor,
     return _merge(_bf16(probs) @ vh).to(q.dtype)
 
 
+def packed_attention_fwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+        scale: Optional[float] = None, bf16: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel with both its results: the output
+    and ``lse``, the logsumexp of the scaled scores, (B, heads, Lq). With
+    ``bf16`` the operands are rounded where the kernel's bf16 mode rounds
+    them; the scores (hence ``lse``) are of the rounded q and k."""
+    if scale is None:
+        scale = (q.shape[-1] // heads) ** -0.5
+    r = _bf16 if bf16 else (lambda t: t)
+    qh, kh, vh = (_split(r(t.float()), heads) for t in (q, k, v))
+    s = qh @ kh.transpose(-1, -2) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    probs = torch.exp(s - lse.unsqueeze(-1))
+    return _merge(r(probs) @ vh).to(q.dtype), lse
+
+
 def packed_attention_bwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
         dout: torch.Tensor, heads: int, scale: Optional[float] = None,
-        bf16: bool = False
+        bf16: bool = False, lse: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels: (dq, dk, dv) by the formulas
-    they evaluate, the softmax recomputed from q and k.
+    they evaluate.
 
-        P = softmax(q k^T scale)     delta = rowsum(dO * O) per head
+        P = exp(q k^T scale - lse)   delta = rowsum(dO * O) per head
         dV = P^T dO    dS = P * (dO V^T - delta) * scale
         dQ = dS K      dK = dS^T Q
 
-    With ``bf16`` the matmul operands (q, k, v, dO, P, dS) are rounded to
-    bf16 where the kernels round them; delta uses the unrounded dO and O.
+    ``lse`` is the forward's logsumexp, (B, heads, Lq), as the kernels are
+    handed it; without it the softmax is recomputed from q and k. With
+    ``bf16`` the matmul operands (q, k, v, dO, P, dS) are rounded to bf16
+    where the kernels round them; delta uses the unrounded dO and O.
     """
     if scale is None:
         scale = (q.shape[-1] // heads) ** -0.5
@@ -106,7 +131,9 @@ def packed_attention_bwd_reference(
     oh, doh = _split(out.float(), heads), _split(dout.float(), heads)
     delta = (doh * oh).sum(-1, keepdim=True)
     doh = r(doh)
-    p = torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1)
+    s = qh @ kh.transpose(-1, -2) * scale
+    p = (torch.softmax(s, dim=-1) if lse is None
+         else torch.exp(s - lse.unsqueeze(-1)))
     ds = r(p * (doh @ vh.transpose(-1, -2) - delta) * scale)
     dv = r(p).transpose(-1, -2) @ doh
     return _merge(ds @ kh), _merge(ds.transpose(-1, -2) @ qh), _merge(dv)
@@ -140,30 +167,48 @@ def _check_cuda(heads: int, *tensors: torch.Tensor) -> Tuple[int, int, int, int]
     return b, lq, lk, dm
 
 
-def _fwd_cuda(q, k, v, heads: int, scale: float, bf16: bool) -> torch.Tensor:
+def _fwd_cuda(q, k, v, heads: int, scale: float, bf16: bool,
+              want_lse: bool = False):
+    """The forward kernel: ``(out, lse)``, ``lse`` None unless wanted."""
     global launches_fwd
     b, lq, lk, dm = _check_cuda(heads, q, k, v)
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, heads, lq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     lib = _build.load("attention_packed", _SIG)
     err = lib.packed_attention_fwd_launch(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        _build.ptr(lse) if want_lse else None,
         b, lq, lk, dm, heads, scale, int(bf16), _build.stream_ptr(q.device))
     _build.check(err, "packed_attention forward")
     launches_fwd += 1
-    return out
+    return out, lse
 
 
-def _bwd_cuda(q, k, v, out, dout, heads: int, scale: float, bf16: bool):
+def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool):
     global launches_bwd
     b, lq, lk, dm = _check_cuda(heads, q, k, v, out, dout)
+    if (lse.shape != (b, heads, lq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be float32 {(b, heads, lq)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
     q, k, v, out, dout = (_build.aligned(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, heads, lq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
     lib = _build.load("attention_packed", _SIG)
+    # Scratch: f32 mode keeps delta = rowsum(dO * O) between its two
+    # kernels; bf16 mode the partial dQ of each key split, when Lk takes
+    # more than one block.
+    if bf16:
+        splits = lib.packed_attention_bwd_splits(lk, dm, heads)
+        scratch = (torch.empty((splits,) + tuple(q.shape), dtype=q.dtype,
+                               device=q.device) if splits > 1 else None)
+    else:
+        scratch = torch.empty_like(lse)
     err = lib.packed_attention_bwd_launch(
-        *(_build.ptr(t) for t in (q, k, v, out, dout, dq, dk, dv, lse, delta)),
+        *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, dk, dv)),
+        _build.ptr(scratch) if scratch is not None else None,
         b, lq, lk, dm, heads, scale, int(bf16), _build.stream_ptr(q.device))
     _build.check(err, "packed_attention backward")
     launches_bwd += 1
@@ -171,19 +216,21 @@ def _bwd_cuda(q, k, v, out, dout, heads: int, scale: float, bf16: bool):
 
 
 class _PackedAttention(torch.autograd.Function):
-    """Forward kernel; backward kernels on the saved q, k, v and output."""
+    """Forward kernel; backward kernels on the saved q, k, v, output and
+    logsumexp (written by the forward only when a gradient is wanted)."""
 
     @staticmethod
     def forward(ctx, heads, scale, bf16, q, k, v):
-        out = _fwd_cuda(q, k, v, heads, scale, bf16)
+        out, lse = _fwd_cuda(q, k, v, heads, scale, bf16,
+                             want_lse=any(ctx.needs_input_grad))
         ctx.heads, ctx.scale, ctx.bf16 = heads, scale, bf16
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out = ctx.saved_tensors
-        return (None, None, None) + _bwd_cuda(q, k, v, out, g, ctx.heads,
+        q, k, v, out, lse = ctx.saved_tensors
+        return (None, None, None) + _bwd_cuda(q, k, v, out, lse, g, ctx.heads,
                                               ctx.scale, ctx.bf16)
 
 

@@ -6,6 +6,13 @@ the CUDA kernel (``csrc/conv_prelu.cu``) on a CUDA tensor and runs
 ``conv_prelu_reference`` on a CPU tensor. On the TPU ``use_pallas`` picked
 between the Pallas kernel and XLA; the port has no XLA to fall back on, so
 on the card the kernel always runs.
+
+When Cin and Cout are multiples of 4 the kernel is an implicit GEMM on the
+tensor cores (``wgmma`` for more than 64 output channels, ``mma.sync`` for
+fewer): output pixels x (tap, channel) gathered from the input, times the
+HWIO weights read as a (K*K*Cin, Cout) matrix, every product formed by the
+3xTF32 split. Other channel counts (the first layer's Cin = 3) take a per-image kernel on
+the FMA units.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ _SMEM_LIMIT = 232448    # bytes of shared memory one block may use (sm_90)
 _SIG = {"conv_prelu_launch": (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)}
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p)}
 
 
 def same_pads(size: int, k: int, stride: int):
@@ -52,6 +60,13 @@ def conv_prelu_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def tensor_core_path(cin: int, cout: int) -> bool:
+    """Whether the kernel runs its implicit GEMM (16-byte copies need both
+    channel counts to be multiples of 4) or its per-image path. The C entry
+    is told the path and only refuses one the shape cannot take."""
+    return cin % 4 == 0 and cout % 4 == 0
+
+
 def _conv_prelu_cuda(x, w, b, alpha, stride: int) -> torch.Tensor:
     global launches
     tensors = (x, w, b) if alpha is None else (x, w, b, alpha)
@@ -68,14 +83,13 @@ def _conv_prelu_cuda(x, w, b, alpha, stride: int) -> torch.Tensor:
     if stride not in (1, 2):
         raise ValueError(f"stride {stride} unsupported")
     oh, ow = -(-h // stride), -(-wd // stride)
+    tensor_cores = tensor_core_path(cin, cout)
     smem = ((oh - 1) * stride + k) * ((ow - 1) * stride + k) * cin * 4
-    if smem > _SMEM_LIMIT:
+    if not tensor_cores and smem > _SMEM_LIMIT:
         raise ValueError(f"padded input window of {smem} bytes exceeds the "
                          f"{_SMEM_LIMIT} bytes of shared memory per block")
-    x = x.contiguous()
-    w = w.contiguous()
-    if w.data_ptr() % 16:              # float4 weight loads need alignment
-        w = w.clone()
+    # 16-byte copies and float4 weight loads need aligned bases.
+    x, w = _build.aligned(x), _build.aligned(w)
     b = b.contiguous()
     alpha = alpha.contiguous() if alpha is not None else None
     out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
@@ -83,7 +97,8 @@ def _conv_prelu_cuda(x, w, b, alpha, stride: int) -> torch.Tensor:
     err = lib.conv_prelu_launch(
         _build.ptr(x), _build.ptr(w), _build.ptr(b),
         _build.ptr(alpha) if alpha is not None else None, _build.ptr(out),
-        n, h, wd, cin, cout, k, stride, _build.stream_ptr(x.device))
+        n, h, wd, cin, cout, k, stride, int(tensor_cores),
+        _build.stream_ptr(x.device))
     _build.check(err, "conv_prelu")
     launches += 1
     return out
