@@ -5,7 +5,9 @@
 
 Builds every CUDA kernel from ``multimodal_sc_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card at the
-shapes of the paths below, times both, then drives five paths through the
+shapes of the paths below, times both (and the one library call that
+computes the same function, where there is one) as device time, then
+drives five paths through the
 port's entry points at full widths, random weights from seed 0. At 1024
 envs:
 
@@ -156,6 +158,63 @@ def _ms(fn, iters=10, warmup=2):
     return t0.elapsed_time(t1) / iters
 
 
+def _device_ms(fn, iters=10, warmup=2):
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls.
+
+    ``_ms`` of a call whose device work is shorter than its host work (a
+    Python wrapper, allocations, a ctypes launch) reads the host. Here the
+    stream is first held by a spin kernel (``torch.cuda._sleep``) longer
+    than the host takes to enqueue the calls, so the events around them see
+    only the device draining the queue."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t) * 1e3    # what the host spends
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    # At most 2 GHz: 2e6 cycles last at least a millisecond.
+    torch.cuda._sleep(int(2e6 * (2 * iters * host_ms + 1)))
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def _ptxas_report(log):
+    """(kernel, "R registers, S bytes spill stores, L bytes spill loads")
+    for each kernel ``ptxas -v`` reports in a build log; the kernel by its
+    name and template arguments, read from the mangled entry name."""
+    import re
+
+    kernel, spill, out = "?", "", []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = kernel = entry.group(1)
+            # Itanium mangling: each name is its length, then its letters.
+            for n in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+                name = mangled[n.end():n.end() + int(n.group(1))]
+                if name.endswith("kernel"):
+                    args = re.match(r"I((?:Li\d+E)+)E",
+                                    mangled[n.end() + len(name):])
+                    kernel = name + ("<" + ", ".join(re.findall(
+                        r"Li(\d+)E", args.group(1))) + ">" if args else "")
+                    break
+        elif "spill stores" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((kernel, f"{regs} registers; {spill}"))
+    return out
+
+
 def _bound_ms(flops, nbytes, peak_ops):
     t_ops = flops / peak_ops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -237,8 +296,8 @@ def check_mha_block():
             raise AssertionError(f"mha_block bf16 mode: mean error "
                                  f"{mean_bf16:.3e} against its plain version")
         torch.testing.assert_close(out_bf16, ref, atol=3e-2, rtol=3e-2)
-        ms = _ms(lambda: mb.mha_block(x_q, x_kv, p, heads))
-        plain = _ms(lambda: mb.mha_block_reference(x_q, x_kv, p, heads))
+        ms = _device_ms(lambda: mb.mha_block(x_q, x_kv, p, heads))
+        plain = _device_ms(lambda: mb.mha_block_reference(x_q, x_kv, p, heads))
         flops = 2 * b * (2 * lq * dim * dim + 2 * lk * dim * dim
                          + 2 * lq * lk * dim)
         nbytes = 4 * (2 * b * lq * dim + b * lk * dim + 4 * dim * dim
@@ -308,8 +367,8 @@ def check_conv_prelu():
         if not timed:
             print(line, flush=True)
             continue
-        ms = _ms(lambda: cb.conv_prelu(x, wt, bias, alpha, s))
-        plain = _ms(lambda: cb.conv_prelu_reference(x, wt, bias, alpha, s))
+        ms = _device_ms(lambda: cb.conv_prelu(x, wt, bias, alpha, s))
+        plain = _device_ms(lambda: cb.conv_prelu_reference(x, wt, bias, alpha, s))
         # Library yardstick: one cuDNN convolution (+ bias) on the input
         # padded beforehand; it leaves out the PReLU.
         (plo, phi), (qlo, qhi) = cb.same_pads(h, 5, s), cb.same_pads(w, 5, s)
@@ -317,7 +376,7 @@ def check_conv_prelu():
             memory_format=torch.channels_last)
         wc = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        lib = _ms(lambda: F.conv2d(xc, wc, bias, stride=s))
+        lib = _device_ms(lambda: F.conv2d(xc, wc, bias, stride=s))
         oh, ow = -(-h // s), -(-w // s)
         flops = 2 * b * oh * ow * cout * 25 * cin
         nbytes = 4 * (b * h * w * cin + 25 * cin * cout + 2 * cout
@@ -393,11 +452,11 @@ def _scatter_case(what, feats, cell, cells, backward=False):
     err = (out - ref).abs().max().item()
     # Max is exact and order-independent: the kernel must agree bit for bit.
     torch.testing.assert_close(out, ref, atol=0.0, rtol=0.0)
-    ms = _ms(lambda: ps.scatter_max(feats, cell, cells), iters=50)
-    plain = _ms(lambda: ps.scatter_max_reference(feats, cell, cells), iters=50)
+    ms = _device_ms(lambda: ps.scatter_max(feats, cell, cells), iters=50)
+    plain = _device_ms(lambda: ps.scatter_max_reference(feats, cell, cells), iters=50)
     buf = torch.full((b, cells + 1, d), float("-inf"), device="cuda")
     idx = cell.long().unsqueeze(-1).expand(b, n, d)
-    lib = _ms(lambda: torch.scatter_reduce(buf, 1, idx, feats, "amax"),
+    lib = _device_ms(lambda: torch.scatter_reduce(buf, 1, idx, feats, "amax"),
               iters=50)
     valid = int((cell < cells).sum().item())
     nbytes = 4 * (b * n + valid * d + b * cells * d)
@@ -411,7 +470,7 @@ def _scatter_case(what, feats, cell, cells, backward=False):
         f = feats.clone().requires_grad_(True)
         y = ps.scatter_max(f, cell, cells)
         gy = torch.randn_like(y)
-        bwd = _ms(lambda: torch.autograd.grad(y, f, gy, retain_graph=True),
+        bwd = _device_ms(lambda: torch.autograd.grad(y, f, gy, retain_graph=True),
                   iters=20)
         line += f"; backward (through the plain version) {bwd:.4f} ms"
     print(line, flush=True)
@@ -568,10 +627,10 @@ def check_packed_attention():
             print(line, flush=True)
             continue
 
-        ms = _ms(lambda: ap.packed_attention(q, k, v, heads))
-        plain = _ms(lambda: ap.packed_attention_reference(q, k, v, heads))
+        ms = _device_ms(lambda: ap.packed_attention(q, k, v, heads))
+        plain = _device_ms(lambda: ap.packed_attention_reference(q, k, v, heads))
         qh, kh, vh = (heads_first(t, heads) for t in (q, k, v))
-        lib = _ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
         bound, by = _bound_ms(4 * b * lq * lk * dm,
                               4 * 2 * b * (lq + lk) * dm, PEAK_BF16)
         line += (f"; fwd kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
@@ -583,15 +642,15 @@ def check_packed_attention():
         elif n_fwd < 0:
             line += f" (c3 arm P: x{-n_fwd} per train step)"
         if n_bwd:
-            ms = _ms(lambda: ap._bwd_cuda(q, k, v, out_bf16, lses[True], do,
+            ms = _device_ms(lambda: ap._bwd_cuda(q, k, v, out_bf16, lses[True], do,
                                           heads, scale, True))
-            plain = _ms(lambda: ap.packed_attention_bwd_reference(
+            plain = _device_ms(lambda: ap.packed_attention_bwd_reference(
                 q, k, v, ref, do, heads, scale))
             for t in (qh, kh, vh):
                 t.requires_grad_(True)
             lib_out = F.scaled_dot_product_attention(qh, kh, vh)
             doh = heads_first(do, heads)
-            lib = _ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+            lib = _device_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                                   retain_graph=True))
             # Five products of 2 Lq Lk d operations per head on the bf16
             # tensor cores; q, k, v, o, dO, lse read and dq, dk, dv written
@@ -686,36 +745,39 @@ def check_flash_attention():
         work = b * h * lq * lk * d
         rows_bytes = 4 * b * h * d
         ms = {
-            "fwd": _ms(lambda: fa._fwd_cuda(q, k, v, scale)),
-            "dq": _ms(lambda: fa._bwd_dq_cuda(q, k, v, out, lse, do, scale)),
-            "dkv": _ms(lambda: fa._bwd_dkv_cuda(q, k, v, lse, delta, do,
+            "fwd": _device_ms(lambda: fa._fwd_cuda(q, k, v, scale)),
+            "dq": _device_ms(lambda: fa._bwd_dq_cuda(q, k, v, out, lse, do, scale)),
+            "dkv": _device_ms(lambda: fa._bwd_dkv_cuda(q, k, v, lse, delta, do,
                                                 scale))}
         plain = {
-            "fwd": _ms(lambda: fa.flash_attention_fwd_reference(q, k, v,
+            "fwd": _device_ms(lambda: fa.flash_attention_fwd_reference(q, k, v,
                                                                 scale)),
-            "dq": _ms(lambda: fa.flash_attention_dq_reference(
+            "dq": _device_ms(lambda: fa.flash_attention_dq_reference(
                 q, k, v, ref, ref_lse, do, scale)),
-            "dkv": _ms(lambda: fa.flash_attention_dkv_reference(
+            "dkv": _device_ms(lambda: fa.flash_attention_dkv_reference(
                 q, k, v, ref_lse, delta, do, scale))}
         # Library yardstick: SDPA forward, and SDPA's backward, which gives
         # dQ, dK and dV in one call: it stands beside both backward rows.
         qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (q, k, v))
-        lib_fwd = _ms(lambda: F.scaled_dot_product_attention(qc, kc, vc))
+        lib_fwd = _device_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc))
         lib_out = F.scaled_dot_product_attention(qc, kc, vc)
         doc = do.contiguous()
-        lib_bwd = _ms(lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc,
+        lib_bwd = _device_ms(lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc,
                                                   retain_graph=True))
         lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
         # Operations: S and PV forward (4 per score and column); S, dP, dQ in
-        # the dQ kernel (6); S, dP, dV, dK in the dK/dV kernel (8). Bytes:
-        # every operand read once, every result written once.
+        # the dQ kernel (6); S, dP, dV, dK in the dK/dV kernel (8). Each is
+        # f32-grade, which on this card takes at least three TF32
+        # tensor-core products (the 3xTF32 split), whichever design runs:
+        # 3 x operations / 495 TFLOP/s, as for conv_prelu. Bytes: every
+        # operand read once, every result written once.
         bounds = {
-            "fwd": _bound_ms(4 * work, rows_bytes * (2 * lq + 2 * lk)
-                             + 4 * b * h * lq, PEAK_F32),
-            "dq": _bound_ms(6 * work, rows_bytes * (4 * lq + 2 * lk)
-                            + 8 * b * h * lq, PEAK_F32),
-            "dkv": _bound_ms(8 * work, rows_bytes * (2 * lq + 4 * lk)
-                             + 8 * b * h * lq, PEAK_F32)}
+            "fwd": _bound_ms(3 * 4 * work, rows_bytes * (2 * lq + 2 * lk)
+                             + 4 * b * h * lq, PEAK_TF32),
+            "dq": _bound_ms(3 * 6 * work, rows_bytes * (4 * lq + 2 * lk)
+                            + 8 * b * h * lq, PEAK_TF32),
+            "dkv": _bound_ms(3 * 8 * work, rows_bytes * (2 * lq + 4 * lk)
+                             + 8 * b * h * lq, PEAK_TF32)}
         for key in rows:
             bound, by = bounds[key]
             line += (f"; {key} kernel {ms[key]:.3f} ms, plain "
@@ -1356,9 +1418,8 @@ def main() -> int:
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, (_, log) in sorted(built.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for kernel, report in _ptxas_report(log):
+            print(f"  {name}: {kernel}: {report}", flush=True)
 
     print("kernel checks (TF32 off):", flush=True)
     kernels = check_kernels()

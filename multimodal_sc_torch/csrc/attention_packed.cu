@@ -12,26 +12,47 @@
 // (f32 K and V at Lk = 256 alone are 256 KB), blocks run in no order, and a
 // head's d columns are indexed directly, no mask.
 //
-// Forward, one launch: one block (4 warps) per (32 query rows, batch
-// element, 128-column group). A warp owns one head of the group (more when
-// d < 32, and warps idle when d = 64), a lane owns one query row kept in
-// registers; K and V stream through shared memory in tiles of 32 keys, read
-// by all lanes at once (a broadcast). The softmax is the plain two-pass one
-// of the TPU kernel: pass 1 streams K for the row max and the sum, pass 2
-// streams K and V and accumulates normalised probabilities times V, so
-// any Lk works (packed_eligible allows 4096) and no score is stored.
+// Precision mirrors the TPU kernel's _mm: with bf16 on (the mode of every
+// main path), every matmul operand (q, k, v, dO, the NORMALISED
+// probabilities, dS) is rounded to bf16 (to nearest even) and every sum is
+// kept in f32; delta and the softmax statistics are f32 of the unrounded
+// dO, O and the rounded q, k. That is exactly what mma.sync.m16n8k16 bf16
+// computes, so both bf16-mode kernels run on the tensor cores with their
+// operands rounded once on the way into shared memory (half the bytes).
+// With bf16 off everything is f32-grade: the f32 mode launches the strided
+// kernels of flash_kernels.cuh on the packed layout through (batch, head,
+// row) strides, the forward on 3xTF32 tensor cores, the backward on the
+// FMA units.
 //
-// The forward also writes lse = m + log l of its softmax, (B, heads, Lq),
-// when the caller wants a gradient: the backward never recomputes the
-// statistics.
+// Bound on the card. The forward at c4 (B = 1024, dm = 128) and c3 needs
+// 4 B Lq Lk dm FLOPs against 4 (2 Lq + 2 Lk) dm B bytes: 8-64 FLOP/byte,
+// far under the bf16 tensor-core break-even (~295), so the least time is
+// set by the bytes; the backward, 10 B Lq Lk dm FLOPs against twice the
+// bytes, likewise. What bounds both kernels in practice is the traffic
+// between shared memory and registers (ldmatrix), the exponentials and the
+// f32 loads of their operands, not the products.
 //
-// Backward, bf16 mode (the main paths'): bwd_mma_kernel, on the tensor
-// cores. In this mode every matmul operand is a bf16 number and every sum
-// f32 by definition (below), which is what mma.sync.m16n8k16 computes, so
-// the operands are rounded once on their way into shared memory (half the
-// bytes) and the five products S, dP, dV, dK, dQ are each formed once:
-//   * One block per (key split of NW*16 keys, batch element, head); a head
-//     is a strided d-column slice of the packed rows, read in place. K and
+// Forward, bf16 mode: fwd_mma_kernel, one block of 4 warps per (128 query
+// rows, batch element, head); a head is a strided d-column slice of the
+// packed rows, read in place, so no warp idles whatever d is. K and V of
+// the (batch, head) are rounded to bf16 and staged once into padded shared
+// rows (Lk <= 256, every main-path shape: at d = 32 about 40 KB); a longer
+// Lk re-stages them 256 keys at a time per pass. Warps take 16-row query tiles in turn, Q in registers as the
+// left operand. The softmax keeps the plain two passes, because the
+// definition rounds the NORMALISED probability to bf16 (an online softmax
+// would round exp(s - m_running) instead): pass 1 forms S = Q K^T on the
+// tensor cores (K rows by ldmatrix as the right operand) and takes each
+// row's max and sum in the accumulator layout, joined across the row's
+// four lanes by shuffles, giving lse; pass 2 forms S again (nearly free at
+// this intensity), P = exp(S scale - lse) rounded to bf16 straight into
+// the left-operand registers of O += P V (the accumulator layout of two
+// 8-key tiles is the A layout of one 16-key k-step), V by ldmatrix.trans.
+// Keys past Lk get P = 0 by predicate, rows past Lq store nothing, d = 8
+// zero-fills half a k-step; lse is written in the epilogue.
+//
+// Backward, bf16 mode: bwd_mma_kernel. The five products S, dP, dV, dK, dQ
+// are each formed once:
+//   * One block per (key split of NW*16 keys, batch element, head). K and
 //     V of the split stay in shared memory for the block's life; Q and dO
 //     pass through it 64 rows at a time, and delta = sum_d dO*O (from the
 //     unrounded values) is folded into that load.
@@ -51,35 +72,12 @@
 //     256, the main-path shapes) dQ is written once; longer Lk writes one
 //     partial dQ per split to scratch and a second small kernel adds them
 //     in a fixed order, so the bits are the same from run to run.
-//   * Shared rows are padded by 16 bytes (d = 32: 80-byte rows), so the
-//     eight row addresses of an ldmatrix hit eight different bank groups.
-//     d = 8 is half a k-step: rows are zero-filled to 16 columns. Keys past
-//     Lk get P = 0 by predicate; query rows past Lq get lse = +inf, hence
-//     P = 0, and store nothing.
-// Backward, f32 mode (exact f32; the route comparisons and kernel checks):
-// the dQ and dK/dV kernels of flash_kernels.cuh on the FMA units, given the
-// packed layout as (batch, head, row) strides. A row there is owned by
-// d/32 neighbouring lanes, so no head dim spills.
-// Keys past Lk are never scored (the TPU kernel masks them with -1e30);
-// query rows past Lq are computed on zeros and never stored; no padded copy
-// of any input exists.
-//
-// Precision mirrors the TPU kernel's _mm: with bf16 on, every matmul
-// operand (q, k, v, dO, the NORMALISED probabilities, dS) is rounded to bf16
-// (to nearest even) and every sum is kept in f32; delta and the softmax
-// statistics are f32 of the unrounded dO, O and the rounded q, k. With bf16
-// off everything is exact f32.
-//
-// Bound on the card. Forward at c4 (B = 1024, dm = 128) needs 4 B Lq Lk dm
-// FLOPs against 4 (2 Lq + 2 Lk) dm B bytes: 8-64 FLOP/byte, under the bf16
-// tensor-core break-even (~295), so the least time is set by the bytes; the
-// backward, 10 B Lq Lk dm FLOPs against twice the bytes, likewise. The
-// forward still computes on the f32 FMA units (CUDA cores) and does the
-// Q K^T product twice (two-pass softmax), so it is bound by its operations;
-// its tensor-core version is later work. The bf16 backward's products are
-// on the tensor cores; what bounds it is the traffic between shared memory
-// and registers (ldmatrix) and the f32 loads of its operands.
-
+//   * Keys past Lk get P = 0 by predicate; query rows past Lq get lse =
+//     +inf, hence P = 0, and store nothing.
+// Shared rows of both kernels are padded by 16 bytes (d = 32: 80-byte
+// rows), so the eight row addresses of an ldmatrix hit eight different
+// bank groups; d = 8 is half a k-step, its rows zero-filled to 16 columns.
+// No padded copy of any input exists in device memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,196 +88,8 @@
 namespace {
 
 constexpr int GW = 128;   // columns of one lane group
-constexpr int RT = 32;    // rows per tile (query rows or keys)
 
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
-}
-
-// Rows [0, n_valid) x GW columns from src (row stride `stride` floats) into
-// a shared RT x GW tile, rounded in bf16 mode; missing rows read as zeros.
-template <bool BF16>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int64_t stride, int n_valid,
-                                          float* dst) {
-  for (int i = threadIdx.x; i < RT * GW / 4; i += blockDim.x) {
-    const int r = i / (GW / 4), c4 = i % (GW / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid)
-      v = __ldg(reinterpret_cast<const float4*>(src + r * stride) + c4);
-    v.x = rnd<BF16>(v.x);
-    v.y = rnd<BF16>(v.y);
-    v.z = rnd<BF16>(v.z);
-    v.w = rnd<BF16>(v.w);
-    reinterpret_cast<float4*>(dst)[i] = v;
-  }
-}
-
-// D contiguous floats of a row (16-byte aligned) into registers; zeros when
-// !valid.
-template <int D, bool BF16>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         bool valid, float (&dst)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid) v = __ldg(reinterpret_cast<const float4*>(src + d));
-    dst[d] = rnd<BF16>(v.x);
-    dst[d + 1] = rnd<BF16>(v.y);
-    dst[d + 2] = rnd<BF16>(v.z);
-    dst[d + 3] = rnd<BF16>(v.w);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&src)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4)
-    *reinterpret_cast<float4*>(dst + d) =
-        make_float4(src[d], src[d + 1], src[d + 2], src[d + 3]);
-}
-
-// Register row . shared row (16-byte aligned).
-template <int D>
-__device__ __forceinline__ float dot_row(const float (&a)[D], const float* b) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 b4 = *reinterpret_cast<const float4*>(b + d);
-    acc = fmaf(a[d], b4.x, acc);
-    acc = fmaf(a[d + 1], b4.y, acc);
-    acc = fmaf(a[d + 2], b4.z, acc);
-    acc = fmaf(a[d + 3], b4.w, acc);
-  }
-  return acc;
-}
-
-// acc += w * shared row.
-template <int D>
-__device__ __forceinline__ void axpy_row(float w, const float* b,
-                                         float (&acc)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 b4 = *reinterpret_cast<const float4*>(b + d);
-    acc[d] = fmaf(w, b4.x, acc[d]);
-    acc[d + 1] = fmaf(w, b4.y, acc[d + 1]);
-    acc[d + 2] = fmaf(w, b4.z, acc[d + 2]);
-    acc[d + 3] = fmaf(w, b4.w, acc[d + 3]);
-  }
-}
-
-// Pass 1 of the softmax for this lane's query row, for each head of its
-// warp: m = max_j s_j, l = sum_j exp(s_j - m) over all Lk keys, s = q.k *
-// scale. K (this group's columns of one batch element) streams through the
-// shared tile ks. Every thread of the block must call it (barriers inside).
-template <int D, int HPW, bool BF16>
-__device__ __forceinline__ void softmax_stats(
-    const float* __restrict__ kb, int64_t stride, int Lk, float scale,
-    const float (&q)[HPW][D], int hoff, bool active, float* ks,
-    float (&m)[HPW], float (&l)[HPW]) {
-#pragma unroll
-  for (int hh = 0; hh < HPW; ++hh) {
-    m[hh] = -INFINITY;
-    l[hh] = 0.0f;
-  }
-  for (int k0 = 0; k0 < Lk; k0 += RT) {
-    const int nk = min(RT, Lk - k0);
-    __syncthreads();   // previous tile fully consumed
-    load_tile<BF16>(kb + (int64_t)k0 * stride, stride, nk, ks);
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll
-    for (int hh = 0; hh < HPW; ++hh) {
-      const float* kh = ks + hoff + hh * D;
-      float s[RT];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        const float a = dot_row<D>(q[hh], kh + j * GW);
-        s[j] = j < nk ? a * scale : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float m_new = fmaxf(m[hh], mx);
-      float acc = l[hh] * expf(m[hh] - m_new);   // 0 on the first tile
-#pragma unroll
-      for (int j = 0; j < RT; ++j) acc += expf(s[j] - m_new);   // 0 past Lk
-      l[hh] = acc;
-      m[hh] = m_new;
-    }
-  }
-}
-
-template <int D, bool BF16>
-__global__ void __launch_bounds__(128)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ out,
-           float* __restrict__ lse, int Lq, int Lk, int dm, int heads,
-           float scale) {
-  constexpr int H = GW / D;                   // heads in one group
-  constexpr int HPW = H >= 4 ? H / 4 : 1;     // heads per warp
-  __shared__ __align__(16) float ks[RT * GW];
-  __shared__ __align__(16) float vs[RT * GW];
-
-  const int b = blockIdx.y, g = blockIdx.z;
-  const int q0 = blockIdx.x * RT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool active = warp * HPW < H;
-  const bool has_row = active && q0 + lane < Lq;
-  const int hoff = warp * HPW * D;            // first column of this warp
-  const int64_t stride = dm;
-  const int64_t row = ((int64_t)b * Lq + q0 + lane) * stride + g * GW + hoff;
-  const float* kb = k + (int64_t)b * Lk * stride + g * GW;
-  const float* vb = v + (int64_t)b * Lk * stride + g * GW;
-
-  float qr[HPW][D];
-#pragma unroll
-  for (int hh = 0; hh < HPW; ++hh)
-    load_row<D, BF16>(q + row + hh * D, has_row, qr[hh]);
-
-  float m[HPW], l[HPW];
-  softmax_stats<D, HPW, BF16>(kb, stride, Lk, scale, qr, hoff, active, ks, m,
-                              l);
-
-  float o[HPW][D], inv[HPW];
-#pragma unroll
-  for (int hh = 0; hh < HPW; ++hh) {
-    inv[hh] = 1.0f / l[hh];
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[hh][d] = 0.0f;
-  }
-  for (int k0 = 0; k0 < Lk; k0 += RT) {
-    const int nk = min(RT, Lk - k0);
-    __syncthreads();
-    load_tile<BF16>(kb + (int64_t)k0 * stride, stride, nk, ks);
-    load_tile<BF16>(vb + (int64_t)k0 * stride, stride, nk, vs);
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll
-    for (int hh = 0; hh < HPW; ++hh) {
-      const float* kh = ks + hoff + hh * D;
-      const float* vh = vs + hoff + hh * D;
-      for (int j = 0; j < nk; ++j) {
-        const float s = dot_row<D>(qr[hh], kh + j * GW) * scale;
-        const float p = rnd<BF16>(expf(s - m[hh]) * inv[hh]);
-        axpy_row<D>(p, vh + j * GW, o[hh]);
-      }
-    }
-  }
-  if (has_row) {
-#pragma unroll
-    for (int hh = 0; hh < HPW; ++hh) {
-      store_row<D>(out + row + hh * D, o[hh]);
-      // lse = m + log l, from the two values the second pass kept.
-      if (lse != nullptr)
-        lse[((int64_t)b * heads + g * H + warp * HPW + hh) * Lq + q0 + lane] =
-            m[hh] - logf(inv[hh]);
-    }
-  }
-}
-
-// ---- backward, bf16 mode, on the tensor cores ----
+// ---- bf16 mode: what the forward and backward kernels share ----
 
 constexpr int QT = 64;    // query rows staged per tile
 constexpr int PAD = 8;    // bf16 elements (16 bytes) of padding per shared row
@@ -322,15 +132,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Rows [0, n_valid) x D columns of src (row stride `stride` floats) into a
-// shared ROWS x (DP + PAD) bf16 tile, rounded to nearest even; rows past
-// n_valid and columns [D, DP) read as zeros.
-template <int D, int ROWS, int NTHREADS>
+// Rows [0, n_valid) x D columns of src (row stride `stride` floats) into
+// the first `rows` rows of a shared (DP + PAD)-wide bf16 tile, rounded to
+// nearest even; rows past n_valid and columns [D, DP) read as zeros.
+template <int D, int NTHREADS>
 __device__ __forceinline__ void load_tile_bf16(const float* __restrict__ src,
                                                int64_t stride, int n_valid,
-                                               __nv_bfloat16* dst) {
+                                               int rows, __nv_bfloat16* dst) {
   constexpr int DP = D < 16 ? 16 : D, LD = DP + PAD, C4 = DP / 4;
-  for (int i = threadIdx.x; i < ROWS * C4; i += NTHREADS) {
+  for (int i = threadIdx.x; i < rows * C4; i += NTHREADS) {
     const int r = i / C4, c = (i % C4) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < n_valid && c < D)
@@ -339,6 +149,199 @@ __device__ __forceinline__ void load_tile_bf16(const float* __restrict__ src,
         make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
 }
+
+// ---- forward, bf16 mode, on the tensor cores ----
+
+constexpr int FNW = 4;      // warps of a forward block
+constexpr int FQ = 128;     // its query rows: 16-row tiles, two per warp
+constexpr int KC = 256;     // keys held in shared memory at a time
+
+// kc: keys of the shared K and V tiles, Lk rounded up to 16, at most KC.
+constexpr size_t fwd_mma_smem(int D, int kc) {
+  return (size_t)2 * kc * ((D < 16 ? 16 : D) + PAD) * 2;
+}
+
+// Register budget: at d = 32 (every main-path shape) no hint, which ptxas
+// answers with 64 registers, no spill and eight blocks a multiprocessor
+// (what the c4 shapes at Lk = 65 want; a cap of 64 spills); at the other
+// widths the hint of two blocks, without which ptxas spills a few bytes at
+// d = 16 and 64.
+template <int D>
+__global__ void __launch_bounds__(FNW * 32, D == 32 ? 0 : 2)
+fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
+               float* __restrict__ lse, int Lq, int Lk, int dm, int heads,
+               float scale, int kc) {
+  constexpr int DP = D < 16 ? 16 : D;   // columns of a shared row
+  constexpr int LD = DP + PAD;
+  constexpr int ND = D / 8;             // 8-column tiles of the head dim
+  constexpr int KD = DP / 16;           // k-steps over the head dim
+  constexpr int NTHREADS = FNW * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kc x LD
+  __nv_bfloat16* Vs = Ks + kc * LD;
+
+  const int b = blockIdx.y, head = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
+  const int64_t stride = dm;
+  const int64_t col = (int64_t)head * D;
+  const float* kb = k + (int64_t)b * Lk * stride + col;
+  const float* vb = v + (int64_t)b * Lk * stride + col;
+  const bool resident = Lk <= kc;       // K and V staged once for both passes
+
+  // K (and V) rows [c0, c0 + kc) into shared memory, rounded to bf16. Every
+  // thread of the block calls it.
+  auto stage = [&](int c0, bool with_v) {
+    const int n = min(kc, Lk - c0), rows = (n + 15) & ~15;
+    __syncthreads();   // the previous rows are fully read
+    load_tile_bf16<D, NTHREADS>(kb + c0 * stride, stride, n, rows, Ks);
+    if (with_v)
+      load_tile_bf16<D, NTHREADS>(vb + c0 * stride, stride, n, rows, Vs);
+    __syncthreads();
+  };
+  if (resident) stage(0, true);
+
+  // Warps take the block's 16-row query tiles in turn; each makes the same
+  // number of turns, so the barriers of stage() line up.
+#pragma unroll 1
+  for (int qt = warp; qt < FQ / 16; qt += FNW) {
+    const int row0 = blockIdx.x * FQ + qt * 16;
+    const bool active = row0 < Lq;
+    // Q as the left operand, rounded on the way from device memory: a0 =
+    // rows g, columns 2t, 2t + 1 of the k-step; a1 rows g + 8; a2, a3
+    // columns + 8. Rows past Lq and columns past D are zeros.
+    uint32_t qa[KD][4];
+    const float* qb = q + ((int64_t)b * Lq + row0) * stride + col;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = g + 8 * (r & 1), c = 16 * kd + 2 * t + 8 * (r >> 1);
+        float2 x = make_float2(0.f, 0.f);
+        if (row0 + row < Lq && c < D)
+          x = __ldg(reinterpret_cast<const float2*>(qb + row * stride + c));
+        qa[kd][r] = pack_bf16(x.x, x.y);
+      }
+
+    // S for 16 keys from shared row `key`: two 8-key tiles, rows (queries)
+    // g and g + 8, keys 2t and 2t + 1 of each.
+    auto scores = [&](int key, float (&s)[2][4]) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t f[4];   // K rows as they lie are the right operand [d][key]
+        ldsm_x4(f, Ks + (key + li + 8 * lc) * LD + kd * 16 + 8 * lb);
+        mma_bf16(s[0], qa[kd], f[0], f[1]);
+        mma_bf16(s[1], qa[kd], f[2], f[3]);
+      }
+    };
+
+    // Pass 1: the row max m and sum l of exp(s - m) over all Lk keys, each
+    // lane over its own keys (a running max per lane), then joined across
+    // the row's four lanes: lse = m + log l.
+    float m[2] = {flash::NEG, flash::NEG}, l[2] = {0.0f, 0.0f};
+    for (int c0 = 0; c0 < Lk; c0 += kc) {
+      if (!resident) stage(c0, false);
+      const int nk = min(kc, Lk - c0);
+      if (!active) continue;
+#pragma unroll 1
+      for (int ks = 0; ks < nk; ks += 16) {
+        float s[2][4];
+        scores(ks, s);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x[4], mx = m[r];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const bool ok = ks + 8 * nt + 2 * t + e < nk;
+              x[2 * nt + e] = ok ? s[nt][2 * r + e] * scale : -INFINITY;
+              mx = fmaxf(mx, x[2 * nt + e]);
+            }
+          float acc = l[r] * expf(m[r] - mx);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc += expf(x[i] - mx);   // 0 masked
+          l[r] = acc;
+          m[r] = mx;
+        }
+      }
+    }
+    float ls[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+        const float mm = fmaxf(m[r], mo);
+        l[r] = l[r] * expf(m[r] - mm) + lo * expf(mo - mm);
+        m[r] = mm;
+      }
+      ls[r] = m[r] + logf(l[r]);
+    }
+
+    // Pass 2: S again, the normalised P = exp(S scale - lse) rounded to
+    // bf16 straight into the left-operand registers of O += P V (the
+    // accumulator layout of two 8-key tiles is the A layout of one 16-key
+    // k-step); V by ldmatrix.trans, two 8-column tiles per load.
+    float o[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[nd][i] = 0.0f;
+    for (int c0 = 0; c0 < Lk; c0 += kc) {
+      if (!resident) stage(c0, true);
+      const int nk = min(kc, Lk - c0);
+      if (!active) continue;
+#pragma unroll 1
+      for (int ks = 0; ks < nk; ks += 16) {
+        float s[2][4];
+        scores(ks, s);
+        uint32_t pa[4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const bool ok0 = ks + 8 * nt + 2 * t < nk;
+          const bool ok1 = ks + 8 * nt + 2 * t + 1 < nk;
+          const float p0 = ok0 ? expf(s[nt][0] * scale - ls[0]) : 0.0f;
+          const float p1 = ok1 ? expf(s[nt][1] * scale - ls[0]) : 0.0f;
+          const float p2 = ok0 ? expf(s[nt][2] * scale - ls[1]) : 0.0f;
+          const float p3 = ok1 ? expf(s[nt][3] * scale - ls[1]) : 0.0f;
+          pa[2 * nt] = pack_bf16(p0, p1);
+          pa[2 * nt + 1] = pack_bf16(p2, p3);
+        }
+#pragma unroll
+        for (int nd = 0; nd < ND; nd += 2) {
+          uint32_t f[4];
+          ldsm_x4_t(f, Vs + (ks + li + 8 * lb) * LD + 8 * (nd + lc));
+          mma_bf16(o[nd], pa, f[0], f[1]);
+          if (nd + 1 < ND) mma_bf16(o[nd + 1], pa, f[2], f[3]);
+        }
+      }
+    }
+
+    if (!active) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row >= Lq) continue;
+      float* dst = out + ((int64_t)b * Lq + row) * stride + col;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        *reinterpret_cast<float2*>(dst + 8 * nd + 2 * t) =
+            make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+      if (t == 0 && lse != nullptr)
+        lse[((int64_t)b * heads + head) * Lq + row] = ls[r];
+    }
+  }
+}
+
+// ---- backward, bf16 mode, on the tensor cores ----
 
 constexpr size_t bwd_mma_smem(int D, int NW) {
   const int LD = (D < 16 ? 16 : D) + PAD, KB = NW * 16;
@@ -390,8 +393,8 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t krow0 = ((int64_t)b * Lk + key0) * stride + col;
   float* dqb = dq_dst + split * split_stride + (int64_t)b * Lq * stride + col;
 
-  load_tile_bf16<D, KB, NTHREADS>(k + krow0, stride, nkeys, Ks);
-  load_tile_bf16<D, KB, NTHREADS>(v + krow0, stride, nkeys, Vs);
+  load_tile_bf16<D, NTHREADS>(k + krow0, stride, nkeys, KB, Ks);
+  load_tile_bf16<D, NTHREADS>(v + krow0, stride, nkeys, KB, Vs);
   __syncthreads();
 
   const int wkey = warp * 16;           // this warp's keys within the block
@@ -415,7 +418,8 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int nq = min(QT, Lq - q0);
     // Stage Q and dO (the previous tile's readers are past the barrier that
     // ended phase 1), with delta = sum_d dO * O of the unrounded values.
-    load_tile_bf16<D, QT, NTHREADS>(qb + (int64_t)q0 * stride, stride, nq, Qs);
+    load_tile_bf16<D, NTHREADS>(qb + (int64_t)q0 * stride, stride, nq, QT,
+                                Qs);
     constexpr int ITEMS = QT * C4;
 #pragma unroll
     for (int it = 0; it < (ITEMS + NTHREADS - 1) / NTHREADS; ++it) {
@@ -649,14 +653,36 @@ int launch_bwd_f32(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-template <int D, bool BF16>
-int launch_fwd(const float* q, const float* k, const float* v, float* out,
-               float* lse, int B, int Lq, int Lk, int dm, int heads,
-               float scale, cudaStream_t stream) {
-  dim3 grid((Lq + RT - 1) / RT, B, dm / GW);
-  fwd_kernel<D, BF16><<<grid, 128, 0, stream>>>(q, k, v, out, lse, Lq, Lk, dm,
-                                                 heads, scale);
+template <int D>
+int launch_fwd_bf16(const float* q, const float* k, const float* v,
+                    float* out, float* lse, int B, int Lq, int Lk, int dm,
+                    int heads, float scale, cudaStream_t stream) {
+  const int kc = Lk < KC ? (Lk + 15) & ~15 : KC;
+  const size_t smem = fwd_mma_smem(D, kc);
+  cudaError_t e = cudaFuncSetAttribute(
+      fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fwd_mma_smem(D, KC));
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Lq + FQ - 1) / FQ, B, heads);
+  fwd_mma_kernel<D><<<grid, FNW * 32, smem, stream>>>(q, k, v, out, lse, Lq,
+                                                       Lk, dm, heads, scale,
+                                                       kc);
   return (int)cudaGetLastError();
+}
+
+// f32 mode: the strided forward of flash_kernels.cuh on the packed layout.
+template <int DT>
+int launch_fwd_f32(const float* q, const float* k, const float* v,
+                   float* out, float* lse, int B, int Lq, int Lk, int dm,
+                   int heads, float scale, cudaStream_t stream) {
+  const int D = dm / heads;
+  if ((int64_t)B * heads * ((Lq + flash::TQ - 1) / flash::TQ) >= 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  // (B, L, heads * D) read as (B, heads, L, D): batch, head, row strides.
+  const flash::Strides sq{(long long)Lq * dm, D, dm};
+  const flash::Strides sk{(long long)Lk * dm, D, dm};
+  return flash::launch_fwd<DT>(q, k, v, out, lse, sq, sk, sk, sq, B, heads,
+                               Lq, Lk, D, scale, stream);
 }
 
 bool shape_ok(int B, int dm, int heads) {
@@ -685,10 +711,10 @@ extern "C" int packed_attention_fwd_launch(
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, dm, heads)) return (int)cudaErrorInvalidValue;
   if (bf16) {
-    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd<D, true>(
+    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_bf16<D>(
         q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
   }
-  DISPATCH_HEAD_DIM(dm / heads, (launch_fwd<D, false>(
+  DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_f32<(D <= 32 ? 32 : 64)>(
       q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
 }
 

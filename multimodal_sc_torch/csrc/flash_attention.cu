@@ -14,43 +14,55 @@
 // Lq and Lk are predicates, and the logsumexp is a plain (B, H, Lq) array.
 //
 // The kernels themselves are in flash_kernels.cuh (attention_packed.cu
-// launches the two backward ones as its f32 mode); this file holds their
-// launchers. Work split, the same in all three kernels: a block is 128
-// threads; a row
-// (a query in the forward and dQ kernels, a key in the dK/dV kernel) is
-// owned by LPR = DT / 32 neighbouring lanes, DT in {32, 64, 128} the
-// compiled width D is rounded up to (columns past D read as zeros and are
-// never stored). Each lane keeps 32 columns of its row in registers, the
-// 16-byte chunks c = i * LPR + lane_in_row, so the lanes of one row read
-// neighbouring chunks of a shared-memory row (no bank conflict) and finish
-// a dot product with LPR - 1 shuffle steps. Register use therefore does not
-// grow with D: 32 floats per operand row whatever the head dim.
-//
-//   flash_fwd_kernel   one block per (batch*head, 128/LPR queries): online
-//                      softmax over K tiles with a running max m and
-//                      denominator l, rescaling the accumulator once per
-//                      tile; writes out = acc / max(l, 1e-30) and
-//                      lse = m + log(max(l, 1e-30)).
-//   flash_bwd_dq_kernel  same blocks: delta = sum_d dO*O for its row (also
-//                      written to a (B, H, Lq) scratch for the next kernel),
-//                      P = exp(S*scale - lse) recomputed per tile,
-//                      dS = P (dO V^T - delta), dQ = dS K * scale.
-//   flash_bwd_dkv_kernel one block per (batch*head, 128/LPR keys) that loops
-//                      over ALL query rows itself, 32 at a time through
-//                      shared memory: dV = P^T dO, dK = dS^T Q * scale are
-//                      written once, no atomics, the same bits every run.
-//
-// All arithmetic is f32 (the TPU kernels cast every operand to f32 too).
-// Keys past Lk are scored -1e30 (probability exactly 0), rows past Lq or Lk
+// launches all three as its f32 mode); this file holds their launchers.
+// All arithmetic is f32-grade (the TPU kernels cast every operand to f32
+// too). Keys past Lk score -1e30 (probability exactly 0); rows past Lq or Lk
 // compute on zeros and store nothing.
 //
-// Bound on the card: 4 B H Lq Lk D operations forward, 6 and 8 times
-// B H Lq Lk D in the two backward kernels, against 4 B H (2 Lq + 2 Lk) D
-// bytes and up: at Lk = 256 that is 64 operations per byte and more, above
-// the f32 break-even of the card (67 TFLOP/s over 3.35 TB/s = 20), so the
-// f32 FMA rate bounds it. This version runs on the FMA units from
-// registers and broadcast shared-memory reads (one 16-byte load feeds four
-// FMAs per lane); tensor cores are later work.
+//   flash_fwd_kernel   one block, a warpgroup of four warps, per
+//                      (batch*head, 64 queries). Bound on the card: its
+//                      4 B H Lq Lk D operations are f32-grade, which on
+//                      Hopper means three TF32 tensor-core products each
+//                      (3 x 4 B H Lq Lk D / 495 TFLOP/s), against 4 B H
+//                      (2 Lq + 2 Lk) D bytes: operations bound it at the
+//                      main path's Lk = 256. So both products, S = (q scale)
+//                      K^T and O = P V, run on Hopper's warpgroup mma
+//                      (wgmma m64nNk8 TF32) as lo*hi + hi*lo + hi*hi of
+//                      each operand's split (on the bits; cvt.rna is a slow
+//                      unit). q is split once into registers (at width 128,
+//                      where registers run out, into shared planes that
+//                      wgmma reads). K and V tiles of 32 keys (16 at width
+//                      128) arrive by double-buffered cp.async (zero-filled
+//                      past Lk and D); each thread splits the chunks it
+//                      copied, once per block, into hi and lo planes laid
+//                      out as wgmma's shared-memory operands, in two sets:
+//                      the next tile is split while the tensor cores work
+//                      on this one, one barrier per tile. The softmax is
+//                      online per key tile (running max m and denominator
+//                      l; out = acc / max(l, 1e-30), lse = m + log
+//                      max(l, 1e-30)); P stays in registers, the S
+//                      accumulator read as the A operand of P V with its
+//                      key order carried into V's planes. Each tile's P V
+//                      starts from zero and joins the rescaled running
+//                      output through the FADD units (acc = acc alpha +
+//                      PV), because the tensor cores truncate when they
+//                      accumulate; S is one chain over the head dim.
+//   flash_bwd_dq_kernel  f32 FMA units; a row (query) is owned by LPR = DT
+//                      / 32 neighbouring lanes, DT in {32, 64, 128} the
+//                      width D is rounded up to, 32 columns of it in each
+//                      lane's registers, a dot product finished with LPR - 1
+//                      shuffles. delta = sum_d dO*O for its row (also written
+//                      to a (B, H, Lq) scratch for the next kernel),
+//                      P = exp(S*scale - lse) recomputed per tile,
+//                      dS = P (dO V^T - delta), dQ = dS K * scale.
+//   flash_bwd_dkv_kernel the same lanes per key; loops over ALL query rows
+//                      itself, 32 at a time through shared memory: dV = P^T
+//                      dO, dK = dS^T Q * scale are written once, no atomics,
+//                      the same bits every run. The two backward kernels do
+//                      6 and 8 B H Lq Lk D operations, above the f32
+//                      break-even (67 TFLOP/s over 3.35 TB/s = 20 per byte)
+//                      at Lk = 256; their tensor-core versions are later
+//                      work.
 
 #include "flash_kernels.cuh"
 
@@ -74,17 +86,6 @@ bool shape_ok(int B, int H, int Lq, int Lk, int D) {
   const int64_t longest = Lq > Lk ? Lq : Lk;
   return H > 0 && D > 0 && D % 4 == 0 && D <= 128 &&
          bh * (longest / 32 + 1) < 2147483647LL;
-}
-
-template <int DT>
-int launch_fwd(const float* q, const float* k, const float* v, float* out,
-               float* lse, const long long* st, int B, int H, int Lq, int Lk,
-               int D, float scale, cudaStream_t stream) {
-  const int rb = row_blocks_for(Lq, DT);
-  flash_fwd_kernel<DT><<<B * H * rb, THREADS, 0, stream>>>(
-      q, k, v, out, lse, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), H, Lq, Lk, D, rb, scale);
-  return (int)cudaGetLastError();
 }
 
 template <int DT>
@@ -130,8 +131,10 @@ extern "C" int flash_attention_fwd_launch(
     cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  DISPATCH_HEAD_TILE(D, (launch_fwd<DT>(q, k, v, out, lse, strides, B, H, Lq,
-                                        Lk, D, scale, stream)))
+  DISPATCH_HEAD_TILE(D, (flash::launch_fwd<DT>(
+      q, k, v, out, lse, strides_at(strides, 0), strides_at(strides, 1),
+      strides_at(strides, 2), strides_at(strides, 3), B, H, Lq, Lk, D, scale,
+      stream)))
 }
 
 // dQ: as above, plus o = the forward's output, dout (B, H, Lq, D) and the

@@ -6,10 +6,12 @@ the caller needs no ``(B,L,H,d) <-> (B,H,L,d)`` transposes. On a CUDA
 tensor ``packed_attention`` launches the forward kernel of
 ``csrc/attention_packed.cu``, which also hands back the softmax's logsumexp
 when a gradient is wanted, and its autograd backward launches the backward
-kernel on the saved q, k, v, output and logsumexp: in bf16 mode one kernel
-on the tensor cores (bf16 ``mma``, f32 sums), in f32 mode the exact-f32 dQ
-and dK/dV kernels on the FMA units. On a CPU tensor the plain version runs
-and autograd differentiates it.
+kernel on the saved q, k, v, output and logsumexp. In bf16 mode both are
+one kernel each on the tensor cores (bf16 ``mma``, f32 sums); in f32 mode
+the packed layout is handed, as (batch, head, row) strides, to the flash
+kernels of ``csrc/flash_kernels.cuh``: the forward on 3xTF32 tensor cores,
+the dQ and dK/dV kernels on the FMA units. On a CPU tensor the plain
+version runs and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ _LANES = 128
 _MAX_LK_PAD = 4096
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
 
-# Calls that launched the CUDA forward kernel / the backward kernels (one
-# backward call is one count: in bf16 mode one kernel, plus the sum of the
+# Calls that launched a CUDA forward kernel (whichever serves the mode) /
+# the backward kernels (one backward call is one count: in bf16 mode one kernel, plus the sum of the
 # key splits' partial dQ when Lk takes more than one block; in f32 mode the
 # dQ kernel, then the dK/dV kernel).
 launches_fwd = 0
