@@ -197,22 +197,31 @@ def _ptxas_report(log):
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            mangled = kernel = entry.group(1)
-            # Itanium mangling: each name is its length, then its letters.
-            for n in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
-                name = mangled[n.end():n.end() + int(n.group(1))]
-                if name.endswith("kernel"):
-                    args = re.match(r"I((?:Li\d+E)+)E",
-                                    mangled[n.end() + len(name):])
-                    kernel = name + ("<" + ", ".join(re.findall(
-                        r"Li(\d+)E", args.group(1))) + ">" if args else "")
-                    break
+            kernel = _demangle_kernel(entry.group(1))
         elif "spill stores" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             out.append((kernel, f"{regs} registers; {spill}"))
     return out
+
+
+def _demangle_kernel(mangled):
+    """``name<args>`` of a kernel's Itanium-mangled entry name: the nested
+    names (each its length, then its letters) read in order up to the one
+    that ends in "kernel", then its integer template arguments."""
+    import re
+
+    i = 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group(0)
+        name = mangled[i + len(n):i + len(n) + int(n)]
+        i += len(n) + int(n)
+        if name.endswith("kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+            return name + ("<" + ", ".join(re.findall(
+                r"Li(\d+)E", args.group(1))) + ">" if args else "")
+    return mangled
 
 
 def _bound_ms(flops, nbytes, peak_ops):
@@ -244,13 +253,17 @@ def _entry(name, route, source, replaces, rows):
 
 
 def check_mha_block():
-    """Kernel vs plain version at the four (Lq, Lk) pairs of the c4 path."""
+    """Kernel vs plain version at the four (Lq, Lk) pairs of the c4 path
+    (timed; the kernel's line), then untimed shapes that reach the rest of
+    the kernel: head dims 64, 16 and 8, Lk past the 256 keys held in shared
+    memory (re-projected per pass), ragged last query tiles, one row and
+    key. The bf16 mode runs twice on each and must give the same bits."""
     import torch
 
     from multimodal_sc_torch.kernels import mha_block as mb
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    dim, heads, b = 128, 4, NUM_ENVS
+    dim = 128
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
@@ -263,13 +276,23 @@ def check_mha_block():
             p[k] = 1.0 + 0.1 * rnd(dim)
         else:
             p[k] = 0.1 * rnd(dim)
+    # (B, Lq, Lk, heads, timed)
+    cases = [(NUM_ENVS, lq, lk, 4, True) for lq, lk in C4_ATTN_SHAPES]
+    cases += [(64, 65, 65, 2, False), (64, 65, 100, 8, False),
+              (64, 17, 70, 16, False), (64, 33, 300, 4, False),
+              (32, 96, 300, 4, False), (16, 100, 2048, 4, False),
+              (8, 1, 1, 4, False)]
     rows = []
-    for lq, lk in ((65, 256), (256, 65), (65, 65), (256, 256)):
+    worst = 0.0
+    for b, lq, lk, heads, timed in cases:
         x_q, x_kv = rnd(b, lq, dim), rnd(b, lk, dim)
         ref = mb.mha_block_reference(x_q, x_kv, p, heads)
         ref_bf16 = mb.mha_block_reference_bf16(x_q, x_kv, p, heads)
         out_f32 = mb.mha_block(x_q, x_kv, p, heads, mxu_bf16=False)
         out_bf16 = mb.mha_block(x_q, x_kv, p, heads)
+        if not torch.equal(out_bf16, mb.mha_block(x_q, x_kv, p, heads)):
+            raise AssertionError("mha_block bf16 mode: two runs on the same "
+                                 "inputs differ")
         torch.cuda.synchronize()
         err_f32 = (out_f32 - ref).abs().max().item()
         err_bf16 = (out_bf16 - ref_bf16).abs().max().item()
@@ -277,25 +300,33 @@ def check_mha_block():
         err_vs_f32 = (out_bf16 - ref).abs().max().item()
         mean_vs_f32 = (out_bf16 - ref).abs().mean().item()
         att = (ref - x_q).abs().max().item()
+        worst = max(worst, err_bf16)
         # f32 mode: same arithmetic as the plain version in another order
-        # of summation (128-term dots, <=256-term softmax sums): 1e-4.
+        # of summation (128-term dots, <=2048-term softmax sums): 1e-4.
         torch.testing.assert_close(out_f32, ref, atol=1e-4, rtol=1e-4)
         # bf16 mode (the main path) against the plain version that rounds
-        # the same operands to bf16 in the same order. Only the order of
-        # the f32 sums differs; now and then that flips one operand's
-        # rounding by one bf16 step (2^-8 relative, 2^-6 for an attention
-        # output in [2, 4)), which moves the outputs it feeds by up to
-        # step * |wo| ~ 5e-3: the max gate, absolute (no rtol, so it is not
-        # loosened by the O(1) residual x_q). Flips are rare, so the mean
-        # error must stay below 1e-5, about 1% of the mean distance between
-        # the bf16 and the exact f32 results (printed): a kernel that
-        # rounded elsewhere, or not at all, fails it. Then the loose gate
-        # against exact f32, 3e-2.
+        # the same operands to bf16 (the normalised probabilities among
+        # them). Only the order of the f32 sums differs; now and then that
+        # flips one operand's rounding by one bf16 step (2^-8 relative,
+        # 2^-6 for an attention output in [2, 4)), which moves the outputs
+        # it feeds by up to step * |wo| ~ 5e-3: the max gate, absolute (no
+        # rtol, so it is not loosened by the O(1) residual x_q). Flips are
+        # rare, so the mean error must stay below 1e-5, about 1% of the mean
+        # distance between the bf16 and the exact f32 results (printed): a
+        # kernel that rounded elsewhere, or not at all, fails it. Then the
+        # loose gate against exact f32, 3e-2.
         torch.testing.assert_close(out_bf16, ref_bf16, atol=5e-3, rtol=0)
         if mean_bf16 > 1e-5:
             raise AssertionError(f"mha_block bf16 mode: mean error "
                                  f"{mean_bf16:.3e} against its plain version")
         torch.testing.assert_close(out_bf16, ref, atol=3e-2, rtol=3e-2)
+        line = (f"  mha_block B={b} Lq={lq} Lk={lk} h={heads} (att {att:.3f}): "
+                f"err bf16 {err_bf16:.3e} mean {mean_bf16:.2e} (vs f32 "
+                f"{err_vs_f32:.3e} mean {mean_vs_f32:.2e}), f32 mode "
+                f"{err_f32:.3e}")
+        if not timed:
+            print(line, flush=True)
+            continue
         ms = _device_ms(lambda: mb.mha_block(x_q, x_kv, p, heads))
         plain = _device_ms(lambda: mb.mha_block_reference(x_q, x_kv, p, heads))
         flops = 2 * b * (2 * lq * dim * dim + 2 * lk * dim * dim
@@ -303,18 +334,17 @@ def check_mha_block():
         nbytes = 4 * (2 * b * lq * dim + b * lk * dim + 4 * dim * dim
                       + 8 * dim)
         bound, by = _bound_ms(flops, nbytes, PEAK_BF16)
-        print(f"  mha_block B={b} Lq={lq} Lk={lk} (att {att:.3f}): err bf16 "
-              f"{err_bf16:.3e} mean {mean_bf16:.2e} (vs f32 {err_vs_f32:.3e} "
-              f"mean {mean_vs_f32:.2e}), f32 mode {err_f32:.3e}; "
-              f"kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, "
               f"bound {bound:.4f} ms ({by})", flush=True)
         # Each (Lq, Lk) pair runs once per fusion layer.
         rows.append({"per_step": FUSION_DEPTH, "err": err_bf16, "ms": ms,
                      "plain_ms": plain,
                      "bound_ms": bound, "bound_by": by, "library_ms": None})
         del x_q, x_kv, ref, ref_bf16, out_f32, out_bf16
-    return _entry("mha_block", "cuda", "multimodal_sc_torch/csrc/mha_block.cu",
-                  "multimodal_sc_tpu/kernels/mha_block.py:149", rows)
+    entry = _entry("mha_block", "cuda", "multimodal_sc_torch/csrc/mha_block.cu",
+                   "multimodal_sc_tpu/kernels/mha_block.py:149", rows)
+    entry["max_abs_err"] = worst
+    return entry
 
 
 def check_conv_prelu():
@@ -679,8 +709,9 @@ def check_packed_attention():
 def check_flash_attention():
     """Forward, dQ and dK/dV kernels vs their plain versions: the c3 arm-F
     shape on the transposed views the ViT's MHA hands in, plus ragged,
-    cross, odd-D and contiguous shapes. Times are per arm-F train step
-    (eight launches of each kernel)."""
+    cross, odd-D and contiguous shapes; every backward run twice and
+    compared bit for bit. Times are per arm-F train step (eight launches of
+    each kernel)."""
     import torch
     import torch.nn.functional as F
 
@@ -726,6 +757,15 @@ def check_flash_attention():
         torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
         for a, w in zip(got, want):
             torch.testing.assert_close(a, w, atol=2e-4, rtol=2e-4)
+        # No atomics: two runs of the backward kernels give the same bits.
+        runs = []
+        for _ in range(2):
+            dq_, delta_ = fa._bwd_dq_cuda(q, k, v, out, lse, do, scale)
+            runs.append((dq_, delta_,
+                         *fa._bwd_dkv_cuda(q, k, v, lse, delta_, do, scale)))
+        if not all(torch.equal(a, b_) for a, b_ in zip(*runs)):
+            raise AssertionError("flash_attention backward: two runs on the "
+                                 "same inputs differ")
         errs = {"fwd": (out - ref).abs().max().item(),
                 "dq": (got[0] - want[0]).abs().max().item(),
                 "dkv": max((got[1] - want[1]).abs().max().item(),
@@ -735,7 +775,8 @@ def check_flash_attention():
         line = (f"  flash_attention B={b} H={h} Lq={lq} Lk={lk} D={d} "
                 f"({make.__name__}): err fwd {errs['fwd']:.3e}, lse "
                 f"{(lse - ref_lse).abs().max().item():.3e}, dq "
-                f"{errs['dq']:.3e}, dk/dv {errs['dkv']:.3e}")
+                f"{errs['dq']:.3e}, dk/dv {errs['dkv']:.3e}; two backward runs "
+                "bit-equal")
         if not per_step:
             print(line, flush=True)
             continue

@@ -21,8 +21,7 @@
 // operands rounded once on the way into shared memory (half the bytes).
 // With bf16 off everything is f32-grade: the f32 mode launches the strided
 // kernels of flash_kernels.cuh on the packed layout through (batch, head,
-// row) strides, the forward on 3xTF32 tensor cores, the backward on the
-// FMA units.
+// row) strides, forward and backward on 3xTF32 tensor cores.
 //
 // Bound on the card. The forward at c4 (B = 1024, dm = 128) and c3 needs
 // 4 B Lq Lk dm FLOPs against 4 (2 Lq + 2 Lk) dm B bytes: 8-64 FLOP/byte,
@@ -83,6 +82,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "flash_kernels.cuh"
 
 namespace {
@@ -93,44 +93,6 @@ constexpr int GW = 128;   // columns of one lane group
 
 constexpr int QT = 64;    // query rows staged per tile
 constexpr int PAD = 8;    // bf16 elements (16 bytes) of padding per shared row
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8. Register j holds matrix j: row lane / 4,
-// columns 2 (lane % 4) and + 1; transposed with .trans.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
-                                          const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col): bf16 operands, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Rows [0, n_valid) x D columns of src (row stride `stride` floats) into
 // the first `rows` rows of a shared (DP + PAD)-wide bf16 tile, rounded to
@@ -632,25 +594,16 @@ int launch_bwd_f32(const float* q, const float* k, const float* v,
                    int Lq, int Lk, int dm, int heads, float scale,
                    cudaStream_t stream) {
   const int D = dm / heads;
-  const int rows = flash::THREADS / (DT / flash::W);
-  const int rb_q = (Lq + rows - 1) / rows, rb_k = (Lk + rows - 1) / rows;
-  const int64_t bh = (int64_t)B * heads;
-  if (bh * (rb_q > rb_k ? rb_q : rb_k) >= 2147483647LL)
-    return (int)cudaErrorInvalidValue;
   // (B, L, heads * D) read as (B, heads, L, D): batch, head, row strides.
   const flash::Strides sq{(long long)Lq * dm, D, dm};
   const flash::Strides sk{(long long)Lk * dm, D, dm};
-  flash::flash_bwd_dq_kernel<DT><<<(unsigned)(bh * rb_q), flash::THREADS, 0,
-                                   stream>>>(
-      q, k, v, o, dout, lse, dq, delta, sq, sk, sk, sq, sq, sq, heads, Lq, Lk,
-      D, rb_q, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  flash::flash_bwd_dkv_kernel<DT><<<(unsigned)(bh * rb_k), flash::THREADS, 0,
-                                    stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, sq, sk, sk, sq, sk, sk, heads, Lq,
-      Lk, D, rb_k, scale);
-  return (int)cudaGetLastError();
+  const int e = flash::launch_bwd_dq<DT>(q, k, v, o, dout, lse, dq, delta,
+                                         sq, sk, sk, sq, sq, sq, B, heads, Lq,
+                                         Lk, D, scale, stream);
+  if (e != 0) return e;
+  return flash::launch_bwd_dkv<DT>(q, k, v, dout, lse, delta, dk, dv, sq, sk,
+                                   sk, sq, sk, sk, B, heads, Lq, Lk, D, scale,
+                                   stream);
 }
 
 template <int D>

@@ -47,22 +47,37 @@
 //                      output through the FADD units (acc = acc alpha +
 //                      PV), because the tensor cores truncate when they
 //                      accumulate; S is one chain over the head dim.
-//   flash_bwd_dq_kernel  f32 FMA units; a row (query) is owned by LPR = DT
-//                      / 32 neighbouring lanes, DT in {32, 64, 128} the
-//                      width D is rounded up to, 32 columns of it in each
-//                      lane's registers, a dot product finished with LPR - 1
-//                      shuffles. delta = sum_d dO*O for its row (also written
-//                      to a (B, H, Lq) scratch for the next kernel),
-//                      P = exp(S*scale - lse) recomputed per tile,
-//                      dS = P (dO V^T - delta), dQ = dS K * scale.
-//   flash_bwd_dkv_kernel the same lanes per key; loops over ALL query rows
-//                      itself, 32 at a time through shared memory: dV = P^T
-//                      dO, dK = dS^T Q * scale are written once, no atomics,
-//                      the same bits every run. The two backward kernels do
-//                      6 and 8 B H Lq Lk D operations, above the f32
-//                      break-even (67 TFLOP/s over 3.35 TB/s = 20 per byte)
-//                      at Lk = 256; their tensor-core versions are later
-//                      work.
+//   flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel  the backward as on the
+//                      TPU, in two kernels, each one warpgroup per
+//                      (batch*head, 64 of its own rows) streaming the other
+//                      side in tiles of 32 rows (double-buffered cp.async,
+//                      split once per block into hi and lo planes, one
+//                      plane set, two barriers a tile). Their 6 and 8 B H Lq
+//                      Lk D operations are f32-grade, so every product is
+//                      3xTF32 on wgmma, as in the forward. The dQ kernel
+//                      (queries' q scale and dO in shared planes, the A
+//                      operands by descriptor) forms S = (q scale) K^T and
+//                      dP = dO V^T per key tile, each one chain over the
+//                      head dim, P = exp(S - lse) and dS = P (dP - delta)
+//                      in registers (delta = rowsum(dO O), also written to
+//                      a (B, H, Lq) array), then dQ += dS K with dS as the
+//                      register A operand and K transposed in its planes;
+//                      dQ = acc scale. The dK/dV kernel (keys' k scale and
+//                      v in planes) forms S^T and dP^T per query tile,
+//                      P^T and dS^T against that tile's lse and delta, then
+//                      dV += P^T dO and dK += dS^T Q; each over ALL queries
+//                      in its own block, written once, no atomics: the
+//                      same bits every run. Each tile's product over its
+//                      rows starts from zero and joins the running sum
+//                      through the FADD units (the tensor cores truncate
+//                      when they accumulate). Compiled widths 32 and 64
+//                      (every packed f32 shape; c3 arm F's 64). At width
+//                      128 (head dims 68-128) the accumulators and planes
+//                      do not fit, and flash_bwd_dq_kernel /
+//                      flash_bwd_dkv_kernel run on the f32 FMA units: a row
+//                      owned by 4 neighbouring lanes, 32 columns each in
+//                      registers, the other side streamed 32 rows at a time
+//                      through shared memory.
 
 #include "flash_kernels.cuh"
 
@@ -74,44 +89,12 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-// Blocks of 128 / (DT / 32) rows covering L rows.
-int row_blocks_for(int L, int DT) {
-  const int rows = THREADS / (DT / W);
-  return (L + rows - 1) / rows;
-}
-
 bool shape_ok(int B, int H, int Lq, int Lk, int D) {
   const int64_t bh = (int64_t)B * H;
   // One grid dimension holds batch*head x row blocks (at least Lq / 128).
   const int64_t longest = Lq > Lk ? Lq : Lk;
   return H > 0 && D > 0 && D % 4 == 0 && D <= 128 &&
          bh * (longest / 32 + 1) < 2147483647LL;
-}
-
-template <int DT>
-int launch_bwd_dq(const float* q, const float* k, const float* v,
-                  const float* o, const float* dout, const float* lse,
-                  float* dq, float* delta, const long long* st, int B, int H,
-                  int Lq, int Lk, int D, float scale, cudaStream_t stream) {
-  const int rb = row_blocks_for(Lq, DT);
-  flash_bwd_dq_kernel<DT><<<B * H * rb, THREADS, 0, stream>>>(
-      q, k, v, o, dout, lse, dq, delta, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4),
-      strides_at(st, 5), H, Lq, Lk, D, rb, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int DT>
-int launch_bwd_dkv(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   float* dk, float* dv, const long long* st, int B, int H,
-                   int Lq, int Lk, int D, float scale, cudaStream_t stream) {
-  const int rb = row_blocks_for(Lk, DT);
-  flash_bwd_dkv_kernel<DT><<<B * H * rb, THREADS, 0, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4),
-      strides_at(st, 5), H, Lq, Lk, D, rb, scale);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -147,9 +130,11 @@ extern "C" int flash_attention_bwd_dq_launch(
     cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  DISPATCH_HEAD_TILE(D, (launch_bwd_dq<DT>(q, k, v, o, dout, lse, dq, delta,
-                                           strides, B, H, Lq, Lk, D, scale,
-                                           stream)))
+  DISPATCH_HEAD_TILE(D, (flash::launch_bwd_dq<DT>(
+      q, k, v, o, dout, lse, dq, delta, strides_at(strides, 0),
+      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3),
+      strides_at(strides, 4), strides_at(strides, 5), B, H, Lq, Lk, D, scale,
+      stream)))
 }
 
 // dK and dV (B, H, Lk, D) from the forward's lse and the dQ kernel's delta.
@@ -161,7 +146,9 @@ extern "C" int flash_attention_bwd_dkv_launch(
     cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  DISPATCH_HEAD_TILE(D, (launch_bwd_dkv<DT>(q, k, v, dout, lse, delta, dk, dv,
-                                            strides, B, H, Lq, Lk, D, scale,
-                                            stream)))
+  DISPATCH_HEAD_TILE(D, (flash::launch_bwd_dkv<DT>(
+      q, k, v, dout, lse, delta, dk, dv, strides_at(strides, 0),
+      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3),
+      strides_at(strides, 4), strides_at(strides, 5), B, H, Lq, Lk, D, scale,
+      stream)))
 }

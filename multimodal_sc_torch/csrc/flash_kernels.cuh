@@ -1,9 +1,10 @@
-// Device code of the f32-grade softmax-attention kernels: forward (3xTF32
-// on the tensor cores), dQ and dK/dV (f32 FMA units) on any (batch, head,
-// row)-strided layout. flash_attention.cu documents the design and
-// launches all three on (B, H, L, D) tensors; attention_packed.cu launches
-// them as its f32 mode on the packed (B, L, H*d) layout, which is the same
-// thing under other strides.
+// Device code of the f32-grade softmax-attention kernels: forward, dQ and
+// dK/dV (3xTF32 on the tensor cores; the backward at head width 128 on the
+// f32 FMA units) on any (batch, head, row)-strided layout.
+// flash_attention.cu documents the design and launches all three on
+// (B, H, L, D) tensors; attention_packed.cu launches them as its f32 mode on
+// the packed (B, L, H*d) layout, which is the same thing under other
+// strides.
 
 #pragma once
 
@@ -462,6 +463,524 @@ int launch_fwd(const float* q, const float* k, const float* v, float* out,
   return (int)cudaGetLastError();
 }
 
+// ---- backward, f32-grade, on the TF32 tensor cores (3xTF32, wgmma) ----
+//
+// Two kernels, as on the TPU: dQ (which also writes delta) and dK/dV. Each
+// block is two warpgroups over 128 of its own rows (queries, keys), 64 to
+// a warpgroup, and streams the other side's rows in tiles of BT by
+// cp.async, which both warpgroups share: each thread splits the chunks it
+// copied into TF32 hi and lo planes laid out as wgmma's shared-memory
+// operands, once per block, and reloads them as soon as it has split them.
+// The dQ kernel keeps two plane sets, so tile j + 1 is split while the
+// tensor cores work on tile j (one barrier a tile); the dK/dV kernel one
+// (two barriers a tile). The block's own rows are A operands: q scale in
+// registers (dQ kernel), dO, k scale and v in shared planes read by
+// descriptor. Per tile: S and dP (or their transposes), each one chain of
+// tensor-core products over the head dim; P and dS in registers in the
+// accumulator layout, which is the A layout of the products over the
+// tile's rows (their B planes are the tile transposed, rows in the order
+// v_slot gives them); each tile's product starts from zero and joins the
+// running dQ, dK or dV through the FADD units (the tensor cores truncate
+// when they accumulate). Compiled widths 32 and 64; width 128 keeps the
+// FMA-unit kernels below, its accumulators and planes do not fit.
+
+constexpr int BT = 32;   // streamed rows of a backward tile
+constexpr int BWG = 2;   // warpgroups of a backward block
+constexpr int BTH = 128 * BWG;   // its threads
+constexpr int BR = 64 * BWG;     // its own rows, 64 to a warpgroup
+
+// Words of one plane (hi or lo). d-plane: a tile as the B operand of a
+// product over the head dim, [d / 4][row][4], groups 4 words apart beyond
+// (as k_plane). t-plane: a tile transposed, the B operand of a product over
+// its rows, [slot / 4][d / 8][8][4] with 4 words after each core matrix (as
+// v_plane). r-plane: the block's rows as an A operand (as q_plane).
+__host__ __device__ constexpr int bd_plane(int DT) { return DT / 4 * (BT * 4 + 4); }
+__host__ __device__ constexpr int bt_plane(int DT) { return BT / 4 * (DT / 8) * 36; }
+__host__ __device__ constexpr int br_plane(int DT) { return DT / 4 * (BR * 4 + 4); }
+
+// A plane set (hi and lo of each plane) of the dQ kernel: K and V d-planes,
+// the K t-plane; of the dK/dV kernel: Q and dO d-planes and t-planes, the
+// tile's lse and delta. The dQ kernel keeps two sets, the dK/dV kernel one
+// (its own rows take two r-planes, and two sets would not fit).
+__host__ __device__ constexpr int dq_set(int DT) {
+  return 4 * bd_plane(DT) + 2 * bt_plane(DT);
+}
+__host__ __device__ constexpr int dkv_set(int DT) {
+  return 4 * bd_plane(DT) + 4 * bt_plane(DT) + 2 * BT;
+}
+// One raw stage of two tiles, the plane sets, the block's r-planes (dO;
+// k scale and v) and, for dQ, the rows' delta.
+constexpr size_t dq_smem(int DT) {
+  return (size_t)(2 * BT * (DT + 4) + 2 * dq_set(DT) + 2 * br_plane(DT) +
+                  BR) * sizeof(float);
+}
+constexpr size_t dkv_smem(int DT) {
+  return (size_t)(2 * BT * (DT + 4) + dkv_set(DT) + 4 * br_plane(DT)) *
+         sizeof(float);
+}
+
+__device__ __forceinline__ void wgmma_sync() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_begin() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Four columns c .. c + 3 of row r, split, into a d-plane over `ROWS` rows
+// (hi at p, lo at p + plane).
+template <int ROWS>
+__device__ __forceinline__ void put_d(uint32_t* p, int plane, int r, int c,
+                                      float4 x) {
+  uint4 hi, lo;
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+  const int a = (c / 4) * (ROWS * 4 + 4) + r * 4;
+  *reinterpret_cast<uint4*>(p + a) = hi;
+  *reinterpret_cast<uint4*>(p + plane + a) = lo;
+}
+
+// The same into a t-plane: row r of the tile becomes slot v_slot(r).
+template <int DT>
+__device__ __forceinline__ void put_t(uint32_t* p, int plane, int r, int c,
+                                      float4 x) {
+  uint4 hi, lo;
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+  const int s = v_slot(r);
+  // Columns c .. c + 3 lie in one core matrix, rows c % 8 .. + 3.
+  const int a = (s / 4) * (DT / 8) * 36 + (c / 8) * 36 + (c % 8) * 4 + (s & 3);
+  p[a] = hi.x;
+  p[a + 4] = hi.y;
+  p[a + 8] = hi.z;
+  p[a + 12] = hi.w;
+  p[plane + a] = lo.x;
+  p[plane + a + 4] = lo.y;
+  p[plane + a + 8] = lo.z;
+  p[plane + a + 12] = lo.w;
+}
+
+// Raw rows [r0, r0 + BT) of two (batch, head) slices into the raw stage
+// (two tiles of BT x (DT + 4)); rows past n and columns past D are
+// zero-filled. Thread tid copies chunks tid, tid + BTH, ... of each;
+// split_pair() splits the same ones, so the thread's own cp.async wait
+// orders them. One commit group.
+template <int DT>
+__device__ __forceinline__ void load_pair(float* raw, const float* a,
+                                          long long sa, const float* b,
+                                          long long sb, int r0, int n, int D) {
+  constexpr int RLD = DT + 4, C4 = DT / 4;
+#pragma unroll
+  for (int it = 0; it < BT * C4 / BTH; ++it) {
+    const int i = threadIdx.x + it * BTH;
+    const int r = i / C4, c = (i % C4) * 4;
+    const bool ok = r0 + r < n && c < D;
+    cp_async16(raw + r * RLD + c, ok ? a + (r0 + r) * sa + c : a, ok);
+    cp_async16(raw + BT * RLD + r * RLD + c, ok ? b + (r0 + r) * sb + c : b,
+               ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// This thread's raw chunks of the two tiles into their planes: the first
+// into a d-plane and a t-plane, the second into a d-plane and, if bt is
+// not null, a t-plane.
+template <int DT>
+__device__ __forceinline__ void split_pair(const float* raw, uint32_t* ad,
+                                           uint32_t* at_, uint32_t* bd,
+                                           uint32_t* bt) {
+  constexpr int RLD = DT + 4, C4 = DT / 4;
+  constexpr int DP = bd_plane(DT), TP = bt_plane(DT);
+#pragma unroll
+  for (int it = 0; it < BT * C4 / BTH; ++it) {
+    const int i = threadIdx.x + it * BTH;
+    const int r = i / C4, c = (i % C4) * 4;
+    float4 x = *reinterpret_cast<const float4*>(raw + r * RLD + c);
+    put_d<BT>(ad, DP, r, c, x);
+    put_t<DT>(at_, TP, r, c, x);
+    x = *reinterpret_cast<const float4*>(raw + BT * RLD + r * RLD + c);
+    put_d<BT>(bd, DP, r, c, x);
+    if (bt != nullptr) put_t<DT>(bt, TP, r, c, x);
+  }
+}
+
+// Rows [r0, r0 + BR) of x times f into the r-plane xr (hi, lo), zeros past
+// n and D; with z (rows of x's shape), also each row's sum of x z into
+// sums[row].
+template <int DT>
+__device__ __forceinline__ void put_rows(const float* x, long long sx,
+                                         float f, const float* z,
+                                         long long sz, int r0, int n, int D,
+                                         uint32_t* xr, float* sums) {
+  constexpr int C4 = DT / 4;
+#pragma unroll
+  for (int it = 0; it < BR * C4 / BTH; ++it) {
+    const int i = threadIdx.x + it * BTH;
+    const int r = i / C4, c = (i % C4) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (r0 + r < n && c < D) {
+      a = __ldg(reinterpret_cast<const float4*>(x + (r0 + r) * sx + c));
+      if (z != nullptr)
+        b = __ldg(reinterpret_cast<const float4*>(z + (r0 + r) * sz + c));
+    }
+    put_d<BR>(xr, br_plane(DT), r, c,
+              make_float4(a.x * f, a.y * f, a.z * f, a.w * f));
+    if (z != nullptr) {
+      // A row's C4 chunks are C4 neighbouring lanes.
+      float part = a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+#pragma unroll
+      for (int off = C4 / 2; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (c == 0) sums[r] = part;
+    }
+  }
+}
+
+// acc (64 x BT) = rows (r-planes ra, from this warpgroup's first row) .
+// tile^T (d-planes td), one chain of 3xTF32 products over the head dim;
+// issued, not waited for.
+template <int DT>
+__device__ __forceinline__ void rows_by_tile(float (&acc)[BT / 2],
+                                             const uint32_t* ra,
+                                             const uint32_t* td) {
+  constexpr int RP = br_plane(DT), DP = bd_plane(DT);
+#pragma unroll
+  for (int ks = 0; ks < DT / 8; ++ks) {
+    // A k-step is two groups of 4 columns.
+    const uint32_t* a = ra + 2 * ks * (BR * 4 + 4);   // 4 words a row
+    const uint32_t* b = td + 2 * ks * (BT * 4 + 4);
+    const uint64_t ah = wgmma_desc(reinterpret_cast<const float*>(a),
+                                   BR * 16 + 16, 128);
+    const uint64_t al = wgmma_desc(reinterpret_cast<const float*>(a + RP),
+                                   BR * 16 + 16, 128);
+    const uint64_t bh = wgmma_desc(reinterpret_cast<const float*>(b),
+                                   BT * 16 + 16, 128);
+    const uint64_t bl = wgmma_desc(reinterpret_cast<const float*>(b + DP),
+                                   BT * 16 + 16, 128);
+    wgmma_tf32_ss<BT>(acc, al, bh, ks > 0);
+    wgmma_tf32_ss<BT>(acc, ah, bl, 1);
+    wgmma_tf32_ss<BT>(acc, ah, bh, 1);
+  }
+}
+
+// part (64 x DT) = x (64 x BT, the accumulator layout of rows_by_tile) .
+// tile (t-planes tt), a product over the tile's rows from zero; issued
+// (after the fences its register operands need), not waited for.
+template <int DT>
+__device__ __forceinline__ void acc_by_tile(float (&part)[DT / 2],
+                                            const float (&x)[BT / 2],
+                                            const uint32_t* tt) {
+  constexpr int TP = bt_plane(DT);
+  // The accumulator holds columns 2t, 2t + 1 of each 8-column tile; as the
+  // A operand of a k-step its slots t and t + 4 stand for those two, the
+  // order v_slot() gave the t-planes' rows.
+  uint32_t xh[BT / 8][4], xl[BT / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < BT / 8; ++nt) {
+    split_tf32(x[4 * nt], xh[nt][0], xl[nt][0]);
+    split_tf32(x[4 * nt + 2], xh[nt][1], xl[nt][1]);
+    split_tf32(x[4 * nt + 1], xh[nt][2], xl[nt][2]);
+    split_tf32(x[4 * nt + 3], xh[nt][3], xl[nt][3]);
+  }
+  wgmma_operand_fence(part);
+  wgmma_begin();
+#pragma unroll
+  for (int nt = 0; nt < BT / 8; ++nt) {
+    // A k-step is two groups of 4 slots, (DT / 8) * 36 words apart.
+    const float* b = reinterpret_cast<const float*>(tt + 2 * nt * (DT / 8) * 36);
+    const uint64_t bh = wgmma_desc(b, DT / 8 * 144, 144);
+    const uint64_t bl = wgmma_desc(b + TP, DT / 8 * 144, 144);
+    wgmma_tf32<DT>(part, xl[nt], bh, nt > 0);
+    wgmma_tf32<DT>(part, xh[nt], bl, 1);
+    wgmma_tf32<DT>(part, xh[nt], bh, 1);
+  }
+}
+
+// dQ = dS K scale and delta = rowsum(dO O), one block per (batch*head, BR
+// queries), key tiles of BT.
+template <int DT>
+__global__ void __launch_bounds__(BTH)
+flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ o,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse, float* __restrict__ dq,
+                       float* __restrict__ delta, Strides sq, Strides sk,
+                       Strides sv, Strides so, Strides sdo, Strides sdq, int H,
+                       int Lq, int Lk, int D, int row_blocks, float scale) {
+  constexpr int KS = DT / 8;
+  constexpr int DP = bd_plane(DT), TP = bt_plane(DT), SET = dq_set(DT);
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                     // [K, V][BT][DT + 4]
+  uint32_t* sets = reinterpret_cast<uint32_t*>(smem + 2 * BT * (DT + 4));
+  uint32_t* dor = sets + 2 * SET;        // dO of the block's rows
+  float* delta_s = reinterpret_cast<float*>(dor + 2 * br_plane(DT));
+  // Plane set s: K d-plane, V d-plane, K t-plane (hi, lo each).
+  auto kd = [&](int s) { return sets + s * SET; };
+  auto vd = [&](int s) { return sets + s * SET + 2 * DP; };
+  auto kt = [&](int s) { return sets + s * SET + 4 * DP; };
+
+  // Warp w of the block holds rows 16 w .. + 15 of every accumulator of
+  // its warpgroup w / 4.
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / row_blocks;
+  const int b = bh / H, h = bh % H;
+  const int row0 = (blockIdx.x % row_blocks) * BR;
+  const uint32_t* dor_wg = dor + (warp / 4) * 64 * 4;   // its rows' planes
+  const float* kb = at(k, sk, b, h, 0);
+  const float* vb = at(v, sv, b, h, 0);
+  const int ntiles = (Lk + BT - 1) / BT;
+
+  // Tile 0 into plane set 0, tile 1 in flight.
+  load_pair<DT>(raw, kb, sk.l, vb, sv.l, 0, Lk, D);
+  put_rows<DT>(at(dout, sdo, b, h, 0), sdo.l, 1.0f, at(o, so, b, h, 0), so.l,
+               row0, Lq, D, dor, delta_s);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  split_pair<DT>(raw, kd(0), kt(0), vd(0), nullptr);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (ntiles > 1) load_pair<DT>(raw, kb, sk.l, vb, sv.l, BT, Lk, D);
+
+  // q scale, split once: the A fragments of each k-step (a0: row g, column
+  // t; a1: row g + 8; a2, a3: column t + 4).
+  const int wrow0 = row0 + warp * 16;
+  const float* qrow = at(q, sq, b, h, wrow0);
+  uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r & 1), col = 8 * ks + t + 4 * (r >> 1);
+      const float x =
+          wrow0 + row < Lq && col < D ? __ldg(qrow + row * sq.l + col) : 0.f;
+      split_tf32(x * scale, qh[ks][r], ql[ks][r]);
+    }
+  __syncthreads();   // delta_s, dO's planes and plane set 0 complete
+  // This thread's rows g, g + 8 of its warp's 16: lse (+inf past Lq, so P
+  // = 0 there) and delta.
+  float ls[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = warp * 16 + g + 8 * r, row = row0 + i;
+    ls[r] = row < Lq ? lse[(int64_t)bh * Lq + row] : INFINITY;
+    dl[r] = delta_s[i];
+    if (t == 0 && row < Lq) delta[(int64_t)bh * Lq + row] = dl[r];
+  }
+
+  float acc[DT / 2];
+#pragma unroll
+  for (int i = 0; i < DT / 2; ++i) acc[i] = 0.0f;
+  for (int j = 0; j < ntiles; ++j) {
+    // One barrier per tile: past it plane set j & 1 holds tile j and every
+    // warp is done with tile j - 1's set, which the split of tile j + 1 now
+    // overwrites while the tensor cores work on tile j.
+    __syncthreads();
+    const int cur = j & 1;
+    // S = (q scale) K^T and dP = dO V^T, 64 queries x BT keys.
+    float s[BT / 2], dp[BT / 2];
+    wgmma_operand_fence(s);
+    wgmma_operand_fence(dp);
+    wgmma_begin();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t* p = kd(cur) + 2 * ks * (BT * 4 + 4);
+      const uint64_t bh_ = wgmma_desc(reinterpret_cast<const float*>(p),
+                                      BT * 16 + 16, 128);
+      const uint64_t bl_ = wgmma_desc(reinterpret_cast<const float*>(p + DP),
+                                      BT * 16 + 16, 128);
+      wgmma_tf32<BT>(s, ql[ks], bh_, ks > 0);
+      wgmma_tf32<BT>(s, qh[ks], bl_, 1);
+      wgmma_tf32<BT>(s, qh[ks], bh_, 1);
+    }
+    rows_by_tile<DT>(dp, dor_wg, vd(cur));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (j + 1 < ntiles) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");   // own tile j+1
+      split_pair<DT>(raw, kd(cur ^ 1), kt(cur ^ 1), vd(cur ^ 1), nullptr);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (j + 2 < ntiles)
+        load_pair<DT>(raw, kb, sk.l, vb, sv.l, (j + 2) * BT, Lk, D);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_operand_fence(s);
+    wgmma_operand_fence(dp);
+    // dS = P (dP - delta), P = exp(S - lse); keys past Lk get P = 0.
+    // Element 4 nt + 2 r + e: row g + 8 r, key 8 nt + 2 t + e.
+    const int nk = Lk - j * BT;
+#pragma unroll
+    for (int nt = 0; nt < BT / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * nt + 2 * r + e;
+          const float p = 8 * nt + 2 * t + e < nk ? expf(s[x] - ls[r]) : 0.0f;
+          s[x] = p * (dp[x] - dl[r]);
+        }
+    // dQ += dS K over the tile's keys.
+    float part[DT / 2];
+    acc_by_tile<DT>(part, s, kt(cur));
+    wgmma_sync();
+    wgmma_operand_fence(part);
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) acc[i] += part[i];
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow0 + g + 8 * r;
+    if (row >= Lq) continue;
+    float* dst = at(dq, sdq, b, h, row);
+#pragma unroll
+    for (int nd = 0; nd < DT / 8; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      if (col < D)
+        *reinterpret_cast<float2*>(dst + col) =
+            make_float2(acc[4 * nd + 2 * r] * scale,
+                        acc[4 * nd + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// dK = dS^T Q scale and dV = P^T dO, one block per (batch*head, BR keys),
+// query tiles of BT; no atomics. One plane set: the next tile is split
+// after the tensor cores are done with this one (two barriers a tile), its
+// copy in flight meanwhile.
+template <int DT>
+__global__ void __launch_bounds__(BTH)
+flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        Strides sq, Strides sk, Strides sv, Strides sdo,
+                        Strides sdk, Strides sdv, int H, int Lq, int Lk, int D,
+                        int row_blocks, float scale) {
+  constexpr int DP = bd_plane(DT), TP = bt_plane(DT), RP = br_plane(DT);
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                     // [Q, dO][BT][DT + 4]
+  uint32_t* qd = reinterpret_cast<uint32_t*>(smem + 2 * BT * (DT + 4));
+  uint32_t* dod = qd + 2 * DP;           // Q, dO d-planes, t-planes (hi, lo)
+  uint32_t* qt = dod + 2 * DP;
+  uint32_t* dot = qt + 2 * TP;
+  float* stats = reinterpret_cast<float*>(dot + 2 * TP);   // lse, delta
+  uint32_t* kr = reinterpret_cast<uint32_t*>(stats + 2 * BT);   // k scale
+  uint32_t* vr = kr + 2 * RP;            // v
+
+  // Warp w of the block holds rows (keys) 16 w .. + 15 of every
+  // accumulator of its warpgroup w / 4.
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / row_blocks;
+  const int b = bh / H, h = bh % H;
+  const int key0 = (blockIdx.x % row_blocks) * BR;
+  const uint32_t* kr_wg = kr + (warp / 4) * 64 * 4;
+  const uint32_t* vr_wg = vr + (warp / 4) * 64 * 4;
+  const float* qb = at(q, sq, b, h, 0);
+  const float* dob = at(dout, sdo, b, h, 0);
+  const float* lse_b = lse + (int64_t)bh * Lq;
+  const float* delta_b = delta + (int64_t)bh * Lq;
+  const int ntiles = (Lq + BT - 1) / BT;
+
+  // Tile j from the raw stage into the planes, with its lse and delta (a
+  // query past Lq gets lse = +inf, so its probabilities are exactly 0);
+  // then the copy of tile j + 1 into the raw stage.
+  auto next_tile = [&](int j) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");   // own tile j
+    split_pair<DT>(raw, qd, qt, dod, dot);
+    if (tid < BT) {
+      const int qq = j * BT + tid;
+      stats[tid] = qq < Lq ? lse_b[qq] : INFINITY;
+      stats[BT + tid] = qq < Lq ? delta_b[qq] : 0.0f;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (j + 1 < ntiles)
+      load_pair<DT>(raw, qb, sq.l, dob, sdo.l, (j + 1) * BT, Lq, D);
+  };
+  load_pair<DT>(raw, qb, sq.l, dob, sdo.l, 0, Lq, D);
+  put_rows<DT>(at(k, sk, b, h, 0), sk.l, scale, nullptr, 0, key0, Lk, D, kr,
+               nullptr);
+  put_rows<DT>(at(v, sv, b, h, 0), sv.l, 1.0f, nullptr, 0, key0, Lk, D, vr,
+               nullptr);
+  next_tile(0);
+
+  float dka[DT / 2], dva[DT / 2];
+#pragma unroll
+  for (int i = 0; i < DT / 2; ++i) dka[i] = dva[i] = 0.0f;
+  for (int j = 0; j < ntiles; ++j) {
+    if (j > 0) {
+      __syncthreads();   // every warp is done with tile j - 1's planes
+      next_tile(j);
+    }
+    __syncthreads();     // the planes hold tile j
+    // S^T = (k scale) Q^T and dP^T = V dO^T, 64 keys x BT queries.
+    float st[BT / 2], dpt[BT / 2];
+    wgmma_operand_fence(st);
+    wgmma_operand_fence(dpt);
+    wgmma_begin();
+    rows_by_tile<DT>(st, kr_wg, qd);
+    rows_by_tile<DT>(dpt, vr_wg, dod);
+    wgmma_sync();
+    wgmma_operand_fence(st);
+    wgmma_operand_fence(dpt);
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta); element 4 nt + 2 r
+    // + e: key g + 8 r, query 8 nt + 2 t + e. Keys past Lk compute on zero
+    // rows and store nothing.
+#pragma unroll
+    for (int nt = 0; nt < BT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * nt + 2 * t + e;
+        const float ls = stats[col], dl = stats[BT + col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * nt + 2 * r + e;
+          st[x] = expf(st[x] - ls);
+          dpt[x] = st[x] * (dpt[x] - dl);
+        }
+      }
+    // dV += P^T dO, dK += dS^T Q over the tile's queries.
+    float part[DT / 2];
+    acc_by_tile<DT>(part, st, dot);
+    wgmma_sync();
+    wgmma_operand_fence(part);
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) dva[i] += part[i];
+    acc_by_tile<DT>(part, dpt, qt);
+    wgmma_sync();
+    wgmma_operand_fence(part);
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) dka[i] += part[i];
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + warp * 16 + g + 8 * r;
+    if (key >= Lk) continue;
+    float* ddk = at(dk, sdk, b, h, key);
+    float* ddv = at(dv, sdv, b, h, key);
+#pragma unroll
+    for (int nd = 0; nd < DT / 8; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      if (col < D) {
+        *reinterpret_cast<float2*>(ddk + col) =
+            make_float2(dka[4 * nd + 2 * r] * scale,
+                        dka[4 * nd + 2 * r + 1] * scale);
+        *reinterpret_cast<float2*>(ddv + col) =
+            make_float2(dva[4 * nd + 2 * r], dva[4 * nd + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---- backward on the f32 FMA units (compiled width 128) ----
+
 template <int DT>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -579,6 +1098,62 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     store_row<LPR>(at(dk, sdk, b, h, key), seg, D, acc_dk, scale);
     store_row<LPR>(at(dv, sdv, b, h, key), seg, D, acc_dv, 1.0f);
   }
+}
+
+// The backward kernels on (batch, head, row)-strided tensors: on the tensor
+// cores at compiled widths 32 and 64, on the FMA units at 128.
+template <int DT>
+int launch_bwd_dq(const float* q, const float* k, const float* v,
+                  const float* o, const float* dout, const float* lse,
+                  float* dq, float* delta, Strides sq, Strides sk, Strides sv,
+                  Strides so, Strides sdo, Strides sdq, int B, int H, int Lq,
+                  int Lk, int D, float scale, cudaStream_t stream) {
+  const int rows = DT <= 64 ? BR : THREADS / (DT / W);
+  const int rb = (Lq + rows - 1) / rows;
+  const int64_t blocks = (int64_t)B * H * rb;
+  if (blocks >= 2147483647LL) return (int)cudaErrorInvalidValue;
+  if constexpr (DT <= 64) {
+    constexpr size_t smem = dq_smem(DT);
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    flash_bwd_dq_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+        q, k, v, o, dout, lse, dq, delta, sq, sk, sv, so, sdo, sdq, H, Lq, Lk,
+        D, rb, scale);
+  } else {
+    flash_bwd_dq_kernel<DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        q, k, v, o, dout, lse, dq, delta, sq, sk, sv, so, sdo, sdq, H, Lq, Lk,
+        D, rb, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int DT>
+int launch_bwd_dkv(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dk, float* dv, Strides sq, Strides sk, Strides sv,
+                   Strides sdo, Strides sdk, Strides sdv, int B, int H, int Lq,
+                   int Lk, int D, float scale, cudaStream_t stream) {
+  const int rows = DT <= 64 ? BR : THREADS / (DT / W);
+  const int rb = (Lk + rows - 1) / rows;
+  const int64_t blocks = (int64_t)B * H * rb;
+  if (blocks >= 2147483647LL) return (int)cudaErrorInvalidValue;
+  if constexpr (DT <= 64) {
+    constexpr size_t smem = dkv_smem(DT);
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_tc_kernel<DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    flash_bwd_dkv_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, H, Lq,
+        Lk, D, rb, scale);
+  } else {
+    flash_bwd_dkv_kernel<DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, H, Lq,
+        Lk, D, rb, scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace flash

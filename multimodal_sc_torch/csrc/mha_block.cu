@@ -6,54 +6,85 @@
 // Replaces the TPU kernel multimodal_sc_tpu/kernels/mha_block.py
 // (_fwd_impl / _block_kernel). On the TPU one program per batch element
 // held the whole K and V in VMEM and ran lane-masked full-width matmuls per
-// head. Here a block has at most 227 KB of shared memory, and f32 K and V
-// for Lk = 256 alone take 256 KB, so the work is cut in two launches:
-//   1. kv_proj_kernel: LN_kv + the K and V projections, 32 rows per block,
-//      into a scratch buffer the wrapper allocates (B, Lk, 128) x 2;
-//   2. attn_kernel: one block per (batch element, tile of 32 query rows):
-//      LN_q + Q projection into shared memory, then K/V streamed in tiles
-//      of 32 keys with an online softmax (running max and denominator), so
-//      any Lk works (block_eligible allows up to 2048); then the output
-//      projection with the residual and bo fused, written once.
-// Each warp owns one head (or more when d < 32); each lane owns one query
-// row, so a score is a dot product of a row kept in registers with a key
-// read from shared memory by every lane at once (a broadcast). Keys past
-// Lk are never scored (the JAX kernel masks them with -1e30); query rows
-// past Lq are computed on zeros and never stored.
-//
-// Precision mirrors the JAX kernel's _mm: with bf16 on, every matmul
-// operand (LN outputs, weights, q, k, v, probabilities, the attention
-// output) is rounded to bf16 (round to nearest even) and every sum is
-// accumulated in f32; with bf16 off everything is exact f32. One
-// difference in rounding order: the JAX kernel rounds the normalised
-// probabilities, this one the unnormalised ones and divides at the end.
+// head, with bf16 operands and f32 sums (its _mm): the LN outputs, the four
+// weights, q, k, v, the NORMALISED probabilities and the concatenated head
+// outputs are rounded to bf16; the softmax is f32; out = (x_q + acc Wo) +
+// bo in f32.
 //
 // Bound on the card. At the c4 shapes (B = 1024, (Lq, Lk) in {65, 256}^2)
-// a batch element costs ~2 * (Lq + 2 Lk + Lq) * 128^2 + 4 Lq Lk 128 FLOPs
-// against 128 * (2 Lq + Lk) * 4 bytes moved: 130-256 FLOP/byte, far above
-// the f32 CUDA-core break-even (~20) and just below the bf16 tensor-core
-// one (~295), so the least time is set by the bytes, and this first
-// version, on the f32 FMA units (CUDA cores) and not the tensor cores, is
-// bound by its operations: its design keeps operands in registers and
-// shared memory (weights through the read-only cache, float4 shared
-// loads) so the FMA pipe is the limit.
+// a batch element costs ~2 (2 Lq + 2 Lk) 128^2 + 4 Lq Lk 128 FLOPs against
+// 128 (2 Lq + Lk) 4 bytes: 130-256 FLOP/byte, just below the bf16
+// tensor-core break-even (~295), so the bytes set the least time. The
+// kernel keeps every intermediate on chip and runs every product on the
+// tensor cores; what bounds it in practice is the softmax's exponentials
+// (two passes) and the shared-memory traffic that feeds mma.sync.
+//
+// bf16 mode (the mode of every main path): mha_mma_kernel, one launch, one
+// block of 16 warps per batch element (16 for latency hiding: a block's
+// 207 KB of shared memory leaves one block a multiprocessor).
+//   * K and V of the element stay in shared memory, in bf16 (Lk = 256:
+//     2 x 68 KB with padding; every main-path shape). LN_kv runs on 64 rows
+//     at a time into a bf16 tile, and the K and V projections read it as
+//     the left operand of bf16 mma.sync.m16n8k16 (ldmatrix); the weights
+//     are the right operand, rounded to bf16 once per call by a small
+//     kernel (pack_weights_kernel) into the order of the fragments (128 KB
+//     of scratch, read from L2), each warp 16 columns of [Wk | Wv] for all
+//     64 rows. Bias added in f32, k and v rounded once on the way into
+//     shared memory: no other scratch in device memory. LN statistics are
+//     taken in f64 (see ln_rows); the f32 rows of each LayerNorm arrive by
+//     cp.async into a 32 KB tile during the phase before it.
+//   * Then the queries, 64 rows at a time: LN_q into the bf16 tile, the Q
+//     projection (each warp 32 rows x 16 columns), q rounded into a second
+//     tile.
+//   * Attention per (16-row m-tile, head): a warp owns one head and one
+//     m-tile of it (two at 8 heads, four at 16), so K and V fragments
+//     loaded once serve all of them. The softmax keeps the definition's two
+//     passes, as the packed forward does: pass 1 forms S = q K^T (f32 sums
+//     of bf16 products) 16 keys at a time and takes each row's max and sum
+//     in the accumulator layout, joined across the row's four lanes by
+//     shuffles, giving lse; pass 2 forms S again, the normalised P =
+//     exp(S scale - lse) rounded to bf16 straight into the left-operand
+//     registers of P V (V by ldmatrix.trans). The exponentials are taken
+//     in base 2 (ex2.approx of s scale log2(e)). Keys past Lk get P = 0 by
+//     predicate. A warp's head outputs, already normalised, are rounded
+//     into the bf16 tile at their head's columns.
+//   * The output projection reads that tile (each warp 32 rows x 16
+//     columns); the residual x_q and bo are added in f32 and the rows
+//     written once.
+//   * Every tensor-core product starts from zero at each k-step (16 terms)
+//     and joins its sum through the FADD units, which round to nearest: a
+//     chain of sums in the accumulator truncates, and here
+//     a k or v whose bf16 rounding flips moves every output of its batch
+//     element.
+//   * Lk > 256 (block_eligible allows up to 2048; no main-path shape): K
+//     (pass 1) and K and V (pass 2) are projected again 256 keys at a time
+//     for each query tile.
+// Shared rows are 128 + 8 bf16 (272 bytes), so the eight row addresses of
+// an ldmatrix hit eight different bank groups. Head dim 8 is half a k-step:
+// the q fragment's other half is zeroed.
+//
+// f32 mode (mxu_bf16=False: the checks only, no main path): the first
+// design on the f32 FMA units, two launches:
+//   1. kv_proj_kernel: LN_kv + the K and V projections, 32 rows per block,
+//      into a scratch buffer the wrapper allocates (B, Lk, 128) x 2;
+//   2. attn_kernel: one block per (batch element, 32 query rows): LN_q + Q
+//      projection into shared memory, then K/V streamed in tiles of 32 keys
+//      with an online softmax; then the output projection. A warp owns a
+//      head (more when d < 32), a lane a query row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int DM = 128;     // model dim: one 128-wide lane group
-constexpr int RT = 32;      // rows per tile (query rows, kv rows, keys)
 constexpr float kEps = 1e-6f;
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
-}
+constexpr float NEG = -1e30f;   // the first running max
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -61,9 +92,484 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---- bf16 mode, on the tensor cores ----
+
+constexpr int NW = 16;          // warps of a block
+constexpr int NT = NW * 32;
+constexpr int RB = 64;          // rows of an LN / projection tile
+constexpr int KC = 256;         // keys held in shared memory at a time
+constexpr int LD = DM + 8;      // bf16 of a shared row, 16 bytes of padding
+
+using bf16 = __nv_bfloat16;
+
+// 2^x in one MUFU.EX2 (2 ulp; results below 2^-126 flush to zero, which a
+// probability rounded to bf16 and summed with the rest does not miss).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LayerNorm of rows [0, n) of the f32 tile rs (RB x DM) into the RB rows
+// of dst, rounded to bf16; rows past n are zeros. Warp w takes rows w,
+// w + NW, ...
+// Statistics and the normalised value are taken in f64 and rounded to f32
+// once, so each output is the correctly rounded f32 LayerNorm, whose bf16
+// rounding the plain version reproduces (an f32 LayerNorm differs by an
+// ulp with the order of its sums, and one flipped bf16 rounding of x_kv's
+// would move every output of the batch element).
+__device__ __forceinline__ void ln_rows(const float* rs, int n,
+                                        const float* __restrict__ s,
+                                        const float* __restrict__ b,
+                                        bf16* dst) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float4 sc = __ldg(reinterpret_cast<const float4*>(s) + lane);
+  const float4 bi = __ldg(reinterpret_cast<const float4*>(b) + lane);
+#pragma unroll 1
+  for (int i = 0; i < RB / NW; ++i) {
+    const int r = warp + i * NW;
+    uint2 o = make_uint2(0u, 0u);
+    if (r < n) {
+      const float4 v = reinterpret_cast<const float4*>(rs + r * DM)[lane];
+      const double x[4] = {v.x, v.y, v.z, v.w};
+      const double mu = warp_sum_f64(x[0] + x[1] + x[2] + x[3]) / DM;
+      const double d[4] = {x[0] - mu, x[1] - mu, x[2] - mu, x[3] - mu};
+      const double var =
+          warp_sum_f64(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + d[3] * d[3]) /
+          DM;
+      const double rsd = 1.0 / sqrt(var + (double)kEps);
+      o = make_uint2(
+          pack_bf16(__double2float_rn(d[0] * rsd * sc.x + bi.x),
+                    __double2float_rn(d[1] * rsd * sc.y + bi.y)),
+          pack_bf16(__double2float_rn(d[2] * rsd * sc.z + bi.z),
+                    __double2float_rn(d[3] * rsd * sc.w + bi.w)));
+    }
+    *reinterpret_cast<uint2*>(dst + r * LD + 4 * lane) = o;
+  }
+}
+
+// Rows [0, n) of src (row stride DM) into the RB x DM f32 tile rs by
+// asynchronous 16-byte copies, zeros past n; one commit group.
+__device__ __forceinline__ void fetch_rows(const float* __restrict__ src,
+                                           int n, float* rs) {
+  for (int i = threadIdx.x; i < RB * DM / 4; i += NT) {
+    const bool ok = i / (DM / 4) < n;
+    cp_async16(rs + 4 * i, ok ? src + 4 * i : src, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The four weights rounded to bf16 once per call, in the order project()
+// reads them: for matrix w (Wq, Wk, Wv, Wo), k-step ks, 8-column tile nt
+// and lane (g, t) the right-operand pair {b0, b1} = {W[16 ks + 2t, + 1][8 nt
+// + g], W[16 ks + 2t + 8, + 9][8 nt + g]}, 4 x 8 x 16 x 32 of them (128 KB).
+constexpr int FRAGS = 8 * 16 * 32;   // of one matrix
+
+__global__ void __launch_bounds__(256)
+pack_weights_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
+                    const float* __restrict__ wv, const float* __restrict__ wo,
+                    uint2* __restrict__ frag) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 4 * FRAGS) return;
+  const int lane = i & 31, nt = (i >> 5) & 15, ks = (i >> 9) & 7, w = i >> 12;
+  const float* W = w == 0 ? wq : w == 1 ? wk : w == 2 ? wv : wo;
+  const float* p = W + (16 * ks + 2 * (lane & 3)) * DM + 8 * nt + (lane >> 2);
+  frag[i] = make_uint2(pack_bf16(__ldg(p), __ldg(p + DM)),
+                       pack_bf16(__ldg(p + 8 * DM), __ldg(p + 9 * DM)));
+}
+
+// acc[m][j] = xs (RB x DM, bf16) . W[:, n0 + 8 j, + 8) over m-tiles m0 + m
+// < mtiles: this warp's MW x NJ tiles of a projection, W's fragments (from
+// pack_weights_kernel) in registers while the m-tiles pass. Each k-step's
+// products start from zero and join the sum through the FADD units, which
+// round to nearest: a chain of tensor-core sums truncates.
+template <int MW, int NJ>
+__device__ __forceinline__ void project(const bf16* xs, int m0, int mtiles,
+                                        const uint2* __restrict__ W, int n0,
+                                        float (&acc)[MW][NJ][4]) {
+  const int lane = threadIdx.x & 31;
+  const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
+  uint2 wb[8][NJ];
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      wb[ks][j] = __ldg(W + (ks * 16 + n0 / 8 + j) * 32 + lane);
+#pragma unroll
+  for (int m = 0; m < MW; ++m) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
+    if (m0 + m >= mtiles) continue;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, xs + (16 * (m0 + m) + li + 8 * lb) * LD + 16 * ks + 8 * lc);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(part, a, wb[ks][j].x, wb[ks][j].y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] += part[i];
+      }
+    }
+  }
+}
+
+// acc + bias, rounded to bf16, into the rows of m-tiles m0 + m < mtiles of
+// dst at columns n0 + 8 j + 2 t, + 1.
+template <int MW, int NJ>
+__device__ __forceinline__ void store_bf16(const float (&acc)[MW][NJ][4],
+                                           int m0, int mtiles,
+                                           const float* __restrict__ bias,
+                                           int n0, bf16* dst) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+    for (int m = 0; m < MW; ++m) {
+      if (m0 + m >= mtiles) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(dst + (16 * (m0 + m) + g + 8 * h) * LD +
+                                     c) =
+            pack_bf16(acc[m][j][2 * h] + bv.x, acc[m][j][2 * h + 1] + bv.y);
+    }
+  }
+}
+
+// Shared memory of a block whose K and V tiles hold kc keys.
+constexpr size_t mma_smem(int kc) {
+  return (size_t)(2 * kc + 2 * RB) * LD * sizeof(bf16) +
+         (size_t)RB * DM * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
+               const float* __restrict__ lnqs, const float* __restrict__ lnqb,
+               const float* __restrict__ lnks, const float* __restrict__ lnkb,
+               const uint2* __restrict__ frag, const float* __restrict__ bq,
+               const float* __restrict__ bk, const float* __restrict__ bv,
+               const float* __restrict__ bo, float* __restrict__ out, int Lq,
+               int Lk, float scale, int kc) {
+  constexpr int H = DM / D;
+  // A query tile's 4 m-tiles x H heads, ordered head-major, MT to a warp
+  // (one head each); at 2 heads the last 8 warps have none.
+  constexpr int MT = H >= 16 ? 4 : (H == 8 ? 2 : 1);
+  constexpr int ND = D / 8;                 // 8-column tiles of a head
+  constexpr int KD = D < 16 ? 1 : D / 16;   // k-steps over a head
+  const uint2* wq = frag;
+  const uint2* wk = frag + FRAGS;
+  const uint2* wv = frag + 2 * FRAGS;
+  const uint2* wo = frag + 3 * FRAGS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // kc x LD
+  bf16* Vs = Ks + kc * LD;
+  bf16* Xs = Vs + kc * LD;    // RB x LD: LN rows, then the attention output
+  bf16* Qs = Xs + RB * LD;    // RB x LD: q
+  float* Rs = reinterpret_cast<float*>(Qs + RB * LD);   // RB x DM: LN input
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
+  const float* xqb = xq + (int64_t)blockIdx.x * Lq * DM;
+  const float* xkvb = xkv + (int64_t)blockIdx.x * Lk * DM;
+  const bool resident = Lk <= kc;       // K and V projected once
+  const float scale2 = scale * 1.4426950408889634f;   // log2(e)
+  // This warp's head and m-tiles mt0 .. mt0 + MT - 1 of every query tile.
+  const int head = warp * MT / 4, mt0 = (warp * MT) & 3;
+  const bool has_head = head < H;
+  // A 64 x 128 projection: warp w takes m-tiles 2 (w / 8), + 1 and columns
+  // 16 (w % 8) .. + 15.
+  const int pm0 = 2 * (warp >> 3), pn0 = 16 * (warp & 7);
+
+  // The LayerNorm of n rows of src into Xs. Their f32 rows reach Rs by
+  // cp.async: with K and V resident the rows of the next LayerNorm in the
+  // block's order (x_kv's chunks, then x_q's tiles) are fetched as soon as
+  // these are read, under the work between; else they are fetched here.
+  auto layer_norm = [&](const float* src, int n, const float* sc,
+                        const float* bi, const float* next, int next_n) {
+    if (!resident) fetch_rows(src, n, Rs);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // Rs landed; Xs (and Ks, Vs, Qs) fully read
+    ln_rows(Rs, n, sc, bi, Xs);
+    __syncthreads();
+    if (resident && next_n > 0) fetch_rows(next, next_n, Rs);
+  };
+  if (resident) fetch_rows(xkvb, min(RB, Lk), Rs);
+
+  // K (and V) of keys [c0, c0 + min(kc, Lk - c0)) into Ks (and Vs), 64
+  // rows at a time. Every thread of the block calls it.
+  auto stage = [&](int c0, bool with_v) {
+    const int n = min(kc, Lk - c0);
+    for (int r0 = 0; r0 < n; r0 += RB) {
+      const int nr = min(RB, n - r0), mtiles = (nr + 15) / 16;
+      const bool last = r0 + RB >= n;   // then x_q's first tile is next
+      layer_norm(xkvb + (int64_t)(c0 + r0) * DM, nr, lnks, lnkb,
+                 last ? xqb : xkvb + (int64_t)(c0 + r0 + RB) * DM,
+                 last ? min(RB, Lq) : min(RB, n - r0 - RB));
+      if (with_v) {
+        // Warps 0-7: 16 columns of K for all 64 rows; warps 8-15: of V.
+        const bool is_v = warp >= NW / 2;
+        float acc[4][2][4];
+        project<4, 2>(Xs, 0, mtiles, is_v ? wv : wk, pn0, acc);
+        store_bf16<4, 2>(acc, 0, mtiles, is_v ? bv : bk, pn0,
+                         (is_v ? Vs : Ks) + r0 * LD);
+      } else {
+        float acc[2][2][4];
+        project<2, 2>(Xs, pm0, mtiles, wk, pn0, acc);
+        store_bf16<2, 2>(acc, pm0, mtiles, bk, pn0, Ks + r0 * LD);
+      }
+    }
+    __syncthreads();
+  };
+  if (resident) stage(0, true);
+
+  // Column of the head's first k-step in a shared row (at D = 8 a k-step
+  // spans two heads, and the q fragment's other half is zeroed).
+  const int kcol = D < 16 ? (head & ~1) * 8 : head * D;
+  const int vcol = head * D;
+
+  for (int q0 = 0; q0 < Lq; q0 += RB) {
+    const int nq = min(RB, Lq - q0), mtiles = (nq + 15) / 16;
+    layer_norm(xqb + (int64_t)q0 * DM, nq, lnqs, lnqb,
+               xqb + (int64_t)(q0 + RB) * DM, min(RB, Lq - q0 - RB));
+    {
+      float acc[2][2][4];
+      project<2, 2>(Xs, pm0, mtiles, wq, pn0, acc);
+      store_bf16<2, 2>(acc, pm0, mtiles, bq, pn0, Qs);
+    }
+    __syncthreads();   // Qs complete; Xs free
+    const bool busy = has_head && mt0 < mtiles;
+
+    // q of the warp's m-tiles as left operands.
+    uint32_t qa[MT][KD][4];
+    if (busy) {
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          ldsm_x4(qa[j][kd], Qs + (16 * (mt0 + j) + li + 8 * lb) * LD +
+                                 kcol + 16 * kd + 8 * lc);
+          if constexpr (D == 8) {
+            const int z = (head & 1) ? 0 : 2;   // the other head's columns
+            qa[j][kd][z] = qa[j][kd][z + 1] = 0u;
+          }
+        }
+    }
+    // S of the 16 keys from shared row `key`, for each of the warp's
+    // m-tiles: two 8-key tiles, rows (queries) g and g + 8, keys 2t and
+    // 2t + 1 (a chain of D / 16 k-steps; as in the packed forward, its
+    // truncation moves no result measurably).
+    auto scores = [&](int key, float (&s)[MT][2][4]) {
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[j][e >> 2][e & 3] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t f[4];   // K rows as they lie are the right operand
+        ldsm_x4(f, Ks + (key + li + 8 * lc) * LD + kcol + 16 * kd + 8 * lb);
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+          if (mt0 + j >= mtiles) continue;
+          mma_bf16(s[j][0], qa[j][kd], f[0], f[1]);
+          mma_bf16(s[j][1], qa[j][kd], f[2], f[3]);
+        }
+      }
+    };
+    // Pass 1: each row's max m and sum l of 2^(x - m) over all Lk keys, x
+    // = s scale log2(e) (the softmax in base 2: one MUFU.EX2 and a multiply
+    // per exponential), each lane over its own keys, then joined across the
+    // row's four lanes: lse2 = m + log2 l.
+    float ls[MT][2];
+    {
+      float m[MT][2], l[MT][2];
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[j][r] = NEG, l[j][r] = 0.0f;
+      for (int c0 = 0; c0 < Lk; c0 += kc) {
+        if (!resident) stage(c0, false);
+        const int nk = min(kc, Lk - c0);
+        if (!busy) continue;
+#pragma unroll 1
+        for (int ks = 0; ks < nk; ks += 16) {
+          float s[MT][2][4];
+          scores(ks, s);
+#pragma unroll
+          for (int j = 0; j < MT; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float x[4], mx = m[j][r];
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const bool ok = ks + 8 * nt + 2 * t + e < nk;
+                  x[2 * nt + e] = ok ? s[j][nt][2 * r + e] * scale2 : -INFINITY;
+                  mx = fmaxf(mx, x[2 * nt + e]);
+                }
+              float acc = l[j][r] * ex2(m[j][r] - mx);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc += ex2(x[e] - mx);
+              l[j][r] = acc;
+              m[j][r] = mx;
+            }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            const float mo = __shfl_xor_sync(0xffffffffu, m[j][r], off);
+            const float lo = __shfl_xor_sync(0xffffffffu, l[j][r], off);
+            const float mx = fmaxf(m[j][r], mo);
+            l[j][r] = l[j][r] * ex2(m[j][r] - mx) + lo * ex2(mo - mx);
+            m[j][r] = mx;
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) ls[j][r] = m[j][r] + log2f(l[j][r]);
+    }
+
+    // Pass 2: S again, the normalised P = 2^(x - lse2) rounded to
+    // bf16 straight into the left-operand registers of P V (the
+    // accumulator layout of two 8-key tiles is the A layout of one 16-key
+    // k-step); V by ldmatrix.trans, two 8-column tiles per load. Each
+    // 16 keys' P V starts from zero and joins O through the FADD units.
+    float o[MT][ND][4];
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][nd][e] = 0.0f;
+    for (int c0 = 0; c0 < Lk; c0 += kc) {
+      if (!resident) stage(c0, true);
+      const int nk = min(kc, Lk - c0);
+      if (!busy) continue;
+#pragma unroll 1
+      for (int ks = 0; ks < nk; ks += 16) {
+        float s[MT][2][4];
+        scores(ks, s);
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const bool ok0 = ks + 8 * nt + 2 * t < nk;
+            const bool ok1 = ks + 8 * nt + 2 * t + 1 < nk;
+            const float l0 = ls[j][0], l1 = ls[j][1];
+            pa[j][2 * nt] = pack_bf16(
+                ok0 ? ex2(s[j][nt][0] * scale2 - l0) : 0.0f,
+                ok1 ? ex2(s[j][nt][1] * scale2 - l0) : 0.0f);
+            pa[j][2 * nt + 1] = pack_bf16(
+                ok0 ? ex2(s[j][nt][2] * scale2 - l1) : 0.0f,
+                ok1 ? ex2(s[j][nt][3] * scale2 - l1) : 0.0f);
+          }
+#pragma unroll
+        for (int nd = 0; nd < ND; nd += 2) {
+          uint32_t f[4];
+          ldsm_x4_t(f, Vs + (ks + li + 8 * lb) * LD + vcol + 8 * (nd + lc));
+#pragma unroll
+          for (int j = 0; j < MT; ++j) {
+            if (mt0 + j >= mtiles) continue;
+#pragma unroll
+            for (int h = 0; h < 2 && nd + h < ND; ++h) {
+              float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_bf16(part, pa[j], f[2 * h], f[2 * h + 1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) o[j][nd + h][e] += part[e];
+            }
+          }
+        }
+      }
+    }
+    // The head's outputs, rounded, into Xs at its columns (no warp reads
+    // Xs between the Q projection's barrier and the next one).
+    if (busy) {
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        if (mt0 + j >= mtiles) continue;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<uint32_t*>(
+                Xs + (16 * (mt0 + j) + g + 8 * r) * LD + vcol + 8 * nd +
+                2 * t) = pack_bf16(o[j][nd][2 * r], o[j][nd][2 * r + 1]);
+      }
+    }
+    __syncthreads();
+
+    // Output projection, residual and bias in f32, rows written once.
+    float acc[2][2][4];
+    project<2, 2>(Xs, pm0, mtiles, wo, pn0, acc);
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int c = pn0 + 8 * jn + 2 * t;
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(bo + c));
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + 16 * (pm0 + m) + g + 8 * r;
+          if (pm0 + m >= mtiles || row >= Lq) continue;
+          const int64_t at = (int64_t)row * DM + c;
+          const float2 x = __ldg(reinterpret_cast<const float2*>(xqb + at));
+          *reinterpret_cast<float2*>(out + (int64_t)blockIdx.x * Lq * DM +
+                                     at) =
+              make_float2((x.x + acc[m][jn][2 * r]) + bb.x,
+                          (x.y + acc[m][jn][2 * r + 1]) + bb.y);
+        }
+    }
+  }
+}
+
+// frag: 4 * FRAGS uint2 (128 KB) of scratch for the rounded weights.
+template <int D>
+int launch_mma(const float* xq, const float* xkv, const float* lnqs,
+               const float* lnqb, const float* lnks, const float* lnkb,
+               const float* wq, const float* bq, const float* wk,
+               const float* bk, const float* wv, const float* bv,
+               const float* wo, const float* bo, uint2* frag, float* out,
+               int B, int Lq, int Lk, float scale, cudaStream_t stream) {
+  pack_weights_kernel<<<4 * FRAGS / 256, 256, 0, stream>>>(wq, wk, wv, wo,
+                                                           frag);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int kc = Lk < KC ? (Lk + 15) & ~15 : KC;
+  e = cudaFuncSetAttribute(mha_mma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)mma_smem(KC));
+  if (e != cudaSuccess) return (int)e;
+  mha_mma_kernel<D><<<B, NT, mma_smem(kc), stream>>>(
+      xq, xkv, lnqs, lnqb, lnks, lnkb, frag, bq, bk, bv, bo, out, Lq, Lk,
+      scale, kc);
+  return (int)cudaGetLastError();
+}
+
+// ---- f32 mode, on the FMA units ----
+
+constexpr int RT = 32;      // rows per tile (query rows, kv rows, keys)
+
 // LayerNorm of rows [row0, row0 + RT) of src (n_valid of them real) into
 // dst (RT x DM, shared); missing rows read as zeros. One warp per row.
-template <bool BF16>
 __device__ void ln_tile(const float* __restrict__ src, int64_t row0,
                         int n_valid, const float* __restrict__ s,
                         const float* __restrict__ b, float* dst) {
@@ -80,28 +586,24 @@ __device__ void ln_tile(const float* __restrict__ src, int64_t row0,
     const float var =
         warp_sum(dx * dx + dy * dy + dz * dz + dw * dw) * (1.0f / DM);
     const float rs = rsqrtf(var + kEps);
-    float4 o;
-    o.x = rnd<BF16>(dx * rs * sc.x + bi.x);
-    o.y = rnd<BF16>(dy * rs * sc.y + bi.y);
-    o.z = rnd<BF16>(dz * rs * sc.z + bi.z);
-    o.w = rnd<BF16>(dw * rs * sc.w + bi.w);
-    reinterpret_cast<float4*>(dst + r * DM)[lane] = o;
+    reinterpret_cast<float4*>(dst + r * DM)[lane] =
+        make_float4(dx * rs * sc.x + bi.x, dy * rs * sc.y + bi.y,
+                    dz * rs * sc.z + bi.z, dw * rs * sc.w + bi.w);
   }
 }
 
 // acc[r] = sum_i src[r][i] * W[i][c] for the RT rows of a shared tile;
 // W (DM x DM, row-major (in, out)) read through the read-only cache.
-template <bool BF16>
 __device__ __forceinline__ void proj_col(const float* src,
                                          const float* __restrict__ W, int c,
                                          float (&acc)[RT]) {
 #pragma unroll
   for (int r = 0; r < RT; ++r) acc[r] = 0.0f;
   for (int i = 0; i < DM; i += 4) {
-    const float w0 = rnd<BF16>(__ldg(W + (i + 0) * DM + c));
-    const float w1 = rnd<BF16>(__ldg(W + (i + 1) * DM + c));
-    const float w2 = rnd<BF16>(__ldg(W + (i + 2) * DM + c));
-    const float w3 = rnd<BF16>(__ldg(W + (i + 3) * DM + c));
+    const float w0 = __ldg(W + (i + 0) * DM + c);
+    const float w1 = __ldg(W + (i + 1) * DM + c);
+    const float w2 = __ldg(W + (i + 2) * DM + c);
+    const float w3 = __ldg(W + (i + 3) * DM + c);
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
       const float4 x = *reinterpret_cast<const float4*>(src + r * DM + i);
@@ -116,9 +618,7 @@ __device__ __forceinline__ void proj_col(const float* src,
 }
 
 // Launch 1: K = LN_kv(x_kv) Wk + bk, V = LN_kv(x_kv) Wv + bv over the
-// flattened B * Lk rows. K and V are stored already rounded (bf16 mode):
-// they are used only as matmul operands.
-template <bool BF16>
+// flattened B * Lk rows.
 __global__ void __launch_bounds__(128)
 kv_proj_kernel(const float* __restrict__ xkv, const float* __restrict__ lns,
                const float* __restrict__ lnb, const float* __restrict__ wk,
@@ -128,22 +628,20 @@ kv_proj_kernel(const float* __restrict__ xkv, const float* __restrict__ lns,
   __shared__ __align__(16) float xs[RT * DM];
   const int64_t row0 = (int64_t)blockIdx.x * RT;
   const int n_valid = rows - row0 < RT ? (int)(rows - row0) : RT;
-  ln_tile<BF16>(xkv, row0, n_valid, lns, lnb, xs);
+  ln_tile(xkv, row0, n_valid, lns, lnb, xs);
   __syncthreads();
   const int c = threadIdx.x;
   float acc[RT];
-  proj_col<BF16>(xs, wk, c, acc);
+  proj_col(xs, wk, c, acc);
   const float bkc = __ldg(bk + c);
-  for (int r = 0; r < n_valid; ++r)
-    kout[(row0 + r) * DM + c] = rnd<BF16>(acc[r] + bkc);
-  proj_col<BF16>(xs, wv, c, acc);
+  for (int r = 0; r < n_valid; ++r) kout[(row0 + r) * DM + c] = acc[r] + bkc;
+  proj_col(xs, wv, c, acc);
   const float bvc = __ldg(bv + c);
-  for (int r = 0; r < n_valid; ++r)
-    vout[(row0 + r) * DM + c] = rnd<BF16>(acc[r] + bvc);
+  for (int r = 0; r < n_valid; ++r) vout[(row0 + r) * DM + c] = acc[r] + bvc;
 }
 
 // Launch 2: one block (4 warps) per (query tile, batch element).
-template <int D, bool BF16>
+template <int D>
 __global__ void __launch_bounds__(128)
 attn_kernel(const float* __restrict__ xq, const float* __restrict__ lns,
             const float* __restrict__ lnb, const float* __restrict__ wq,
@@ -168,14 +666,14 @@ attn_kernel(const float* __restrict__ xq, const float* __restrict__ lns,
   const float* kb = kbuf + (int64_t)b * Lk * DM;
   const float* vb = vbuf + (int64_t)b * Lk * DM;
 
-  ln_tile<BF16>(xqb, q0, nq, lns, lnb, xs);
+  ln_tile(xqb, q0, nq, lns, lnb, xs);
   __syncthreads();
   {
     float acc[RT];
-    proj_col<BF16>(xs, wq, c, acc);
+    proj_col(xs, wq, c, acc);
     const float bqc = __ldg(bq + c);
 #pragma unroll
-    for (int r = 0; r < RT; ++r) qs[r * DM + c] = rnd<BF16>(acc[r] + bqc);
+    for (int r = 0; r < RT; ++r) qs[r * DM + c] = acc[r] + bqc;
   }
   __syncthreads();
 
@@ -238,35 +736,33 @@ attn_kernel(const float* __restrict__ xq, const float* __restrict__ lns,
       for (int j = 0; j < RT; ++j) {
         const float p = expf(s[j] - m_new);      // 0 for keys past Lk
         l[hh] += p;
-        const float pr = rnd<BF16>(p);
         const float* vr = vs + j * DM + hoff;
 #pragma unroll
         for (int d = 0; d < D; d += 4) {
           const float4 v4 = *reinterpret_cast<const float4*>(vr + d);
-          o[hh][d] = fmaf(pr, v4.x, o[hh][d]);
-          o[hh][d + 1] = fmaf(pr, v4.y, o[hh][d + 1]);
-          o[hh][d + 2] = fmaf(pr, v4.z, o[hh][d + 2]);
-          o[hh][d + 3] = fmaf(pr, v4.w, o[hh][d + 3]);
+          o[hh][d] = fmaf(p, v4.x, o[hh][d]);
+          o[hh][d + 1] = fmaf(p, v4.y, o[hh][d + 1]);
+          o[hh][d + 2] = fmaf(p, v4.z, o[hh][d + 2]);
+          o[hh][d + 3] = fmaf(p, v4.w, o[hh][d + 3]);
         }
       }
       m[hh] = m_new;
     }
   }
 
-  // Attention output (normalised, rounded) into xs, then out-projection.
+  // Attention output (normalised) into xs, then out-projection.
   if (active) {
 #pragma unroll
     for (int hh = 0; hh < HPW; ++hh) {
       const int hoff = (warp * HPW + hh) * D;
       const float inv = 1.0f / l[hh];
 #pragma unroll
-      for (int d = 0; d < D; ++d)
-        xs[lane * DM + hoff + d] = rnd<BF16>(o[hh][d] * inv);
+      for (int d = 0; d < D; ++d) xs[lane * DM + hoff + d] = o[hh][d] * inv;
     }
   }
   __syncthreads();
   float acc[RT];
-  proj_col<BF16>(xs, wo, c, acc);
+  proj_col(xs, wo, c, acc);
   const float boc = __ldg(bo + c);
   float* ob = out + (int64_t)b * Lq * DM;
   for (int r = 0; r < nq; ++r) {
@@ -275,59 +771,48 @@ attn_kernel(const float* __restrict__ xq, const float* __restrict__ lns,
   }
 }
 
-template <int D, bool BF16>
-int launch_attn(const float* xq, const float* lns, const float* lnb,
-                const float* wq, const float* bq, const float* kbuf,
-                const float* vbuf, const float* wo, const float* bo,
-                float* out, int B, int Lq, int Lk, float scale,
-                cudaStream_t stream) {
-  const size_t smem = 4 * RT * DM * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Lq + RT - 1) / RT, B);
-  attn_kernel<D, BF16><<<grid, 128, smem, stream>>>(
-      xq, lns, lnb, wq, bq, kbuf, vbuf, wo, bo, out, Lq, Lk, scale);
-  return (int)cudaGetLastError();
-}
-
-template <bool BF16>
-int launch_all(const float* xq, const float* xkv, const float* lnqs,
+template <int D>
+int launch_f32(const float* xq, const float* xkv, const float* lnqs,
                const float* lnqb, const float* lnks, const float* lnkb,
                const float* wq, const float* bq, const float* wk,
                const float* bk, const float* wv, const float* bv,
                const float* wo, const float* bo, float* kbuf, float* vbuf,
-               float* out, int B, int Lq, int Lk, int heads, float scale,
+               float* out, int B, int Lq, int Lk, float scale,
                cudaStream_t stream) {
+  if (B > 65535) return (int)cudaErrorInvalidValue;
   const int64_t rows = (int64_t)B * Lk;
-  kv_proj_kernel<BF16><<<(unsigned)((rows + RT - 1) / RT), 128, 0, stream>>>(
+  kv_proj_kernel<<<(unsigned)((rows + RT - 1) / RT), 128, 0, stream>>>(
       xkv, lnks, lnkb, wk, bk, wv, bv, kbuf, vbuf, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  switch (DM / heads) {
-    case 8:
-      return launch_attn<8, BF16>(xq, lnqs, lnqb, wq, bq, kbuf, vbuf, wo, bo,
-                                  out, B, Lq, Lk, scale, stream);
-    case 16:
-      return launch_attn<16, BF16>(xq, lnqs, lnqb, wq, bq, kbuf, vbuf, wo,
-                                   bo, out, B, Lq, Lk, scale, stream);
-    case 32:
-      return launch_attn<32, BF16>(xq, lnqs, lnqb, wq, bq, kbuf, vbuf, wo,
-                                   bo, out, B, Lq, Lk, scale, stream);
-    case 64:
-      return launch_attn<64, BF16>(xq, lnqs, lnqb, wq, bq, kbuf, vbuf, wo,
-                                   bo, out, B, Lq, Lk, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const size_t smem = 4 * RT * DM * sizeof(float);
+  e = cudaFuncSetAttribute(attn_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Lq + RT - 1) / RT, B);
+  attn_kernel<D><<<grid, 128, smem, stream>>>(xq, lnqs, lnqb, wq, bq, kbuf,
+                                              vbuf, wo, bo, out, Lq, Lk,
+                                              scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#define DISPATCH_HEAD_DIM(D_, CALL)                 \
+  switch (D_) {                                     \
+    case 8: { constexpr int D = 8; return CALL; }   \
+    case 16: { constexpr int D = 16; return CALL; } \
+    case 32: { constexpr int D = 32; return CALL; } \
+    case 64: { constexpr int D = 64; return CALL; } \
+    default: return (int)cudaErrorInvalidValue;     \
+  }
+
 // x_q (B, Lq, 128), x_kv (B, Lk, 128), weights (128, 128) (in, out),
-// vectors (128,), scratch kbuf / vbuf (B, Lk, 128), out (B, Lq, 128); all
-// f32, contiguous, 16-byte aligned. heads in {2, 4, 8, 16}.
+// vectors (128,), out (B, Lq, 128); all f32, contiguous, 16-byte aligned.
+// heads in {2, 4, 8, 16}. Scratch: in f32 mode kbuf and vbuf, (B, Lk, 128)
+// each; in bf16 mode kbuf, 32768 floats (128 KB) for the rounded weights,
+// and vbuf is not read (may be null).
 extern "C" int mha_block_launch(
     const float* xq, const float* xkv, const float* lnqs, const float* lnqb,
     const float* lnks, const float* lnkb, const float* wq, const float* bq,
@@ -336,11 +821,13 @@ extern "C" int mha_block_launch(
     int B, int Lq, int Lk, int heads, float scale, int bf16,
     cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (bf16)
-    return launch_all<true>(xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk,
-                            wv, bv, wo, bo, kbuf, vbuf, out, B, Lq, Lk, heads,
-                            scale, stream);
-  return launch_all<false>(xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk,
-                           wv, bv, wo, bo, kbuf, vbuf, out, B, Lq, Lk, heads,
-                           scale, stream);
+  if (heads <= 0 || DM % heads) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    DISPATCH_HEAD_DIM(DM / heads, (launch_mma<D>(
+        xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo,
+        reinterpret_cast<uint2*>(kbuf), out, B, Lq, Lk, scale, stream)))
+  }
+  DISPATCH_HEAD_DIM(DM / heads, (launch_f32<D>(
+      xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo, kbuf,
+      vbuf, out, B, Lq, Lk, scale, stream)))
 }

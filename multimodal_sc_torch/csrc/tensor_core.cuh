@@ -1,7 +1,8 @@
 // What the f32-grade (3xTF32) tensor-core kernels share: the split of an
 // f32 value into two TF32 halves, asynchronous 16-byte copies, and Hopper's
 // warpgroup mma (wgmma) on TF32 operands with its shared-memory matrix
-// descriptor. Included by conv_prelu.cu and flash_kernels.cuh.
+// descriptor. Included by conv_prelu.cu, flash_kernels.cuh and
+// mha_block.cu (for cp_async16).
 
 #pragma once
 
@@ -100,8 +101,12 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[BN / 2],
                                               uint64_t a_desc,
                                               uint64_t b_desc,
                                               int accumulate) {
-  static_assert(BN == 16, "tile width");   // the one width in use
-  WGMMA_TF32_SS(16, WG_R8, WG_D8(0), "8", "9", "10");
+  static_assert(BN == 16 || BN == 32, "tile width");
+  if constexpr (BN == 16) {
+    WGMMA_TF32_SS(16, WG_R8, WG_D8(0), "8", "9", "10");
+  } else {
+    WGMMA_TF32_SS(32, WG_R16, WG_D16(0), "16", "17", "18");
+  }
 }
 
 // Keeps the compiler from moving uses of d across the asynchronous mma.

@@ -4,11 +4,12 @@ Counterpart of ``multimodal_sc_tpu/kernels/attention.py``: the plain
 version, the flash kernels (forward, dQ, fused dK/dV; they serve the shapes
 ``attention_packed.packed_eligible`` refuses) and the ``attention``
 dispatch. On a CUDA tensor ``flash_attention`` launches the forward kernel
-of ``csrc/flash_attention.cu`` (f32-grade products on the TF32 tensor
-cores, by the 3xTF32 split) and its autograd backward launches the two
-backward kernels (f32 FMA units) on the saved q, k, v, output and
-logsumexp. On a CPU tensor the plain version runs and autograd
-differentiates it.
+of ``csrc/flash_attention.cu`` and its autograd backward launches the two
+backward kernels (dQ with delta, then dK/dV) on the saved q, k, v, output
+and logsumexp; all three form f32-grade products on the TF32 tensor cores
+by the 3xTF32 split (the backward at head dims above 64 on the f32 FMA
+units). On a CPU tensor the plain version runs and autograd differentiates
+it.
 
 The kernels read q, k, v and dO where they lie, through their (batch, head,
 row) strides, so the transposed views of a (B, L, H, D) projection need no

@@ -9,9 +9,9 @@ when a gradient is wanted, and its autograd backward launches the backward
 kernel on the saved q, k, v, output and logsumexp. In bf16 mode both are
 one kernel each on the tensor cores (bf16 ``mma``, f32 sums); in f32 mode
 the packed layout is handed, as (batch, head, row) strides, to the flash
-kernels of ``csrc/flash_kernels.cuh``: the forward on 3xTF32 tensor cores,
-the dQ and dK/dV kernels on the FMA units. On a CPU tensor the plain
-version runs and autograd differentiates it.
+kernels of ``csrc/flash_kernels.cuh``: the forward, dQ and dK/dV kernels on
+3xTF32 tensor cores. On a CPU tensor the plain version runs and autograd
+differentiates it.
 """
 
 from __future__ import annotations

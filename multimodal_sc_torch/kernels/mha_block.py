@@ -25,13 +25,14 @@ _LANES = 128
 _MAX_LK_PAD = 2048
 _EPS = 1e-6
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
-_KV_TILE = 32       # keys per online-softmax step of the CUDA kernel
+_WEIGHT_SCRATCH = 4 * 128 * 128 // 2   # floats: four bf16 128 x 128 weights
 
 PARAM_KEYS = ("ln_q_scale", "ln_q_bias", "ln_kv_scale", "ln_kv_bias",
               "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 
-# Launches of the CUDA kernel (one per mha_block call on the card; each
-# runs the K/V projection and the attention as two grid launches).
+# Launches of the CUDA kernel (one per mha_block call on the card: one grid
+# in bf16 mode; the f32 mode runs the K/V projection and the attention as
+# two grid launches).
 launches = 0
 
 _SIG = {"mha_block_launch": (ctypes.c_void_p,) * 17 + (
@@ -66,6 +67,20 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + _EPS) * scale + bias
 
 
+def _layer_norm_f64(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm taken in f64 and rounded to f32 once: the correctly rounded
+    f32 result, which the kernel's bf16 mode computes too, so both round
+    the same values to bf16 (an f32 LayerNorm moves by an ulp with the
+    order of its sums, and a flipped bf16 rounding of one x_kv entry moves
+    every output of its batch element)."""
+    x = x.double()
+    mu = x.mean(-1, keepdim=True)
+    d = x - mu
+    rs = 1.0 / torch.sqrt(d.square().mean(-1, keepdim=True) + _EPS)
+    return (d * rs * scale.double() + bias.double()).float()
+
+
 def mha_block_reference(x_q: torch.Tensor, x_kv: torch.Tensor,
                         p: Dict[str, torch.Tensor], heads: int,
                         scale: Optional[float] = None) -> torch.Tensor:
@@ -94,13 +109,15 @@ def mha_block_reference(x_q: torch.Tensor, x_kv: torch.Tensor,
 def mha_block_reference_bf16(x_q: torch.Tensor, x_kv: torch.Tensor,
                              p: Dict[str, torch.Tensor], heads: int,
                              scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of the CUDA kernel's bf16 mode, rounding where it does.
+    """Plain version of the bf16 mode, rounding where the JAX kernel does.
 
-    Every matmul operand (LN outputs, weights, q, k, v, probabilities, the
-    attention output) is rounded to bf16, every sum kept in f32, and the
-    softmax runs online over tiles of ``_KV_TILE`` keys with the
-    unnormalised probabilities rounded, as in ``csrc/mha_block.cu``. The
-    check of the kernel's bf16 mode on the card holds it against this.
+    Every matmul operand (LN outputs, weights, q, k, v, the probabilities,
+    the concatenated head outputs) is rounded to bf16 and every sum kept in
+    f32; the softmax is f32 and NORMALISED before its probabilities are
+    rounded, as ``_block_kernel`` of the JAX package computes it with
+    ``bf16=True``. The LayerNorm is the correctly rounded one
+    (``_layer_norm_f64``), as in the kernel. The check of the kernel's bf16
+    mode on the card holds it against this.
     """
     def r(t):
         return t.bfloat16().float()
@@ -109,8 +126,8 @@ def mha_block_reference_bf16(x_q: torch.Tensor, x_kv: torch.Tensor,
     d = dm // heads
     if scale is None:
         scale = d ** -0.5
-    xq = r(_layer_norm(x_q.float(), p["ln_q_scale"], p["ln_q_bias"]))
-    xkv = r(_layer_norm(x_kv.float(), p["ln_kv_scale"], p["ln_kv_bias"]))
+    xq = r(_layer_norm_f64(x_q, p["ln_q_scale"], p["ln_q_bias"]))
+    xkv = r(_layer_norm_f64(x_kv, p["ln_kv_scale"], p["ln_kv_bias"]))
     q = r(xq @ r(p["wq"]) + p["bq"])
     k = r(xkv @ r(p["wk"]) + p["bk"])
     v = r(xkv @ r(p["wv"]) + p["bv"])
@@ -120,19 +137,9 @@ def mha_block_reference_bf16(x_q: torch.Tensor, x_kv: torch.Tensor,
     def split(x, n):
         return x.reshape(b, n, heads, d).transpose(1, 2)
 
-    qh, kh, vh = split(q, lq), split(k, lk), split(v, lk)
-    m = torch.full((b, heads, lq, 1), float("-inf"), device=q.device)
-    l = torch.zeros_like(m)
-    o = torch.zeros_like(qh)
-    for k0 in range(0, lk, _KV_TILE):
-        s = qh @ kh[:, :, k0:k0 + _KV_TILE].transpose(-1, -2) * scale
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp(m - m_new)
-        pr = torch.exp(s - m_new)
-        l = l * corr + pr.sum(-1, keepdim=True)
-        o = o * corr + r(pr) @ vh[:, :, k0:k0 + _KV_TILE]
-        m = m_new
-    att = r(o * (1.0 / l)).transpose(1, 2).reshape(b, lq, dm)
+    probs = torch.softmax(split(q, lq) @ split(k, lk).transpose(-1, -2)
+                          * scale, dim=-1)
+    att = r((r(probs) @ split(v, lk)).transpose(1, 2).reshape(b, lq, dm))
     return ((x_q.float() + att @ r(p["wo"])) + p["bo"]).to(x_q.dtype)
 
 
@@ -147,8 +154,9 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
     if dm // heads not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"mha_block kernel takes head dims 8-64, got "
                          f"{dm // heads}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    if not bf16 and b > 65535:
+        raise ValueError(f"batch {b} exceeds the f32 kernel's grid limit "
+                         "65535")
     for t in (x_q, x_kv, *flat):
         if t.dtype != torch.float32 or t.device != x_q.device:
             raise TypeError("mha_block kernel takes float32 tensors on one "
@@ -159,13 +167,21 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
     x_q, x_kv = _build.aligned(x_q), _build.aligned(x_kv)
     flat = [_build.aligned(t) for t in flat]
-    kbuf = torch.empty((b, lk, dm), dtype=torch.float32, device=x_q.device)
-    vbuf = torch.empty_like(kbuf)
     out = torch.empty((b, lq, dm), dtype=torch.float32, device=x_q.device)
+    # The bf16 mode keeps K and V on chip and takes 128 KB of scratch for
+    # the four weights rounded to bf16; the f32 mode projects K and V into
+    # scratch first.
+    if bf16:
+        kbuf, vbuf = torch.empty(_WEIGHT_SCRATCH, dtype=torch.float32,
+                                 device=x_q.device), None
+    else:
+        kbuf = torch.empty((b, lk, dm), dtype=torch.float32, device=x_q.device)
+        vbuf = torch.empty_like(kbuf)
     lib = _build.load("mha_block", _SIG)
     err = lib.mha_block_launch(
         _build.ptr(x_q), _build.ptr(x_kv), *(_build.ptr(t) for t in flat),
-        _build.ptr(kbuf), _build.ptr(vbuf), _build.ptr(out),
+        *(None if t is None else _build.ptr(t) for t in (kbuf, vbuf)),
+        _build.ptr(out),
         b, lq, lk, heads, scale, int(bf16), _build.stream_ptr(x_q.device))
     _build.check(err, "mha_block")
     launches += 1

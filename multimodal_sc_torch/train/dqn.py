@@ -15,7 +15,7 @@ and the value is ignored.
 As a script it trains a preset and evaluates the result:
 
     python -m multimodal_sc_torch.train.dqn --config c4 \\
-        [--set train.steps=200 ...] [--eval-envs 64] [--device cuda]
+        [--set train.steps=200 ...] [--eval-envs 256] [--device cuda]
 
 prints the card, then one JSON object: the result of ``run``, the wall time
 and the greedy ``evaluate_dqn`` of the EMA and the online network.
@@ -141,7 +141,7 @@ def main(argv=None) -> int:
                     help="config override, e.g. train.steps=200 (repeatable)")
     ap.add_argument("--num-envs", type=int, default=None)
     ap.add_argument("--metrics-path", default=None)
-    ap.add_argument("--eval-envs", type=int, default=64)
+    ap.add_argument("--eval-envs", type=int, default=256)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = get_preset(args.config).override_str(args.set)
