@@ -30,7 +30,8 @@ codec, batch 64, 64x64 images, 1024 points, 32x32 BEV) in two arms:
 
 Each arm takes a few dozen train steps (the loss must fall) and one loss
 and its gradients through the kernels are held against the same through
-the plain versions.
+the plain versions. The pillar scatter runs on every path: its forward
+kernel in every forward, its backward kernel once per learn or train step.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after, and fails unless every kernel of that path ran the expected
@@ -74,15 +75,23 @@ FUSION_DEPTH = 2            # c4 fusion.depth: each block shape twice a step
 # Per act+learn iteration: the act forward at 1024 envs, then the learner's
 # three forwards (and, for the packed attention, one backward) at batch 128.
 # Arm A: the learner runs the fused blocks through the plain version.
+# The scatter's backward runs once per learn step: only the online forward
+# on the batch carries gradient (the target and double-DQN forwards run
+# under no_grad), and its LiDAR tokens reach the Q-head through the first
+# fusion layer's camera stream.
+SCATTER_BWD_PER_STEP = 1
 EXPECTED_LEARN_A = {"mha_block": 8, "conv_prelu": 5 + 15,
-                    "scatter_max": 1 + 3}
+                    "scatter_max": 1 + 3,
+                    "scatter_max_bwd": SCATTER_BWD_PER_STEP}
 # Arm B: four attentions x depth 2 per forward. The backward runs for six
 # of the eight: the last layer's LiDAR stream (lid2cam, lid_self) feeds
 # nothing after it (the state is read from the camera stream's CLS token),
 # so autograd never reaches those two.
 ATTN_BWD_PER_STEP = 4 * FUSION_DEPTH - 2
 EXPECTED_LEARN_B = {"conv_prelu": 5 + 15,
-                    "scatter_max": 1 + 3, "packed_attention_fwd": 8 + 24,
+                    "scatter_max": 1 + 3,
+                    "scatter_max_bwd": SCATTER_BWD_PER_STEP,
+                    "packed_attention_fwd": 8 + 24,
                     "packed_attention_bwd": ATTN_BWD_PER_STEP}
 ARM_B = ["pallas_mha_block=false", "pallas_attention=true"]
 LEARN_WARMUP_ITERS = 5      # the replay is warm from iteration 3 (n_step 3)
@@ -93,15 +102,18 @@ C4_ATTN_SHAPES = ((65, 256), (256, 65), (65, 65), (256, 256))
 # The c3 late-fusion train step. Per step each arm runs one forward and one
 # backward through 4 encoder + 4 decoder ViT blocks (every attention's
 # inputs depend on parameters, so autograd reaches all eight) and one
-# batched scatter in the LiDAR encoder.
+# batched scatter in the LiDAR encoder, forward and backward (its point
+# features come out of the pillar MLP's parameters).
 C3_ARM_P = ["pallas_attention=true"]
 C3_ARM_F = C3_ARM_P + ["camera.dim=192", "camera.heads=3"]
 C3_ATTN_PER_STEP = 8
 EXPECTED_C3_P = {"packed_attention_fwd": C3_ATTN_PER_STEP,
-                 "packed_attention_bwd": C3_ATTN_PER_STEP, "scatter_max": 1}
+                 "packed_attention_bwd": C3_ATTN_PER_STEP, "scatter_max": 1,
+                 "scatter_max_bwd": 1}
 EXPECTED_C3_F = {"flash_attention_fwd": C3_ATTN_PER_STEP,
                  "flash_attention_bwd_dq": C3_ATTN_PER_STEP,
-                 "flash_attention_bwd_dkv": C3_ATTN_PER_STEP, "scatter_max": 1}
+                 "flash_attention_bwd_dkv": C3_ATTN_PER_STEP, "scatter_max": 1,
+                 "scatter_max_bwd": 1}
 C3_BATCH = 64               # c3 train.batch_size
 C3_WARMUP_STEPS = 3
 C3_TIMED_STEPS = 30
@@ -116,6 +128,7 @@ def _counters():
     return {"mha_block": (mha_block, "launches"),
             "conv_prelu": (conv_block, "launches"),
             "scatter_max": (pillar_scatter, "launches"),
+            "scatter_max_bwd": (pillar_scatter, "launches_bwd"),
             "packed_attention_fwd": (attention_packed, "launches_fwd"),
             "packed_attention_bwd": (attention_packed, "launches_bwd"),
             "flash_attention_fwd": (attention, "launches_fwd"),
@@ -469,53 +482,190 @@ def _c3_pillar_inputs():
     return feats, cell, lid.bev_hw[0] * lid.bev_hw[1]
 
 
-def _scatter_case(what, feats, cell, cells, backward=False):
-    """One shape of scatter_max against its plain version; its row."""
+def _force_ties(feats, cell):
+    """A copy of the inputs with ties: every 8th point copied onto the next
+    (same cell, same features), and every 8th from the 4th onto the next in
+    the first half of its features only."""
+    import torch
+
+    feats, cell = feats.clone(), cell.clone()
+    n, d = feats.shape[1], feats.shape[2]
+    for first, width in ((0, d), (4, d // 2)):
+        if first >= n - 1:
+            continue
+        src = torch.arange(first, n - 1, 8, device=feats.device)
+        cell[:, src + 1] = cell[:, src]
+        feats[:, src + 1, :width] = feats[:, src, :width]
+    return feats, cell
+
+
+def _scatter_widths(cells):
+    """The slice widths the kernels take at this shape, widest first."""
+    from multimodal_sc_torch.kernels import pillar_scatter as ps
+
+    return [w for w in (64, 32, 16, 8, 4) if cells * w * 4 <= ps.SMEM_BYTES]
+
+
+def _scatter_case(what, feats, cell, cells, timed=True):
+    """One shape of the scatter_max forward against its plain version, bit
+    for bit, one launch per call; if timed, its row (and a line of times at
+    each slice width)."""
     import torch
 
     from multimodal_sc_torch.kernels import pillar_scatter as ps
 
     b, n, d = feats.shape
     ref = ps.scatter_max_reference(feats, cell, cells)
+    before = ps.launches
     out = ps.scatter_max(feats, cell, cells)
     torch.cuda.synchronize()
+    if ps.launches != before + 1:
+        raise AssertionError(f"scatter_max: {ps.launches - before} launches "
+                             "for one call")
     err = (out - ref).abs().max().item()
     # Max is exact and order-independent: the kernel must agree bit for bit.
     torch.testing.assert_close(out, ref, atol=0.0, rtol=0.0)
+    width, vec = ps.slice_plan(b, d, cells)
+    valid = int((cell < cells).sum().item())
+    line = (f"  scatter_max ({what}) B={b} N={n} D={d} cells={cells} ({valid} "
+            f"of {b * n} points in range; slice {width}, vec {vec}): err "
+            f"{err:.3e}")
+    if not timed:
+        print(line, flush=True)
+        return None
     ms = _device_ms(lambda: ps.scatter_max(feats, cell, cells), iters=50)
-    plain = _device_ms(lambda: ps.scatter_max_reference(feats, cell, cells), iters=50)
+    plain = _device_ms(lambda: ps.scatter_max_reference(feats, cell, cells),
+                       iters=50)
     buf = torch.full((b, cells + 1, d), float("-inf"), device="cuda")
     idx = cell.long().unsqueeze(-1).expand(b, n, d)
     lib = _device_ms(lambda: torch.scatter_reduce(buf, 1, idx, feats, "amax"),
-              iters=50)
-    valid = int((cell < cells).sum().item())
+                     iters=50)
+    # Cells read once, in-range features read once, the grid written once.
     nbytes = 4 * (b * n + valid * d + b * cells * d)
     bound, by = _bound_ms(valid * d, nbytes, PEAK_F32)
-    line = (f"  scatter_max ({what}) B={b} N={n} D={d} cells={cells} ({valid} "
-            f"of {b * n} points in range): err {err:.3e}; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, scatter_reduce {lib:.4f} ms, bound "
-            f"{bound:.5f} ms ({by})")
-    if backward:
-        # The wrapper's backward recomputes through the plain version.
-        f = feats.clone().requires_grad_(True)
-        y = ps.scatter_max(f, cell, cells)
-        gy = torch.randn_like(y)
-        bwd = _device_ms(lambda: torch.autograd.grad(y, f, gy, retain_graph=True),
-                  iters=20)
-        line += f"; backward (through the plain version) {bwd:.4f} ms"
-    print(line, flush=True)
+    widths = "; ".join(
+        f"{w}: {_device_ms(lambda: ps._scatter_max_cuda(feats, cell, cells, w), iters=50):.4f}"
+        for w in _scatter_widths(cells))
+    print(f"{line}; kernel {ms:.4f} ms, plain {plain:.4f} ms, scatter_reduce "
+          f"{lib:.4f} ms, bound {bound:.5f} ms ({by}); by slice width (ms) "
+          f"{widths}", flush=True)
     return {"per_step": 1, "err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
 
+def _scatter_bwd_case(what, feats, cell, cells, timed=True):
+    """The scatter_max backward kernel, through autograd, against its plain
+    version on inputs with forced ties (atol 0), run twice and compared bit
+    for bit; if timed, its row."""
+    import torch
+
+    from multimodal_sc_torch.kernels import pillar_scatter as ps
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    feats, cell = _force_ties(feats, cell)
+    b, n, d = feats.shape
+    gy = torch.randn(b, cells, d, generator=g, device="cuda")
+    x = feats.clone().requires_grad_(True)
+    out = ps.scatter_max(x, cell, cells)
+    before = ps.launches_bwd
+    (got,) = torch.autograd.grad(out, x, gy)
+    torch.cuda.synchronize()
+    if ps.launches_bwd != before + 1:
+        raise AssertionError(f"scatter_max backward: {ps.launches_bwd - before}"
+                             " launches for one gradient")
+    out = out.detach()
+    want = ps.scatter_max_backward_reference(feats, cell, out, gy, cells)
+    # The same compares and one IEEE division per hit on both sides: bit for
+    # bit (atol 0). Integer counts, no float atomics: two runs agree.
+    torch.testing.assert_close(got, want, atol=0.0, rtol=0.0)
+    again = ps._scatter_max_bwd_cuda(feats, cell, out, gy, cells)
+    if not torch.equal(again, got):
+        raise AssertionError("scatter_max backward: two runs on the same "
+                             "inputs differ")
+    err = (got - want).abs().max().item()
+    # Ties among the maxima: (env, cell, feature) entries whose max is
+    # reached by two points or more.
+    pad = torch.zeros(b, 1, d, device="cuda")
+    idx = cell.long().unsqueeze(-1).expand(b, n, d)
+    hit = (cell < cells).unsqueeze(-1) & (
+        feats == torch.cat([out, pad], 1).gather(1, idx))
+    count = torch.zeros(b, cells + 1, d, device="cuda").scatter_add_(
+        1, idx, hit.float())[:, :cells]
+    ties = int((count > 1).sum().item())
+    line = (f"  scatter_max backward ({what}) B={b} N={n} D={d} cells={cells}"
+            f" ({ties} tied maxima): err {err:.3e}, two runs bit-equal")
+    if not timed:
+        print(line, flush=True)
+        return None
+    ms = _device_ms(lambda: ps._scatter_max_bwd_cuda(feats, cell, out, gy,
+                                                     cells), iters=50)
+    plain = _device_ms(lambda: ps.scatter_max_backward_reference(
+        feats, cell, out, gy, cells), iters=50)
+    xr = feats.clone().requires_grad_(True)
+    yr = ps.scatter_max_reference(xr, cell, cells)
+    autograd = _device_ms(lambda: torch.autograd.grad(yr, xr, gy,
+                                                      retain_graph=True),
+                          iters=20)
+    valid = int((cell < cells).sum().item())
+    touched = int(((count > 0).sum(-1) > 0).sum().item())   # (env, cell)
+    # Cells and in-range features read once, out and g at the cells that
+    # hold points, every point's gradient written once.
+    nbytes = 4 * (b * n + valid * d + 2 * touched * d + b * n * d)
+    bound, by = _bound_ms(valid * d, nbytes, PEAK_F32)
+    widths = "; ".join(
+        f"{w}: {_device_ms(lambda: ps._scatter_max_bwd_cuda(feats, cell, out, gy, cells, w), iters=50):.4f}"
+        for w in _scatter_widths(cells))
+    print(f"{line}; kernel {ms:.4f} ms, plain {plain:.4f} ms, autograd of "
+          f"the plain forward {autograd:.4f} ms, bound {bound:.5f} ms ({by}); "
+          f"by slice width (ms) {widths}", flush=True)
+    return {"per_step": 1, "err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def _scatter_edges():
+    """Edge shapes: an env with no point in range and an env whose points
+    all share one negative cell, N no multiple of a block's 16-point stride;
+    D = 40 (slices 16, 16, 8); D = 30 and D = 7 (no float4 rows); one
+    point."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    feats, cell, cells = _pillar_inputs()
+    feats, cell = feats[:96, :37].clone(), cell[:96, :37].clone()
+    cell[0] = cells
+    cell[1] = 5
+    feats[1] = -feats[1].abs() - 1.0
+    yield "all-trash env, N=37", feats, cell, cells
+    for b, n, d, c in ((128, 64, 40, 256), (64, 100, 30, 1024),
+                       (32, 50, 7, 256), (8, 1, 64, 256)):
+        feats = torch.randn(b, n, d, generator=g, device="cuda")
+        cell = torch.randint(0, c + 1, (b, n), generator=g, device="cuda",
+                             dtype=torch.int32)
+        yield f"D={d}, N={n}", feats, cell, c
+
+
 def check_scatter_max():
-    """The c4 act shape (its row is the kernel's line) and the c3 training
-    shape, whose backward is timed too."""
-    row = _scatter_case("c4", *_pillar_inputs())
-    _scatter_case("c3", *_c3_pillar_inputs(), backward=True)
-    return _entry("scatter_max", "cuda",
-                  "multimodal_sc_torch/csrc/pillar_scatter.cu",
-                  "multimodal_sc_tpu/kernels/pillar_scatter.py:79", [row])
+    """Forward: the c4 act shape (its row is the kernel's line), the c4
+    learn and c3 shapes and the edge shapes. Backward: the c3 shape (its
+    row is the backward's line), the c4 learn shape and the edge shapes."""
+    c4 = _pillar_inputs()
+    learn = (c4[0][:LEARN_BATCH], c4[1][:LEARN_BATCH], c4[2])
+    c3 = _c3_pillar_inputs()
+    row = _scatter_case("c4 act", *c4)
+    _scatter_case("c4 learn", *learn)
+    _scatter_case("c3", *c3)
+    bwd_row = _scatter_bwd_case("c3", *c3)
+    _scatter_bwd_case("c4 learn", *learn)
+    for what, feats, cell, cells in _scatter_edges():
+        _scatter_case(what, feats, cell, cells, timed=False)
+        _scatter_bwd_case(what, feats, cell, cells, timed=False)
+    src = "multimodal_sc_torch/csrc/pillar_scatter.cu"
+    return [_entry("scatter_max", "cuda", src,
+                   "multimodal_sc_tpu/kernels/pillar_scatter.py:79", [row]),
+            # No TPU kernel: XLA differentiates segment_max.
+            _entry("scatter_max_bwd", "cuda", src,
+                   "multimodal_sc_tpu/kernels/pillar_scatter.py:32",
+                   [bwd_row])]
 
 
 def _gate_bf16(name, got, ref_bf16, ref_f32):
@@ -855,7 +1005,7 @@ def check_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return [check_mha_block(), check_conv_prelu(), check_scatter_max(),
+        return [check_mha_block(), check_conv_prelu(), *check_scatter_max(),
                 *check_packed_attention(), *check_flash_attention()]
     finally:
         (torch.backends.cudnn.allow_tf32,
