@@ -7,7 +7,7 @@ Builds every CUDA kernel from ``multimodal_sc_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card at the
 shapes of the paths below, times both (and the one library call that
 computes the same function, where there is one) as device time, then
-drives five paths through the
+drives seven paths through the
 port's entry points at full widths, random weights from seed 0. At 1024
 envs:
 
@@ -30,8 +30,23 @@ codec, batch 64, 64x64 images, 1024 points, 32x32 BEV) in two arms:
 
 Each arm takes a few dozen train steps (the loss must fall) and one loss
 and its gradients through the kernels are held against the same through
-the plain versions. The pillar scatter runs on every path: its forward
-kernel in every forward, its backward kernel once per learn or train step.
+the plain versions. Then:
+
+* c5, the PPO update at the preset (32 envs, T 64, 4 epochs x 4
+  minibatches of 512): the rollout acts through ``mha_block``,
+  ``conv_prelu`` and ``scatter_max``; the loss runs the fused blocks on
+  their plain version, the convs and the scatter (forward and backward) on
+  their kernels. One warm-up and three timed updates, then two minibatches'
+  loss and gradients through the kernels against the plain versions, and
+  against the plain versions in f64 (the plain f32 route's distance from
+  f64 the yardstick);
+* c1, the CNN JSCC train step (batch 64, 32x32): 9 ``conv_prelu`` launches
+  a step, among them the decoder's 32 -> 3 output conv without PReLU. A few
+  dozen steps (the loss must fall), the held-out evaluation, and one loss
+  and its gradients through the kernel against its plain version.
+
+The pillar scatter runs on every path but c1: its forward kernel in every
+forward, its backward kernel once per learn, train or minibatch step.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after, and fails unless every kernel of that path ran the expected
@@ -41,7 +56,8 @@ non-zero, printing no result, when CUDA is absent or any phase fails.
 Imports nothing of JAX.
 
 ``--profile`` adds, after each path, where its time goes: the layers of
-the act iteration and the parts of one learn or train step timed alone, the
+the act iteration and the parts of one learn, train step or PPO update
+timed alone, the
 device's idle share (an unprofiled wall time against the device time a
 CUDA-only ``torch.profiler`` trace sees), and the trace's kernels by
 device time.
@@ -50,8 +66,10 @@ device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -117,6 +135,31 @@ EXPECTED_C3_F = {"flash_attention_fwd": C3_ATTN_PER_STEP,
 C3_BATCH = 64               # c3 train.batch_size
 C3_WARMUP_STEPS = 3
 C3_TIMED_STEPS = 30
+
+# The c5 PPO update at the preset (32 envs, T 64, 4 epochs x 4 minibatches
+# of 512). The rollout and the bootstrap value act T + 1 times through the
+# kernels: 8 fused blocks, 5 encoder convs and one scatter a forward. Each
+# minibatch step runs the loss forward with the fused blocks on their plain
+# version (mha_block: none) and the convs and the scatter on their kernels,
+# and its backward reaches the scatter's backward kernel once (the conv
+# backward recomputes through the plain version).
+C5_T, C5_ENVS, C5_MINIBATCH_STEPS = 64, 32, 4 * 4
+C5_ACT_BATCHES = (C5_ENVS, 64)      # the preset, and the bar's rl.num_envs
+C5_LOSS_BATCH = C5_T * C5_ENVS // 4
+EXPECTED_C5 = {"mha_block": 4 * FUSION_DEPTH * (C5_T + 1),
+               "conv_prelu": 5 * (C5_T + 1) + 5 * C5_MINIBATCH_STEPS,
+               "scatter_max": (C5_T + 1) + C5_MINIBATCH_STEPS,
+               "scatter_max_bwd": C5_MINIBATCH_STEPS}
+C5_WARMUP_UPDATES = 1
+C5_TIMED_UPDATES = 3
+
+# The c1 CNN JSCC train step at batch 64, 32x32: 5 encoder convs and 4
+# decoder convs (block_in, block0, block1, conv_out) on the conv kernel; the
+# decoder's transposed convs are plain, as in the JAX package.
+C1_BATCH = 64
+EXPECTED_C1 = {"conv_prelu": 9}
+C1_WARMUP_STEPS = 3
+C1_TIMED_STEPS = 40
 
 
 def _counters():
@@ -289,15 +332,20 @@ def check_mha_block():
             p[k] = 1.0 + 0.1 * rnd(dim)
         else:
             p[k] = 0.1 * rnd(dim)
-    # (B, Lq, Lk, heads, timed)
-    cases = [(NUM_ENVS, lq, lk, 4, True) for lq, lk in C4_ATTN_SHAPES]
-    cases += [(64, 65, 65, 2, False), (64, 65, 100, 8, False),
-              (64, 17, 70, 16, False), (64, 33, 300, 4, False),
-              (32, 96, 300, 4, False), (16, 100, 2048, 4, False),
-              (8, 1, 1, 4, False)]
+    # (B, Lq, Lk, heads, timed, launches per c4 act step): the c4 act shapes
+    # (the kernel's line), the same shapes at c5's rollout batches (32, the
+    # preset; 64, the bar), then untimed shapes.
+    cases = [(NUM_ENVS, lq, lk, 4, True, FUSION_DEPTH)
+             for lq, lk in C4_ATTN_SHAPES]
+    cases += [(b, lq, lk, 4, True, 0) for b in C5_ACT_BATCHES
+              for lq, lk in C4_ATTN_SHAPES]
+    cases += [(64, 65, 65, 2, False, 0), (64, 65, 100, 8, False, 0),
+              (64, 17, 70, 16, False, 0), (64, 33, 300, 4, False, 0),
+              (32, 96, 300, 4, False, 0), (16, 100, 2048, 4, False, 0),
+              (8, 1, 1, 4, False, 0)]
     rows = []
     worst = 0.0
-    for b, lq, lk, heads, timed in cases:
+    for b, lq, lk, heads, timed, per_step in cases:
         x_q, x_kv = rnd(b, lq, dim), rnd(b, lk, dim)
         ref = mb.mha_block_reference(x_q, x_kv, p, heads)
         ref_bf16 = mb.mha_block_reference_bf16(x_q, x_kv, p, heads)
@@ -350,9 +398,10 @@ def check_mha_block():
         print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, "
               f"bound {bound:.4f} ms ({by})", flush=True)
         # Each (Lq, Lk) pair runs once per fusion layer.
-        rows.append({"per_step": FUSION_DEPTH, "err": err_bf16, "ms": ms,
-                     "plain_ms": plain,
-                     "bound_ms": bound, "bound_by": by, "library_ms": None})
+        if per_step:
+            rows.append({"per_step": per_step, "err": err_bf16, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                         "library_ms": None})
         del x_q, x_kv, ref, ref_bf16, out_f32, out_bf16
     entry = _entry("mha_block", "cuda", "multimodal_sc_torch/csrc/mha_block.cu",
                    "multimodal_sc_tpu/kernels/mha_block.py:149", rows)
@@ -362,8 +411,10 @@ def check_mha_block():
 
 def check_conv_prelu():
     """Kernel vs plain version at the five camera-encoder conv shapes, at
-    the act batch (1024; these rows are the kernel's line) and the learner's
-    batch (128), then at shapes that reach every predicate of the kernel:
+    the act batch (1024; these rows are the kernel's line), the c4
+    learner's batch (128), the c5 loss minibatch (512) and c1's batch (64,
+    with c1's decoder shapes), then at shapes that reach every predicate of
+    the kernel:
     odd maps, Cin that is no multiple of the 32-channel step, Cout that is
     no multiple of 8 (masked columns of the tensor-core path) or of 4 (the
     per-image path)."""
@@ -377,9 +428,20 @@ def check_conv_prelu():
     encoder = ((32, 32, 3, 32, 2, True), (16, 16, 32, 64, 2, True),
                (8, 8, 64, 128, 1, True), (8, 8, 128, 128, 1, True),
                (8, 8, 128, 16, 1, False))
-    # (B, shape, timed, launches per act step)
+    # CameraDecoderCNN at c1 widths: block_in and conv_out (the first
+    # main-path layer without PReLU whose Cout, 3, is no multiple of 4: the
+    # per-image path, a 166 KB padded window); block0 and block1 have the
+    # encoder's last block's shape.
+    decoder = ((8, 8, 16, 128, 1, True), (32, 32, 32, 3, 1, False))
+    # (B, shape, timed, launches per act step): the c4 act batch (the
+    # kernel's line), the c4 learner's, the c5 loss minibatch (512 at the
+    # preset), the c5 rollout's act batch (32 at the preset; the bar's 64 is
+    # c1's batch) and c1's batch, encoder and decoder.
     cases = [(NUM_ENVS, shape, True, 1) for shape in encoder]
-    cases += [(LEARN_BATCH, shape, True, 0) for shape in encoder]
+    cases += [(b, shape, True, 0)
+              for b in (LEARN_BATCH, C5_LOSS_BATCH, C5_ENVS)
+              for shape in encoder]
+    cases += [(C1_BATCH, shape, True, 0) for shape in encoder + decoder]
     cases += [(64, shape, False, 0) for shape in (
         (7, 9, 32, 64, 1, True), (7, 9, 32, 64, 2, True),
         (9, 7, 40, 24, 2, False), (8, 8, 16, 12, 1, True),
@@ -646,16 +708,24 @@ def _scatter_edges():
 
 def check_scatter_max():
     """Forward: the c4 act shape (its row is the kernel's line), the c4
-    learn and c3 shapes and the edge shapes. Backward: the c3 shape (its
-    row is the backward's line), the c4 learn shape and the edge shapes."""
+    learn, c3 and c5 shapes and the edge shapes. Backward: the c3 shape (its
+    row is the backward's line), the c4 learn and c5 loss shapes and the
+    edge shapes."""
     c4 = _pillar_inputs()
-    learn = (c4[0][:LEARN_BATCH], c4[1][:LEARN_BATCH], c4[2])
+
+    def first(b):
+        return c4[0][:b], c4[1][:b], c4[2]
+
     c3 = _c3_pillar_inputs()
     row = _scatter_case("c4 act", *c4)
-    _scatter_case("c4 learn", *learn)
+    _scatter_case("c4 learn", *first(LEARN_BATCH))
     _scatter_case("c3", *c3)
+    # c5 (c4's LiDAR): the rollout batch and the loss minibatch.
+    _scatter_case("c5 act", *first(C5_ACT_BATCHES[0]))
+    _scatter_case("c5 loss", *first(C5_LOSS_BATCH))
     bwd_row = _scatter_bwd_case("c3", *c3)
-    _scatter_bwd_case("c4 learn", *learn)
+    _scatter_bwd_case("c4 learn", *first(LEARN_BATCH))
+    _scatter_bwd_case("c5 loss", *first(C5_LOSS_BATCH))
     for what, feats, cell, cells in _scatter_edges():
         _scatter_case(what, feats, cell, cells, timed=False)
         _scatter_bwd_case(what, feats, cell, cells, timed=False)
@@ -1185,60 +1255,19 @@ def compare_learn_routes(cfg, state):
         return loss.detach(), torch.autograd.grad(loss, params,
                                                   allow_unused=True)
 
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        before = _read_counts()
-        with mock.patch.object(camera_vit, "packed_attention",
-                               functools.partial(
-                                   attention_packed.packed_attention,
-                                   mxu_bf16=False)):
-            loss_k, grads_k = loss_and_grads()
-        ran = {k: v - before[k] for k, v in _read_counts().items()}
-        if (ran["packed_attention_fwd"] != 24
-                or ran["packed_attention_bwd"] != ATTN_BWD_PER_STEP):
-            raise RuntimeError(f"kernel route of the learn step ran {ran}")
-        before = _read_counts()
-        with mock.patch.object(camera_vit, "packed_attention",
-                               attention_packed.packed_attention_reference), \
-                mock.patch.object(conv_block, "conv_prelu",
-                                  conv_block.conv_prelu_reference), \
-                mock.patch.object(lidar_bev, "scatter_max",
-                                  pillar_scatter.scatter_max_reference):
-            loss_p, grads_p = loss_and_grads()
-        if _read_counts() != before:
-            raise RuntimeError("the plain route of the learn step launched a "
-                               "kernel")
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
-    torch.cuda.synchronize()
-    # Exact f32 on both routes (TF32 off), each kernel within 1e-4 of its
-    # plain version, through ~20 layers: loss 1e-5, gradients rtol 1e-3
-    # (atol 1e-5 for the entries near zero).
-    torch.testing.assert_close(loss_k, loss_p, atol=1e-5, rtol=1e-5)
-    worst_abs = worst_rel = 0.0
-    for (pname, _), gk, gp in zip(state.params.named_parameters(), grads_k,
-                                  grads_p):
-        if gk is None or gp is None:
-            if gk is not gp:
-                raise RuntimeError(f"{pname}: a gradient on one route only")
-            continue
-        torch.testing.assert_close(gk, gp, atol=1e-5, rtol=1e-3,
-                                   msg=lambda m: f"{pname}: {m}")
-        diff, top = (gk - gp).abs().max().item(), gp.abs().max().item()
-        worst_abs = max(worst_abs, diff)
-        # A key bias shifts every score of a row alike, so its gradient is
-        # zero but for rounding: tensors that small say nothing relative.
-        if top > 1e-4:
-            worst_rel = max(worst_rel, diff / top)
-    print(f"  learn step, kernels (f32 mode) vs plain versions: loss "
-          f"{loss_k.item():.6f} vs {loss_p.item():.6f}; worst gradient "
-          f"difference {worst_abs:.2e} absolute, {worst_rel:.2e} of its "
-          f"tensor's largest entry (tensors above 1e-4), over {len(params)} "
-          "tensors", flush=True)
+    # The learner's three forwards at batch 128 and one backward.
+    expected = {"conv_prelu": 15, "scatter_max": 3,
+                "scatter_max_bwd": SCATTER_BWD_PER_STEP,
+                "packed_attention_fwd": 24,
+                "packed_attention_bwd": ATTN_BWD_PER_STEP}
+    _compare_grads("learn step", state.params, *_two_routes(
+        loss_and_grads, expected, "the learn step",
+        [(camera_vit, "packed_attention",
+          attention_packed.packed_attention_reference),
+         (conv_block, "conv_prelu", conv_block.conv_prelu_reference),
+         (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)],
+        [(camera_vit, "packed_attention", functools.partial(
+            attention_packed.packed_attention, mxu_bf16=False))]))
 
 
 def drive_c3(name, overrides, expected):
@@ -1346,50 +1375,446 @@ def compare_c3_routes(cfg, state, batches, expected):
                              channel_noise=noise)
         return loss.detach(), torch.autograd.grad(loss, params)
 
+    _compare_grads("train step", model, *_two_routes(
+        loss_and_grads, expected, "the c3 train step",
+        [(camera_vit, "packed_attention",
+          attention_packed.packed_attention_reference),
+         (camera_vit, "attention", _plain_attention),
+         (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)],
+        [(camera_vit, "packed_attention", functools.partial(
+            attention_packed.packed_attention, mxu_bf16=False))]))
+
+
+def drive_c5():
+    """The c5 PPO update at the preset's full widths through
+    ``rl.ppo.make_train_step``: returns the launches of the timed run, the
+    env steps/s, and the config, state and train step it ended with."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.rl import ppo
+
+    cfg = get_preset("c5")
+    r = cfg.rl
+    if (r.rollout_length, r.num_envs,
+            r.ppo_epochs * r.num_minibatches) != (C5_T, C5_ENVS,
+                                                  C5_MINIBATCH_STEPS):
+        raise RuntimeError(f"c5 preset: {r}")
+    t0 = time.perf_counter()
+    state = ppo.init(cfg, seed=0, device="cuda")
+    train_step = ppo.make_train_step(cfg)
+    for _ in range(C5_WARMUP_UPDATES):
+        state, first = train_step(state)
+    torch.cuda.synchronize()
+    print(f"  init + {C5_WARMUP_UPDATES} warm-up update(s): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    online0 = _clone_params(state.params)
+    ema0 = _clone_params(state.ema_params)
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(C5_TIMED_UPDATES):
+        state, metrics = train_step(state)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+
+    rate = C5_TIMED_UPDATES * C5_T * C5_ENVS / wall
+    print(f"  c5 PPO: {C5_TIMED_UPDATES} updates x {C5_T} steps x {C5_ENVS} "
+          f"envs in {wall:.3f} s = {rate:.1f} env steps/s "
+          f"({wall / C5_TIMED_UPDATES:.3f} s an update)", flush=True)
+    print(f"  launches in the timed run: {launches}", flush=True)
+    print(f"  metrics: " + ", ".join(
+        f"{k}={float(v):.4f}" for k, v in metrics.items()), flush=True)
+    _check_counts(launches, EXPECTED_C5, C5_TIMED_UPDATES, "c5")
+    for m in [first] + history:
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise RuntimeError(f"c5: non-finite metrics: {m}")
+    if not 0 < float(metrics["entropy"]) <= math.log(r.num_actions) + 1e-4:
+        raise RuntimeError(f"c5: entropy {float(metrics['entropy'])}")
+    if state.update != C5_WARMUP_UPDATES + C5_TIMED_UPDATES:
+        raise RuntimeError(f"c5: update {state.update}")
+    if _same(state.params, online0):
+        raise RuntimeError("c5: the parameters did not change")
+    if _same(state.ema_params, ema0):
+        raise RuntimeError("c5: the EMA did not move")
+    if any(p.grad is not None for p in state.params.parameters()):
+        raise RuntimeError("c5: gradients left on the network")
+    from multimodal_sc_torch.envs import driving
+
+    with torch.no_grad():
+        img, pts, mask = driving.observe_batch(cfg.env, state.env_states)
+        logits, value = state.params(img, pts, mask, state.generator)
+    if (logits.shape != (C5_ENVS, r.num_actions) or value.shape != (C5_ENVS,)
+            or not (torch.isfinite(logits).all()
+                    and torch.isfinite(value).all())):
+        raise RuntimeError(f"c5: logits {tuple(logits.shape)}, value "
+                           f"{tuple(value.shape)}")
+    print(f"  logits {tuple(logits.shape)} and values {tuple(value.shape)} "
+          f"finite, mean value {value.mean().item():.4f}; episode return "
+          f"{float(first['episode_return']):.2f} -> "
+          f"{float(metrics['episode_return']):.2f}", flush=True)
+    return launches, rate, cfg, state, train_step
+
+
+def _c5_minibatches(cfg, state):
+    """Two loss minibatches as the update makes them: a rollout of the
+    current policy, GAE from the bootstrap value, the first and the second
+    512 transitions."""
+    import torch
+
+    from multimodal_sc_torch.rl import gae, ppo
+
+    r = cfg.rl
+    g = state.generator
+    _, _, _, ro, (img, pts, mask) = ppo._collect_rollout(
+        cfg, state.params, state.env_states, state.ep_return,
+        state.last_return, g)
+    with torch.no_grad():
+        _, _, last_value = ppo.act(cfg, state.params, img, pts, mask, g)
+    adv, ret = gae.gae(ro.reward, ro.value, ro.done, last_value, r.gamma,
+                       r.gae_lambda)
+    flat = {"image": ro.image, "points": ro.points, "mask": ro.mask,
+            "action": ro.action, "logp": ro.logp, "adv": adv, "ret": ret,
+            "snr": ro.snr_db}
+    n = C5_T * C5_ENVS
+    flat = {k: v.reshape(n, *v.shape[2:]) for k, v in flat.items()}
+    return [{k: v[i * C5_LOSS_BATCH:(i + 1) * C5_LOSS_BATCH]
+             for k, v in flat.items()} for i in range(2)]
+
+
+def compare_c5_routes(cfg, state):
+    """One PPO minibatch loss and its gradients on a fixed minibatch and
+    fixed channel noise, three times: as the update runs it (conv and
+    scatter kernels, the fused blocks on their plain version), through
+    every kernel's plain version, and through the plain versions in f64 on
+    an f64 copy of the network, the witness of both f32 routes' rounding.
+    Two minibatches."""
+    import copy
+
+    import torch
+
+    from multimodal_sc_torch.codec import lidar_bev
+    from multimodal_sc_torch.kernels import conv_block, pillar_scatter
+    from multimodal_sc_torch.rl import dqn, ppo
+    from multimodal_sc_torch.rl.perception import ActorCritic
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    hw, lid = cfg.camera.image_hw, cfg.lidar
+    forward = dqn.learner_forward(cfg, ActorCritic)
+    net = state.params
+    net64 = copy.deepcopy(net).double()
+    coef = ppo._entropy_coef(cfg, state.update)
+    plain = [(conv_block, "conv_prelu", conv_block.conv_prelu_reference),
+             (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)]
+    expected = {"conv_prelu": 5, "scatter_max": 1, "scatter_max_bwd": 1}
+
+    def loss_and_grads(model, batch, noise):
+        loss, _ = ppo._ppo_loss(cfg, forward, model, batch, coef,
+                                channel_noise=noise)
+        return loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters()), allow_unused=True)
+
+    for i, batch in enumerate(_c5_minibatches(cfg, state)):
+        noise = tuple(
+            torch.randn(C5_LOSS_BATCH, n, 2, generator=g, device="cuda")
+            for n in ((hw[0] // 4) * (hw[1] // 4) * cfg.camera.c_sym,
+                      lid.bev_hw[0] * lid.bev_hw[1] * lid.c_sym))
+        routes = _two_routes(functools.partial(loss_and_grads, net, batch,
+                                               noise),
+                             expected, "the c5 loss", plain)
+        # The port's modules cast to f32 with .float(); here it keeps f64.
+        before = _read_counts()
+        with _patched(plain), mock.patch.object(
+                torch.Tensor, "float", lambda t: t.double()):
+            loss_d, grads_d = loss_and_grads(
+                net64, {k: v.double() if v.is_floating_point() else v
+                        for k, v in batch.items()},
+                tuple(z.double() for z in noise))
+        torch.cuda.synchronize()
+        if _read_counts() != before:
+            raise RuntimeError("the f64 route of the c5 loss launched a "
+                               "kernel")
+        _hold_to_f64(f"PPO minibatch {i}", net, *routes, loss_d, grads_d)
+        # The value loss makes these gradients 1e3-1e4 times the c4 learn
+        # step's, and a weight's gradient is a sum over 512 x 64 positions
+        # with cancellation: f32 rounding alone puts the plain route up to
+        # 3.1e-3 of a tensor's largest entry from f64, so atol scales with
+        # the tensor. The two f32 routes share most of their rounding.
+        _compare_grads(f"PPO minibatch {i}", net, *routes,
+                       of_tensor_max=1e-3)
+
+
+def _hold_to_f64(what, net, loss_k, grads_k, loss_p, grads_p, loss_d,
+                 grads_d):
+    """Holds the kernels' f32 route (k) to the f64 route, with the plain f32
+    route (p) as the yardstick of f32 rounding: every entry of a k gradient
+    within 1e-5 + 1e-3 |f64| + f * (p's largest difference from f64 on that
+    tensor) of f64, f at most 2. Prints both routes' distance from f64 and
+    the tensors of largest f."""
+    rows = []
+    for (pname, _), gk, gp, gd in zip(net.named_parameters(), grads_k,
+                                      grads_p, grads_d):
+        if gd is None:
+            continue
+        ek = (gk.double() - gd).abs()
+        ep = (gp.double() - gd).abs().max().item()
+        excess = (ek - 1e-5 - 1e-3 * gd.abs()).clamp(min=0).max().item()
+        f = excess / ep if ep > 0 else (math.inf if excess > 0 else 0.0)
+        rows.append((f, ek.max().item(), ep, gd.abs().max().item(), pname))
+    print(f"  {what}, f32 routes against f64: loss k "
+          f"{loss_k.item() - loss_d.item():+.3e}, p "
+          f"{loss_p.item() - loss_d.item():+.3e}; worst gradient difference "
+          f"k {max(r[1] for r in rows):.3e}, p {max(r[2] for r in rows):.3e} "
+          f"absolute, {max(r[2] / r[3] for r in rows if r[3] > 1e-4):.2e} of "
+          f"its tensor's largest entry for p (tensors above 1e-4)",
+          flush=True)
+    shown = sorted(rows, reverse=True)[:6] + [
+        r for r in rows if r[4] == "perception.cam_tok.conv_in.weight"]
+    for f, ek, ep, top, pname in shown:
+        print(f"    {pname}: f {f:.3f}, k {ek:.3e}, p {ep:.3e}, largest "
+              f"entry {top:.3e}", flush=True)
+    if shown[0][0] > 2.0:
+        raise RuntimeError(f"{what}: {shown[0][4]}: the kernels' route lies "
+                           f"{shown[0][0]:.3f} times the plain f32 route's "
+                           "distance from f64 past the gate (at most 2)")
+
+
+def _patched(patches):
+    stack = contextlib.ExitStack()
+    for mod, name, fn in patches:
+        stack.enter_context(mock.patch.object(mod, name, fn))
+    return stack
+
+
+def _two_routes(loss_and_grads, expected, what, plain_patches,
+                kernel_patches=()):
+    """``loss_and_grads()`` through the kernels, with ``kernel_patches``
+    (module, name, function) in place (it must launch as ``expected``),
+    then with ``plain_patches`` (module, name, plain version) in place (it
+    must launch nothing), TF32 off on both."""
+    import torch
+
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         before = _read_counts()
-        with mock.patch.object(camera_vit, "packed_attention",
-                               functools.partial(
-                                   attention_packed.packed_attention,
-                                   mxu_bf16=False)):
+        with _patched(kernel_patches):
             loss_k, grads_k = loss_and_grads()
+        torch.cuda.synchronize()
         ran = {k: v - before[k] for k, v in _read_counts().items()}
-        _check_counts(ran, expected, 1, "kernel route of the c3 train step")
+        _check_counts(ran, expected, 1, f"kernel route of {what}")
         before = _read_counts()
-        with mock.patch.object(camera_vit, "packed_attention",
-                               attention_packed.packed_attention_reference), \
-                mock.patch.object(camera_vit, "attention", _plain_attention), \
-                mock.patch.object(lidar_bev, "scatter_max",
-                                  pillar_scatter.scatter_max_reference):
+        with _patched(plain_patches):
             loss_p, grads_p = loss_and_grads()
+        torch.cuda.synchronize()
         if _read_counts() != before:
-            raise RuntimeError("the plain route of the c3 train step launched "
-                               "a kernel")
+            raise RuntimeError(f"the plain route of {what} launched a kernel")
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
-    torch.cuda.synchronize()
-    # Exact f32 on both routes (TF32 off), each kernel within 1e-4 of its
-    # plain version, through ~30 layers: loss 1e-5, gradients rtol 1e-3
-    # (atol 1e-5 for the entries near zero), as for the c4 learn step.
+    return loss_k, grads_k, loss_p, grads_p
+
+
+def _compare_grads(what, net, loss_k, grads_k, loss_p, grads_p,
+                   of_tensor_max=0.0):
+    """Exact f32 on both routes (TF32 off), each kernel within 1e-4 of its
+    plain version: loss 1e-5, gradients rtol 1e-3 and atol 1e-5 for the
+    entries near zero, plus ``of_tensor_max`` times the tensor's largest
+    entry."""
+    import torch
+
     torch.testing.assert_close(loss_k, loss_p, atol=1e-5, rtol=1e-5)
     worst_abs = worst_rel = 0.0
-    for (pname, _), gk, gp in zip(model.named_parameters(), grads_k, grads_p):
-        torch.testing.assert_close(gk, gp, atol=1e-5, rtol=1e-3,
+    for (pname, _), gk, gp in zip(net.named_parameters(), grads_k, grads_p):
+        if gk is None or gp is None:
+            if gk is not gp:
+                raise RuntimeError(f"{pname}: a gradient on one route only")
+            continue
+        atol = 1e-5 + of_tensor_max * gp.abs().max().item()
+        torch.testing.assert_close(gk, gp, atol=atol, rtol=1e-3,
                                    msg=lambda m: f"{pname}: {m}")
         diff, top = (gk - gp).abs().max().item(), gp.abs().max().item()
         worst_abs = max(worst_abs, diff)
         if top > 1e-4:
             worst_rel = max(worst_rel, diff / top)
-    print(f"  train step, kernels (f32 mode) vs plain versions: loss "
-          f"{loss_k.item():.6f} vs {loss_p.item():.6f}; worst gradient "
-          f"difference {worst_abs:.2e} absolute, {worst_rel:.2e} of its "
-          f"tensor's largest entry (tensors above 1e-4), over {len(params)} "
-          "tensors", flush=True)
+    print(f"  {what}, kernels vs plain versions: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f}; worst gradient difference {worst_abs:.2e} "
+          f"absolute, {worst_rel:.2e} of its tensor's largest entry (tensors "
+          f"above 1e-4), over {len(grads_k)} tensors", flush=True)
+
+
+def drive_c1():
+    """The c1 CNN JSCC train step at the preset's full widths (batch 64,
+    32x32) through ``train.jscc``: returns the launches of the timed run,
+    the train steps/s, and the config, state, train step and batch stream
+    it ended with."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.train import jscc
+
+    cfg = get_preset("c1")
+    tr = cfg.train
+    if tr.batch_size != C1_BATCH:
+        raise RuntimeError(f"c1 batch size {tr.batch_size}")
+    t0 = time.perf_counter()
+    state = jscc.create_train_state(cfg, seed=0, device="cuda")
+    train_step = jscc.make_train_step(cfg)
+    data = ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed,
+                        device="cuda")
+    before = _clone_params(state.params)
+    state, first = train_step(state, next(data))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(C1_WARMUP_STEPS - 1):
+        state, _ = train_step(state, next(data))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    print(f"  {n_params} parameters; init + first step {first_s:.2f} s",
+          flush=True)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(C1_TIMED_STEPS):
+        state, metrics = train_step(state, next(data))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+
+    rate = C1_TIMED_STEPS / wall
+    print(f"  c1 train: {C1_TIMED_STEPS} steps x batch {C1_BATCH} in "
+          f"{wall:.3f} s = {rate:.2f} train steps/s", flush=True)
+    print(f"  launches in the timed run: {launches}", flush=True)
+    _check_counts(launches, EXPECTED_C1, C1_TIMED_STEPS, "c1")
+    for m in [first] + history:
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise RuntimeError(f"c1: non-finite metrics: {m}")
+    if state.step != C1_WARMUP_STEPS + C1_TIMED_STEPS:
+        raise RuntimeError(f"c1: step {state.step}")
+    if _same(state.params, before):
+        raise RuntimeError("c1: the parameters did not change")
+    if not float(metrics["loss"]) < float(first["loss"]):
+        raise RuntimeError(
+            f"c1: loss {float(metrics['loss']):.4f} after {state.step} "
+            f"steps, not below the first step's {float(first['loss']):.4f}")
+    # The held-out evaluation, as ``run`` makes it: one forward of 9 convs.
+    eval_img = next(ImageDataset(tr.dataset, tr.batch_size,
+                                 seed=tr.seed + 999, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(10)
+    counts = _read_counts()
+    eval_psnr = jscc.make_eval_step(cfg)(state.params, eval_img, g)
+    with torch.no_grad():
+        recon = state.params(eval_img)
+    torch.cuda.synchronize()
+    ran = {k: v - counts[k] for k, v in _read_counts().items()}
+    _check_counts(ran, EXPECTED_C1, 2, "c1 eval and reconstruction")
+    if recon.shape != eval_img.shape or not torch.isfinite(recon).all() or \
+            not (0 <= recon.min() and recon.max() <= 1):
+        raise RuntimeError(f"c1: reconstruction {tuple(recon.shape)}")
+    print(f"  loss {float(first['loss']):.4f} -> {float(metrics['loss']):.4f}, "
+          f"PSNR {float(first['psnr']):.2f} -> {float(metrics['psnr']):.2f} dB"
+          f"; held-out PSNR {float(eval_psnr):.2f} dB; reconstruction "
+          f"{tuple(recon.shape)} in [0, 1]", flush=True)
+    return launches, rate, cfg, state, train_step, data
+
+
+def compare_c1_routes(cfg, state, data):
+    """One c1 loss and its gradients on a fixed batch and fixed channel
+    noise, twice: through the conv kernel and through its plain version."""
+    import torch
+
+    from multimodal_sc_torch.kernels import conv_block
+    from multimodal_sc_torch.train import jscc
+
+    img = next(data)
+    model = state.params
+    g = torch.Generator(device="cuda").manual_seed(11)
+    noise = torch.randn(C1_BATCH, model.k, 2, generator=g, device="cuda")
+    snr = torch.full((C1_BATCH,), cfg.channel.snr_db, device="cuda")
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        recon, _ = jscc.reconstruct(cfg, model, img, snr, noise=noise)
+        loss = (recon - img).square().mean()
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _compare_grads("c1 train step", model, *_two_routes(
+        loss_and_grads, EXPECTED_C1, "the c1 train step",
+        [(conv_block, "conv_prelu", conv_block.conv_prelu_reference)]))
+
+
+def profile_c5(cfg, state, train_step):
+    """Where the time of one c5 update goes: the rollout, the bootstrap
+    value and the minibatch epochs timed alone, then the device's busy
+    share of whole updates."""
+    import torch
+
+    from multimodal_sc_torch.rl import dqn, ppo
+    from multimodal_sc_torch.rl.perception import ActorCritic
+
+    holder = [state]
+
+    def step_all():
+        holder[0], _ = train_step(holder[0])
+
+    g = state.generator
+    forward = dqn.learner_forward(cfg, ActorCritic)
+
+    def rollout():
+        return ppo._collect_rollout(cfg, holder[0].params,
+                                    holder[0].env_states, holder[0].ep_return,
+                                    holder[0].last_return, g)
+
+    _, _, _, ro, (img, pts, mask) = rollout()
+    with torch.no_grad():
+        _, _, last_value = ppo.act(cfg, state.params, img, pts, mask, g)
+
+    def one_act():
+        with torch.no_grad():
+            return ppo.act(cfg, holder[0].params, img, pts, mask, g)
+
+    batch = _c5_minibatches(cfg, state)[0]
+
+    def minibatch_loss():
+        return ppo._ppo_loss(cfg, forward, holder[0].params, batch, 0.01,
+                             g)[0]
+
+    params = list(state.params.parameters())
+    parts = {
+        "update": _ms(step_all, iters=2, warmup=1),
+        "rollout (64 steps)": _ms(rollout, iters=2, warmup=1),
+        "one act forward": _ms(one_act),
+        "epochs (16 minibatch steps)": _ms(
+            lambda: ppo._update(cfg, holder[0], ro, last_value, forward),
+            iters=2, warmup=1),
+        "minibatch loss": _ms(minibatch_loss),
+        "minibatch loss_and_backward": _ms(lambda: torch.autograd.grad(
+            minibatch_loss(), params, allow_unused=True)),
+    }
+    print("  ms per call, each part timed alone (CUDA events):", flush=True)
+    for k, v in parts.items():
+        print(f"    {k:34s} {v:9.3f}", flush=True)
+    _idle_share(step_all, parts["update"], n=2)
+
+
+def profile_c1(cfg, state, train_step, data):
+    """The device's busy share of whole c1 train steps (batch included)."""
+    holder = [state]
+
+    def step_all():
+        holder[0], _ = train_step(holder[0], next(data))
+
+    wall = _ms(step_all, warmup=1)
+    print(f"  train step incl. batch: {wall:.3f} ms", flush=True)
+    _idle_share(step_all, wall)
 
 
 def profile_c3(cfg, state, train_step, batches):
@@ -1658,6 +2083,26 @@ def main() -> int:
             profile_c3(cfg, state, train_step, batches)
         del state, train_step, batches
         torch.cuda.empty_cache()
+    print("main path (c5 PPO update):", flush=True)
+    launches, c5_rate, cfg, state, train_step = drive_c5()
+    for k, v in launches.items():
+        totals[k] += v
+    compare_c5_routes(cfg, state)
+    if args.profile:
+        print("profile (c5 PPO update):", flush=True)
+        profile_c5(cfg, state, train_step)
+    del state, train_step
+    torch.cuda.empty_cache()
+    print("main path (c1 CNN JSCC train):", flush=True)
+    launches, c1_rate, cfg, state, train_step, data = drive_c1()
+    for k, v in launches.items():
+        totals[k] += v
+    compare_c1_routes(cfg, state, data)
+    if args.profile:
+        print("profile (c1 CNN JSCC train):", flush=True)
+        profile_c1(cfg, state, train_step, data)
+    del state, train_step, data
+    torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
@@ -1666,6 +2111,8 @@ def main() -> int:
         f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
     print(f"c3 train steps/s at batch {C3_BATCH} on {card}: " + "; ".join(
         f"{k} {v:.2f}" for k, v in c3_rates.items()), flush=True)
+    print(f"c5 env steps/s at {C5_ENVS} envs on {card}: {c5_rate:.1f}; c1 "
+          f"train steps/s at batch {C1_BATCH}: {c1_rate:.2f}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,18 @@ with array fields), so this module needs no JAX. Layout conversions:
   ``(heads, hd, dim)``, flattened head-major to ``nn.Linear`` ``(out, in)``
   and a flat bias;
 * flax ``Conv`` kernel HWIO -> ``F.conv2d`` weight OIHW;
+* flax ``ConvTranspose`` kernel HWIO (applied unflipped) -> the
+  ``F.conv_transpose2d`` weight of ``camera_cnn.ConvTransposeSame``, IOHW
+  with the window flipped;
 * a ``kernel`` the port keeps under the same name (the hand conv's HWIO
   filter bank) is copied unchanged, as are the packed MHA weights and bare
   parameters such as a ViT's ``pos`` table;
 * LayerNorm ``scale`` -> ``weight``.
 
-The trees carried so far: the c4 ``QNetwork`` and the c3 ``LateFusionJSCC``
-(``camera.encoder.*``, ``camera.decoder.*``, ``lidar.*``), each with its
-Adam moments.
+The trees carried so far: the c4 ``QNetwork``, the c5 ``ActorCritic``, the
+c3 ``LateFusionJSCC`` (``camera.encoder.*``, ``camera.decoder.*``,
+``lidar.*``) and the c1 ``CameraJSCC`` (``encoder.*``, ``decoder.*``), each
+with its Adam moments.
 """
 
 from __future__ import annotations
@@ -63,7 +67,10 @@ def to_state_dict(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Te
                 split_out = flat[f"{mod}.bias"].ndim == 2
                 a = (a.reshape(a.shape[0], -1) if split_out
                      else a.reshape(-1, a.shape[2]))
-            a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+            if isinstance(module.get_submodule(mod), nn.ConvTranspose2d):
+                a = np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
+            else:
+                a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
         elif leaf == "bias" and a.ndim == 2 and path in target:
             a = a.reshape(-1)
         elif leaf == "scale":

@@ -1,12 +1,13 @@
-"""Camera CNN-JSCC encoder and token decoder (the RL trunk's half).
+"""Camera CNN-JSCC encoder and decoders.
 
 Counterpart of ``multimodal_sc_tpu/codec/camera_cnn.py``: ``PReLU``,
-``SNRFiLM``, ``CameraEncoderCNN`` and ``CameraTokensCNN``. Activations are
-NHWC as in the JAX package. The encoder's convs are ``FusedConvPReLU``
-(the CUDA kernel on the card); the token decoder's ``conv_in`` is a plain
-convolution in the JAX package too, so it stays ``F.conv2d``. The JSCC
-reconstruction decoder (``CameraDecoderCNN``, ``CameraJSCC``,
-``RateFiLM``) waits for the c1/c2 slice (ROADMAP item 12).
+``SNRFiLM``, ``CameraEncoderCNN``, ``CameraDecoderCNN``, ``CameraTokensCNN``
+and ``CameraJSCC``. Activations are NHWC as in the JAX package. The stride-1
+convs are ``FusedConvPReLU`` (the CUDA kernel on the card); the token
+decoder's ``conv_in``, the decoder's upsampling transposed convs and its
+segmentation head are plain convolutions in the JAX package too (XLA), so
+they stay ``F.conv2d`` / ``F.conv_transpose2d``. ``RateFiLM`` (the
+adaptive-rate codec) waits for ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_sc_torch.kernels.conv_block import FusedConvPReLU
+from multimodal_sc_torch.nn_init import init_like_flax_
 
 
 class PReLU(nn.Module):
@@ -102,3 +104,130 @@ class CameraTokensCNN(nn.Module):
         if self.snr_film is not None:
             x = self.snr_film(x, snr_db)
         return x.reshape(b, h * w, self.dim)
+
+
+class ConvTransposeSame(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(features, (k, k), strides=(s, s),
+    padding="SAME")`` on NHWC activations.
+
+    Flax correlates the stride-dilated input with the kernel as it stands
+    (``transpose_kernel=False``) after padding it ``lax``'s way, which is
+    asymmetric: (3, 2) at k = 5, s = 2. ``F.conv_transpose2d`` pads both
+    sides alike and flips the kernel, so the weight holds flax's kernel
+    flipped and in torch's (in, out, kh, kw) layout (``bridge`` converts),
+    the padding is the larger side's, and the output loses the extra rows
+    and columns at the end."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, stride: int):
+        super().__init__(in_channels, out_channels, kernel_size, stride)
+        k, s = kernel_size, stride
+        # lax._conv_transpose_padding for "SAME".
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+        pad_b = pad_len - pad_a
+        if pad_a < pad_b:
+            raise NotImplementedError(f"kernel {k}, stride {s}: flax pads "
+                                      "more after than before")
+        self.torch_pad, self.crop = k - 1 - pad_a, pad_a - pad_b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                               self.stride, self.torch_pad)
+        h, w = y.shape[2] - self.crop, y.shape[3] - self.crop
+        return y[:, :, :h, :w].permute(0, 2, 3, 1)
+
+
+class CameraDecoderCNN(nn.Module):
+    """Channel symbols (B, k, 2) -> reconstructed image (B, H, W, 3) in
+    [0, 1]: a conv in, two stride-1 conv blocks, two stride-2 transposed
+    convs with PReLU, a conv out and a sigmoid; with ``seg_classes`` also a
+    3x3 segmentation head on the last features."""
+
+    def __init__(self, features: Sequence[int] = (128, 128, 64, 32),
+                 c_sym: int = 8, image_hw: Tuple[int, int] = (32, 32),
+                 out_channels: int = 3, seg_classes: int = 0,
+                 snr_conditioning: bool = False):
+        super().__init__()
+        self.c_sym = c_sym
+        self.hw = (image_hw[0] // 4, image_hw[1] // 4)
+        self.block_in = FusedConvPReLU(2 * c_sym, features[0], 5)
+        self.snr_film = SNRFiLM(features[0]) if snr_conditioning else None
+        self.strides = (1, 1, 2, 2)
+        cin = features[0]
+        for i, (f, s) in enumerate(zip(features, self.strides)):
+            if s == 1:
+                setattr(self, f"block{i}", FusedConvPReLU(cin, f, 5))
+            else:
+                setattr(self, f"deconv{i}", ConvTransposeSame(cin, f, 5, s))
+                setattr(self, f"prelu{i}", PReLU(f))
+            cin = f
+        self.conv_out = FusedConvPReLU(cin, out_channels, 5, with_prelu=False)
+        # 3x3 stride-1 SAME: symmetric padding 1.
+        self.seg_head = (nn.Conv2d(cin, seg_classes, 3, padding=1)
+                         if seg_classes > 0 else None)
+
+    def forward(self, z_hat: torch.Tensor,
+                snr_db: Optional[torch.Tensor] = None):
+        b = z_hat.shape[0]
+        h, w = self.hw
+        x = self.block_in(z_hat.reshape(b, h, w, 2 * self.c_sym).float())
+        if self.snr_film is not None:
+            x = self.snr_film(x, snr_db)
+        for i, s in enumerate(self.strides):
+            if s == 1:
+                x = getattr(self, f"block{i}")(x)
+            else:
+                x = getattr(self, f"prelu{i}")(getattr(self, f"deconv{i}")(x))
+        recon = torch.sigmoid(self.conv_out(x))
+        if self.seg_head is None:
+            return recon
+        seg = self.seg_head(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return recon, seg
+
+
+class CameraJSCC(nn.Module):
+    """Encoder and decoder under one parameter tree (configs 1-2). Fresh
+    weights are drawn as flax's."""
+
+    def __init__(self, features: Sequence[int] = (32, 64, 128, 128),
+                 c_sym: int = 8, image_hw: Tuple[int, int] = (32, 32),
+                 out_channels: int = 3, seg_classes: int = 0,
+                 snr_conditioning: bool = False, adaptive_rate: bool = False):
+        super().__init__()
+        if adaptive_rate:
+            raise NotImplementedError(
+                "the adaptive-rate codec (RateFiLM, rate masks) is not ported "
+                "yet (ROADMAP item 12)")
+        self.c_sym, self.image_hw = c_sym, tuple(image_hw)
+        self.seg_classes = seg_classes
+        self.snr_conditioning = snr_conditioning
+        self.encoder = CameraEncoderCNN(features, c_sym,
+                                        snr_conditioning=snr_conditioning)
+        self.decoder = CameraDecoderCNN(tuple(reversed(features)), c_sym,
+                                        image_hw, out_channels, seg_classes,
+                                        snr_conditioning)
+        init_like_flax_(self)
+
+    @property
+    def k(self) -> int:
+        """Complex channel symbols per image."""
+        h, w = self.image_hw
+        return (h // 4) * (w // 4) * self.c_sym
+
+    def _snr(self, snr_db):
+        return snr_db if self.snr_conditioning else None
+
+    def encode(self, img: torch.Tensor,
+               snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.encoder(img, self._snr(snr_db))
+
+    def decode(self, z_hat: torch.Tensor,
+               snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = self.decoder(z_hat, self._snr(snr_db))
+        return out[0] if self.seg_classes > 0 else out
+
+    def forward(self, img: torch.Tensor,
+                snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Encode, then decode through an ideal channel."""
+        return self.decode(self.encode(img, snr_db), snr_db)

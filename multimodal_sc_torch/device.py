@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -18,3 +20,21 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queue (a no-op on the CPU): PyTorch returns
+    before the card has finished, so host clocks read after this."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def card_name(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, or
+    ``"cpu"``."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]

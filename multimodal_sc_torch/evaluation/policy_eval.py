@@ -1,9 +1,9 @@
 """Policy evaluation: mean episode return over N on-device episodes.
 
-Counterpart of ``multimodal_sc_tpu/evaluation/policy_eval.py`` for DQN:
-fixed seed, greedy (or eps-greedy) policy, every env run for
-``env.max_steps`` steps with the reward counted up to its FIRST done. The
-PPO evaluator comes with the c5 slice (ROADMAP item 11).
+Counterpart of ``multimodal_sc_tpu/evaluation/policy_eval.py``: fixed
+seed, a DQN (greedy or eps-greedy) or PPO (greedy or sampled) policy, every
+env run for ``env.max_steps`` steps with the reward counted up to its FIRST
+done.
 """
 
 from __future__ import annotations
@@ -56,6 +56,29 @@ def evaluate_dqn(cfg: ExperimentConfig, net, seed: int = 0,
     def act_fn(img, pts, mask, g):
         return dqn_lib.act(cfg, net, img, pts, mask, g, epsilon=epsilon,
                            v2x_offset_db=cfg.channel.v2x_snr_offset_db)
+
+    return _rollout_returns(cfg, act_fn, seed, num_envs,
+                            next(net.parameters()).device)
+
+
+def evaluate_ppo(cfg: ExperimentConfig, net, seed: int = 0,
+                 num_envs: int = 32, greedy: bool = True,
+                 temperature: float = 1.0) -> Dict[str, float]:
+    """PPO policy eval of ``net`` (an ``ActorCritic``): argmax of the
+    logits, or a draw from them scaled by 1 / ``temperature`` (T = 1 is the
+    trained policy, T -> 0 approaches argmax). Episodes run to
+    ``cfg.env.max_steps``, on the device that holds the network's
+    weights."""
+    from multimodal_sc_torch.rl import ppo as ppo_lib
+
+    inv_t = 1.0 / max(temperature, 1e-6)
+
+    def act_fn(img, pts, mask, g):
+        logits, _ = net(img, pts, mask, g,
+                        v2x_offset_db=cfg.channel.v2x_snr_offset_db)
+        if greedy:
+            return logits.argmax(dim=-1).to(torch.int32)
+        return ppo_lib.sample_action(logits * inv_t, g)
 
     return _rollout_returns(cfg, act_fn, seed, num_envs,
                             next(net.parameters()).device)

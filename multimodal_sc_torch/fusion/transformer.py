@@ -9,7 +9,6 @@ kernel under ``use_pallas``) in ``cross_attention`` mode, and
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -19,6 +18,7 @@ from torch import nn
 from multimodal_sc_torch.codec.camera_vit import MHA
 from multimodal_sc_torch.kernels.mha_block import (kernel_eligible, mha_block,
                                                    mha_block_reference)
+from multimodal_sc_torch.nn_init import lecun_normal_
 
 _LN_EPS = 1e-6      # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -46,7 +46,7 @@ class FusedMHABlock(nn.Module):
             self.ln_kv_bias = nn.Parameter(torch.zeros(dim))
         for name in ("q", "k", "v", "o"):
             setattr(self, f"w{name}", nn.Parameter(
-                torch.randn(dim, dim) / math.sqrt(dim)))
+                lecun_normal_(torch.empty(dim, dim), dim)))
             setattr(self, f"b{name}", nn.Parameter(torch.zeros(dim)))
 
     def packed_params(self):

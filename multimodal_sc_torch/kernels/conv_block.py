@@ -18,7 +18,6 @@ the FMA units.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
@@ -26,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_sc_torch.kernels import _build
+from multimodal_sc_torch.nn_init import lecun_normal_
 
 # Launches of the CUDA kernel (one per conv_prelu call on the card).
 launches = 0
@@ -139,17 +139,16 @@ def conv_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 class FusedConvPReLU(nn.Module):
     """Owns conv (HWIO ``kernel``) + bias + PReLU ``alpha`` params.
 
-    Parameter names and layout match the flax module, so the bridge copies
-    them unchanged."""
+    Parameter names, layout and fresh draws match the flax module, so the
+    bridge copies them unchanged."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 5,
                  stride: int = 1, with_prelu: bool = True):
         super().__init__()
         k = kernel_size
         self.stride = stride
-        fan_in = k * k * in_features
-        self.kernel = nn.Parameter(
-            torch.randn(k, k, in_features, features) / math.sqrt(fan_in))
+        self.kernel = nn.Parameter(lecun_normal_(
+            torch.empty(k, k, in_features, features), k * k * in_features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.alpha = (nn.Parameter(torch.full((features,), 0.25))
                       if with_prelu else None)

@@ -197,20 +197,22 @@ def draw_learn(cfg: ExperimentConfig, buffer_size: int,
                       snr_db=_sample_snr(cfg, generator, bs, device))
 
 
-def learner_forward(cfg: ExperimentConfig) -> Callable[..., torch.Tensor]:
-    """``forward(net, *args, **kwargs)`` as the learner runs a Q-network.
+def learner_forward(cfg: ExperimentConfig,
+                    network: type = QNetwork) -> Callable[..., Any]:
+    """``forward(net, *args, **kwargs)`` as a learner runs ``net``, a
+    ``network`` (``QNetwork``, or PPO's ``ActorCritic``).
 
     The fused blocks' kernel has no backward kernel (its gradient recomputes
     through the plain version), so under ``pallas_mha_block`` the learner's
-    three forwards run the fused blocks through the plain version, as the
-    JAX package does: a second network skeleton built with
+    forwards run the fused blocks through the plain version, as the JAX
+    package does: a second network skeleton built with
     ``mha_block_kernel=False`` (on the meta device, it owns no weights) is
-    driven with the given network's own parameters. ``act`` keeps running
+    driven with the given network's own parameters. Acting keeps running
     the kernel, and nothing is copied."""
     if not (cfg.pallas_mha_block and cfg.mha_block_kernel):
         return lambda net, *args, **kwargs: net(*args, **kwargs)
     with torch.device("meta"):
-        skeleton = QNetwork(cfg.override(mha_block_kernel=False))
+        skeleton = network(cfg.override(mha_block_kernel=False))
 
     def forward(net, *args, **kwargs):
         return functional_call(skeleton, dict(net.named_parameters()), args,

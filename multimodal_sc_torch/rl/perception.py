@@ -1,4 +1,4 @@
-"""Semantic-communication perception trunk and the DQN head.
+"""Semantic-communication perception trunk, the DQN head and the PPO heads.
 
 Counterpart of ``multimodal_sc_tpu/rl/perception.py`` for the analog/CNN
 arch: per modality encode -> channel -> decode-to-tokens, then the fusion
@@ -23,6 +23,7 @@ from multimodal_sc_torch.codec.camera_cnn import CameraEncoderCNN, CameraTokensC
 from multimodal_sc_torch.codec.lidar_bev import BEVBackbone, PillarFeatureNet
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.fusion.transformer import FusionTransformer
+from multimodal_sc_torch.nn_init import init_like_flax_
 
 
 class SemanticPerception(nn.Module):
@@ -119,7 +120,7 @@ class SemanticPerception(nn.Module):
 
 
 class QNetwork(nn.Module):
-    """DQN head over the fused state."""
+    """DQN head over the fused state. Fresh weights are drawn as flax's."""
 
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
@@ -127,9 +128,31 @@ class QNetwork(nn.Module):
         self.h1 = nn.Linear(cfg.fusion.state_dim, 256)
         self.h2 = nn.Linear(256, 256)
         self.q = nn.Linear(256, cfg.rl.num_actions)
+        init_like_flax_(self)
 
     def forward(self, image, points, mask, generator=None, snr_db=None,
                 v2x_offset_db=None, channel_noise=None) -> torch.Tensor:
         s = self.perception(image, points, mask, generator, snr_db,
                             v2x_offset_db, channel_noise)
         return self.q(F.relu(self.h2(F.relu(self.h1(s)))))
+
+
+class ActorCritic(nn.Module):
+    """PPO policy and value heads over the fused state: ``(logits (B, A),
+    value (B,))``. Fresh weights are drawn as flax's."""
+
+    def __init__(self, cfg: ExperimentConfig):
+        super().__init__()
+        self.perception = SemanticPerception(cfg)
+        self.pi_h = nn.Linear(cfg.fusion.state_dim, 256)
+        self.pi = nn.Linear(256, cfg.rl.num_actions)
+        self.v_h = nn.Linear(cfg.fusion.state_dim, 256)
+        self.v = nn.Linear(256, 1)
+        init_like_flax_(self)
+
+    def forward(self, image, points, mask, generator=None, snr_db=None,
+                v2x_offset_db=None, channel_noise=None):
+        s = self.perception(image, points, mask, generator, snr_db,
+                            v2x_offset_db, channel_noise)
+        logits = self.pi(torch.tanh(self.pi_h(s)))
+        return logits, self.v(torch.tanh(self.v_h(s)))[..., 0]

@@ -1,0 +1,293 @@
+"""PPO actor-critic over the semantic-communication perception trunk.
+
+Counterpart of ``multimodal_sc_tpu/rl/ppo.py``. One update: a rollout of
+``rl.rollout_length`` steps of every env (observe -> sample an action
+through the ``ActorCritic`` -> step; channel noise, SNR draws, actions and
+env randomness all from the state's ``torch.Generator``), the bootstrap
+value of the final state, GAE, then ``rl.ppo_epochs`` passes over a fresh
+permutation of the rollout, each of ``rl.num_minibatches`` clipped-surrogate
+steps (global-norm clip, Adam) with fresh channel noise, and one lerp of the
+deployment EMA. Same metric keys as the JAX package.
+
+The rollout acts through the fused blocks' kernel; the loss runs them
+through their plain version on the same parameters, as the JAX package's
+``_ppo_loss`` runs their XLA twin (``rl/dqn.py`` ``learner_forward``).
+Unlike the JAX package's pure update, an update writes the network, the
+EMA and the Adam moments IN PLACE: the returned state holds the same
+modules. Not ported, each raising: the VQ and LiDAR token-pruning branches
+of the loss (ROADMAP item 14). ``shard_state`` waits for item 16, and
+``make_train_step_chunked`` has no counterpart: PyTorch runs eagerly, so
+there is no per-dispatch round trip to amortize.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, NamedTuple, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from multimodal_sc_torch.config.configs import ExperimentConfig
+from multimodal_sc_torch.device import resolve_device
+from multimodal_sc_torch.envs import driving
+from multimodal_sc_torch.rl import replay
+from multimodal_sc_torch.rl.dqn import (clip_by_global_norm_, learner_forward,
+                                        make_optimizer)
+from multimodal_sc_torch.rl.gae import gae
+from multimodal_sc_torch.rl.perception import ActorCritic
+
+
+class PPOState(NamedTuple):
+    params: ActorCritic
+    ema_params: ActorCritic        # deployment EMA, one lerp per update
+    opt_state: torch.optim.Adam    # over ``params``; holds the Adam moments
+    env_states: driving.EnvState
+    generator: torch.Generator
+    update: int                    # updates taken
+    ep_return: torch.Tensor        # (B,) running episode return per env
+    last_return: torch.Tensor      # (B,) last completed episode return
+
+
+class Rollout(NamedTuple):
+    """One rollout, every field (T, B, ...)."""
+    image: torch.Tensor            # f32, or uint8 under rl.rollout_quantize
+    points: torch.Tensor
+    mask: torch.Tensor
+    action: torch.Tensor           # int32
+    logp: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    snr_db: torch.Tensor           # the SNR each step was acted under
+
+
+class UpdateDraws(NamedTuple):
+    """The random draws of one update's minibatch steps. A ``None`` entry is
+    drawn from the state's generator."""
+    perms: Optional[Sequence[torch.Tensor]] = None   # one (T*B,) per epoch
+    # [epoch][minibatch] -> the (camera, LiDAR) channel noise of that step
+    noise: Optional[Sequence[Sequence[Sequence[torch.Tensor]]]] = None
+
+
+def init_params(cfg: ExperimentConfig, seed: int = 0,
+                device="cuda") -> ActorCritic:
+    """A fresh actor-critic, its weights drawn from ``seed`` (the global RNG
+    is left as it was)."""
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = ActorCritic(cfg)
+    return net.to(dev)
+
+
+def init(cfg: ExperimentConfig, seed: int = 0, device="cuda") -> PPOState:
+    """A fresh network, its EMA and Adam, and ``rl.num_envs`` envs."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    env_states = driving.reset_batch(cfg.env, cfg.rl.num_envs, g, dev)
+    params = init_params(cfg, seed, dev)
+    zeros = torch.zeros((cfg.rl.num_envs,), dtype=torch.float32, device=dev)
+    return PPOState(params=params, ema_params=copy.deepcopy(params),
+                    opt_state=make_optimizer(cfg, params),
+                    env_states=env_states, generator=g, update=0,
+                    ep_return=zeros, last_return=zeros.clone())
+
+
+def sample_action(logits: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One categorical draw per row of ``logits``, int32 (B,)."""
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                             generator=generator)[:, 0].to(torch.int32)
+
+
+def act(cfg: ExperimentConfig, net: ActorCritic, image, points, mask,
+        generator: Optional[torch.Generator] = None, snr_db=None,
+        channel_noise=None):
+    """Sample ``(action (B,) int32, logp (B,), value (B,))``. ``snr_db``
+    (optional (B,)): the per-env deployed SNR; the config constant by
+    default."""
+    logits, value = net(image, points, mask, generator, snr_db,
+                        channel_noise=channel_noise)
+    action = sample_action(logits, generator)
+    logp = F.log_softmax(logits, dim=-1).gather(
+        1, action.long()[:, None])[:, 0]
+    return action, logp, value
+
+
+def _sample_snr(cfg: ExperimentConfig, generator: torch.Generator,
+                batch: int, device) -> torch.Tensor:
+    """Per-env deployed SNR: uniform in [snr_min_db, snr_max_db] under
+    ``channel.random_snr``, else the config constant (no draw). The loss
+    re-forwards each transition under the SNR it was acted under."""
+    ch = cfg.channel
+    if not ch.random_snr:
+        return torch.full((batch,), ch.snr_db, dtype=torch.float32,
+                          device=device)
+    return ch.snr_min_db + torch.rand(
+        (batch,), generator=generator, device=device) * (
+            ch.snr_max_db - ch.snr_min_db)
+
+
+@torch.no_grad()
+def _collect_rollout(cfg: ExperimentConfig, net: ActorCritic, env_states,
+                     ep_return, last_return, generator):
+    """``rl.rollout_length`` closed-loop steps of every env. Returns
+    ``(env_states, ep_return, last_return, rollout, obs)``, ``obs`` the
+    observation of the final state (each step's observation is the one the
+    previous step rendered)."""
+    img, pts, mask = driving.observe_batch(cfg.env, env_states)
+    steps = []
+    for _ in range(cfg.rl.rollout_length):
+        snr = _sample_snr(cfg, generator, img.shape[0], img.device)
+        action, logp, value = act(cfg, net, img, pts, mask, generator,
+                                  snr_db=snr)
+        env_states, ts = driving.step_batch(cfg.env, env_states, action,
+                                            generator)
+        ep_return = ep_return + ts.reward
+        last_return = torch.where(ts.done, ep_return, last_return)
+        ep_return = torch.where(ts.done, 0.0, ep_return)
+        # Acting used the full-precision render; the stored frame is uint8
+        # under rl.rollout_quantize.
+        store = replay.quantize_frame(img) if cfg.rl.rollout_quantize else img
+        steps.append(Rollout(image=store, points=pts, mask=mask,
+                             action=action, logp=logp, value=value,
+                             reward=ts.reward, done=ts.done, snr_db=snr))
+        img, pts, mask = ts.image, ts.points, ts.mask
+    rollout = Rollout(*(torch.stack(field) for field in zip(*steps)))
+    return env_states, ep_return, last_return, rollout, (img, pts, mask)
+
+
+def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
+              batch: Dict[str, torch.Tensor], entropy_coef: float,
+              generator: Optional[torch.Generator] = None,
+              channel_noise=None):
+    """``(total, {"pg_loss", "v_loss", "entropy"})`` of one minibatch: the
+    clipped surrogate on normalised advantages, the value loss and the
+    entropy bonus (and the entropy floor's hinge under
+    ``rl.entropy_floor``)."""
+    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq" or \
+            cfg.lidar.vq_prune:
+        raise NotImplementedError(
+            "the VQ branches of the PPO loss (codebook loss, dead-code "
+            "reseed, token pruning) are not ported yet (ROADMAP item 14)")
+    r = cfg.rl
+    logits, value = forward(net, replay.dequantize_frame(batch["image"]),
+                            batch["points"], batch["mask"], generator,
+                            batch["snr"], channel_noise=channel_noise)
+    logp_all = F.log_softmax(logits, dim=-1)
+    logp = logp_all.gather(1, batch["action"].long()[:, None])[:, 0]
+    ratio = torch.exp(logp - batch["logp"])
+    adv = batch["adv"]
+    # jnp.std is the population standard deviation.
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    clipped = torch.clamp(ratio, 1 - r.clip_eps, 1 + r.clip_eps)
+    pg_loss = -torch.minimum(ratio * adv, clipped * adv).mean()
+    v_loss = 0.5 * (value - batch["ret"]).square().mean()
+    entropy = -(logp_all.exp() * logp_all).sum(-1).mean()
+    total = pg_loss + r.value_coef * v_loss - entropy_coef * entropy
+    if r.entropy_floor > 0:
+        # Inactive above the floor; pushes back only when the policy
+        # collapses below it.
+        total = total + r.entropy_floor_coef * F.relu(
+            r.entropy_floor - entropy)
+    return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy}
+
+
+def _entropy_coef(cfg: ExperimentConfig, update: int) -> float:
+    """The entropy coefficient at ``update``: constant, or annealed
+    linearly to ``rl.entropy_coef_final`` over ``train.steps`` updates."""
+    c0, c1 = cfg.rl.entropy_coef, cfg.rl.entropy_coef_final
+    if c1 < 0:
+        return c0
+    frac = min(max(update / max(1, cfg.train.steps - 1), 0.0), 1.0)
+    return c0 + frac * (c1 - c0)
+
+
+def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
+            last_value: torch.Tensor, forward,
+            draws: Optional[UpdateDraws] = None):
+    """GAE, the minibatch epochs and the EMA lerp on a collected rollout:
+    ``(state', metrics)``."""
+    r = cfg.rl
+    net, opt, g = state.params, state.opt_state, state.generator
+    t_len, b = rollout.reward.shape
+    n = t_len * b
+    mb = n // r.num_minibatches
+    ent_coef = _entropy_coef(cfg, state.update)
+    adv, ret = gae(rollout.reward, rollout.value, rollout.done, last_value,
+                   r.gamma, r.gae_lambda)
+    flat = {"image": rollout.image, "points": rollout.points,
+            "mask": rollout.mask, "action": rollout.action,
+            "logp": rollout.logp, "adv": adv, "ret": ret,
+            "snr": rollout.snr_db}
+    flat = {k: v.reshape(n, *v.shape[2:]) for k, v in flat.items()}
+    params = list(net.parameters())
+    losses, auxes = [], []
+    for e in range(r.ppo_epochs):
+        perm = (draws.perms[e] if draws is not None and draws.perms is not None
+                else torch.randperm(n, generator=g, device=g.device))
+        for i in range(r.num_minibatches):
+            idx = perm[i * mb:(i + 1) * mb]
+            batch = {k: v[idx] for k, v in flat.items()}
+            noise = (draws.noise[e][i] if draws is not None
+                     and draws.noise is not None else None)
+            loss, aux = _ppo_loss(cfg, forward, net, batch, ent_coef, g, noise)
+            # Parameters the loss does not reach (the last fusion layer's
+            # LiDAR stream) get zero gradients, as jax.grad gives them:
+            # their Adam moments then decay as optax's do.
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if gr is None else gr
+                     for p, gr in zip(params, grads)]
+            with torch.no_grad():
+                clip_by_global_norm_(grads, cfg.train.grad_clip)
+                for p, gr in zip(params, grads):
+                    p.grad = gr
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+            losses.append(loss.detach())
+            auxes.append({k: v.detach() for k, v in aux.items()})
+    with torch.no_grad():
+        if r.ema_tau > 0:
+            torch._foreach_lerp_(list(state.ema_params.parameters()), params,
+                                 r.ema_tau)
+    dev = rollout.reward.device
+    metrics = {
+        "loss": torch.stack(losses).mean(),
+        **{k: torch.stack([a[k] for a in auxes]).mean()
+           for k in ("pg_loss", "v_loss", "entropy")},
+        "entropy_coef": torch.tensor(ent_coef, dtype=torch.float32,
+                                     device=dev),
+        "reward": rollout.reward.mean(),
+        "episode_return": state.last_return.mean(),
+    }
+    return state._replace(update=state.update + 1), metrics
+
+
+def make_train_step(cfg: ExperimentConfig):
+    """``train_step(state) -> (state, metrics)``: one full PPO update
+    (rollout, bootstrap value, GAE, ``rl.ppo_epochs`` x
+    ``rl.num_minibatches`` minibatch steps, EMA lerp)."""
+    r = cfg.rl
+    t_len, b, n_mb = r.rollout_length, r.num_envs, r.num_minibatches
+    if (t_len * b) % n_mb != 0:
+        raise ValueError(
+            f"rollout_length*num_envs ({t_len}*{b}) must be divisible by "
+            f"num_minibatches ({n_mb}); the tail would be silently dropped")
+    forward = learner_forward(cfg, ActorCritic)
+
+    def train_step(state: PPOState):
+        g = state.generator
+        env_states, ep_return, last_return, rollout, (img, pts, mask) = (
+            _collect_rollout(cfg, state.params, state.env_states,
+                             state.ep_return, state.last_return, g))
+        # Bootstrap value of the final state, under an SNR of its own.
+        with torch.no_grad():
+            snr = _sample_snr(cfg, g, img.shape[0], img.device)
+            _, _, last_value = act(cfg, state.params, img, pts, mask, g,
+                                   snr_db=snr)
+        state = state._replace(env_states=env_states, ep_return=ep_return,
+                               last_return=last_return)
+        return _update(cfg, state, rollout, last_value, forward)
+
+    return train_step

@@ -25,15 +25,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from typing import Optional
 
-import torch
-
 from multimodal_sc_torch.config.configs import ExperimentConfig
-from multimodal_sc_torch.device import resolve_device
+from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.evaluation import policy_eval
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     steps_per_sec_per_chip,
@@ -41,11 +38,6 @@ from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
 from multimodal_sc_torch.obs.profiling import (CollapseWatchdog, NaNWatchdog,
                                                maybe_trace)
 from multimodal_sc_torch.rl import dqn as dqn_lib
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
@@ -87,7 +79,7 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
 
     def snapshot_eval(it: int) -> None:
         nonlocal snap_s, best_ret, best_it
-        _sync(dev)
+        synchronize(dev)
         t_ev = time.perf_counter()
         out = policy_eval.evaluate_dqn(cfg, state.params,
                                        cfg.train.seed + 0xBE57,
@@ -104,7 +96,7 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
             t0 = time.perf_counter() if first_s is None else None
             state, last = iteration(state)
             if t0 is not None:
-                _sync(dev)
+                synchronize(dev)
                 first_s = time.perf_counter() - t0
             if it % cfg.train.log_every == 0:
                 writer.write(it, last)
@@ -112,7 +104,7 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
                 collapse_dog.check(it, last)
             if ese and it % ese == 0:
                 snapshot_eval(it)
-        _sync(dev)
+        synchronize(dev)
 
     sps = steps_per_sec_per_chip(cfg.train.steps * num_envs, t.elapsed)
     extra = {"agent_steps_per_sec_per_chip": sps}
@@ -146,12 +138,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = get_preset(args.config).override_str(args.set)
     dev = resolve_device(args.device)
-    card = "cpu"
-    if dev.type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
+    card = card_name(dev)
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     state, result = run(cfg, args.num_envs, args.metrics_path, device=dev)

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from typing import NamedTuple, Optional, Sequence
@@ -46,10 +45,11 @@ from multimodal_sc_torch.codec.lidar_bev import (LidarBEVCodec,
                                                  occupancy_target,
                                                  semantic_bev_target)
 from multimodal_sc_torch.config.configs import ExperimentConfig
-from multimodal_sc_torch.device import resolve_device
+from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.envs.datasets import (ImageDataset, draw_pointcloud,
                                                synthetic_pointcloud_batch)
 from multimodal_sc_torch.evaluation.metrics import miou, psnr
+from multimodal_sc_torch.nn_init import init_like_flax_
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
@@ -94,13 +94,15 @@ def build_lidar_codec(cfg: ExperimentConfig) -> LidarBEVCodec:
 
 
 class LateFusionJSCC(nn.Module):
-    """Camera codec + LiDAR codec under one parameter tree (late fusion)."""
+    """Camera codec + LiDAR codec under one parameter tree (late fusion).
+    Fresh weights are drawn as flax's."""
 
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
         self.cfg = cfg
         self.camera = build_camera_codec(cfg)
         self.lidar = build_lidar_codec(cfg)
+        init_like_flax_(self)
 
     def forward(self, img, points, mask, snr_db,
                 generator: Optional[torch.Generator] = None,
@@ -244,11 +246,6 @@ def make_train_step(cfg: ExperimentConfig):
     return train_step
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def make_batches(cfg: ExperimentConfig, device):
     """The training stream: an endless iterator of ``(img, pts, mask, cls)``
     batches on ``device``, images and point clouds each from a stream of
@@ -288,12 +285,12 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
             t0 = time.perf_counter() if first_s is None else None
             state, last = train_step(state, *next(batches))
             if t0 is not None:
-                _sync(dev)
+                synchronize(dev)
                 first_s = time.perf_counter() - t0
             if step % cfg.train.log_every == 0:
                 writer.write(step, last)
                 watchdog.check(step, last)
-        _sync(dev)
+        synchronize(dev)
     out = to_host(last)
     if first_s is not None and cfg.train.steps > 1 and t.elapsed > first_s:
         out["first_dispatch_s"] = round(first_s, 2)
@@ -317,12 +314,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = get_preset(args.config).override_str(args.set)
     dev = resolve_device(args.device)
-    card = "cpu"
-    if dev.type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
+    card = card_name(dev)
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     state, result = run(cfg, args.metrics_path, device=dev)

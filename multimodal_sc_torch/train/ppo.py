@@ -1,0 +1,124 @@
+"""PPO training loop (config 5).
+
+Counterpart of ``multimodal_sc_tpu/train/ppo.py``: the host loop around the
+full PPO update (rollout, GAE, minibatch epochs), metrics pulled from the
+device every ``train.log_every`` updates (one transfer), the NaN watchdog
+and the same result keys. Env steps count updates x T x B.
+
+Not ported yet, each raising: checkpoints and resume
+(``train.checkpoint_dir``, ROADMAP item 10), the ``init_from`` warm start
+(item 15), a VQ trunk and its codebook seeding (item 14), the sharded state
+(item 16: one process drives one card). ``train.iters_per_dispatch`` has no
+counterpart: PyTorch runs eagerly, so there is no per-dispatch round trip
+to amortize, and the value is ignored.
+
+As a script it trains a preset and evaluates the result:
+
+    python -m multimodal_sc_torch.train.ppo --config c5 \\
+        [--set train.steps=150 --set rl.num_envs=64 ...] [--eval-envs 256] \\
+        [--device cuda]
+
+prints the card, then one JSON object: the result of ``run``, the wall time
+and ``evaluate_ppo`` of the online and the EMA network, sampled (T = 1)
+and greedy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Optional
+
+from multimodal_sc_torch.config.configs import ExperimentConfig
+from multimodal_sc_torch.device import card_name, resolve_device, synchronize
+from multimodal_sc_torch.evaluation import policy_eval
+from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
+                                                    steps_per_sec_per_chip,
+                                                    to_host)
+from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
+from multimodal_sc_torch.rl import ppo as ppo_lib
+
+
+def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
+        init_from: Optional[str] = None, device="cuda"):
+    """Train config-5 PPO for ``cfg.train.steps`` updates; returns
+    ``(state, result)``."""
+    if init_from:
+        raise NotImplementedError(
+            "the JSCC warm start is not ported yet (ROADMAP item 15)")
+    if cfg.train.checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoints and resume are not ported yet (ROADMAP item 10)")
+    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
+        raise NotImplementedError(
+            "a VQ trunk and its codebook seeding are not ported yet (ROADMAP "
+            "item 14)")
+    dev = resolve_device(device)
+    state = ppo_lib.init(cfg, cfg.train.seed, dev)
+    train_step = ppo_lib.make_train_step(cfg)
+    writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
+    watchdog = NaNWatchdog()
+
+    # First-update wall (allocator warm-up, kernel build and load) recorded
+    # apart from the steady rate.
+    first_s = None
+    last = {}
+    steps = cfg.train.steps
+    with maybe_trace(cfg.train.profile_dir), Timer() as t:
+        for it in range(1, steps + 1):
+            t0 = time.perf_counter() if first_s is None else None
+            state, last = train_step(state)
+            if t0 is not None:
+                synchronize(dev)
+                first_s = time.perf_counter() - t0
+            if it % cfg.train.log_every == 0:
+                writer.write(it, last)
+                watchdog.check(it, last)
+        synchronize(dev)
+    per_update = cfg.rl.rollout_length * cfg.rl.num_envs
+    extra = {"agent_steps_per_sec_per_chip": steps_per_sec_per_chip(
+        steps * per_update, t.elapsed)}
+    if first_s is not None and steps > 1 and t.elapsed > first_s:
+        extra["first_dispatch_s"] = round(first_s, 2)
+        extra["steady_steps_per_sec_per_chip"] = steps_per_sec_per_chip(
+            (steps - 1) * per_update, t.elapsed - first_s)
+    writer.write(steps, {**last, **extra})
+    writer.close()
+    return state, {**to_host(last), **extra}
+
+
+def main(argv=None) -> int:
+    from multimodal_sc_torch.config import get_preset
+
+    ap = argparse.ArgumentParser(description="Train a PPO preset, then "
+                                 "evaluate its online and EMA networks.")
+    ap.add_argument("--config", default="c5")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="config override, e.g. train.steps=150 (repeatable)")
+    ap.add_argument("--metrics-path", default=None)
+    ap.add_argument("--eval-envs", type=int, default=256)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = get_preset(args.config).override_str(args.set)
+    dev = resolve_device(args.device)
+    card = card_name(dev)
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    state, result = run(cfg, args.metrics_path, device=dev)
+    result["train_wall_s"] = round(time.perf_counter() - t0, 2)
+    seed = cfg.train.seed + 0xE7A1
+    for name, net in (("online", state.params), ("ema", state.ema_params)):
+        for mode, greedy in (("sampled", False), ("greedy", True)):
+            out = policy_eval.evaluate_ppo(cfg, net, seed, args.eval_envs,
+                                           greedy=greedy)
+            result[f"eval_{name}_{mode}_return"] = out["episode_return_mean"]
+    result["updates"] = state.update
+    result["card"] = card
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
