@@ -7,9 +7,8 @@ Builds every CUDA kernel from ``multimodal_sc_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card at the
 shapes of the paths below, times both (and the one library call that
 computes the same function, where there is one) as device time, then
-drives seven paths through the
-port's entry points at full widths, random weights from seed 0. At 1024
-envs:
+drives eleven paths through the port's entry points at full widths,
+random weights from seed 0. At 1024 envs:
 
 * the c4 DQN act-only iteration;
 * arm A, act+learn on the c4 preset as it stands (fused blocks: the kernel
@@ -45,8 +44,25 @@ the plain versions. Then:
   dozen steps (the loss must fall), the held-out evaluation, and one loss
   and its gradients through the kernel against its plain version.
 
-The pillar scatter runs on every path but c1: its forward kernel in every
-forward, its backward kernel once per learn, train or minibatch step.
+Then the c2 paths (the CNN JSCC codec of c1 with the SNR FiLM and the
+4-class seg head, batch 64, 32x32, a per-example SNR):
+
+* c2, the train step at the preset: a few dozen steps (the loss must fall),
+  9 ``conv_prelu`` launches a step, one loss (MSE + 0.1 x cross entropy)
+  and its gradients through the kernel against its plain version; one step
+  each over Rayleigh, Rician, OFDM with 2 pilots, 16-QAM and the adaptive
+  rate; one batch swept over AWGN, Rayleigh and Rician at 7 SNRs;
+* c3-cnn, the c3 late-fusion train step with ``camera.arch=cnn`` (the CNN
+  codec at 64x64, batch 64): 9 ``conv_prelu``, one ``scatter_max`` and one
+  backward launch a step, and the route comparison.
+
+The conv kernel's banded path (Cin or Cout no multiple of 4) is also held
+at the 64x64 shapes, and its planned bands against one band an image (the
+kernel before banding), bit for bit, at the 32x32 shapes.
+
+The pillar scatter runs on every path but c1 and c2: its forward kernel in
+every forward, its backward kernel once per learn, train or minibatch
+step.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after, and fails unless every kernel of that path ran the expected
@@ -160,6 +176,21 @@ C1_BATCH = 64
 EXPECTED_C1 = {"conv_prelu": 9}
 C1_WARMUP_STEPS = 3
 C1_TIMED_STEPS = 40
+
+# c2 at the preset (batch 64, 32x32): the c1 codec's 9 convs a step (the
+# seg head and the FiLMs are plain, as in the JAX package); the sweep: one
+# forward a point, 3 kinds x 7 SNRs.
+EXPECTED_C2 = {"conv_prelu": 9}
+C2_WARMUP_STEPS = 3
+C2_TIMED_STEPS = 30
+C2_VARIANTS = (["channel.kind=rayleigh"], ["channel.kind=rician"],
+               ["channel.kind=ofdm", "channel.pilots=2"],
+               ["channel.modulation=16"], ["camera.adaptive_rate=true"])
+C2_SWEEP_KINDS = ("awgn", "rayleigh", "rician")
+# c3 on the CNN camera codec (64x64, batch 64): 9 convs, one scatter and its
+# backward a step.
+C3_CNN = ["camera.arch=cnn"]
+EXPECTED_C3_CNN = {"conv_prelu": 9, "scatter_max": 1, "scatter_max_bwd": 1}
 
 
 def _counters():
@@ -501,6 +532,71 @@ def check_conv_prelu():
                    "multimodal_sc_tpu/kernels/conv_block.py:69", rows)
     entry["max_abs_err"] = worst
     return entry
+
+
+def check_conv_bands():
+    """The banded path of ``conv_prelu`` (Cin or Cout no multiple of 4):
+    kernel against plain version, timed with cuDNN beside it, at c1's and
+    c5's shapes and the 64x64 ones of c3-cnn (whose one-image window of up
+    to 592 KB no block holds); at the 32x32 shapes the planned bands give
+    the same bits as one band an image, the kernel as it ran before
+    banding. Returns the largest error."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_sc_torch.kernels import conv_block as cb
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    # (B, H, Cin, Cout, stride, PReLU)
+    for b, h, cin, cout, s, prelu in (
+            (C1_BATCH, 32, 32, 3, 1, False), (C1_BATCH, 32, 3, 32, 2, True),
+            (C5_ENVS, 32, 3, 32, 2, True), (C3_BATCH, 64, 32, 3, 1, False),
+            (C3_BATCH, 64, 3, 32, 2, True)):
+        x = torch.rand(b, h, h, cin, generator=g, device="cuda")
+        wt = torch.randn(5, 5, cin, cout, generator=g,
+                         device="cuda") / (25 * cin) ** 0.5
+        bias = 0.1 * torch.randn(cout, generator=g, device="cuda")
+        alpha = (torch.rand(cout, generator=g, device="cuda")
+                 if prelu else None)
+        oh = -(-h // s)
+        band = cb.band_plan(b, oh, oh, cin, 5, s)
+        ref = cb.conv_prelu_reference(x, wt, bias, alpha, s)
+        out = cb.conv_prelu(x, wt, bias, alpha, s)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+        same = "n/a (one image's window exceeds a block)"
+        if cb.band_window_bytes(oh, oh, cin, 5, s) <= cb._SMEM_LIMIT:
+            one = cb._conv_prelu_cuda(x, wt, bias, alpha, s, band=oh)
+            torch.cuda.synchronize()
+            if not torch.equal(one, out):
+                raise RuntimeError(
+                    f"conv_prelu bands of {band} rows differ from one band "
+                    f"an image at B={b} {h}x{h}x{cin}->{cout}")
+            same = "bit-equal"
+        ms = _device_ms(lambda: cb.conv_prelu(x, wt, bias, alpha, s))
+        plain = _device_ms(lambda: cb.conv_prelu_reference(x, wt, bias,
+                                                           alpha, s))
+        (plo, phi) = cb.same_pads(h, 5, s)
+        xc = F.pad(x.permute(0, 3, 1, 2), (plo, phi, plo, phi)).contiguous(
+            memory_format=torch.channels_last)
+        wc = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = _device_ms(lambda: F.conv2d(xc, wc, bias, stride=s))
+        flops = 2 * b * oh * oh * cout * 25 * cin
+        nbytes = 4 * (b * h * h * cin + 25 * cin * cout + 2 * cout
+                      + b * oh * oh * cout)
+        # The FMA units compute this path: f32 products at the f32 peak.
+        bound, by = _bound_ms(flops, nbytes, PEAK_F32)
+        print(f"  conv_prelu banded B={b} {h}x{h}x{cin}->{cout} s{s}: band "
+              f"{band} rows, {b * -(-oh // band)} blocks, "
+              f"{cb.band_window_bytes(band, oh, cin, 5, s)} B window; err "
+              f"{err:.3e}, against one band an image {same}; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, cuDNN {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+    return worst
 
 
 def _pillar_inputs():
@@ -1075,7 +1171,9 @@ def check_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return [check_mha_block(), check_conv_prelu(), *check_scatter_max(),
+        conv = check_conv_prelu()
+        conv["max_abs_err"] = max(conv["max_abs_err"], check_conv_bands())
+        return [check_mha_block(), conv, *check_scatter_max(),
                 *check_packed_attention(), *check_flash_attention()]
     finally:
         (torch.backends.cudnn.allow_tf32,
@@ -1353,12 +1451,14 @@ def _plain_attention(q, k, v, scale=None, use_pallas=False):
 
 def compare_c3_routes(cfg, state, batches, expected):
     """One c3 loss and its gradients on a fixed batch and fixed channel
-    noise, twice: through the kernels (packed attention in its f32 mode)
-    and through every kernel's plain version."""
+    noise, twice: through the kernels (packed attention in its f32 mode;
+    the conv kernel on the CNN camera codec) and through every kernel's
+    plain version."""
     import torch
 
     from multimodal_sc_torch.codec import camera_vit, lidar_bev
-    from multimodal_sc_torch.kernels import attention_packed, pillar_scatter
+    from multimodal_sc_torch.kernels import (attention_packed, conv_block,
+                                             pillar_scatter)
     from multimodal_sc_torch.train import fusion_jscc as fj
 
     img, pts, mask, cls = next(batches)
@@ -1380,6 +1480,7 @@ def compare_c3_routes(cfg, state, batches, expected):
         [(camera_vit, "packed_attention",
           attention_packed.packed_attention_reference),
          (camera_vit, "attention", _plain_attention),
+         (conv_block, "conv_prelu", conv_block.conv_prelu_reference),
          (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)],
         [(camera_vit, "packed_attention", functools.partial(
             attention_packed.packed_attention, mxu_bf16=False))]))
@@ -1751,6 +1852,153 @@ def compare_c1_routes(cfg, state, data):
         [(conv_block, "conv_prelu", conv_block.conv_prelu_reference)]))
 
 
+def drive_c2():
+    """The c2 train step at the preset's full widths (batch 64, 32x32, a
+    per-example SNR, the seg head) through ``train.jscc``: returns the
+    launches of the timed run, the train steps/s, and the config, state,
+    train step and batch stream it ended with."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.train import jscc
+
+    cfg = get_preset("c2")
+    tr = cfg.train
+    if tr.batch_size != C1_BATCH or not cfg.channel.random_snr or \
+            cfg.camera.seg_classes != 4:
+        raise RuntimeError("c2: not the preset")
+    t0 = time.perf_counter()
+    state = jscc.create_train_state(cfg, seed=0, device="cuda")
+    train_step = jscc.make_train_step(cfg)
+    data = ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed,
+                        with_seg=True, device="cuda")
+    before = _clone_params(state.params)
+    state, first = train_step(state, next(data))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(C2_WARMUP_STEPS - 1):
+        state, _ = train_step(state, next(data))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    print(f"  {n_params} parameters; init + first step {first_s:.2f} s",
+          flush=True)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(C2_TIMED_STEPS):
+        state, metrics = train_step(state, next(data))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    rate = C2_TIMED_STEPS / wall
+    print(f"  c2 train: {C2_TIMED_STEPS} steps x batch {C1_BATCH} in "
+          f"{wall:.3f} s = {rate:.2f} train steps/s", flush=True)
+    print(f"  launches in the timed run: {launches}", flush=True)
+    _check_counts(launches, EXPECTED_C2, C2_TIMED_STEPS, "c2")
+    for m in [first] + history:
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise RuntimeError(f"c2: non-finite metrics: {m}")
+    if _same(state.params, before):
+        raise RuntimeError("c2: the parameters did not change")
+    if not float(metrics["loss"]) < float(first["loss"]):
+        raise RuntimeError(
+            f"c2: loss {float(metrics['loss']):.4f} after {state.step} "
+            f"steps, not below the first step's {float(first['loss']):.4f}")
+    print(f"  loss {float(first['loss']):.4f} -> {float(metrics['loss']):.4f}, "
+          f"PSNR {float(first['psnr']):.2f} -> {float(metrics['psnr']):.2f} dB"
+          f", mIoU {float(first['miou']):.3f} -> {float(metrics['miou']):.3f}",
+          flush=True)
+    return launches, rate, cfg, state, train_step, data
+
+
+def compare_c2_routes(cfg, state, data):
+    """One c2 loss (MSE + 0.1 x cross entropy, per-example SNR) and its
+    gradients on a fixed batch and fixed draws, twice: through the conv
+    kernel and through its plain version."""
+    import torch
+
+    from multimodal_sc_torch.kernels import conv_block
+    from multimodal_sc_torch.train import jscc
+
+    img, seg = next(data)
+    model = state.params
+    g = torch.Generator(device="cuda").manual_seed(12)
+    draws = jscc.draw_step(cfg, C1_BATCH, g, "cuda")._replace(
+        channel=torch.randn(C1_BATCH, model.k, 2, generator=g, device="cuda"))
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss, _ = jscc.loss_fn(cfg, model, img, seg, draws)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _compare_grads("c2 train step", model, *_two_routes(
+        loss_and_grads, EXPECTED_C2, "the c2 train step",
+        [(conv_block, "conv_prelu", conv_block.conv_prelu_reference)]))
+
+
+def drive_c2_variants(data):
+    """One c2 train step (fresh weights) over each other channel and
+    codec: Rayleigh, Rician, OFDM with 2 pilots, 16-QAM, the adaptive rate;
+    each launches the conv kernel 9 times and gives finite metrics. Returns
+    the launches."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.train import jscc
+
+    totals = {}
+    for over in C2_VARIANTS:
+        cfg = get_preset("c2").override_str(over)
+        state = jscc.create_train_state(cfg, seed=0, device="cuda")
+        train_step = jscc.make_train_step(cfg)
+        batch = next(data)
+        _reset_counts()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        _check_counts(launches, EXPECTED_C2, 1, f"c2 {over}")
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise RuntimeError(f"c2 {over}: non-finite metrics: {m}")
+        print(f"  c2 {' '.join(over)}: one step, loss "
+              f"{float(m['loss']):.4f}, PSNR {float(m['psnr']):.2f} dB, "
+              f"mIoU {float(m['miou']):.3f}", flush=True)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def sweep_c2(cfg, state, data):
+    """One held-out batch swept over 3 kinds x 7 SNRs (one draw a point):
+    finite PSNR, SSIM and mIoU; returns the launches."""
+    import torch
+
+    from multimodal_sc_torch.channel import channel_kwargs
+    from multimodal_sc_torch.evaluation import snr_sweep
+
+    img, seg = next(data)
+    _reset_counts()
+    t0 = time.perf_counter()
+    curves = snr_sweep.sweep_camera(
+        state.params, img, 0, kinds=C2_SWEEP_KINDS, batches_per_point=1,
+        seg=seg, **channel_kwargs(cfg.channel))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    points = len(C2_SWEEP_KINDS) * len(snr_sweep.DEFAULT_SNRS)
+    _check_counts(launches, EXPECTED_C2, points, "c2 sweep")
+    for kind, curve in curves.items():
+        for p in curve:
+            if not all(math.isfinite(p[k]) for k in ("psnr", "ssim", "miou")):
+                raise RuntimeError(f"c2 sweep {kind}: {p}")
+    print(f"  c2 sweep, {points} points in {wall:.2f} s; PSNR:", flush=True)
+    print("\n".join("    " + line for line in
+                    snr_sweep.format_table(curves).splitlines()), flush=True)
+    return launches
+
+
 def profile_c5(cfg, state, train_step):
     """Where the time of one c5 update goes: the rollout, the bootstrap
     value and the minibatch epochs timed alone, then the device's busy
@@ -2103,6 +2351,34 @@ def main() -> int:
         profile_c1(cfg, state, train_step, data)
     del state, train_step, data
     torch.cuda.empty_cache()
+    print("main path (c2 SNR-sweep JSCC train):", flush=True)
+    launches, c2_rate, cfg, state, train_step, data = drive_c2()
+    for k, v in launches.items():
+        totals[k] += v
+    compare_c2_routes(cfg, state, data)
+    if args.profile:
+        print("profile (c2 SNR-sweep JSCC train):", flush=True)
+        profile_c1(cfg, state, train_step, data)
+    print("main path (c2 channels and codecs, one step each):", flush=True)
+    for k, v in drive_c2_variants(data).items():
+        totals[k] += v
+    print("main path (c2 sweep):", flush=True)
+    for k, v in sweep_c2(cfg, state, data).items():
+        totals[k] += v
+    del state, train_step, data
+    torch.cuda.empty_cache()
+    name = "c3-cnn: CNN camera codec at 64x64"
+    print(f"main path (c3 late-fusion train, {name}):", flush=True)
+    launches, c3_rates[name], cfg, state, train_step, batches = drive_c3(
+        name, C3_CNN, EXPECTED_C3_CNN)
+    for k, v in launches.items():
+        totals[k] += v
+    compare_c3_routes(cfg, state, batches, EXPECTED_C3_CNN)
+    if args.profile:
+        print(f"profile (c3 late-fusion train, {name}):", flush=True)
+        profile_c3(cfg, state, train_step, batches)
+    del state, train_step, batches
+    torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
@@ -2112,7 +2388,8 @@ def main() -> int:
     print(f"c3 train steps/s at batch {C3_BATCH} on {card}: " + "; ".join(
         f"{k} {v:.2f}" for k, v in c3_rates.items()), flush=True)
     print(f"c5 env steps/s at {C5_ENVS} envs on {card}: {c5_rate:.1f}; c1 "
-          f"train steps/s at batch {C1_BATCH}: {c1_rate:.2f}", flush=True)
+          f"train steps/s at batch {C1_BATCH}: {c1_rate:.2f}; c2: "
+          f"{c2_rate:.2f}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,13 @@
 """Camera CNN-JSCC encoder and decoders.
 
 Counterpart of ``multimodal_sc_tpu/codec/camera_cnn.py``: ``PReLU``,
-``SNRFiLM``, ``CameraEncoderCNN``, ``CameraDecoderCNN``, ``CameraTokensCNN``
-and ``CameraJSCC``. Activations are NHWC as in the JAX package. The stride-1
-convs are ``FusedConvPReLU`` (the CUDA kernel on the card); the token
-decoder's ``conv_in``, the decoder's upsampling transposed convs and its
-segmentation head are plain convolutions in the JAX package too (XLA), so
-they stay ``F.conv2d`` / ``F.conv_transpose2d``. ``RateFiLM`` (the
-adaptive-rate codec) waits for ROADMAP item 12.
+``SNRFiLM``, ``RateFiLM``, ``CameraEncoderCNN``, ``CameraDecoderCNN``,
+``CameraTokensCNN`` and ``CameraJSCC`` (with the bandwidth-agile
+``adaptive_rate`` codec and ``decode_seg``). Activations are NHWC as in the
+JAX package. The 5x5 convs are ``FusedConvPReLU`` (the CUDA kernel on the
+card); the token decoder's ``conv_in``, the decoder's upsampling transposed
+convs and its segmentation head are plain convolutions in the JAX package
+too (XLA), so they stay ``F.conv2d`` / ``F.conv_transpose2d``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,23 @@ class SNRFiLM(nn.Module):
         return x * (1.0 + gamma.reshape(shape)) + beta.reshape(shape)
 
 
+class RateFiLM(nn.Module):
+    """FiLM modulation from the adaptive-rate fraction m/c_sym in (0, 1]:
+    x -> x * (1 + g(r)) + b(r), r = (rate - 0.5) * 2."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.features = features
+        self.fc1 = nn.Linear(1, 32)
+        self.fc2 = nn.Linear(32, 2 * features)
+
+    def forward(self, x: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
+        r = (rate.reshape(-1, 1).to(x.dtype) - 0.5) * 2.0
+        gamma, beta = self.fc2(F.relu(self.fc1(r))).chunk(2, dim=-1)
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (self.features,)
+        return x * (1.0 + gamma.reshape(shape)) + beta.reshape(shape)
+
+
 class CameraEncoderCNN(nn.Module):
     """Image (B,H,W,3) in [0,1] -> channel symbols (B, k, 2).
 
@@ -58,7 +75,7 @@ class CameraEncoderCNN(nn.Module):
 
     def __init__(self, features: Sequence[int] = (32, 64, 128, 128),
                  c_sym: int = 8, in_channels: int = 3,
-                 snr_conditioning: bool = False):
+                 snr_conditioning: bool = False, adaptive_rate: bool = False):
         super().__init__()
         self.c_sym = c_sym
         cin = in_channels
@@ -67,15 +84,19 @@ class CameraEncoderCNN(nn.Module):
             cin = f
         self.n_blocks = len(features)
         self.snr_film = SNRFiLM(features[-1]) if snr_conditioning else None
+        self.rate_film = RateFiLM(features[-1]) if adaptive_rate else None
         self.conv_out = FusedConvPReLU(cin, 2 * c_sym, 5, with_prelu=False)
 
     def forward(self, img: torch.Tensor,
-                snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+                snr_db: Optional[torch.Tensor] = None,
+                rate: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = img.float()
         for i in range(self.n_blocks):
             x = getattr(self, f"block{i}")(x)
         if self.snr_film is not None:
             x = self.snr_film(x, snr_db)
+        if self.rate_film is not None:
+            x = self.rate_film(x, rate)
         x = self.conv_out(x)
         b, h, w, _ = x.shape
         return x.reshape(b, h * w * self.c_sym, 2)
@@ -147,12 +168,13 @@ class CameraDecoderCNN(nn.Module):
     def __init__(self, features: Sequence[int] = (128, 128, 64, 32),
                  c_sym: int = 8, image_hw: Tuple[int, int] = (32, 32),
                  out_channels: int = 3, seg_classes: int = 0,
-                 snr_conditioning: bool = False):
+                 snr_conditioning: bool = False, adaptive_rate: bool = False):
         super().__init__()
         self.c_sym = c_sym
         self.hw = (image_hw[0] // 4, image_hw[1] // 4)
         self.block_in = FusedConvPReLU(2 * c_sym, features[0], 5)
         self.snr_film = SNRFiLM(features[0]) if snr_conditioning else None
+        self.rate_film = RateFiLM(features[0]) if adaptive_rate else None
         self.strides = (1, 1, 2, 2)
         cin = features[0]
         for i, (f, s) in enumerate(zip(features, self.strides)):
@@ -168,12 +190,15 @@ class CameraDecoderCNN(nn.Module):
                          if seg_classes > 0 else None)
 
     def forward(self, z_hat: torch.Tensor,
-                snr_db: Optional[torch.Tensor] = None):
+                snr_db: Optional[torch.Tensor] = None,
+                rate: Optional[torch.Tensor] = None):
         b = z_hat.shape[0]
         h, w = self.hw
         x = self.block_in(z_hat.reshape(b, h, w, 2 * self.c_sym).float())
         if self.snr_film is not None:
             x = self.snr_film(x, snr_db)
+        if self.rate_film is not None:
+            x = self.rate_film(x, rate)
         for i, s in enumerate(self.strides):
             if s == 1:
                 x = getattr(self, f"block{i}")(x)
@@ -187,26 +212,26 @@ class CameraDecoderCNN(nn.Module):
 
 
 class CameraJSCC(nn.Module):
-    """Encoder and decoder under one parameter tree (configs 1-2). Fresh
-    weights are drawn as flax's."""
+    """Encoder and decoder under one parameter tree (configs 1-3). With
+    ``adaptive_rate`` both sides are FiLM-conditioned on the deployed rate
+    m/c_sym, which ``encode``, ``decode`` and ``decode_seg`` then require.
+    Fresh weights are drawn as flax's."""
 
     def __init__(self, features: Sequence[int] = (32, 64, 128, 128),
                  c_sym: int = 8, image_hw: Tuple[int, int] = (32, 32),
                  out_channels: int = 3, seg_classes: int = 0,
                  snr_conditioning: bool = False, adaptive_rate: bool = False):
         super().__init__()
-        if adaptive_rate:
-            raise NotImplementedError(
-                "the adaptive-rate codec (RateFiLM, rate masks) is not ported "
-                "yet (ROADMAP item 12)")
         self.c_sym, self.image_hw = c_sym, tuple(image_hw)
         self.seg_classes = seg_classes
         self.snr_conditioning = snr_conditioning
+        self.adaptive_rate = adaptive_rate
         self.encoder = CameraEncoderCNN(features, c_sym,
-                                        snr_conditioning=snr_conditioning)
+                                        snr_conditioning=snr_conditioning,
+                                        adaptive_rate=adaptive_rate)
         self.decoder = CameraDecoderCNN(tuple(reversed(features)), c_sym,
                                         image_hw, out_channels, seg_classes,
-                                        snr_conditioning)
+                                        snr_conditioning, adaptive_rate)
         init_like_flax_(self)
 
     @property
@@ -218,16 +243,37 @@ class CameraJSCC(nn.Module):
     def _snr(self, snr_db):
         return snr_db if self.snr_conditioning else None
 
+    def _rate(self, rate):
+        if not self.adaptive_rate:
+            return None
+        if rate is None:
+            raise ValueError("adaptive_rate codec requires a rate argument")
+        return rate
+
     def encode(self, img: torch.Tensor,
-               snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.encoder(img, self._snr(snr_db))
+               snr_db: Optional[torch.Tensor] = None,
+               rate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.encoder(img, self._snr(snr_db), self._rate(rate))
 
     def decode(self, z_hat: torch.Tensor,
-               snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = self.decoder(z_hat, self._snr(snr_db))
+               snr_db: Optional[torch.Tensor] = None,
+               rate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = self.decoder(z_hat, self._snr(snr_db), self._rate(rate))
         return out[0] if self.seg_classes > 0 else out
 
+    def decode_seg(self, z_hat: torch.Tensor,
+                   snr_db: Optional[torch.Tensor] = None,
+                   rate: Optional[torch.Tensor] = None):
+        """``(recon, seg_logits)``, the logits NHWC; only with a seg head."""
+        if self.seg_classes <= 0:
+            raise ValueError("decode_seg requires seg_classes > 0")
+        return self.decoder(z_hat, self._snr(snr_db), self._rate(rate))
+
     def forward(self, img: torch.Tensor,
-                snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Encode, then decode through an ideal channel."""
-        return self.decode(self.encode(img, snr_db), snr_db)
+                snr_db: Optional[torch.Tensor] = None,
+                rate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Encode, then decode through an ideal channel (full rate when an
+        adaptive codec is given none)."""
+        if self.adaptive_rate and rate is None:
+            rate = torch.ones(img.shape[0], device=img.device)
+        return self.decode(self.encode(img, snr_db, rate), snr_db, rate)

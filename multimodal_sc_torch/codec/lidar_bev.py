@@ -153,6 +153,7 @@ class LidarBEVCodec(nn.Module):
                  point_features: int = 4):
         super().__init__()
         self.pillar_dim, self.bev_hw, self.c_sym = pillar_dim, tuple(bev_hw), c_sym
+        self.seg_classes = seg_classes
         self.pfn = PillarFeatureNet(point_features, pillar_dim, bev_hw,
                                     x_range, y_range)
         feats = (pillar_dim, pillar_dim)

@@ -52,9 +52,17 @@
 // during the previous step's asynchronous wgmma.
 //
 // conv_prelu_kernel (any other channel count, e.g. the first layer's
-// Cin = 3, whose 12-byte pixels cannot be copied in 16-byte chunks): one
-// block per image, the zero-padded window in shared memory, a register
-// tile of CT channels x PT pixels per thread on the f32 FMA units.
+// Cin = 3, whose 12-byte pixels cannot be copied in 16-byte chunks, or the
+// decoder's Cout = 3): a block per image and band of output rows, the
+// band's zero-padded window ((band - 1) * stride + K rows of the padded
+// image) in shared memory, a register tile of CT channels x PT pixels per
+// thread on the f32 FMA units. With Cout = 3 the work is bound by bytes and
+// a tensor-core tile would leave 13 of its 16 columns idle. The band comes
+// from the caller (kernels/conv_block.py band_plan): small enough that the
+// window stays near 56 KB, so several blocks share an SM, and that a batch
+// of 32-64 images still gives at least 132 blocks. Each output sums its
+// taps (ky, kx, channel) in the same order whatever the band, so the
+// results do not depend on it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,18 +93,25 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
                                   const float* __restrict__ alpha,
                                   float* __restrict__ out, int H, int W,
                                   int Cin, int OH, int OW, int Cout, int K,
-                                  int stride, int pad_h, int pad_w, int Hp,
-                                  int Wp) {
-  extern __shared__ float xs[];  // (Hp, Wp, Cin) zero-padded window
-  const int n = blockIdx.x;
+                                  int stride, int pad_h, int pad_w, int Wp,
+                                  int band, int bands) {
+  // (Hb, Wp, Cs) zero-padded window of output rows [oy0, oy0 + rows); a
+  // pixel takes Cs = Cin | 1 floats, an odd stride, so the 32 neighbouring
+  // pixels a warp reads at one channel lie in 32 different banks.
+  extern __shared__ float xs[];
+  const int Cs = Cin | 1;
+  const int n = blockIdx.x / bands;
+  const int oy0 = (blockIdx.x % bands) * band;
+  const int rows = min(band, OH - oy0);
+  const int Hb = (rows - 1) * stride + K;
   const float* xn = x + (int64_t)n * H * W * Cin;
-  const int n_smem = Hp * Wp * Cin;
-  for (int i = threadIdx.x; i < n_smem; i += blockDim.x) {
+  const int n_load = Hb * Wp * Cin;
+  for (int i = threadIdx.x; i < n_load; i += blockDim.x) {
     int c = i % Cin;
     int t = i / Cin;
-    int iy = t / Wp - pad_h;
+    int iy = oy0 * stride + t / Wp - pad_h;
     int ix = t % Wp - pad_w;
-    xs[i] = (iy >= 0 && iy < H && ix >= 0 && ix < W)
+    xs[t * Cs + c] = (iy >= 0 && iy < H && ix >= 0 && ix < W)
                 ? xn[((int64_t)iy * W + ix) * Cin + c]
                 : 0.0f;
   }
@@ -105,18 +120,18 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
   // Work item: CT channels x PT neighbouring pixels of one output row.
   const int groups = Cout / CT;
   const int xgroups = (OW + PT - 1) / PT;
-  const int total = OH * xgroups * groups;
-  float* on = out + (int64_t)n * OH * OW * Cout;
+  const int total = rows * xgroups * groups;
+  float* on = out + ((int64_t)n * OH + oy0) * OW * Cout;
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const int g = t % groups;  // neighbouring threads: neighbouring channels
     const int xg = (t / groups) % xgroups;
-    const int oy = t / (groups * xgroups);
+    const int oy = t / (groups * xgroups);  // row within the band
     int xoff[PT];
 #pragma unroll
     for (int p = 0; p < PT; ++p) {
       // Pixels past the row's end compute on the last one, never stored.
       const int ox = min(xg * PT + p, OW - 1);
-      xoff[p] = ox * stride * Cin;
+      xoff[p] = ox * stride * Cs;
     }
     float acc[PT][CT];
 #pragma unroll
@@ -125,7 +140,7 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
       for (int j = 0; j < CT; ++j) acc[p][j] = 0.0f;
     for (int ky = 0; ky < K; ++ky) {
       for (int kx = 0; kx < K; ++kx) {
-        const float* xr = xs + ((oy * stride + ky) * Wp + kx) * Cin;
+        const float* xr = xs + ((oy * stride + ky) * Wp + kx) * Cs;
         const float* wr = w + (int64_t)(ky * K + kx) * Cin * Cout + g * CT;
         for (int ci = 0; ci < Cin; ++ci) {
           float wv[CT];
@@ -428,15 +443,16 @@ constexpr int kThreads = 256;
 template <int CT, int PT>
 int launch(const float* x, const float* w, const float* b, const float* a,
            float* out, int N, int H, int W, int Cin, int OH, int OW,
-           int Cout, int K, int stride, int pad_h, int pad_w, int Hp, int Wp,
-           size_t smem, cudaStream_t stream) {
+           int Cout, int K, int stride, int pad_h, int pad_w, int Wp,
+           int band, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       conv_prelu_kernel<CT, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  conv_prelu_kernel<CT, PT><<<N, kThreads, smem, stream>>>(
-      x, w, b, a, out, H, W, Cin, OH, OW, Cout, K, stride, pad_h, pad_w, Hp,
-      Wp);
+  const int bands = (OH + band - 1) / band;
+  conv_prelu_kernel<CT, PT><<<N * bands, kThreads, smem, stream>>>(
+      x, w, b, a, out, H, W, Cin, OH, OW, Cout, K, stride, pad_h, pad_w, Wp,
+      band, bands);
   return (int)cudaGetLastError();
 }
 
@@ -445,13 +461,14 @@ int launch(const float* x, const float* w, const float* b, const float* a,
 // alpha may be null (no PReLU). Output (N, ceil(H/s), ceil(W/s), Cout).
 // x, w and out 16-byte aligned. The caller picks the path: tensor_cores
 // (the implicit GEMM; refused unless both channel counts are multiples of
-// 4) or the per-image path, whose padded window must fit a block's shared
-// memory.
+// 4) or the banded path, with `band` output rows a block, whose padded
+// window must fit a block's shared memory.
 extern "C" int conv_prelu_launch(const float* x, const float* w,
                                  const float* b, const float* alpha,
                                  float* out, int N, int H, int W, int Cin,
                                  int Cout, int K, int stride,
-                                 int tensor_cores, cudaStream_t stream) {
+                                 int tensor_cores, int band,
+                                 cudaStream_t stream) {
   if (N <= 0) return 0;
   const int OH = (H + stride - 1) / stride;
   const int OW = (W + stride - 1) / stride;
@@ -476,33 +493,41 @@ extern "C" int conv_prelu_launch(const float* x, const float* w,
     WGMMA_LAUNCH(128);
 #undef WGMMA_LAUNCH
   }
-  const int Hp = (OH - 1) * stride + K;
+  if (band < 1 || band > OH) return (int)cudaErrorInvalidValue;
   const int Wp = (OW - 1) * stride + K;
-  const size_t smem = (size_t)Hp * Wp * Cin * sizeof(float);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)((band - 1) * stride + K) * Wp * (Cin | 1) *
+                      sizeof(float);
+  if (smem > 232448 || (int64_t)N * ((OH + band - 1) / band) > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   // Register tile (CT channels x PT pixels): the largest that still gives
   // every thread of the block a work item; else the one with most items.
-  const int tiles[6][2] = {{8, 4}, {8, 2}, {4, 2}, {8, 1}, {4, 1}, {1, 1}};
+  // Three channels (the decoder's RGB output) take a tile of 3: one shared
+  // load serves 3 products.
+  const int tiles[8][2] = {{8, 4}, {8, 2}, {4, 2}, {8, 1},
+                           {4, 1}, {3, 2}, {3, 1}, {1, 1}};
   int pick = -1, best = -1;
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < 8; ++i) {
     const int ct = tiles[i][0], pt = tiles[i][1];
     if (Cout % ct) continue;
-    const int items = OH * ((OW + pt - 1) / pt) * (Cout / ct);
+    const int items = band * ((OW + pt - 1) / pt) * (Cout / ct);
     if (items >= kThreads) { pick = i; break; }
-    if (best < 0 || items > OH * ((OW + tiles[best][1] - 1) / tiles[best][1]) *
-                                (Cout / tiles[best][0]))
+    if (best < 0 ||
+        items > band * ((OW + tiles[best][1] - 1) / tiles[best][1]) *
+                    (Cout / tiles[best][0]))
       best = i;
   }
   if (pick < 0) pick = best;
 #define CONV_LAUNCH(CT, PT)                                                  \
   return launch<CT, PT>(x, w, b, alpha, out, N, H, W, Cin, OH, OW, Cout, K, \
-                        stride, pad_h, pad_w, Hp, Wp, smem, stream)
+                        stride, pad_h, pad_w, Wp, band, smem, stream)
   switch (pick) {
     case 0: CONV_LAUNCH(8, 4);
     case 1: CONV_LAUNCH(8, 2);
     case 2: CONV_LAUNCH(4, 2);
     case 3: CONV_LAUNCH(8, 1);
     case 4: CONV_LAUNCH(4, 1);
+    case 5: CONV_LAUNCH(3, 2);
+    case 6: CONV_LAUNCH(3, 1);
     default: CONV_LAUNCH(1, 1);
   }
 #undef CONV_LAUNCH

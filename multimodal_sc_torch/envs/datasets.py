@@ -1,11 +1,14 @@
-"""Seeded synthetic datasets: structured images and semantic LiDAR clouds.
+"""Image datasets (CIFAR-10 / KITTI crops with a synthetic fallback) and
+seeded synthetic LiDAR clouds.
 
-Counterpart of the synthetic generators of
-``multimodal_sc_tpu/envs/datasets.py``. Every random value a generator
-consumes is an argument (a draws tuple, values already in their ranges);
-``draw_image`` / ``draw_pointcloud`` fill one from a ``torch.Generator`` on
-the device, and a test can hand in the JAX package's own draws instead. The
-real-file loaders (``cifar`` / ``kitti``) are not ported and raise.
+Counterpart of ``multimodal_sc_tpu/envs/datasets.py``. Every random value a
+synthetic generator consumes is an argument (a draws tuple, values already
+in their ranges); ``draw_image`` / ``draw_pointcloud`` fill one from a
+``torch.Generator`` on the device, and a test can hand in the JAX package's
+own draws instead. The real files (``cifar-10-batches-py/``, ``kitti/``
+under ``data_root``) are read when present into a bank of images in host
+memory; without them ``cifar`` and ``kitti`` fall back to their synthetic
+twins, as in the JAX package.
 
 Synthetic images are structured (smooth gradients + random shapes + noise)
 rather than pure noise, so JSCC reconstruction quality is a meaningful,
@@ -14,8 +17,12 @@ improvable signal.
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Tuple
+import os
+import pickle
+import warnings
+from typing import Iterator, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from multimodal_sc_torch.device import resolve_device
@@ -95,13 +102,73 @@ def synthetic_image_batch(draws: ImageDraws, hw: Tuple[int, int]) -> torch.Tenso
     return synthetic_image_seg_batch(draws, hw)[0]
 
 
-class ImageDataset:
-    """Infinite seeded iterator of (B, H, W, C) float32 batches in [0,1], on
-    ``device``.
+def _try_load_kitti_crops(root: str, hw: Tuple[int, int],
+                          max_images: int = 2000) -> Optional[np.ndarray]:
+    """KITTI-style images under ``<root>/kitti/**.png|jpg`` as a fixed bank
+    of (N, h, w, 3) float32 crops (4 per frame, at seeded offsets); None
+    (the synthetic fallback) when the directory, its images or PIL are
+    absent."""
+    d = os.path.join(root, "kitti")
+    if not os.path.isdir(d):
+        return None
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    paths = []
+    for base, _, files in os.walk(d):
+        paths += [os.path.join(base, f) for f in files
+                  if f.lower().endswith((".png", ".jpg", ".jpeg"))]
+    if not paths:
+        return None
+    h, w = hw
+    rng = np.random.default_rng(0)
+    crops = []
+    for p in sorted(paths)[:max_images]:
+        try:
+            img = np.asarray(Image.open(p).convert("RGB"), np.float32) / 255.0
+        except OSError:
+            continue
+        if img.shape[0] < h or img.shape[1] < w:
+            continue
+        for _ in range(4):
+            y0 = rng.integers(0, img.shape[0] - h + 1)
+            x0 = rng.integers(0, img.shape[1] - w + 1)
+            crops.append(img[y0:y0 + h, x0:x0 + w])
+    if not crops:
+        return None
+    return np.stack(crops)
 
-    name: synthetic_cifar | synthetic_kitti. Batch ``i`` depends on
-    ``(seed, i)`` only, so setting ``_step`` replays the stream from there.
-    The real datasets (``cifar``, ``kitti``) are not ported and raise.
+
+def _try_load_cifar(root: str) -> Optional[np.ndarray]:
+    """CIFAR-10 python-format batches under ``<root>/cifar-10-batches-py``
+    as a (N, 32, 32, 3) float32 bank in [0, 1]; None when absent."""
+    d = os.path.join(root, "cifar-10-batches-py")
+    if not os.path.isdir(d):
+        return None
+    arrays = []
+    for i in range(1, 6):
+        p = os.path.join(d, f"data_batch_{i}")
+        if not os.path.exists(p):
+            continue
+        with open(p, "rb") as f:
+            batch = pickle.load(f, encoding="bytes")
+        arrays.append(batch[b"data"])
+    if not arrays:
+        return None
+    x = np.concatenate(arrays).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return x.astype(np.float32) / 255.0
+
+
+class ImageDataset:
+    """Infinite seeded iterator of (B, H, W, C) float32 batches in [0,1].
+
+    name: synthetic_cifar | synthetic_kitti | cifar | kitti. Batch ``i``
+    depends on ``(seed, i)`` only, so setting ``_step`` replays the stream
+    from there. Synthetic batches are made on ``device``; batches of a real
+    bank come from host memory (``runtime.prefetch.prefetch_to_device``
+    moves them). ``real_bank`` reuses an already-loaded bank (the train
+    dataset's, for the held-out batch) instead of reading the files again.
     """
 
     SHAPES = {
@@ -112,19 +179,28 @@ class ImageDataset:
     }
 
     def __init__(self, name: str, batch_size: int, seed: int = 0,
-                 with_seg: bool = False, device="cuda"):
+                 with_seg: bool = False, device="cuda",
+                 data_root: str = "data",
+                 real_bank: Optional[np.ndarray] = None):
         if name not in self.SHAPES:
             raise KeyError(f"unknown dataset {name!r}")
-        if not name.startswith("synthetic_"):
-            raise NotImplementedError(
-                f"dataset {name!r}: the real-file loaders are not ported yet "
-                "(ROADMAP item 12); use its synthetic_ twin")
         self.name = name
         self.hw = self.SHAPES[name]
         self.batch_size = batch_size
         self.seed = seed
         self.with_seg = with_seg
         self.device = resolve_device(device)
+        self._real: Optional[np.ndarray] = real_bank
+        if real_bank is None and name == "cifar":
+            self._real = _try_load_cifar(data_root)
+        elif real_bank is None and name == "kitti":
+            self._real = _try_load_kitti_crops(data_root, self.hw)
+        if self._real is not None and with_seg:
+            # Seg labels exist for the synthetic generator only.
+            warnings.warn(
+                f"dataset {name!r} loaded {len(self._real)} real images but "
+                "with_seg=True has no real labels; falling back to the "
+                "SYNTHETIC image+seg generator", stacklevel=2)
         self._gen = torch.Generator(device=self.device)
         self._step = 0
 
@@ -132,6 +208,11 @@ class ImageDataset:
         return self
 
     def __next__(self):
+        if self._real is not None and not self.with_seg:
+            rng = np.random.default_rng((self.seed, self._step))
+            self._step += 1
+            idx = rng.integers(0, len(self._real), self.batch_size)
+            return torch.from_numpy(self._real[idx])
         # Both in the low 32 bits: the CPU generator keeps no more of a seed.
         self._gen.manual_seed((self.seed * 0x9E3779B1 + self._step)
                               & 0x7FFFFFFFFFFFFFFF)

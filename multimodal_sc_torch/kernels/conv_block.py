@@ -11,8 +11,10 @@ When Cin and Cout are multiples of 4 the kernel is an implicit GEMM on the
 tensor cores (``wgmma`` for more than 64 output channels, ``mma.sync`` for
 fewer): output pixels x (tap, channel) gathered from the input, times the
 HWIO weights read as a (K*K*Cin, Cout) matrix, every product formed by the
-3xTF32 split. Other channel counts (the first layer's Cin = 3) take a per-image kernel on
-the FMA units.
+3xTF32 split. Other channel counts (the first layer's Cin = 3, the decoder's
+Cout = 3) take a banded kernel on the FMA units: a block per image and band
+of output rows, the band's padded window in shared memory, the band chosen
+by ``band_plan``.
 """
 
 from __future__ import annotations
@@ -31,11 +33,13 @@ from multimodal_sc_torch.nn_init import lecun_normal_
 launches = 0
 
 _SMEM_LIMIT = 232448    # bytes of shared memory one block may use (sm_90)
+_SMEM_AIM = 56 * 1024   # a banded window this size lets 4 blocks share an SM
+_SMS = 132              # streaming multiprocessors of an H100 SXM
 
 _SIG = {"conv_prelu_launch": (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p)}
 
 
@@ -67,7 +71,46 @@ def tensor_core_path(cin: int, cout: int) -> bool:
     return cin % 4 == 0 and cout % 4 == 0
 
 
-def _conv_prelu_cuda(x, w, b, alpha, stride: int) -> torch.Tensor:
+def band_window_bytes(band: int, ow: int, cin: int, k: int,
+                      stride: int) -> int:
+    """Shared memory of a banded block: the zero-padded input rows that
+    ``band`` output rows read, ``(band - 1) * stride + k`` of them, each
+    ``(ow - 1) * stride + k`` pixels of ``cin | 1`` floats (an odd pixel
+    stride keeps a warp's reads off each other's banks)."""
+    return ((band - 1) * stride + k) * ((ow - 1) * stride + k) * (cin | 1) * 4
+
+
+def band_plan(n: int, oh: int, ow: int, cin: int, k: int,
+              stride: int) -> int:
+    """Output rows per block of the banded kernel for ``n`` images of
+    ``oh x ow`` outputs: the most rows whose window stays within
+    ``_SMEM_AIM`` bytes, and few enough that the batch gives at least
+    ``_SMS`` blocks wherever ``n * oh`` allows. One row whose window still
+    exceeds the aim takes up to the block's limit; past that the image is too
+    wide and the plan refuses it."""
+    if band_window_bytes(1, ow, cin, k, stride) > _SMEM_LIMIT:
+        # The widest output row one block holds: (ow - 1) * stride + k
+        # padded pixels of k rows.
+        wp_max = _SMEM_LIMIT // (k * (cin | 1) * 4)
+        w_max = ((wp_max - k) // stride + 1) * stride
+        raise ValueError(
+            f"conv_prelu: one output row's padded window of "
+            f"{band_window_bytes(1, ow, cin, k, stride)} bytes exceeds the "
+            f"{_SMEM_LIMIT} bytes of shared memory a block may use; at Cin "
+            f"{cin}, K {k}, stride {stride} the banded path takes images at "
+            f"most {w_max} pixels wide")
+    fit = 1
+    while fit < oh and band_window_bytes(fit + 1, ow, cin, k,
+                                         stride) <= _SMEM_AIM:
+        fit += 1
+    bands_wanted = -(-_SMS // max(n, 1))
+    return max(1, min(fit, oh // bands_wanted))
+
+
+def _conv_prelu_cuda(x, w, b, alpha, stride: int,
+                     band: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel. ``band`` (checks only) overrides ``band_plan``
+    on the banded path."""
     global launches
     tensors = (x, w, b) if alpha is None else (x, w, b, alpha)
     for t in tensors:
@@ -84,10 +127,10 @@ def _conv_prelu_cuda(x, w, b, alpha, stride: int) -> torch.Tensor:
         raise ValueError(f"stride {stride} unsupported")
     oh, ow = -(-h // stride), -(-wd // stride)
     tensor_cores = tensor_core_path(cin, cout)
-    smem = ((oh - 1) * stride + k) * ((ow - 1) * stride + k) * cin * 4
-    if not tensor_cores and smem > _SMEM_LIMIT:
-        raise ValueError(f"padded input window of {smem} bytes exceeds the "
-                         f"{_SMEM_LIMIT} bytes of shared memory per block")
+    if tensor_cores:
+        band = 0
+    elif band is None:
+        band = band_plan(n, oh, ow, cin, k, stride)
     # 16-byte copies and float4 weight loads need aligned bases.
     x, w = _build.aligned(x), _build.aligned(w)
     b = b.contiguous()
@@ -97,7 +140,7 @@ def _conv_prelu_cuda(x, w, b, alpha, stride: int) -> torch.Tensor:
     err = lib.conv_prelu_launch(
         _build.ptr(x), _build.ptr(w), _build.ptr(b),
         _build.ptr(alpha) if alpha is not None else None, _build.ptr(out),
-        n, h, wd, cin, cout, k, stride, int(tensor_cores),
+        n, h, wd, cin, cout, k, stride, int(tensor_cores), band,
         _build.stream_ptr(x.device))
     _build.check(err, "conv_prelu")
     launches += 1

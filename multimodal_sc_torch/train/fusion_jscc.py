@@ -1,21 +1,22 @@
 """Config-3 training loop: camera + LiDAR late-fusion semantic transmission.
 
 Counterpart of ``multimodal_sc_tpu/train/fusion_jscc.py``. Both codecs (the
-ViT camera codec and the LiDAR BEV codec) transmit through the same noisy
-channel; the joint loss is camera MSE + 0.5 x LiDAR BEV cross entropy (or
-occupancy BCE). Metrics: PSNR (camera) + mIoU (LiDAR BEV). The optimizer is
-optax's chain of the JAX package: global-norm clip, then AdamW with weight
-decay 1e-4 on every parameter.
+camera codec, ViT or CNN after ``camera.arch``, and the LiDAR BEV codec)
+transmit through the same noisy channel; the joint loss is camera MSE + 0.5
+x LiDAR BEV cross entropy (or occupancy BCE). Metrics: PSNR (camera) + mIoU
+(LiDAR BEV). The optimizer is optax's chain of the JAX package: global-norm
+clip, then AdamW with weight decay 1e-4 on every parameter. With
+``train.checkpoint_dir`` the run saves every ``train.checkpoint_every``
+steps and resumes from the newest checkpoint (model, moments, generator,
+step; the image and point-cloud streams are seeded per step).
 
 Unlike the JAX package's pure update, a train step writes the model and the
 optimizer moments IN PLACE: the returned state holds the same objects.
 
-Not ported yet, each raising: the CNN camera codec on this path
-(``camera.arch="cnn"``, ROADMAP item 12), the digital LiDAR codec
-(``lidar.arch="vq"``, item 14), ``train.bf16``, checkpoints and resume
-(``train.checkpoint_dir``, item 10). ``train.iters_per_dispatch`` has no
-counterpart: PyTorch runs eagerly, so there is no per-dispatch round trip to
-amortize, and the value is ignored.
+Not ported yet, each raising: the digital codecs (``camera.arch="vq"``,
+``lidar.arch="vq"``, ROADMAP item 14) and ``train.bf16``.
+``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
+there is no per-dispatch round trip to amortize, and the value is ignored.
 
 As a script it trains a preset:
 
@@ -40,6 +41,7 @@ from torch import nn
 
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
+from multimodal_sc_torch.codec.camera_cnn import CameraJSCC
 from multimodal_sc_torch.codec.camera_vit import ViTJSCC
 from multimodal_sc_torch.codec.lidar_bev import (LidarBEVCodec,
                                                  occupancy_target,
@@ -49,6 +51,7 @@ from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.envs.datasets import (ImageDataset, draw_pointcloud,
                                                synthetic_pointcloud_batch)
 from multimodal_sc_torch.evaluation.metrics import miou, psnr
+from multimodal_sc_torch.io.checkpoint import CheckpointManager
 from multimodal_sc_torch.nn_init import init_like_flax_
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     to_host)
@@ -61,22 +64,25 @@ ADAMW_WEIGHT_DECAY = 1e-4      # optax.adamw's default
 def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.train.bf16:
         raise NotImplementedError("train.bf16 activations are not ported")
-    if cfg.camera.arch != "vit":
+    if cfg.camera.arch not in ("vit", "cnn"):
         raise NotImplementedError(
             f"camera.arch={cfg.camera.arch!r} on the fusion path is not "
-            "ported yet: only the ViT codec is (CameraJSCC: ROADMAP item 12, "
-            "digital VQ: item 14)")
+            "ported yet (digital VQ: ROADMAP item 14)")
     if cfg.lidar.arch != "analog":
         raise NotImplementedError(
             f"lidar.arch={cfg.lidar.arch!r} is not ported yet (ROADMAP "
             "item 14)")
 
 
-def build_camera_codec(cfg: ExperimentConfig) -> ViTJSCC:
-    """The fusion pipeline's camera codec (no seg head: segmentation lives
-    on the LiDAR BEV side)."""
+def build_camera_codec(cfg: ExperimentConfig):
+    """The fusion pipeline's camera codec, ``ViTJSCC`` or ``CameraJSCC``
+    (no seg head, fixed rate: segmentation lives on the LiDAR BEV side)."""
     _check_ported(cfg)
     cam = cfg.camera
+    if cam.arch == "cnn":
+        return CameraJSCC(features=cam.features, c_sym=cam.c_sym,
+                          image_hw=cam.image_hw,
+                          snr_conditioning=cam.snr_conditioning)
     return ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
                    depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,
                    snr_conditioning=cam.snr_conditioning,
@@ -246,57 +252,82 @@ def make_train_step(cfg: ExperimentConfig):
     return train_step
 
 
-def make_batches(cfg: ExperimentConfig, device):
-    """The training stream: an endless iterator of ``(img, pts, mask, cls)``
-    batches on ``device``, images and point clouds each from a stream of
-    their own (apart from the channel's, the train state's generator)."""
-    lid, bs = cfg.lidar, cfg.train.batch_size
-    data = ImageDataset(cfg.train.dataset, bs, seed=cfg.train.seed,
-                        device=device)
-    cloud_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
+def make_batches(cfg: ExperimentConfig, device, start_step: int = 0):
+    """The training stream from step ``start_step`` on: an endless iterator
+    of ``(img, pts, mask, cls)`` batches on ``device``. Batch ``i``'s images
+    and point cloud each come from a generator seeded by ``(train.seed,
+    i)``, apart from the channel's (the train state's generator), so a
+    resumed run replays the stream."""
+    lid, tr = cfg.lidar, cfg.train
+    data = ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed,
+                        device=device, data_root=tr.data_root)
+    data._step = start_step
+    cloud_gen = torch.Generator(device=device)
+    step = start_step
     while True:
+        cloud_gen.manual_seed(((tr.seed + 1) * 0x9E3779B1 + 0xC10D0000 + step)
+                              & 0xFFFFFFFF)
+        step += 1
         pts, mask, cls = synthetic_pointcloud_batch(
-            draw_pointcloud(bs, lid.max_points, cloud_gen, device,
+            draw_pointcloud(tr.batch_size, lid.max_points, cloud_gen, device,
                             lid.x_range, lid.y_range),
             lid.x_range, lid.y_range, with_classes=True)
-        yield next(data), pts, mask, cls
+        yield next(data).to(device), pts, mask, cls
 
 
 def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         device="cuda"):
     """Train config-3 late fusion for ``cfg.train.steps`` steps on the
-    synthetic generators; returns ``(state, result)``."""
-    if cfg.train.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints and resume are not ported yet (ROADMAP item 10)")
+    synthetic generators (resuming from ``train.checkpoint_dir`` when it
+    holds a checkpoint); returns ``(state, result)``."""
     dev = resolve_device(device)
-    state = create_train_state(cfg, cfg.train.seed, dev)
+    tr = cfg.train
+    state = create_train_state(cfg, tr.seed, dev)
     train_step = make_train_step(cfg)
-    batches = make_batches(cfg, dev)
+    ckpt = None
+    if tr.checkpoint_dir:
+        ckpt = CheckpointManager(tr.checkpoint_dir)
+        ckpt.save_config(cfg.to_json())
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state = restored
+    start = state.step
+    batches = make_batches(cfg, dev, start)
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
     watchdog = NaNWatchdog()
 
     # First-step wall (allocator warm-up, kernel build and load) recorded
-    # apart from the steady rate.
+    # apart from the steady rate; checkpoint writes apart from both.
     first_s = None
+    ckpt_s = 0.0
     last = {}
-    with maybe_trace(cfg.train.profile_dir), Timer() as t:
-        for step in range(1, cfg.train.steps + 1):
+    with maybe_trace(tr.profile_dir), Timer() as t:
+        for step in range(start + 1, tr.steps + 1):
             t0 = time.perf_counter() if first_s is None else None
             state, last = train_step(state, *next(batches))
             if t0 is not None:
                 synchronize(dev)
                 first_s = time.perf_counter() - t0
-            if step % cfg.train.log_every == 0:
+            if step % tr.log_every == 0:
                 writer.write(step, last)
                 watchdog.check(step, last)
+            if ckpt and step % tr.checkpoint_every == 0:
+                t_ck = time.perf_counter()
+                ckpt.save(step, state)
+                ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
     out = to_host(last)
-    if first_s is not None and cfg.train.steps > 1 and t.elapsed > first_s:
+    n_steps = tr.steps - start
+    if ckpt:
+        t_ck = time.perf_counter()
+        ckpt.close()
+        out["ckpt_save_s"] = round(ckpt_s, 2)
+        out["ckpt_close_s"] = round(time.perf_counter() - t_ck, 2)
+    if first_s is not None and n_steps > 1 and t.elapsed > first_s + ckpt_s:
         out["first_dispatch_s"] = round(first_s, 2)
         out["steady_steps_per_sec"] = round(
-            (cfg.train.steps - 1) / (t.elapsed - first_s), 2)
-    writer.write(cfg.train.steps, out)
+            (n_steps - 1) / (t.elapsed - first_s - ckpt_s), 2)
+    writer.write(tr.steps, out)
     writer.close()
     return state, out
 

@@ -1,27 +1,36 @@
-"""JSCC reconstruction training loop (config 1).
+"""JSCC reconstruction training loop (configs 1-2).
 
 Counterpart of ``multimodal_sc_tpu/train/jscc.py`` for the CNN camera codec
-(``CameraJSCC``) at a fixed SNR: encode -> power-normalise -> channel ->
-decode -> MSE. The optimizer is the JAX package's chain: global-norm clip,
-then AdamW (decay 1e-4 on every parameter) whose learning rate follows
-optax's ``warmup_cosine_decay_schedule(0, lr, warmup_steps, max(steps,
+(``CameraJSCC``): encode -> power-normalise -> channel -> decode -> MSE,
+with what config 2 adds: a per-example SNR drawn from U[snr_min_db,
+snr_max_db) (``channel.random_snr``), the segmentation head's loss (MSE +
+0.1 x cross entropy, ``camera.seg_classes > 0``) and its mIoU, the
+bandwidth-agile codec (``camera.adaptive_rate``: m ~ U{rate_min_sym, ..,
+c_sym} symbol channels an example, FiLM on the rate m/c_sym, the others
+masked out of the channel), every channel kind, pilots and M-QAM. The
+optimizer is the JAX package's chain: global-norm clip, then AdamW (decay
+1e-4 on every parameter) whose learning rate follows optax's
+``warmup_cosine_decay_schedule(0, lr, warmup_steps, max(steps,
 warmup_steps + 1))``, read at the number of updates taken so far (0 for the
-first). A held-out batch is scored (PSNR) every ``train.eval_every`` steps.
+first). A held-out batch is scored (PSNR) every ``train.eval_every`` steps
+over the deployed channel at ``channel.snr_db``. With
+``train.checkpoint_dir`` the run saves every ``train.checkpoint_every``
+steps and resumes from the newest checkpoint: model, optimizer moments,
+schedule, generator and step, the dataset set to the step, so a resumed
+run replays the stream of an uninterrupted one.
 
 Unlike the JAX package's pure update, a train step writes the model, the
 optimizer moments and the schedule IN PLACE: the returned state holds the
-same objects. Not ported yet, each raising: random SNR draws
-(``channel.random_snr``), the segmentation head's loss
-(``camera.seg_classes > 0``) and the adaptive rate (ROADMAP item 12), the
-ViT arch (item 13), the VQ arch (item 14), non-AWGN channels (item 12),
-``train.bf16``, checkpoints and resume (item 10). ``train.iters_per_dispatch``
+same objects. Not ported yet, each raising: the ViT arch on this path (item
+13), the VQ arch (item 14), ``train.bf16``. ``train.iters_per_dispatch``
 (the chunked step) has no counterpart: PyTorch runs eagerly, so there is no
 per-dispatch round trip to amortize, and the value is ignored.
 
 As a script it trains a preset:
 
-    python -m multimodal_sc_torch.train.jscc --config c1 \\
-        [--set train.steps=2000 ...] [--device cuda]
+    python -m multimodal_sc_torch.train.jscc --config c2 \\
+        [--set train.steps=3000 --set train.checkpoint_dir=DIR ...] \\
+        [--device cuda]
 
 prints the card, then one JSON object: the result of ``run`` and the wall
 time.
@@ -34,45 +43,35 @@ import json
 import math
 import sys
 import time
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
+from multimodal_sc_torch.channel import ChannelDraws, rate_mask
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.codec.camera_cnn import CameraJSCC
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.envs.datasets import ImageDataset
-from multimodal_sc_torch.evaluation.metrics import psnr
+from multimodal_sc_torch.evaluation.metrics import miou, psnr
+from multimodal_sc_torch.io.checkpoint import CheckpointManager
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
 from multimodal_sc_torch.rl.dqn import clip_by_global_norm_
+from multimodal_sc_torch.runtime.prefetch import prefetch_to_device
 from multimodal_sc_torch.train.fusion_jscc import make_optimizer
 
 
 def _check_ported(cfg: ExperimentConfig) -> None:
-    cam, ch = cfg.camera, cfg.channel
+    cam = cfg.camera
     if cam.arch != "cnn":
         item = {"vit": 13, "vq": 14}.get(cam.arch)
         raise NotImplementedError(
             f"camera.arch={cam.arch!r} on the JSCC path is not ported yet"
             + (f" (ROADMAP item {item})" if item else ""))
-    if cam.adaptive_rate:
-        raise NotImplementedError(
-            "camera.adaptive_rate is not ported yet (ROADMAP item 12)")
-    if cam.seg_classes > 0:
-        raise NotImplementedError(
-            "camera.seg_classes > 0 (the segmentation loss and mIoU) is not "
-            "ported yet (ROADMAP item 12)")
-    if ch.random_snr:
-        raise NotImplementedError(
-            "channel.random_snr is not ported yet (ROADMAP item 12)")
-    if ch.kind != "awgn":
-        raise NotImplementedError(
-            f"channel.kind={ch.kind!r} on the JSCC path is not ported yet "
-            "(ROADMAP item 12)")
     if cfg.train.bf16:
         raise NotImplementedError("train.bf16 activations are not ported")
 
@@ -103,7 +102,7 @@ class TrainState(NamedTuple):
     params: CameraJSCC
     opt_state: torch.optim.AdamW   # over ``params``; holds the Adam moments
     schedule: torch.optim.lr_scheduler.LambdaLR   # stepped after each update
-    generator: torch.Generator     # channel-noise draws
+    generator: torch.Generator     # SNR, rate and channel draws
     step: int                      # train steps taken
 
 
@@ -127,34 +126,119 @@ def create_train_state(cfg: ExperimentConfig, seed: int = 0,
                       step=0)
 
 
+class StepDraws(NamedTuple):
+    """The random draws of one train step; a ``None`` field is drawn from
+    the state's generator (in this order: SNR, rate, channel)."""
+    snr_db: Optional[torch.Tensor] = None   # (B,), channel.random_snr
+    m: Optional[torch.Tensor] = None        # (B,) int, camera.adaptive_rate
+    channel: Union[None, torch.Tensor, ChannelDraws] = None
+
+
+def _rate(model: CameraJSCC, m: Optional[torch.Tensor]):
+    """``(rate, mask factory)`` of m transmitted symbol channels an example
+    (None for a fixed-rate codec)."""
+    if not model.adaptive_rate:
+        return None, None
+    return m.float() / model.c_sym, lambda z: rate_mask(
+        z.shape[0], z.shape[1], model.c_sym, m)
+
+
+def transmit(model: CameraJSCC, img, snr_db, kind: str,
+             generator: Optional[torch.Generator] = None, noise=None,
+             rate_sym: int = 0, with_seg: bool = False, **channel_kw):
+    """encode -> channel -> decode, as the JAX package's
+    ``api.reconstruct``: ``(recon, symbols)``, or ``((recon, seg_logits),
+    symbols)`` with ``with_seg``. ``snr_db`` a scalar or (B,); ``rate_sym``
+    (adaptive-rate codecs only): transmit the first rate_sym of c_sym symbol
+    channels, 0 for all. ``noise``: the channel's draws, in place of draws
+    from ``generator``."""
+    b = img.shape[0]
+    snr = torch.as_tensor(snr_db, dtype=torch.float32, device=img.device)
+    if snr.dim() == 0:
+        snr = snr.expand(b)
+    m = torch.full((b,), rate_sym or model.c_sym, dtype=torch.int32,
+                   device=img.device)
+    rate, mask = _rate(model, m)
+    z = model.encode(img, snr, rate)
+    z_hat = channel_op(z, snr, kind, generator, noise=noise,
+                       mask=mask(z) if mask else None, **channel_kw)
+    decode = model.decode_seg if with_seg else model.decode
+    return decode(z_hat, snr, rate), z
+
+
 def reconstruct(cfg: ExperimentConfig, model: CameraJSCC, img, snr_db,
-                generator: Optional[torch.Generator] = None, noise=None):
-    """encode -> channel (power-normalised, ``cfg.channel``) -> decode:
-    ``(recon, symbols)``. ``noise`` (optional): the channel's
-    standard-normal draws, in place of draws from ``generator``."""
+                generator: Optional[torch.Generator] = None, noise=None,
+                rate_sym: int = 0):
+    """``transmit`` over ``cfg.channel``: ``(recon, symbols)``."""
+    return transmit(model, img, snr_db, cfg.channel.kind, generator, noise,
+                    rate_sym, **channel_kwargs(cfg.channel))
+
+
+def _with_seg(cfg: ExperimentConfig) -> bool:
+    return cfg.camera.seg_classes > 0 and cfg.camera.arch == "cnn"
+
+
+def draw_step(cfg: ExperimentConfig, batch: int, generator: torch.Generator,
+              device, draws: Optional[StepDraws] = None) -> StepDraws:
+    """The step's SNR and rate, those ``draws`` leaves out drawn from
+    ``generator``: SNR ~ U[snr_min_db, snr_max_db) with
+    ``channel.random_snr`` (else ``channel.snr_db``), m ~ U{rate_min_sym,
+    .., c_sym} with ``camera.adaptive_rate``."""
+    ch, cam = cfg.channel, cfg.camera
+    draws = draws if draws is not None else StepDraws()
+    snr, m = draws.snr_db, draws.m
+    if snr is None:
+        if ch.random_snr:
+            snr = ch.snr_min_db + torch.rand(
+                (batch,), generator=generator, device=device) * (
+                    ch.snr_max_db - ch.snr_min_db)
+        else:
+            snr = torch.full((batch,), ch.snr_db, dtype=torch.float32,
+                             device=device)
+    if m is None and cam.adaptive_rate:
+        m = torch.randint(cam.rate_min_sym, cam.c_sym + 1, (batch,),
+                          generator=generator, device=device)
+    return draws._replace(snr_db=snr, m=m)
+
+
+def loss_fn(cfg: ExperimentConfig, model: CameraJSCC, img, seg,
+            draws: StepDraws, generator=None):
+    """``(loss, (recon, seg_logits))`` of one batch at the step's draws: MSE,
+    plus 0.1 x the segmentation cross entropy (mean over B x H x W) with a
+    seg head."""
     ch = cfg.channel
-    z = model.encode(img, snr_db)
-    z_hat = channel_op(z, snr_db, ch.kind, generator, noise=noise,
+    rate, mask = _rate(model, draws.m)
+    z = model.encode(img, draws.snr_db, rate)
+    z_hat = channel_op(z, draws.snr_db, ch.kind, generator,
+                       noise=draws.channel, mask=mask(z) if mask else None,
                        **channel_kwargs(ch))
-    return model.decode(z_hat, snr_db), z
-
-
-def _snr(cfg: ExperimentConfig, img) -> torch.Tensor:
-    return torch.full((img.shape[0],), cfg.channel.snr_db,
-                      dtype=torch.float32, device=img.device)
+    if _with_seg(cfg):
+        recon, logits = model.decode_seg(z_hat, draws.snr_db, rate)
+        mse = (recon - img).square().mean()
+        # Classes last in the logits; F.cross_entropy wants them second.
+        ce = F.cross_entropy(logits.permute(0, 3, 1, 2), seg.long())
+        return mse + 0.1 * ce, (recon, logits)
+    recon = model.decode(z_hat, draws.snr_db, rate)
+    return (recon - img).square().mean(), (recon, None)
 
 
 def make_train_step(cfg: ExperimentConfig):
-    """``train_step(state, img, noise=None) -> (state, metrics)``: one MSE
-    step (clip, AdamW at the scheduled lr) on one batch; ``noise`` as in
-    :func:`reconstruct`."""
+    """``train_step(state, batch, draws=None) -> (state, metrics)``: one
+    clip + AdamW step at the scheduled lr on one batch, ``img`` or ``(img,
+    seg)`` as the dataset yields it. ``draws``: a ``StepDraws``, or a tensor
+    of the channel's standard-normal noise."""
     _check_ported(cfg)
+    with_seg = _with_seg(cfg)
 
-    def train_step(state: TrainState, img, noise=None):
+    def train_step(state: TrainState, batch, draws=None):
         model, opt = state.params, state.opt_state
-        recon, _ = reconstruct(cfg, model, img, _snr(cfg, img),
-                               state.generator, noise)
-        loss = (recon - img).square().mean()
+        img, seg = batch if with_seg else (batch, None)
+        if isinstance(draws, torch.Tensor):
+            draws = StepDraws(channel=draws)
+        draws = draw_step(cfg, img.shape[0], state.generator, img.device,
+                          draws)
+        loss, (recon, logits) = loss_fn(cfg, model, img, seg, draws,
+                                        state.generator)
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
@@ -165,6 +249,9 @@ def make_train_step(cfg: ExperimentConfig):
             opt.zero_grad(set_to_none=True)
             state.schedule.step()
             metrics = {"loss": loss.detach(), "psnr": psnr(recon, img)}
+            if with_seg:
+                metrics["miou"] = miou(logits.argmax(dim=-1), seg,
+                                       cfg.camera.seg_classes)
         return state._replace(step=state.step + 1), metrics
 
     return train_step
@@ -172,12 +259,13 @@ def make_train_step(cfg: ExperimentConfig):
 
 def make_eval_step(cfg: ExperimentConfig):
     """``eval_step(model, img, generator=None, noise=None) -> psnr`` through
-    the deployed channel at ``channel.snr_db``."""
+    the deployed channel (``channel.kind`` and its settings) at
+    ``channel.snr_db``, full rate."""
     _check_ported(cfg)
 
     @torch.no_grad()
     def eval_step(model: CameraJSCC, img, generator=None, noise=None):
-        recon, _ = reconstruct(cfg, model, img, _snr(cfg, img), generator,
+        recon, _ = reconstruct(cfg, model, img, cfg.channel.snr_db, generator,
                                noise)
         return psnr(recon, img)
 
@@ -186,33 +274,46 @@ def make_eval_step(cfg: ExperimentConfig):
 
 def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         device="cuda"):
-    """Train config 1 for ``cfg.train.steps`` steps on the synthetic images;
-    returns ``(state, result)``."""
-    if cfg.train.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints and resume are not ported yet (ROADMAP item 10)")
+    """Train a config-1/2 preset for ``cfg.train.steps`` steps (resuming
+    from ``train.checkpoint_dir`` when it holds a checkpoint); returns
+    ``(state, result)``."""
     dev = resolve_device(device)
     tr = cfg.train
     state = create_train_state(cfg, tr.seed, dev)
     train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
-    data = ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed, device=dev)
+    data = ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed,
+                        with_seg=_with_seg(cfg), device=dev,
+                        data_root=tr.data_root)
+    ckpt = None
+    if tr.checkpoint_dir:
+        ckpt = CheckpointManager(tr.checkpoint_dir)
+        ckpt.save_config(cfg.to_json())
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state = restored
+    start = state.step
+    # The batches of an uninterrupted run from here on.
+    data._step = start
+    batches = prefetch_to_device(data, size=2, device=dev)
     # The held-out batch comes from a stream of its own; each evaluation's
     # channel noise from a generator seeded by its step, apart from the
     # training stream's.
     eval_img = next(ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed + 999,
-                                 device=dev))
+                                 device=dev, real_bank=data._real))
+    eval_img = eval_img.to(dev)
     eval_gen = torch.Generator(device=dev)
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
     watchdog = NaNWatchdog()
 
     # First-step wall (allocator warm-up, kernel build and load) recorded
-    # apart from the steady rate.
+    # apart from the steady rate; checkpoint writes apart from both.
     first_s = None
+    ckpt_s = 0.0
     last = {}
     with maybe_trace(tr.profile_dir), Timer() as t:
-        for step in range(1, tr.steps + 1):
+        for step in range(start + 1, tr.steps + 1):
             t0 = time.perf_counter() if first_s is None else None
-            state, last = train_step(state, next(data))
+            state, last = train_step(state, next(batches))
             if t0 is not None:
                 synchronize(dev)
                 first_s = time.perf_counter() - t0
@@ -225,12 +326,22 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
                 ep = eval_step(state.params, eval_img, eval_gen)
                 last = {**last, "eval_psnr": ep}
                 writer.write(step, {"eval_psnr": ep})
+            if ckpt and step % tr.checkpoint_every == 0:
+                t_ck = time.perf_counter()
+                ckpt.save(step, state)
+                ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
     out = to_host(last)
-    if first_s is not None and tr.steps > 1 and t.elapsed > first_s:
+    n_steps = tr.steps - start
+    if ckpt:
+        t_ck = time.perf_counter()
+        ckpt.close()
+        out["ckpt_save_s"] = round(ckpt_s, 2)
+        out["ckpt_close_s"] = round(time.perf_counter() - t_ck, 2)
+    if first_s is not None and n_steps > 1 and t.elapsed > first_s + ckpt_s:
         out["first_dispatch_s"] = round(first_s, 2)
         out["steady_steps_per_sec"] = round(
-            (tr.steps - 1) / (t.elapsed - first_s), 2)
+            (n_steps - 1) / (t.elapsed - first_s - ckpt_s), 2)
     writer.write(tr.steps, out)
     writer.close()
     return state, out

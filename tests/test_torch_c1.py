@@ -240,10 +240,6 @@ def test_train_run_keys_match_jax_run(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    (["channel.random_snr=true"], NotImplementedError, "item 12"),
-    (["camera.seg_classes=4"], NotImplementedError, "item 12"),
-    (["camera.adaptive_rate=true"], NotImplementedError, "item 12"),
-    (["channel.kind=rayleigh"], NotImplementedError, "item 12"),
     (["camera.arch=vit"], NotImplementedError, "item 13"),
     (["camera.arch=vq"], NotImplementedError, "item 14"),
     (["train.bf16=true"], NotImplementedError, "bf16"),
@@ -264,12 +260,17 @@ def test_main_trains(capsys):
 
 
 def test_run_refuses_checkpoints_and_needs_the_card(tmp_path, monkeypatch):
-    _, tcfg = _configs(["train.steps=1"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tjscc.run(tcfg.override_str([f"train.checkpoint_dir={tmp_path}"]),
+    """What is still refused: a checkpoint of another model, an adaptive
+    codec without its rate, and the card when it is absent."""
+    _, tcfg = _configs(["train.steps=1", f"train.checkpoint_dir={tmp_path}",
+                        "train.checkpoint_every=1",
+                        "camera.features=8,16,16,16"])
+    tjscc.run(tcfg, device="cpu")
+    with pytest.raises(KeyError, match="rate_film"):
+        tjscc.run(tcfg.override_str(["camera.adaptive_rate=true"]),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CameraJSCC(adaptive_rate=True)
+    with pytest.raises(ValueError, match="requires a rate"):
+        CameraJSCC(adaptive_rate=True).encode(torch.zeros(1, 32, 32, 3))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tjscc.create_train_state(tcfg)

@@ -381,7 +381,7 @@ def test_own_draws_give_the_documented_populations_and_ranges():
     assert set(seg.unique().tolist()) == {0, 1, 2, 3}
 
 
-def test_image_dataset_is_seeded_per_step_and_refuses_real_files():
+def test_image_dataset_is_seeded_per_step_and_refuses_real_files(tmp_path):
     a = tdata.ImageDataset("synthetic_kitti", 2, seed=3, device="cpu")
     b = tdata.ImageDataset("synthetic_kitti", 2, seed=3, device="cpu")
     first, second = next(a), next(a)
@@ -395,8 +395,13 @@ def test_image_dataset_is_seeded_per_step_and_refuses_real_files():
                                        device="cpu"))
     assert img.shape == (2, 32, 32, 3) and seg.shape == (2, 32, 32)
     assert tdata.ImageDataset.SHAPES == jdata.ImageDataset.SHAPES
+    # Without their files the real datasets serve their synthetic twins,
+    # as in the JAX package; an unknown name is refused.
     for name in ("cifar", "kitti"):
-        with pytest.raises(NotImplementedError):
-            tdata.ImageDataset(name, 2, device="cpu")
+        real = tdata.ImageDataset(name, 2, seed=3, device="cpu",
+                                  data_root=str(tmp_path))
+        twin = tdata.ImageDataset(f"synthetic_{name}", 2, seed=3,
+                                  device="cpu")
+        assert real._real is None and torch.equal(next(real), next(twin))
     with pytest.raises(KeyError):
         tdata.ImageDataset("imagenet", 2, device="cpu")

@@ -68,11 +68,15 @@ def test_awgn_measured_snr_with_generator(snr_db):
 
 
 def test_channel_unported_kinds_raise():
+    """Every kind of the JAX package is ported; an unknown kind and a QAM
+    order that is no square still raise."""
     z = torch.zeros(2, 4, 2)
-    with pytest.raises(NotImplementedError):
-        tch.channel(z, 10.0, "rayleigh")
+    for kind in tch.CHANNEL_KINDS:
+        assert tch.channel(z, 10.0, kind).shape == z.shape
     with pytest.raises(ValueError):
         tch.channel(z, 10.0, "quantum")
+    with pytest.raises(ValueError, match="square"):
+        tch.channel(z, 10.0, "awgn", modulation=8)
 
 
 @pytest.mark.parametrize("cond", [False, True])
