@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``multimodal_sc_torch``) on one GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --route-check DIR
 
 Builds every CUDA kernel from ``multimodal_sc_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card at the
@@ -60,6 +61,25 @@ The conv kernel's banded path (Cin or Cout no multiple of 4) is also held
 at the 64x64 shapes, and its planned bands against one band an image (the
 kernel before banding), bit for bit, at the 32x32 shapes.
 
+Then the deployed-policy paths of the c4 agent, at 1024 envs:
+
+* fog + V2X (``env.fog_range=20 env.v2x_rays=32``): act-only and act+learn;
+  the roadside unit's 32 rays ride the LiDAR codec a second time, so the
+  fusion's LiDAR stream holds 512 tokens (``mha_block`` at (65, 512),
+  (512, 65), (512, 512)) and the scatter runs twice a forward;
+* the ViT trunk (``camera.arch=vit pallas_attention=true``, the preset's
+  ViT widths: dim 128, depth 4, 4 heads, patch 4): act-only and
+  act+learn, its 4 encoder and 2 token-decoder attentions on the packed
+  kernels;
+
+each with a learn step's loss and gradients through the kernels against
+the plain versions. Then a checkpoint round trip on the card (a fog + V2X
+state after two iterations saved at the c4 replay capacity, restored into
+a fresh state, every tensor and generator compared bit for bit, one more
+iteration from each compared again) and the ``eval-policy`` verb on the
+restored EMA policy: one evaluation and a return-vs-SNR sweep over 2 kinds
+x 3 SNRs.
+
 The pillar scatter runs on every path but c1 and c2: its forward kernel in
 every forward, its backward kernel once per learn, train or minibatch
 step.
@@ -77,6 +97,10 @@ timed alone, the
 device's idle share (an unprofiled wall time against the device time a
 CUDA-only ``torch.profiler`` trace sees), and the trace's kernels by
 device time.
+
+``--route-check DIR`` builds the kernels and only compares the act route
+with the learner's route on the observations a c4 fog + V2X DQN checkpoint
+in ``DIR`` carries and holds in its replay buffer.
 """
 
 from __future__ import annotations
@@ -84,10 +108,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -191,6 +218,33 @@ C2_SWEEP_KINDS = ("awgn", "rayleigh", "rician")
 # backward a step.
 C3_CNN = ["camera.arch=cnn"]
 EXPECTED_C3_CNN = {"conv_prelu": 9, "scatter_max": 1, "scatter_max_bwd": 1}
+
+# c4 under fog with a roadside unit (RSU) 24 m ahead casting 32 rays: its
+# points ride the LiDAR codec a second time and its 256 tokens join the
+# ego's, so the fusion's LiDAR stream is 512 tokens. A forward: 8 fused
+# blocks, 5 encoder convs, 2 scatters (ego, RSU). A learn step's online
+# forward carries gradient into both scatters.
+FOG_V2X = ["env.fog_range=20", "env.v2x_rays=32"]
+V2X_RAYS = 32
+V2X_ATTN_SHAPES = ((65, 512), (512, 65), (65, 65), (512, 512))
+EXPECTED_V2X = {"mha_block": 8, "conv_prelu": 5, "scatter_max": 2}
+EXPECTED_V2X_LEARN = {"mha_block": 8, "conv_prelu": 5 + 15,
+                      "scatter_max": 2 + 3 * 2, "scatter_max_bwd": 2}
+# c4 on the ViT trunk at the preset's ViT widths (dim 128, depth 4, 4 heads,
+# patch 4: 64 tokens of d 32), its attention on the packed kernels: 4
+# encoder and 2 token-decoder blocks a forward, every one reached by a
+# learn step's gradient. No camera conv.
+VIT = ["camera.arch=vit", "pallas_attention=true"]
+VIT_ATTN_PER_FWD = 6
+VIT_TOKENS = 64
+EXPECTED_VIT = {"mha_block": 8, "scatter_max": 1,
+                "packed_attention_fwd": VIT_ATTN_PER_FWD}
+EXPECTED_VIT_LEARN = {"mha_block": 8, "scatter_max": 1 + 3,
+                      "scatter_max_bwd": 1,
+                      "packed_attention_fwd": 4 * VIT_ATTN_PER_FWD,
+                      "packed_attention_bwd": VIT_ATTN_PER_FWD}
+EVAL_EPISODES = 32
+EVAL_KINDS, EVAL_SNRS = "awgn,rayleigh", "0,10,20"
 
 
 def _counters():
@@ -339,6 +393,131 @@ def _entry(name, route, source, replaces, rows):
             "library_ms": total("library_ms")}
 
 
+def _bf16_neighbours(pre):
+    """Each f64 value's bf16 rounding (through f32, as an f32 sum is rounded),
+    its other bf16 neighbour (itself where the value is exact in bf16), and
+    how far the value lies from the midpoint of the two, in bf16 steps."""
+    import torch
+
+    f = pre.float()
+    lo = (f.view(torch.int32) & -65536).view(torch.float32)
+    hi = (lo.view(torch.int32) + 65536).view(torch.float32)
+    y = f.bfloat16().float()
+    alt = torch.where(f == lo, y, torch.where(y == lo, hi, lo))
+    span = (hi.double() - lo.double()).abs()
+    tie = ((pre - lo.double()).abs() / span - 0.5).abs()
+    return y.double(), alt.double(), tie
+
+
+def _bf16_flip_witness(x_q, x_kv, p, heads, idx, values, tie_max=1e-2):
+    """One output ``idx = (b, i, c)`` of the bf16 mode recomputed in f64 with
+    the plain version's bf16 roundings, then once for each single rounding
+    taken to its other bf16 neighbour: every entry of q, k and v, of the
+    probabilities and of the head outputs (the LayerNorm outputs and the
+    weights round the same way in any order of summation). For each of
+    ``values`` (name -> the output a route gave) returns the nearest of the
+    recomputation itself ("none") and the flips of operands whose f64 value
+    lies within ``tie_max`` bf16 steps of its rounding's tie (where a sum
+    in another order may round it the other way), as (operand, distance
+    left, its distance from the tie); and the exact f64 output."""
+    import numpy as np
+    import torch
+
+    from multimodal_sc_torch.kernels import mha_block as mb
+
+    b, i, c = idx
+    lk, dm = x_kv.shape[1], x_q.shape[-1]
+    dh = dm // heads
+    scale = dh ** -0.5
+    hd = torch.arange(dm, device=x_q.device) // dh
+    lk_ar = torch.arange(lk, device=x_q.device)
+
+    def ln64(x, s, bias):
+        x = x.double()
+        d = x - x.mean(-1, keepdim=True)
+        rs = 1.0 / torch.sqrt(d.square().mean(-1, keepdim=True) + mb._EPS)
+        return d * rs * s.double() + bias.double()
+
+    def rnd(t):
+        return _bf16_neighbours(t)[0]
+
+    def forward(r):
+        lnq = r(ln64(x_q[b, i], p["ln_q_scale"], p["ln_q_bias"]))
+        lnkv = r(ln64(x_kv[b], p["ln_kv_scale"], p["ln_kv_bias"]))
+        qp = lnq @ r(p["wq"].double()) + p["bq"].double()
+        kp = lnkv @ r(p["wk"].double()) + p["bk"].double()
+        vp = lnkv @ r(p["wv"].double()) + p["bv"].double()
+        return qp, kp, vp, r(p["wo"].double())[:, c]
+
+    def attend(q, k, v, r):
+        s = (q.view(heads, dh)[:, None] * k.view(lk, heads, dh)
+             .transpose(0, 1)).sum(-1) * scale
+        pre_p = torch.softmax(s, -1)
+        pre_a = torch.einsum("hj,jhd->hd", r(pre_p), v.view(lk, heads, dh))
+        return s, pre_p, pre_a.reshape(dm)
+
+    def head_out(pre_a, att_h, wo_h):
+        # The change of output c when the head outputs ``att_h`` become the
+        # rounded ``pre_a`` (same trailing shape (..., dh)).
+        return ((rnd(pre_a) - att_h) * wo_h).sum(-1)
+
+    ident = (lambda t: t)
+    qp, kp, vp, wo_x = forward(ident)
+    _, _, pre_x = attend(qp, kp, vp, ident)
+    resid = x_q[b, i, c].double() + p["bo"][c].double()
+    exact = (resid + pre_x @ wo_x).item()
+
+    qp, kp, vp, wo_c = forward(rnd)
+    (q, q_alt, q_tie), (k, k_alt, k_tie), (v, v_alt, v_tie) = (
+        _bf16_neighbours(qp), _bf16_neighbours(kp), _bf16_neighbours(vp))
+    s, pre_p, pre_a = attend(q, k, v, rnd)
+    pr, pr_alt, pr_tie = _bf16_neighbours(pre_p)
+    att, att_alt, att_tie = _bf16_neighbours(pre_a)
+    base = resid + att @ wo_c
+    att_h, wo_h = att.view(heads, dh), wo_c.view(heads, dh)
+    v_h = v.view(lk, heads, dh)
+    cands = {"none": (base.view(1), torch.full((1,), 0.5, dtype=base.dtype,
+                                                device=base.device))}
+    # A head output: one term of output c changes.
+    cands["att"] = (base + (att_alt - att) * wo_c, att_tie)
+    # v[j, d]: head output d gains pr[h(d), j] times the step, then rounds.
+    pre_v = pre_a + pr.T[:, hd] * (v_alt - v)
+    cands["v"] = (base + (rnd(pre_v) - att) * wo_c, v_tie)
+    # A probability pr[h, j]: head h's outputs gain the step times v[j, h].
+    pre_pr = (pre_a.view(heads, 1, dh) + (pr_alt - pr)[..., None]
+              * v_h.transpose(0, 1))
+    cands["prob"] = (base + head_out(pre_pr, att_h[:, None],
+                                     wo_h[:, None]), pr_tie)
+    # q[d]: every score of head h(d) moves; softmax, round, attend, round.
+    s_q = s[hd] + (q_alt - q)[:, None] * k.T * scale
+    pre_q = torch.einsum("dj,jde->de", rnd(torch.softmax(s_q, -1)),
+                         v_h[:, hd])
+    cands["q"] = (base + head_out(pre_q, att_h[hd], wo_h[hd]), q_tie)
+    # k[j, d]: score j of head h(d) moves.
+    s_k = s[hd].unsqueeze(0).repeat(lk, 1, 1)
+    s_k[lk_ar, :, lk_ar] += q * (k_alt - k) * scale
+    pre_k = torch.einsum("jdm,mde->jde", rnd(torch.softmax(s_k, -1)),
+                         v_h[:, hd])
+    cands["k"] = (base + head_out(pre_k, att_h[hd][None], wo_h[hd][None]),
+                  k_tie)
+    del s_k, pre_k
+    out = {"exact": exact}
+    for name, got in values.items():
+        best = None
+        for op, (vals, ties) in cands.items():
+            dist = (vals - got).abs().reshape(-1)
+            if op != "none":
+                dist = torch.where(ties.reshape(-1) <= tie_max, dist,
+                                   math.inf)
+            j = int(dist.argmin())
+            if best is None or dist[j].item() < best[1]:
+                at = [int(n) for n in np.unravel_index(j, tuple(vals.shape))]
+                best = ("none" if op == "none" else f"{op}{at}",
+                        dist[j].item(), ties.reshape(-1)[j].item())
+        out[name] = best
+    return out
+
+
 def check_mha_block():
     """Kernel vs plain version at the four (Lq, Lk) pairs of the c4 path
     (timed; the kernel's line), then untimed shapes that reach the rest of
@@ -366,17 +545,25 @@ def check_mha_block():
     # (B, Lq, Lk, heads, timed, launches per c4 act step): the c4 act shapes
     # (the kernel's line), the same shapes at c5's rollout batches (32, the
     # preset; 64, the bar), then untimed shapes.
-    cases = [(NUM_ENVS, lq, lk, 4, True, FUSION_DEPTH)
+    cases = [(NUM_ENVS, lq, lk, 4, True, FUSION_DEPTH, False)
              for lq, lk in C4_ATTN_SHAPES]
-    cases += [(b, lq, lk, 4, True, 0) for b in C5_ACT_BATCHES
+    # The fog + V2X act shapes (rows of the kernel's line too): Lk 512 takes
+    # the route past the 256 keys held in shared memory. Those with 512
+    # tokens hold 34-67M outputs each, and there alone an output may pass
+    # the 5e-3 gate if it is shown to be one rounding flip (below).
+    cases += [(NUM_ENVS, lq, lk, 4, True, FUSION_DEPTH,
+               (lq, lk) not in C4_ATTN_SHAPES)
+              for lq, lk in V2X_ATTN_SHAPES]
+    cases += [(b, lq, lk, 4, True, 0, False) for b in C5_ACT_BATCHES
               for lq, lk in C4_ATTN_SHAPES]
-    cases += [(64, 65, 65, 2, False, 0), (64, 65, 100, 8, False, 0),
-              (64, 17, 70, 16, False, 0), (64, 33, 300, 4, False, 0),
-              (32, 96, 300, 4, False, 0), (16, 100, 2048, 4, False, 0),
-              (8, 1, 1, 4, False, 0)]
+    cases += [(b, lq, lk, heads, False, 0, False)
+              for b, lq, lk, heads in ((64, 65, 65, 2), (64, 65, 100, 8),
+                                       (64, 17, 70, 16), (64, 33, 300, 4),
+                                       (32, 96, 300, 4), (16, 100, 2048, 4),
+                                       (8, 1, 1, 4))]
     rows = []
     worst = 0.0
-    for b, lq, lk, heads, timed, per_step in cases:
+    for b, lq, lk, heads, timed, per_step, flips_ok in cases:
         x_q, x_kv = rnd(b, lq, dim), rnd(b, lk, dim)
         ref = mb.mha_block_reference(x_q, x_kv, p, heads)
         ref_bf16 = mb.mha_block_reference_bf16(x_q, x_kv, p, heads)
@@ -407,13 +594,47 @@ def check_mha_block():
         # distance between the bf16 and the exact f32 results (printed): a
         # kernel that rounded elsewhere, or not at all, fails it. Then the
         # loose gate against exact f32, 3e-2.
-        torch.testing.assert_close(out_bf16, ref_bf16, atol=5e-3, rtol=0)
+        diff = (out_bf16 - ref_bf16).abs()
+        over = (diff > 5e-3).nonzero().tolist()
+        if not flips_ok:
+            torch.testing.assert_close(out_bf16, ref_bf16, atol=5e-3, rtol=0)
+        elif len(over) > out_bf16.numel() // 10**6 or diff.max() > 1e-2:
+            raise AssertionError(
+                f"mha_block bf16 mode: {len(over)} outputs past 5e-3 of its "
+                f"plain version, the largest {diff.max().item():.3e}")
+        # At a 512-token shape an output past 5e-3 must be explained: the
+        # f64 recomputation with the plain version's roundings, with at most
+        # one operand that lies within 1e-2 of a bf16 step of its tie rounded
+        # the other way, must land within 5e-4 (a tenth of the gate) of the
+        # kernel's value and of the plain version's. Printed beside the
+        # exact f64 output.
+        for idx in over:
+            wit = _bf16_flip_witness(x_q, x_kv, p, heads, idx, {
+                "kernel": out_bf16[tuple(idx)].item(),
+                "plain": ref_bf16[tuple(idx)].item()})
+            ex = wit["exact"]
+            step = 2.0 ** (math.floor(math.log2(abs(ex))) - 7)
+            print(f"  mha_block B={b} Lq={lq} Lk={lk} output {idx}: kernel "
+                  f"{out_bf16[tuple(idx)].item():.6f}, plain "
+                  f"{ref_bf16[tuple(idx)].item():.6f}, exact f64 {ex:.6f} "
+                  f"(kernel {abs(out_bf16[tuple(idx)].item() - ex):.3e} and "
+                  f"plain {abs(ref_bf16[tuple(idx)].item() - ex):.3e} from it;"
+                  f" a bf16 step there {step:.3e}); nearest single flips: "
+                  f"kernel {wit['kernel']}, plain {wit['plain']}", flush=True)
+            for who in ("kernel", "plain"):
+                op, left, _ = wit[who]
+                if left > 5e-4:
+                    raise AssertionError(
+                        f"mha_block bf16 mode: output {idx} at B={b} Lq={lq} "
+                        f"Lk={lk} is no single rounding flip at a tie from "
+                        f"the {who} value (nearest {op}, {left:.3e} left)")
         if mean_bf16 > 1e-5:
             raise AssertionError(f"mha_block bf16 mode: mean error "
                                  f"{mean_bf16:.3e} against its plain version")
         torch.testing.assert_close(out_bf16, ref, atol=3e-2, rtol=3e-2)
         line = (f"  mha_block B={b} Lq={lq} Lk={lk} h={heads} (att {att:.3f}): "
-                f"err bf16 {err_bf16:.3e} mean {mean_bf16:.2e} (vs f32 "
+                f"err bf16 {err_bf16:.3e} ({len(over)} past 5e-3) mean "
+                f"{mean_bf16:.2e} (vs f32 "
                 f"{err_vs_f32:.3e} mean {mean_vs_f32:.2e}), f32 mode "
                 f"{err_f32:.3e}")
         if not timed:
@@ -427,7 +648,9 @@ def check_mha_block():
                       + 8 * dim)
         bound, by = _bound_ms(flops, nbytes, PEAK_BF16)
         print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-              f"bound {bound:.4f} ms ({by})", flush=True)
+              f"bound {bound:.4f} ms ({by}; bytes "
+              f"{nbytes / PEAK_BYTES * 1e3:.4f} ms, bf16 tensor cores "
+              f"{flops / PEAK_BF16 * 1e3:.4f} ms)", flush=True)
         # Each (Lq, Lk) pair runs once per fusion layer.
         if per_step:
             rows.append({"per_step": per_step, "err": err_bf16, "ms": ms,
@@ -617,6 +840,31 @@ def _pillar_inputs():
     feats = torch.randn(NUM_ENVS, pts.shape[1], lid.pillar_dim, generator=g,
                         device="cuda")
     return feats, cell, lid.bev_hw[0] * lid.bev_hw[1]
+
+
+def _v2x_pillar_inputs():
+    """Point features and cells of the fog + V2X path: a real observation
+    of NUM_ENVS envs, its fog-limited ego rays and the RSU's 32 rays
+    voxelized apart, as the two LiDAR branch calls see them."""
+    import torch
+
+    from multimodal_sc_torch.codec.lidar_bev import voxelize
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs import driving
+
+    cfg = get_preset("c4").override_str(FOG_V2X)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    states = driving.reset_batch(cfg.env, NUM_ENVS, g, device="cuda")
+    _, pts, mask = driving.observe_batch(cfg.env, states)
+    lid, r = cfg.lidar, cfg.env.lidar_rays
+    out = []
+    for sl in (slice(0, r), slice(r, None)):
+        _, cell = voxelize(pts[:, sl], mask[:, sl], lid.bev_hw, lid.x_range,
+                           lid.y_range)
+        feats = torch.randn(NUM_ENVS, cell.shape[1], lid.pillar_dim,
+                            generator=g, device="cuda")
+        out.append((feats, cell, lid.bev_hw[0] * lid.bev_hw[1]))
+    return out
 
 
 def _c3_pillar_inputs():
@@ -822,16 +1070,25 @@ def check_scatter_max():
     bwd_row = _scatter_bwd_case("c3", *c3)
     _scatter_bwd_case("c4 learn", *first(LEARN_BATCH))
     _scatter_bwd_case("c5 loss", *first(C5_LOSS_BATCH))
+    # The fog + V2X path: the ego's fogged rays and the RSU's 32 a forward
+    # (rows of the forward's line), the RSU's at the learn batch (a row of
+    # the backward's line).
+    ego, rsu = _v2x_pillar_inputs()
+    v2x_rows = [_scatter_case("c4 fog+V2X ego", *ego),
+                _scatter_case("c4 fog+V2X RSU", *rsu)]
+    v2x_bwd = _scatter_bwd_case("c4 fog+V2X RSU learn", rsu[0][:LEARN_BATCH],
+                                rsu[1][:LEARN_BATCH], rsu[2])
     for what, feats, cell, cells in _scatter_edges():
         _scatter_case(what, feats, cell, cells, timed=False)
         _scatter_bwd_case(what, feats, cell, cells, timed=False)
     src = "multimodal_sc_torch/csrc/pillar_scatter.cu"
     return [_entry("scatter_max", "cuda", src,
-                   "multimodal_sc_tpu/kernels/pillar_scatter.py:79", [row]),
+                   "multimodal_sc_tpu/kernels/pillar_scatter.py:79",
+                   [row, *v2x_rows]),
             # No TPU kernel: XLA differentiates segment_max.
             _entry("scatter_max_bwd", "cuda", src,
                    "multimodal_sc_tpu/kernels/pillar_scatter.py:32",
-                   [bwd_row])]
+                   [bwd_row, v2x_bwd])]
 
 
 def _gate_bf16(name, got, ref_bf16, ref_f32):
@@ -885,6 +1142,12 @@ def check_packed_attention():
              for lq, lk in C4_ATTN_SHAPES]
     cases += [(C3_BATCH, 256, 256, 128, 4, -C3_ATTN_PER_STEP,
                -C3_ATTN_PER_STEP)]
+    # The c4 ViT trunk (rows of the kernels' lines): 6 self-attentions of 64
+    # tokens a forward, one forward at the act batch and three at the learn
+    # batch an act+learn iteration, the backward of one.
+    cases += [(NUM_ENVS, VIT_TOKENS, VIT_TOKENS, 128, 4, VIT_ATTN_PER_FWD, 0),
+              (LEARN_BATCH, VIT_TOKENS, VIT_TOKENS, 128, 4,
+               3 * VIT_ATTN_PER_FWD, VIT_ATTN_PER_FWD)]
     # Backward: the camera-stream attentions (Lq = 65) in both layers, the
     # LiDAR-stream ones in all layers but the last (ATTN_BWD_PER_STEP).
     cases += [(LEARN_BATCH, lq, lk, 128, 4, 3 * FUSION_DEPTH,
@@ -1180,15 +1443,16 @@ def check_kernels():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
-def drive_main_path():
+def drive_main_path(name="c4", overrides=(), expected=EXPECTED_LAUNCHES):
     """The c4 act-only iteration at 1024 envs; returns the launches of the
-    timed run, the steps/s, and the state and iteration it ended with."""
+    timed run, the steps/s, and the config, state and iteration it ended
+    with."""
     import torch
 
     from multimodal_sc_torch.config import get_preset
     from multimodal_sc_torch.rl import dqn
 
-    cfg = get_preset("c4")
+    cfg = get_preset("c4").override_str(overrides)
     t0 = time.perf_counter()
     state = dqn.init(cfg, seed=0, num_envs=NUM_ENVS, device="cuda")
     iteration = dqn.make_iteration(cfg, learn=False)
@@ -1209,12 +1473,12 @@ def drive_main_path():
     launches = _read_counts()
 
     sps = TIMED_ITERS * NUM_ENVS / wall
-    print(f"  act-only: {TIMED_ITERS} iterations x {NUM_ENVS} envs in "
-          f"{wall:.3f} s = {sps:.1f} agent steps/s", flush=True)
+    print(f"  act-only ({name}): {TIMED_ITERS} iterations x {NUM_ENVS} envs "
+          f"in {wall:.3f} s = {sps:.1f} agent steps/s", flush=True)
     print(f"  launches in the timed run: {launches}", flush=True)
     print(f"  metrics: " + ", ".join(
         f"{k}={float(v):.4f}" for k, v in metrics.items()), flush=True)
-    _check_counts(launches, EXPECTED_LAUNCHES, TIMED_ITERS, "act-only")
+    _check_counts(launches, expected, TIMED_ITERS, f"act-only ({name})")
     if not all(torch.isfinite(r).all() for r in rewards):
         raise RuntimeError("non-finite reward on the main path")
     if not all(torch.isfinite(v).all() for v in metrics.values()):
@@ -1228,7 +1492,7 @@ def drive_main_path():
         raise RuntimeError(f"bad Q-values: shape {tuple(q.shape)}")
     print(f"  Q-values {tuple(q.shape)} finite, mean {q.mean().item():.4f}",
           flush=True)
-    return launches, sps, state, iteration
+    return launches, sps, cfg, state, iteration
 
 
 def _clone_params(net):
@@ -1317,10 +1581,37 @@ def drive_learn(name, overrides, expected):
     return launches, sps, cfg, state, iteration
 
 
-def compare_learn_routes(cfg, state):
+# The learner's three forwards at batch 128 and one backward: arm B, fog +
+# V2X (two scatters a forward, both reached by the gradient), the ViT trunk.
+LEARN_ROUTE_B = {"conv_prelu": 15, "scatter_max": 3,
+                 "scatter_max_bwd": SCATTER_BWD_PER_STEP,
+                 "packed_attention_fwd": 24,
+                 "packed_attention_bwd": ATTN_BWD_PER_STEP}
+LEARN_ROUTE_V2X = {"conv_prelu": 15, "scatter_max": 6, "scatter_max_bwd": 2}
+LEARN_ROUTE_VIT = {"scatter_max": 3, "scatter_max_bwd": 1,
+                   "packed_attention_fwd": 3 * VIT_ATTN_PER_FWD,
+                   "packed_attention_bwd": VIT_ATTN_PER_FWD}
+
+
+def _link_noise(cfg, batch, g):
+    """One channel-noise draw for each link of ``batch`` observations: the
+    camera's, the ego LiDAR's and, with V2X, the RSU's."""
+    import torch
+
+    hw, lid = cfg.camera.image_hw, cfg.lidar
+    n_cam = (hw[0] // 4) * (hw[1] // 4) * cfg.camera.c_sym
+    n_lid = lid.bev_hw[0] * lid.bev_hw[1] * lid.c_sym
+    links = (n_cam, n_lid, n_lid) if cfg.env.v2x_rays else (n_cam, n_lid)
+    return tuple(torch.randn(batch, n, 2, generator=g, device="cuda")
+                 for n in links)
+
+
+def compare_learn_routes(cfg, state, expected=LEARN_ROUTE_B):
     """One TD loss and its gradients on a fixed batch and fixed channel
-    noise, twice: through the kernels (packed attention in its f32 mode,
-    forward and backward) and through every kernel's plain version."""
+    noise (every link's: camera, ego LiDAR and, with V2X, the RSU's),
+    twice: through the kernels (packed attention in its f32 mode, forward
+    and backward), launching as ``expected``, and through every kernel's
+    plain version."""
     import torch
 
     from multimodal_sc_torch.codec import camera_vit, lidar_bev
@@ -1332,17 +1623,10 @@ def compare_learn_routes(cfg, state):
     g = torch.Generator(device="cuda").manual_seed(7)
     batch = dqn.dequantize_obs(cfg, replay.sample(
         state.buffer, None, bs, torch.arange(bs, device="cuda")))
-    hw, lid = cfg.camera.image_hw, cfg.lidar
-    n_cam = (hw[0] // 4) * (hw[1] // 4) * cfg.camera.c_sym
-    n_lid = lid.bev_hw[0] * lid.bev_hw[1] * lid.c_sym
-
-    def noise():
-        return tuple(torch.randn(bs, n, 2, generator=g, device="cuda")
-                     for n in (n_cam, n_lid))
-
     draws = dqn.LearnDraws(indices=torch.arange(bs, device="cuda"),
-                           snr_db=None, noise_online=noise(),
-                           noise_target=noise(), noise_double=noise())
+                           snr_db=None, noise_online=_link_noise(cfg, bs, g),
+                           noise_target=_link_noise(cfg, bs, g),
+                           noise_double=_link_noise(cfg, bs, g))
     forward = dqn.learner_forward(cfg)
     params = list(state.params.parameters())
 
@@ -1353,11 +1637,6 @@ def compare_learn_routes(cfg, state):
         return loss.detach(), torch.autograd.grad(loss, params,
                                                   allow_unused=True)
 
-    # The learner's three forwards at batch 128 and one backward.
-    expected = {"conv_prelu": 15, "scatter_max": 3,
-                "scatter_max_bwd": SCATTER_BWD_PER_STEP,
-                "packed_attention_fwd": 24,
-                "packed_attention_bwd": ATTN_BWD_PER_STEP}
     _compare_grads("learn step", state.params, *_two_routes(
         loss_and_grads, expected, "the learn step",
         [(camera_vit, "packed_attention",
@@ -1366,6 +1645,221 @@ def compare_learn_routes(cfg, state):
          (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)],
         [(camera_vit, "packed_attention", functools.partial(
             attention_packed.packed_attention, mxu_bf16=False))]))
+
+
+def compare_act_routes(name, cfg, state, net="params", batches=None):
+    """Q-values of ``state``'s network ``net`` through the act route (the
+    fused blocks on their kernel) against the learner's route (their plain
+    version), with the same channel noise, on ``batches`` of (images,
+    points, masks) (default: the carried observations): the largest
+    difference, the share of observations whose greedy action agrees, the
+    median gap between the best two actions (the scale the difference is
+    read against), and each route's greedy actions counted."""
+    import torch
+
+    from multimodal_sc_torch.rl import dqn
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    if batches is None:
+        batches = [(dqn.dequantize_image(state.obs_image), state.obs_points,
+                    state.obs_mask)]
+    network, learner = getattr(state, net), dqn.learner_forward(cfg)
+    diff, agree, n, gaps = 0.0, 0, 0, []
+    hist = torch.zeros(2, cfg.rl.num_actions, dtype=torch.long, device="cuda")
+    for obs in batches:
+        noise = _link_noise(cfg, obs[0].shape[0], g)
+        with torch.no_grad():
+            q_act = network(*obs, channel_noise=noise)
+            q_learn = learner(network, *obs, channel_noise=noise)
+        diff = max(diff, (q_act - q_learn).abs().max().item())
+        a_act, a_learn = q_act.argmax(-1), q_learn.argmax(-1)
+        agree += (a_act == a_learn).sum().item()
+        n += a_act.numel()
+        top2 = q_learn.topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        for row, a in zip(hist, (a_act, a_learn)):
+            row += torch.bincount(a, minlength=cfg.rl.num_actions)
+    print(f"  {name}, act route (kernel) vs learner route (plain) after "
+          f"{state.step} learn steps: Q max difference {diff:.3e}, greedy "
+          f"actions agree in {100 * agree / n:.2f}% of {n} observations, "
+          f"median gap of the best two {torch.cat(gaps).median().item():.3e};"
+          f" greedy actions counted (kernel / plain) {hist[0].tolist()} / "
+          f"{hist[1].tolist()}", flush=True)
+
+
+def route_check(ckpt_dir):
+    """``--route-check DIR``: the act route against the learner's route on a
+    c4 fog + V2X DQN checkpoint's own observations, for the online and the
+    EMA network: its envs' carried observations, then every observation in
+    its replay buffer, 1024 at a time."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.io.checkpoint import CheckpointManager
+    from multimodal_sc_torch.rl import dqn, replay
+
+    cfg = get_preset("c4").override_str(FOG_V2X)
+    mgr = CheckpointManager(ckpt_dir)
+    state = mgr.restore_latest(
+        dqn.init(cfg, seed=0, num_envs=cfg.rl.num_envs, device="cuda"))
+    if state is None:
+        raise RuntimeError(f"no checkpoint in {ckpt_dir!r}")
+    size = state.buffer.size
+
+    def replay_batches():
+        for lo in range(0, size, NUM_ENVS):
+            idx = torch.arange(lo, min(lo + NUM_ENVS, size), device="cuda")
+            b = dqn.dequantize_obs(cfg, replay.sample(state.buffer, None,
+                                                      idx.numel(), idx))
+            yield b.image, b.points, b.mask
+
+    print(f"route check, checkpoint of iteration {mgr.latest_step()} in "
+          f"{ckpt_dir}:", flush=True)
+    for net in ("params", "ema_params"):
+        compare_act_routes(f"{net}, carried observations", cfg, state, net)
+        compare_act_routes(f"{net}, the {size} replay observations", cfg,
+                           state, net, replay_batches())
+
+
+def _state_diff(a, b):
+    """(entries compared, entries that differ, the largest difference of a
+    float tensor) of two train states, leaf by leaf of the trees a
+    checkpoint saves of them."""
+    import torch
+
+    from multimodal_sc_torch.io.checkpoint import _save_field
+
+    def leaves(x, path=""):
+        items = (x.items() if isinstance(x, dict) else enumerate(x)
+                 if isinstance(x, (list, tuple)) else None)
+        if items is None:
+            yield path, x
+        for k, v in items or ():
+            yield from leaves(v, f"{path}.{k}")
+
+    la, lb = dict(leaves(_save_field(a))), dict(leaves(_save_field(b)))
+    if la.keys() != lb.keys():
+        raise RuntimeError(f"states differ in their entries: "
+                           f"{sorted(set(la) ^ set(lb))[:5]}")
+    differ, worst = [], 0.0
+    for k, v in la.items():
+        w = lb[k]
+        if isinstance(v, torch.Tensor):
+            same = v.dtype == w.dtype and torch.equal(v, w.to(v.device))
+            if not same and v.is_floating_point():
+                worst = max(worst, (v.double() - w.to(v.device).double())
+                            .abs().max().item())
+        else:
+            same = v == w
+        if not same:
+            differ.append(k)
+    return len(la), differ, worst
+
+
+def checkpoint_round_trip(ckpt_dir):
+    """A c4 fog + V2X state at 1024 envs and the preset's replay capacity
+    after two iterations: saved, restored into a fresh state of another
+    seed, every entry compared bit for bit; then one iteration (its first
+    learn step) from each, compared again. cuDNN is held to deterministic
+    algorithms in this phase: the conv kernel's backward recomputes through
+    cuDNN, whose default backward algorithms may sum in another order from
+    one call to the next. Returns the config."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.io.checkpoint import CheckpointManager
+    from multimodal_sc_torch.rl import dqn
+
+    cfg = get_preset("c4").override_str(
+        FOG_V2X + [f"train.checkpoint_dir={ckpt_dir}"])
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = dqn.init(cfg, seed=0, num_envs=NUM_ENVS, device="cuda")
+        iteration = dqn.make_iteration(cfg)
+        for _ in range(2):
+            state, _ = iteration(state)
+        mgr = CheckpointManager(ckpt_dir)
+        mgr.save_config(cfg.to_json())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(2, state)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(ckpt_dir, "ckpt_2.pt"))
+        fresh = dqn.init(cfg, seed=1, num_envs=NUM_ENVS, device="cuda")
+        t0 = time.perf_counter()
+        restored = mgr.restore_latest(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        n, differ, _ = _state_diff(state, restored)
+        if differ:
+            raise RuntimeError(f"checkpoint round trip: {len(differ)} of {n} "
+                               f"entries differ, e.g. {differ[:5]}")
+        print(f"  ckpt_save_s {save_s:.2f} for {size / 2**20:.1f} MiB at "
+              f"replay capacity {cfg.rl.replay_capacity} (restore "
+              f"{restore_s:.2f} s); {n} entries restored bit for bit",
+              flush=True)
+        state, _ = iteration(state)
+        restored, _ = iteration(restored)
+        torch.cuda.synchronize()
+        if state.step != 1 or restored.step != 1:
+            raise RuntimeError(f"the third iteration took {state.step} / "
+                               f"{restored.step} learn steps, expected 1")
+        n, differ, worst = _state_diff(state, restored)
+        if differ:
+            raise RuntimeError(
+                f"one iteration from the restored state: {len(differ)} of "
+                f"{n} entries differ from the original's (largest float "
+                f"difference {worst:.3e}), e.g. {differ[:5]}")
+        print(f"  one iteration (a learn step) from each: all {n} entries "
+              "bit-equal", flush=True)
+        mgr.save(3, restored)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return cfg
+
+
+def eval_policy_phase(cfg):
+    """The ``eval-policy`` verb on the restored checkpoint's EMA policy: one
+    evaluation, then a return-vs-SNR sweep; returns the launches."""
+    from multimodal_sc_torch.evaluation import policy_eval
+
+    over = [a for o in FOG_V2X + [
+        f"train.checkpoint_dir={cfg.train.checkpoint_dir}"]
+        for a in ("--set", o)]
+    args = ["--config", "c4", "--use-ema", "--episodes",
+            str(EVAL_EPISODES)] + over
+    curves_path = os.path.join(cfg.train.checkpoint_dir, "curves.json")
+    sweep = args + ["--snr-sweep", "--kinds", EVAL_KINDS,
+                    f"--snrs={EVAL_SNRS}", "--out", curves_path]
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = []
+    for argv in (args, sweep):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if policy_eval.main(argv) != 0:
+                raise RuntimeError(f"eval-policy {argv} failed")
+        outs.append(buf.getvalue())
+        print("  " + "\n  ".join(buf.getvalue().strip().splitlines()),
+              flush=True)
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    one = json.loads(outs[0].strip().splitlines()[-1])
+    with open(curves_path) as f:
+        curves = json.load(f)
+    kinds, snrs = EVAL_KINDS.split(","), EVAL_SNRS.split(",")
+    rows = [r for k in kinds for r in curves[k]]
+    if (list(curves) != kinds or len(rows) != len(kinds) * len(snrs)
+            or not all(math.isfinite(r["episode_return_mean"])
+                       for r in rows + [one])):
+        raise RuntimeError(f"eval-policy: bad results {one} / {curves}")
+    forwards = cfg.env.max_steps * (1 + len(rows))
+    _check_counts(launches, EXPECTED_V2X, forwards, "eval-policy")
+    print(f"  eval-policy: {1 + len(rows)} evaluations of {EVAL_EPISODES} "
+          f"episodes x {cfg.env.max_steps} steps in {wall:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
 
 
 def drive_c3(name, overrides, expected):
@@ -2137,26 +2631,31 @@ def profile_main_path(cfg, state, iteration):
     g = state.generator
     img = dqn.dequantize_image(state.obs_image)
     pts, mask = state.obs_points, state.obs_mask
+    # One LiDAR branch call: the ego's rays (with V2X the RSU's make a
+    # second call of the same codec).
+    r = cfg.env.lidar_rays
     actions = torch.zeros(NUM_ENVS, dtype=torch.int32, device="cuda")
     snr = torch.full((NUM_ENVS,), cfg.channel.snr_db, device="cuda")
     with torch.no_grad():
         z = per.cam_enc(img)
         cam_tok = per.cam_tok(z)
-        lid_tok = per._lidar_branch(pts, mask, snr, g, None)
+        lid_tok = per._lidar_branch(pts[:, :r], mask[:, :r], snr, g, None)
+        if cfg.env.v2x_rays:
+            lid_tok = torch.cat([lid_tok, lid_tok], dim=1)
         parts = {
             "iteration": _ms(step_all, warmup=1),
             "q_network": _ms(lambda: net(img, pts, mask, g)),
             "camera_encoder": _ms(lambda: per.cam_enc(img)),
             "camera_tokens": _ms(lambda: per.cam_tok(z)),
-            "lidar_branch": _ms(lambda: per._lidar_branch(pts, mask, snr, g,
-                                                          None)),
+            "lidar_branch (one call)": _ms(lambda: per._lidar_branch(
+                pts[:, :r], mask[:, :r], snr, g, None)),
             "fusion": _ms(lambda: per.fusion(cam_tok, lid_tok)),
             "env_step": _ms(lambda: driving.step_batch(
                 cfg.env, holder[0].env_states, actions, g)),
         }
     print("  ms per call, each part timed alone (CUDA events):", flush=True)
     for k, v in parts.items():
-        print(f"    {k:16s} {v:9.3f}", flush=True)
+        print(f"    {k:24s} {v:9.3f}", flush=True)
 
     _idle_share(step_all, parts["iteration"])
 
@@ -2253,6 +2752,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also break each path's iteration time down by "
                          "layer and kernel, with the device's idle share")
+    ap.add_argument("--route-check", metavar="DIR",
+                    help="only compare the act and learner routes on the "
+                         "observations of the c4 fog + V2X DQN checkpoint "
+                         "in DIR")
     args = ap.parse_args()
     try:
         import torch
@@ -2281,6 +2784,9 @@ def main() -> int:
     built = _build.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    if args.route_check:
+        route_check(args.route_check)
+        return 0
     for name, (_, log) in sorted(built.items()):
         for kernel, report in _ptxas_report(log):
             print(f"  {name}: {kernel}: {report}", flush=True)
@@ -2292,11 +2798,11 @@ def main() -> int:
     # Each path is driven with the counts set to 0 just before it and read
     # just after; a kernel's line reports its launches summed over the paths.
     print("main path (c4 act-only):", flush=True)
-    launches, sps, state, iteration = drive_main_path()
+    launches, sps, cfg, state, iteration = drive_main_path()
     rates = {"act-only": sps}
     if args.profile:
         print("profile (c4 act-only):", flush=True)
-        profile_main_path(get_preset("c4"), state, iteration)
+        profile_main_path(cfg, state, iteration)
     del state, iteration
     totals = dict(launches)
     for name, overrides, expected in (
@@ -2379,6 +2885,39 @@ def main() -> int:
         profile_c3(cfg, state, train_step, batches)
     del state, train_step, batches
     torch.cuda.empty_cache()
+    for name, overrides, act_exp, learn_exp, route_exp in (
+            ("c4 fog + V2X", FOG_V2X, EXPECTED_V2X, EXPECTED_V2X_LEARN,
+             LEARN_ROUTE_V2X),
+            ("c4 ViT trunk", VIT, EXPECTED_VIT, EXPECTED_VIT_LEARN,
+             LEARN_ROUTE_VIT)):
+        print(f"main path ({name} act-only):", flush=True)
+        launches, rates[f"act-only, {name}"], cfg, state, iteration = (
+            drive_main_path(name, overrides, act_exp))
+        for k, v in launches.items():
+            totals[k] += v
+        if args.profile:
+            print(f"profile ({name} act-only):", flush=True)
+            profile_main_path(cfg, state, iteration)
+        del state, iteration
+        print(f"main path ({name} act+learn):", flush=True)
+        launches, rates[f"act+learn, {name}"], cfg, state, iteration = (
+            drive_learn(name, overrides, learn_exp))
+        for k, v in launches.items():
+            totals[k] += v
+        compare_learn_routes(cfg, state, route_exp)
+        compare_act_routes(name, cfg, state)
+        if args.profile:
+            print(f"profile ({name} act+learn):", flush=True)
+            profile_learn(cfg, state, iteration)
+        del state, iteration
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        print("checkpoint round trip (c4 fog + V2X):", flush=True)
+        cfg = checkpoint_round_trip(ckpt_dir)
+        torch.cuda.empty_cache()
+        print("eval-policy (c4 fog + V2X, the restored EMA):", flush=True)
+        for k, v in eval_policy_phase(cfg).items():
+            totals[k] += v
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:

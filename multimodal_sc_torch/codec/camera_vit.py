@@ -209,6 +209,7 @@ class ViTJSCC(nn.Module):
                  out_channels: int = 3, snr_conditioning: bool = True,
                  use_pallas: bool = False):
         super().__init__()
+        self.c_sym = c_sym
         kw = dict(image_hw=image_hw, patch=patch, dim=dim, depth=depth,
                   heads=heads, c_sym=c_sym, snr_conditioning=snr_conditioning,
                   use_pallas=use_pallas)

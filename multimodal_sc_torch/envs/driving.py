@@ -8,7 +8,8 @@ takes the batch dimension first. Each random draw is separate from its use:
 ``reset`` and ``step`` take their uniforms and integers as ``ResetDraws`` /
 ``StepDraws``, which ``draw_reset`` / ``draw_step`` sample from a
 ``torch.Generator`` (and a test can build from the JAX package's keys).
-The front camera and the V2X roadside scan raise until a later slice.
+Both cameras are ported (the top-down view and the pinhole front camera),
+and the V2X roadside unit's scan is appended to the ego LiDAR rays.
 """
 
 from __future__ import annotations
@@ -337,6 +338,65 @@ def render_camera(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
     return img.float()
 
 
+def render_camera_front(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
+    """Pinhole front camera at the ego (B, H, W, 3): height 1.5 m, looking
+    along the ego heading; the ground plane coloured road / lanes / grass
+    with the road band bent by the lane polynomial, NPCs as smooth
+    billboards, fog by ground-plane depth (the sky sits at 1e6 m)."""
+    h, w = cfg.image_hw
+    dev = state.ego.device
+    b = state.ego.shape[0]
+    f, cam_h = 1.2, 1.5
+    half_w = _road_half_width(cfg)
+    u = _linspace(-1.0, 1.0, w, dev).reshape(1, 1, w)        # right positive
+    v = _linspace(1.0, -1.0, h, dev).reshape(1, h, 1)        # top row = +1
+
+    below = v < -1e-3
+    depth = torch.where(below, f * cam_h / torch.clamp(-v, min=1e-3),
+                        torch.full_like(v, 1e6))              # (1, H, 1)
+    depth2d = depth.expand(b, h, w)
+    lat = -u * depth2d / f                                    # left-positive
+    road_lat = lat - _lane_poly(state.road, state.ego, depth2d)
+    on_road = (road_lat.abs() <= half_w) & below
+    grass = below & ~on_road
+    sky = (~below).expand(b, h, w)
+
+    def col(*rgb):
+        return torch.tensor(rgb, device=dev)
+
+    img = (sky[..., None] * col(0.45, 0.62, 0.85)
+           + grass[..., None] * col(0.12, 0.35, 0.12)
+           + on_road[..., None] * col(0.25, 0.25, 0.27))
+    bounds = _lane_centers(cfg, dev)[:-1] + cfg.lane_width / 2.0
+    dist = (road_lat[..., None] - bounds).abs().min(dim=-1).values
+    dash = torch.remainder(_per_env(state.ego[:, 0], depth2d) + depth2d,
+                           4.0) < 2.0
+    marking = (dist < 0.15) & dash & on_road
+    img = torch.where(marking[..., None], col(0.85, 0.85, 0.85), img)
+
+    nx, ny = _npc_ego_frame(state.road, state.ego, state.npcs)  # (B, N)
+    visible = (nx > 1.0).float()[:, None, None, :]
+    xz = torch.clamp(nx, min=1.0)[:, None, None, :]             # (B,1,1,N)
+    u_c = -f * ny[:, None, None, :] / xz
+    u_half = f * (2 * CAR_HALF_WID) / xz
+    v_bot = -f * cam_h / xz
+    v_top = -f * (cam_h - 1.6) / xz                             # 1.6 m tall
+    inu = torch.sigmoid((u_half - (u[..., None] - u_c).abs()) * 40.0)
+    inv = (torch.sigmoid((v[..., None] - v_bot) * 40.0)
+           * torch.sigmoid((v_top - v[..., None]) * 40.0))
+    npc_m = inu * inv * visible                                 # (B,H,W,N)
+    # Nearest (largest on screen) wins: weight by 1/x; near cars brighter.
+    weight = npc_m * (1.0 / xz)
+    total = torch.clamp(npc_m.sum(-1), 0.0, 1.0)
+    shade = weight.sum(-1) / (npc_m.sum(-1) + 1e-6)
+    car_col = torch.stack([0.6 + 8.0 * shade, 0.1 + 0.0 * shade,
+                           0.1 + 0.0 * shade], dim=-1)
+    img = (img * (1 - total[..., None])
+           + torch.clamp(car_col, 0, 1) * total[..., None])
+    img = _apply_fog(state.fog, img, depth2d)
+    return torch.clamp(img, 0.0, 1.0).float()
+
+
 def _curb_distance(cfg: EnvConfig, state: EnvState, dx, dy) -> torch.Tensor:
     """First road-boundary crossing along each ray (B, R); LIDAR_MAX_RANGE+1
     where a ray never leaves the road. Marches M static samples per ray and
@@ -366,12 +426,13 @@ def _curb_distance(cfg: EnvConfig, state: EnvState, dx, dy) -> torch.Tensor:
     return torch.where(hit, t_hit, LIDAR_MAX_RANGE + 1.0)
 
 
-def lidar_scan(cfg: EnvConfig, state: EnvState,
+def lidar_scan(cfg: EnvConfig, state: EnvState, rays: int = 0,
                max_range: Optional[torch.Tensor] = None):
     """Fixed ray fan vs NPC circles + curbs -> (points (B,R,4), mask (B,R)).
 
+    ``rays`` overrides ``cfg.lidar_rays`` (the V2X roadside fan);
     ``max_range`` (B,) > 0 drops returns beyond it (fog)."""
-    r = cfg.lidar_rays
+    r = rays or cfg.lidar_rays
     dev = state.ego.device
     b = state.ego.shape[0]
     angles = _linspace(-math.pi / 2, math.pi / 2, r, dev)
@@ -405,17 +466,30 @@ def lidar_scan(cfg: EnvConfig, state: EnvState,
     return pts * mask[..., None], mask
 
 
+def v2x_scan(cfg: EnvConfig, state: EnvState):
+    """The roadside unit's scan (``cfg.v2x_rays`` rays): a virtual ego
+    ``cfg.v2x_lookahead`` m ahead on the arc, at the road centre, heading 0,
+    runs the ego's scan geometry. Points stay in the RSU frame. Not
+    fog-limited: the mast sits above the fog layer."""
+    zeros = torch.zeros_like(state.ego[:, 0])
+    rsu = torch.stack([state.ego[:, 0] + cfg.v2x_lookahead, zeros, zeros,
+                       zeros], dim=-1)
+    return lidar_scan(cfg, state._replace(ego=rsu), rays=cfg.v2x_rays)
+
+
 def observe(cfg: EnvConfig, state: EnvState):
-    """(image (B,H,W,3), points (B,R,4), mask (B,R)) of every env."""
-    if cfg.camera_mode != "topdown":
-        raise NotImplementedError(
-            "env.camera_mode='front' is not ported yet (ROADMAP item 7)")
-    if cfg.v2x_rays > 0:
-        raise NotImplementedError(
-            "the V2X roadside scan (env.v2x_rays) is not ported yet "
-            "(ROADMAP item 7)")
-    img = render_camera(cfg, state)
+    """(image (B,H,W,3), points (B,R,4), mask (B,R)) of every env. With
+    ``cfg.v2x_rays`` the RSU's rays follow the ego's: R = lidar_rays +
+    v2x_rays, one array for replay, the n-step window and PPO rollouts."""
+    if cfg.camera_mode == "front":
+        img = render_camera_front(cfg, state)
+    else:
+        img = render_camera(cfg, state)
     pts, mask = lidar_scan(cfg, state, max_range=state.fog)
+    if cfg.v2x_rays > 0:
+        v_pts, v_mask = v2x_scan(cfg, state)
+        pts = torch.cat([pts, v_pts], dim=1)
+        mask = torch.cat([mask, v_mask], dim=1)
     return img, pts, mask
 
 

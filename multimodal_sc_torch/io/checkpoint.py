@@ -1,22 +1,27 @@
-"""Checkpoint and resume for the JSCC training states.
+"""Checkpoint and resume for the JSCC and RL training states.
 
-Counterpart of the core of ``multimodal_sc_tpu/io/checkpoint.py``: a
+Counterpart of ``multimodal_sc_tpu/io/checkpoint.py``: a
 ``CheckpointManager`` that pins the config beside the checkpoints, saves a
 train state at a step, keeps the last ``max_to_keep``, restores the newest
-one, and restores the parameters alone for evaluation. A train state is a
-``NamedTuple`` (``train.jscc.TrainState``, ``train.fusion_jscc.TrainState``)
-whose fields are modules, optimizers, learning-rate schedules, generators
-and plain numbers; each is saved as its ``state_dict`` (a generator as its
-``get_state()``) with ``torch.save`` and restored into the live objects of
-a freshly built state, so a resumed run continues the same streams. A
-checkpoint is written to a temporary file and moved into place with
-``os.replace``: a reader never sees half of one.
+one, restores one network alone for evaluation, and keeps the DQN driver's
+best-policy snapshot under ``<dir>/best``. A train state is a
+``NamedTuple`` (``train.jscc.TrainState``, ``train.fusion_jscc.TrainState``,
+``rl.dqn.DQNState``, ``rl.ppo.PPOState``) whose fields are modules,
+optimizers, learning-rate schedules, generators, tensors, plain numbers,
+and nested named tuples and dicts of those (the env states, the replay
+buffer, the n-step window). Each is saved with ``torch.save``: a module,
+optimizer or schedule as its ``state_dict``, a generator as its
+``get_state()``, a nested tuple or dict field by field. A restore loads
+into the live objects of a freshly built state of the same config, tensors
+copied IN PLACE on their device, so a resumed run continues the same
+streams. A checkpoint is written to a temporary file and moved into place
+with ``os.replace``: a reader never sees half of one. Reads map the file
+(``mmap``), so a restore of one network leaves the replay buffer on disk.
 
-A saved field the target lacks, or a target field the checkpoint lacks,
-raises and names itself (the JAX package's upgrade shim pairs the two
-trees by position and would drop such an entry). The DQN/PPO states, the
-best-policy snapshot and the evaluation restore of a policy are ROADMAP
-item 10's rest.
+Nothing is cast or truncated: a saved entry the target lacks, a target
+entry the checkpoint lacks (the JAX package's upgrade shim pairs the two
+trees by position and would drop such an entry), a tensor of another dtype
+or shape, or a plain value of another type raises and names its path.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from torch import nn
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+_BEST = os.path.join("best", "policy.pt")
 
 
 def _save_field(value: Any) -> Any:
@@ -36,33 +42,82 @@ def _save_field(value: Any) -> Any:
         return value.get_state()
     if hasattr(value, "state_dict"):
         return value.state_dict()
+    if hasattr(value, "_fields"):
+        return {f: _save_field(getattr(value, f)) for f in value._fields}
+    if isinstance(value, dict):
+        return {k: _save_field(v) for k, v in value.items()}
     return value
+
+
+def _check_tensor(path: str, live: torch.Tensor, saved: Any) -> None:
+    if not isinstance(saved, torch.Tensor):
+        raise TypeError(f"checkpoint entry {path!r}: a tensor in the state, "
+                        f"{type(saved).__name__} in the checkpoint")
+    if saved.dtype != live.dtype or saved.shape != live.shape:
+        raise ValueError(
+            f"checkpoint entry {path!r}: {saved.dtype} {tuple(saved.shape)} "
+            f"in the checkpoint, {live.dtype} {tuple(live.shape)} in the "
+            "state (a restore never casts or reshapes)")
+
+
+def _check_fields(saved: Any, fields, path: str = "") -> None:
+    if not isinstance(saved, dict):
+        raise TypeError(f"checkpoint entry {path!r}: a {type(saved).__name__}"
+                        " where the state holds a tuple or dict")
+    missing = sorted(set(fields) - set(saved))
+    extra = sorted(set(saved) - set(fields))
+    if missing or extra:
+        where = f" at {path!r}" if path else ""
+        raise KeyError(
+            f"checkpoint does not match the train state{where}: missing "
+            f"{missing}, not in the state {extra}")
+
+
+def _load_module(path: str, live: nn.Module, saved: Dict) -> None:
+    target = live.state_dict()
+    _check_fields(saved, target, path)
+    for k, t in target.items():
+        _check_tensor(f"{path}.{k}", t, saved[k])
+    live.load_state_dict(saved, strict=True)
 
 
 def _load_field(path: str, live: Any, saved: Any) -> Any:
     """``saved`` into the live object ``live``; returns the field's new
     value (the same object, or the saved plain value)."""
     if isinstance(live, torch.Generator):
+        _check_tensor(path, live.get_state(), saved)
         live.set_state(saved.cpu())
     elif isinstance(live, nn.Module):
         try:
-            live.load_state_dict(saved, strict=True)
+            _load_module(path, live, saved)
         except RuntimeError as e:
             raise KeyError(f"checkpoint field {path!r}: {e}") from None
     elif hasattr(live, "load_state_dict"):
         live.load_state_dict(saved)
+    elif hasattr(live, "_fields"):
+        _check_fields(saved, live._fields, path)
+        return type(live)(**{f: _load_field(f"{path}.{f}", getattr(live, f),
+                                            saved[f])
+                             for f in live._fields})
+    elif isinstance(live, dict):
+        _check_fields(saved, live, path)
+        return {k: _load_field(f"{path}.{k}", v, saved[k])
+                for k, v in live.items()}
+    elif isinstance(live, torch.Tensor):
+        _check_tensor(path, live, saved)
+        with torch.no_grad():
+            live.copy_(saved)
+    elif live is not None and type(saved) is not type(live):
+        raise TypeError(f"checkpoint entry {path!r}: {type(live).__name__} "
+                        f"in the state, {type(saved).__name__} in the "
+                        "checkpoint")
     else:
-        return type(live)(saved) if live is not None else saved
+        return saved
     return live
 
 
-def _check_fields(saved: Dict[str, Any], fields) -> None:
-    missing = sorted(set(fields) - set(saved))
-    extra = sorted(set(saved) - set(fields))
-    if missing or extra:
-        raise KeyError(
-            f"checkpoint does not match the train state: missing "
-            f"{missing}, not in the state {extra}")
+def _read(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
 
 class CheckpointManager:
@@ -94,19 +149,18 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
+    @staticmethod
+    def _write(path: str, payload: Any) -> None:
+        tmp = path + f".tmp{os.getpid()}"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+
     def save(self, step: int, state: NamedTuple) -> None:
         """Write ``state`` as the checkpoint of ``step``; drop the oldest
         beyond ``max_to_keep``."""
-        payload = {f: _save_field(getattr(state, f)) for f in state._fields}
-        tmp = self._path(step) + f".tmp{os.getpid()}"
-        torch.save(payload, tmp)
-        os.replace(tmp, self._path(step))
+        self._write(self._path(step), _save_field(state))
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
-
-    def _read(self, step: int) -> Dict[str, Any]:
-        return torch.load(self._path(step), map_location="cpu",
-                          weights_only=True)
 
     def restore_latest(self, state: NamedTuple) -> Optional[NamedTuple]:
         """The newest checkpoint loaded into ``state``'s live objects (a
@@ -114,7 +168,7 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return None
-        saved = self._read(step)
+        saved = _read(self._path(step))
         _check_fields(saved, state._fields)
         return type(state)(**{
             f: _load_field(f, getattr(state, f), saved[f])
@@ -122,17 +176,46 @@ class CheckpointManager:
 
     def restore_params_latest(self, module: nn.Module,
                               field: str = "params") -> Optional[nn.Module]:
-        """Only the ``field`` module of the newest checkpoint, loaded into
-        ``module`` (strictly: every parameter on both sides); None if there
-        is no checkpoint."""
+        """Only the ``field`` module of the newest checkpoint (``params``,
+        or a DQN state's ``target_params`` / ``ema_params``), loaded into
+        ``module`` (strictly: every parameter on both sides, same dtypes
+        and shapes); None if there is no checkpoint. The rest of the file
+        (a replay buffer, env states) is never read."""
         step = self.latest_step()
         if step is None:
             return None
-        saved = self._read(step)
+        return _load_field(field, module, self.read_field(step, field))
+
+    def read_field(self, step: int, field: str = "params") -> Any:
+        """The saved ``field`` of the checkpoint of ``step`` as it was
+        written (a module as its state dict, on the CPU)."""
+        saved = _read(self._path(step))
         if field not in saved:
             raise KeyError(f"checkpoint has no field {field!r}: "
                            f"{sorted(saved)}")
-        return _load_field(field, module, saved[field])
+        return saved[field]
+
+    def save_best_policy(self, tree: Dict[str, Any]) -> bool:
+        """Keep the best-eval policy snapshot under ``<dir>/best``: ``tree``
+        is ``{"params", "target_params", "ema_params", "step",
+        "eval_return"}``, the networks as modules or state dicts. Apart from
+        the step-numbered checkpoints, so a resume never takes it for a
+        train state. Overwrites an existing snapshot only if
+        ``eval_return`` is higher (a resumed run cannot regress the deployed
+        policy); returns whether it wrote."""
+        prev = self.restore_best_policy()
+        if prev is not None and prev["eval_return"] >= tree["eval_return"]:
+            return False
+        os.makedirs(os.path.join(self.directory, "best"), exist_ok=True)
+        self._write(os.path.join(self.directory, _BEST),
+                    {k: _save_field(v) for k, v in tree.items()})
+        return True
+
+    def restore_best_policy(self) -> Optional[Dict[str, Any]]:
+        """The ``<dir>/best`` snapshot (state dicts on the CPU, the step and
+        the return), or None."""
+        path = os.path.join(self.directory, _BEST)
+        return _read(path) if os.path.exists(path) else None
 
     def close(self) -> None:
         """Saves are synchronous; nothing is left to flush."""

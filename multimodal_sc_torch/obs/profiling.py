@@ -2,8 +2,8 @@
 
 Counterpart of ``multimodal_sc_tpu/obs/profiling.py``: ``maybe_trace`` on
 ``torch.profiler`` (a Chrome trace in the given directory), the NaN
-watchdog and the greedy-collapse watchdog. The fault-injection hook
-``corrupt_symbols`` is not ported yet.
+watchdog, the greedy-collapse watchdog and the fault-injection hook
+``corrupt_symbols``.
 """
 
 from __future__ import annotations
@@ -106,3 +106,19 @@ class CollapseWatchdog:
                 f"collapsed to a constant action; greedy eval will sit at "
                 f"random level.",
                 file=sys.stderr, flush=True)
+
+
+def corrupt_symbols(z: torch.Tensor, mode: str = "nan") -> torch.Tensor:
+    """Fault-injection hook: a corrupted copy of channel output ``z``
+    (B, K, 2): ``nan`` or ``inf`` in the first component of every symbol,
+    or ``burst``: the first quarter of the symbols set to 100."""
+    out = z.clone()
+    if mode == "nan":
+        out[..., 0] = float("nan")
+    elif mode == "inf":
+        out[..., 0] = float("inf")
+    elif mode == "burst":
+        out[:, :z.shape[1] // 4] = 100.0
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}")
+    return out

@@ -1,12 +1,16 @@
 """Semantic-communication perception trunk, the DQN head and the PPO heads.
 
-Counterpart of ``multimodal_sc_tpu/rl/perception.py`` for the analog/CNN
-arch: per modality encode -> channel -> decode-to-tokens, then the fusion
-transformer. The channel runs inside the forward, so gradients flow
-through it into both codecs. Channel noise is drawn from an explicit
-``torch.Generator`` or handed in (``channel_noise``), which is how the
-tests feed the JAX package's draws. The digital (``vq``) and ViT arches
-raise until ROADMAP items 13-14 port them.
+Counterpart of ``multimodal_sc_tpu/rl/perception.py`` for the analog
+arches: per modality encode -> channel -> decode-to-tokens, then the fusion
+transformer. The camera branch is the CNN codec (``camera.arch="cnn"``) or
+the ViT encoder with a ViT token decoder of half its depth
+(``camera.arch="vit"``, unconditioned on the SNR, its attention on the
+packed or flash kernels under ``use_pallas`` or ``pallas_attention``). The
+channel runs inside the forward, so gradients flow through it into both
+codecs. Channel noise is drawn from an explicit ``torch.Generator`` or
+handed in (``channel_noise``), which is how the tests feed the JAX
+package's draws. The digital (``vq``) arch waits for ROADMAP item 14 and
+``train.bf16`` activations for item 13b; both raise.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from torch import nn
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.codec.camera_cnn import CameraEncoderCNN, CameraTokensCNN
+from multimodal_sc_torch.codec.camera_vit import ViTEncoderJSCC, ViTTokensDecoder
 from multimodal_sc_torch.codec.lidar_bev import BEVBackbone, PillarFeatureNet
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.fusion.transformer import FusionTransformer
@@ -32,19 +37,31 @@ class SemanticPerception(nn.Module):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
         cam, lid, fus = cfg.camera, cfg.lidar, cfg.fusion
-        if cam.arch != "cnn" or lid.arch != "analog":
+        if cam.arch not in ("cnn", "vit") or lid.arch != "analog":
             raise NotImplementedError(
                 f"camera.arch={cam.arch!r} / lidar.arch={lid.arch!r}: only "
-                "the analog CNN trunk is ported (ViT: ROADMAP item 13, "
-                "digital VQ: item 14)")
+                "the analog CNN and ViT trunks are ported (digital VQ: "
+                "ROADMAP item 14)")
         if cfg.train.bf16:
-            raise NotImplementedError("train.bf16 activations are not ported")
+            raise NotImplementedError(
+                "train.bf16 activations are not ported (ROADMAP item 13b)")
         self.cfg = cfg
-        cond = cam.snr_conditioning
-        self.cam_enc = CameraEncoderCNN(cam.features, cam.c_sym,
-                                        snr_conditioning=cond)
-        self.cam_tok = CameraTokensCNN(fus.dim, cam.c_sym, cam.image_hw,
-                                       snr_conditioning=cond)
+        attn_pallas = cfg.use_pallas or cfg.pallas_attention
+        if cam.arch == "vit":
+            self.cam_enc = ViTEncoderJSCC(
+                cam.image_hw, cam.patch, cam.dim, cam.depth, cam.heads,
+                cam.c_sym, snr_conditioning=False, use_pallas=attn_pallas)
+            self.cam_tok = ViTTokensDecoder(
+                cam.image_hw, cam.patch, cam.dim, max(1, cam.depth // 2),
+                cam.heads, cam.c_sym, use_pallas=attn_pallas)
+            cam_in = cam.dim
+        else:
+            cond = cam.snr_conditioning
+            self.cam_enc = CameraEncoderCNN(cam.features, cam.c_sym,
+                                            snr_conditioning=cond)
+            self.cam_tok = CameraTokensCNN(fus.dim, cam.c_sym, cam.image_hw,
+                                           snr_conditioning=cond)
+            cam_in = fus.dim
         self.pfn = PillarFeatureNet(lid.point_features, lid.pillar_dim,
                                     lid.bev_hw, lid.x_range, lid.y_range)
         feats = (lid.pillar_dim, lid.pillar_dim)
@@ -56,10 +73,9 @@ class SemanticPerception(nn.Module):
             self.v2x_embed = nn.Parameter(
                 0.02 * torch.randn(1, 1, lid.pillar_dim))
         self.fusion = FusionTransformer(
-            cam_in=fus.dim, lid_in=lid.pillar_dim, dim=fus.dim,
+            cam_in=cam_in, lid_in=lid.pillar_dim, dim=fus.dim,
             depth=fus.depth, heads=fus.heads, state_dim=fus.state_dim,
-            mode=fus.mode,
-            use_pallas=cfg.use_pallas or cfg.pallas_attention,
+            mode=fus.mode, use_pallas=attn_pallas,
             fused_block=cfg.pallas_mha_block,
             block_kernel=cfg.mha_block_kernel)
 
@@ -101,7 +117,11 @@ class SemanticPerception(nn.Module):
             r_ego = self.cfg.env.lidar_rays
             points, pts_v2x = points[:, :r_ego], points[:, r_ego:]
             mask, mask_v2x = mask[:, :r_ego], mask[:, r_ego:]
-        snr_in = snr_db if self.cfg.camera.snr_conditioning else None
+        # The ViT camera branch is built unconditioned, as in the JAX
+        # package; the CNN one FiLMs on the SNR under snr_conditioning.
+        cam = self.cfg.camera
+        snr_in = (snr_db if cam.snr_conditioning and cam.arch == "cnn"
+                  else None)
 
         z_cam = self.cam_enc(image, snr_in)
         z_cam_hat = channel_op(z_cam, snr_db, ch.kind, generator,

@@ -3,28 +3,37 @@
 Counterpart of ``multimodal_sc_tpu/train/dqn.py``: the host loop around the
 actor+learner iteration, metrics pulled from the device every
 ``train.log_every`` iterations (one transfer), the watchdogs, the
-best-snapshot eval and the same result keys.
+best-snapshot eval and the same result keys. ``init_from`` warm-starts the
+perception trunk from a JSCC checkpoint (``rl/warmstart.py``); the target
+and the EMA start from the warm weights. With ``train.checkpoint_dir`` the
+run pins its config there, resumes from the newest checkpoint (networks,
+Adam moments, env states, replay, n-step window, generator, counters) and
+saves every ``train.checkpoint_every`` iterations; the best snapshot of
+``rl.eval_snapshot_every`` is kept as host copies and written to
+``<checkpoint_dir>/best`` at the end. Checkpoint and snapshot time is kept
+out of the steady rate and reported as ``ckpt_save_s`` / ``ckpt_close_s``.
 
-Not ported yet, each raising: checkpoints and resume
-(``train.checkpoint_dir``, ROADMAP item 10), the ``init_from`` warm start
-and VQ codebook seeding (items 14-15), the sharded iteration (item 16: one
-process drives one card). ``train.iters_per_dispatch`` has no counterpart:
-PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
-and the value is ignored.
+Not ported, each raising: a VQ trunk and its codebook seeding (ROADMAP item
+14), the sharded iteration (item 16: one process drives one card).
+``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
+there is no per-dispatch round trip to amortize, and the value is ignored.
 
 As a script it trains a preset and evaluates the result:
 
     python -m multimodal_sc_torch.train.dqn --config c4 \\
-        [--set train.steps=200 ...] [--eval-envs 256] [--device cuda]
+        [--set train.steps=200 --set train.checkpoint_dir=DIR ...] \\
+        [--init-from JSCC_DIR] [--eval-envs 256] [--device cuda]
 
 prints the card, then one JSON object: the result of ``run``, the wall time
-and the greedy ``evaluate_dqn`` of the EMA and the online network.
+and the greedy and eps-0.05 ``evaluate_dqn`` of the EMA and the online
+network.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import Optional
@@ -32,25 +41,52 @@ from typing import Optional
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.evaluation import policy_eval
+from multimodal_sc_torch.io.checkpoint import CheckpointManager
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     steps_per_sec_per_chip,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import (CollapseWatchdog, NaNWatchdog,
                                                maybe_trace)
 from multimodal_sc_torch.rl import dqn as dqn_lib
+from multimodal_sc_torch.rl.warmstart import warm_start
+
+
+def guard_replay_dtype(cfg: ExperimentConfig) -> None:
+    """Refuse to resume across an ``rl.replay_quantize`` flip: the replay's
+    image store is uint8 one way and float32 the other. The config pinned
+    beside the checkpoints records the flag the run was trained with (a
+    config that predates the flag trained f32 stores); an unreadable or
+    foreign config is not compared."""
+    path = os.path.join(cfg.train.checkpoint_dir, "config.json")
+    if not os.path.exists(path):
+        return
+    try:
+        with open(path) as f:
+            saved_flag = json.load(f)["rl"].get("replay_quantize", False)
+    except (json.JSONDecodeError, KeyError, TypeError):
+        return
+    if bool(saved_flag) != bool(cfg.rl.replay_quantize):
+        raise ValueError(
+            f"checkpoint dir {cfg.train.checkpoint_dir!r} was trained with "
+            f"rl.replay_quantize={saved_flag} but the current config has "
+            f"{cfg.rl.replay_quantize}; the replay image store would change "
+            "dtype across the flip. Re-run with --set "
+            f"rl.replay_quantize={str(bool(saved_flag)).lower()} or start "
+            "a fresh checkpoint dir.")
+
+
+def _host_copy(net) -> dict:
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in net.state_dict().items()}
 
 
 def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
         metrics_path: Optional[str] = None, init_from: Optional[str] = None,
         device="cuda"):
-    """Train config-4 DQN for ``cfg.train.steps`` iterations; returns
-    ``(state, result)``. ``num_envs`` defaults to ``cfg.rl.num_envs``."""
-    if init_from:
-        raise NotImplementedError(
-            "the JSCC warm start is not ported yet (ROADMAP item 15)")
-    if cfg.train.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints and resume are not ported yet (ROADMAP item 10)")
+    """Train config-4 DQN for ``cfg.train.steps`` iterations (resuming from
+    ``train.checkpoint_dir`` when it holds a checkpoint); returns
+    ``(state, result)``. ``num_envs`` defaults to ``cfg.rl.num_envs`` (the
+    count a resume must use: the env and replay shapes are checked)."""
     if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
         raise NotImplementedError(
             "VQ codebook seeding is not ported yet (ROADMAP item 14)")
@@ -58,27 +94,39 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
         num_envs = cfg.rl.num_envs
     dev = resolve_device(device)
     state = dqn_lib.init(cfg, cfg.train.seed, num_envs, dev)
+    if init_from:
+        warm_start(cfg, (state.params, state.target_params,
+                         state.ema_params), init_from)
     iteration = dqn_lib.make_iteration(cfg)
 
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
     watchdog = NaNWatchdog()
     collapse_dog = CollapseWatchdog(num_actions=cfg.rl.num_actions)
+    ckpt = None
+    if cfg.train.checkpoint_dir:
+        guard_replay_dtype(cfg)
+        ckpt = CheckpointManager(cfg.train.checkpoint_dir)
+        ckpt.save_config(cfg.to_json())
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state = restored
+    start_it = (ckpt.latest_step() or 0) if ckpt else 0
 
-    # First-iteration wall (allocator warm-up, kernel build and load)
-    # recorded apart from the steady rate.
+    # First-iteration wall (allocator warm-up, kernel build and load) and
+    # the in-loop checkpoint writes recorded apart from the steady rate.
     first_s = None
+    ckpt_s = 0.0
 
     # Best-snapshot selection (rl.eval_snapshot_every > 0): greedy-eval the
-    # online network with a FIXED seed every ese iterations and record the
-    # best return and its iteration. The JAX package persists that snapshot
-    # under the checkpoint directory; until checkpoints are ported there is
-    # nowhere to keep it. Eval wall time is excluded from the steady rate.
+    # online network with a FIXED seed every ese iterations and keep the
+    # best networks as host copies; eval wall time is excluded from the
+    # steady rate.
     ese = cfg.rl.eval_snapshot_every
     snap_s = 0.0
-    best_ret, best_it = None, None
+    best_ret, best_it, best_tree = None, None, None
 
     def snapshot_eval(it: int) -> None:
-        nonlocal snap_s, best_ret, best_it
+        nonlocal snap_s, best_ret, best_it, best_tree
         synchronize(dev)
         t_ev = time.perf_counter()
         out = policy_eval.evaluate_dqn(cfg, state.params,
@@ -88,11 +136,14 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
         writer.write(it, {"snapshot_eval_return": r})
         if best_ret is None or r > best_ret:
             best_ret, best_it = r, it
+            best_tree = {name: _host_copy(getattr(state, name))
+                         for name in ("params", "target_params",
+                                      "ema_params")}
         snap_s += time.perf_counter() - t_ev
 
     last = {}
     with maybe_trace(cfg.train.profile_dir), Timer() as t:
-        for it in range(1, cfg.train.steps + 1):
+        for it in range(start_it + 1, cfg.train.steps + 1):
             t0 = time.perf_counter() if first_s is None else None
             state, last = iteration(state)
             if t0 is not None:
@@ -104,20 +155,33 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
                 collapse_dog.check(it, last)
             if ese and it % ese == 0:
                 snapshot_eval(it)
+            if ckpt and it % cfg.train.checkpoint_every == 0:
+                t_ck = time.perf_counter()
+                ckpt.save(it, state)
+                ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
 
-    sps = steps_per_sec_per_chip(cfg.train.steps * num_envs, t.elapsed)
-    extra = {"agent_steps_per_sec_per_chip": sps}
+    n_iters = cfg.train.steps - start_it
+    extra = {"agent_steps_per_sec_per_chip": steps_per_sec_per_chip(
+        n_iters * num_envs, t.elapsed)}
+    if ckpt:
+        t_ck = time.perf_counter()
+        ckpt.close()
+        extra["ckpt_save_s"] = round(ckpt_s, 2)
+        extra["ckpt_close_s"] = round(time.perf_counter() - t_ck, 2)
     if best_ret is not None:
         extra["best_eval_return"] = round(best_ret, 3)
         extra["best_eval_iter"] = best_it
         extra["snapshot_eval_s"] = round(snap_s, 2)
-    steady_steps = cfg.train.steps - 1
+        if ckpt:
+            ckpt.save_best_policy({**best_tree, "step": best_it,
+                                   "eval_return": best_ret})
+    steady_steps = n_iters - 1
     if first_s is not None and steady_steps > 0 and \
-            t.elapsed > first_s + snap_s:
+            t.elapsed > first_s + ckpt_s + snap_s:
         extra["first_dispatch_s"] = round(first_s, 2)
         extra["steady_steps_per_sec_per_chip"] = steps_per_sec_per_chip(
-            steady_steps * num_envs, t.elapsed - first_s - snap_s)
+            steady_steps * num_envs, t.elapsed - first_s - ckpt_s - snap_s)
     writer.write(cfg.train.steps, {**last, **extra})
     writer.close()
     return state, {**to_host(last), **extra}
@@ -133,6 +197,9 @@ def main(argv=None) -> int:
                     help="config override, e.g. train.steps=200 (repeatable)")
     ap.add_argument("--num-envs", type=int, default=None)
     ap.add_argument("--metrics-path", default=None)
+    ap.add_argument("--init-from", default=None, metavar="JSCC_DIR",
+                    help="JSCC checkpoint dir to warm-start the perception "
+                         "trunk from")
     ap.add_argument("--eval-envs", type=int, default=256)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -141,7 +208,8 @@ def main(argv=None) -> int:
     card = card_name(dev)
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    state, result = run(cfg, args.num_envs, args.metrics_path, device=dev)
+    state, result = run(cfg, args.num_envs, args.metrics_path,
+                        init_from=args.init_from, device=dev)
     result["train_wall_s"] = round(time.perf_counter() - t0, 2)
     seed = cfg.train.seed + 0xE7A1
     for name, net in (("ema", state.ema_params), ("online", state.params)):

@@ -14,7 +14,7 @@ Unlike the JAX package's pure update, a train step writes the model and the
 optimizer moments IN PLACE: the returned state holds the same objects.
 
 Not ported yet, each raising: the digital codecs (``camera.arch="vq"``,
-``lidar.arch="vq"``, ROADMAP item 14) and ``train.bf16``.
+``lidar.arch="vq"``, ROADMAP item 14) and ``train.bf16`` (item 13b).
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -63,7 +63,8 @@ ADAMW_WEIGHT_DECAY = 1e-4      # optax.adamw's default
 
 def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.train.bf16:
-        raise NotImplementedError("train.bf16 activations are not ported")
+        raise NotImplementedError(
+            "train.bf16 activations are not ported (ROADMAP item 13b)")
     if cfg.camera.arch not in ("vit", "cnn"):
         raise NotImplementedError(
             f"camera.arch={cfg.camera.arch!r} on the fusion path is not "

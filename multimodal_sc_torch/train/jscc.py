@@ -19,12 +19,16 @@ steps and resumes from the newest checkpoint: model, optimizer moments,
 schedule, generator and step, the dataset set to the step, so a resumed
 run replays the stream of an uninterrupted one.
 
-Unlike the JAX package's pure update, a train step writes the model, the
-optimizer moments and the schedule IN PLACE: the returned state holds the
-same objects. Not ported yet, each raising: the ViT arch on this path (item
-13), the VQ arch (item 14), ``train.bf16``. ``train.iters_per_dispatch``
-(the chunked step) has no counterpart: PyTorch runs eagerly, so there is no
-per-dispatch round trip to amortize, and the value is ignored.
+The codec is ``CameraJSCC`` (``camera.arch="cnn"``) or ``ViTJSCC``
+(``camera.arch="vit"``, an SNR token under ``camera.snr_conditioning``, its
+attention on the packed or flash kernels under ``use_pallas`` or
+``pallas_attention``). Unlike the JAX package's pure update, a train step
+writes the model, the optimizer moments and the schedule IN PLACE: the
+returned state holds the same objects. Not ported yet, each raising: the
+VQ arch (ROADMAP item 14), ``train.bf16`` (item 13b).
+``train.iters_per_dispatch`` (the chunked step) has no counterpart:
+PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
+and the value is ignored.
 
 As a script it trains a preset:
 
@@ -52,11 +56,13 @@ from multimodal_sc_torch.channel import ChannelDraws, rate_mask
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.codec.camera_cnn import CameraJSCC
+from multimodal_sc_torch.codec.camera_vit import ViTJSCC
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.envs.datasets import ImageDataset
 from multimodal_sc_torch.evaluation.metrics import miou, psnr
 from multimodal_sc_torch.io.checkpoint import CheckpointManager
+from multimodal_sc_torch.nn_init import init_like_flax_
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
@@ -67,18 +73,25 @@ from multimodal_sc_torch.train.fusion_jscc import make_optimizer
 
 def _check_ported(cfg: ExperimentConfig) -> None:
     cam = cfg.camera
-    if cam.arch != "cnn":
-        item = {"vit": 13, "vq": 14}.get(cam.arch)
+    if cam.arch not in ("cnn", "vit"):
         raise NotImplementedError(
             f"camera.arch={cam.arch!r} on the JSCC path is not ported yet"
-            + (f" (ROADMAP item {item})" if item else ""))
+            + (" (ROADMAP item 14)" if cam.arch == "vq" else ""))
     if cfg.train.bf16:
-        raise NotImplementedError("train.bf16 activations are not ported")
+        raise NotImplementedError(
+            "train.bf16 activations are not ported (ROADMAP item 13b)")
 
 
-def build_model(cfg: ExperimentConfig) -> CameraJSCC:
+def build_model(cfg: ExperimentConfig) -> Union[CameraJSCC, ViTJSCC]:
     _check_ported(cfg)
     cam = cfg.camera
+    if cam.arch == "vit":
+        model = ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
+                        depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,
+                        snr_conditioning=cam.snr_conditioning,
+                        use_pallas=cfg.use_pallas or cfg.pallas_attention)
+        init_like_flax_(model)
+        return model
     return CameraJSCC(features=cam.features, c_sym=cam.c_sym,
                       image_hw=cam.image_hw, seg_classes=cam.seg_classes,
                       snr_conditioning=cam.snr_conditioning,
@@ -134,12 +147,13 @@ class StepDraws(NamedTuple):
     channel: Union[None, torch.Tensor, ChannelDraws] = None
 
 
-def _rate(model: CameraJSCC, m: Optional[torch.Tensor]):
-    """``(rate, mask factory)`` of m transmitted symbol channels an example
-    (None for a fixed-rate codec)."""
-    if not model.adaptive_rate:
-        return None, None
-    return m.float() / model.c_sym, lambda z: rate_mask(
+def _rate(model, m: Optional[torch.Tensor]):
+    """``(codec keywords, mask factory)`` of m transmitted symbol channels
+    an example: ``{"rate": m / c_sym}`` and the channel mask for an
+    adaptive-rate codec, ``({}, None)`` for a fixed-rate one."""
+    if not getattr(model, "adaptive_rate", False):
+        return {}, None
+    return {"rate": m.float() / model.c_sym}, lambda z: rate_mask(
         z.shape[0], z.shape[1], model.c_sym, m)
 
 
@@ -159,11 +173,11 @@ def transmit(model: CameraJSCC, img, snr_db, kind: str,
     m = torch.full((b,), rate_sym or model.c_sym, dtype=torch.int32,
                    device=img.device)
     rate, mask = _rate(model, m)
-    z = model.encode(img, snr, rate)
+    z = model.encode(img, snr, **rate)
     z_hat = channel_op(z, snr, kind, generator, noise=noise,
                        mask=mask(z) if mask else None, **channel_kw)
     decode = model.decode_seg if with_seg else model.decode
-    return decode(z_hat, snr, rate), z
+    return decode(z_hat, snr, **rate), z
 
 
 def reconstruct(cfg: ExperimentConfig, model: CameraJSCC, img, snr_db,
@@ -208,17 +222,17 @@ def loss_fn(cfg: ExperimentConfig, model: CameraJSCC, img, seg,
     seg head."""
     ch = cfg.channel
     rate, mask = _rate(model, draws.m)
-    z = model.encode(img, draws.snr_db, rate)
+    z = model.encode(img, draws.snr_db, **rate)
     z_hat = channel_op(z, draws.snr_db, ch.kind, generator,
                        noise=draws.channel, mask=mask(z) if mask else None,
                        **channel_kwargs(ch))
     if _with_seg(cfg):
-        recon, logits = model.decode_seg(z_hat, draws.snr_db, rate)
+        recon, logits = model.decode_seg(z_hat, draws.snr_db, **rate)
         mse = (recon - img).square().mean()
         # Classes last in the logits; F.cross_entropy wants them second.
         ce = F.cross_entropy(logits.permute(0, 3, 1, 2), seg.long())
         return mse + 0.1 * ce, (recon, logits)
-    recon = model.decode(z_hat, draws.snr_db, rate)
+    recon = model.decode(z_hat, draws.snr_db, **rate)
     return (recon - img).square().mean(), (recon, None)
 
 

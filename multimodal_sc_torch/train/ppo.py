@@ -3,20 +3,23 @@
 Counterpart of ``multimodal_sc_tpu/train/ppo.py``: the host loop around the
 full PPO update (rollout, GAE, minibatch epochs), metrics pulled from the
 device every ``train.log_every`` updates (one transfer), the NaN watchdog
-and the same result keys. Env steps count updates x T x B.
+and the same result keys. Env steps count updates x T x B. ``init_from``
+warm-starts the perception trunk from a JSCC checkpoint and the EMA starts
+from the warm weights; with ``train.checkpoint_dir`` the run pins its
+config, resumes from the newest checkpoint (network, EMA, Adam moments, env
+states, generator, counters) and saves every ``train.checkpoint_every``
+updates, the writes kept out of the steady rate.
 
-Not ported yet, each raising: checkpoints and resume
-(``train.checkpoint_dir``, ROADMAP item 10), the ``init_from`` warm start
-(item 15), a VQ trunk and its codebook seeding (item 14), the sharded state
-(item 16: one process drives one card). ``train.iters_per_dispatch`` has no
-counterpart: PyTorch runs eagerly, so there is no per-dispatch round trip
-to amortize, and the value is ignored.
+Not ported, each raising: a VQ trunk and its codebook seeding (ROADMAP item
+14), the sharded state (item 16: one process drives one card).
+``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
+there is no per-dispatch round trip to amortize, and the value is ignored.
 
 As a script it trains a preset and evaluates the result:
 
     python -m multimodal_sc_torch.train.ppo --config c5 \\
-        [--set train.steps=150 --set rl.num_envs=64 ...] [--eval-envs 256] \\
-        [--device cuda]
+        [--set train.steps=150 --set rl.num_envs=64 ...] \\
+        [--init-from JSCC_DIR] [--eval-envs 256] [--device cuda]
 
 prints the card, then one JSON object: the result of ``run``, the wall time
 and ``evaluate_ppo`` of the online and the EMA network, sampled (T = 1)
@@ -34,40 +37,48 @@ from typing import Optional
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.evaluation import policy_eval
+from multimodal_sc_torch.io.checkpoint import CheckpointManager
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     steps_per_sec_per_chip,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
 from multimodal_sc_torch.rl import ppo as ppo_lib
+from multimodal_sc_torch.rl.warmstart import warm_start
 
 
 def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         init_from: Optional[str] = None, device="cuda"):
-    """Train config-5 PPO for ``cfg.train.steps`` updates; returns
+    """Train config-5 PPO for ``cfg.train.steps`` updates (resuming from
+    ``train.checkpoint_dir`` when it holds a checkpoint); returns
     ``(state, result)``."""
-    if init_from:
-        raise NotImplementedError(
-            "the JSCC warm start is not ported yet (ROADMAP item 15)")
-    if cfg.train.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints and resume are not ported yet (ROADMAP item 10)")
     if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
         raise NotImplementedError(
             "a VQ trunk and its codebook seeding are not ported yet (ROADMAP "
             "item 14)")
     dev = resolve_device(device)
     state = ppo_lib.init(cfg, cfg.train.seed, dev)
+    if init_from:
+        warm_start(cfg, (state.params, state.ema_params), init_from)
     train_step = ppo_lib.make_train_step(cfg)
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
     watchdog = NaNWatchdog()
+    ckpt = None
+    if cfg.train.checkpoint_dir:
+        ckpt = CheckpointManager(cfg.train.checkpoint_dir)
+        ckpt.save_config(cfg.to_json())
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state = restored
+    start_it = (ckpt.latest_step() or 0) if ckpt else 0
 
-    # First-update wall (allocator warm-up, kernel build and load) recorded
-    # apart from the steady rate.
+    # First-update wall (allocator warm-up, kernel build and load) and the
+    # in-loop checkpoint writes recorded apart from the steady rate.
     first_s = None
+    ckpt_s = 0.0
     last = {}
     steps = cfg.train.steps
     with maybe_trace(cfg.train.profile_dir), Timer() as t:
-        for it in range(1, steps + 1):
+        for it in range(start_it + 1, steps + 1):
             t0 = time.perf_counter() if first_s is None else None
             state, last = train_step(state)
             if t0 is not None:
@@ -76,14 +87,25 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
             if it % cfg.train.log_every == 0:
                 writer.write(it, last)
                 watchdog.check(it, last)
+            if ckpt and it % cfg.train.checkpoint_every == 0:
+                t_ck = time.perf_counter()
+                ckpt.save(it, state)
+                ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
     per_update = cfg.rl.rollout_length * cfg.rl.num_envs
+    n_updates = steps - start_it
     extra = {"agent_steps_per_sec_per_chip": steps_per_sec_per_chip(
-        steps * per_update, t.elapsed)}
-    if first_s is not None and steps > 1 and t.elapsed > first_s:
+        n_updates * per_update, t.elapsed)}
+    if ckpt:
+        t_ck = time.perf_counter()
+        ckpt.close()
+        extra["ckpt_save_s"] = round(ckpt_s, 2)
+        extra["ckpt_close_s"] = round(time.perf_counter() - t_ck, 2)
+    if first_s is not None and n_updates > 1 and \
+            t.elapsed > first_s + ckpt_s:
         extra["first_dispatch_s"] = round(first_s, 2)
         extra["steady_steps_per_sec_per_chip"] = steps_per_sec_per_chip(
-            (steps - 1) * per_update, t.elapsed - first_s)
+            (n_updates - 1) * per_update, t.elapsed - first_s - ckpt_s)
     writer.write(steps, {**last, **extra})
     writer.close()
     return state, {**to_host(last), **extra}
@@ -98,6 +120,9 @@ def main(argv=None) -> int:
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="config override, e.g. train.steps=150 (repeatable)")
     ap.add_argument("--metrics-path", default=None)
+    ap.add_argument("--init-from", default=None, metavar="JSCC_DIR",
+                    help="JSCC checkpoint dir to warm-start the perception "
+                         "trunk from")
     ap.add_argument("--eval-envs", type=int, default=256)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -106,7 +131,8 @@ def main(argv=None) -> int:
     card = card_name(dev)
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    state, result = run(cfg, args.metrics_path, device=dev)
+    state, result = run(cfg, args.metrics_path, init_from=args.init_from,
+                        device=dev)
     result["train_wall_s"] = round(time.perf_counter() - t0, 2)
     seed = cfg.train.seed + 0xE7A1
     for name, net in (("online", state.params), ("ema", state.ema_params)):

@@ -240,7 +240,6 @@ def test_train_run_keys_match_jax_run(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    (["camera.arch=vit"], NotImplementedError, "item 13"),
     (["camera.arch=vq"], NotImplementedError, "item 14"),
     (["train.bf16=true"], NotImplementedError, "bf16"),
 ])
@@ -248,6 +247,24 @@ def test_refusals(over, exc, match):
     _, tcfg = _configs(over)
     with pytest.raises(exc, match=match):
         tjscc.make_train_step(tcfg)
+
+
+def test_vit_codec_trains(capsys):
+    """``camera.arch=vit``, refused until the ViT JSCC path was ported: the
+    driver builds a ``ViTJSCC`` (its parameter tree JAX's, the attention
+    flag reaching its MHA) and trains it, the held-out PSNR finite."""
+    over = ["camera.arch=vit", "camera.dim=32", "camera.depth=1",
+            "camera.heads=2", "pallas_attention=true", "train.steps=2",
+            "train.eval_every=2"]
+    jcfg, tcfg = _configs(over)
+    model = tjscc.build_model(tcfg)
+    assert model.encoder.block0.attn.use_pallas
+    jparams = jjscc.create_train_state(jcfg, jax.random.key(0)).params
+    model.load_state_dict(bridge.to_state_dict(jparams, model))
+    assert tjscc.main(["--config", "c1", "--device", "cpu"] + [
+        a for o in SMALL + over for a in ("--set", o)]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["train_steps"] == 2 and np.isfinite(out["eval_psnr"])
 
 
 def test_main_trains(capsys):

@@ -37,6 +37,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 SMALL = ["camera.features=8,16,16,16", "train.steps=300",
          "train.warmup_steps=100", "train.grad_clip=0.01"]
+VIT_SMALL = ["camera.dim=32", "camera.depth=1", "camera.heads=2"]
 BATCH = 2
 
 
@@ -78,6 +79,8 @@ def _jax_channel_draws(jcfg, kch, z_shape):
             "channel.pilots=2"]),
     ("c1", ["camera.adaptive_rate=true", "camera.rate_min_sym=2",
             "channel.modulation=16"]),
+    ("c1", ["camera.arch=vit"] + VIT_SMALL),          # ViTJSCC
+    ("c2", ["camera.arch=vit"] + VIT_SMALL),          # + its SNR token
 ])
 def test_train_step_matches_jax(preset, extra):
     """One step at update 150 (inside the cosine), the clip active: loss,
@@ -100,7 +103,7 @@ def test_train_step_matches_jax(preset, extra):
     h, w = jcfg.camera.image_hw
     rng = np.random.default_rng(4)
     img = rng.uniform(0, 1, (BATCH, h, w, 3)).astype(np.float32)
-    with_seg = jcfg.camera.seg_classes > 0
+    with_seg = jcfg.camera.seg_classes > 0 and jcfg.camera.arch == "cnn"
     seg = rng.integers(0, 4, (BATCH, h, w)).astype(np.int32)
     key = jax.random.key(5)
     jstate, jmetrics = jax.jit(jjscc._step_body(jcfg, model))(

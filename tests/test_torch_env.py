@@ -5,6 +5,7 @@ from the JAX package's own keys (mirroring its key splits) and hand them
 over; states cross through ``multimodal_sc_torch.bridge``.
 """
 
+import functools
 import os
 
 import jax
@@ -139,8 +140,72 @@ def test_golden_episode():
 
 
 def test_unported_sensors_raise():
+    """The front camera and the V2X scan, which raised until they were
+    ported, now observe: the shapes JAX gives, finite, RSU rays after the
+    ego rays."""
     for cfg in (EnvConfig(camera_mode="front"), EnvConfig(v2x_rays=8)):
         g = torch.Generator().manual_seed(0)
         states = tenv.reset_batch(cfg, 2, g, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tenv.observe(cfg, states)
+        img, pts, mask = tenv.observe(cfg, states)
+        assert img.shape == (2, 32, 32, 3)
+        assert pts.shape == (2, cfg.lidar_rays + cfg.v2x_rays, 4)
+        assert mask.shape == pts.shape[:2]
+        assert torch.isfinite(img).all() and torch.isfinite(pts).all()
+
+
+_MOVE_CFG = EnvConfig(num_npcs=4, image_hw=(8, 8), lidar_rays=8)
+
+
+@functools.lru_cache(maxsize=None)
+def _moved(seed):
+    states = jenv.reset_batch(_MOVE_CFG, jax.random.key(seed), 8)
+    for t in range(6):
+        states, _ = jenv.step_batch(_MOVE_CFG, states,
+                                    jnp.full((8,), 4 + t % 2))
+    return states
+
+
+def _moved_states(cfg, seed=1):
+    """Eight envs moved along the road (curves, NPCs and curbs in view),
+    stepped under one small config and given ``cfg``'s fog."""
+    states = _moved(seed)
+    return states._replace(fog=jnp.full((8,), cfg.fog_range, jnp.float32))
+
+
+@pytest.mark.parametrize("fog", [0.0, 20.0])
+@pytest.mark.parametrize("mode", ["front", "topdown"])
+def test_observe_front_and_v2x_matches_jax(mode, fog):
+    """``observe`` with the front camera or the top-down one and 32 RSU
+    rays, with and without fog, from the same states: the tolerances of
+    ``test_observe_matches_jax``."""
+    cfg = EnvConfig(num_npcs=4, image_hw=(32, 32), lidar_rays=64,
+                    camera_mode=mode, fog_range=fog, v2x_rays=32)
+    states = _moved_states(cfg)
+    j_img, j_pts, j_mask = jenv.observe_batch(cfg, states)
+    img, pts, mask = tenv.observe(cfg, _bridged(states))
+    assert pts.shape == (8, 64 + 32, 4)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(j_mask))
+    np.testing.assert_allclose(pts.numpy(), np.asarray(j_pts), atol=2e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(img.numpy(), np.asarray(j_img), atol=1e-5)
+
+
+def test_v2x_scan_matches_jax_and_ignores_fog():
+    cfg = EnvConfig(num_npcs=4, lidar_rays=64, v2x_rays=32, fog_range=5.0)
+    states = _moved_states(cfg, seed=3)
+    j_pts, j_mask = jax.vmap(lambda s: jenv.v2x_scan(cfg, s))(states)
+    pts, mask = tenv.v2x_scan(cfg, _bridged(states))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(j_mask))
+    np.testing.assert_allclose(pts.numpy(), np.asarray(j_pts), atol=2e-5,
+                               rtol=1e-5)
+    # The RSU sees past the ego's 5 m of visibility.
+    assert (pts[..., :2].norm(dim=-1)[mask] > 5.0).any()
+
+
+def test_render_camera_front_matches_jax():
+    cfg = EnvConfig(num_npcs=4, image_hw=(24, 40), camera_mode="front",
+                    fog_range=30.0)
+    states = _moved_states(cfg, seed=5)
+    want = jax.vmap(lambda s: jenv.render_camera_front(cfg, s))(states)
+    got = tenv.render_camera_front(cfg, _bridged(states))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)

@@ -26,6 +26,7 @@ from multimodal_sc_torch import bridge
 from multimodal_sc_torch.config import get_preset as t_preset
 from multimodal_sc_torch.envs import driving as tenv
 from multimodal_sc_torch.evaluation import policy_eval as teval
+from multimodal_sc_torch.io.checkpoint import CheckpointManager
 from multimodal_sc_torch.obs import profiling as tprof
 from multimodal_sc_torch.rl import dqn as tdqn
 from multimodal_sc_torch.rl import replay as treplay
@@ -353,12 +354,19 @@ def test_train_run_keys_match_jax_run(tmp_path):
 
 
 def test_train_run_refuses_what_is_not_ported(tmp_path):
+    """A VQ trunk still raises (ROADMAP item 14). The warm start and the
+    checkpoints, refused until they were ported, now run: a warm start
+    from a directory with no checkpoint is refused as JAX refuses it, and a
+    checkpoint directory gets the pinned config and its checkpoints."""
     tcfg = t_preset("c4").override_str(TINY + ["train.steps=2"])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         ttrain.run(tcfg, init_from=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.run(tcfg.override_str([f"train.checkpoint_dir={tmp_path}"]),
-                   device="cpu")
+    _, out = ttrain.run(tcfg.override_str([
+        f"train.checkpoint_dir={tmp_path}", "train.checkpoint_every=1"]),
+        device="cpu")
+    assert CheckpointManager(str(tmp_path)).steps() == [1, 2]
+    assert (tmp_path / "config.json").exists()
+    assert {"ckpt_save_s", "ckpt_close_s"} <= set(out)
     with pytest.raises(NotImplementedError, match="item 14"):
         ttrain.run(tcfg.override_str(["lidar.arch=vq"]), device="cpu")
 
