@@ -8,8 +8,8 @@ Builds every CUDA kernel from ``multimodal_sc_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card at the
 shapes of the paths below, times both (and the one library call that
 computes the same function, where there is one) as device time, then
-drives eleven paths through the port's entry points at full widths,
-random weights from seed 0. At 1024 envs:
+drives the port's paths through its entry points at full widths, random
+weights from seed 0. At 1024 envs:
 
 * the c4 DQN act-only iteration;
 * arm A, act+learn on the c4 preset as it stands (fused blocks: the kernel
@@ -80,9 +80,30 @@ iteration from each compared again) and the ``eval-policy`` verb on the
 restored EMA policy: one evaluation and a return-vs-SNR sweep over 2 kinds
 x 3 SNRs.
 
-The pillar scatter runs on every path but c1 and c2: its forward kernel in
-every forward, its backward kernel once per learn, train or minibatch
-step.
+Then the digital camera link (``camera.arch=vq``: 256 codes of dimension
+64, each index's 8 bits over QPSK):
+
+* c1_vq, the VQ camera JSCC train step (batch 64, 32x32, the codebook
+  seeded from a real batch as a fresh run seeds it): 800 steps (the mean
+  loss of the last 20 must lie below the first step's), 8 ``conv_prelu``
+  launches a step in the 60 timed ones, the held-out
+  evaluation, one loss (MSE + VQ loss) and its gradients through the
+  kernel against its plain version, both on the codes the kernel's route
+  picks (a different pick is allowed only at a near-tie); then one
+  point at 5 dB of each deployment, uncoded, Hamming(7,4) hard and soft,
+  and Type-I HARQ, each run twice from one seed and held bit-equal;
+* c4_vq at 1024 envs, act-only and act+learn (the camera's 4 encoder
+  convs, the fused blocks and the scatter on their kernels), with the
+  learn step's route comparison, the act route against the learner's,
+  and a checkpoint round trip held bit for bit, one iteration after it
+  too.
+
+The conv kernel's check prints the c1_vq step's 8 convs and the c4_vq act
+step's 4 as groups of the shapes it holds.
+
+The pillar scatter runs on every path but c1, c2 and c1_vq: its forward
+kernel in every forward, its backward kernel once per learn, train or
+minibatch step.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after, and fails unless every kernel of that path ran the expected
@@ -245,6 +266,34 @@ EXPECTED_VIT_LEARN = {"mha_block": 8, "scatter_max": 1 + 3,
                       "packed_attention_bwd": VIT_ATTN_PER_FWD}
 EVAL_EPISODES = 32
 EVAL_KINDS, EVAL_SNRS = "awgn,rayleigh", "0,10,20"
+
+# c1_vq (``camera.arch=vq``: 256 codes of dimension 64, batch 64, 32x32): a
+# train step runs 8 convs on the kernel, enc0-3, from_code, dec0, dec1 and
+# conv_out (the 1x1 to_code and the transposed convs are plain, as in the
+# JAX package). A sweep point runs one forward (8 convs); a HARQ point
+# encodes and decodes (4 + 4).
+C1_VQ = ["camera.arch=vq"]
+EXPECTED_C1_VQ = {"conv_prelu": 8}
+C1_VQ_WARMUP_STEPS = 3
+C1_VQ_TIMED_STEPS = 60
+# The VQ loss holds flat or rises for its first few hundred steps (the
+# warm-up, the codes' early collapse and recovery) and has fallen by step
+# 600 in the runs on the H100: the loss is read after this many steps.
+C1_VQ_LOSS_STEPS = 800
+C1_VQ_SWEEP_SNR = 5.0
+# The conv shapes of one c1_vq train step (H, W, Cin, Cout, stride, PReLU)
+# and how often a step launches each; of one c4_vq act step, enc0-3.
+C1_VQ_CONVS = (((32, 32, 3, 32, 2, True), 1), ((16, 16, 32, 64, 2, True), 1),
+               ((8, 8, 64, 128, 1, True), 2), ((8, 8, 128, 128, 1, True), 3),
+               ((32, 32, 32, 3, 1, False), 1))
+# c4_vq at 1024 envs: the camera's 4 encoder convs on the kernel (its token
+# conv is plain), the fusion's 8 fused blocks, one scatter a forward; a
+# learn step's online forward reaches the scatter's backward once.
+VQ4 = ["camera.arch=vq"]
+EXPECTED_VQ4 = {"mha_block": 8, "conv_prelu": 4, "scatter_max": 1}
+EXPECTED_VQ4_LEARN = {"mha_block": 8, "conv_prelu": 4 + 12,
+                      "scatter_max": 1 + 3, "scatter_max_bwd": 1}
+LEARN_ROUTE_VQ4 = {"conv_prelu": 12, "scatter_max": 3, "scatter_max_bwd": 1}
 
 
 def _counters():
@@ -702,6 +751,7 @@ def check_conv_prelu():
         (8, 8, 16, 10, 1, True), (5, 5, 4, 200, 1, True),
         (3, 3, 132, 136, 2, True))]
     rows = []
+    timed_at = {}
     worst = 0.0
     for b, (h, w, cin, cout, s, prelu), timed, per_step in cases:
         x = torch.randn(b, h, w, cin, generator=g, device="cuda")
@@ -746,10 +796,25 @@ def check_conv_prelu():
         bound, by = _bound_ms(3 * flops, nbytes, PEAK_TF32)
         print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, cuDNN "
               f"{lib:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+        row = {"per_step": per_step, "err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib}
+        timed_at[b, (h, w, cin, cout, s, prelu)] = row
         if per_step:
-            rows.append({"per_step": per_step, "err": err, "ms": ms,
-                         "plain_ms": plain, "bound_ms": bound,
-                         "bound_by": by, "library_ms": lib})
+            rows.append(row)
+    # The digital camera's steps, from the shapes above: a c1_vq train
+    # step's 8 convs at batch 64 (from_code's 64 -> 128 has enc2's shape,
+    # dec0 and dec1 enc3's), a c4_vq act step's encoder at 1024 envs.
+    for what, b, shapes in (
+            ("c1_vq train step, 8 convs", C1_BATCH, C1_VQ_CONVS),
+            ("c4_vq act step, enc0-3", NUM_ENVS,
+             [(shape, 1) for shape in encoder[:4]])):
+        group = [dict(timed_at[b, shape], per_step=n) for shape, n in shapes]
+        line = _entry("conv_prelu", "cuda", "", "", group)
+        print(f"  conv_prelu, {what} at B={b}: kernel {line['ms']:.4f} ms, "
+              f"plain {line['plain_ms']:.4f} ms, cuDNN "
+              f"{line['library_ms']:.4f} ms, bound {line['bound_ms']:.4f} ms "
+              f"({line['bound_by']}), err {line['max_abs_err']:.3e}",
+              flush=True)
     entry = _entry("conv_prelu", "cuda",
                    "multimodal_sc_torch/csrc/conv_prelu.cu",
                    "multimodal_sc_tpu/kernels/conv_block.py:69", rows)
@@ -1443,6 +1508,21 @@ def check_kernels():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def _init_dqn(cfg):
+    """``dqn.init`` at 1024 envs; a digital camera trunk's codebook seeded
+    from its encoder's outputs, as ``train.dqn.run`` seeds a cold start, and
+    copied to the target and the EMA."""
+    from multimodal_sc_torch.rl import dqn
+    from multimodal_sc_torch.rl.warmstart import seed_vq_codebook_params
+
+    state = dqn.init(cfg, seed=0, num_envs=NUM_ENVS, device="cuda")
+    if cfg.camera.arch == "vq":
+        seed_vq_codebook_params(cfg, state.params)
+        for other in (state.target_params, state.ema_params):
+            other.load_state_dict(state.params.state_dict())
+    return state
+
+
 def drive_main_path(name="c4", overrides=(), expected=EXPECTED_LAUNCHES):
     """The c4 act-only iteration at 1024 envs; returns the launches of the
     timed run, the steps/s, and the config, state and iteration it ended
@@ -1454,7 +1534,7 @@ def drive_main_path(name="c4", overrides=(), expected=EXPECTED_LAUNCHES):
 
     cfg = get_preset("c4").override_str(overrides)
     t0 = time.perf_counter()
-    state = dqn.init(cfg, seed=0, num_envs=NUM_ENVS, device="cuda")
+    state = _init_dqn(cfg)
     iteration = dqn.make_iteration(cfg, learn=False)
     for _ in range(WARMUP_ITERS):
         state, metrics = iteration(state)
@@ -1516,7 +1596,7 @@ def drive_learn(name, overrides, expected):
 
     cfg = get_preset("c4").override_str(overrides)
     t0 = time.perf_counter()
-    state = dqn.init(cfg, seed=0, num_envs=NUM_ENVS, device="cuda")
+    state = _init_dqn(cfg)
     target0 = _clone_params(state.target_params)
     iteration = dqn.make_iteration(cfg)
     for _ in range(LEARN_WARMUP_ITERS):
@@ -1598,8 +1678,13 @@ def _link_noise(cfg, batch, g):
     camera's, the ego LiDAR's and, with V2X, the RSU's."""
     import torch
 
+    from multimodal_sc_torch.channel.digital import index_bits
+
     hw, lid = cfg.camera.image_hw, cfg.lidar
     n_cam = (hw[0] // 4) * (hw[1] // 4) * cfg.camera.c_sym
+    if cfg.camera.arch == "vq":      # the QPSK symbols of the index bits
+        n_cam = (hw[0] // 4) * (hw[1] // 4) * index_bits(
+            cfg.camera.vq_codes) // 2
     n_lid = lid.bev_hw[0] * lid.bev_hw[1] * lid.c_sym
     links = (n_cam, n_lid, n_lid) if cfg.env.v2x_rays else (n_cam, n_lid)
     return tuple(torch.randn(batch, n, 2, generator=g, device="cuda")
@@ -1637,7 +1722,8 @@ def compare_learn_routes(cfg, state, expected=LEARN_ROUTE_B):
         return loss.detach(), torch.autograd.grad(loss, params,
                                                   allow_unused=True)
 
-    _compare_grads("learn step", state.params, *_two_routes(
+    routes = _vq_routes if cfg.camera.arch == "vq" else _two_routes
+    _compare_grads("learn step", state.params, *routes(
         loss_and_grads, expected, "the learn step",
         [(camera_vit, "packed_attention",
           attention_packed.packed_attention_reference),
@@ -1756,14 +1842,15 @@ def _state_diff(a, b):
     return len(la), differ, worst
 
 
-def checkpoint_round_trip(ckpt_dir):
-    """A c4 fog + V2X state at 1024 envs and the preset's replay capacity
-    after two iterations: saved, restored into a fresh state of another
-    seed, every entry compared bit for bit; then one iteration (its first
-    learn step) from each, compared again. cuDNN is held to deterministic
-    algorithms in this phase: the conv kernel's backward recomputes through
-    cuDNN, whose default backward algorithms may sum in another order from
-    one call to the next. Returns the config."""
+def checkpoint_round_trip(ckpt_dir, overrides=FOG_V2X):
+    """A c4 state (fog + V2X unless ``overrides`` says otherwise) at 1024
+    envs and the preset's replay capacity after two iterations: saved,
+    restored into a fresh state of another seed, every entry compared bit
+    for bit; then one iteration (its first learn step) from each, compared
+    again. cuDNN is held to deterministic algorithms in this phase: the
+    conv kernel's backward recomputes through cuDNN, whose default backward
+    algorithms may sum in another order from one call to the next. Returns
+    the config."""
     import torch
 
     from multimodal_sc_torch.config import get_preset
@@ -1771,11 +1858,11 @@ def checkpoint_round_trip(ckpt_dir):
     from multimodal_sc_torch.rl import dqn
 
     cfg = get_preset("c4").override_str(
-        FOG_V2X + [f"train.checkpoint_dir={ckpt_dir}"])
+        list(overrides) + [f"train.checkpoint_dir={ckpt_dir}"])
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        state = dqn.init(cfg, seed=0, num_envs=NUM_ENVS, device="cuda")
+        state = _init_dqn(cfg)
         iteration = dqn.make_iteration(cfg)
         for _ in range(2):
             state, _ = iteration(state)
@@ -2184,6 +2271,85 @@ def _patched(patches):
     return stack
 
 
+class _HeldCodes:
+    """A stand-in for ``semantic_vq.vector_quantize`` that holds a route
+    comparison to one set of codes. The kernels' route records the codes
+    its own nearest-code search picks (``record``); the plain route then
+    quantises to those codes (``hold``). Its own pick may differ only where
+    the two codes lie at a near-tie, within 1e-5 of the distances' scale
+    (the routes' features differ by f32 rounding); anywhere else it raises.
+    ``held`` counts the codes taken over from the first route."""
+
+    def __init__(self):
+        from multimodal_sc_torch.codec import semantic_vq
+
+        self.orig = semantic_vq.vector_quantize
+        self.codes, self.mode, self.i, self.held = [], "record", 0, 0
+
+    def __call__(self, z_e, codebook, beta=0.25, usage_coef=0.0,
+                 usage_temp=0.5, with_stats=False):
+        import torch
+
+        from multimodal_sc_torch.codec import semantic_vq
+
+        out = self.orig(z_e, codebook, beta, usage_coef, usage_temp,
+                        with_stats)
+        if self.mode == "record":
+            self.codes.append(out[1])
+            return out
+        want = self.codes[self.i]
+        self.i += 1
+        if torch.equal(out[1], want):
+            return out
+        flat = z_e.detach().reshape(-1, codebook.shape[1])
+        cb = codebook.detach()
+        d2 = ((flat * flat).sum(1, keepdim=True) - 2.0 * flat @ cb.T
+              + (cb * cb).sum(1)[None, :])
+        own, held = out[1].reshape(-1).long(), want.reshape(-1).long()
+        pos = (own != held).nonzero()[:, 0]
+        gap = (d2[pos, held[pos]] - d2[pos, own[pos]]).abs()
+        scale = (flat[pos] ** 2).sum(1) + (cb[held[pos]] ** 2).sum(1)
+        if (gap > 1e-5 * scale).any():
+            raise RuntimeError(
+                f"the routes picked {pos.numel()} different codes, not all "
+                f"at near-ties (largest gap {(gap / scale).max().item():.3e}"
+                " of the distances' scale)")
+        self.held += pos.numel()
+        z_q = semantic_vq.code_rows(codebook, held).reshape(z_e.shape)
+        z_q_own = semantic_vq.code_rows(codebook, own).reshape(z_e.shape)
+        # The same loss terms on the held codes (the usage term does not
+        # depend on the pick).
+        loss = (out[2] - (z_e.detach() - z_q_own).square().mean()
+                - beta * (z_e - z_q_own.detach()).square().mean()
+                + (z_e.detach() - z_q).square().mean()
+                + beta * (z_e - z_q.detach()).square().mean())
+        z_ste = z_e + (z_q - z_e).detach()
+        return (z_ste, want, loss) + tuple(out[3:])
+
+
+def _vq_routes(loss_and_grads, expected, what, plain_patches,
+               kernel_patches=()):
+    """``_two_routes`` for a loss with a VQ bottleneck: the plain route is
+    held to the codes the kernels' route picked (``_HeldCodes``); prints
+    how many were held at near-ties."""
+    from multimodal_sc_torch.codec import semantic_vq
+
+    held = _HeldCodes()
+    with mock.patch.object(semantic_vq, "vector_quantize", held):
+        def both():
+            out = loss_and_grads()
+            held.mode = "hold"
+            return out
+
+        routes = _two_routes(both, expected, what, plain_patches,
+                             kernel_patches)
+    print(f"  {what}: the plain route picked the kernels' route's codes at "
+          f"all but {held.held} of "
+          f"{sum(c.numel() for c in held.codes)} tokens (near-ties)",
+          flush=True)
+    return routes
+
+
 def _two_routes(loss_and_grads, expected, what, plain_patches,
                 kernel_patches=()):
     """``loss_and_grads()`` through the kernels, with ``kernel_patches``
@@ -2344,6 +2510,158 @@ def compare_c1_routes(cfg, state, data):
     _compare_grads("c1 train step", model, *_two_routes(
         loss_and_grads, EXPECTED_C1, "the c1 train step",
         [(conv_block, "conv_prelu", conv_block.conv_prelu_reference)]))
+
+
+def drive_c1_vq():
+    """The c1_vq train step (``--config c1 --set camera.arch=vq``: 256 codes
+    of dimension 64 over QPSK, batch 64, 32x32) through ``train.jscc``, its
+    codebook seeded from a real batch as a fresh run seeds it: returns the
+    launches of the timed run, the train steps/s, and the config, state,
+    train step and batch stream it ended with."""
+    import torch
+
+    from multimodal_sc_torch.codec.semantic_vq import init_codebook_from_batch
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.train import jscc
+
+    cfg = get_preset("c1").override_str(C1_VQ)
+    tr = cfg.train
+    t0 = time.perf_counter()
+    state = jscc.create_train_state(cfg, seed=0, device="cuda")
+    train_step = jscc.make_train_step(cfg)
+    data = ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed,
+                        device="cuda")
+    init_codebook_from_batch(state.params, next(ImageDataset(
+        tr.dataset, tr.batch_size, seed=tr.seed + 777, device="cuda")),
+        torch.Generator(device="cuda").manual_seed(0xCB))
+    before = _clone_params(state.params)
+    state, first = train_step(state, next(data))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(C1_VQ_WARMUP_STEPS - 1):
+        state, _ = train_step(state, next(data))
+    torch.cuda.synchronize()
+    print(f"  {sum(p.numel() for p in state.params.parameters())} "
+          f"parameters; init, codebook seeding and first step {first_s:.2f} "
+          "s", flush=True)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(C1_VQ_TIMED_STEPS):
+        state, metrics = train_step(state, next(data))
+        history.append(metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    rate = C1_VQ_TIMED_STEPS / wall
+    print(f"  c1_vq train: {C1_VQ_TIMED_STEPS} steps x batch {C1_BATCH} in "
+          f"{wall:.3f} s = {rate:.2f} train steps/s", flush=True)
+    print(f"  launches in the timed run: {launches}", flush=True)
+    _check_counts(launches, EXPECTED_C1_VQ, C1_VQ_TIMED_STEPS, "c1_vq")
+    while state.step < C1_VQ_LOSS_STEPS:
+        state, metrics = train_step(state, next(data))
+        history.append(metrics)
+    for m in [first] + history:
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            raise RuntimeError(f"c1_vq: non-finite metrics: {m}")
+    if _same(state.params, before):
+        raise RuntimeError("c1_vq: the parameters did not change")
+    last = torch.stack([m["loss"] for m in history[-20:]]).mean()
+    if not float(last) < float(first["loss"]):
+        raise RuntimeError(
+            f"c1_vq: mean loss of steps {state.step - 19}-{state.step} "
+            f"{float(last):.4f}, not below the first step's "
+            f"{float(first['loss']):.4f}")
+    eval_img = next(ImageDataset(tr.dataset, tr.batch_size,
+                                 seed=tr.seed + 999, device="cuda"))
+    counts = _read_counts()
+    eval_psnr = jscc.make_eval_step(cfg)(
+        state.params, eval_img, torch.Generator(device="cuda").manual_seed(10))
+    torch.cuda.synchronize()
+    ran = {k: v - counts[k] for k, v in _read_counts().items()}
+    _check_counts(ran, EXPECTED_C1_VQ, 1, "c1_vq eval")
+    print(f"  loss {float(first['loss']):.4f} -> {float(last):.4f} (mean "
+          f"of the last 20 of {state.step} steps), PSNR "
+          f"{float(first['psnr']):.2f} -> "
+          f"{float(metrics['psnr']):.2f} dB, perplexity "
+          f"{float(metrics['code_perplexity']):.1f}, index errors "
+          f"{float(metrics['index_error_rate']):.4f}; held-out PSNR "
+          f"{float(eval_psnr):.2f} dB at {cfg.channel.snr_db} dB", flush=True)
+    return launches, rate, cfg, state, train_step, data
+
+
+def compare_c1_vq_routes(cfg, state, data):
+    """One c1_vq loss (MSE + VQ loss) and its gradients on a fixed batch and
+    fixed channel noise, through the conv kernel and through its plain
+    version, both on the codes the kernel's route picks (``_vq_routes``)."""
+    import torch
+
+    from multimodal_sc_torch.kernels import conv_block
+
+    img = next(data)
+    model = state.params
+    g = torch.Generator(device="cuda").manual_seed(11)
+    noise = torch.randn(C1_BATCH, model.bits_per_image // 2, 2, generator=g,
+                        device="cuda")
+    snr = torch.full((C1_BATCH,), cfg.channel.snr_db, device="cuda")
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        recon, aux = model(img, snr, noise=noise)
+        loss = (recon - img).square().mean() + aux["vq_loss"]
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _compare_grads("c1_vq train step", model, *_vq_routes(
+        loss_and_grads, EXPECTED_C1_VQ, "the c1_vq train step",
+        [(conv_block, "conv_prelu", conv_block.conv_prelu_reference)]))
+
+
+def sweep_c1_vq(cfg, state):
+    """One point of each deployment of the c1_vq state at 5 dB over AWGN
+    (uncoded, Hamming hard, Hamming soft, Type-I HARQ) on the held-out
+    batch, each swept twice from the same seed: the results must be
+    bit-equal. Returns the launches."""
+    import torch
+
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.evaluation import snr_sweep
+
+    tr = cfg.train
+    images = next(ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed + 999,
+                               device="cuda"))
+    kw = dict(snrs_db=(C1_VQ_SWEEP_SNR,), kinds=("awgn",),
+              batches_per_point=1)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = {}
+    for fec in ("none", "hamming74", "hamming74_soft", "harq"):
+        runs = []
+        for _ in range(2):
+            if fec == "harq":
+                runs.append(snr_sweep.sweep_camera_vq_harq(
+                    cfg, state.params, images, tr.seed, **kw))
+            else:
+                runs.append(snr_sweep.sweep_camera_vq(
+                    cfg.override_str([f"channel.fec={fec}"]), state.params,
+                    images, tr.seed, **kw))
+        if runs[0] != runs[1]:
+            raise RuntimeError(f"c1_vq sweep ({fec}): two runs from one seed "
+                               f"differ: {runs}")
+        rows[fec] = runs[0]["awgn"][0]
+        if not all(math.isfinite(v) for v in rows[fec].values()):
+            raise RuntimeError(f"c1_vq sweep ({fec}): {rows[fec]}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_C1_VQ, 8, "c1_vq sweeps")
+    for fec, row in rows.items():
+        print(f"  {fec} at {C1_VQ_SWEEP_SNR} dB: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items() if k != "snr_db")
+            + "; bit-equal on a second run", flush=True)
+    print(f"  8 sweep runs in {wall:.2f} s; launches {launches}", flush=True)
+    return launches
 
 
 def drive_c2():
@@ -2637,7 +2955,23 @@ def profile_main_path(cfg, state, iteration):
     actions = torch.zeros(NUM_ENVS, dtype=torch.int32, device="cuda")
     snr = torch.full((NUM_ENVS,), cfg.channel.snr_db, device="cuda")
     with torch.no_grad():
-        z = per.cam_enc(img)
+        if cfg.camera.arch == "vq":
+            from multimodal_sc_torch.codec.semantic_vq import (
+                transmit_indices, vector_quantize)
+
+            vq = per.cam_vq
+            z_e = vq.encode_features(img)
+            idx = vq.quantize(z_e)[0]
+            z = vq.codebook[idx.long()]
+            camera = {
+                "camera_encoder": lambda: vq.encode_features(img),
+                "nearest_code_search": lambda: vector_quantize(
+                    z_e, vq.codebook, vq.vq_beta),
+                "digital_link": lambda: transmit_indices(
+                    cfg.channel, idx, vq.vq_codes, snr, g)}
+        else:
+            z = per.cam_enc(img)
+            camera = {"camera_encoder": lambda: per.cam_enc(img)}
         cam_tok = per.cam_tok(z)
         lid_tok = per._lidar_branch(pts[:, :r], mask[:, :r], snr, g, None)
         if cfg.env.v2x_rays:
@@ -2645,7 +2979,7 @@ def profile_main_path(cfg, state, iteration):
         parts = {
             "iteration": _ms(step_all, warmup=1),
             "q_network": _ms(lambda: net(img, pts, mask, g)),
-            "camera_encoder": _ms(lambda: per.cam_enc(img)),
+            **{k: _ms(fn) for k, fn in camera.items()},
             "camera_tokens": _ms(lambda: per.cam_tok(z)),
             "lidar_branch (one call)": _ms(lambda: per._lidar_branch(
                 pts[:, :r], mask[:, :r], snr, g, None)),
@@ -2857,6 +3191,20 @@ def main() -> int:
         profile_c1(cfg, state, train_step, data)
     del state, train_step, data
     torch.cuda.empty_cache()
+    print("main path (c1_vq digital camera JSCC train):", flush=True)
+    launches, c1_vq_rate, cfg, state, train_step, data = drive_c1_vq()
+    for k, v in launches.items():
+        totals[k] += v
+    compare_c1_vq_routes(cfg, state, data)
+    if args.profile:
+        print("profile (c1_vq train):", flush=True)
+        profile_c1(cfg, state, train_step, data)
+    print("main path (c1_vq sweeps: uncoded, Hamming, soft Hamming, HARQ):",
+          flush=True)
+    for k, v in sweep_c1_vq(cfg, state).items():
+        totals[k] += v
+    del state, train_step, data
+    torch.cuda.empty_cache()
     print("main path (c2 SNR-sweep JSCC train):", flush=True)
     launches, c2_rate, cfg, state, train_step, data = drive_c2()
     for k, v in launches.items():
@@ -2889,7 +3237,9 @@ def main() -> int:
             ("c4 fog + V2X", FOG_V2X, EXPECTED_V2X, EXPECTED_V2X_LEARN,
              LEARN_ROUTE_V2X),
             ("c4 ViT trunk", VIT, EXPECTED_VIT, EXPECTED_VIT_LEARN,
-             LEARN_ROUTE_VIT)):
+             LEARN_ROUTE_VIT),
+            ("c4_vq digital camera", VQ4, EXPECTED_VQ4, EXPECTED_VQ4_LEARN,
+             LEARN_ROUTE_VQ4)):
         print(f"main path ({name} act-only):", flush=True)
         launches, rates[f"act-only, {name}"], cfg, state, iteration = (
             drive_main_path(name, overrides, act_exp))
@@ -2918,6 +3268,10 @@ def main() -> int:
         print("eval-policy (c4 fog + V2X, the restored EMA):", flush=True)
         for k, v in eval_policy_phase(cfg).items():
             totals[k] += v
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        print("checkpoint round trip (c4_vq):", flush=True)
+        checkpoint_round_trip(ckpt_dir, VQ4)
+        torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
@@ -2928,7 +3282,7 @@ def main() -> int:
         f"{k} {v:.2f}" for k, v in c3_rates.items()), flush=True)
     print(f"c5 env steps/s at {C5_ENVS} envs on {card}: {c5_rate:.1f}; c1 "
           f"train steps/s at batch {C1_BATCH}: {c1_rate:.2f}; c2: "
-          f"{c2_rate:.2f}", flush=True)
+          f"{c2_rate:.2f}; c1_vq: {c1_vq_rate:.2f}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,12 @@ with array fields), so this module needs no JAX. Layout conversions:
 
 The trees carried so far: the c4 ``QNetwork``, the c5 ``ActorCritic``, the
 c3 ``LateFusionJSCC`` (``camera.encoder.*``, ``camera.decoder.*``,
-``lidar.*``) and the c1 ``CameraJSCC`` (``encoder.*``, ``decoder.*``), each
-with its Adam moments.
+``lidar.*``), the c1 ``CameraJSCC`` (``encoder.*``, ``decoder.*``) and the
+c1_vq ``VQCameraJSCC`` (``codebook``, ``enc*``, ``to_code``,
+``from_code``, ``dec*``, ``deconv*`` / ``deprelu*``, ``conv_out``), the
+digital camera trunk's ``cam_vq`` and ``cam_tok`` among the ``QNetwork``'s,
+each with its Adam moments. A VQ ``codebook`` is a bare parameter, copied
+unchanged; ``to_code`` is a 1x1 ``Conv``.
 """
 
 from __future__ import annotations

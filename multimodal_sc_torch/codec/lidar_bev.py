@@ -8,7 +8,7 @@ every point gets a cell, masked or out-of-range points the trash cell
 ``H*W``. The scatter is ``kernels/pillar_scatter.py`` (the CUDA kernel on
 the card); the 3x3 SAME convs are plain ``F.conv2d``, as they are plain XLA
 convs in the JAX package. The digital codec (``LidarBEVVQCodec``) is not
-ported and raises (ROADMAP item 14).
+ported and raises (ROADMAP item 14b).
 """
 
 from __future__ import annotations
@@ -201,4 +201,4 @@ class LidarBEVVQCodec(nn.Module):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "the digital LiDAR codec (lidar.arch='vq') is not ported yet "
-            "(ROADMAP item 14)")
+            "(ROADMAP item 14b)")

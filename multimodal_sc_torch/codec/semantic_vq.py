@@ -1,0 +1,433 @@
+"""Discrete semantic-token camera codec: a VQ bottleneck over a digital link.
+
+Counterpart of ``multimodal_sc_tpu/codec/semantic_vq.py``. The encoder
+quantises each spatial cell against a learned codebook (VQ-VAE: a
+straight-through estimator, codebook and commitment losses) and sends the
+integer indices as bits over QPSK (``channel/digital.py``), optionally
+Hamming(7,4)-coded (``channel/fec.py``) or under Type-I HARQ
+(``channel/harq.py``). Noise-aware training: the decoder's forward sees the
+received (possibly corrupted) codes while the gradient takes the clean
+straight-through path, ``z_rx = z_ste + sg(codebook[idx_rx] - z_ste)``; the
+codebook moves only through the VQ loss.
+
+The encoder's 5x5 convs and the decoder's stride-1 convs are
+``FusedConvPReLU`` (the CUDA kernel on the card); the 1x1 ``to_code``, the
+token decoder's conv, the transposed convs and the nearest-code search are
+plain PyTorch, as they are plain XLA in the JAX package. The search is one
+(B*N, K) distance matmul, ``|x|^2 - 2 x.c + |c|^2``, whose cancellation
+wants f32 products: on the card it runs at PyTorch's default f32 matmul
+precision (no TF32), so acting and learning pick the same codes.
+``torch.argmin`` returns the first minimum, as JAX does; ``torch.topk``'s
+order among tied errors is unspecified, so the re-seeding candidates match
+JAX's only where the errors have no ties.
+
+Random draws (the channel, code seeding, the re-seeding coin) come from an
+explicit ``torch.Generator`` or are handed in, so the tests can feed JAX's
+channel noise. Not ported, raising with ROADMAP item 14b: unequal power
+allocation (``channel.uep_alpha > 0``) and token pruning
+(``camera.vq_prune``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodal_sc_torch.channel.digital import (bits_from_indices,
+                                                 bits_to_qpsk, index_bits,
+                                                 indices_from_bits,
+                                                 indices_to_qpsk,
+                                                 qpsk_soft_bits, qpsk_to_bits,
+                                                 qpsk_to_indices)
+from multimodal_sc_torch.channel.fec import (hamming74_decode,
+                                             hamming74_decode_soft,
+                                             hamming74_encode)
+from multimodal_sc_torch.channel.harq import harq_transmit
+from multimodal_sc_torch.channel.layer import channel as channel_op
+from multimodal_sc_torch.channel.layer import channel_kwargs
+from multimodal_sc_torch.codec.camera_cnn import ConvTransposeSame, PReLU
+from multimodal_sc_torch.config.configs import ExperimentConfig
+from multimodal_sc_torch.kernels.conv_block import FusedConvPReLU
+from multimodal_sc_torch.nn_init import (init_like_flax_,
+                                         variance_scaling_uniform_)
+
+USAGE_SAMPLE_WEIGHT = 0.0
+
+
+def vq_usage_loss(d2: torch.Tensor, temp: float = 0.5,
+                  sample_weight: Optional[float] = None) -> torch.Tensor:
+    """Codebook-usage regulariser on soft assignments q_i = softmax(-d2_i /
+    s): ``sample_weight * mean_i H(q_i) - H(mean_i q_i)``, the softmax scale
+    s = ``temp * mean(d2)`` held out of the gradient."""
+    if sample_weight is None:
+        sample_weight = USAGE_SAMPLE_WEIGHT
+    scale = temp * d2.mean().detach() + 1e-9
+    logp = F.log_softmax(-d2 / scale, dim=-1)
+    p = logp.exp()
+    avg = p.reshape(-1, p.shape[-1]).mean(0)
+    avg_ent = -(avg * torch.log(avg + 1e-9)).sum()
+    if sample_weight == 0.0:
+        return -avg_ent
+    sample_ent = -(p * logp).sum(-1).mean()
+    return sample_weight * sample_ent - avg_ent
+
+
+class _CodeRows(torch.autograd.Function):
+    """``codebook[idx]`` whose backward sums each code's rows in a fixed
+    order: the one-hot (N, K) transposed times the (N, D) gradient, in f64.
+    Indexing's and ``F.embedding``'s scatter-adds may sum in another order
+    from one call to the next (on the CPU and on the card respectively), so
+    a resumed run would not repeat a step bit for bit."""
+
+    @staticmethod
+    def forward(ctx, codebook, idx):
+        ctx.save_for_backward(idx)
+        ctx.codes = codebook.shape[0]
+        return codebook[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        one_hot = F.one_hot(idx, ctx.codes).to(torch.float64)
+        return (one_hot.T @ grad.to(torch.float64)).to(grad.dtype), None
+
+
+def code_rows(codebook: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(K, D) codebook, (N,) int64 indices -> (N, D) rows, differentiable
+    in the codebook with a reproducible backward (``_CodeRows``)."""
+    return _CodeRows.apply(codebook, idx)
+
+
+def vector_quantize(z_e: torch.Tensor, codebook: torch.Tensor,
+                    beta: float = 0.25, usage_coef: float = 0.0,
+                    usage_temp: float = 0.5, with_stats: bool = False):
+    """Nearest-code quantisation with the straight-through estimator:
+    z_e (..., D), codebook (K, D) -> ``(z_ste, indices int32 (...),
+    vq_loss)``, and with ``with_stats`` also ``{"counts": (K,) int32 batch
+    usage, "candidates": (K, D) the encoder outputs with the largest
+    quantisation error, tiled up to K}`` for dead-code re-seeding, both out
+    of the graph."""
+    dim = codebook.shape[1]
+    flat = z_e.reshape(-1, dim)
+    d2 = ((flat * flat).sum(1, keepdim=True)
+          - 2.0 * flat @ codebook.T
+          + (codebook * codebook).sum(1)[None, :])           # (BN, K)
+    idx = d2.argmin(dim=1)
+    z_q = code_rows(codebook, idx).reshape(z_e.shape)
+    codebook_loss = (z_e.detach() - z_q).square().mean()
+    commit_loss = (z_e - z_q.detach()).square().mean()
+    vq_loss = codebook_loss + beta * commit_loss
+    if usage_coef > 0:
+        vq_loss = vq_loss + usage_coef * vq_usage_loss(d2, usage_temp)
+    z_ste = z_e + (z_q - z_e).detach()
+    idx_r = idx.reshape(z_e.shape[:-1]).to(torch.int32)
+    if not with_stats:
+        return z_ste, idx_r, vq_loss
+    k = codebook.shape[0]
+    with torch.no_grad():
+        counts = torch.bincount(idx, minlength=k).to(torch.int32)
+        err = d2.gather(1, idx[:, None])[:, 0]
+        # Fewer rows than codes (a tiny batch): tile the worst rows up to K.
+        kk = min(k, flat.shape[0])
+        cand = flat[err.topk(kk).indices]
+        if kk < k:
+            cand = cand.repeat(-(-k // kk), 1)[:k]
+    return z_ste, idx_r, vq_loss, {"counts": counts,
+                                   "candidates": cand.detach()}
+
+
+def reseed_dead_codes(codebook: torch.Tensor, counts: torch.Tensor,
+                      candidates: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      rate: float = 0.0,
+                      coin: Optional[torch.Tensor] = None):
+    """Each code unused in the batch (``counts < 1``) jumps, with
+    probability ``rate``, to its row of the batch's worst-quantised encoder
+    outputs. ``coin``: the (K,) uniform draws, in place of draws from
+    ``generator``. Returns ``(new_codebook, n_reseeded)``."""
+    if coin is None:
+        coin = torch.rand(counts.shape, generator=generator,
+                          device=counts.device)
+    take = (counts < 1) & (coin < rate)
+    new_cb = torch.where(take[:, None], candidates.to(codebook.dtype),
+                         codebook)
+    return new_cb, take.to(torch.int32).sum()
+
+
+class VectorQuantizer(nn.Module):
+    """A codebook parameter and :func:`vector_quantize` over it."""
+
+    def __init__(self, codes: int, dim: int, beta: float = 0.25):
+        super().__init__()
+        self.beta = beta
+        self.codebook = nn.Parameter(
+            variance_scaling_uniform_(torch.empty(codes, dim)))
+
+    def forward(self, z_e: torch.Tensor):
+        return vector_quantize(z_e, self.codebook, self.beta)
+
+
+def _link_kwargs(ch) -> dict:
+    kw = channel_kwargs(ch)
+    kw["normalize"] = False           # QPSK is exactly unit power
+    kw["modulation"] = 0              # the mapping is already digital
+    return kw
+
+
+def transmit_indices(ch, idx_tx: torch.Tensor, codes: int, snr_db,
+                     generator: Optional[torch.Generator] = None,
+                     token_weights: Optional[torch.Tensor] = None,
+                     noise=None) -> torch.Tensor:
+    """The digital link: (B, N) indices -> bits [-> Hamming(7,4)] -> QPSK ->
+    the ``ch.kind`` channel, unnormalised -> hard (or soft-ML) decision ->
+    received indices (B, N). ``token_weights`` (optional (B, N)): a
+    per-token amplitude, repeated over the token's symbols. ``noise``: the
+    channel's draws, in place of draws from ``generator``."""
+    fec = ch.fec
+    if fec in ("hamming74", "hamming74_soft"):
+        sym = bits_to_qpsk(hamming74_encode(bits_from_indices(idx_tx, codes)))
+    else:
+        sym = indices_to_qpsk(idx_tx, codes)
+    if token_weights is not None:
+        spt = sym.shape[1] // idx_tx.shape[1]
+        sym = sym * token_weights.repeat_interleave(spt, dim=1)[..., None]
+    y = channel_op(sym, snr_db, ch.kind, generator, noise=noise,
+                   **_link_kwargs(ch))
+    if fec == "hamming74":
+        return indices_from_bits(hamming74_decode(qpsk_to_bits(y)), codes)
+    if fec == "hamming74_soft":
+        return indices_from_bits(
+            hamming74_decode_soft(qpsk_soft_bits(y)), codes)
+    return qpsk_to_indices(y, codes)
+
+
+def transmit_indices_harq(ch, idx_tx: torch.Tensor, codes: int, snr_db,
+                          generator: Optional[torch.Generator] = None,
+                          draws: Optional[Sequence] = None):
+    """Type-I HARQ variant of :func:`transmit_indices`, uncoded bits plus
+    CRC-8 blocks of ``ch.harq_block_bits`` over ``ch.harq_rounds`` rounds:
+    ``(idx_rx, info)``, info the exact bandwidth accounting of
+    ``harq_transmit``. ``draws``: one channel draw per round."""
+    bits_rx, info = harq_transmit(
+        bits_from_indices(idx_tx, codes), snr_db, ch.kind, generator,
+        block_bits=ch.harq_block_bits, max_rounds=ch.harq_rounds,
+        draws=draws, **_link_kwargs(ch))
+    return indices_from_bits(bits_rx, codes), info
+
+
+class VQEncoderTokens(nn.Module):
+    """Image -> codebook indices: two stride-2 and two stride-1 5x5 conv +
+    PReLU blocks (``enc0``-``enc3``), a 1x1 ``to_code`` and the
+    ``codebook``. The deployed VQ transmitter of the RL trunk; its names
+    mirror :class:`VQCameraJSCC`'s, which extends it, so a c1_vq checkpoint
+    warm-starts it by name. Fresh weights are drawn as flax's."""
+
+    def __init__(self, features: Sequence[int], vq_dim: int, vq_codes: int,
+                 vq_beta: float = 0.25, vq_usage_coef: float = 0.0,
+                 vq_usage_temp: float = 0.5, vq_reseed: float = 0.0,
+                 in_channels: int = 3):
+        super().__init__()
+        index_bits(vq_codes)                 # codes must be a power of 4
+        self.vq_dim, self.vq_codes, self.vq_beta = vq_dim, vq_codes, vq_beta
+        self.vq_usage_coef, self.vq_usage_temp = vq_usage_coef, vq_usage_temp
+        self.vq_reseed = vq_reseed
+        self.n_enc = len(features)
+        cin = in_channels
+        for i, (f, s) in enumerate(zip(features, (2, 2, 1, 1))):
+            setattr(self, f"enc{i}", FusedConvPReLU(cin, f, 5, stride=s))
+            cin = f
+        self.to_code = init_like_flax_(nn.Conv2d(cin, vq_dim, 1))
+        self.codebook = nn.Parameter(
+            variance_scaling_uniform_(torch.empty(vq_codes, vq_dim)))
+
+    def encode_features(self, img: torch.Tensor) -> torch.Tensor:
+        """Image (B, H, W, 3) -> pre-quantisation features (B, h, w, D)."""
+        x = img.float()
+        for i in range(self.n_enc):
+            x = getattr(self, f"enc{i}")(x)
+        return F.linear(x, self.to_code.weight[:, :, 0, 0], self.to_code.bias)
+
+    def quantize(self, z_e: torch.Tensor):
+        """(B, h, w, D) features -> ``(indices (B, N) int32, vq_loss, z_ste
+        (B, N, D), stats)``; ``stats`` the re-seeding inputs of
+        :func:`vector_quantize` when ``vq_reseed > 0``, else None (what the
+        JAX module sows, returned)."""
+        out = vector_quantize(z_e, self.codebook, self.vq_beta,
+                              self.vq_usage_coef, self.vq_usage_temp,
+                              with_stats=self.vq_reseed > 0)
+        z_ste, idx, vq_loss = out[:3]
+        b, h, w, _ = z_e.shape
+        return (idx.reshape(b, h * w), vq_loss,
+                z_ste.reshape(b, h * w, self.vq_dim),
+                out[3] if len(out) > 3 else None)
+
+    def forward(self, img: torch.Tensor):
+        return self.quantize(self.encode_features(img))
+
+
+class VQTokensCamera(nn.Module):
+    """Received code vectors (B, N, vq_dim) -> fusion tokens (B, N, dim): one
+    plain 5x5 conv + PReLU on the token grid, the receiver half of the RL
+    VQ camera branch."""
+
+    def __init__(self, dim: int, vq_dim: int,
+                 image_hw: Tuple[int, int] = (32, 32)):
+        super().__init__()
+        self.dim, self.vq_dim = dim, vq_dim
+        self.hw = (image_hw[0] // 4, image_hw[1] // 4)
+        # 5x5 stride-1 SAME: symmetric padding 2, as XLA pads it.
+        self.conv_in = nn.Conv2d(vq_dim, dim, 5, padding=2)
+        self.prelu_in = PReLU(dim)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        b = z.shape[0]
+        h, w = self.hw
+        x = z.reshape(b, h, w, self.vq_dim).permute(0, 3, 1, 2).float()
+        x = self.prelu_in(self.conv_in(x).permute(0, 2, 3, 1))
+        return x.reshape(b, h * w, self.dim)
+
+
+def check_digital_camera(cfg: ExperimentConfig) -> None:
+    """What a VQ camera link refuses: FEC over a payload that is no whole
+    number of bytes (as the JAX package), and what is not ported yet."""
+    cam, ch = cfg.camera, cfg.channel
+    n_bits = index_bits(cam.vq_codes)
+    n_tok = (cam.image_hw[0] // 4) * (cam.image_hw[1] // 4)
+    if ch.fec != "none" and (n_tok * n_bits) % 8 != 0:
+        raise ValueError(
+            "channel.fec needs n_tokens * bits_per_index divisible by 8, "
+            f"got {n_tok} * {n_bits}")
+    if ch.uep_alpha > 0:
+        raise NotImplementedError(
+            "channel.uep_alpha (semantic unequal power allocation) is not "
+            "ported yet (ROADMAP item 14b)")
+    if cam.vq_prune:
+        raise NotImplementedError(
+            "camera.vq_prune (semantic token pruning) is not ported yet "
+            "(ROADMAP item 14b)")
+
+
+class VQCameraJSCC(VQEncoderTokens):
+    """Camera -> semantic tokens -> QPSK digital channel -> reconstruction.
+
+    ``cfg.camera``: ``features``, ``vq_codes`` (a power of 4), ``vq_dim``,
+    ``vq_beta`` and the usage and re-seeding knobs. The decoder: ``from_code``
+    and ``dec0``, ``dec1`` (5x5 conv + PReLU), ``deconv2``/``deprelu2`` and
+    ``deconv3``/``deprelu3`` (stride-2 transposed convs + PReLU), and
+    ``conv_out`` (5x5, no PReLU), then a sigmoid. Fresh weights are drawn
+    as flax's."""
+
+    def __init__(self, cfg: ExperimentConfig):
+        cam = cfg.camera
+        check_digital_camera(cfg)
+        super().__init__(cam.features, cam.vq_dim, cam.vq_codes, cam.vq_beta,
+                         cam.vq_usage_coef, cam.vq_usage_temp, cam.vq_reseed)
+        self.cfg = cfg
+        self.image_hw = tuple(cam.image_hw)
+        feats = tuple(cam.features)
+        self.from_code = FusedConvPReLU(cam.vq_dim, feats[-1], 5)
+        self.dec_strides = (1, 1, 2, 2)
+        cin = feats[-1]
+        for i, (f, s) in enumerate(zip(reversed(feats), self.dec_strides)):
+            if s == 1:
+                setattr(self, f"dec{i}", FusedConvPReLU(cin, f, 5))
+            else:
+                setattr(self, f"deconv{i}", ConvTransposeSame(cin, f, 5, s))
+                setattr(self, f"deprelu{i}", PReLU(f))
+            cin = f
+        self.conv_out = FusedConvPReLU(cin, 3, 5, with_prelu=False)
+        init_like_flax_(self)
+
+    @property
+    def n_tokens(self) -> int:
+        h, w = self.image_hw
+        return (h // 4) * (w // 4)
+
+    @property
+    def bits_per_image(self) -> int:
+        return self.n_tokens * index_bits(self.vq_codes)
+
+    def encode_tokens(self, img: torch.Tensor):
+        """Image -> ``(indices (B, N) int32, vq_loss, z_ste (B, N, D))``, the
+        transmitter; the indices are the payload."""
+        return self.quantize(self.encode_features(img))[:3]
+
+    def codes_to_image(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, N, D) code vectors -> reconstructed image, the receiver."""
+        h, w = self.image_hw[0] // 4, self.image_hw[1] // 4
+        x = self.from_code(z.reshape(z.shape[0], h, w, self.vq_dim).float())
+        for i, s in enumerate(self.dec_strides):
+            if s == 1:
+                x = getattr(self, f"dec{i}")(x)
+            else:
+                x = getattr(self, f"deprelu{i}")(
+                    getattr(self, f"deconv{i}")(x))
+        return torch.sigmoid(self.conv_out(x))
+
+    def decode_tokens(self, idx: torch.Tensor) -> torch.Tensor:
+        """(B, N) received indices -> image."""
+        return self.codes_to_image(self.codebook[idx.long()])
+
+    def forward(self, img: torch.Tensor, snr_db,
+                generator: Optional[torch.Generator] = None, noise=None,
+                ch=None):
+        """``(recon, aux)``: transmitter, channel and receiver in one
+        forward at ``snr_db`` (scalar or (B,)) over ``ch`` (a
+        ``ChannelConfig``, by default ``cfg.channel``). aux: ``vq_loss``,
+        ``index_error_rate``, ``code_perplexity``, and with
+        ``camera.vq_reseed > 0`` the re-seeding inputs ``vq_counts`` and
+        ``vq_candidates``. ``noise``: the channel's draws."""
+        idx_tx, vq_loss, z_ste, stats = self.quantize(
+            self.encode_features(img))
+        idx_rx = transmit_indices(self.cfg.channel if ch is None else ch,
+                                  idx_tx, self.vq_codes, snr_db, generator,
+                                  noise=noise)
+        # Received codes on the forward path, the clean STE on the backward.
+        z_rx = z_ste + (self.codebook[idx_rx.long()] - z_ste).detach()
+        recon = self.codes_to_image(z_rx)
+        p = torch.bincount(idx_tx.reshape(-1).long(),
+                           minlength=self.vq_codes).float() / idx_tx.numel()
+        aux = {"vq_loss": vq_loss,
+               "index_error_rate": (idx_rx != idx_tx).float().mean(),
+               "code_perplexity": torch.exp(-(p * torch.log(p + 1e-10)).sum())}
+        if stats is not None:
+            aux["vq_counts"] = stats["counts"]
+            aux["vq_candidates"] = stats["candidates"]
+        return recon, aux
+
+
+@torch.no_grad()
+def seed_codebook(codebook: torch.Tensor, z: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Overwrite ``codebook`` (K, D) in place with a random sample of the
+    encoder outputs ``z`` (..., D), with replacement only when there are
+    fewer rows than codes, plus N(0, 0.01^2) jitter so duplicated rows
+    separate; returns it. The JAX package draws with ``jax.random.choice``;
+    the port draws from ``generator``."""
+    flat = z.reshape(-1, z.shape[-1]).to(codebook.dtype)
+    k, n = codebook.shape[0], flat.shape[0]
+    dev = flat.device
+    if n < k:
+        sel = torch.randint(0, n, (k,), generator=generator, device=dev)
+    else:
+        sel = torch.randperm(n, generator=generator, device=dev)[:k]
+    rows = flat[sel]
+    rows = rows + 0.01 * torch.randn(rows.shape, generator=generator,
+                                     device=dev, dtype=rows.dtype)
+    return codebook.copy_(rows)
+
+
+@torch.no_grad()
+def init_codebook_from_batch(model: VQEncoderTokens, img: torch.Tensor,
+                             generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+    """Data-dependent codebook seeding: the codebook becomes a sample of the
+    model's own encoder outputs on a real batch (the fix for the degenerate
+    optimum of a small-uniform init, where codes are interchangeable). A
+    train driver calls it on a fresh run only, never on resume."""
+    return seed_codebook(model.codebook, model.encode_features(img),
+                         generator)

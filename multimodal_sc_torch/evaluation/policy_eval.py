@@ -19,7 +19,11 @@ default, ``--use-ema`` the deployment EMA, ``--use-target`` a DQN's target,
 no target and no snapshot and ignores those two with a warning), refuses
 to evaluate untrained weights unless ``--allow-untrained``, prints the card
 and one JSON object of the evaluation, or with ``--snr-sweep`` the
-return-vs-SNR table (``evaluation/policy_sweep.py``).
+return-vs-SNR table (``evaluation/policy_sweep.py``). A checkpoint of the
+digital camera link (``camera.arch=vq``) deploys coded with ``--set
+channel.fec=hamming74_soft`` (or ``hamming74``) or under HARQ with ``--set
+channel.harq=true``, whose link accounting the sweep's ``--out`` JSON
+carries.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device
 from multimodal_sc_torch.envs import driving
 
-# act_fn(image, points, mask, generator) -> int32 actions (B,)
+# act_fn(image, points, mask, generator) -> int32 actions (B,), or
+# (actions, {name: 0-d tensor}) of per-step statistics
 ActFn = Callable[..., torch.Tensor]
 
 
@@ -43,24 +48,43 @@ ActFn = Callable[..., torch.Tensor]
 def _rollout_returns(cfg: ExperimentConfig, act_fn: ActFn, seed: int,
                      num_envs: int, device) -> Dict[str, float]:
     """Shared episode-return rollout: accumulate reward to each env's first
-    done over ``cfg.env.max_steps``; one host pull at the end."""
+    done over ``cfg.env.max_steps``; one host pull at the end. Statistics
+    an ``act_fn`` returns beside its actions are summed over every step
+    (steps after an env's first done included, as the JAX package counts
+    them) and reported per step.
+
+    The envs draw from a generator of their own (seeded ``seed``), the
+    policy (``act_fn``: channel noise, exploration) from another, as the
+    JAX package's envs carry their own key: deployments that draw
+    differently (Hamming's longer codewords, HARQ's rounds) then meet the
+    same env randomness, and their returns compare pair by pair."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
+    g_act = torch.Generator(device=dev).manual_seed(
+        (seed * 0x9E3779B1 + 0xAC7) & 0xFFFFFFFF)
     states = driving.reset_batch(cfg.env, num_envs, g, dev)
     ret = torch.zeros(num_envs, device=dev)
     done_seen = torch.zeros(num_envs, device=dev)
     reward_sum = torch.zeros((), device=dev)
+    acc: Dict[str, torch.Tensor] = {}
     for _ in range(cfg.env.max_steps):
         img, pts, mask = driving.observe_batch(cfg.env, states)
-        states, ts = driving.step_batch(cfg.env, states,
-                                        act_fn(img, pts, mask, g), g)
+        actions = act_fn(img, pts, mask, g_act)
+        if isinstance(actions, tuple):
+            actions, stats = actions
+            for name, v in stats.items():
+                acc[name] = acc.get(name, 0.0) + v
+        states, ts = driving.step_batch(cfg.env, states, actions, g)
         ret = ret + ts.reward * (1.0 - done_seen)
         done_seen = torch.maximum(done_seen, ts.done.float())
         reward_sum = reward_sum + ts.reward.mean()
+    names = ("episode_return_mean", "episode_return_std",
+             "episodes_terminated_frac", "reward_per_step", *acc)
     out = torch.stack([ret.mean(), ret.std(unbiased=False), done_seen.mean(),
-                       reward_sum / cfg.env.max_steps]).tolist()
-    return dict(zip(("episode_return_mean", "episode_return_std",
-                     "episodes_terminated_frac", "reward_per_step"), out))
+                       reward_sum / cfg.env.max_steps,
+                       *(torch.as_tensor(v, device=dev) / cfg.env.max_steps
+                         for v in acc.values())]).tolist()
+    return dict(zip(names, out))
 
 
 def evaluate_dqn(cfg: ExperimentConfig, net, seed: int = 0,

@@ -1,18 +1,24 @@
 """Policy robustness against channel quality: episode return across an SNR
 sweep.
 
-Counterpart of ``multimodal_sc_tpu/evaluation/policy_sweep.py`` for the
-analog links: the closed-loop episode return of a deployed DQN or PPO agent
-as the channel its perception runs over degrades. Every link (camera, ego
+Counterpart of ``multimodal_sc_tpu/evaluation/policy_sweep.py``: the
+closed-loop episode return of a deployed DQN or PPO agent as the channel
+its perception runs over degrades. Every link (camera, ego
 LiDAR and, with V2X, the roadside unit's at ``channel.v2x_snr_offset_db``)
 is deployed at the point's SNR. Every sweep point starts from the same
-generator seed, so it reuses the same env resets and the same action and
-env draws: the evaluation is paired, and curve differences are channel
-effects, not reseeded episode noise. Fog (in the env states) and the V2X
+generator seeds, the envs' and the policy's apart, so it reuses the same
+env resets and env draws (and, where the links draw alike, the same
+action draws): the evaluation is paired, and curve differences are
+channel effects, not reseeded episode noise. Fog (in the env states) and the V2X
 offset are runtime values, as in the JAX package.
 
-The HARQ link accounting (``link_syms_per_step``) waits for the digital
-stack, ROADMAP item 14, and raises.
+A digital camera link deploys as configured: ``channel.fec`` codes a VQ
+checkpoint at deploy time, and under ``channel.harq`` each row also
+carries the link's accounting, per step: ``link_syms_per_step`` (the
+symbols the camera link really sent per image, retransmissions included),
+``harq_mean_rounds`` and ``harq_residual_fail_rate``. As in the JAX
+package, these count every step of the ``env.max_steps`` rollout, steps
+after an env's first done included.
 """
 
 from __future__ import annotations
@@ -39,6 +45,19 @@ def _deployed(net: nn.Module, cfg_k: ExperimentConfig) -> nn.Module:
     return out.eval()
 
 
+def _with_link_stats(cfg: ExperimentConfig, actions, aux: dict):
+    """The actions, and under ``channel.harq`` the step's link accounting
+    from the trunk's ``aux`` (the camera link's; zeros where no link ran
+    HARQ, as JAX's sums over no sown entries)."""
+    if not cfg.channel.harq:
+        return actions
+    zero = torch.zeros((), device=actions.device)
+    return actions, {
+        "link_syms_per_step": aux.get("harq_syms", zero),
+        "harq_mean_rounds": aux.get("harq_rounds", zero),
+        "harq_residual_fail_rate": aux.get("harq_resid", zero)}
+
+
 def policy_snr_sweep(cfg: ExperimentConfig, net: nn.Module, seed: int,
                      snrs: Sequence[float] = DEFAULT_SNRS,
                      kinds: Sequence[str] = ("awgn", "rayleigh"),
@@ -50,10 +69,6 @@ def policy_snr_sweep(cfg: ExperimentConfig, net: nn.Module, seed: int,
     draws PPO's actions instead of taking the argmax. The deployed kind and
     SNR override the training config; everything else deploys as
     configured."""
-    if cfg.channel.harq:
-        raise NotImplementedError(
-            "the HARQ link accounting of the policy sweep is not ported yet "
-            "(ROADMAP item 14)")
     from multimodal_sc_torch.rl import dqn as dqn_lib
     from multimodal_sc_torch.rl import ppo as ppo_lib
 
@@ -69,15 +84,21 @@ def policy_snr_sweep(cfg: ExperimentConfig, net: nn.Module, seed: int,
 
             if cfg.rl.algo == "ppo":
                 def act_fn(img, pts, mask, g):
-                    logits, _ = net_k(img, pts, mask, g, snr_vec, v2x_off)
+                    aux = {}
+                    logits, _ = net_k(img, pts, mask, g, snr_vec, v2x_off,
+                                      aux=aux)
                     if sample:
-                        return ppo_lib.sample_action(logits, g)
-                    return logits.argmax(dim=-1).to(torch.int32)
+                        a = ppo_lib.sample_action(logits, g)
+                    else:
+                        a = logits.argmax(dim=-1).to(torch.int32)
+                    return _with_link_stats(cfg, a, aux)
             else:
                 def act_fn(img, pts, mask, g):
-                    return dqn_lib.act(cfg_k, net_k, img, pts, mask, g,
-                                       epsilon, snr_db=snr_vec,
-                                       v2x_offset_db=v2x_off)
+                    aux = {}
+                    a = dqn_lib.act(cfg_k, net_k, img, pts, mask, g,
+                                    epsilon, snr_db=snr_vec,
+                                    v2x_offset_db=v2x_off, aux=aux)
+                    return _with_link_stats(cfg, a, aux)
 
             out = _rollout_returns(cfg_k, act_fn, seed, num_envs, dev)
             rows.append({"snr_db": float(snr), **out})

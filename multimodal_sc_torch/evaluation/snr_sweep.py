@@ -7,14 +7,21 @@ rate and LiDAR sweeps, ``save_curves`` and ``format_table``) and of the
 ``eval`` verb's camera and fusion branches of ``multimodal_sc_tpu/cli.py``.
 Each point averages ``batches_per_point`` channel draws; the draws of point
 (kind ki, SNR si, batch b) come from a generator seeded by ``(seed, ki,
-si, b)``, so a sweep is reproducible point by point. The VQ, HARQ, entropy
-and kept-token sweeps are ROADMAP item 14.
+si, b)``, so a sweep is reproducible point by point. The digital camera
+codec (``camera.arch=vq``) has its own two sweeps: over its link as
+configured (one-shot, or Hamming-coded under ``channel.fec``) and under
+Type-I HARQ (``--harq-sweep``), which also records the symbols each image
+really cost. The kept-token and entropy-coded sweeps are ROADMAP item 14b.
 
 As a script it sweeps the newest checkpoint of a trained preset:
 
     python -m multimodal_sc_torch.evaluation.snr_sweep --config c2 \\
         [--kinds awgn,rayleigh,rician] [--rate-sweep] [--allow-untrained] \\
         --set train.checkpoint_dir=DIR [--out curves.json] [--device cuda]
+
+    python -m multimodal_sc_torch.evaluation.snr_sweep --config c1 \\
+        --set camera.arch=vq [--set channel.fec=hamming74_soft] \\
+        [--harq-sweep] --set train.checkpoint_dir=DIR ...
 
 It restores the parameters only, evaluates one held-out batch (the images
 of seed ``train.seed + 999``, as the JAX package's ``eval`` does), prints
@@ -151,6 +158,99 @@ def sweep_lidar(model, points: torch.Tensor, mask: torch.Tensor,
     return results
 
 
+@torch.no_grad()
+def sweep_camera_vq(cfg, model, images: torch.Tensor, seed: int = 0,
+                    snrs_db: Sequence[float] = DEFAULT_SNRS,
+                    kinds: Sequence[str] = ("awgn", "rayleigh"),
+                    batches_per_point: int = 4) -> Dict[str, List[dict]]:
+    """``{kind: [{snr_db, psnr, ssim, index_err}]}`` of a ``VQCameraJSCC``
+    over its digital link as ``cfg.channel`` configures it (FEC included),
+    the kind overridden per curve."""
+    results: Dict[str, List[dict]] = {}
+    for ki, kind in enumerate(kinds):
+        ch = cfg.override_str([f"channel.kind={kind}"]).channel
+        curve = []
+        for si, snr_db in enumerate(snrs_db):
+            snr = torch.full((images.shape[0],), float(snr_db),
+                             device=images.device)
+            pv, sv, ev = [], [], []
+            for b in range(batches_per_point):
+                g = _generator(seed, ki * 100000 + si * 100 + b,
+                               images.device)
+                rec, aux = model(images, snr, g, ch=ch)
+                pv.append(float(psnr(rec, images)))
+                sv.append(float(ssim(rec, images)))
+                ev.append(float(aux["index_error_rate"]))
+            curve.append({"snr_db": float(snr_db),
+                          "psnr": float(np.mean(pv)),
+                          "ssim": float(np.mean(sv)),
+                          "index_err": float(np.mean(ev))})
+        results[kind] = curve
+    return results
+
+
+@torch.no_grad()
+def sweep_camera_vq_harq(cfg, model, images: torch.Tensor, seed: int = 0,
+                         snrs_db: Sequence[float] = DEFAULT_SNRS,
+                         kinds: Sequence[str] = ("awgn", "rayleigh"),
+                         batches_per_point: int = 4, max_rounds: int = 4,
+                         block_bits: int = 64, crc_bits: int = 8
+                         ) -> Dict[str, List[dict]]:
+    """Type-I HARQ curves of a ``VQCameraJSCC``: ``{kind: [{snr_db, psnr,
+    ssim, index_err, symbols_per_item, mean_rounds, residual_fail_rate,
+    oneshot_symbols}]}``, the uncoded index bits in CRC-8 blocks over the
+    channel's defaults (no pilots), as the JAX package's sweep sends
+    them."""
+    from multimodal_sc_torch.channel.digital import (bits_from_indices,
+                                                     indices_from_bits)
+    from multimodal_sc_torch.channel.harq import harq_transmit
+
+    codes = cfg.camera.vq_codes
+    idx_tx = model.encode_tokens(images)[0]
+    bits = bits_from_indices(idx_tx, codes)
+    results: Dict[str, List[dict]] = {}
+    for ki, kind in enumerate(kinds):
+        curve = []
+        for si, snr_db in enumerate(snrs_db):
+            snr = torch.full((images.shape[0],), float(snr_db),
+                             device=images.device)
+            acc: Dict[str, list] = {}
+            for b in range(batches_per_point):
+                g = _generator(seed, ki * 100000 + si * 100 + b,
+                               images.device)
+                bits_rx, info = harq_transmit(
+                    bits, snr, kind, g, block_bits=block_bits,
+                    crc_bits=crc_bits, max_rounds=max_rounds)
+                idx_rx = indices_from_bits(bits_rx, codes)
+                rec = model.decode_tokens(idx_rx)
+                for name, v in (("psnr", psnr(rec, images)),
+                                ("ssim", ssim(rec, images)),
+                                ("index_err",
+                                 (idx_rx != idx_tx).float().mean()),
+                                *info.items()):
+                    acc.setdefault(name, []).append(float(v))
+            curve.append({"snr_db": float(snr_db),
+                          **{k: float(np.mean(v)) for k, v in acc.items()}})
+        results[kind] = curve
+    return results
+
+
+def format_harq_table(curves: Dict[str, List[dict]]) -> str:
+    """The ``--harq-sweep`` table, as the JAX package's ``eval`` prints
+    it."""
+    lines = []
+    for kind, curve in curves.items():
+        lines.append(f"{kind}: {'snr':>6} {'psnr':>8} {'idx_err':>9} "
+                     f"{'sym/img':>9} {'rounds':>7} {'fail':>7}")
+        for p in curve:
+            lines.append(f"      {p['snr_db']:>6.1f} {p['psnr']:>8.2f} "
+                         f"{p['index_err']:>9.4f} "
+                         f"{p['symbols_per_item']:>9.1f} "
+                         f"{p['mean_rounds']:>7.2f} "
+                         f"{p['residual_fail_rate']:>7.4f}")
+    return "\n".join(lines)
+
+
 def save_curves(curves: dict, path: str) -> None:
     with open(path, "w") as f:
         json.dump(curves, f, indent=2)
@@ -239,6 +339,13 @@ def main(argv=None) -> int:
                     help="PSNR against bandwidth instead of SNR (adaptive-"
                          "rate camera configs; at channel.snr_db over the "
                          "first of --kinds)")
+    ap.add_argument("--harq-sweep", action="store_true",
+                    help="VQ camera configs: PSNR and the symbols spent "
+                         "under Type-I HARQ (CRC-8 blocks, chase "
+                         "combining) against SNR")
+    ap.add_argument("--keep-sweep", action="store_true",
+                    help="VQ camera configs: PSNR against the kept-token "
+                         "fraction (not ported yet)")
     ap.add_argument("--allow-untrained", action="store_true",
                     help="sweep fresh weights when no checkpoint exists")
     ap.add_argument("--kinds", default="awgn,rayleigh",
@@ -264,7 +371,20 @@ def main(argv=None) -> int:
         images, seg = batch if with_seg else (batch, None)
         images = images.to(dev)
         ch_kw = channel_kwargs(cfg.channel)
-        if args.rate_sweep:
+        if cfg.camera.arch == "vq" and args.keep_sweep:
+            raise NotImplementedError(
+                "--keep-sweep (token pruning) is not ported yet (ROADMAP "
+                "item 14b)")
+        if cfg.camera.arch == "vq" and args.harq_sweep:
+            curves = sweep_camera_vq_harq(cfg, model, images, tr.seed,
+                                          kinds=kinds)
+            print(format_harq_table(curves))
+        elif cfg.camera.arch == "vq":
+            curves = sweep_camera_vq(cfg, model, images, tr.seed,
+                                     kinds=kinds)
+            print(format_table(curves))
+            print(format_table(curves, metric="index_err"))
+        elif args.rate_sweep:
             if not cfg.camera.adaptive_rate:
                 print("--rate-sweep requires camera.adaptive_rate=true",
                       file=sys.stderr)

@@ -8,7 +8,9 @@ Flax's ``Dense``, ``DenseGeneral``, ``Conv`` and ``ConvTranspose`` start from
 (the conv kernel's filter bank, the fused attention blocks' weights) draw
 from :func:`lecun_normal_` themselves, so one rule holds everywhere.
 LayerNorm ones and zeros, PReLU slopes and the ``normal(0.02)`` tables
-already match flax and are left alone.
+already match flax and are left alone. A VQ codebook draws from
+:func:`variance_scaling_uniform_`, flax's ``variance_scaling(1.0, "fan_in",
+"uniform")``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,16 @@ def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
     with torch.no_grad():
         nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0)
         return w.mul_(1.0 / (math.sqrt(fan_in) * _TRUNC_STD))
+
+
+def variance_scaling_uniform_(w: torch.Tensor) -> torch.Tensor:
+    """Fill ``w`` in place as flax's ``variance_scaling(1.0, "fan_in",
+    "uniform")``: U(-sqrt(3 / fan_in), sqrt(3 / fan_in)), where flax takes
+    the fan-in of a 2-d ``(K, D)`` parameter from its first axis, K (a VQ
+    codebook of K codes draws at +-sqrt(3 / K))."""
+    limit = math.sqrt(3.0 / w.shape[-2])
+    with torch.no_grad():
+        return w.uniform_(-limit, limit)
 
 
 def flax_fan_in(m: nn.Module) -> int:

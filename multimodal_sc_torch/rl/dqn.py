@@ -11,8 +11,12 @@ metric keys as the JAX package.
 
 Unlike the JAX package's pure update, the learner writes the online,
 target and EMA networks and the optimizer moments IN PLACE: the returned
-state holds the same modules. The digital (VQ) branches of the loss wait
-for ROADMAP item 14.
+state holds the same modules. With the digital camera (``camera.arch="vq"``)
+the loss adds ``rl.vq_loss_coef`` x the online forward's VQ loss (TD
+gradients ride the straight-through path and never move the codebook), and
+under ``camera.vq_reseed`` the camera's batch-dead codes are re-seeded
+after the optimizer step. The digital LiDAR branches wait for ROADMAP item
+14c.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import resolve_device
 from multimodal_sc_torch.envs import driving
 from multimodal_sc_torch.rl import nstep, replay
-from multimodal_sc_torch.rl.perception import QNetwork
+from multimodal_sc_torch.rl.perception import (QNetwork,
+                                               apply_codebook_reseed,
+                                               collect_reseed_stats)
 
 
 class Transition(NamedTuple):
@@ -155,10 +161,12 @@ def init(cfg: ExperimentConfig, seed: int = 0, num_envs: int = 64,
 
 def act(cfg: ExperimentConfig, net: QNetwork, image, points, mask,
         generator: Optional[torch.Generator] = None, epsilon: float = 0.0,
-        snr_db=None, channel_noise=None, v2x_offset_db=None) -> torch.Tensor:
-    """Eps-greedy action (B,) int32 for a batch of observations."""
+        snr_db=None, channel_noise=None, v2x_offset_db=None,
+        aux=None) -> torch.Tensor:
+    """Eps-greedy action (B,) int32 for a batch of observations; ``aux``
+    (optional dict) receives what the trunk returns beside Q."""
     q = net(image, points, mask, generator, snr_db, v2x_offset_db,
-            channel_noise=channel_noise)
+            channel_noise=channel_noise, aux=aux)
     greedy = q.argmax(dim=-1)
     rand = torch.randint(0, cfg.rl.num_actions, greedy.shape,
                          generator=generator, device=q.device)
@@ -186,6 +194,7 @@ class LearnDraws(NamedTuple):
     noise_online: Optional[Sequence[torch.Tensor]] = None   # batch.image
     noise_target: Optional[Sequence[torch.Tensor]] = None   # target, next obs
     noise_double: Optional[Sequence[torch.Tensor]] = None   # online, next obs
+    coin: Optional[torch.Tensor] = None    # (K,) camera.vq_reseed's coin
 
 
 def draw_learn(cfg: ExperimentConfig, buffer_size: int,
@@ -223,17 +232,23 @@ def learner_forward(cfg: ExperimentConfig,
 
 def _td_loss(cfg: ExperimentConfig, forward, online: QNetwork,
              target_net: QNetwork, batch: Transition, draws: LearnDraws,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             aux: Optional[dict] = None) -> torch.Tensor:
     """Double-DQN Huber TD loss on one batch. Only the online forward on
     ``batch.image`` carries gradient; one SNR vector is shared by the three
-    forwards, each with its own channel noise."""
-    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
+    forwards, each with its own channel noise. With the VQ camera the loss
+    adds ``rl.vq_loss_coef`` x that forward's VQ loss; ``aux`` (optional
+    dict) receives what that forward's trunk returns (the re-seeding
+    inputs among them)."""
+    if cfg.lidar.arch == "vq" or cfg.lidar.vq_prune:
         raise NotImplementedError(
-            "the VQ branches of the TD loss (codebook loss, dead-code "
-            "reseed, token pruning) are not ported yet (ROADMAP item 14)")
+            "the digital LiDAR branches of the TD loss (codebook loss, "
+            "dead-code reseed, token pruning) are not ported yet (ROADMAP "
+            "item 14c)")
     snr = draws.snr_db
+    aux = {} if aux is None else aux
     q = forward(online, batch.image, batch.points, batch.mask, generator,
-                snr, channel_noise=draws.noise_online)
+                snr, channel_noise=draws.noise_online, aux=aux)
     q_taken = q.gather(1, batch.action.long()[:, None])[:, 0]
     with torch.no_grad():
         q_next_t = forward(target_net, batch.next_image, batch.next_points,
@@ -251,7 +266,10 @@ def _td_loss(cfg: ExperimentConfig, forward, online: QNetwork,
         # n steps later, so the bootstrap discount is gamma^n (rl/nstep.py).
         gamma_n = cfg.rl.gamma ** cfg.rl.n_step
         target = batch.reward + gamma_n * (1.0 - batch.done.float()) * q_boot
-    return F.huber_loss(q_taken, target, delta=1.0)
+    loss = F.huber_loss(q_taken, target, delta=1.0)
+    if "vq_loss" in aux:
+        loss = loss + cfg.rl.vq_loss_coef * aux["vq_loss"]
+    return loss
 
 
 def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
@@ -260,13 +278,16 @@ def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
 
     Updates ``state.params``, the Adam moments, ``state.target_params``
     (hard sync every ``rl.target_update_period`` steps, or Polyak under
-    ``rl.target_tau``) and ``state.ema_params`` in place."""
+    ``rl.target_tau``) and ``state.ema_params`` in place; re-seeds the
+    online camera codebook's dead codes after the optimizer step under
+    ``camera.vq_reseed``."""
     if forward is None:
         forward = learner_forward(cfg)
     opt = state.opt_state
     params = list(state.params.parameters())
+    aux = {}
     loss = _td_loss(cfg, forward, state.params, state.target_params, batch,
-                    draws, state.generator)
+                    draws, state.generator, aux)
     # Parameters the loss does not reach get zero gradients, as jax.grad
     # gives them: their Adam moments then decay as optax's do.
     grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -279,6 +300,9 @@ def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
         opt.step()
         opt.zero_grad(set_to_none=True)
         step = state.step + 1
+        apply_codebook_reseed(cfg, state.params,
+                              collect_reseed_stats(cfg, aux),
+                              state.generator, draws.coin)
         targets = list(state.target_params.parameters())
         if cfg.rl.target_tau > 0:
             torch._foreach_lerp_(targets, params, cfg.rl.target_tau)
@@ -302,10 +326,10 @@ def make_iteration(cfg: ExperimentConfig, learn: bool = True,
     (scan-per-dispatch) and ``carry_f32`` options are not ported: PyTorch
     has no dispatch to amortize that way.
     """
-    if learn and (cfg.camera.arch == "vq" or cfg.lidar.arch == "vq"):
+    if learn and cfg.lidar.arch == "vq":
         raise NotImplementedError(
-            "learning with a digital (VQ) trunk is not ported yet (ROADMAP "
-            "item 14); use learn=False")
+            "learning with a digital LiDAR link is not ported yet (ROADMAP "
+            "item 14c); use learn=False")
     forward = learner_forward(cfg) if learn else None
 
     @torch.no_grad()

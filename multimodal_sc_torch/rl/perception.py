@@ -1,16 +1,26 @@
 """Semantic-communication perception trunk, the DQN head and the PPO heads.
 
-Counterpart of ``multimodal_sc_tpu/rl/perception.py`` for the analog
-arches: per modality encode -> channel -> decode-to-tokens, then the fusion
-transformer. The camera branch is the CNN codec (``camera.arch="cnn"``) or
-the ViT encoder with a ViT token decoder of half its depth
-(``camera.arch="vit"``, unconditioned on the SNR, its attention on the
-packed or flash kernels under ``use_pallas`` or ``pallas_attention``). The
-channel runs inside the forward, so gradients flow through it into both
+Counterpart of ``multimodal_sc_tpu/rl/perception.py``: per modality encode
+-> channel -> decode-to-tokens, then the fusion transformer. The camera
+branch is the CNN codec (``camera.arch="cnn"``), the ViT encoder with a ViT
+token decoder of half its depth (``camera.arch="vit"``, unconditioned on
+the SNR, its attention on the packed or flash kernels under ``use_pallas``
+or ``pallas_attention``), or the digital VQ link (``camera.arch="vq"``: the
+VQ encoder's indices over QPSK, Hamming-coded under ``channel.fec`` or under
+Type-I HARQ with ``channel.harq``, the received codes through a 5x5 conv to
+tokens, the gradient through the clean straight-through path). The analog
+channels run inside the forward, so gradients flow through them into both
 codecs. Channel noise is drawn from an explicit ``torch.Generator`` or
 handed in (``channel_noise``), which is how the tests feed the JAX
-package's draws. The digital (``vq``) arch waits for ROADMAP item 14 and
-``train.bf16`` activations for item 13b; both raise.
+package's draws.
+
+What the JAX trunk sows (the VQ loss, the index error rate, the HARQ
+accounting, the dead-code re-seeding inputs) the port's forward writes
+into the dict passed as ``aux``; the learners add the VQ loss to theirs and
+re-seed dead codes after their step (:func:`collect_reseed_stats`,
+:func:`apply_codebook_reseed`). Not ported, raising: the digital LiDAR
+link (``lidar.arch="vq"``, ROADMAP item 14c) and ``train.bf16``
+activations (item 13b).
 """
 
 from __future__ import annotations
@@ -26,6 +36,12 @@ from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.codec.camera_cnn import CameraEncoderCNN, CameraTokensCNN
 from multimodal_sc_torch.codec.camera_vit import ViTEncoderJSCC, ViTTokensDecoder
 from multimodal_sc_torch.codec.lidar_bev import BEVBackbone, PillarFeatureNet
+from multimodal_sc_torch.codec.semantic_vq import (VQEncoderTokens,
+                                                   VQTokensCamera,
+                                                   check_digital_camera,
+                                                   reseed_dead_codes,
+                                                   transmit_indices,
+                                                   transmit_indices_harq)
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.fusion.transformer import FusionTransformer
 from multimodal_sc_torch.nn_init import init_like_flax_
@@ -37,11 +53,12 @@ class SemanticPerception(nn.Module):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
         cam, lid, fus = cfg.camera, cfg.lidar, cfg.fusion
-        if cam.arch not in ("cnn", "vit") or lid.arch != "analog":
+        if lid.arch != "analog":
             raise NotImplementedError(
-                f"camera.arch={cam.arch!r} / lidar.arch={lid.arch!r}: only "
-                "the analog CNN and ViT trunks are ported (digital VQ: "
-                "ROADMAP item 14)")
+                f"lidar.arch={lid.arch!r}: the digital LiDAR link is not "
+                "ported yet (ROADMAP item 14c)")
+        if cam.arch not in ("cnn", "vit", "vq"):
+            raise ValueError(f"unknown camera arch {cam.arch!r}")
         if cfg.train.bf16:
             raise NotImplementedError(
                 "train.bf16 activations are not ported (ROADMAP item 13b)")
@@ -55,6 +72,13 @@ class SemanticPerception(nn.Module):
                 cam.image_hw, cam.patch, cam.dim, max(1, cam.depth // 2),
                 cam.heads, cam.c_sym, use_pallas=attn_pallas)
             cam_in = cam.dim
+        elif cam.arch == "vq":
+            check_digital_camera(cfg)
+            self.cam_vq = VQEncoderTokens(
+                cam.features, cam.vq_dim, cam.vq_codes, cam.vq_beta,
+                cam.vq_usage_coef, cam.vq_usage_temp, cam.vq_reseed)
+            self.cam_tok = VQTokensCamera(fus.dim, cam.vq_dim, cam.image_hw)
+            cam_in = fus.dim
         else:
             cond = cam.snr_conditioning
             self.cam_enc = CameraEncoderCNN(cam.features, cam.c_sym,
@@ -79,6 +103,32 @@ class SemanticPerception(nn.Module):
             fused_block=cfg.pallas_mha_block,
             block_kernel=cfg.mha_block_kernel)
 
+    def _vq_camera(self, image, snr_db, generator, noise, aux):
+        """The digital camera link: indices over QPSK (FEC or HARQ as
+        configured); the token decoder sees the received codes, the
+        gradient the clean straight-through path."""
+        ch, codes = self.cfg.channel, self.cfg.camera.vq_codes
+        idx_tx, vq_loss, z_ste, stats = self.cam_vq(image)
+        hinfo = None
+        if ch.harq:
+            idx_rx, hinfo = transmit_indices_harq(ch, idx_tx, codes, snr_db,
+                                                  generator, draws=noise)
+        else:
+            idx_rx = transmit_indices(ch, idx_tx, codes, snr_db, generator,
+                                      noise=noise)
+        z_rx = z_ste + (self.cam_vq.codebook[idx_rx.long()] - z_ste).detach()
+        if aux is not None:
+            aux["vq_loss"] = vq_loss
+            aux["index_error_rate"] = (idx_rx != idx_tx).float().mean()
+            if hinfo is not None:
+                aux["harq_syms"] = hinfo["symbols_per_item"]
+                aux["harq_rounds"] = hinfo["mean_rounds"]
+                aux["harq_resid"] = hinfo["residual_fail_rate"]
+            if stats is not None:
+                aux["vq_counts"] = stats["counts"]
+                aux["vq_candidates"] = stats["candidates"]
+        return self.cam_tok(z_rx)
+
     def _lidar_branch(self, pts, msk, snr_db, generator, noise):
         lid, ch = self.cfg.lidar, self.cfg.channel
         sym = self.lid_sym_head(self.lid_backbone(self.pfn(pts, msk)))
@@ -94,11 +144,16 @@ class SemanticPerception(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 snr_db: Optional[torch.Tensor] = None,
                 v2x_offset_db: Optional[float] = None,
-                channel_noise: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                channel_noise: Optional[Sequence[torch.Tensor]] = None,
+                aux: Optional[dict] = None) -> torch.Tensor:
         """``channel_noise`` (optional): the standard-normal draws of the
         links, ``(camera, ego LiDAR[, V2X])``, in place of draws from
-        ``generator``."""
+        ``generator``; under ``channel.harq`` the camera's entry is one draw
+        per round. ``aux`` (optional dict): receives what the JAX trunk
+        sows, the VQ camera's ``vq_loss`` and ``index_error_rate``, its
+        HARQ accounting (``harq_syms``, ``harq_rounds``, ``harq_resid``)
+        and, under ``camera.vq_reseed``, ``vq_counts`` and
+        ``vq_candidates``."""
         ch = self.cfg.channel
         if snr_db is None:
             snr_db = torch.full((image.shape[0],), ch.snr_db,
@@ -123,10 +178,14 @@ class SemanticPerception(nn.Module):
         snr_in = (snr_db if cam.snr_conditioning and cam.arch == "cnn"
                   else None)
 
-        z_cam = self.cam_enc(image, snr_in)
-        z_cam_hat = channel_op(z_cam, snr_db, ch.kind, generator,
-                               noise=noise[0], **channel_kwargs(ch))
-        cam_tokens = self.cam_tok(z_cam_hat, snr_in)
+        if cam.arch == "vq":
+            cam_tokens = self._vq_camera(image, snr_db, generator, noise[0],
+                                         aux)
+        else:
+            z_cam = self.cam_enc(image, snr_in)
+            z_cam_hat = channel_op(z_cam, snr_db, ch.kind, generator,
+                                   noise=noise[0], **channel_kwargs(ch))
+            cam_tokens = self.cam_tok(z_cam_hat, snr_in)
 
         lid_tokens = self._lidar_branch(points, mask, snr_db, generator,
                                         noise[1])
@@ -137,6 +196,33 @@ class SemanticPerception(nn.Module):
             lid_tokens = torch.cat([lid_tokens, v2x_tokens + self.v2x_embed],
                                    dim=1)
         return self.fusion(cam_tokens, lid_tokens)
+
+
+def collect_reseed_stats(cfg: ExperimentConfig, aux: dict) -> dict:
+    """The dead-code re-seeding inputs of a trunk forward's ``aux``:
+    ``{"cam": (counts, candidates)}`` when the VQ camera re-seeds
+    (``camera.vq_reseed > 0``), else ``{}``."""
+    if cfg.camera.arch == "vq" and cfg.camera.vq_reseed > 0:
+        return {"cam": (aux["vq_counts"], aux["vq_candidates"])}
+    return {}
+
+
+@torch.no_grad()
+def apply_codebook_reseed(cfg: ExperimentConfig, net: nn.Module, rs: dict,
+                          generator: Optional[torch.Generator] = None,
+                          coin: Optional[torch.Tensor] = None) -> None:
+    """Re-seed the batch-dead codes of ``net``'s camera codebook in place
+    (``rs`` from :func:`collect_reseed_stats`), each with probability
+    ``camera.vq_reseed``; the learners call it after their optimizer step
+    and leave the target and EMA networks alone, as the JAX package does.
+    ``coin``: the (K,) uniform draws, in place of draws from
+    ``generator``."""
+    if "cam" not in rs:
+        return
+    counts, cands = rs["cam"]
+    cb = net.perception.cam_vq.codebook
+    cb.copy_(reseed_dead_codes(cb, counts, cands, generator,
+                               cfg.camera.vq_reseed, coin=coin)[0])
 
 
 class QNetwork(nn.Module):
@@ -151,9 +237,10 @@ class QNetwork(nn.Module):
         init_like_flax_(self)
 
     def forward(self, image, points, mask, generator=None, snr_db=None,
-                v2x_offset_db=None, channel_noise=None) -> torch.Tensor:
+                v2x_offset_db=None, channel_noise=None,
+                aux=None) -> torch.Tensor:
         s = self.perception(image, points, mask, generator, snr_db,
-                            v2x_offset_db, channel_noise)
+                            v2x_offset_db, channel_noise, aux)
         return self.q(F.relu(self.h2(F.relu(self.h1(s)))))
 
 
@@ -171,8 +258,8 @@ class ActorCritic(nn.Module):
         init_like_flax_(self)
 
     def forward(self, image, points, mask, generator=None, snr_db=None,
-                v2x_offset_db=None, channel_noise=None):
+                v2x_offset_db=None, channel_noise=None, aux=None):
         s = self.perception(image, points, mask, generator, snr_db,
-                            v2x_offset_db, channel_noise)
+                            v2x_offset_db, channel_noise, aux)
         logits = self.pi(torch.tanh(self.pi_h(s)))
         return logits, self.v(torch.tanh(self.v_h(s)))[..., 0]

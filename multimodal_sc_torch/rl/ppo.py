@@ -15,7 +15,7 @@ through their plain version on the same parameters, as the JAX package's
 Unlike the JAX package's pure update, an update writes the network, the
 EMA and the Adam moments IN PLACE: the returned state holds the same
 modules. Not ported, each raising: the VQ and LiDAR token-pruning branches
-of the loss (ROADMAP item 14). ``shard_state`` waits for item 16, and
+of the loss (ROADMAP item 14c). ``shard_state`` waits for item 16, and
 ``make_train_step_chunked`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize.
 """
@@ -170,7 +170,7 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
             cfg.lidar.vq_prune:
         raise NotImplementedError(
             "the VQ branches of the PPO loss (codebook loss, dead-code "
-            "reseed, token pruning) are not ported yet (ROADMAP item 14)")
+            "reseed, token pruning) are not ported yet (ROADMAP item 14c)")
     r = cfg.rl
     logits, value = forward(net, replay.dequantize_frame(batch["image"]),
                             batch["points"], batch["mask"], generator,

@@ -13,8 +13,11 @@ saves every ``train.checkpoint_every`` iterations; the best snapshot of
 ``<checkpoint_dir>/best`` at the end. Checkpoint and snapshot time is kept
 out of the steady rate and reported as ``ckpt_save_s`` / ``ckpt_close_s``.
 
-Not ported, each raising: a VQ trunk and its codebook seeding (ROADMAP item
-14), the sharded iteration (item 16: one process drives one card).
+A digital camera trunk (``camera.arch="vq"``) starting cold seeds its
+codebook from its encoder's outputs on rendered env observations; a warm
+start that brought a codebook and a resume keep theirs. Not ported, each
+raising: the digital LiDAR trunk (ROADMAP item 14c), the sharded iteration
+(item 16: one process drives one card).
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -48,7 +51,8 @@ from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
 from multimodal_sc_torch.obs.profiling import (CollapseWatchdog, NaNWatchdog,
                                                maybe_trace)
 from multimodal_sc_torch.rl import dqn as dqn_lib
-from multimodal_sc_torch.rl.warmstart import warm_start
+from multimodal_sc_torch.rl.warmstart import (seed_vq_codebook_params,
+                                              warm_start)
 
 
 def guard_replay_dtype(cfg: ExperimentConfig) -> None:
@@ -87,16 +91,22 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
     ``train.checkpoint_dir`` when it holds a checkpoint); returns
     ``(state, result)``. ``num_envs`` defaults to ``cfg.rl.num_envs`` (the
     count a resume must use: the env and replay shapes are checked)."""
-    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
+    if cfg.lidar.arch == "vq":
         raise NotImplementedError(
-            "VQ codebook seeding is not ported yet (ROADMAP item 14)")
+            "the digital LiDAR trunk and its codebook seeding are not ported "
+            "yet (ROADMAP item 14c)")
     if num_envs is None:
         num_envs = cfg.rl.num_envs
     dev = resolve_device(device)
     state = dqn_lib.init(cfg, cfg.train.seed, num_envs, dev)
+    nets = (state.params, state.target_params, state.ema_params)
     if init_from:
-        warm_start(cfg, (state.params, state.target_params,
-                         state.ema_params), init_from)
+        warm_start(cfg, nets, init_from)
+    elif cfg.camera.arch == "vq":
+        # A cold VQ start seeds its codebook (a resume below overwrites it).
+        seed_vq_codebook_params(cfg, state.params)
+        for other in nets[1:]:
+            other.load_state_dict(state.params.state_dict())
     iteration = dqn_lib.make_iteration(cfg)
 
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())

@@ -13,8 +13,9 @@ step; the image and point-cloud streams are seeded per step).
 Unlike the JAX package's pure update, a train step writes the model and the
 optimizer moments IN PLACE: the returned state holds the same objects.
 
-Not ported yet, each raising: the digital codecs (``camera.arch="vq"``,
-``lidar.arch="vq"``, ROADMAP item 14) and ``train.bf16`` (item 13b).
+Not ported yet, each raising: the digital LiDAR codec (``lidar.arch="vq"``,
+ROADMAP item 14b) and ``train.bf16`` (item 13b); ``camera.arch="vq"`` is
+refused on this path, as the JAX package refuses it.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -68,11 +69,12 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.camera.arch not in ("vit", "cnn"):
         raise NotImplementedError(
             f"camera.arch={cfg.camera.arch!r} on the fusion path is not "
-            "ported yet (digital VQ: ROADMAP item 14)")
+            "supported: the JAX package refuses it too (use lidar.arch=vq "
+            "for the digital half of c3, ROADMAP item 14b)")
     if cfg.lidar.arch != "analog":
         raise NotImplementedError(
             f"lidar.arch={cfg.lidar.arch!r} is not ported yet (ROADMAP "
-            "item 14)")
+            "item 14b)")
 
 
 def build_camera_codec(cfg: ExperimentConfig):

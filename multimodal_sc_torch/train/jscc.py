@@ -19,13 +19,18 @@ steps and resumes from the newest checkpoint: model, optimizer moments,
 schedule, generator and step, the dataset set to the step, so a resumed
 run replays the stream of an uninterrupted one.
 
-The codec is ``CameraJSCC`` (``camera.arch="cnn"``) or ``ViTJSCC``
+The codec is ``CameraJSCC`` (``camera.arch="cnn"``), ``ViTJSCC``
 (``camera.arch="vit"``, an SNR token under ``camera.snr_conditioning``, its
 attention on the packed or flash kernels under ``use_pallas`` or
-``pallas_attention``). Unlike the JAX package's pure update, a train step
-writes the model, the optimizer moments and the schedule IN PLACE: the
-returned state holds the same objects. Not ported yet, each raising: the
-VQ arch (ROADMAP item 14), ``train.bf16`` (item 13b).
+``pallas_attention``) or the digital ``VQCameraJSCC`` (``camera.arch="vq"``:
+the loss is the MSE plus the VQ loss, the digital link runs inside the
+forward, dead codes are re-seeded after the step under
+``camera.vq_reseed``, and a fresh run seeds its codebook from the encoder's
+outputs on a real batch, never a resumed one). Unlike the JAX package's
+pure update, a train step writes the model, the optimizer moments and the
+schedule IN PLACE: the returned state holds the same objects. Not ported
+yet, raising: ``train.bf16`` (ROADMAP item 13b), and on the VQ codec the
+unequal power allocation and token pruning (item 14b).
 ``train.iters_per_dispatch`` (the chunked step) has no counterpart:
 PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
 and the value is ignored.
@@ -57,6 +62,10 @@ from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.codec.camera_cnn import CameraJSCC
 from multimodal_sc_torch.codec.camera_vit import ViTJSCC
+from multimodal_sc_torch.codec.semantic_vq import (VQCameraJSCC,
+                                                   check_digital_camera,
+                                                   init_codebook_from_batch,
+                                                   reseed_dead_codes)
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.envs.datasets import ImageDataset
@@ -73,18 +82,21 @@ from multimodal_sc_torch.train.fusion_jscc import make_optimizer
 
 def _check_ported(cfg: ExperimentConfig) -> None:
     cam = cfg.camera
-    if cam.arch not in ("cnn", "vit"):
-        raise NotImplementedError(
-            f"camera.arch={cam.arch!r} on the JSCC path is not ported yet"
-            + (" (ROADMAP item 14)" if cam.arch == "vq" else ""))
+    if cam.arch not in ("cnn", "vit", "vq"):
+        raise ValueError(f"unknown camera arch {cam.arch!r}")
+    if cam.arch == "vq":
+        check_digital_camera(cfg)
     if cfg.train.bf16:
         raise NotImplementedError(
             "train.bf16 activations are not ported (ROADMAP item 13b)")
 
 
-def build_model(cfg: ExperimentConfig) -> Union[CameraJSCC, ViTJSCC]:
+def build_model(cfg: ExperimentConfig
+                ) -> Union[CameraJSCC, ViTJSCC, VQCameraJSCC]:
     _check_ported(cfg)
     cam = cfg.camera
+    if cam.arch == "vq":
+        return VQCameraJSCC(cfg)
     if cam.arch == "vit":
         model = ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
                         depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,
@@ -141,10 +153,11 @@ def create_train_state(cfg: ExperimentConfig, seed: int = 0,
 
 class StepDraws(NamedTuple):
     """The random draws of one train step; a ``None`` field is drawn from
-    the state's generator (in this order: SNR, rate, channel)."""
+    the state's generator (in this order: SNR, rate, channel, coin)."""
     snr_db: Optional[torch.Tensor] = None   # (B,), channel.random_snr
     m: Optional[torch.Tensor] = None        # (B,) int, camera.adaptive_rate
     channel: Union[None, torch.Tensor, ChannelDraws] = None
+    coin: Optional[torch.Tensor] = None     # (K,) camera.vq_reseed's coin
 
 
 def _rate(model, m: Optional[torch.Tensor]):
@@ -236,13 +249,22 @@ def loss_fn(cfg: ExperimentConfig, model: CameraJSCC, img, seg,
     return (recon - img).square().mean(), (recon, None)
 
 
+def vq_loss_fn(model: VQCameraJSCC, img, draws: StepDraws, generator=None):
+    """``(loss, (recon, aux))`` of the VQ codec at the step's draws: MSE
+    plus the VQ loss, the digital link inside the forward."""
+    recon, aux = model(img, draws.snr_db, generator, noise=draws.channel)
+    return (recon - img).square().mean() + aux["vq_loss"], (recon, aux)
+
+
 def make_train_step(cfg: ExperimentConfig):
     """``train_step(state, batch, draws=None) -> (state, metrics)``: one
     clip + AdamW step at the scheduled lr on one batch, ``img`` or ``(img,
     seg)`` as the dataset yields it. ``draws``: a ``StepDraws``, or a tensor
-    of the channel's standard-normal noise."""
+    of the channel's standard-normal noise. A VQ codec's step then re-seeds
+    its batch-dead codes (``camera.vq_reseed > 0``)."""
     _check_ported(cfg)
     with_seg = _with_seg(cfg)
+    vq = cfg.camera.arch == "vq"
 
     def train_step(state: TrainState, batch, draws=None):
         model, opt = state.params, state.opt_state
@@ -251,8 +273,12 @@ def make_train_step(cfg: ExperimentConfig):
             draws = StepDraws(channel=draws)
         draws = draw_step(cfg, img.shape[0], state.generator, img.device,
                           draws)
-        loss, (recon, logits) = loss_fn(cfg, model, img, seg, draws,
-                                        state.generator)
+        if vq:
+            loss, (recon, aux) = vq_loss_fn(model, img, draws,
+                                            state.generator)
+        else:
+            loss, (recon, logits) = loss_fn(cfg, model, img, seg, draws,
+                                            state.generator)
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
@@ -266,6 +292,17 @@ def make_train_step(cfg: ExperimentConfig):
             if with_seg:
                 metrics["miou"] = miou(logits.argmax(dim=-1), seg,
                                        cfg.camera.seg_classes)
+            if vq:
+                metrics.update({k: aux[k].detach() for k in (
+                    "vq_loss", "index_error_rate", "code_perplexity")})
+            if vq and "vq_counts" in aux:
+                # Dead codes jump to the batch's worst-quantised encoder
+                # outputs, after the optimizer step.
+                new_cb, n_rs = reseed_dead_codes(
+                    model.codebook, aux["vq_counts"], aux["vq_candidates"],
+                    state.generator, cfg.camera.vq_reseed, coin=draws.coin)
+                model.codebook.copy_(new_cb)
+                metrics["vq_reseeded"] = n_rs.float()
         return state._replace(step=state.step + 1), metrics
 
     return train_step
@@ -274,13 +311,18 @@ def make_train_step(cfg: ExperimentConfig):
 def make_eval_step(cfg: ExperimentConfig):
     """``eval_step(model, img, generator=None, noise=None) -> psnr`` through
     the deployed channel (``channel.kind`` and its settings) at
-    ``channel.snr_db``, full rate."""
+    ``channel.snr_db``, full rate; a VQ codec over its digital link."""
     _check_ported(cfg)
 
     @torch.no_grad()
     def eval_step(model: CameraJSCC, img, generator=None, noise=None):
-        recon, _ = reconstruct(cfg, model, img, cfg.channel.snr_db, generator,
-                               noise)
+        if cfg.camera.arch == "vq":
+            snr = torch.full((img.shape[0],), cfg.channel.snr_db,
+                             device=img.device)
+            recon, _ = model(img, snr, generator, noise=noise)
+        else:
+            recon, _ = reconstruct(cfg, model, img, cfg.channel.snr_db,
+                                   generator, noise)
         return psnr(recon, img)
 
     return eval_step
@@ -306,6 +348,15 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         if restored is not None:
             state = restored
     start = state.step
+    if cfg.camera.arch == "vq" and start == 0:
+        # A fresh VQ run seeds its codebook from the encoder's outputs on a
+        # batch of a stream of its own; a resumed run keeps its codebook.
+        init_img = next(ImageDataset(tr.dataset, tr.batch_size,
+                                     seed=tr.seed + 777, device=dev,
+                                     real_bank=data._real)).to(dev)
+        init_codebook_from_batch(state.params, init_img, torch.Generator(
+            device=dev).manual_seed((tr.seed * 0x9E3779B1 + 0xCB)
+                                    & 0xFFFFFFFF))
     # The batches of an uninterrupted run from here on.
     data._step = start
     batches = prefetch_to_device(data, size=2, device=dev)
@@ -364,7 +415,7 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
 def main(argv=None) -> int:
     from multimodal_sc_torch.config import get_preset
 
-    ap = argparse.ArgumentParser(description="Train a CNN JSCC preset.")
+    ap = argparse.ArgumentParser(description="Train a camera JSCC preset.")
     ap.add_argument("--config", default="c1")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="config override, e.g. train.steps=200 (repeatable)")

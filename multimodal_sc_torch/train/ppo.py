@@ -11,7 +11,7 @@ states, generator, counters) and saves every ``train.checkpoint_every``
 updates, the writes kept out of the steady rate.
 
 Not ported, each raising: a VQ trunk and its codebook seeding (ROADMAP item
-14), the sharded state (item 16: one process drives one card).
+14c), the sharded state (item 16: one process drives one card).
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -53,8 +53,8 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
     ``(state, result)``."""
     if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
         raise NotImplementedError(
-            "a VQ trunk and its codebook seeding are not ported yet (ROADMAP "
-            "item 14)")
+            "a VQ trunk and its codebook seeding on the PPO path are not "
+            "ported yet (ROADMAP item 14c)")
     dev = resolve_device(device)
     state = ppo_lib.init(cfg, cfg.train.seed, dev)
     if init_from:

@@ -240,7 +240,8 @@ def test_train_run_keys_match_jax_run(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    (["camera.arch=vq"], NotImplementedError, "item 14"),
+    (["camera.arch=vq", "camera.vq_prune=true"], NotImplementedError,
+     "item 14"),
     (["train.bf16=true"], NotImplementedError, "bf16"),
 ])
 def test_refusals(over, exc, match):

@@ -354,10 +354,11 @@ def test_train_run_keys_match_jax_run(tmp_path):
 
 
 def test_train_run_refuses_what_is_not_ported(tmp_path):
-    """A VQ trunk still raises (ROADMAP item 14). The warm start and the
-    checkpoints, refused until they were ported, now run: a warm start
-    from a directory with no checkpoint is refused as JAX refuses it, and a
-    checkpoint directory gets the pinned config and its checkpoints."""
+    """A digital LiDAR trunk still raises (ROADMAP item 14c). The warm
+    start and the checkpoints, refused until they were ported, now run: a
+    warm start from a directory with no checkpoint is refused as JAX
+    refuses it, and a checkpoint directory gets the pinned config and its
+    checkpoints."""
     tcfg = t_preset("c4").override_str(TINY + ["train.steps=2"])
     with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         ttrain.run(tcfg, init_from=str(tmp_path), device="cpu")

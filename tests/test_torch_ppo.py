@@ -1,5 +1,6 @@
 """The port's c5 PPO path against the JAX package on the CPU, and the fresh
-weights of the port's four networks against flax's initialisers.
+weights of the port's five networks against flax's initialisers (a VQ
+codebook against flax's fan-in uniform draw).
 
 Both sides get the same parameters (``multimodal_sc_torch.bridge``), the
 same rollout (observations from JAX env resets, the rest made from a seed
@@ -121,6 +122,9 @@ def _init_gate_failures(net, flax_params):
         mod, _, leaf = path.rpartition(".")
         key = path if path in state else f"{mod}.weight"
         bound[key] = _TRUNC / np.sqrt(fan_in)
+    for path, a in flat.items():
+        if path.rpartition(".")[2] == "codebook":    # uniform, fan_in = K
+            bound[path] = np.sqrt(3.0 / a.shape[0])
     fails = []
     for name, p in net.named_parameters():
         p, w = p.detach(), want[name]
@@ -141,6 +145,7 @@ C3_SMALL = ["camera.image_hw=16,16", "camera.depth=1", "camera.c_sym=4",
             "lidar.pillar_dim=16", "lidar.max_points=48", "lidar.bev_hw=8,8",
             "train.batch_size=2"]
 C1_SMALL = ["camera.features=16,32,64,64"]
+C1_VQ_SMALL = C1_SMALL + ["camera.arch=vq"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,7 +159,8 @@ def _flax_fresh(network):
     if network == "LateFusionJSCC":
         return jfj.create_train_state(j_preset("c3").override_str(C3_SMALL),
                                       jax.random.key(0)).params
-    return jjscc.create_train_state(j_preset("c1").override_str(C1_SMALL),
+    small = C1_VQ_SMALL if network == "VQCameraJSCC" else C1_SMALL
+    return jjscc.create_train_state(j_preset("c1").override_str(small),
                                     jax.random.key(0)).params
 
 
@@ -166,6 +172,8 @@ FRESH = {
         t_preset("c3").override_str(C3_SMALL), 0, "cpu").params,
     "CameraJSCC": lambda: tjscc.create_train_state(
         t_preset("c1").override_str(C1_SMALL), 0, "cpu").params,
+    "VQCameraJSCC": lambda: tjscc.create_train_state(
+        t_preset("c1").override_str(C1_VQ_SMALL), 0, "cpu").params,
 }
 
 

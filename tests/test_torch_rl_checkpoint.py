@@ -257,12 +257,6 @@ def test_snr_sweep_keys_table_and_pairing(tmp_path, capsys):
     assert "episode return (mean):\n" + table in out.out
 
 
-def test_sweep_refuses_harq():
-    cfg = t_preset("c4").override_str(DQN + ["channel.harq=true"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tsweep.policy_snr_sweep(cfg, tdqn.init_params(cfg, 0, "cpu"), 0)
-
-
 @pytest.mark.parametrize("mode", ["nan", "inf", "burst"])
 def test_corrupt_symbols_matches_jax(mode):
     z = np.random.default_rng(0).standard_normal((3, 10, 2)).astype(

@@ -214,6 +214,6 @@ def test_vit_trunk_shapes_and_names():
     assert per.cam_enc.block0.attn.use_pallas
     assert not hasattr(per.cam_enc, "snr_token")
     with pytest.raises(NotImplementedError, match="item 14"):
-        TQNetwork(tcfg.override_str(["camera.arch=vq"]))
+        TQNetwork(tcfg.override_str(["lidar.arch=vq"]))
     with pytest.raises(NotImplementedError, match="13b"):
         TQNetwork(tcfg.override_str(["train.bf16=true"]))
