@@ -101,9 +101,27 @@ Then the digital camera link (``camera.arch=vq``: 256 codes of dimension
 The conv kernel's check prints the c1_vq step's 8 convs and the c4_vq act
 step's 4 as groups of the shapes it holds.
 
-The pillar scatter runs on every path but c1, c2 and c1_vq: its forward
-kernel in every forward, its backward kernel once per learn, train or
-minibatch step.
+Then the digital LiDAR codec and the semantic token paths:
+
+* c3_vq, the c3 train step of arm P with ``lidar.arch=vq`` (256 codes of
+  dimension 32, 1024 tokens of 8 bits = 4096 QPSK symbols an example; the
+  usage term and dead-code re-seeding, the codebook seeded as a fresh run
+  seeds it) at batch 64: the launches of arm P, a falling loss, changed
+  parameters and codebook, the route comparison on the kernels' route's
+  codes, a checkpoint round trip with one step after it bit-equal;
+* c3_vq_prune (``lidar.vq_prune=true``): one train step, one point of the
+  BEV keep sweep under each selection rule, of the SNR sweep uncoded and
+  soft-coded, and of the entropy sweep (the Huffman link, decoded on the
+  host, must give the fixed link's mIoU at 25 dB); the times of the
+  nearest-code search, the link, ``code_rows``' backward, the drop-damage
+  probes and ``decode_vlc_np``, each with its bound where it has one;
+* c1_vq_prune and c1_vq under UEP: one train step each, one camera keep
+  point per selection rule, one UEP sweep point under alpha 0.25 and
+  water-filling, and the damage probes' times.
+
+The pillar scatter runs on every path but c1, c2 and the camera VQ
+paths: its forward kernel in every forward, its backward kernel once per
+learn, train or minibatch step.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after, and fails unless every kernel of that path ran the expected
@@ -144,6 +162,7 @@ from unittest import mock
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
+PEAK_F64 = 67e12            # f64 on the tensor cores (the data sheet's DGEMM)
 PEAK_BYTES = 3.35e12
 
 NUM_ENVS = 1024
@@ -294,6 +313,38 @@ EXPECTED_VQ4 = {"mha_block": 8, "conv_prelu": 4, "scatter_max": 1}
 EXPECTED_VQ4_LEARN = {"mha_block": 8, "conv_prelu": 4 + 12,
                       "scatter_max": 1 + 3, "scatter_max_bwd": 1}
 LEARN_ROUTE_VQ4 = {"conv_prelu": 12, "scatter_max": 3, "scatter_max_bwd": 1}
+
+# c3_vq: the c3 preset with the digital LiDAR codec as the JAX recipe trains
+# it (``lidar.arch=vq``: 256 codes of dimension 32, 1024 tokens of 8 bits =
+# 4096 QPSK symbols an example, the usage term and dead-code re-seeding),
+# the ViT on arm P. A step launches what c3 arm P launches: the quantiser,
+# the link, re-seeding and the BEV decoder are plain, as in the JAX package.
+C3_VQ = C3_ARM_P + ["lidar.arch=vq", "lidar.vq_usage_coef=0.25",
+                    "lidar.vq_reseed=0.05"]
+C3_VQ_PRUNE = C3_VQ + ["lidar.vq_prune=true"]
+# The BEV sweeps at one point: a keep point one encoder forward (one
+# scatter) under each of the 4 rules, the drop-damage probes through the
+# plain BEV decoder; an SNR point one forward, uncoded and soft FEC; the
+# entropy sweep one encoder pass (its calibration and payload).
+BEV_SELECTS = ("scatter", "random", "drop_damage", "drop_damage_scatter")
+EXPECTED_C3_VQ_SWEEPS = {"scatter_max": len(BEV_SELECTS) + 2 + 1}
+# c1_vq pruned and under UEP (batch 64): a step's 8 convs; the damage
+# estimate decodes once more (from_code, dec0, dec1, conv_out: 4 convs, its
+# probes' backward through the plain version). A pruned step selects at
+# random (no damage); a UEP step estimates the damage once. A keep point per
+# rule: 8, plus 4 for the damage rules; a UEP sweep point: 8 + 4.
+C1_VQ_PRUNE = C1_VQ + ["camera.vq_prune=true"]
+C1_VQ_UEP = C1_VQ + ["channel.uep_alpha=0.25"]
+DAMAGE_CONVS = 4
+CAM_SELECTS = ("drop_damage", "random", "scatter", "drop_damage_scatter",
+               "damage")
+UEP_MODES = {"alpha 0.25": ["channel.uep_alpha=0.25"],
+             "waterfill": ["channel.uep_mode=waterfill",
+                           "channel.uep_alpha=1"]}
+EXPECTED_C1_VQ_PRUNE_UEP = {"conv_prelu": (
+    8 + (8 + DAMAGE_CONVS) + 8 * len(CAM_SELECTS)
+    + DAMAGE_CONVS * sum("damage" in s for s in CAM_SELECTS)
+    + (8 + DAMAGE_CONVS) * len(UEP_MODES))}
 
 
 def _counters():
@@ -1128,11 +1179,11 @@ def check_scatter_max():
     c3 = _c3_pillar_inputs()
     row = _scatter_case("c4 act", *c4)
     _scatter_case("c4 learn", *first(LEARN_BATCH))
-    _scatter_case("c3", *c3)
+    _scatter_case("c3 and c3_vq", *c3)
     # c5 (c4's LiDAR): the rollout batch and the loss minibatch.
     _scatter_case("c5 act", *first(C5_ACT_BATCHES[0]))
     _scatter_case("c5 loss", *first(C5_LOSS_BATCH))
-    bwd_row = _scatter_bwd_case("c3", *c3)
+    bwd_row = _scatter_bwd_case("c3 and c3_vq", *c3)
     _scatter_bwd_case("c4 learn", *first(LEARN_BATCH))
     _scatter_bwd_case("c5 loss", *first(C5_LOSS_BATCH))
     # The fog + V2X path: the ego's fogged rays and the RSU's 32 a forward
@@ -1951,7 +2002,8 @@ def eval_policy_phase(cfg):
 
 def drive_c3(name, overrides, expected):
     """The c3 late-fusion train step at the preset's full widths through
-    ``train.fusion_jscc``: returns the launches of the timed run, the train
+    ``train.fusion_jscc`` (a digital LiDAR codec's codebook seeded as a
+    fresh run seeds it): returns the launches of the timed run, the train
     steps/s, and the config, state, train step and batch stream it ended
     with."""
     import torch
@@ -1962,8 +2014,12 @@ def drive_c3(name, overrides, expected):
     cfg = get_preset("c3").override_str(overrides)
     if cfg.train.batch_size != C3_BATCH:
         raise RuntimeError(f"c3 batch size {cfg.train.batch_size}")
+    vq = cfg.lidar.arch == "vq"
     t0 = time.perf_counter()
     state = fj.create_train_state(cfg, seed=0, device="cuda")
+    if vq:
+        fj.seed_lidar_codebook(cfg, state.params, "cuda")
+        codebook = state.params.lidar.codebook.detach().clone()
     train_step = fj.make_train_step(cfg)
     batches = fj.make_batches(cfg, "cuda")
     before = _clone_params(state.params)
@@ -2002,6 +2058,8 @@ def drive_c3(name, overrides, expected):
         raise RuntimeError(f"{name}: step {state.step}")
     if _same(state.params, before):
         raise RuntimeError(f"{name}: the parameters did not change")
+    if vq and torch.equal(state.params.lidar.codebook, codebook):
+        raise RuntimeError(f"{name}: the LiDAR codebook did not change")
     if not float(metrics["loss"]) < float(first["loss"]):
         raise RuntimeError(
             f"{name}: loss {float(metrics['loss']):.4f} after "
@@ -2034,9 +2092,11 @@ def compare_c3_routes(cfg, state, batches, expected):
     """One c3 loss and its gradients on a fixed batch and fixed channel
     noise, twice: through the kernels (packed attention in its f32 mode;
     the conv kernel on the CNN camera codec) and through every kernel's
-    plain version."""
+    plain version; with a digital LiDAR codec both on the codes the
+    kernels' route picks (``_vq_routes``)."""
     import torch
 
+    from multimodal_sc_torch.channel.digital import index_bits
     from multimodal_sc_torch.codec import camera_vit, lidar_bev
     from multimodal_sc_torch.kernels import (attention_packed, conv_block,
                                              pillar_scatter)
@@ -2045,8 +2105,11 @@ def compare_c3_routes(cfg, state, batches, expected):
     img, pts, mask, cls = next(batches)
     g = torch.Generator(device="cuda").manual_seed(8)
     model = state.params
+    vq = cfg.lidar.arch == "vq"
+    n_lid = (model.lidar.n_tokens * index_bits(model.lidar.vq_codes) // 2
+             if vq else model.lidar.k)
     noise = tuple(torch.randn(C3_BATCH, n, 2, generator=g, device="cuda")
-                  for n in (model.camera.k, model.lidar.k))
+                  for n in (model.camera.k, n_lid))
     snr = torch.full((C3_BATCH,), cfg.channel.snr_db, device="cuda")
     target = fj.bev_target(cfg, pts, mask, cls)
     params = list(model.parameters())
@@ -2056,7 +2119,7 @@ def compare_c3_routes(cfg, state, batches, expected):
                              channel_noise=noise)
         return loss.detach(), torch.autograd.grad(loss, params)
 
-    _compare_grads("train step", model, *_two_routes(
+    _compare_grads("train step", model, *(_vq_routes if vq else _two_routes)(
         loss_and_grads, expected, "the c3 train step",
         [(camera_vit, "packed_attention",
           attention_packed.packed_attention_reference),
@@ -2664,6 +2727,278 @@ def sweep_c1_vq(cfg, state):
     return launches
 
 
+def c3_checkpoint_round_trip(ckpt_dir, cfg, state, batches):
+    """A c3 train state (c3_vq after its timed steps): saved, restored into
+    a fresh state of another seed, every entry compared bit for bit; then
+    one train step from each on one batch, compared again. cuDNN is held to
+    deterministic algorithms in this phase (the BEV convs' backward)."""
+    import torch
+
+    from multimodal_sc_torch.io.checkpoint import CheckpointManager
+    from multimodal_sc_torch.train import fusion_jscc as fj
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mgr = CheckpointManager(ckpt_dir)
+        mgr.save_config(cfg.to_json())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(ckpt_dir,
+                                            f"ckpt_{state.step}.pt"))
+        restored = mgr.restore_latest(fj.create_train_state(cfg, seed=1,
+                                                            device="cuda"))
+        n, differ, _ = _state_diff(state, restored)
+        if differ:
+            raise RuntimeError(f"c3 checkpoint round trip: {len(differ)} of "
+                               f"{n} entries differ, e.g. {differ[:5]}")
+        print(f"  ckpt_save_s {save_s:.2f} for {size / 2**20:.1f} MiB; {n} "
+              "entries restored bit for bit", flush=True)
+        batch = next(batches)
+        train_step = fj.make_train_step(cfg)
+        state, _ = train_step(state, *batch)
+        restored, _ = train_step(restored, *batch)
+        torch.cuda.synchronize()
+        n, differ, worst = _state_diff(state, restored)
+        if differ:
+            raise RuntimeError(
+                f"one step from the restored c3 state: {len(differ)} of {n} "
+                f"entries differ from the original's (largest float "
+                f"difference {worst:.3e}), e.g. {differ[:5]}")
+        print(f"  one train step from each: all {n} entries bit-equal",
+              flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def time_digital_parts(cfg, state, batches):
+    """Device times of the digital LiDAR link's plain parts at the c3_vq
+    step's shapes (the B x 32 x 32 tokens of the BEV grid), each beside its
+    bound: the nearest-code search (a (65536, 32) x (32, 256) distance
+    matmul, its argmin and the straight-through rows), the link (indices ->
+    QPSK -> AWGN -> decisions), ``code_rows``' backward (the one-hot f64
+    GEMM); the drop-damage probes of one call, and the host's
+    ``decode_vlc_np`` of one entropy-sweep point."""
+    import numpy as np
+    import torch
+
+    from multimodal_sc_torch.channel import entropy_coding
+    from multimodal_sc_torch.channel.digital import qpsk_to_bits
+    from multimodal_sc_torch.codec import semantic_vq
+
+    img, pts, mask, cls = next(batches)
+    lid = state.params.lidar
+    with torch.no_grad():
+        z_e = lid.encode_features(pts, mask)
+        idx = lid.encode_tokens(pts, mask)[0]
+    n, d = z_e.numel() // lid.vq_dim, lid.vq_dim
+    k = lid.vq_codes
+    snr = torch.full((C3_BATCH,), cfg.channel.snr_db, device="cuda")
+    cb = lid.codebook.detach().clone().requires_grad_(True)
+    grad = torch.randn(n, d, device="cuda")
+    flat_idx = idx.reshape(-1).long()
+
+    def code_rows_backward():
+        torch.autograd.grad(semantic_vq.code_rows(cb, flat_idx), cb, grad)
+
+    rows = []
+    with torch.no_grad():
+        rows.append(("nearest-code search", _device_ms(
+            lambda: semantic_vq.vector_quantize(z_e, lid.codebook)),
+            *_bound_ms(2.0 * n * k * d, 4 * (n * d + k * d + n + n * d),
+                       PEAK_F32)))
+        rows.append(("digital link (uncoded, AWGN)", _device_ms(
+            lambda: semantic_vq.transmit_indices(cfg.channel, idx, k, snr)),
+            *_bound_ms(0.0, 8 * idx.numel(), PEAK_F32)))
+    rows.append(("code_rows backward (one-hot f64 GEMM)", _device_ms(
+        code_rows_backward), *_bound_ms(
+            2.0 * n * k * d, 4 * n * d + 8 * n + 4 * k * d, PEAK_F64)))
+    probes = torch.randn((cfg.channel.uep_probes, C3_BATCH,
+                          *cfg.lidar.bev_hw, cfg.lidar.seg_classes),
+                         device="cuda")
+    if hasattr(lid, "mask_embed"):
+        rows.append(("BEV drop-damage probes, one call", _device_ms(
+            lambda: lid.token_drop_damage(idx, probes), iters=5),
+            None, None))
+    for what, ms, bound, by in rows:
+        tail = (f"; bound {bound:.4f} ms ({by})" if bound is not None
+                else "")
+        print(f"  {what}: {ms:.4f} ms{tail}", flush=True)
+    probs = np.bincount(idx.cpu().numpy().ravel(), minlength=k) / idx.numel()
+    codec = entropy_coding.build_huffman(probs, "cuda")
+    bits, total = entropy_coding.encode_vlc(codec, idx)
+    hard = qpsk_to_bits(entropy_coding.vlc_symbols(bits, total))
+    t0 = time.perf_counter()
+    out = entropy_coding.decode_vlc_np(codec, hard, total, idx.shape[1])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(out, idx.cpu().numpy()):
+        raise RuntimeError("decode_vlc_np did not return the sent indices "
+                           "from clean bits")
+    print(f"  decode_vlc_np, one sweep point (B {C3_BATCH}, "
+          f"{float(total.float().mean()):.0f} bits a row): {host_ms:.1f} ms "
+          "of host time, the clean indices back", flush=True)
+
+
+def drive_c3_vq_prune():
+    """c3_vq_prune (``lidar.vq_prune=true``): one train step at the preset
+    (kept fractions ~ U[vq_keep_min, 1), random selection), then one point
+    of the BEV keep sweep under each selection rule (keep 0.5), of the SNR
+    sweep uncoded and under soft Hamming(7,4) (5 dB: the soft link must
+    err less), and of the entropy sweep (25 dB: the Huffman link must
+    return the fixed link's mIoU, with no index error). Returns the
+    launches."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.evaluation import snr_sweep
+    from multimodal_sc_torch.train import fusion_jscc as fj
+
+    cfg = get_preset("c3").override_str(C3_VQ_PRUNE)
+    state = fj.create_train_state(cfg, seed=0, device="cuda")
+    fj.seed_lidar_codebook(cfg, state.params, "cuda")
+    train_step = fj.make_train_step(cfg)
+    batches = fj.make_batches(cfg, "cuda")
+    totals = {k: 0 for k in _counters()}
+    _reset_counts()
+    state, m = train_step(state, *next(batches))
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_C3_P, 1, "c3_vq_prune train step")
+    kf = float(m["lidar_token_keep_frac"])
+    if not all(torch.isfinite(v).all() for v in m.values()) or not (
+            cfg.lidar.vq_keep_min - 1e-3 <= kf <= 1.0):
+        raise RuntimeError(f"c3_vq_prune: metrics {m}")
+    print("  train step: " + ", ".join(f"{k}={float(v):.4f}"
+                                       for k, v in m.items()), flush=True)
+    for k, v in launches.items():
+        totals[k] += v
+    img, pts, mask, cls = next(batches)
+    target = fj.bev_target(cfg, pts, mask, cls)
+    lid = state.params.lidar
+    seed = cfg.train.seed
+    _reset_counts()
+    t0 = time.perf_counter()
+    keep = snr_sweep.sweep_lidar_vq_keep(cfg, lid, pts, mask, target,
+                                         seed + 0x6EEB, keeps=(0.5,),
+                                         selects=BEV_SELECTS,
+                                         batches_per_point=1)
+    rows = {}
+    for fec in ("none", "hamming74_soft"):
+        rows[fec] = snr_sweep.sweep_lidar_vq(
+            cfg.override_str([f"channel.fec={fec}"]), lid, pts, mask, target,
+            seed + 0x11DA, snrs_db=(5.0,), kinds=("awgn",),
+            batches_per_point=1)["awgn"][0]
+    ent = snr_sweep.sweep_lidar_vq_entropy(
+        cfg, lid, pts, mask, target, seed + 0xE27, snrs_db=(25.0,),
+        kinds=("awgn",), batches_per_point=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_C3_VQ_SWEEPS, 1, "c3_vq_prune sweeps")
+    for k, v in launches.items():
+        totals[k] += v
+    for sel, curve in keep.items():
+        if curve[0]["keep_frac_actual"] != 0.5 or not math.isfinite(
+                curve[0]["miou"]):
+            raise RuntimeError(f"keep sweep ({sel}): {curve}")
+        print(f"  keep 0.5, {sel}: mIoU {curve[0]['miou']:.4f}", flush=True)
+    if not rows["hamming74_soft"]["index_err"] < rows["none"]["index_err"]:
+        raise RuntimeError(f"soft FEC erred no less than uncoded: {rows}")
+    e = ent["awgn"][0]
+    if e["index_err_vlc"] != 0.0 or e["miou_vlc"] != e["miou_full"]:
+        raise RuntimeError(f"entropy sweep at 25 dB: {e}")
+    print(f"  5 dB AWGN: uncoded mIoU {rows['none']['miou']:.4f} (index "
+          f"errors {rows['none']['index_err']:.4f}), soft Hamming "
+          f"{rows['hamming74_soft']['miou']:.4f} "
+          f"({rows['hamming74_soft']['index_err']:.4f})", flush=True)
+    print(f"  entropy at 25 dB: calibration {ent['calibration']}; " + ", ".join(
+        f"{k} {v:.4f}" for k, v in e.items() if k != "snr_db"), flush=True)
+    print(f"  sweep points in {wall:.2f} s; launches {launches}", flush=True)
+    time_digital_parts(cfg, state, batches)
+    return totals
+
+
+def drive_c1_vq_prune_uep(profile=False):
+    """c1_vq_prune and c1_vq under UEP at the preset (batch 64): one train
+    step each (the pruned one on kept fractions ~ U[vq_keep_min, 1) of
+    random tokens, the UEP one with the damage probes in its forward), then
+    one point of the camera keep sweep per selection rule (keep 0.25) and
+    one UEP sweep point at 0 dB AWGN under alpha 0.25 and water-filling.
+    With ``profile``, the busy share of whole c1_vq_prune steps after.
+    Returns the launches."""
+    import torch
+
+    from multimodal_sc_torch.codec.semantic_vq import init_codebook_from_batch
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.evaluation import snr_sweep
+    from multimodal_sc_torch.train import jscc
+
+    states, metrics, steps = {}, {}, {}
+    for name, over in (("prune", C1_VQ_PRUNE), ("uep", C1_VQ_UEP)):
+        cfg = get_preset("c1").override_str(over)
+        tr = cfg.train
+        states[name] = jscc.create_train_state(cfg, seed=0, device="cuda")
+        init_codebook_from_batch(states[name].params, next(ImageDataset(
+            tr.dataset, tr.batch_size, seed=tr.seed + 777, device="cuda")),
+            torch.Generator(device="cuda").manual_seed(0xCB))
+        steps[name] = (cfg, jscc.make_train_step(cfg), ImageDataset(
+            tr.dataset, tr.batch_size, seed=tr.seed, device="cuda"))
+    _reset_counts()
+    for name, (cfg, train_step, data) in steps.items():
+        states[name], metrics[name] = train_step(states[name], next(data))
+        print(f"  {name} train step: " + ", ".join(
+            f"{k}={float(v):.4f}" for k, v in metrics[name].items()),
+            flush=True)
+    if not all(torch.isfinite(v).all() for m in metrics.values()
+               for v in m.values()) or "token_keep_frac" not in metrics[
+                   "prune"]:
+        raise RuntimeError(f"c1_vq prune / UEP steps: {metrics}")
+    images = next(ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed + 999,
+                               device="cuda"))
+    t0 = time.perf_counter()
+    keep = snr_sweep.sweep_camera_vq_keep(
+        get_preset("c1").override_str(C1_VQ_PRUNE), states["prune"].params,
+        images, tr.seed, keeps=(0.25,), selects=CAM_SELECTS,
+        batches_per_point=1)
+    uep = {}
+    for mode, over in UEP_MODES.items():
+        uep[mode] = snr_sweep.sweep_camera_vq(
+            get_preset("c1").override_str(C1_VQ + over),
+            states["uep"].params, images, tr.seed, snrs_db=(0.0,),
+            kinds=("awgn",), batches_per_point=1)["awgn"][0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_C1_VQ_PRUNE_UEP, 1,
+                  "c1_vq prune and UEP phase")
+    for row in [c[0] for c in keep.values()] + list(uep.values()):
+        if not all(math.isfinite(v) for v in row.values()):
+            raise RuntimeError(f"c1_vq prune / UEP sweeps: {keep} {uep}")
+    for sel, curve in keep.items():
+        print(f"  keep 0.25, {sel}: PSNR {curve[0]['psnr']:.3f} dB",
+              flush=True)
+    for mode, row in uep.items():
+        print(f"  UEP {mode} at 0 dB AWGN: PSNR {row['psnr']:.3f} dB, index "
+              f"errors {row['index_err']:.4f}", flush=True)
+    print(f"  sweep points in {wall:.2f} s; launches {launches}", flush=True)
+    model = states["prune"].params
+    with torch.no_grad():
+        idx = model.encode_tokens(images)[0]
+    probes = torch.randn((2, *images.shape), device="cuda")
+    for method in ("token_damage", "token_drop_damage"):
+        ms = _device_ms(lambda: getattr(model, method)(idx, probes), iters=5)
+        print(f"  camera {method} probes (2 VJPs, B {C1_BATCH}), one call: "
+              f"{ms:.4f} ms", flush=True)
+    if profile:
+        print("profile (c1_vq_prune train):", flush=True)
+        cfg, train_step, data = steps["prune"]
+        profile_c1(cfg, states["prune"], train_step, data)
+    return launches
+
+
 def drive_c2():
     """The c2 train step at the preset's full widths (batch 64, 32x32, a
     per-example SNR, the seg head) through ``train.jscc``: returns the
@@ -2905,7 +3240,6 @@ def profile_c3(cfg, state, train_step, batches):
     }
     with torch.no_grad():
         z_cam = model.camera.encode(img, snr)
-        z_lid = model.lidar.encode((pts, mask))
         parts.update({
             "make batch": _ms(lambda: next(batches)),
             "bev_target": _ms(lambda: fj.bev_target(cfg, pts, mask, cls)),
@@ -2914,10 +3248,25 @@ def profile_c3(cfg, state, train_step, batches):
                                                                       snr)),
             "camera decode (no grad)": _ms(lambda: model.camera.decode(z_cam,
                                                                       snr)),
-            "lidar encode (no grad)": _ms(lambda: model.lidar.encode((pts,
-                                                                     mask))),
-            "lidar decode (no grad)": _ms(lambda: model.lidar.decode(z_lid)),
         })
+        lid = model.lidar
+        if cfg.lidar.arch == "vq":
+            z_q = lid.encode_tokens(pts, mask)[2]
+            parts.update({
+                "lidar encode_features (no grad)": _ms(
+                    lambda: lid.encode_features(pts, mask)),
+                "lidar forward, link inside (no grad)": _ms(
+                    lambda: lid(pts, mask, snr, g)),
+                "lidar codes_to_logits (no grad)": _ms(
+                    lambda: lid.codes_to_logits(z_q)),
+            })
+        else:
+            z_lid = lid.encode((pts, mask))
+            parts.update({
+                "lidar encode (no grad)": _ms(lambda: lid.encode((pts,
+                                                                  mask))),
+                "lidar decode (no grad)": _ms(lambda: lid.decode(z_lid)),
+            })
     parts["forward_with_grad"] = _ms(loss)
     parts["loss_and_backward"] = _ms(
         lambda: torch.autograd.grad(loss(), params))
@@ -3171,6 +3520,26 @@ def main() -> int:
             profile_c3(cfg, state, train_step, batches)
         del state, train_step, batches
         torch.cuda.empty_cache()
+    name = "c3_vq: digital LiDAR codec, ViT on packed_attention"
+    print(f"main path (c3 late-fusion train, {name}):", flush=True)
+    launches, c3_rates[name], cfg, state, train_step, batches = drive_c3(
+        name, C3_VQ, EXPECTED_C3_P)
+    for k, v in launches.items():
+        totals[k] += v
+    compare_c3_routes(cfg, state, batches, EXPECTED_C3_P)
+    if args.profile:
+        print(f"profile (c3 late-fusion train, {name}):", flush=True)
+        profile_c3(cfg, state, train_step, batches)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        print("checkpoint round trip (c3_vq):", flush=True)
+        c3_checkpoint_round_trip(ckpt_dir, cfg, state, batches)
+    del state, train_step, batches
+    torch.cuda.empty_cache()
+    print("main path (c3_vq_prune: a train step, the BEV keep, SNR and "
+          "entropy sweeps):", flush=True)
+    for k, v in drive_c3_vq_prune().items():
+        totals[k] += v
+    torch.cuda.empty_cache()
     print("main path (c5 PPO update):", flush=True)
     launches, c5_rate, cfg, state, train_step = drive_c5()
     for k, v in launches.items():
@@ -3204,6 +3573,11 @@ def main() -> int:
     for k, v in sweep_c1_vq(cfg, state).items():
         totals[k] += v
     del state, train_step, data
+    torch.cuda.empty_cache()
+    print("main path (c1_vq_prune and UEP: a train step each, the keep and "
+          "UEP sweeps):", flush=True)
+    for k, v in drive_c1_vq_prune_uep(args.profile).items():
+        totals[k] += v
     torch.cuda.empty_cache()
     print("main path (c2 SNR-sweep JSCC train):", flush=True)
     launches, c2_rate, cfg, state, train_step, data = drive_c2()

@@ -21,10 +21,14 @@ The trees carried so far: the c4 ``QNetwork``, the c5 ``ActorCritic``, the
 c3 ``LateFusionJSCC`` (``camera.encoder.*``, ``camera.decoder.*``,
 ``lidar.*``), the c1 ``CameraJSCC`` (``encoder.*``, ``decoder.*``) and the
 c1_vq ``VQCameraJSCC`` (``codebook``, ``enc*``, ``to_code``,
-``from_code``, ``dec*``, ``deconv*`` / ``deprelu*``, ``conv_out``), the
-digital camera trunk's ``cam_vq`` and ``cam_tok`` among the ``QNetwork``'s,
-each with its Adam moments. A VQ ``codebook`` is a bare parameter, copied
-unchanged; ``to_code`` is a 1x1 ``Conv``.
+``from_code``, ``dec*``, ``deconv*`` / ``deprelu*``, ``conv_out``, and
+``mask_embed`` when pruned), the digital camera trunk's ``cam_vq`` and
+``cam_tok`` among the ``QNetwork``'s, and the c3_vq ``LidarBEVVQCodec``
+under ``lidar.*`` (``pfn``, ``backbone``, ``to_code``, ``codebook``,
+``from_code``, ``mask_embed`` when pruned, ``dec_backbone``,
+``occ_head``), each with its Adam moments. A VQ ``codebook`` and a
+``mask_embed`` are bare parameters, copied unchanged; ``to_code`` is a 1x1
+``Conv``, the BEV codec's ``from_code`` a ``Dense``.
 """
 
 from __future__ import annotations

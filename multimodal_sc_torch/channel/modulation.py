@@ -4,8 +4,8 @@ Counterpart of ``multimodal_sc_tpu/channel/modulation.py``. Each I/Q
 component is quantized to sqrt(M) uniform levels with unit average symbol
 power, trained with a straight-through estimator (the hard constellation
 point forward, an identity gradient backward). The digital index link, its
-FEC and HARQ are ``channel/digital.py``, ``fec.py`` and ``harq.py``; entropy
-coding is ROADMAP item 14b.
+FEC and HARQ are ``channel/digital.py``, ``fec.py`` and ``harq.py``; its
+entropy coding is ``entropy_coding.py``.
 """
 
 from __future__ import annotations

@@ -7,19 +7,25 @@ scatter-max -> convs), the ground-truth BEV targets, and ``LidarBEVCodec``
 every point gets a cell, masked or out-of-range points the trash cell
 ``H*W``. The scatter is ``kernels/pillar_scatter.py`` (the CUDA kernel on
 the card); the 3x3 SAME convs are plain ``F.conv2d``, as they are plain XLA
-convs in the JAX package. The digital codec (``LidarBEVVQCodec``) is not
-ported and raises (ROADMAP item 14b).
+convs in the JAX package. ``LidarBEVVQCodec`` is the digital codec
+(``lidar.arch="vq"``): BEV features -> codebook indices -> the QPSK link of
+``codec/semantic_vq.py`` -> semantic BEV logits, with that module's
+quantiser, re-seeding stats, token pruning and selection rules.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.channel.digital import index_bits
+from multimodal_sc_torch.codec import semantic_vq
 from multimodal_sc_torch.kernels.pillar_scatter import scatter_max
+from multimodal_sc_torch.nn_init import variance_scaling_uniform_
 
 _LN_EPS = 1e-6      # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -196,9 +202,174 @@ class LidarBEVCodec(nn.Module):
 
 
 class LidarBEVVQCodec(nn.Module):
-    """The digital LiDAR codec (``lidar.arch="vq"``): not ported."""
+    """Digital LiDAR semantic codec (``lidar.arch="vq"``): BEV features ->
+    codebook indices -> QPSK digital link -> semantic BEV logits.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the digital LiDAR codec (lidar.arch='vq') is not ported yet "
-            "(ROADMAP item 14b)")
+    The camera VQ recipe on the BEV grid: the straight-through quantiser
+    with codebook and commitment losses (``semantic_vq.vector_quantize``,
+    its codebook rows through ``code_rows``), noise-aware decoding (the
+    decoder sees the received codes, the gradient the clean path), the
+    shared ``transmit_indices`` link (Hamming(7,4) hard or soft under
+    ``channel_cfg.fec``), the dead-code re-seeding stats under
+    ``vq_reseed``, and token pruning under ``vq_prune`` (a learned
+    ``mask_embed`` for untransmitted tokens, drawn from normal(0.02)).
+    Parameters: ``pfn``, ``backbone``, ``to_code`` (1x1), ``codebook``,
+    ``from_code``, ``mask_embed``, ``dec_backbone``, ``occ_head``; a fresh
+    layer is redrawn as flax's by its owner (``LateFusionJSCC``).
+    ``channel_cfg``: the ``ChannelConfig`` of the link inside the
+    forward."""
+
+    def __init__(self, pillar_dim: int = 64,
+                 bev_hw: Tuple[int, int] = (16, 16), vq_codes: int = 256,
+                 vq_dim: int = 32, vq_beta: float = 0.25,
+                 vq_usage_coef: float = 0.0, vq_usage_temp: float = 0.5,
+                 vq_reseed: float = 0.0, vq_prune: bool = False,
+                 seg_classes: int = 1,
+                 x_range: Tuple[float, float] = (0.0, 48.0),
+                 y_range: Tuple[float, float] = (-12.0, 12.0),
+                 channel_cfg=None, point_features: int = 4):
+        super().__init__()
+        n_bits = index_bits(vq_codes)                 # a power of 4
+        if channel_cfg is not None and channel_cfg.fec != "none":
+            total = bev_hw[0] * bev_hw[1] * n_bits
+            if total % 8 != 0:
+                raise ValueError(
+                    "channel.fec needs n_tokens * bits_per_index divisible "
+                    f"by 8, got {total}")
+        self.pillar_dim, self.bev_hw = pillar_dim, tuple(bev_hw)
+        self.vq_codes, self.vq_dim, self.vq_beta = vq_codes, vq_dim, vq_beta
+        self.vq_usage_coef, self.vq_usage_temp = vq_usage_coef, vq_usage_temp
+        self.vq_reseed, self.vq_prune = vq_reseed, vq_prune
+        self.seg_classes, self.channel_cfg = seg_classes, channel_cfg
+        feats = (pillar_dim, pillar_dim)
+        self.pfn = PillarFeatureNet(point_features, pillar_dim, bev_hw,
+                                    x_range, y_range)
+        self.backbone = BEVBackbone(pillar_dim, feats)
+        self.to_code = nn.Conv2d(pillar_dim, vq_dim, 1)
+        self.codebook = nn.Parameter(
+            variance_scaling_uniform_(torch.empty(vq_codes, vq_dim)))
+        self.from_code = nn.Linear(vq_dim, pillar_dim)
+        if vq_prune:
+            self.mask_embed = nn.Parameter(
+                torch.empty(vq_dim).normal_(0.0, 0.02))
+        self.dec_backbone = BEVBackbone(pillar_dim, feats)
+        self.occ_head = nn.Linear(pillar_dim, max(seg_classes, 1))
+
+    @property
+    def n_tokens(self) -> int:
+        return self.bev_hw[0] * self.bev_hw[1]
+
+    def encode_features(self, points: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+        """Point cloud -> pre-quantisation code features (B, H, W, D), what
+        ``seed_codebook`` samples."""
+        x = self.backbone(self.pfn(points, mask))
+        return F.linear(x, self.to_code.weight[:, :, 0, 0], self.to_code.bias)
+
+    def _quantize(self, points, mask):
+        out = semantic_vq.vector_quantize(
+            self.encode_features(points, mask), self.codebook, self.vq_beta,
+            self.vq_usage_coef, self.vq_usage_temp,
+            with_stats=self.vq_reseed > 0)
+        z_ste, idx, vq_loss = out[:3]
+        b = idx.shape[0]
+        return (idx.reshape(b, -1), vq_loss, z_ste.reshape(b, -1, self.vq_dim),
+                out[3] if len(out) > 3 else None)
+
+    def encode_tokens(self, points: torch.Tensor, mask: torch.Tensor):
+        """-> ``(indices (B, N) int32, vq_loss, z_ste (B, N, D))``."""
+        return self._quantize(points, mask)[:3]
+
+    def codes_to_logits(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, N, D) code vectors -> BEV logits (B, H, W, C)."""
+        h, w = self.bev_hw
+        x = z.reshape(z.shape[0], h, w, self.vq_dim).float()
+        return self.occ_head(self.dec_backbone(self.from_code(x)))
+
+    def decode_tokens(self, idx: torch.Tensor) -> torch.Tensor:
+        """(B, N) received indices -> logits (the receiver alone)."""
+        return self.codes_to_logits(self.codebook[idx.long()])
+
+    def token_drop_damage(self, idx_tx: torch.Tensor,
+                          probes: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          ch=None) -> torch.Tensor:
+        """(B, N) expected squared BEV-logit damage of not sending a token:
+        ``semantic_vq.drop_damage`` through the BEV decoder, with
+        ``ch.uep_probes`` probes of shape (B, H, W, C) (2 without a channel
+        config), given or drawn from ``generator``. Needs ``vq_prune``."""
+        ch = self.channel_cfg if ch is None else ch
+        if probes is None:
+            h, w = self.bev_hw
+            probes = torch.randn(
+                (ch.uep_probes if ch is not None else 2, idx_tx.shape[0], h,
+                 w, max(self.seg_classes, 1)), generator=generator,
+                device=self.codebook.device)
+        return semantic_vq.drop_damage(self.codes_to_logits, self.codebook,
+                                       self.mask_embed, idx_tx, probes)
+
+    def forward(self, points: torch.Tensor, mask: torch.Tensor, snr_db,
+                generator: Optional[torch.Generator] = None, noise=None,
+                ch=None, keep: Optional[torch.Tensor] = None,
+                select: Optional[str] = None,
+                select_draws: Optional[torch.Tensor] = None,
+                side_generator: Optional[torch.Generator] = None):
+        """``(logits, aux)`` through the whole digital link at ``snr_db``
+        over ``ch`` (by default ``channel_cfg``). aux: ``vq_loss``,
+        ``index_error_rate`` (sent tokens only), ``code_perplexity``, with
+        ``vq_reseed > 0`` ``vq_counts`` and ``vq_candidates``, under
+        pruning ``token_keep_frac``.
+
+        ``keep``: (B,) kept-token fractions (``vq_prune`` models; ``None``
+        falls back to ``ch.token_keep`` when below 1), ranked by ``select``
+        (default ``ch.token_select``): ``scatter``, ``random``,
+        ``drop_damage`` or ``drop_damage_scatter``. Draws (else from
+        ``generator``, in this order): ``select_draws`` (the ``random``
+        scores or the damage probes; from ``side_generator`` when given),
+        ``noise`` (the channel's)."""
+        ch = self.channel_cfg if ch is None else ch
+        idx_tx, vq_loss, z_ste, stats = self._quantize(points, mask)
+        b = idx_tx.shape[0]
+        if keep is None and self.vq_prune and ch is not None \
+                and ch.token_keep < 1.0:
+            keep = torch.full((b,), ch.token_keep, dtype=torch.float32,
+                              device=idx_tx.device)
+        if keep is not None and not self.vq_prune:
+            raise ValueError("keep requires lidar.vq_prune=true")
+        kept = None
+        if keep is not None:
+            side = generator if side_generator is None else side_generator
+            if select is None:
+                select = ch.token_select if ch is not None else "scatter"
+            if select not in ("drop_damage", "scatter", "drop_damage_scatter",
+                              "random"):
+                raise ValueError(f"unsupported BEV token_select {select!r}")
+            kept = semantic_vq.kept_tokens(
+                select, idx_tx, keep, self.bev_hw,
+                {"drop_damage": functools.partial(
+                    self.token_drop_damage, generator=side, ch=ch)},
+                select_draws, side)
+        idx_rx = semantic_vq.transmit_indices(
+            ch, idx_tx, self.vq_codes, snr_db, generator,
+            token_weights=None if kept is None else kept.to(torch.float32),
+            noise=noise)
+        err = (idx_rx != idx_tx).float()
+        z_rx = z_ste + (self.codebook[idx_rx.long()] - z_ste).detach()
+        if kept is not None:
+            z_rx = torch.where(kept[..., None], z_rx,
+                               self.mask_embed.expand_as(z_rx))
+            kf = kept.to(torch.float32)
+            idx_err = (err * kf).sum() / kf.sum().clamp(min=1.0)
+        else:
+            idx_err = err.mean()
+        logits = self.codes_to_logits(z_rx)
+        p = torch.bincount(idx_tx.reshape(-1).long(),
+                           minlength=self.vq_codes).float() / idx_tx.numel()
+        aux = {"vq_loss": vq_loss, "index_error_rate": idx_err,
+               "code_perplexity": torch.exp(-(p * torch.log(p + 1e-10)).sum())}
+        if kept is not None:
+            aux["token_keep_frac"] = kept.to(torch.float32).mean()
+        if stats is not None:
+            aux["vq_counts"] = stats["counts"]
+            aux["vq_candidates"] = stats["candidates"]
+        return logits, aux

@@ -21,17 +21,35 @@ precision (no TF32), so acting and learning pick the same codes.
 order among tied errors is unspecified, so the re-seeding candidates match
 JAX's only where the errors have no ties.
 
-Random draws (the channel, code seeding, the re-seeding coin) come from an
-explicit ``torch.Generator`` or are handed in, so the tests can feed JAX's
-channel noise. Not ported, raising with ROADMAP item 14b: unequal power
-allocation (``channel.uep_alpha > 0``) and token pruning
-(``camera.vq_prune``).
+Semantic token pruning (``camera.vq_prune``): the model trains on random
+kept subsets and deploys at any kept fraction; dropped tokens send zero
+symbols and the receiver decodes the learned ``mask_embed`` in their place.
+The kept set is each row's top ``ceil(keep * N)`` tokens by one of five
+selection rules (:func:`kept_tokens`): ``random``, ``scatter`` (the
+farthest-point order of the token grid), ``damage`` (the single-bit-error
+damage), ``drop_damage`` (the damage of decoding the mask embedding) and
+``drop_damage_scatter`` (the two ranks summed). Semantic unequal power
+allocation (``channel.uep_alpha > 0``): per-token QPSK amplitudes at exactly
+unit mean power, power proportional to damage^alpha or SNR-aware
+water-filling (``channel.uep_mode``). The damage estimates are VJP probes of
+the decoder: one ``torch.autograd.grad`` of ``<decode(z), v_p>`` with
+respect to the code vectors alone for each of ``channel.uep_probes`` probes
+(no parameter gradient, the result detached), not a vmap: the conv
+kernel's autograd function defines no vmap rule. Ranks use stable sorts, as
+JAX's ``argsort`` is stable; the farthest-point order is computed once per
+grid shape.
+
+Random draws (the channel, code seeding, the re-seeding coin, the random
+selection scores, the damage probes) come from an explicit
+``torch.Generator`` or are handed in, so the tests can feed JAX's draws.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -53,6 +71,136 @@ from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.kernels.conv_block import FusedConvPReLU
 from multimodal_sc_torch.nn_init import (init_like_flax_,
                                          variance_scaling_uniform_)
+
+
+@functools.lru_cache(maxsize=None)
+def farthest_point_order(h: int, w: int) -> np.ndarray:
+    """Greedy farthest-point ordering of an (h, w) grid: the (h*w,) rank of
+    each position, every prefix of the order maximally spread. The
+    ``scatter`` selection score; computed once per grid shape (a 1,024-step
+    loop at 32x32) and returned read-only."""
+    pts = np.stack(np.meshgrid(np.arange(h), np.arange(w),
+                               indexing="ij"), -1).reshape(-1, 2).astype(
+        np.float64)
+    n = h * w
+    order = np.empty(n, np.int64)
+    # Start at the centre-most point.
+    center = np.array([(h - 1) / 2.0, (w - 1) / 2.0])
+    order[0] = int(np.argmin(np.sum((pts - center) ** 2, axis=1)))
+    mind = np.sum((pts - pts[order[0]]) ** 2, axis=1)
+    for i in range(1, n):
+        mind[order[:i]] = -1.0
+        order[i] = int(np.argmax(mind))
+        mind = np.minimum(mind, np.sum((pts - pts[order[i]]) ** 2, axis=1))
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    rank.flags.writeable = False
+    return rank
+
+
+@functools.lru_cache(maxsize=None)
+def _farthest_point_rank_on(h: int, w: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(np.array(farthest_point_order(h, w)),
+                           device=device)
+
+
+def topk_mask(scores: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(B, N) scores, (B,) counts -> (B, N) bool keeping each row's top-m
+    scores, ties going to the earlier position (two stable argsorts, as
+    JAX's stable ``argsort`` ranks them)."""
+    order = torch.argsort(-scores, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    return rank < m[:, None]
+
+
+def probe_grads(decode: Callable, z_clean: torch.Tensor,
+                probes: torch.Tensor) -> torch.Tensor:
+    """(P, B, N, D): for each probe v_p (P, *decode's output shape) the
+    vector-Jacobian product v_p^T d decode / dz at ``z_clean`` (B, N, D),
+    one backward a probe with respect to z alone, detached."""
+    with torch.enable_grad():
+        z = z_clean.detach().requires_grad_(True)
+        out = decode(z)
+        grads = [torch.autograd.grad((out * v).sum(), z,
+                                     retain_graph=i + 1 < probes.shape[0])[0]
+                 for i, v in enumerate(probes)]
+    return torch.stack(grads).detach()
+
+
+def drop_damage(decode: Callable, codebook: torch.Tensor,
+                mask_embed: torch.Tensor, idx_tx: torch.Tensor,
+                probes: torch.Tensor) -> torch.Tensor:
+    """(B, N) expected squared output damage when a token is not sent and
+    the receiver decodes the mask embedding: D_t = ||J_t (mask_embed -
+    e_{idx_t})||^2, estimated with the VJP probes (unbiased: E[(v^T J
+    delta)^2] = ||J delta||^2 for v ~ N(0, I))."""
+    z_clean = codebook.detach()[idx_tx.long()]                 # (B, N, D)
+    g = probe_grads(decode, z_clean, probes)                   # (P, B, N, D)
+    delta = mask_embed.detach()[None, None, :] - z_clean
+    dot = torch.einsum("pbnd,bnd->pbn", g, delta)
+    return (dot * dot).mean(0)
+
+
+def waterfill_power(damage: torch.Tensor, snr_db) -> torch.Tensor:
+    """SNR-aware Chernoff water-filling: minimise sum_t D_t exp(-s w_t^2 /
+    2) subject to sum_t w_t^2 = N at linear SNR s. The KKT point is w_t^2 =
+    max(0, (2/s) ln(s D_t / (2 lambda))), lambda found by 50 bisection
+    steps a row; the budget is then met exactly (uniform where every w_t is
+    0). Returns the per-token POWER (B, N), mean 1."""
+    n = damage.shape[1]
+    s = torch.as_tensor(snr_db, dtype=torch.float32, device=damage.device)
+    s = s.reshape(-1, 1) if s.dim() == 1 else s.reshape(1, 1)
+    s = torch.pow(10.0, s / 10.0)
+    a = torch.log(s * damage / 2.0 + 1e-30)                    # (B, N)
+    hi = a.max(dim=1, keepdim=True).values                     # total(hi) = 0
+    lo = hi - s * (n / 2.0)                                    # total(lo) >= N
+    for _ in range(50):
+        mid = 0.5 * (lo + hi)
+        total = ((2.0 / s) * (a - mid)).clamp(min=0.0).sum(1, keepdim=True)
+        big = total > n
+        lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
+    w2 = ((2.0 / s) * (a - 0.5 * (lo + hi))).clamp(min=0.0)
+    tot = w2.sum(1, keepdim=True)
+    return torch.where(tot > 1e-8, w2 * (n / tot.clamp(min=1e-8)),
+                       torch.ones_like(w2))
+
+
+# The pairwise error exponent's distance under each FEC, by which water-
+# filling scales the SNR: soft Hamming(7,4) d_min 3, hard decoding ~2.
+UEP_DMIN = {"none": 1.0, "hamming74": 2.0, "hamming74_soft": 3.0}
+SELECTS = ("drop_damage", "damage", "scatter", "drop_damage_scatter",
+           "random")
+
+
+def kept_tokens(select: str, idx_tx: torch.Tensor, keep: torch.Tensor,
+                grid_hw: Tuple[int, int], damage: dict,
+                draws: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(B, N) bool: each row's top ``ceil(keep * N)`` tokens (the count in
+    f32, as the JAX package takes it) by the ``select`` rule's score.
+    ``damage`` maps ``"damage"`` / ``"drop_damage"`` to a function of
+    ``(idx_tx, probes)``; ``draws``: the rule's draws (the uniform scores
+    of ``random``, the probes of a damage rule), else drawn from
+    ``generator`` (the probes inside the damage function)."""
+    m = torch.ceil(keep.to(torch.float32) * idx_tx.shape[1]).to(torch.int32)
+    dev = idx_tx.device
+    if select in ("scatter", "drop_damage_scatter"):
+        sc_rank = _farthest_point_rank_on(*grid_hw, str(dev)).expand(
+            idx_tx.shape)
+    if select == "scatter":
+        scores = -sc_rank.to(torch.float32)
+    elif select == "random":
+        scores = draws if draws is not None else torch.rand(
+            idx_tx.shape, generator=generator, device=dev)
+    elif select == "drop_damage_scatter":
+        dmg = damage["drop_damage"](idx_tx, draws)
+        dmg_rank = torch.argsort(torch.argsort(-dmg, dim=1, stable=True),
+                                 dim=1, stable=True)
+        scores = -(dmg_rank + sc_rank).to(torch.float32)
+    else:
+        scores = damage[select](idx_tx, draws)
+    return topk_mask(scores, m)
+
 
 USAGE_SAMPLE_WEIGHT = 0.0
 
@@ -291,8 +439,9 @@ class VQTokensCamera(nn.Module):
 
 
 def check_digital_camera(cfg: ExperimentConfig) -> None:
-    """What a VQ camera link refuses: FEC over a payload that is no whole
-    number of bytes (as the JAX package), and what is not ported yet."""
+    """What a VQ camera link refuses, as the JAX package: FEC over a payload
+    that is no whole number of bytes, and unequal power allocation together
+    with token pruning."""
     cam, ch = cfg.camera, cfg.channel
     n_bits = index_bits(cam.vq_codes)
     n_tok = (cam.image_hw[0] // 4) * (cam.image_hw[1] // 4)
@@ -300,25 +449,22 @@ def check_digital_camera(cfg: ExperimentConfig) -> None:
         raise ValueError(
             "channel.fec needs n_tokens * bits_per_index divisible by 8, "
             f"got {n_tok} * {n_bits}")
-    if ch.uep_alpha > 0:
-        raise NotImplementedError(
-            "channel.uep_alpha (semantic unequal power allocation) is not "
-            "ported yet (ROADMAP item 14b)")
-    if cam.vq_prune:
-        raise NotImplementedError(
-            "camera.vq_prune (semantic token pruning) is not ported yet "
-            "(ROADMAP item 14b)")
+    if cam.vq_prune and ch.uep_alpha > 0:
+        raise ValueError(
+            "channel.uep_alpha with camera.vq_prune is not supported yet "
+            "(power renormalization over the kept set is unimplemented)")
 
 
 class VQCameraJSCC(VQEncoderTokens):
     """Camera -> semantic tokens -> QPSK digital channel -> reconstruction.
 
     ``cfg.camera``: ``features``, ``vq_codes`` (a power of 4), ``vq_dim``,
-    ``vq_beta`` and the usage and re-seeding knobs. The decoder: ``from_code``
-    and ``dec0``, ``dec1`` (5x5 conv + PReLU), ``deconv2``/``deprelu2`` and
-    ``deconv3``/``deprelu3`` (stride-2 transposed convs + PReLU), and
-    ``conv_out`` (5x5, no PReLU), then a sigmoid. Fresh weights are drawn
-    as flax's."""
+    ``vq_beta``, the usage and re-seeding knobs and ``vq_prune`` (which adds
+    ``mask_embed``, drawn from normal(0.02) as flax's). The decoder:
+    ``from_code`` and ``dec0``, ``dec1`` (5x5 conv + PReLU),
+    ``deconv2``/``deprelu2`` and ``deconv3``/``deprelu3`` (stride-2
+    transposed convs + PReLU), and ``conv_out`` (5x5, no PReLU), then a
+    sigmoid. Fresh weights are drawn as flax's."""
 
     def __init__(self, cfg: ExperimentConfig):
         cam = cfg.camera
@@ -327,6 +473,11 @@ class VQCameraJSCC(VQEncoderTokens):
                          cam.vq_usage_coef, cam.vq_usage_temp, cam.vq_reseed)
         self.cfg = cfg
         self.image_hw = tuple(cam.image_hw)
+        self.vq_prune = cam.vq_prune
+        if cam.vq_prune:
+            # The receiver's stand-in for untransmitted tokens.
+            self.mask_embed = nn.Parameter(
+                torch.empty(cam.vq_dim).normal_(0.0, 0.02))
         feats = tuple(cam.features)
         self.from_code = FusedConvPReLU(cam.vq_dim, feats[-1], 5)
         self.dec_strides = (1, 1, 2, 2)
@@ -371,31 +522,155 @@ class VQCameraJSCC(VQEncoderTokens):
         """(B, N) received indices -> image."""
         return self.codes_to_image(self.codebook[idx.long()])
 
+    # --- semantic importance: unequal power allocation and pruning ---
+
+    def _probes(self, probes, batch: int, generator, ch) -> torch.Tensor:
+        """The damage estimators' probes v ~ N(0, I), (P, B, H, W, 3), as
+        given or drawn from ``generator``."""
+        if probes is not None:
+            return probes
+        h, w = self.image_hw
+        return torch.randn((ch.uep_probes, batch, h, w, 3),
+                           generator=generator,
+                           device=self.codebook.device)
+
+    def token_damage(self, idx_tx: torch.Tensor,
+                     probes: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     ch=None) -> torch.Tensor:
+        """(B, N) expected squared reconstruction damage of a single-bit
+        index error: D_t = (1/n_bits) sum_b ||J_t (e_{idx_t xor 2^b} -
+        e_{idx_t})||^2 with J_t = d recon / d z_t at the clean codes,
+        estimated with ``ch.uep_probes`` VJP probes (``probes``, else drawn
+        from ``generator``)."""
+        ch = self.cfg.channel if ch is None else ch
+        idx = idx_tx.long()
+        cb = self.codebook.detach()
+        z_clean = cb[idx]                                      # (B, N, D)
+        g = probe_grads(self.codes_to_image, z_clean,
+                        self._probes(probes, idx.shape[0], generator, ch))
+        shifts = 1 << torch.arange(index_bits(self.vq_codes),
+                                   device=idx.device)
+        delta = cb[idx[..., None] ^ shifts] - z_clean[:, :, None, :]
+        dot = torch.einsum("pbnd,bnkd->pbnk", g, delta)
+        return (dot * dot).mean(dim=(0, 3))
+
+    def token_drop_damage(self, idx_tx: torch.Tensor,
+                          probes: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          ch=None) -> torch.Tensor:
+        """(B, N) expected squared reconstruction damage of not sending a
+        token (the receiver decodes ``mask_embed``): :func:`drop_damage`
+        through the image decoder. Needs ``camera.vq_prune``."""
+        ch = self.cfg.channel if ch is None else ch
+        return drop_damage(self.codes_to_image, self.codebook,
+                           self.mask_embed, idx_tx,
+                           self._probes(probes, idx_tx.shape[0], generator,
+                                        ch))
+
+    def uep_weights(self, idx_tx: torch.Tensor, snr_db,
+                    probes: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    ch=None) -> torch.Tensor:
+        """(B, N) per-token QPSK amplitudes at exactly unit mean power:
+        power proportional to damage^alpha (``channel.uep_mode="alpha"``),
+        or :func:`waterfill_power` at the SNR raised by 10 log10 d_min of
+        the FEC (``"waterfill"``)."""
+        ch = self.cfg.channel if ch is None else ch
+        damage = self.token_damage(idx_tx, probes, generator, ch)
+        if ch.uep_mode == "waterfill":
+            snr_eff = torch.as_tensor(
+                snr_db, dtype=torch.float32, device=damage.device) + 10.0 * (
+                    torch.log10(torch.tensor(UEP_DMIN[ch.fec],
+                                             dtype=torch.float32,
+                                             device=damage.device)))
+            return torch.sqrt(waterfill_power(damage, snr_eff))
+        p_tok = torch.pow(damage + 1e-12, ch.uep_alpha)
+        return torch.sqrt(p_tok / p_tok.mean(dim=1, keepdim=True))
+
     def forward(self, img: torch.Tensor, snr_db,
                 generator: Optional[torch.Generator] = None, noise=None,
-                ch=None):
+                ch=None, keep: Optional[torch.Tensor] = None,
+                select: Optional[str] = None,
+                select_draws: Optional[torch.Tensor] = None,
+                uep_draws: Optional[torch.Tensor] = None,
+                side_generator: Optional[torch.Generator] = None):
         """``(recon, aux)``: transmitter, channel and receiver in one
         forward at ``snr_db`` (scalar or (B,)) over ``ch`` (a
-        ``ChannelConfig``, by default ``cfg.channel``). aux: ``vq_loss``,
-        ``index_error_rate``, ``code_perplexity``, and with
+        ``ChannelConfig``, by default ``cfg.channel``).
+
+        ``keep`` (B,) kept-token fractions (``camera.vq_prune`` models;
+        ``None`` falls back to ``ch.token_keep`` when below 1), ranked by
+        ``select`` (default ``ch.token_select``; a name outside the five
+        rules ranks at random, as the JAX package). Dropped tokens send
+        zero symbols and decode as ``mask_embed``; the index error rate
+        counts sent tokens only. With ``ch.uep_alpha > 0`` each token's
+        symbols carry its UEP amplitude.
+
+        aux: ``vq_loss``, ``index_error_rate``, ``code_perplexity``; with
         ``camera.vq_reseed > 0`` the re-seeding inputs ``vq_counts`` and
-        ``vq_candidates``. ``noise``: the channel's draws."""
+        ``vq_candidates``; under UEP ``uep_power_spread`` (the mean over
+        the batch of the std of the per-token power); under pruning
+        ``token_keep_frac``. Draws (else from ``generator``, in this
+        order): ``select_draws`` (the ``random`` rule's (B, N) uniform
+        scores or a damage rule's probes), ``uep_draws`` (the UEP damage
+        probes), ``noise`` (the channel's). ``side_generator``, when
+        given, draws the selection and UEP draws instead, so that
+        deployments of one point meet the same channel noise."""
+        ch = self.cfg.channel if ch is None else ch
+        side = generator if side_generator is None else side_generator
         idx_tx, vq_loss, z_ste, stats = self.quantize(
             self.encode_features(img))
-        idx_rx = transmit_indices(self.cfg.channel if ch is None else ch,
-                                  idx_tx, self.vq_codes, snr_db, generator,
+        b = idx_tx.shape[0]
+        if keep is None and self.vq_prune and ch.token_keep < 1.0:
+            keep = torch.full((b,), ch.token_keep, dtype=torch.float32,
+                              device=idx_tx.device)
+        if keep is not None and not self.vq_prune:
+            raise ValueError("keep requires camera.vq_prune=true")
+        kept = None
+        if keep is not None:
+            select = ch.token_select if select is None else select
+            damage = {"damage": functools.partial(
+                          self.token_damage, generator=side, ch=ch),
+                      "drop_damage": functools.partial(
+                          self.token_drop_damage, generator=side, ch=ch)}
+            kept = kept_tokens(select if select in SELECTS else "random",
+                               idx_tx, keep, (self.image_hw[0] // 4,
+                                              self.image_hw[1] // 4),
+                               damage, select_draws, side)
+        w_tok = token_weights = None
+        if ch.uep_alpha > 0:
+            w_tok = token_weights = self.uep_weights(
+                idx_tx, snr_db, uep_draws, side, ch)
+        if kept is not None:
+            # Dropped tokens send nothing (UEP with pruning is refused).
+            token_weights = kept.to(torch.float32)
+        idx_rx = transmit_indices(ch, idx_tx, self.vq_codes, snr_db,
+                                  generator, token_weights=token_weights,
                                   noise=noise)
+        err = (idx_rx != idx_tx).float()
         # Received codes on the forward path, the clean STE on the backward.
         z_rx = z_ste + (self.codebook[idx_rx.long()] - z_ste).detach()
+        if kept is not None:
+            z_rx = torch.where(kept[..., None], z_rx,
+                               self.mask_embed.expand_as(z_rx))
+            kf = kept.to(torch.float32)
+            idx_err = (err * kf).sum() / kf.sum().clamp(min=1.0)
+        else:
+            idx_err = err.mean()
         recon = self.codes_to_image(z_rx)
         p = torch.bincount(idx_tx.reshape(-1).long(),
                            minlength=self.vq_codes).float() / idx_tx.numel()
-        aux = {"vq_loss": vq_loss,
-               "index_error_rate": (idx_rx != idx_tx).float().mean(),
+        aux = {"vq_loss": vq_loss, "index_error_rate": idx_err,
                "code_perplexity": torch.exp(-(p * torch.log(p + 1e-10)).sum())}
         if stats is not None:
             aux["vq_counts"] = stats["counts"]
             aux["vq_candidates"] = stats["candidates"]
+        if w_tok is not None:
+            aux["uep_power_spread"] = w_tok.square().std(
+                dim=1, correction=0).mean()
+        if kept is not None:
+            aux["token_keep_frac"] = kept.to(torch.float32).mean()
         return recon, aux
 
 

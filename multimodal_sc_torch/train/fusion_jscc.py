@@ -13,9 +13,15 @@ step; the image and point-cloud streams are seeded per step).
 Unlike the JAX package's pure update, a train step writes the model and the
 optimizer moments IN PLACE: the returned state holds the same objects.
 
-Not ported yet, each raising: the digital LiDAR codec (``lidar.arch="vq"``,
-ROADMAP item 14b) and ``train.bf16`` (item 13b); ``camera.arch="vq"`` is
-refused on this path, as the JAX package refuses it.
+The digital LiDAR codec (``lidar.arch="vq"``, ``LidarBEVVQCodec``) adds its
+VQ loss to the joint loss, runs its QPSK link inside the forward, re-seeds
+its batch-dead codes after the optimizer step (``lidar.vq_reseed``), trains
+under ``lidar.vq_prune`` on per-example kept fractions ~ U[vq_keep_min, 1)
+of randomly selected tokens, and on a fresh run (never a resumed one) seeds
+its codebook from its own encoder's outputs on a point cloud of a stream of
+its own. ``train.bf16`` is not ported yet and raises (ROADMAP item 13b);
+``camera.arch="vq"`` is refused on this path, as the JAX package refuses
+it.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -45,8 +51,11 @@ from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.codec.camera_cnn import CameraJSCC
 from multimodal_sc_torch.codec.camera_vit import ViTJSCC
 from multimodal_sc_torch.codec.lidar_bev import (LidarBEVCodec,
+                                                 LidarBEVVQCodec,
                                                  occupancy_target,
                                                  semantic_bev_target)
+from multimodal_sc_torch.codec.semantic_vq import (reseed_dead_codes,
+                                                   seed_codebook)
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.envs.datasets import (ImageDataset, draw_pointcloud,
@@ -69,12 +78,8 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if cfg.camera.arch not in ("vit", "cnn"):
         raise NotImplementedError(
             f"camera.arch={cfg.camera.arch!r} on the fusion path is not "
-            "supported: the JAX package refuses it too (use lidar.arch=vq "
-            "for the digital half of c3, ROADMAP item 14b)")
-    if cfg.lidar.arch != "analog":
-        raise NotImplementedError(
-            f"lidar.arch={cfg.lidar.arch!r} is not ported yet (ROADMAP "
-            "item 14b)")
+            "supported: the JAX package refuses it too (lidar.arch=vq is "
+            "the digital half of c3)")
 
 
 def build_camera_codec(cfg: ExperimentConfig):
@@ -92,10 +97,21 @@ def build_camera_codec(cfg: ExperimentConfig):
                    use_pallas=cfg.use_pallas or cfg.pallas_attention)
 
 
-def build_lidar_codec(cfg: ExperimentConfig) -> LidarBEVCodec:
-    """The fusion pipeline's LiDAR BEV codec."""
+def build_lidar_codec(cfg: ExperimentConfig):
+    """The fusion pipeline's LiDAR BEV codec: ``LidarBEVVQCodec`` under
+    ``lidar.arch="vq"`` (its link over ``cfg.channel``), else the analog
+    ``LidarBEVCodec``."""
     _check_ported(cfg)
     lid = cfg.lidar
+    if lid.arch == "vq":
+        return LidarBEVVQCodec(
+            pillar_dim=lid.pillar_dim, bev_hw=lid.bev_hw,
+            vq_codes=lid.vq_codes, vq_dim=lid.vq_dim, vq_beta=lid.vq_beta,
+            vq_usage_coef=lid.vq_usage_coef,
+            vq_usage_temp=lid.vq_usage_temp, vq_reseed=lid.vq_reseed,
+            vq_prune=lid.vq_prune, seg_classes=lid.seg_classes,
+            x_range=lid.x_range, y_range=lid.y_range,
+            channel_cfg=cfg.channel, point_features=lid.point_features)
     return LidarBEVCodec(pillar_dim=lid.pillar_dim, bev_hw=lid.bev_hw,
                          c_sym=lid.c_sym, seg_classes=lid.seg_classes,
                          x_range=lid.x_range, y_range=lid.y_range,
@@ -115,11 +131,17 @@ class LateFusionJSCC(nn.Module):
 
     def forward(self, img, points, mask, snr_db,
                 generator: Optional[torch.Generator] = None,
-                channel_noise: Optional[Sequence[torch.Tensor]] = None):
+                channel_noise: Optional[Sequence[torch.Tensor]] = None,
+                lidar_keep: Optional[torch.Tensor] = None,
+                lidar_select: Optional[str] = None,
+                select_draws: Optional[torch.Tensor] = None):
         """Full late-fusion TX: both branches through the channel. Returns
         ``(recon, occ_logits, lidar_aux)``; aux is empty for the analog
-        LiDAR codec. ``channel_noise`` (optional): the standard-normal draws
-        of the ``(camera, LiDAR)`` links, in place of draws from
+        LiDAR codec, the digital codec's (``vq_loss``,
+        ``index_error_rate``, ...) for ``lidar.arch="vq"``, whose link runs
+        inside its own forward with ``lidar_keep``, ``lidar_select`` and
+        ``select_draws``. ``channel_noise`` (optional): the standard-normal
+        draws of the ``(camera, LiDAR)`` links, in place of draws from
         ``generator``."""
         ch = self.cfg.channel
         n_cam, n_lid = channel_noise if channel_noise is not None else (None,
@@ -128,6 +150,12 @@ class LateFusionJSCC(nn.Module):
         z_cam_hat = channel_op(z_cam, snr_db, ch.kind, generator, noise=n_cam,
                                **channel_kwargs(ch))
         recon = self.camera.decode(z_cam_hat, snr_db)
+        if self.cfg.lidar.arch == "vq":
+            logits, aux = self.lidar(points, mask, snr_db, generator,
+                                     noise=n_lid, keep=lidar_keep,
+                                     select=lidar_select,
+                                     select_draws=select_draws)
+            return recon, logits, aux
         z_lid = self.lidar.encode((points, mask))
         z_lid_hat = channel_op(z_lid, snr_db, ch.kind, generator, noise=n_lid,
                                **channel_kwargs(ch))
@@ -142,20 +170,36 @@ class TrainState(NamedTuple):
 
 
 class StepDraws(NamedTuple):
-    """The random draws of one train step. A ``None`` noise is drawn from
-    the state's generator inside the forward."""
+    """The random draws of one train step; a ``None`` field is drawn from
+    the state's generator (in this order: SNR, keep, then inside the
+    forward the camera noise, the selection scores and the LiDAR link
+    noise, and after the update the coin)."""
     snr_db: Optional[torch.Tensor] = None          # (B,), channel.random_snr
-    channel_noise: Optional[Sequence[torch.Tensor]] = None   # (camera, LiDAR)
+    # (camera, LiDAR link): the LiDAR's is its QPSK link's under lidar.arch=vq
+    channel_noise: Optional[Sequence[torch.Tensor]] = None
+    keep: Optional[torch.Tensor] = None     # (B,) kept fractions, vq_prune
+    select: Optional[torch.Tensor] = None   # (B, N) random selection scores
+    coin: Optional[torch.Tensor] = None     # (K,) lidar.vq_reseed's coin
 
 
 def draw_step(cfg: ExperimentConfig, batch: int, generator: torch.Generator,
-              device) -> StepDraws:
-    ch = cfg.channel
-    if not ch.random_snr:
-        return StepDraws()
-    return StepDraws(snr_db=ch.snr_min_db + torch.rand(
-        (batch,), generator=generator, device=device) * (
-            ch.snr_max_db - ch.snr_min_db))
+              device, draws: Optional[StepDraws] = None) -> StepDraws:
+    """The step's SNR and kept fractions, those ``draws`` leaves out drawn
+    from ``generator``: SNR ~ U[snr_min_db, snr_max_db) with
+    ``channel.random_snr``, keep ~ U[vq_keep_min, 1) with
+    ``lidar.vq_prune``."""
+    ch, lid = cfg.channel, cfg.lidar
+    draws = draws if draws is not None else StepDraws()
+    snr, keep = draws.snr_db, draws.keep
+    if snr is None and ch.random_snr:
+        snr = ch.snr_min_db + torch.rand(
+            (batch,), generator=generator, device=device) * (
+                ch.snr_max_db - ch.snr_min_db)
+    if keep is None and lid.arch == "vq" and lid.vq_prune:
+        keep = lid.vq_keep_min + torch.rand(
+            (batch,), generator=generator, device=device) * (
+                1.0 - lid.vq_keep_min)
+    return draws._replace(snr_db=snr, keep=keep)
 
 
 def make_optimizer(cfg: ExperimentConfig,
@@ -196,9 +240,19 @@ def bev_target(cfg: ExperimentConfig, pts, mask, cls) -> torch.Tensor:
 
 
 def loss_fn(cfg: ExperimentConfig, model: LateFusionJSCC, img, pts, mask,
-            target, snr_db, generator=None, channel_noise=None):
-    """``(loss, (recon, logits, cam_loss, lidar_loss))`` of one batch."""
-    recon, logits, _ = model(img, pts, mask, snr_db, generator, channel_noise)
+            target, snr_db, generator=None, channel_noise=None,
+            draws: Optional[StepDraws] = None):
+    """``(loss, (recon, logits, cam_loss, lidar_loss, lidar_aux))`` of one
+    batch: camera MSE + 0.5 x the LiDAR loss, plus the digital LiDAR
+    codec's VQ loss (the codebook trains through it alone). Under
+    ``lidar.vq_prune`` the LiDAR link sends ``draws.keep`` of its tokens,
+    selected at random (``draws.select``)."""
+    kw = {}
+    if cfg.lidar.arch == "vq" and cfg.lidar.vq_prune and draws is not None:
+        kw = {"lidar_keep": draws.keep, "lidar_select": "random",
+              "select_draws": draws.select}
+    recon, logits, lid_aux = model(img, pts, mask, snr_db, generator,
+                                   channel_noise, **kw)
     cam_loss = (recon - img).square().mean()
     if cfg.lidar.seg_classes > 1:
         # Classes last in the logits; F.cross_entropy wants them second.
@@ -207,12 +261,16 @@ def loss_fn(cfg: ExperimentConfig, model: LateFusionJSCC, img, pts, mask,
         l = logits[..., 0]
         lid_loss = (torch.clamp(l, min=0) - l * target
                     + torch.log1p(torch.exp(-l.abs()))).mean()
-    return cam_loss + 0.5 * lid_loss, (recon, logits, cam_loss, lid_loss)
+    loss = cam_loss + 0.5 * lid_loss
+    if "vq_loss" in lid_aux:
+        loss = loss + lid_aux["vq_loss"]
+    return loss, (recon, logits, cam_loss, lid_loss, lid_aux)
 
 
 def make_train_step(cfg: ExperimentConfig):
     """``train_step(state, img, pts, mask, cls, draws=None) -> (state,
-    metrics)``: one clip + AdamW step on one batch."""
+    metrics)``: one clip + AdamW step on one batch; a digital LiDAR codec's
+    batch-dead codes are then re-seeded (``lidar.vq_reseed > 0``)."""
     _check_ported(cfg)
     lid = cfg.lidar
     semantic = lid.seg_classes > 1
@@ -220,17 +278,17 @@ def make_train_step(cfg: ExperimentConfig):
     def train_step(state: TrainState, img, pts, mask, cls,
                    draws: Optional[StepDraws] = None):
         model, opt = state.params, state.opt_state
-        if draws is None:
-            draws = draw_step(cfg, img.shape[0], state.generator, img.device)
+        draws = draw_step(cfg, img.shape[0], state.generator, img.device,
+                          draws)
         snr_db = draws.snr_db
         if snr_db is None:
             snr_db = torch.full((img.shape[0],), cfg.channel.snr_db,
                                 dtype=torch.float32, device=img.device)
         with torch.no_grad():
             target = bev_target(cfg, pts, mask, cls)
-        loss, (recon, logits, cam_loss, lid_loss) = loss_fn(
+        loss, (recon, logits, cam_loss, lid_loss, lid_aux) = loss_fn(
             cfg, model, img, pts, mask, target, snr_db, state.generator,
-            draws.channel_noise)
+            draws.channel_noise, draws)
         params = list(model.parameters())
         # Parameters the loss does not reach get zero gradients, as jax.grad
         # gives them: their moments and the weight decay then act as optax's.
@@ -250,6 +308,22 @@ def make_train_step(cfg: ExperimentConfig):
             metrics = {"loss": loss.detach(), "cam_loss": cam_loss.detach(),
                        "lidar_loss": lid_loss.detach(),
                        "psnr": psnr(recon, img), "miou": m}
+            if "vq_loss" in lid_aux:
+                metrics.update({
+                    "lidar_vq_loss": lid_aux["vq_loss"].detach(),
+                    "lidar_index_err": lid_aux["index_error_rate"],
+                    "lidar_code_perplexity": lid_aux["code_perplexity"]})
+            if "vq_counts" in lid_aux:
+                # Dead codes jump to the batch's worst-quantised encoder
+                # outputs, after the optimizer step.
+                cb = model.lidar.codebook
+                new_cb, n_rs = reseed_dead_codes(
+                    cb, lid_aux["vq_counts"], lid_aux["vq_candidates"],
+                    state.generator, lid.vq_reseed, coin=draws.coin)
+                cb.copy_(new_cb)
+                metrics["lidar_vq_reseeded"] = n_rs.float()
+            if "token_keep_frac" in lid_aux:
+                metrics["lidar_token_keep_frac"] = lid_aux["token_keep_frac"]
         return state._replace(step=state.step + 1), metrics
 
     return train_step
@@ -278,6 +352,25 @@ def make_batches(cfg: ExperimentConfig, device, start_step: int = 0):
         yield next(data).to(device), pts, mask, cls
 
 
+def seed_lidar_codebook(cfg: ExperimentConfig, model: LateFusionJSCC,
+                        device) -> torch.Tensor:
+    """A fresh digital LiDAR codec's codebook becomes a sample of its own
+    encoder's outputs on a point cloud of a stream of its own (``seed_codebook``),
+    the fix for the degenerate optimum of a small-uniform init. ``run``
+    calls it on a fresh run only, never on resume."""
+    lid, tr = cfg.lidar, cfg.train
+    g = torch.Generator(device=device)
+    g.manual_seed((tr.seed * 0x9E3779B1 + 0xC0DE) & 0xFFFFFFFF)
+    pts, mask, _ = synthetic_pointcloud_batch(
+        draw_pointcloud(tr.batch_size, lid.max_points, g, device, lid.x_range,
+                        lid.y_range), lid.x_range, lid.y_range,
+        with_classes=True)
+    with torch.no_grad():
+        z = model.lidar.encode_features(pts, mask)
+    g.manual_seed((tr.seed * 0x9E3779B1 + 0xC0DF) & 0xFFFFFFFF)
+    return seed_codebook(model.lidar.codebook, z, g)
+
+
 def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         device="cuda"):
     """Train config-3 late fusion for ``cfg.train.steps`` steps on the
@@ -295,6 +388,8 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         if restored is not None:
             state = restored
     start = state.step
+    if cfg.lidar.arch == "vq" and start == 0:
+        seed_lidar_codebook(cfg, state.params, dev)
     batches = make_batches(cfg, dev, start)
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
     watchdog = NaNWatchdog()

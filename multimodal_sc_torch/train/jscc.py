@@ -26,11 +26,13 @@ attention on the packed or flash kernels under ``use_pallas`` or
 the loss is the MSE plus the VQ loss, the digital link runs inside the
 forward, dead codes are re-seeded after the step under
 ``camera.vq_reseed``, and a fresh run seeds its codebook from the encoder's
-outputs on a real batch, never a resumed one). Unlike the JAX package's
+outputs on a real batch, never a resumed one). Under ``camera.vq_prune``
+each example sends a kept fraction ~ U[vq_keep_min, 1) of its tokens,
+selected at random; under ``channel.uep_alpha > 0`` the link's unequal
+power allocation runs inside the forward. Unlike the JAX package's
 pure update, a train step writes the model, the optimizer moments and the
 schedule IN PLACE: the returned state holds the same objects. Not ported
-yet, raising: ``train.bf16`` (ROADMAP item 13b), and on the VQ codec the
-unequal power allocation and token pruning (item 14b).
+yet, raising: ``train.bf16`` (ROADMAP item 13b).
 ``train.iters_per_dispatch`` (the chunked step) has no counterpart:
 PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
 and the value is ignored.
@@ -153,11 +155,16 @@ def create_train_state(cfg: ExperimentConfig, seed: int = 0,
 
 class StepDraws(NamedTuple):
     """The random draws of one train step; a ``None`` field is drawn from
-    the state's generator (in this order: SNR, rate, channel, coin)."""
+    the state's generator (in this order: SNR, rate, keep, then inside the
+    VQ forward the selection scores, the UEP probes and the channel, and
+    after the update the coin)."""
     snr_db: Optional[torch.Tensor] = None   # (B,), channel.random_snr
     m: Optional[torch.Tensor] = None        # (B,) int, camera.adaptive_rate
     channel: Union[None, torch.Tensor, ChannelDraws] = None
     coin: Optional[torch.Tensor] = None     # (K,) camera.vq_reseed's coin
+    keep: Optional[torch.Tensor] = None     # (B,) kept fractions, vq_prune
+    select: Optional[torch.Tensor] = None   # (B, N) random selection scores
+    uep: Optional[torch.Tensor] = None      # (P, B, H, W, 3) UEP probes
 
 
 def _rate(model, m: Optional[torch.Tensor]):
@@ -207,13 +214,14 @@ def _with_seg(cfg: ExperimentConfig) -> bool:
 
 def draw_step(cfg: ExperimentConfig, batch: int, generator: torch.Generator,
               device, draws: Optional[StepDraws] = None) -> StepDraws:
-    """The step's SNR and rate, those ``draws`` leaves out drawn from
-    ``generator``: SNR ~ U[snr_min_db, snr_max_db) with
+    """The step's SNR, rate and kept fractions, those ``draws`` leaves out
+    drawn from ``generator``: SNR ~ U[snr_min_db, snr_max_db) with
     ``channel.random_snr`` (else ``channel.snr_db``), m ~ U{rate_min_sym,
-    .., c_sym} with ``camera.adaptive_rate``."""
+    .., c_sym} with ``camera.adaptive_rate``, keep ~ U[vq_keep_min, 1) with
+    ``camera.vq_prune``."""
     ch, cam = cfg.channel, cfg.camera
     draws = draws if draws is not None else StepDraws()
-    snr, m = draws.snr_db, draws.m
+    snr, m, keep = draws.snr_db, draws.m, draws.keep
     if snr is None:
         if ch.random_snr:
             snr = ch.snr_min_db + torch.rand(
@@ -225,7 +233,11 @@ def draw_step(cfg: ExperimentConfig, batch: int, generator: torch.Generator,
     if m is None and cam.adaptive_rate:
         m = torch.randint(cam.rate_min_sym, cam.c_sym + 1, (batch,),
                           generator=generator, device=device)
-    return draws._replace(snr_db=snr, m=m)
+    if keep is None and cam.arch == "vq" and cam.vq_prune:
+        keep = cam.vq_keep_min + torch.rand(
+            (batch,), generator=generator, device=device) * (
+                1.0 - cam.vq_keep_min)
+    return draws._replace(snr_db=snr, m=m, keep=keep)
 
 
 def loss_fn(cfg: ExperimentConfig, model: CameraJSCC, img, seg,
@@ -251,8 +263,13 @@ def loss_fn(cfg: ExperimentConfig, model: CameraJSCC, img, seg,
 
 def vq_loss_fn(model: VQCameraJSCC, img, draws: StepDraws, generator=None):
     """``(loss, (recon, aux))`` of the VQ codec at the step's draws: MSE
-    plus the VQ loss, the digital link inside the forward."""
-    recon, aux = model(img, draws.snr_db, generator, noise=draws.channel)
+    plus the VQ loss, the digital link inside the forward; a pruned codec
+    sends ``draws.keep`` of its tokens, selected at random (every drop
+    pattern a deployed ranking can make)."""
+    kw = ({"keep": draws.keep, "select": "random",
+           "select_draws": draws.select} if model.vq_prune else {})
+    recon, aux = model(img, draws.snr_db, generator, noise=draws.channel,
+                       uep_draws=draws.uep, **kw)
     return (recon - img).square().mean() + aux["vq_loss"], (recon, aux)
 
 
@@ -303,6 +320,8 @@ def make_train_step(cfg: ExperimentConfig):
                     state.generator, cfg.camera.vq_reseed, coin=draws.coin)
                 model.codebook.copy_(new_cb)
                 metrics["vq_reseeded"] = n_rs.float()
+            if vq and "token_keep_frac" in aux:
+                metrics["token_keep_frac"] = aux["token_keep_frac"]
         return state._replace(step=state.step + 1), metrics
 
     return train_step

@@ -240,8 +240,10 @@ def test_train_run_keys_match_jax_run(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    (["camera.arch=vq", "camera.vq_prune=true"], NotImplementedError,
-     "item 14"),
+    # Token pruning is ported; UEP together with it, refused by the JAX
+    # package too, still raises.
+    (["camera.arch=vq", "camera.vq_prune=true", "channel.uep_alpha=0.25"],
+     ValueError, "uep_alpha with camera.vq_prune"),
     (["train.bf16=true"], NotImplementedError, "bf16"),
 ])
 def test_refusals(over, exc, match):

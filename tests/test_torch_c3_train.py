@@ -137,7 +137,7 @@ def _port_loss(arm, seg_classes=4):
     img, pts, mask, cls = (_t(a) for a in _batch())
     target = tfj.bev_target(tcfg, pts, mask, cls)
     snr = torch.full((BATCH,), tcfg.channel.snr_db)
-    loss, (recon, logits, _, _) = tfj.loss_fn(
+    loss, (recon, logits, *_) = tfj.loss_fn(
         tcfg, model, img, pts, mask, target, snr,
         channel_noise=_jax_noise(jcfg, key))
     return model, loss, recon, logits
@@ -303,18 +303,31 @@ def test_c3_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("what", ["lidar_vq_codec", "lidar.arch=vq",
                                   "camera.arch=vq", "train.bf16=true"])
 def test_what_the_c3_slice_does_not_port_raises(what):
+    """``camera.arch=vq`` (refused by the JAX package too) and ``train.bf16``
+    raise. The digital LiDAR codec is ported: it builds, and keeps the JAX
+    package's refusals of a codebook that is no power of 4 and of FEC over
+    a payload that is no whole number of bytes."""
     cfg = t_preset("c3")
-    with pytest.raises(NotImplementedError):
-        if what == "lidar_vq_codec":
-            tlid.LidarBEVVQCodec(pillar_dim=16)
-        else:
+    if what == "lidar_vq_codec":
+        assert tlid.LidarBEVVQCodec(pillar_dim=16).n_tokens == 16 * 16
+        with pytest.raises(ValueError, match="power of 4"):
+            tlid.LidarBEVVQCodec(pillar_dim=16, vq_codes=32)
+    elif what == "lidar.arch=vq":
+        tfj.make_train_step(cfg.override_str([what]))
+        with pytest.raises(ValueError, match="divisible by 8"):
+            tfj.build_lidar_codec(cfg.override_str([
+                what, "lidar.vq_codes=4", "lidar.bev_hw=3,3",
+                "channel.fec=hamming74"]))
+    else:
+        with pytest.raises(NotImplementedError):
             tfj.make_train_step(cfg.override_str([what]))
 
 
 @pytest.mark.parametrize("module", [
     "kernels/attention.py", "codec/camera_vit.py", "codec/lidar_bev.py",
     "evaluation/metrics.py", "envs/datasets.py", "train/fusion_jscc.py",
-    "bridge.py"])
+    "bridge.py", "channel/entropy_coding.py", "codec/semantic_vq.py",
+    "evaluation/snr_sweep.py"])
 def test_c3_modules_import_no_jax(module):
     banned = ("jax", "flax", "optax", "multimodal_sc_tpu")
     for node in ast.walk(ast.parse((PKG / module).read_text())):

@@ -182,13 +182,15 @@ def test_mha_matches_jax(dim, heads, lq, lk, use_pallas):
 
 
 def test_unported_vit_classes_raise():
-    """The ViT classes are ported; what of these codec modules still raises
-    is the digital LiDAR codec."""
+    """The ViT classes are ported, and so is the digital LiDAR codec: of
+    these codec modules only what the JAX package refuses still raises, a
+    codebook that is no power of 4."""
     for name in ("TransformerBlock", "SNRToken", "ViTEncoderJSCC",
                  "ViTDecoderJSCC", "ViTTokensDecoder", "ViTJSCC"):
         assert issubclass(getattr(tvit, name), torch.nn.Module)
-    with pytest.raises(NotImplementedError):
-        tlid.LidarBEVVQCodec()
+    assert isinstance(tlid.LidarBEVVQCodec(), torch.nn.Module)
+    with pytest.raises(ValueError, match="power of 4"):
+        tlid.LidarBEVVQCodec(vq_codes=32)
     with pytest.raises(AttributeError):
         tvit.no_such_name
 

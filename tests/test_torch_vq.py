@@ -13,7 +13,7 @@
 * c1_vq train steps held step by step to JAX's (AdamW under the warm-up
   schedule, the dead-code re-seeding after each step given JAX's coin);
 * one point of each sweep, the ``eval`` command's VQ branches, and the
-  refusals naming ROADMAP item 14b.
+  refusals the JAX package keeps.
 
 16x16 images (16 tokens of 4 bits, a whole number of bytes for FEC),
 features (8, 8, 16, 16), 16 codes of dimension 8; f32, TF32 off.
@@ -312,7 +312,8 @@ def test_eval_command_vq_branches(tmp_path, capsys):
     """The ``eval`` command (the dataset's 32x32 images) on a VQ
     checkpoint: the plain sweep with FEC
     riding ``--set channel.fec``, ``--harq-sweep`` with its table, the
-    curves written; ``--keep-sweep`` refused naming ROADMAP item 14b."""
+    curves written; ``--keep-sweep`` on a codec trained without pruning
+    returns 2 with the JAX package's message."""
     over = ["--set", "camera.arch=vq",
             "--set", "camera.features=8,8,16,16", "--set",
             "camera.vq_codes=16", "--set", "camera.vq_dim=8", "--set",
@@ -331,19 +332,29 @@ def test_eval_command_vq_branches(tmp_path, capsys):
     rows = json.loads(out.read_text())["awgn"]
     assert [r["snr_db"] for r in rows] == list(range(-5, 26, 5))
     assert set(rows[0]) == {"snr_db", "psnr", "ssim", "index_err"}
-    with pytest.raises(NotImplementedError, match="14b"):
-        tsweep.main(["--config", "c1", "--keep-sweep"] + over)
+    assert tsweep.main(["--config", "c1", "--keep-sweep"] + over) == 2
+    assert "--keep-sweep requires camera.vq_prune=true" in (
+        capsys.readouterr().err)
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    (["channel.uep_alpha=0.5"], NotImplementedError, "item 14b"),
-    (["camera.vq_prune=true"], NotImplementedError, "item 14b"),
+    (["channel.uep_alpha=0.5"], None, None),
+    (["camera.vq_prune=true"], None, None),
+    (["channel.uep_alpha=0.5", "camera.vq_prune=true"], ValueError,
+     "uep_alpha with camera.vq_prune"),
     (["camera.image_hw=4,12", "channel.fec=hamming74"], ValueError,
      "divisible by 8"),
     (["camera.vq_codes=32"], ValueError, "power of 4"),
 ])
 def test_vq_refusals(over, exc, match):
+    """UEP and token pruning each build (the pruned codec with its
+    ``mask_embed``); together, and the FEC and codebook-size cases, they
+    refuse as the JAX package does."""
     _, tcfg = _configs(over)
+    if exc is None:
+        model = tjscc.build_model(tcfg)
+        assert hasattr(model, "mask_embed") == tcfg.camera.vq_prune
+        return
     with pytest.raises(exc, match=match):
         tjscc.build_model(tcfg)
 
