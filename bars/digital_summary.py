@@ -1,7 +1,9 @@
 """The bars of the digital-link recipes, read from what ``bars/digital.sh``
-wrote to OUT_DIR, each printed with its reading and met or missed:
+(or, with ``--c4``, ``bars/c4_digital.sh``) wrote to OUT_DIR, each printed
+with its reading and met or missed:
 
     python bars/digital_summary.py OUT_DIR [OUT_DIR ...]
+    python bars/digital_summary.py --c4 OUT_DIR [OUT_DIR ...]
 
 The bars are the JAX package's (``BASELINE.md``): c3_vq train mIoU >= 0.88
 and code perplexity >= 48; its error-free ceiling (AWGN, >= 15 dB) within
@@ -13,7 +15,12 @@ mIoU >= 0.86; c1_vq_prune scatter PSNR >= 21.4 at keep 0.25 and >= 19.7
 at 0.125, full rate >= 22.4, monotone within 0.1 dB; UEP alpha 0.25 >=
 uniform - 0.05 at every point (uncoded and soft-coded), water-filling >=
 uniform + 0.4 at -5 and 0 dB AWGN; c1_vq held-out PSNR >= 23.5 and
-perplexity >= 30.
+perplexity >= 30. With ``--c4``: c4_digital's EMA greedy >= 95 over 256
+episodes; HARQ's return >= soft FEC's + 5 at 0 dB; HARQ's symbols a step
+<= 0.7x soft FEC's (constant: the camera's and the LiDAR's index bits
+Hamming(7,4)-coded, over QPSK) at >= 15 dB; HARQ's symbols a step
+non-increasing in the SNR. The fogged full-digital + V2X arm is reported
+beside them (the JAX package read 95.21; no bar).
 """
 
 import json
@@ -122,6 +129,64 @@ def summarize(out):
          gains[0] >= 0.4 and gains[1] >= 0.4)
 
 
+def _fec_symbols_per_step():
+    """Symbols a step of the full-digital c4 under soft FEC: every index
+    bit of the camera's and the LiDAR's tokens Hamming(7,4)-coded (7 bits
+    per 4), two bits a QPSK symbol."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from multimodal_sc_torch.channel.digital import index_bits
+    from multimodal_sc_torch.config import get_preset
+
+    cfg = get_preset("c4")
+    cam, lid = cfg.camera, cfg.lidar
+    bits = ((cam.image_hw[0] // 4) * (cam.image_hw[1] // 4)
+            * index_bits(cam.vq_codes)
+            + lid.bev_hw[0] * lid.bev_hw[1] * index_bits(lid.vq_codes))
+    return bits * 7 // 4 // 2
+
+
+def _eval(out, name):
+    with open(os.path.join(out, f"{name}.txt")) as f:
+        return json.loads(f.read().strip().splitlines()[-1])
+
+
+def summarize_c4(out):
+    print(out)
+    ema = _eval(out, "c4_digital_eval_ema")["episode_return_mean"]
+    _bar("c4_digital EMA greedy >= 95 (256 episodes)", round(ema, 2),
+         ema >= 95)
+    unc, fec, harq = (_json(out, f"c4_digital_sweep{s}")["awgn"]
+                      for s in ("", "_fec", "_harq"))
+    at = {r["snr_db"]: r for r in harq}
+    fec_at = {r["snr_db"]: r for r in fec}
+    gain = at[0.0]["episode_return_mean"] - fec_at[0.0]["episode_return_mean"]
+    _bar("HARQ return >= soft FEC + 5 at 0 dB", round(gain, 2), gain >= 5)
+    fec_syms = _fec_symbols_per_step()
+    worst = max(r["link_syms_per_step"] for r in harq if r["snr_db"] >= 15)
+    _bar("HARQ syms/step <= 0.7x soft FEC's at >= 15 dB",
+         f"{worst:.1f} of {fec_syms} = {worst / fec_syms:.4f}x",
+         worst <= 0.7 * fec_syms)
+    syms = _curve(harq, "link_syms_per_step")
+    _bar("HARQ syms/step non-increasing in the SNR",
+         [round(v, 1) for v in syms],
+         all(b <= a for a, b in zip(syms, syms[1:])))
+    for name, c in (("uncoded", unc), ("soft FEC", fec), ("HARQ", harq)):
+        print(f"  {name} return: "
+              f"{[round(v, 2) for v in _curve(c, 'episode_return_mean')]}")
+    print(f"  HARQ mean rounds: "
+          f"{[round(v, 3) for v in _curve(harq, 'harq_mean_rounds')]}; "
+          "residual failures: "
+          f"{[round(v, 4) for v in _curve(harq, 'harq_residual_fail_rate')]}")
+    fog = _eval(out, "c4_fog_v2x_digital_eval_ema")["episode_return_mean"]
+    print(f"  (fogged full-digital + V2X EMA greedy {fog:.2f}; the JAX "
+          "package read 95.21, no bar)")
+
+
 if __name__ == "__main__":
-    for path in sys.argv[1:]:
-        summarize(path)
+    args = sys.argv[1:]
+    fn = summarize
+    if args and args[0] == "--c4":
+        fn, args = summarize_c4, args[1:]
+    for path in args:
+        fn(path)

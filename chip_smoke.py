@@ -119,6 +119,24 @@ Then the digital LiDAR codec and the semantic token paths:
   point per selection rule, one UEP sweep point under alpha 0.25 and
   water-filling, and the damage probes' times.
 
+Then the full-digital agent (the c4 preset over the VQ camera and the VQ
+LiDAR: 256 codes of dimension 32 on the 16x16 BEV grid, both codebooks
+re-seeded, as the JAX package's c4_digital recipe trains it):
+
+* c4_digital at 1024 envs, act-only and act+learn, with the learn step's
+  route comparison on the kernels' route's codes, the act route against
+  the learner's, one learn step with every re-seeding coin at 0 (each
+  batch-dead code of both codebooks must become its candidate), and a
+  checkpoint round trip held bit for bit, one iteration after it too;
+* full-digital fog + V2X act-only at 1024 envs under Type-I HARQ on the
+  camera, ego and RSU links (two scatters a forward), its link accounting
+  summed over the three links at or above their one-shot symbols;
+* the pruned digital LiDAR at ``channel.token_keep=0.5`` by the
+  farthest-point order: one act step and one act+learn iteration;
+* c5 over both digital links at the preset, one warm-up and three timed
+  updates, and its route comparison (the plain and f64 routes held to the
+  kernels' route's codes).
+
 The pillar scatter runs on every path but c1, c2 and the camera VQ
 paths: its forward kernel in every forward, its backward kernel once per
 learn, train or minibatch step.
@@ -313,6 +331,42 @@ EXPECTED_VQ4 = {"mha_block": 8, "conv_prelu": 4, "scatter_max": 1}
 EXPECTED_VQ4_LEARN = {"mha_block": 8, "conv_prelu": 4 + 12,
                       "scatter_max": 1 + 3, "scatter_max_bwd": 1}
 LEARN_ROUTE_VQ4 = {"conv_prelu": 12, "scatter_max": 3, "scatter_max_bwd": 1}
+
+# c4_digital: the c4 preset over the VQ camera and the VQ LiDAR (256 codes of
+# dimension 32 on the 16x16 BEV grid: 256 tokens of 8 bits = 1024 QPSK
+# symbols an observation), both codebooks re-seeded, the usage term on the
+# LiDAR's, as the JAX package's r5 runner trains it. A forward launches what
+# c4_vq's does: the LiDAR's quantiser, link and token decoder are plain, as
+# in the JAX package; a learn step's online forward reaches the scatter's
+# backward once, through the LiDAR's straight-through path.
+C4_DIGITAL = ["camera.arch=vq", "lidar.arch=vq", "camera.vq_usage_coef=0.0",
+              "camera.vq_reseed=0.05", "lidar.vq_usage_coef=0.05",
+              "lidar.vq_reseed=0.05"]
+EXPECTED_C4_DIGITAL = EXPECTED_VQ4
+EXPECTED_C4_DIGITAL_LEARN = EXPECTED_VQ4_LEARN
+LEARN_ROUTE_C4_DIGITAL = LEARN_ROUTE_VQ4
+# Full-digital fog + V2X under Type-I HARQ: the RSU's rays ride the digital
+# LiDAR link a second time (two scatters a forward). The three links send
+# at least their blocks once each: camera 512 bits, ego and RSU LiDAR 2048
+# each, in blocks of 64 bits + CRC-8 = 36 QPSK symbols.
+C4_DIGITAL_V2X_HARQ = C4_DIGITAL + FOG_V2X + ["channel.harq=true"]
+EXPECTED_C4_DIGITAL_V2X = {"mha_block": 8, "conv_prelu": 4, "scatter_max": 2}
+ONE_SHOT_SYMS_V2X = (512 // 64 + 2 * 2048 // 64) * 36
+# The pruned digital LiDAR deployed at half its tokens by the farthest-point
+# order (the learner trains at random kept fractions).
+C4_DIGITAL_PRUNE = C4_DIGITAL + ["lidar.vq_prune=true",
+                                 "channel.token_keep=0.5"]
+# c5 over both digital links at the preset: the rollout's T + 1 forwards
+# launch 8 fused blocks, the camera's 4 encoder convs and one scatter each;
+# a minibatch step's loss forward the 4 convs and the scatter, its backward
+# the scatter's backward.
+C5_DIGITAL = ["camera.arch=vq", "lidar.arch=vq", "camera.vq_reseed=0.05",
+              "lidar.vq_usage_coef=0.05", "lidar.vq_reseed=0.05"]
+EXPECTED_C5_DIGITAL = {
+    "mha_block": 4 * FUSION_DEPTH * (C5_T + 1),
+    "conv_prelu": 4 * (C5_T + 1) + 4 * C5_MINIBATCH_STEPS,
+    "scatter_max": (C5_T + 1) + C5_MINIBATCH_STEPS,
+    "scatter_max_bwd": C5_MINIBATCH_STEPS}
 
 # c3_vq: the c3 preset with the digital LiDAR codec as the JAX recipe trains
 # it (``lidar.arch=vq``: 256 codes of dimension 32, 1024 tokens of 8 bits =
@@ -1560,17 +1614,14 @@ def check_kernels():
 
 
 def _init_dqn(cfg):
-    """``dqn.init`` at 1024 envs; a digital camera trunk's codebook seeded
-    from its encoder's outputs, as ``train.dqn.run`` seeds a cold start, and
+    """``dqn.init`` at 1024 envs; a digital trunk's codebooks seeded from
+    its encoders' outputs, as ``train.dqn.run`` seeds a cold start, and
     copied to the target and the EMA."""
     from multimodal_sc_torch.rl import dqn
-    from multimodal_sc_torch.rl.warmstart import seed_vq_codebook_params
+    from multimodal_sc_torch.rl.warmstart import cold_start
 
     state = dqn.init(cfg, seed=0, num_envs=NUM_ENVS, device="cuda")
-    if cfg.camera.arch == "vq":
-        seed_vq_codebook_params(cfg, state.params)
-        for other in (state.target_params, state.ema_params):
-            other.load_state_dict(state.params.state_dict())
+    cold_start(cfg, (state.params, state.target_params, state.ema_params))
     return state
 
 
@@ -1737,6 +1788,8 @@ def _link_noise(cfg, batch, g):
         n_cam = (hw[0] // 4) * (hw[1] // 4) * index_bits(
             cfg.camera.vq_codes) // 2
     n_lid = lid.bev_hw[0] * lid.bev_hw[1] * lid.c_sym
+    if lid.arch == "vq":
+        n_lid = lid.bev_hw[0] * lid.bev_hw[1] * index_bits(lid.vq_codes) // 2
     links = (n_cam, n_lid, n_lid) if cfg.env.v2x_rays else (n_cam, n_lid)
     return tuple(torch.randn(batch, n, 2, generator=g, device="cuda")
                  for n in links)
@@ -2000,6 +2053,189 @@ def eval_policy_phase(cfg):
     return launches
 
 
+def check_reseed(name, cfg, state):
+    """One learn step on the replay's first batch with every re-seeding coin
+    at 0: each codebook's batch-dead codes (those the online forward's
+    tokens did not pick) must all have jumped to their candidates, the
+    batch's worst-quantised encoder outputs, and both codebooks changed."""
+    import torch
+
+    from multimodal_sc_torch.rl import dqn, replay
+
+    bs = cfg.rl.batch_size
+    idx = torch.arange(bs, device="cuda")
+    batch = dqn.dequantize_obs(cfg, replay.sample(state.buffer, None, bs,
+                                                  idx))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    noise = [_link_noise(cfg, bs, g) for _ in range(3)]
+    per = state.params.perception
+    books = {"cam": per.cam_vq.codebook, "lid": per.lid_codebook}
+    before = {k: b.detach().clone() for k, b in books.items()}
+    zeros = {k: torch.zeros(b.shape[0], device="cuda")
+             for k, b in books.items()}
+    draws = dqn.LearnDraws(indices=idx, snr_db=None, noise_online=noise[0],
+                           noise_target=noise[1], noise_double=noise[2],
+                           coin=zeros["cam"], lid_coin=zeros["lid"])
+    seen = {}
+    reseed = dqn.apply_codebook_reseed
+
+    def spy(cfg_, net, rs, *args):
+        seen.update(rs)
+        return reseed(cfg_, net, rs, *args)
+
+    with mock.patch.object(dqn, "apply_codebook_reseed", spy):
+        state, _ = dqn.learn_step(cfg, state, batch, draws)
+    torch.cuda.synchronize()
+    for k, book in books.items():
+        counts, cands = seen[k]
+        dead = counts < 1
+        if not torch.equal(book.detach()[dead], cands[dead]):
+            raise RuntimeError(f"{name}: {k} codebook: a dead code did not "
+                               "jump to its candidate")
+        if torch.equal(book.detach(), before[k]):
+            raise RuntimeError(f"{name}: the {k} codebook did not change")
+        print(f"  {name}: re-seed with every coin 0: {int(dead.sum())} of "
+              f"{dead.numel()} {k} codes batch-dead, each now its "
+              "candidate; the codebook changed", flush=True)
+    return state
+
+
+def time_c4_digital_parts(cfg, state):
+    """``--profile``: the digital LiDAR's plain parts at the learner's shapes
+    (batch 128 x 256 BEV tokens against 256 codes of dimension 32), beside
+    the learn step they sit in: the nearest-code search without and with
+    the re-seeding statistics (``torch.bincount`` reads the codes' maximum
+    back to the host) as device and host times, and ``code_rows``'
+    backward, the one-hot f64 GEMM, with its bound."""
+    import torch
+
+    from multimodal_sc_torch.codec import semantic_vq
+    from multimodal_sc_torch.rl import dqn, replay
+
+    bs, lid = cfg.rl.batch_size, cfg.lidar
+    idx = torch.arange(bs, device="cuda")
+    batch = dqn.dequantize_obs(cfg, replay.sample(state.buffer, None, bs,
+                                                  idx))
+    per = state.params.perception
+    with torch.no_grad():
+        bev = per.lid_backbone(per.pfn(batch.points[:, :cfg.env.lidar_rays],
+                                       batch.mask[:, :cfg.env.lidar_rays]))
+        z_e = torch.nn.functional.linear(
+            bev, per.lid_to_code.weight[:, :, 0, 0], per.lid_to_code.bias)
+    cb = per.lid_codebook.detach()
+    n, d, k = z_e.numel() // lid.vq_dim, lid.vq_dim, lid.vq_codes
+    codes = semantic_vq.vector_quantize(z_e, cb)[1].reshape(-1).long()
+    book = cb.clone().requires_grad_(True)
+    grad = torch.randn(n, d, device="cuda")
+
+    def search(stats):
+        with torch.no_grad():
+            semantic_vq.vector_quantize(z_e, cb, lid.vq_beta,
+                                        lid.vq_usage_coef, lid.vq_usage_temp,
+                                        with_stats=stats)
+
+    draws = dqn.draw_learn(cfg, state.buffer.size, state.generator, "cuda")
+    forward = dqn.learner_forward(cfg)
+    def learn():
+        dqn.learn_step(cfg, state, batch, draws, forward)
+
+    rows = [
+        ("learn step (host wall)", _ms(learn, iters=5), None, None),
+        ("nearest-code search, no statistics", _device_ms(
+            lambda: search(False)), *_bound_ms(
+                2.0 * n * k * d, 4 * (n * d + k * d + n + n * d), PEAK_F32)),
+        ("nearest-code search with the re-seeding statistics", _device_ms(
+            lambda: search(True)), None, None),
+        ("  the same, host wall", _ms(lambda: search(True)), None, None),
+        ("  without them, host wall", _ms(lambda: search(False)), None,
+         None),
+        ("code_rows backward (one-hot f64 GEMM)", _device_ms(
+            lambda: torch.autograd.grad(semantic_vq.code_rows(book, codes),
+                                        book, grad)),
+         *_bound_ms(2.0 * n * k * d, 4 * n * d + 8 * n + 4 * k * d,
+                    PEAK_F64))]
+    print(f"  c4_digital parts at the learner's LiDAR shape ({n} tokens, "
+          f"{k} codes of {d}), ms:", flush=True)
+    for what, ms, bound, by in rows:
+        tail = (f"; bound {bound:.4f} ms ({by})" if bound is not None
+                else "")
+        print(f"    {what}: {ms:.4f}{tail}", flush=True)
+    print("  the learn step alone, its device time by kernel:", flush=True)
+    _idle_share(learn, rows[0][1], n=5)
+
+
+def drive_c4_digital_v2x_harq():
+    """Full-digital fog + V2X act-only at 1024 envs under Type-I HARQ on
+    all three links, then one forward on the carried observations whose
+    link accounting, summed over the camera, ego and RSU links, must lie at
+    or above the one-shot floor. Returns the launches."""
+    import torch
+
+    from multimodal_sc_torch.rl import dqn
+
+    name = "c4_digital fog + V2X, HARQ"
+    launches, _, cfg, state, _ = drive_main_path(
+        name, C4_DIGITAL_V2X_HARQ, EXPECTED_C4_DIGITAL_V2X)
+    aux = {}
+    with torch.no_grad():
+        state.params(dqn.dequantize_image(state.obs_image), state.obs_points,
+                     state.obs_mask, generator=state.generator, aux=aux)
+    syms, rounds = float(aux["harq_syms"]), float(aux["harq_rounds"])
+    resid = float(aux["harq_resid"])
+    if not (syms >= ONE_SHOT_SYMS_V2X and rounds >= 1.0
+            and 0.0 <= resid <= 1.0):
+        raise RuntimeError(f"{name}: link accounting {syms} symbols, "
+                           f"{rounds} rounds, {resid} residual failures")
+    print(f"  {name}: {syms:.1f} symbols a step over the 3 links (one-shot "
+          f"floor {ONE_SHOT_SYMS_V2X}), mean rounds {rounds:.4f}, residual "
+          f"failures {resid:.4f}", flush=True)
+    return launches
+
+
+def drive_c4_digital_prune():
+    """The pruned digital LiDAR deployed at half its tokens by the
+    farthest-point order: one act step, then one act+learn iteration (its
+    learn step trains at random kept fractions), launching as c4_digital's
+    act and act+learn iterations. Returns the launches."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.rl import dqn
+
+    name = "c4_digital pruned, token_keep 0.5 scatter"
+    cfg = get_preset("c4").override_str(C4_DIGITAL_PRUNE).validate()
+    state = _init_dqn(cfg)
+    iteration = dqn.make_iteration(cfg)
+    totals = {}
+    for i in range(cfg.rl.n_step):
+        _reset_counts()
+        state, metrics = iteration(state)
+        torch.cuda.synchronize()
+        ran = _read_counts()
+        learned = i == cfg.rl.n_step - 1
+        _check_counts(ran, EXPECTED_C4_DIGITAL_LEARN if learned
+                      else EXPECTED_C4_DIGITAL, 1, name)
+        totals = {k: totals.get(k, 0) + v for k, v in ran.items()}
+    loss = float(metrics["loss"])
+    if state.step != 1 or not math.isfinite(loss) or loss == 0:
+        raise RuntimeError(f"{name}: step {state.step}, loss {loss}")
+    obs = (dqn.dequantize_image(state.obs_image), state.obs_points,
+           state.obs_mask)
+    noise = _link_noise(cfg, NUM_ENVS, torch.Generator(
+        device="cuda").manual_seed(17))
+    with torch.no_grad():
+        q_half = state.params(*obs, channel_noise=noise)
+        q_full = state.params(*obs, channel_noise=noise,
+                              lidar_keep=torch.ones(NUM_ENVS, device="cuda"))
+    gap = (q_half - q_full).abs().max().item()
+    if not (torch.isfinite(q_half).all() and gap > 0):
+        raise RuntimeError(f"{name}: Q at half the tokens vs all: {gap}")
+    print(f"  {name}: one act step and one act+learn iteration, launches "
+          f"{totals}; loss {loss:.4f}; Q at half the BEV tokens vs all of "
+          f"them: largest difference {gap:.3e}", flush=True)
+    return totals
+
+
 def drive_c3(name, overrides, expected):
     """The c3 late-fusion train step at the preset's full widths through
     ``train.fusion_jscc`` (a digital LiDAR codec's codebook seeded as a
@@ -2130,16 +2366,19 @@ def compare_c3_routes(cfg, state, batches, expected):
             attention_packed.packed_attention, mxu_bf16=False))]))
 
 
-def drive_c5():
-    """The c5 PPO update at the preset's full widths through
-    ``rl.ppo.make_train_step``: returns the launches of the timed run, the
-    env steps/s, and the config, state and train step it ended with."""
+def drive_c5(name="c5", overrides=(), expected=EXPECTED_C5):
+    """The c5 PPO update at the preset's full widths (with ``overrides``)
+    through ``rl.ppo.make_train_step``, a digital trunk's codebooks seeded as
+    ``train.ppo.run`` seeds a cold start: returns the launches of the timed
+    run, the env steps/s, and the config, state and train step it ended
+    with."""
     import torch
 
     from multimodal_sc_torch.config import get_preset
     from multimodal_sc_torch.rl import ppo
+    from multimodal_sc_torch.rl.warmstart import cold_start
 
-    cfg = get_preset("c5")
+    cfg = get_preset("c5").override_str(overrides)
     r = cfg.rl
     if (r.rollout_length, r.num_envs,
             r.ppo_epochs * r.num_minibatches) != (C5_T, C5_ENVS,
@@ -2147,6 +2386,7 @@ def drive_c5():
         raise RuntimeError(f"c5 preset: {r}")
     t0 = time.perf_counter()
     state = ppo.init(cfg, seed=0, device="cuda")
+    cold_start(cfg, (state.params, state.ema_params))
     train_step = ppo.make_train_step(cfg)
     for _ in range(C5_WARMUP_UPDATES):
         state, first = train_step(state)
@@ -2167,13 +2407,13 @@ def drive_c5():
     launches = _read_counts()
 
     rate = C5_TIMED_UPDATES * C5_T * C5_ENVS / wall
-    print(f"  c5 PPO: {C5_TIMED_UPDATES} updates x {C5_T} steps x {C5_ENVS} "
+    print(f"  {name} PPO: {C5_TIMED_UPDATES} updates x {C5_T} steps x {C5_ENVS} "
           f"envs in {wall:.3f} s = {rate:.1f} env steps/s "
           f"({wall / C5_TIMED_UPDATES:.3f} s an update)", flush=True)
     print(f"  launches in the timed run: {launches}", flush=True)
     print(f"  metrics: " + ", ".join(
         f"{k}={float(v):.4f}" for k, v in metrics.items()), flush=True)
-    _check_counts(launches, EXPECTED_C5, C5_TIMED_UPDATES, "c5")
+    _check_counts(launches, expected, C5_TIMED_UPDATES, name)
     for m in [first] + history:
         if not all(torch.isfinite(v).all() for v in m.values()):
             raise RuntimeError(f"c5: non-finite metrics: {m}")
@@ -2246,15 +2486,18 @@ def compare_c5_routes(cfg, state):
     from multimodal_sc_torch.rl import dqn, ppo
     from multimodal_sc_torch.rl.perception import ActorCritic
 
+    from multimodal_sc_torch.codec import semantic_vq
+
     g = torch.Generator(device="cuda").manual_seed(9)
-    hw, lid = cfg.camera.image_hw, cfg.lidar
     forward = dqn.learner_forward(cfg, ActorCritic)
     net = state.params
     net64 = copy.deepcopy(net).double()
     coef = ppo._entropy_coef(cfg, state.update)
     plain = [(conv_block, "conv_prelu", conv_block.conv_prelu_reference),
              (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)]
-    expected = {"conv_prelu": 5, "scatter_max": 1, "scatter_max_bwd": 1}
+    convs = 4 if cfg.camera.arch == "vq" else 5
+    expected = {"conv_prelu": convs, "scatter_max": 1, "scatter_max_bwd": 1}
+    digital = cfg.camera.arch == "vq" or cfg.lidar.arch == "vq"
 
     def loss_and_grads(model, batch, noise):
         loss, _ = ppo._ppo_loss(cfg, forward, model, batch, coef,
@@ -2263,25 +2506,38 @@ def compare_c5_routes(cfg, state):
             loss, list(model.parameters()), allow_unused=True)
 
     for i, batch in enumerate(_c5_minibatches(cfg, state)):
-        noise = tuple(
-            torch.randn(C5_LOSS_BATCH, n, 2, generator=g, device="cuda")
-            for n in ((hw[0] // 4) * (hw[1] // 4) * cfg.camera.c_sym,
-                      lid.bev_hw[0] * lid.bev_hw[1] * lid.c_sym))
-        routes = _two_routes(functools.partial(loss_and_grads, net, batch,
-                                               noise),
-                             expected, "the c5 loss", plain)
-        # The port's modules cast to f32 with .float(); here it keeps f64.
-        before = _read_counts()
-        with _patched(plain), mock.patch.object(
-                torch.Tensor, "float", lambda t: t.double()):
-            loss_d, grads_d = loss_and_grads(
-                net64, {k: v.double() if v.is_floating_point() else v
-                        for k, v in batch.items()},
-                tuple(z.double() for z in noise))
-        torch.cuda.synchronize()
+        noise = _link_noise(cfg, C5_LOSS_BATCH, g)
+        # Over a digital link all three routes quantise to the codes the
+        # kernels' route picks (``_HeldCodes``).
+        held = _HeldCodes()
+        with (mock.patch.object(semantic_vq, "vector_quantize", held)
+              if digital else contextlib.nullcontext()):
+            def kernels_first():
+                out = loss_and_grads(net, batch, noise)
+                held.mode = "hold"
+                return out
+
+            routes = _two_routes(kernels_first, expected, "the c5 loss",
+                                 plain)
+            held.i = 0
+            # The port's modules cast to f32 with .float(); here it keeps
+            # f64.
+            before = _read_counts()
+            with _patched(plain), mock.patch.object(
+                    torch.Tensor, "float", lambda t: t.double()):
+                loss_d, grads_d = loss_and_grads(
+                    net64, {k: v.double() if v.is_floating_point() else v
+                            for k, v in batch.items()},
+                    tuple(z.double() for z in noise))
+            torch.cuda.synchronize()
         if _read_counts() != before:
             raise RuntimeError("the f64 route of the c5 loss launched a "
                                "kernel")
+        if digital:
+            print(f"  PPO minibatch {i}: the plain and f64 routes picked the "
+                  f"kernels' route's codes at all but {held.held} of "
+                  f"{2 * sum(c.numel() for c in held.codes)} tokens "
+                  "(near-ties)", flush=True)
         _hold_to_f64(f"PPO minibatch {i}", net, *routes, loss_d, grads_d)
         # The value loss makes these gradients 1e3-1e4 times the c4 learn
         # step's, and a weight's gradient is a sum over 512 x 64 positions
@@ -3613,7 +3869,9 @@ def main() -> int:
             ("c4 ViT trunk", VIT, EXPECTED_VIT, EXPECTED_VIT_LEARN,
              LEARN_ROUTE_VIT),
             ("c4_vq digital camera", VQ4, EXPECTED_VQ4, EXPECTED_VQ4_LEARN,
-             LEARN_ROUTE_VQ4)):
+             LEARN_ROUTE_VQ4),
+            ("c4_digital full-digital", C4_DIGITAL, EXPECTED_C4_DIGITAL,
+             EXPECTED_C4_DIGITAL_LEARN, LEARN_ROUTE_C4_DIGITAL)):
         print(f"main path ({name} act-only):", flush=True)
         launches, rates[f"act-only, {name}"], cfg, state, iteration = (
             drive_main_path(name, overrides, act_exp))
@@ -3633,8 +3891,30 @@ def main() -> int:
         if args.profile:
             print(f"profile ({name} act+learn):", flush=True)
             profile_learn(cfg, state, iteration)
+        if cfg.lidar.arch == "vq":
+            if args.profile:
+                time_c4_digital_parts(cfg, state)
+            check_reseed(name, cfg, state)
         del state, iteration
         torch.cuda.empty_cache()
+    print("main path (c4_digital fog + V2X act-only, HARQ on all three "
+          "links):", flush=True)
+    for k, v in drive_c4_digital_v2x_harq().items():
+        totals[k] += v
+    torch.cuda.empty_cache()
+    print("main path (c4_digital pruned trunk, an act and a learn step):",
+          flush=True)
+    for k, v in drive_c4_digital_prune().items():
+        totals[k] += v
+    torch.cuda.empty_cache()
+    print("main path (c5 PPO update over both digital links):", flush=True)
+    launches, c5_digital_rate, cfg, state, train_step = drive_c5(
+        "c5 digital", C5_DIGITAL, EXPECTED_C5_DIGITAL)
+    for k, v in launches.items():
+        totals[k] += v
+    compare_c5_routes(cfg, state)
+    del state, train_step
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as ckpt_dir:
         print("checkpoint round trip (c4 fog + V2X):", flush=True)
         cfg = checkpoint_round_trip(ckpt_dir)
@@ -3646,6 +3926,10 @@ def main() -> int:
         print("checkpoint round trip (c4_vq):", flush=True)
         checkpoint_round_trip(ckpt_dir, VQ4)
         torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        print("checkpoint round trip (c4_digital):", flush=True)
+        checkpoint_round_trip(ckpt_dir, C4_DIGITAL)
+        torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
@@ -3654,7 +3938,8 @@ def main() -> int:
         f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
     print(f"c3 train steps/s at batch {C3_BATCH} on {card}: " + "; ".join(
         f"{k} {v:.2f}" for k, v in c3_rates.items()), flush=True)
-    print(f"c5 env steps/s at {C5_ENVS} envs on {card}: {c5_rate:.1f}; c1 "
+    print(f"c5 env steps/s at {C5_ENVS} envs on {card}: {c5_rate:.1f} (over "
+          f"both digital links {c5_digital_rate:.1f}); c1 "
           f"train steps/s at batch {C1_BATCH}: {c1_rate:.2f}; c2: "
           f"{c2_rate:.2f}; c1_vq: {c1_vq_rate:.2f}", flush=True)
     print(f"card: {card}", flush=True)

@@ -398,22 +398,22 @@ class VQEncoderTokens(nn.Module):
             x = getattr(self, f"enc{i}")(x)
         return F.linear(x, self.to_code.weight[:, :, 0, 0], self.to_code.bias)
 
-    def quantize(self, z_e: torch.Tensor):
+    def quantize(self, z_e: torch.Tensor, with_stats: bool = True):
         """(B, h, w, D) features -> ``(indices (B, N) int32, vq_loss, z_ste
         (B, N, D), stats)``; ``stats`` the re-seeding inputs of
-        :func:`vector_quantize` when ``vq_reseed > 0``, else None (what the
-        JAX module sows, returned)."""
+        :func:`vector_quantize` when ``vq_reseed > 0`` and ``with_stats``,
+        else None (what the JAX module sows, returned)."""
         out = vector_quantize(z_e, self.codebook, self.vq_beta,
                               self.vq_usage_coef, self.vq_usage_temp,
-                              with_stats=self.vq_reseed > 0)
+                              with_stats=with_stats and self.vq_reseed > 0)
         z_ste, idx, vq_loss = out[:3]
         b, h, w, _ = z_e.shape
         return (idx.reshape(b, h * w), vq_loss,
                 z_ste.reshape(b, h * w, self.vq_dim),
                 out[3] if len(out) > 3 else None)
 
-    def forward(self, img: torch.Tensor):
-        return self.quantize(self.encode_features(img))
+    def forward(self, img: torch.Tensor, with_stats: bool = True):
+        return self.quantize(self.encode_features(img), with_stats)
 
 
 class VQTokensCamera(nn.Module):

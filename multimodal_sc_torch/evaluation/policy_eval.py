@@ -20,10 +20,15 @@ no target and no snapshot and ignores those two with a warning), refuses
 to evaluate untrained weights unless ``--allow-untrained``, prints the card
 and one JSON object of the evaluation, or with ``--snr-sweep`` the
 return-vs-SNR table (``evaluation/policy_sweep.py``). A checkpoint of the
-digital camera link (``camera.arch=vq``) deploys coded with ``--set
-channel.fec=hamming74_soft`` (or ``hamming74``) or under HARQ with ``--set
-channel.harq=true``, whose link accounting the sweep's ``--out`` JSON
-carries.
+digital link (``camera.arch=vq``, ``lidar.arch=vq``, or both) deploys
+coded with ``--set channel.fec=hamming74_soft`` (or ``hamming74``) or under
+HARQ with ``--set channel.harq=true``, whose link accounting (summed over
+the camera, ego LiDAR and V2X links) the sweep's ``--out`` JSON carries;
+a pruned LiDAR checkpoint (``lidar.vq_prune``) deploys at ``--set
+channel.token_keep=F`` under ``channel.token_select`` ``scatter`` or
+``random``. The configuration is validated first, as the JAX package's CLI
+validates it: HARQ with pruning, a damage selection rule on the RL path
+and ``camera.vq_prune`` on the RL path are refused.
 """
 
 from __future__ import annotations
@@ -258,7 +263,8 @@ def main(argv=None) -> int:
                     help="curve JSON output path for --snr-sweep")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = get_preset(args.config).override_str(args.set)
+    # The JAX package's refusals of flag combinations it would ignore.
+    cfg = get_preset(args.config).override_str(args.set).validate()
     dev = resolve_device(args.device)
     print(f"card: {card_name(dev)}", flush=True)
     flags = dict(use_target=args.use_target, use_ema=args.use_ema,

@@ -12,11 +12,12 @@ action draws): the evaluation is paired, and curve differences are
 channel effects, not reseeded episode noise. Fog (in the env states) and the V2X
 offset are runtime values, as in the JAX package.
 
-A digital camera link deploys as configured: ``channel.fec`` codes a VQ
+A digital link deploys as configured: ``channel.fec`` codes a VQ
 checkpoint at deploy time, and under ``channel.harq`` each row also
-carries the link's accounting, per step: ``link_syms_per_step`` (the
-symbols the camera link really sent per image, retransmissions included),
-``harq_mean_rounds`` and ``harq_residual_fail_rate``. As in the JAX
+carries the links' accounting, per step: ``link_syms_per_step`` (the
+symbols the camera, ego LiDAR and V2X links really sent per observation,
+retransmissions included, summed), ``harq_mean_rounds`` and
+``harq_residual_fail_rate`` (each averaged over the links). As in the JAX
 package, these count every step of the ``env.max_steps`` rollout, steps
 after an env's first done included.
 """
@@ -47,8 +48,9 @@ def _deployed(net: nn.Module, cfg_k: ExperimentConfig) -> nn.Module:
 
 def _with_link_stats(cfg: ExperimentConfig, actions, aux: dict):
     """The actions, and under ``channel.harq`` the step's link accounting
-    from the trunk's ``aux`` (the camera link's; zeros where no link ran
-    HARQ, as JAX's sums over no sown entries)."""
+    from the trunk's ``aux``, reduced over the HARQ links as the JAX
+    package reduces its sown entries (symbols summed, rounds and residual
+    failures averaged; zeros where no link ran HARQ)."""
     if not cfg.channel.harq:
         return actions
     zero = torch.zeros((), device=actions.device)

@@ -15,14 +15,18 @@ state holds the same modules. With the digital camera (``camera.arch="vq"``)
 the loss adds ``rl.vq_loss_coef`` x the online forward's VQ loss (TD
 gradients ride the straight-through path and never move the codebook), and
 under ``camera.vq_reseed`` the camera's batch-dead codes are re-seeded
-after the optimizer step. The digital LiDAR branches wait for ROADMAP item
-14c.
+after the optimizer step. The digital LiDAR (``lidar.arch="vq"``) joins
+the same way: its VQ losses (ego and V2X) join the sum and
+``lidar.vq_reseed`` re-seeds its codebook; under ``lidar.vq_prune`` the
+learner's three forwards share one vector of kept fractions, uniform in
+``[lidar.vq_keep_min, 1)``, so one checkpoint deploys at any
+``channel.token_keep``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +36,7 @@ from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import resolve_device
 from multimodal_sc_torch.envs import driving
 from multimodal_sc_torch.rl import nstep, replay
-from multimodal_sc_torch.rl.perception import (QNetwork,
+from multimodal_sc_torch.rl.perception import (LinkDraws, QNetwork,
                                                apply_codebook_reseed,
                                                collect_reseed_stats)
 
@@ -187,14 +191,19 @@ def _sample_snr(cfg: ExperimentConfig, generator, batch: int, device):
 
 
 class LearnDraws(NamedTuple):
-    """The random draws of one learn step. A ``None`` noise entry is drawn
-    from the generator inside that forward."""
+    """The random draws of one learn step. A ``None`` entry is drawn from
+    the generator: the keep vector before the forwards, a forward's link
+    draws inside it (``perception.LinkDraws``), the coins after the
+    optimizer step."""
     indices: torch.Tensor               # (batch,) replay rows
     snr_db: Optional[torch.Tensor]      # (batch,), channel.random_snr only
-    noise_online: Optional[Sequence[torch.Tensor]] = None   # batch.image
-    noise_target: Optional[Sequence[torch.Tensor]] = None   # target, next obs
-    noise_double: Optional[Sequence[torch.Tensor]] = None   # online, next obs
+    noise_online: Optional[LinkDraws] = None   # online, batch.image
+    noise_target: Optional[LinkDraws] = None   # target, next obs
+    noise_double: Optional[LinkDraws] = None   # online, next obs
     coin: Optional[torch.Tensor] = None    # (K,) camera.vq_reseed's coin
+    # (batch,) lidar.vq_prune's kept fractions, shared by the 3 forwards
+    keep: Optional[torch.Tensor] = None
+    lid_coin: Optional[torch.Tensor] = None    # (K,) lidar.vq_reseed's coin
 
 
 def draw_learn(cfg: ExperimentConfig, buffer_size: int,
@@ -230,34 +239,49 @@ def learner_forward(cfg: ExperimentConfig,
     return forward
 
 
+def learner_keep(cfg: ExperimentConfig, batch: int,
+                 generator: Optional[torch.Generator], device,
+                 given: Optional[torch.Tensor] = None):
+    """The kept fractions a learner's forwards train the pruned digital
+    LiDAR under (``lidar.vq_prune``): ``given``, else uniform in
+    ``[lidar.vq_keep_min, 1)`` from ``generator``; None without pruning."""
+    if not cfg.lidar.vq_prune:
+        return None
+    if given is not None:
+        return given
+    lo = cfg.lidar.vq_keep_min
+    return lo + torch.rand((batch,), generator=generator,
+                           device=device) * (1.0 - lo)
+
+
 def _td_loss(cfg: ExperimentConfig, forward, online: QNetwork,
              target_net: QNetwork, batch: Transition, draws: LearnDraws,
              generator: Optional[torch.Generator] = None,
              aux: Optional[dict] = None) -> torch.Tensor:
     """Double-DQN Huber TD loss on one batch. Only the online forward on
-    ``batch.image`` carries gradient; one SNR vector is shared by the three
-    forwards, each with its own channel noise. With the VQ camera the loss
-    adds ``rl.vq_loss_coef`` x that forward's VQ loss; ``aux`` (optional
+    ``batch.image`` carries gradient; one SNR vector and, under
+    ``lidar.vq_prune``, one keep vector are shared by the three forwards,
+    each with its own channel noise. With a digital link the loss adds
+    ``rl.vq_loss_coef`` x that forward's summed VQ loss; ``aux`` (optional
     dict) receives what that forward's trunk returns (the re-seeding
     inputs among them)."""
-    if cfg.lidar.arch == "vq" or cfg.lidar.vq_prune:
-        raise NotImplementedError(
-            "the digital LiDAR branches of the TD loss (codebook loss, "
-            "dead-code reseed, token pruning) are not ported yet (ROADMAP "
-            "item 14c)")
     snr = draws.snr_db
+    keep = learner_keep(cfg, batch.action.shape[0], generator,
+                        batch.action.device, draws.keep)
     aux = {} if aux is None else aux
     q = forward(online, batch.image, batch.points, batch.mask, generator,
-                snr, channel_noise=draws.noise_online, aux=aux)
+                snr, channel_noise=draws.noise_online, aux=aux,
+                lidar_keep=keep)
     q_taken = q.gather(1, batch.action.long()[:, None])[:, 0]
     with torch.no_grad():
         q_next_t = forward(target_net, batch.next_image, batch.next_points,
                            batch.next_mask, generator, snr,
-                           channel_noise=draws.noise_target)
+                           channel_noise=draws.noise_target, lidar_keep=keep)
         if cfg.rl.double_dqn:
             q_next_o = forward(online, batch.next_image, batch.next_points,
                                batch.next_mask, generator, snr,
-                               channel_noise=draws.noise_double)
+                               channel_noise=draws.noise_double,
+                               lidar_keep=keep)
             a_star = q_next_o.argmax(dim=-1)
         else:
             a_star = q_next_t.argmax(dim=-1)
@@ -279,8 +303,8 @@ def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
     Updates ``state.params``, the Adam moments, ``state.target_params``
     (hard sync every ``rl.target_update_period`` steps, or Polyak under
     ``rl.target_tau``) and ``state.ema_params`` in place; re-seeds the
-    online camera codebook's dead codes after the optimizer step under
-    ``camera.vq_reseed``."""
+    online codebooks' dead codes after the optimizer step under
+    ``camera.vq_reseed`` / ``lidar.vq_reseed``."""
     if forward is None:
         forward = learner_forward(cfg)
     opt = state.opt_state
@@ -302,7 +326,7 @@ def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
         step = state.step + 1
         apply_codebook_reseed(cfg, state.params,
                               collect_reseed_stats(cfg, aux),
-                              state.generator, draws.coin)
+                              state.generator, draws.coin, draws.lid_coin)
         targets = list(state.target_params.parameters())
         if cfg.rl.target_tau > 0:
             torch._foreach_lerp_(targets, params, cfg.rl.target_tau)
@@ -326,10 +350,6 @@ def make_iteration(cfg: ExperimentConfig, learn: bool = True,
     (scan-per-dispatch) and ``carry_f32`` options are not ported: PyTorch
     has no dispatch to amortize that way.
     """
-    if learn and cfg.lidar.arch == "vq":
-        raise NotImplementedError(
-            "learning with a digital LiDAR link is not ported yet (ROADMAP "
-            "item 14c); use learn=False")
     forward = learner_forward(cfg) if learn else None
 
     @torch.no_grad()

@@ -14,16 +14,19 @@ through their plain version on the same parameters, as the JAX package's
 ``_ppo_loss`` runs their XLA twin (``rl/dqn.py`` ``learner_forward``).
 Unlike the JAX package's pure update, an update writes the network, the
 EMA and the Adam moments IN PLACE: the returned state holds the same
-modules. Not ported, each raising: the VQ and LiDAR token-pruning branches
-of the loss (ROADMAP item 14c). ``shard_state`` waits for item 16, and
-``make_train_step_chunked`` has no counterpart: PyTorch runs eagerly, so
-there is no per-dispatch round trip to amortize.
+modules. Over a digital link (``camera.arch="vq"``, ``lidar.arch="vq"``)
+the loss adds ``rl.vq_loss_coef`` x the summed VQ losses and each
+minibatch step re-seeds the dead codes of the re-seeding codebooks after
+its optimizer step; under ``lidar.vq_prune`` the loss forward trains at
+random kept fractions, as the DQN learner does. ``shard_state`` waits for
+item 16, and ``make_train_step_chunked`` has no counterpart: PyTorch runs
+eagerly, so there is no per-dispatch round trip to amortize.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +36,11 @@ from multimodal_sc_torch.device import resolve_device
 from multimodal_sc_torch.envs import driving
 from multimodal_sc_torch.rl import replay
 from multimodal_sc_torch.rl.dqn import (clip_by_global_norm_, learner_forward,
-                                        make_optimizer)
+                                        learner_keep, make_optimizer)
 from multimodal_sc_torch.rl.gae import gae
-from multimodal_sc_torch.rl.perception import ActorCritic
+from multimodal_sc_torch.rl.perception import (ActorCritic, LinkDraws,
+                                               apply_codebook_reseed,
+                                               collect_reseed_stats)
 
 
 class PPOState(NamedTuple):
@@ -63,11 +68,17 @@ class Rollout(NamedTuple):
 
 
 class UpdateDraws(NamedTuple):
-    """The random draws of one update's minibatch steps. A ``None`` entry is
-    drawn from the state's generator."""
+    """The random draws of one update's minibatch steps, each indexed
+    ``[epoch][minibatch]`` but the permutations. A ``None`` entry is drawn
+    from the state's generator."""
     perms: Optional[Sequence[torch.Tensor]] = None   # one (T*B,) per epoch
-    # [epoch][minibatch] -> the (camera, LiDAR) channel noise of that step
-    noise: Optional[Sequence[Sequence[Sequence[torch.Tensor]]]] = None
+    # the link draws of that step's loss forward (perception.LinkDraws)
+    noise: Optional[Sequence[Sequence[LinkDraws]]] = None
+    # lidar.vq_prune: the step's (minibatch,) kept fractions
+    keep: Optional[Sequence[Sequence[torch.Tensor]]] = None
+    # the step's (K,) re-seeding coins: (camera's, LiDAR's), None for a
+    # codebook that does not re-seed
+    coins: Optional[Sequence[Sequence[Tuple]]] = None
 
 
 def init_params(cfg: ExperimentConfig, seed: int = 0,
@@ -161,20 +172,24 @@ def _collect_rollout(cfg: ExperimentConfig, net: ActorCritic, env_states,
 def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
               batch: Dict[str, torch.Tensor], entropy_coef: float,
               generator: Optional[torch.Generator] = None,
-              channel_noise=None):
+              channel_noise=None, keep: Optional[torch.Tensor] = None,
+              aux: Optional[dict] = None):
     """``(total, {"pg_loss", "v_loss", "entropy"})`` of one minibatch: the
     clipped surrogate on normalised advantages, the value loss and the
     entropy bonus (and the entropy floor's hinge under
-    ``rl.entropy_floor``)."""
-    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq" or \
-            cfg.lidar.vq_prune:
-        raise NotImplementedError(
-            "the VQ branches of the PPO loss (codebook loss, dead-code "
-            "reseed, token pruning) are not ported yet (ROADMAP item 14c)")
+    ``rl.entropy_floor``); over a digital link plus ``rl.vq_loss_coef`` x
+    the forward's summed VQ losses. ``keep``: the kept fractions of the
+    pruned digital LiDAR (``lidar.vq_prune``), else drawn from
+    ``generator``; ``aux`` (optional dict) receives what the trunk returns
+    (the re-seeding inputs among them)."""
     r = cfg.rl
+    aux = {} if aux is None else aux
+    keep = learner_keep(cfg, batch["action"].shape[0], generator,
+                        batch["action"].device, keep)
     logits, value = forward(net, replay.dequantize_frame(batch["image"]),
                             batch["points"], batch["mask"], generator,
-                            batch["snr"], channel_noise=channel_noise)
+                            batch["snr"], channel_noise=channel_noise,
+                            aux=aux, lidar_keep=keep)
     logp_all = F.log_softmax(logits, dim=-1)
     logp = logp_all.gather(1, batch["action"].long()[:, None])[:, 0]
     ratio = torch.exp(logp - batch["logp"])
@@ -191,6 +206,8 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
         # collapses below it.
         total = total + r.entropy_floor_coef * F.relu(
             r.entropy_floor - entropy)
+    if "vq_loss" in aux:
+        total = total + r.vq_loss_coef * aux["vq_loss"]
     return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy}
 
 
@@ -202,6 +219,11 @@ def _entropy_coef(cfg: ExperimentConfig, update: int) -> float:
         return c0
     frac = min(max(update / max(1, cfg.train.steps - 1), 0.0), 1.0)
     return c0 + frac * (c1 - c0)
+
+
+def _step_draw(draws: Optional[UpdateDraws], name: str, e: int, i: int):
+    field = None if draws is None else getattr(draws, name)
+    return None if field is None else field[e][i]
 
 
 def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
@@ -230,9 +252,11 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
         for i in range(r.num_minibatches):
             idx = perm[i * mb:(i + 1) * mb]
             batch = {k: v[idx] for k, v in flat.items()}
-            noise = (draws.noise[e][i] if draws is not None
-                     and draws.noise is not None else None)
-            loss, aux = _ppo_loss(cfg, forward, net, batch, ent_coef, g, noise)
+            noise, keep, coins = (_step_draw(draws, name, e, i)
+                                  for name in ("noise", "keep", "coins"))
+            trunk = {}
+            loss, aux = _ppo_loss(cfg, forward, net, batch, ent_coef, g,
+                                  noise, keep, trunk)
             # Parameters the loss does not reach (the last fusion layer's
             # LiDAR stream) get zero gradients, as jax.grad gives them:
             # their Adam moments then decay as optax's do.
@@ -245,6 +269,9 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
                     p.grad = gr
                 opt.step()
                 opt.zero_grad(set_to_none=True)
+                apply_codebook_reseed(cfg, net,
+                                      collect_reseed_stats(cfg, trunk), g,
+                                      *(coins or ()))
             losses.append(loss.detach())
             auxes.append({k: v.detach() for k, v in aux.items()})
     with torch.no_grad():

@@ -13,11 +13,11 @@ saves every ``train.checkpoint_every`` iterations; the best snapshot of
 ``<checkpoint_dir>/best`` at the end. Checkpoint and snapshot time is kept
 out of the steady rate and reported as ``ckpt_save_s`` / ``ckpt_close_s``.
 
-A digital camera trunk (``camera.arch="vq"``) starting cold seeds its
-codebook from its encoder's outputs on rendered env observations; a warm
-start that brought a codebook and a resume keep theirs. Not ported, each
-raising: the digital LiDAR trunk (ROADMAP item 14c), the sharded iteration
-(item 16: one process drives one card).
+A digital trunk (``camera.arch="vq"``, ``lidar.arch="vq"``) starting cold
+seeds its codebooks from its encoders' outputs on rendered env
+observations; a warm start seeds only a codebook it did not bring, and a
+resume keeps its own. Not ported: the sharded iteration (item 16: one
+process drives one card).
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -51,8 +51,7 @@ from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
 from multimodal_sc_torch.obs.profiling import (CollapseWatchdog, NaNWatchdog,
                                                maybe_trace)
 from multimodal_sc_torch.rl import dqn as dqn_lib
-from multimodal_sc_torch.rl.warmstart import (seed_vq_codebook_params,
-                                              warm_start)
+from multimodal_sc_torch.rl.warmstart import cold_start, warm_start
 
 
 def guard_replay_dtype(cfg: ExperimentConfig) -> None:
@@ -91,10 +90,6 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
     ``train.checkpoint_dir`` when it holds a checkpoint); returns
     ``(state, result)``. ``num_envs`` defaults to ``cfg.rl.num_envs`` (the
     count a resume must use: the env and replay shapes are checked)."""
-    if cfg.lidar.arch == "vq":
-        raise NotImplementedError(
-            "the digital LiDAR trunk and its codebook seeding are not ported "
-            "yet (ROADMAP item 14c)")
     if num_envs is None:
         num_envs = cfg.rl.num_envs
     dev = resolve_device(device)
@@ -102,11 +97,10 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
     nets = (state.params, state.target_params, state.ema_params)
     if init_from:
         warm_start(cfg, nets, init_from)
-    elif cfg.camera.arch == "vq":
-        # A cold VQ start seeds its codebook (a resume below overwrites it).
-        seed_vq_codebook_params(cfg, state.params)
-        for other in nets[1:]:
-            other.load_state_dict(state.params.state_dict())
+    else:
+        # A cold VQ start seeds its codebooks (a resume below overwrites
+        # them).
+        cold_start(cfg, nets)
     iteration = dqn_lib.make_iteration(cfg)
 
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
@@ -213,7 +207,7 @@ def main(argv=None) -> int:
     ap.add_argument("--eval-envs", type=int, default=256)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = get_preset(args.config).override_str(args.set)
+    cfg = get_preset(args.config).override_str(args.set).validate()
     dev = resolve_device(args.device)
     card = card_name(dev)
     print(f"card: {card}", flush=True)

@@ -10,8 +10,9 @@ config, resumes from the newest checkpoint (network, EMA, Adam moments, env
 states, generator, counters) and saves every ``train.checkpoint_every``
 updates, the writes kept out of the steady rate.
 
-Not ported, each raising: a VQ trunk and its codebook seeding (ROADMAP item
-14c), the sharded state (item 16: one process drives one card).
+A digital trunk starting cold seeds its codebooks, and after a warm start
+only a codebook the source did not bring, as the DQN driver does. Not
+ported: the sharded state (item 16: one process drives one card).
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -43,7 +44,7 @@ from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
 from multimodal_sc_torch.rl import ppo as ppo_lib
-from multimodal_sc_torch.rl.warmstart import warm_start
+from multimodal_sc_torch.rl.warmstart import cold_start, warm_start
 
 
 def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
@@ -51,14 +52,13 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
     """Train config-5 PPO for ``cfg.train.steps`` updates (resuming from
     ``train.checkpoint_dir`` when it holds a checkpoint); returns
     ``(state, result)``."""
-    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
-        raise NotImplementedError(
-            "a VQ trunk and its codebook seeding on the PPO path are not "
-            "ported yet (ROADMAP item 14c)")
     dev = resolve_device(device)
     state = ppo_lib.init(cfg, cfg.train.seed, dev)
+    nets = (state.params, state.ema_params)
     if init_from:
-        warm_start(cfg, (state.params, state.ema_params), init_from)
+        warm_start(cfg, nets, init_from)
+    else:
+        cold_start(cfg, nets)       # a resume below overwrites it
     train_step = ppo_lib.make_train_step(cfg)
     writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
     watchdog = NaNWatchdog()
@@ -126,7 +126,7 @@ def main(argv=None) -> int:
     ap.add_argument("--eval-envs", type=int, default=256)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = get_preset(args.config).override_str(args.set)
+    cfg = get_preset(args.config).override_str(args.set).validate()
     dev = resolve_device(args.device)
     card = card_name(dev)
     print(f"card: {card}", flush=True)

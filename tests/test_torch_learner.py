@@ -22,6 +22,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_c4_digital import flax_like
 from multimodal_sc_torch import bridge
 from multimodal_sc_torch.config import get_preset as t_preset
 from multimodal_sc_torch.envs import driving as tenv
@@ -105,7 +106,8 @@ def _jax_loss_and_grads(arm):
     """One jitted JAX TD loss + gradient per arm, shared by every case."""
     jcfg, _ = _configs(arm)
     batch = _batch(jcfg)
-    params = _perturb(jdqn.init_params(jcfg, jax.random.key(0)), 1, 0.02)
+    params = flax_like(jax.eval_shape(
+        lambda k: jdqn.init_params(jcfg, k), jax.random.key(0)), 1)
     target = _perturb(params, 2, 0.02)
     key = jax.random.key(21)
     (loss, _), grads = jax.jit(jax.value_and_grad(
@@ -139,8 +141,11 @@ def test_qnetwork_arm_b_matches_jax(extra):
     img, pts, mask = jenv.observe_batch(jcfg.env, states)
     net_key = jax.random.key(6)
     jnet = JQNetwork(jcfg)
-    params = jnet.init(jax.random.key(7), img, pts, mask, net_key)["params"]
-    want = jnet.apply({"params": params}, img, pts, mask, net_key)
+    # JAX's tree drawn with numpy: its init compiles for tens of seconds.
+    params = flax_like(jax.eval_shape(lambda k: jnet.init(
+        k, img, pts, mask, net_key)["params"], jax.random.key(7)), 7)
+    want = jax.jit(lambda p: jnet.apply({"params": p}, img, pts, mask,
+                                        net_key))(params)
     tnet = _port_net(tcfg, params)
     with torch.no_grad():
         got = tnet(_t(img), _t(pts), _t(mask),
@@ -354,11 +359,11 @@ def test_train_run_keys_match_jax_run(tmp_path):
 
 
 def test_train_run_refuses_what_is_not_ported(tmp_path):
-    """A digital LiDAR trunk still raises (ROADMAP item 14c). The warm
-    start and the checkpoints, refused until they were ported, now run: a
-    warm start from a directory with no checkpoint is refused as JAX
-    refuses it, and a checkpoint directory gets the pinned config and its
-    checkpoints."""
+    """The warm start, the checkpoints and the digital LiDAR trunk, refused
+    until they were ported, now run: a warm start from a directory with no
+    checkpoint is refused as JAX refuses it, a checkpoint directory gets
+    the pinned config and its checkpoints, and the script refuses what
+    JAX's config validation refuses (HARQ with token pruning)."""
     tcfg = t_preset("c4").override_str(TINY + ["train.steps=2"])
     with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         ttrain.run(tcfg, init_from=str(tmp_path), device="cpu")
@@ -368,14 +373,20 @@ def test_train_run_refuses_what_is_not_ported(tmp_path):
     assert CheckpointManager(str(tmp_path)).steps() == [1, 2]
     assert (tmp_path / "config.json").exists()
     assert {"ckpt_save_s", "ckpt_close_s"} <= set(out)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttrain.run(tcfg.override_str(["lidar.arch=vq"]), device="cpu")
+    _, out = ttrain.run(tcfg.override_str(["lidar.arch=vq"]), device="cpu")
+    assert all(np.isfinite(v) for v in out.values()
+               if isinstance(v, float))
+    with pytest.raises(ValueError, match="harq with token pruning"):
+        ttrain.main(["--config", "c4", "--device", "cpu"] + [
+            a for o in TINY + ["lidar.arch=vq", "lidar.vq_prune=true",
+                               "channel.harq=true"] for a in ("--set", o)])
 
 
 def test_evaluate_dqn_keys_and_first_done_accounting():
     jcfg = j_preset("c4").override_str(TINY)
     tcfg = t_preset("c4").override_str(TINY)
-    jparams = jdqn.init_params(jcfg, jax.random.key(0))
+    jparams = flax_like(jax.eval_shape(
+        lambda k: jdqn.init_params(jcfg, k), jax.random.key(0)), 0)
     jout = jeval.evaluate_dqn(jcfg, jparams, jax.random.key(1), num_envs=4)
     net = _port_net(tcfg, jparams)
     tout = teval.evaluate_dqn(tcfg, net, seed=1, num_envs=4)

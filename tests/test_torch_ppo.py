@@ -487,9 +487,10 @@ def test_main_trains_and_evaluates_both_networks(capsys):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """What is still refused (VQ, a rollout the minibatches do not divide,
-    the card when it is absent); the warm start and the checkpoints,
-    refused until they were ported, now run."""
+    """What is still refused (what JAX's config validation refuses, a
+    rollout the minibatches do not divide, the card when it is absent);
+    the warm start, the checkpoints and the digital LiDAR, refused until
+    they were ported, now run."""
     _, tcfg = _configs(["train.steps=1"])
     with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         ttrain.run(tcfg, init_from=str(tmp_path), device="cpu")
@@ -498,14 +499,14 @@ def test_refusals(tmp_path, monkeypatch):
         device="cpu")
     assert CheckpointManager(str(tmp_path)).steps() == [1]
     assert "ckpt_save_s" in out
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttrain.run(tcfg.override_str(["lidar.arch=vq"]), device="cpu")
+    _, out = ttrain.run(tcfg.override_str(["lidar.arch=vq"]), device="cpu")
+    assert np.isfinite(out["loss"])
     with pytest.raises(ValueError, match="divisible by num_minibatches"):
         tppo.make_train_step(tcfg.override_str(["rl.num_minibatches=3"]))
-    net = tppo.init_params(tcfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tppo._ppo_loss(tcfg.override_str(["lidar.arch=vq"]),
-                       tdqn.learner_forward(tcfg, TActorCritic), net, {}, 0.0)
+    with pytest.raises(ValueError, match="camera.vq_prune"):
+        ttrain.main(["--config", "c5", "--device", "cpu"] + [
+            a for o in TINY + ["train.steps=1", "camera.arch=vq",
+                               "camera.vq_prune=true"] for a in ("--set", o)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tppo.init(tcfg)

@@ -19,6 +19,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_c4_digital import flax_like
 from multimodal_sc_torch import bridge
 from multimodal_sc_torch.config import get_preset as t_preset
 from multimodal_sc_torch.rl import dqn as tdqn
@@ -82,6 +83,14 @@ def _port(cls, tcfg, params):
     return net
 
 
+def _filled(jnet, *args):
+    """Parameters of ``jnet``'s structure drawn with numpy (``flax_like``
+    of ``eval_shape`` of its init): the comparisons need JAX's tree, not
+    flax's initial values, and its init compiles for tens of seconds."""
+    return flax_like(jax.eval_shape(
+        lambda k: jnet.init(k, *args)["params"], jax.random.key(7)), 7)
+
+
 @pytest.mark.parametrize("arm", ["vit", "fog_v2x", "vit_fog_v2x"])
 def test_qnetwork_matches_jax(arm):
     jcfg, tcfg = _configs("c4", arm)
@@ -89,8 +98,9 @@ def test_qnetwork_matches_jax(arm):
     assert pts.shape[1] == jcfg.env.lidar_rays + jcfg.env.v2x_rays
     key = jax.random.key(6)
     jnet = JQNetwork(jcfg)
-    params = jnet.init(jax.random.key(7), img, pts, mask, key)["params"]
-    want = jnet.apply({"params": params}, img, pts, mask, key)
+    params = _filled(jnet, img, pts, mask, key)
+    want = jax.jit(lambda p: jnet.apply({"params": p}, img, pts, mask,
+                                        key))(params)
     tnet = _port(TQNetwork, tcfg, params)
     with torch.no_grad():
         got = tnet(_t(img), _t(pts), _t(mask),
@@ -107,9 +117,9 @@ def test_actor_critic_matches_jax(arm):
     key = jax.random.key(9)
     snr = jnp.asarray([0.0, 5.0, 10.0, 20.0], jnp.float32)
     jnet = JActorCritic(jcfg)
-    params = jnet.init(jax.random.key(1), img, pts, mask, key)["params"]
-    logits, value = jnet.apply({"params": params}, img, pts, mask, key,
-                               snr_db=snr)
+    params = _filled(jnet, img, pts, mask, key)
+    logits, value = jax.jit(lambda p: jnet.apply(
+        {"params": p}, img, pts, mask, key, snr_db=snr))(params)
     tnet = _port(TActorCritic, tcfg, params)
     with torch.no_grad():
         t_logits, t_value = tnet(_t(img), _t(pts), _t(mask), snr_db=_t(snr),
@@ -142,7 +152,8 @@ def _jax_learn_step(arm):
         reward=jnp.asarray(rng.standard_normal(BATCH) * 2.0, jnp.float32),
         done=jnp.asarray([False, True, False, False]),
         next_image=obs[1][0], next_points=obs[1][1], next_mask=obs[1][2])
-    params = _perturb(jdqn.init_params(jcfg, jax.random.key(0)), 1, 0.02)
+    params = flax_like(jax.eval_shape(
+        lambda k: jdqn.init_params(jcfg, k), jax.random.key(0)), 1)
     target = _perturb(params, 2, 0.02)
     key = jax.random.key(21)
     (loss, _), grads = jax.jit(jax.value_and_grad(
@@ -213,7 +224,10 @@ def test_vit_trunk_shapes_and_names():
     assert per.fusion.cam_proj.in_features == tcfg.camera.dim
     assert per.cam_enc.block0.attn.use_pallas
     assert not hasattr(per.cam_enc, "snr_token")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TQNetwork(tcfg.override_str(["lidar.arch=vq"]))
+    # The digital LiDAR builds its link's modules and not the analog's.
+    digital = TQNetwork(tcfg.override_str(["lidar.arch=vq"])).perception
+    assert {"lid_to_code", "lid_codebook", "lid_from_code"} <= {
+        n.split(".")[0] for n, _ in digital.named_parameters()}
+    assert not hasattr(digital, "lid_sym_head")
     with pytest.raises(NotImplementedError, match="13b"):
         TQNetwork(tcfg.override_str(["train.bf16=true"]))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import multimodal_sc_torch
+from test_torch_c4_digital import flax_like
 from multimodal_sc_torch import bridge
 from multimodal_sc_torch.config import get_preset as t_preset
 from multimodal_sc_torch.envs import driving as tenv
@@ -57,8 +58,11 @@ def test_qnetwork_matches_jax(extra):
     img, pts, mask = jenv.observe_batch(jcfg.env, states)
     net_key = jax.random.key(6)
     jnet = JQNetwork(jcfg)
-    params = jnet.init(jax.random.key(7), img, pts, mask, net_key)["params"]
-    want = jnet.apply({"params": params}, img, pts, mask, net_key)
+    # JAX's tree drawn with numpy: its init compiles for tens of seconds.
+    params = flax_like(jax.eval_shape(lambda k: jnet.init(
+        k, img, pts, mask, net_key)["params"], jax.random.key(7)), 7)
+    want = jax.jit(lambda p: jnet.apply({"params": p}, img, pts, mask,
+                                        net_key))(params)
 
     tnet = TQNetwork(tcfg)
     tnet.load_state_dict(bridge.to_state_dict(params, tnet))
@@ -116,14 +120,19 @@ def test_act_only_iterations_match_jax_bookkeeping():
 
 
 def test_learn_mode_raises():
-    """The learner is ported for the analog trunk and the digital camera;
-    the digital LiDAR branches of its loss are not, and asking for them
-    raises."""
+    """The learner is ported for the analog trunk and both digital links;
+    what raises now is what JAX's config validation refuses on the RL
+    path: HARQ with token pruning, a damage selection rule."""
     _, tcfg = _configs()
     tdqn.make_iteration(tcfg, learn=True)
     tdqn.make_iteration(tcfg.override_str(["camera.arch=vq"]), learn=True)
-    with pytest.raises(NotImplementedError, match="14c"):
-        tdqn.make_iteration(tcfg.override_str(["lidar.arch=vq"]), learn=True)
+    digital = tcfg.override_str(["lidar.arch=vq", "lidar.vq_prune=true"])
+    tdqn.make_iteration(digital.validate(), learn=True)
+    with pytest.raises(ValueError, match="harq with token pruning"):
+        digital.override_str(["channel.harq=true"]).validate()
+    with pytest.raises(ValueError, match="content-free selection"):
+        digital.override_str(["channel.token_keep=0.5",
+                              "channel.token_select=drop_damage"]).validate()
 
 
 def test_no_jax_in_the_port():

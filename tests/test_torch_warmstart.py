@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 
+from test_torch_c4_digital import flax_like
 from multimodal_sc_torch import bridge
 from multimodal_sc_torch.config import get_preset as t_preset
 from multimodal_sc_torch.io.checkpoint import CheckpointManager as TManager
@@ -73,7 +74,9 @@ def test_warm_start_matches_jax(tmp_path, source):
     rl_over = RL + [f"camera.arch={arch}"]
     j_rl, t_rl = (j_preset("c4").override_str(rl_over),
                   t_preset("c4").override_str(rl_over))
-    fresh = jdqn.init_params(j_rl, jax.random.key(2))
+    # JAX's tree drawn with numpy: its init compiles for tens of seconds.
+    fresh = flax_like(jax.eval_shape(lambda k: jdqn.init_params(j_rl, k),
+                                     jax.random.key(2)), 2)
     with warnings.catch_warnings(record=True) as jw:
         warnings.simplefilter("always")
         want, j_loaded = jws(j_rl, fresh, jdir, return_loaded=True)
@@ -103,5 +106,7 @@ def test_warm_start_refusals(tmp_path):
     TManager(str(tmp_path)).save(1, tjscc.create_train_state(src, 0, "cpu"))
     with pytest.raises(ValueError, match="mapped nothing"):
         tws(t_rl, net, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tws(t_rl.override_str(["lidar.arch=vq"]), net, str(tmp_path))
+    # A digital LiDAR trunk: still nothing maps from that source.
+    digital = t_rl.override_str(["lidar.arch=vq"])
+    with pytest.raises(ValueError, match="mapped nothing"):
+        tws(digital, TQNetwork(digital), str(tmp_path))
