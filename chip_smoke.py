@@ -137,6 +137,29 @@ re-seeded, as the JAX package's c4_digital recipe trains it):
   updates, and its route comparison (the plain and f64 routes held to the
   kernels' route's codes).
 
+Then the package's front door, driven in process through
+``multimodal_sc_torch.cli.main`` on the card:
+
+* c4 at 1024 envs: ``show``; ``train`` for a few iterations with
+  ``--metrics`` and a checkpoint (exact launch counts, finite last
+  metrics; ``train.dqn``'s script trains the same beside it for its rate);
+  ``eval-policy --use-ema`` over 1024 episodes of that checkpoint;
+  ``export --use-ema``, loaded with ``load_artifact`` on the card: on 1024
+  fresh observations its actions against the live EMA network's plain
+  route (equal but at a top-two Q gap below 1e-4, TF32 off), the live
+  kernel route's agreement printed beside them, and the device time of a
+  call of each; the ``act`` verb against ``rl.dqn.act``;
+* c2: ``train`` for a few steps with a checkpoint, ``eval`` of it (9 convs
+  a batch), ``export`` of its codec (encoder, decoder, seg decoder) on the
+  card against the live plain route within 1e-5, and ``api.reconstruct``
+  against the c2 step's path;
+* ``export`` of the c1_vq, c3 and c3_vq codecs from fresh weights, on the
+  card against the live plain route: indices equal (but at near-ties),
+  the rest within 1e-5.
+
+An artifact runs the kernels' plain versions by design: each of its calls
+must launch no kernel.
+
 The pillar scatter runs on every path but c1, c2 and the camera VQ
 paths: its forward kernel in every forward, its backward kernel once per
 learn, train or minibatch step.
@@ -3686,6 +3709,428 @@ def profile_learn(cfg, state, iteration):
     _idle_share(step_all, parts["iteration"])
 
 
+# The CLI and deployment phase, driven in process through
+# ``multimodal_sc_torch.cli.main``. c4 trains at 1024 envs for a few
+# iterations: each acts once (8 fused blocks, 5 encoder convs, 1 scatter);
+# the n-step window first fills on the third, whose 1024 transitions exceed
+# a batch, so every iteration from the third also learns (15 convs, 3
+# scatters and 1 scatter backward, as arm A's learner).
+CLI_C4_STEPS = 10
+CLI_C4_LEARN_STEPS = CLI_C4_STEPS - 2
+CLI_C4 = [f"rl.num_envs={NUM_ENVS}", f"train.steps={CLI_C4_STEPS}",
+          f"train.checkpoint_every={CLI_C4_STEPS}", "train.log_every=2"]
+EXPECTED_CLI_C4 = {
+    "mha_block": 8 * CLI_C4_STEPS,
+    "conv_prelu": 5 * CLI_C4_STEPS + 15 * CLI_C4_LEARN_STEPS,
+    "scatter_max": CLI_C4_STEPS + 3 * CLI_C4_LEARN_STEPS,
+    "scatter_max_bwd": CLI_C4_LEARN_STEPS}
+CLI_EPISODES = NUM_ENVS
+CLI_SEED = 2024             # the exported policy's noise seed
+# c2 through the CLI: a few train steps (9 convs each), then the eval
+# sweep of its checkpoint over AWGN at 7 SNRs x 4 batches (9 convs a batch).
+CLI_C2_STEPS = 4
+CLI_C2 = [f"train.steps={CLI_C2_STEPS}",
+          f"train.checkpoint_every={CLI_C2_STEPS}"]
+CLI_C2_SWEEP = 7 * 4
+# Codecs exported from fresh weights (no checkpoint: the CLI warns).
+CLI_CODECS = (("c1_vq", "c1", C1_VQ), ("c3", "c3", []), ("c3_vq", "c3", C3_VQ))
+
+
+def _cli(argv):
+    """``cli.main(argv)``, on the card but for ``show``, with its standard
+    output captured; returns that output (it must exit 0)."""
+    from multimodal_sc_torch import cli
+
+    device = [] if argv[0] == "show" else ["--device", "cuda"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + device)
+    if rc != 0:
+        raise RuntimeError(f"cli {argv[:3]} exited {rc}")
+    return buf.getvalue()
+
+
+def _sets(overrides):
+    return [a for o in overrides for a in ("--set", o)]
+
+
+def _plain_patches():
+    """(module, name, plain version) of every kernel a codec or trunk
+    reaches outside the fused blocks (those run plain by their flag)."""
+    from multimodal_sc_torch.codec import camera_vit, lidar_bev
+    from multimodal_sc_torch.kernels import (attention_packed, conv_block,
+                                             pillar_scatter)
+
+    return [(camera_vit, "packed_attention",
+             attention_packed.packed_attention_reference),
+            (conv_block, "conv_prelu", conv_block.conv_prelu_reference),
+            (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)]
+
+
+@contextlib.contextmanager
+def _plain_route():
+    """Every kernel's plain version, TF32 off (for an artifact's calls too);
+    fails if a kernel launches."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = _read_counts()
+    try:
+        with _patched(_plain_patches()), torch.no_grad():
+            yield
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    if _read_counts() != before:
+        raise RuntimeError("a plain route launched a kernel")
+
+
+def _no_launch(fn, what):
+    """``fn()``, which must launch no kernel (an artifact runs the plain
+    versions)."""
+    import torch
+
+    before = _read_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    if _read_counts() != before:
+        raise RuntimeError(f"{what} launched a kernel")
+    return out
+
+
+def _near_tie_codes(what, got, want, z_e, codebook):
+    """Indices ``got`` against ``want`` (B, N): where they differ, the two
+    codes must lie at a near-tie of the encoder output ``z_e``'s distances
+    (within 1e-5 of their scale, as ``_HeldCodes`` allows)."""
+    import torch
+
+    flat = z_e.reshape(-1, codebook.shape[1]).double()
+    cb = codebook.detach().double()
+    a, b = got.reshape(-1).long(), want.reshape(-1).long()
+    pos = (a != b).nonzero()[:, 0]
+    if pos.numel():
+        da = ((flat[pos] - cb[a[pos]]) ** 2).sum(1)
+        db = ((flat[pos] - cb[b[pos]]) ** 2).sum(1)
+        scale = (flat[pos] ** 2).sum(1) + (cb[b[pos]] ** 2).sum(1)
+        if ((da - db).abs() > 1e-5 * scale).any():
+            raise RuntimeError(f"{what}: {pos.numel()} indices differ, not "
+                               "all at near-ties")
+    return pos.numel()
+
+
+def _close(what, got, want, atol=1e-5):
+    import torch
+
+    torch.testing.assert_close(got, want, atol=atol, rtol=atol,
+                               msg=lambda m: f"{what}: {m}")
+    return (got - want).abs().max().item()
+
+
+def cli_c4_phase(work):
+    """``show``, ``train`` (with ``--metrics`` and a checkpoint; the module
+    script's rate beside it), ``eval-policy --use-ema`` and ``export
+    --use-ema`` of c4 at 1024 envs; then the artifact on the card against
+    the live EMA network's plain route on 1024 fresh observations, the act
+    verb against ``rl.dqn.act``. Returns the launches of the driven paths
+    and the timings."""
+    import torch
+
+    from multimodal_sc_torch import act as act_verb
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs import driving
+    from multimodal_sc_torch.evaluation import policy_eval
+    from multimodal_sc_torch.io import export as export_lib
+    from multimodal_sc_torch.rl import dqn
+    from multimodal_sc_torch.train import dqn as dqn_train
+
+    shown = json.loads(_cli(["show", "--config", "c4"]))
+    if shown["name"] != "c4_dqn_fusion":
+        raise RuntimeError(f"show: {shown['name']}")
+    ckpt, metrics = os.path.join(work, "c4"), os.path.join(work, "c4.jsonl")
+    over = CLI_C4 + [f"train.checkpoint_dir={ckpt}"]
+    totals, times = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    last = json.loads(_cli(["train", "--config", "c4", "--metrics", metrics]
+                           + _sets(over)))
+    times["cli train s"] = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_CLI_C4, 1, "cli train c4")
+    add(launches)
+    if not all(math.isfinite(v) for v in last.values()):
+        raise RuntimeError(f"cli train c4: non-finite metrics {last}")
+    records = [json.loads(line) for line in open(metrics)]
+    if records[-1]["step"] != CLI_C4_STEPS or not os.path.exists(
+            os.path.join(ckpt, f"ckpt_{CLI_C4_STEPS}.pt")):
+        raise RuntimeError("cli train c4: no final record or checkpoint")
+    times["cli train steps/s"] = last["steady_steps_per_sec_per_chip"]
+    print(f"  cli train c4: {CLI_C4_STEPS} iterations x {NUM_ENVS} envs in "
+          f"{times['cli train s']:.1f} s; last metrics: " + ", ".join(
+              f"{k}={v:.4g}" for k, v in sorted(last.items())), flush=True)
+    print(f"  launches {launches}", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dqn_train.main(["--config", "c4", "--eval-envs", "32", "--device",
+                        "cuda"] + _sets(CLI_C4))
+    main_out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    times["module main steps/s"] = main_out["steady_steps_per_sec_per_chip"]
+    print(f"  steady agent steps/s at {NUM_ENVS} envs: cli train "
+          f"{times['cli train steps/s']}, train.dqn's script "
+          f"{times['module main steps/s']}", flush=True)
+
+    cfg = get_preset("c4").override_str(over)
+    _reset_counts()
+    t0 = time.perf_counter()
+    ev = json.loads(_cli(["eval-policy", "--config", "c4", "--use-ema",
+                          "--episodes", str(CLI_EPISODES)] + _sets(over)))
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_LAUNCHES, cfg.env.max_steps,
+                  "cli eval-policy c4")
+    add(launches)
+    if not math.isfinite(ev["episode_return_mean"]):
+        raise RuntimeError(f"cli eval-policy: {ev}")
+    print(f"  cli eval-policy --use-ema: {CLI_EPISODES} episodes x "
+          f"{cfg.env.max_steps} steps in {wall:.1f} s, return "
+          f"{ev['episode_return_mean']:.3f}", flush=True)
+
+    art = os.path.join(work, "c4_policy")
+    t0 = time.perf_counter()
+    out = json.loads(_no_launch(lambda: _cli(
+        ["export", "--config", "c4", "--use-ema", "--out", art]
+        + _sets(over)), "cli export c4"))
+    times["export s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    policy = export_lib.load_artifact(art, device="cuda")["policy"]
+    times["load s"] = time.perf_counter() - t0
+    print(f"  cli export --use-ema: {out['parts']}, {out['bytes']} bytes, in "
+          f"{times['export s']:.1f} s; load_artifact on the card "
+          f"{times['load s']:.2f} s", flush=True)
+
+    ema = policy_eval.select_dqn_policy(cfg, 0, "cuda", use_ema=True).eval()
+    g = torch.Generator(device="cuda").manual_seed(99)
+    obs = driving.observe_batch(cfg.env, driving.reset_batch(
+        cfg.env, NUM_ENVS, g, "cuda"))
+    learner = dqn.learner_forward(cfg)
+
+    def q_of(route):
+        with torch.no_grad(), torch.random.fork_rng(devices=["cuda"]):
+            torch.manual_seed(CLI_SEED)
+            return route(ema, *obs)
+
+    with _plain_route():
+        actions = _no_launch(lambda: policy(*obs, CLI_SEED), "the artifact")
+        q_plain = q_of(learner)
+    q_kernel = q_of(lambda net, *o: net(*o))
+    top2 = q_plain.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    a_plain = q_plain.argmax(-1)
+    off = actions.long() != a_plain
+    if (gap[off] >= 1e-4).any():
+        raise RuntimeError(
+            f"exported policy: {int(off.sum())} of {NUM_ENVS} actions differ "
+            "from the live plain route's, not all at a top-two gap below "
+            "1e-4")
+    agree = (q_kernel.argmax(-1) == a_plain).float().mean().item()
+    print(f"  exported policy vs the live EMA network's plain route on "
+          f"{NUM_ENVS} fresh observations: {NUM_ENVS - int(off.sum())} "
+          f"actions equal ({int(off.sum())} at a top-two gap below 1e-4; "
+          f"median gap {gap.median().item():.3e}); the live kernel route's "
+          f"greedy actions agree with the plain route's in "
+          f"{100 * agree:.2f}% (Q max difference "
+          f"{(q_kernel - q_plain).abs().max().item():.3e})", flush=True)
+    with torch.no_grad():
+        times["artifact ms"] = _device_ms(lambda: policy(*obs, CLI_SEED))
+        times["live ms"] = _device_ms(lambda: ema(*obs))
+    print(f"  device time per call at B {NUM_ENVS}: exported policy (plain "
+          f"versions) {times['artifact ms']:.3f} ms, live EMA network (the "
+          f"kernels) {times['live ms']:.3f} ms", flush=True)
+
+    _reset_counts()
+    with torch.no_grad():
+        a = act_verb(cfg, ema, *obs, torch.Generator(device="cuda")
+                     .manual_seed(5), epsilon=0.05)
+        b = dqn.act(cfg, ema, *obs, torch.Generator(device="cuda")
+                    .manual_seed(5), epsilon=0.05)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_LAUNCHES, 2, "the act verb")
+    add(launches)
+    if not torch.equal(a, b):
+        raise RuntimeError("the act verb differs from rl.dqn.act")
+    print(f"  act verb at B {NUM_ENVS} equals rl.dqn.act (eps 0.05)",
+          flush=True)
+    return totals, times
+
+
+def cli_c2_phase(work):
+    """``train`` c2 for a few steps with a checkpoint, ``eval`` of it,
+    ``export`` of its codec held on the card to the live plain route, and
+    ``api.reconstruct`` against the c2 step's path. Returns the launches."""
+    import torch
+
+    from multimodal_sc_torch import api
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.io import export as export_lib
+    from multimodal_sc_torch.io.checkpoint import CheckpointManager
+    from multimodal_sc_torch.train import jscc
+
+    ckpt = os.path.join(work, "c2")
+    over = CLI_C2 + [f"train.checkpoint_dir={ckpt}"]
+    totals = {}
+    _reset_counts()
+    last = json.loads(_cli(["train", "--config", "c2"] + _sets(over)))
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_C2, CLI_C2_STEPS, "cli train c2")
+    totals.update(launches)
+    _reset_counts()
+    curves_path = os.path.join(work, "c2_curves.json")
+    _cli(["eval", "--config", "c2", "--kinds", "awgn", "--out",
+          curves_path] + _sets(over))
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_C2, CLI_C2_SWEEP, "cli eval c2")
+    totals["conv_prelu"] += launches["conv_prelu"]
+    curve = json.load(open(curves_path))["awgn"]
+    if len(curve) != 7 or not all(math.isfinite(p["miou"]) for p in curve):
+        raise RuntimeError(f"cli eval c2: {curve}")
+    print(f"  cli train c2: {CLI_C2_STEPS} steps, loss {last['loss']:.4f}; "
+          f"cli eval: PSNR {curve[0]['psnr']:.2f} -> {curve[-1]['psnr']:.2f}"
+          f" dB over 7 SNRs; launches {totals}", flush=True)
+
+    art = os.path.join(work, "c2_codec")
+    out = json.loads(_no_launch(lambda: _cli(
+        ["export", "--config", "c2", "--out", art] + _sets(over)),
+        "cli export c2"))
+    fns = export_lib.load_artifact(art, device="cuda")
+    cfg = get_preset("c2").override_str(over)
+    model = jscc.create_train_state(cfg, cfg.train.seed, "cuda").params
+    CheckpointManager(ckpt).restore_params_latest(model)
+    img, _ = next(ImageDataset(cfg.train.dataset, cfg.train.batch_size,
+                               seed=5, with_seg=True, device="cuda"))
+    snr = torch.linspace(-5.0, 25.0, img.shape[0], device="cuda")
+    with _plain_route():
+        z = _no_launch(lambda: fns["encoder"](img, snr), "the c2 artifact")
+        rec = _no_launch(lambda: fns["decoder"](z, snr), "the c2 artifact")
+        seg = _no_launch(lambda: fns["decoder_seg"](z, snr),
+                         "the c2 artifact")
+        errs = [_close("c2 encoder", z, model.encode(img, snr)),
+                _close("c2 decoder", rec, model.decode(z, snr))]
+        errs += [_close("c2 decoder_seg", g, w) for g, w in zip(
+            seg, model.decode_seg(z, snr))]
+    print(f"  cli export c2: {out['parts']}; on the card against the live "
+          f"plain route, largest difference {max(errs):.3e}", flush=True)
+
+    _reset_counts()
+    with torch.no_grad():
+        r1, z1 = api.reconstruct(model, img, 5.0, torch.Generator(
+            device="cuda").manual_seed(3), **_channel_kw(cfg))
+        r2, z2 = jscc.reconstruct(cfg, model, img, 5.0, torch.Generator(
+            device="cuda").manual_seed(3))
+    launches = _read_counts()
+    _check_counts(launches, EXPECTED_C2, 2, "api.reconstruct")
+    totals["conv_prelu"] += launches["conv_prelu"]
+    if not (torch.equal(r1, r2) and torch.equal(z1, z2)):
+        raise RuntimeError("api.reconstruct differs from the c2 step's path")
+    print(f"  api.reconstruct at batch {img.shape[0]} equals the c2 step's "
+          "transmit", flush=True)
+    return totals
+
+
+def _channel_kw(cfg):
+    from multimodal_sc_torch.channel import channel_kwargs
+
+    return {"kind": cfg.channel.kind, **channel_kwargs(cfg.channel)}
+
+
+def cli_codec_exports(work):
+    """``export`` of the c1_vq, c3 and c3_vq codecs from fresh weights,
+    each part on the card against the live plain route: indices equal (or
+    at near-ties), everything else within 1e-5."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import (ImageDataset,
+                                                   draw_pointcloud,
+                                                   synthetic_pointcloud_batch)
+    from multimodal_sc_torch.io import export as export_lib
+    from multimodal_sc_torch.train import fusion_jscc, jscc
+
+    for name, preset, over in CLI_CODECS:
+        art = os.path.join(work, name)
+        t0 = time.perf_counter()
+        out = json.loads(_no_launch(lambda: _cli(
+            ["export", "--config", preset, "--out", art] + _sets(over)),
+            f"cli export {name}"))
+        export_s = time.perf_counter() - t0
+        fns = export_lib.load_artifact(art, device="cuda")
+        cfg = get_preset(preset).override_str(over)
+        tr, lid = cfg.train, cfg.lidar
+        fused = tr.task == "jscc_fusion"
+        model = (fusion_jscc if fused else jscc).create_train_state(
+            cfg, tr.seed, "cuda").params
+        camera = model.camera if fused else model
+        img = next(ImageDataset(tr.dataset, tr.batch_size, seed=5,
+                                device="cuda"))
+        img = img[0] if isinstance(img, tuple) else img
+        snr = torch.full((img.shape[0],), cfg.channel.snr_db, device="cuda")
+        errs, ties = [], 0
+        if cfg.camera.arch == "vq":
+            with _plain_route():
+                idx = _no_launch(lambda: fns["encoder"](img), name)
+                rec = _no_launch(lambda: fns["decoder"](idx), name)
+                ties += _near_tie_codes(
+                    f"{name} encoder", idx, camera.encode_tokens(img)[0],
+                    camera.encode_features(img), camera.codebook)
+                errs.append(_close(f"{name} decoder", rec,
+                                   camera.decode_tokens(idx)))
+        else:
+            with _plain_route():
+                z = _no_launch(lambda: fns["encoder"](img, snr), name)
+                rec = _no_launch(lambda: fns["decoder"](z, snr), name)
+                errs += [_close(f"{name} encoder", z, camera.encode(img, snr)),
+                         _close(f"{name} decoder", rec,
+                                camera.decode(z, snr))]
+        if fused:
+            pts, mask = synthetic_pointcloud_batch(draw_pointcloud(
+                tr.batch_size, lid.max_points, torch.Generator(
+                    device="cuda").manual_seed(6), "cuda", lid.x_range,
+                lid.y_range), lid.x_range, lid.y_range)
+            enc, dec = fns["lidar_encoder"], fns["lidar_decoder"]
+            if lid.arch == "vq":
+                with _plain_route():
+                    idx = _no_launch(lambda: enc(pts, mask), name)
+                    logits = _no_launch(lambda: dec(idx), name)
+                    ties += _near_tie_codes(
+                        f"{name} lidar encoder", idx,
+                        model.lidar.encode_tokens(pts, mask)[0],
+                        model.lidar.encode_features(pts, mask),
+                        model.lidar.codebook)
+                    errs.append(_close(f"{name} lidar decoder", logits,
+                                       model.lidar.decode_tokens(idx)))
+            else:
+                with _plain_route():
+                    z = _no_launch(lambda: enc(pts, mask, snr), name)
+                    logits = _no_launch(lambda: dec(z, snr), name)
+                    errs += [_close(f"{name} lidar encoder", z,
+                                    model.lidar.encode((pts, mask), snr)),
+                             _close(f"{name} lidar decoder", logits,
+                                    model.lidar.decode(z, snr))]
+        print(f"  cli export {name} (fresh weights): {out['parts']} in "
+              f"{export_s:.1f} s; on the card against the live plain route: "
+              f"largest difference {max(errs):.3e}, {ties} indices at "
+              "near-ties", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3930,6 +4375,21 @@ def main() -> int:
         print("checkpoint round trip (c4_digital):", flush=True)
         checkpoint_round_trip(ckpt_dir, C4_DIGITAL)
         torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        print("CLI and deployment (c4 at 1024 envs: show, train, "
+              "eval-policy, export, the act verb):", flush=True)
+        launches, cli_times = cli_c4_phase(work)
+        for k, v in launches.items():
+            totals[k] += v
+        torch.cuda.empty_cache()
+        print("CLI and deployment (c2: train, eval, export; "
+              "api.reconstruct):", flush=True)
+        for k, v in cli_c2_phase(work).items():
+            totals[k] += v
+        torch.cuda.empty_cache()
+        print("CLI export (the c1_vq, c3 and c3_vq codecs):", flush=True)
+        cli_codec_exports(work)
+        torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
@@ -3942,6 +4402,13 @@ def main() -> int:
           f"both digital links {c5_digital_rate:.1f}); c1 "
           f"train steps/s at batch {C1_BATCH}: {c1_rate:.2f}; c2: "
           f"{c2_rate:.2f}; c1_vq: {c1_vq_rate:.2f}", flush=True)
+    print(f"CLI on {card}: c4 cli train {cli_times['cli train steps/s']} "
+          f"agent steps/s at {NUM_ENVS} envs (train.dqn's script "
+          f"{cli_times['module main steps/s']}); exported c4 policy "
+          f"{cli_times['artifact ms']:.3f} ms a call at B {NUM_ENVS}, the "
+          f"live kernels {cli_times['live ms']:.3f} ms; export "
+          f"{cli_times['export s']:.1f} s, load {cli_times['load s']:.2f} s",
+          flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

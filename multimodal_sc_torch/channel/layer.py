@@ -118,8 +118,20 @@ def _normal(given, shape, like: torch.Tensor, generator) -> torch.Tensor:
             raise ValueError(f"draw of shape {tuple(given.shape)}, expected "
                              f"{tuple(shape)}")
         return given.to(like.dtype)
-    return torch.randn(shape, generator=generator, dtype=like.dtype,
-                       device=like.device)
+    return draw(torch.randn, shape, generator, dtype=like.dtype,
+                device=like.device)
+
+
+def draw(sampler, shape, generator: Optional[torch.Generator] = None,
+         **kw) -> torch.Tensor:
+    """``sampler(shape, generator=generator, **kw)`` for ``torch.randn`` or
+    ``torch.rand``. Without a generator the keyword is left out: spelled
+    out as ``None`` it picks the overload that ``torch.export`` cannot
+    trace at a symbolic batch size; the device's default generator draws
+    the same numbers either way."""
+    if generator is None:
+        return sampler(shape, **kw)
+    return sampler(shape, generator=generator, **kw)
 
 
 def awgn(z: torch.Tensor, snr_db: Union[float, torch.Tensor],

@@ -4,7 +4,9 @@ Counterpart of ``multimodal_sc_tpu/evaluation/policy_eval.py``: fixed
 seed, a DQN (greedy or eps-greedy) or PPO (greedy or sampled) policy, every
 env run for ``env.max_steps`` steps with the reward counted up to its FIRST
 done. Its ``main`` is the ``eval-policy`` verb of
-``multimodal_sc_tpu/cli.py``:
+``multimodal_sc_tpu/cli.py``, and shares its flags and body
+(:func:`add_arguments`, :func:`run_command`) with the port's
+``multimodal_sc_torch.cli eval-policy``:
 
     python -m multimodal_sc_torch.evaluation.policy_eval --config c4 \\
         --set train.checkpoint_dir=DIR [--set env.fog_range=20 ...] \\
@@ -225,16 +227,10 @@ def select_ppo_policy(cfg: ExperimentConfig, seed: int, device,
     return _restore(cfg, fresh, field, allow_untrained)
 
 
-def main(argv=None) -> int:
-    from multimodal_sc_torch.config import get_preset
-    from multimodal_sc_torch.evaluation import policy_sweep
-
-    ap = argparse.ArgumentParser(
-        description="Mean episode return of a trained DQN / PPO policy, or "
-                    "its return across the channel's SNR.")
-    ap.add_argument("--config", required=True)
-    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                    help="config override, e.g. train.checkpoint_dir=DIR")
+def add_arguments(ap) -> None:
+    """The ``eval-policy`` verb's flags, shared by this module's script and
+    ``multimodal_sc_torch.cli`` (the JAX package's ``eval-policy``
+    flags)."""
     ap.add_argument("--episodes", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=1.0,
@@ -261,12 +257,14 @@ def main(argv=None) -> int:
                          "(default -5..25 step 5)")
     ap.add_argument("--out", default=None,
                     help="curve JSON output path for --snr-sweep")
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    # The JAX package's refusals of flag combinations it would ignore.
-    cfg = get_preset(args.config).override_str(args.set).validate()
-    dev = resolve_device(args.device)
-    print(f"card: {card_name(dev)}", flush=True)
+
+
+def run_command(cfg: ExperimentConfig, args, dev) -> int:
+    """The ``eval-policy`` verb on a validated ``cfg`` and the parsed flags
+    of :func:`add_arguments`, on ``dev``: prints one JSON object of the
+    evaluation, or the return-vs-SNR table; returns the exit code."""
+    from multimodal_sc_torch.evaluation import policy_sweep
+
     flags = dict(use_target=args.use_target, use_ema=args.use_ema,
                  use_best=args.use_best,
                  allow_untrained=args.allow_untrained)
@@ -301,6 +299,25 @@ def main(argv=None) -> int:
                            temperature=args.temperature)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def main(argv=None) -> int:
+    from multimodal_sc_torch.config import get_preset
+
+    ap = argparse.ArgumentParser(
+        description="Mean episode return of a trained DQN / PPO policy, or "
+                    "its return across the channel's SNR.")
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="config override, e.g. train.checkpoint_dir=DIR")
+    add_arguments(ap)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    # The JAX package's refusals of flag combinations it would ignore.
+    cfg = get_preset(args.config).override_str(args.set).validate()
+    dev = resolve_device(args.device)
+    print(f"card: {card_name(dev)}", flush=True)
+    return run_command(cfg, args, dev)
 
 
 if __name__ == "__main__":

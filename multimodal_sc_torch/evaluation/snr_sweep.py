@@ -37,7 +37,9 @@ As a script it sweeps the newest checkpoint of a trained preset:
         [--entropy-sweep | --keep-sweep --set lidar.vq_prune=true] \\
         --set train.checkpoint_dir=DIR ...
 
-It restores the parameters only, evaluates one held-out batch (the images
+``python -m multimodal_sc_torch.cli eval`` runs the same flags and body
+(:func:`add_arguments`, :func:`run_command`). It restores the parameters
+only, evaluates one held-out batch (the images
 of seed ``train.seed + 999``, as the JAX package's ``eval`` does), prints
 the card and the tables, and refuses to sweep untrained weights unless
 ``--allow-untrained`` is given.
@@ -596,44 +598,43 @@ def _sweep_fusion(cfg, args, kinds, dev) -> dict:
     return {"camera": cam, "lidar": lidar}
 
 
-def main(argv=None) -> int:
-    from multimodal_sc_torch.channel import channel_kwargs
-    from multimodal_sc_torch.config import get_preset
-    from multimodal_sc_torch.device import card_name, resolve_device
-    from multimodal_sc_torch.envs.datasets import ImageDataset
-    from multimodal_sc_torch.train import jscc
-
-    ap = argparse.ArgumentParser(
-        description="SNR-sweep evaluation of a trained JSCC preset.")
-    ap.add_argument("--config", required=True)
-    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                    help="config override, e.g. train.checkpoint_dir=DIR")
+def add_arguments(ap) -> None:
+    """The ``eval`` verb's flags, shared by this module's script and
+    ``multimodal_sc_torch.cli`` (the JAX package's ``eval`` flags)."""
     ap.add_argument("--out", default=None, help="curve JSON output path")
-    ap.add_argument("--rate-sweep", action="store_true",
+    ap.add_argument("--rate-sweep", action="store_true", dest="rate_sweep",
                     help="PSNR against bandwidth instead of SNR (adaptive-"
                          "rate camera configs; at channel.snr_db over the "
                          "first of --kinds)")
-    ap.add_argument("--harq-sweep", action="store_true",
+    ap.add_argument("--allow-untrained", action="store_true",
+                    dest="allow_untrained",
+                    help="sweep fresh weights when no checkpoint exists")
+    ap.add_argument("--harq-sweep", action="store_true", dest="harq_sweep",
                     help="VQ camera configs: PSNR and the symbols spent "
                          "under Type-I HARQ (CRC-8 blocks, chase "
                          "combining) against SNR")
-    ap.add_argument("--keep-sweep", action="store_true",
-                    help="pruned VQ configs (camera.vq_prune, or "
-                         "lidar.vq_prune on c3): PSNR or mIoU against the "
-                         "kept-token fraction under each selection rule")
     ap.add_argument("--entropy-sweep", action="store_true",
+                    dest="entropy_sweep",
                     help="digital LiDAR configs (lidar.arch=vq): mIoU and "
                          "symbols of the fixed-length, Huffman and "
                          "re-alphabet deployments against SNR")
-    ap.add_argument("--allow-untrained", action="store_true",
-                    help="sweep fresh weights when no checkpoint exists")
+    ap.add_argument("--keep-sweep", action="store_true", dest="keep_sweep",
+                    help="pruned VQ configs (camera.vq_prune, or "
+                         "lidar.vq_prune on c3): PSNR or mIoU against the "
+                         "kept-token fraction under each selection rule")
     ap.add_argument("--kinds", default="awgn,rayleigh",
-                    help="comma list of channel kinds to sweep")
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    cfg = get_preset(args.config).override_str(args.set)
-    dev = resolve_device(args.device)
-    print(f"card: {card_name(dev)}", flush=True)
+                    help="comma list of channel kinds to sweep "
+                         "(awgn,rayleigh,rician,ideal)")
+
+
+def run_command(cfg, args, dev) -> int:
+    """The ``eval`` verb on a validated ``cfg`` and the parsed flags of
+    :func:`add_arguments`, on ``dev``: prints the tables, writes
+    ``--out``; returns the exit code."""
+    from multimodal_sc_torch.channel import channel_kwargs
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.train import jscc
+
     kinds = tuple(k.strip() for k in args.kinds.split(","))
     tr = cfg.train
 
@@ -693,6 +694,25 @@ def main(argv=None) -> int:
     if args.out:
         save_curves(curves, args.out)
     return 0
+
+
+def main(argv=None) -> int:
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.device import card_name, resolve_device
+
+    ap = argparse.ArgumentParser(
+        description="SNR-sweep evaluation of a trained JSCC preset.")
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="config override, e.g. train.checkpoint_dir=DIR")
+    add_arguments(ap)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    # The JAX package's refusals of flag combinations it would ignore.
+    cfg = get_preset(args.config).override_str(args.set).validate()
+    dev = resolve_device(args.device)
+    print(f"card: {card_name(dev)}", flush=True)
+    return run_command(cfg, args, dev)
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ from torch import nn
 
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
+from multimodal_sc_torch.channel.layer import draw
 from multimodal_sc_torch.codec.camera_cnn import CameraEncoderCNN, CameraTokensCNN
 from multimodal_sc_torch.codec.camera_vit import ViTEncoderJSCC, ViTTokensDecoder
 from multimodal_sc_torch.codec.lidar_bev import BEVBackbone, PillarFeatureNet
@@ -221,8 +222,8 @@ class SemanticPerception(nn.Module):
                         h, w, str(idx_tx.device)).to(torch.float32).expand(
                             idx_tx.shape)
                 elif scores is None:
-                    scores = torch.rand(idx_tx.shape, generator=generator,
-                                        device=idx_tx.device)
+                    scores = draw(torch.rand, idx_tx.shape, generator,
+                                  device=idx_tx.device)
                 kept = topk_mask(scores, m)
         if ch.harq:
             idx_rx, hinfo = transmit_indices_harq(

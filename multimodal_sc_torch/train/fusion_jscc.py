@@ -441,7 +441,8 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-path", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = get_preset(args.config).override_str(args.set)
+    # The JAX package's refusals of flag combinations it would ignore.
+    cfg = get_preset(args.config).override_str(args.set).validate()
     dev = resolve_device(args.device)
     card = card_name(dev)
     print(f"card: {card}", flush=True)

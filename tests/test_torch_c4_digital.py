@@ -69,6 +69,11 @@ from multimodal_sc_tpu.rl import perception as jper
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+# The suite runs in several worker processes at once, and torch's intra-op
+# threads in one spin against the next's (a sweep test of the port's took
+# 25-50x its time alone). One thread each: every worker imports this module
+# while it collects, and the port's test files import it for ``flax_like``.
+torch.set_num_threads(1)
 
 SMALL = ["camera.features=8,16,32,32", "camera.c_sym=4",
          "camera.vq_codes=16", "camera.vq_dim=8", "fusion.dim=32",

@@ -17,9 +17,10 @@ import torch
 
 import multimodal_sc_torch
 from test_torch_c4_digital import flax_like
-from multimodal_sc_torch import bridge
+from multimodal_sc_torch import bridge, cli
 from multimodal_sc_torch.config import get_preset as t_preset
 from multimodal_sc_torch.envs import driving as tenv
+from multimodal_sc_torch.io import export
 from multimodal_sc_torch.rl import dqn as tdqn
 from multimodal_sc_torch.rl.perception import QNetwork as TQNetwork
 from multimodal_sc_tpu.config import get_preset as j_preset
@@ -163,4 +164,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     j_state = jenv.reset(j_preset("c4").env, jax.random.key(0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bridge.env_state_from_jax(j_state)
+    # The front door: a CLI verb without --device, the api's train and an
+    # artifact's load (before it reads anything).
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train", "--config", "c1", "--set", "train.steps=1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multimodal_sc_torch.api.train(t_preset("c1"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.load_artifact("no-such-artifact")
     assert multimodal_sc_torch.resolve_device("cpu").type == "cpu"
