@@ -160,6 +160,24 @@ Then the package's front door, driven in process through
 An artifact runs the kernels' plain versions by design: each of its calls
 must launch no kernel.
 
+Then ``train.bf16`` (the codecs and the fused-block trunk in bf16 on f32
+parameters), whose kernels read and write bf16 themselves, each counted
+apart (``conv_prelu_bf16``, ``mha_block_bf16``, ``scatter_max_bf16``,
+``scatter_max_bwd_bf16``; the ``kernels`` line lists them beside the f32
+ones). The checks: ``conv_prelu`` at c4's act, c1's and c5's shapes on both
+routes, every output within one bf16 step of its plain version (the share
+that differs printed); ``mha_block`` at c4's and fog + V2X's act shapes
+within one bf16 step of its own plus 5e-3 of its bf16-mode plain version,
+past that a witnessed rounding flip, at most 1% of outputs differing, and
+at each timed shape a sample of the outputs past one step witnessed too; the
+scatter forward and backward bit for bit with forced ties. Then the bf16
+paths at the presets' widths: c4 act-only and act+learn at 1024 envs (exact
+launch counts, falling loss, f32 parameters and moments, the act and learn
+routes against the plain versions, a checkpoint round trip), fog + V2X
+act-only, one c5 update's timed run, c1 and c3-cnn train steps with their
+route comparisons; each path's rate is printed beside its f32 rate from the
+same call.
+
 The pillar scatter runs on every path but c1, c2 and the camera VQ
 paths: its forward kernel in every forward, its backward kernel once per
 learn, train or minibatch step.
@@ -423,6 +441,29 @@ EXPECTED_C1_VQ_PRUNE_UEP = {"conv_prelu": (
     + DAMAGE_CONVS * sum("damage" in s for s in CAM_SELECTS)
     + (8 + DAMAGE_CONVS) * len(UEP_MODES))}
 
+# train.bf16: the codecs and the fusion trunk in bf16 on f32 parameters. A
+# bf16 path launches what its f32 path launches, each kernel in its bf16-I/O
+# variant, counted apart (``<kernel>_bf16``).
+BF16 = ["train.bf16=true"]
+BF16_KERNELS = ("mha_block", "conv_prelu", "scatter_max", "scatter_max_bwd")
+
+
+def _bf16_counts(expected):
+    return {(k + "_bf16" if k in BF16_KERNELS else k): v
+            for k, v in expected.items()}
+
+
+EXPECTED_BF16 = _bf16_counts(EXPECTED_LAUNCHES)
+EXPECTED_BF16_LEARN = _bf16_counts(EXPECTED_LEARN_A)
+EXPECTED_BF16_V2X = _bf16_counts(EXPECTED_V2X)
+EXPECTED_BF16_C5 = _bf16_counts(EXPECTED_C5)
+EXPECTED_BF16_C1 = _bf16_counts(EXPECTED_C1)
+EXPECTED_BF16_C3_CNN = _bf16_counts(EXPECTED_C3_CNN)
+# A learn step's three forwards at batch 128 and its backward (arm A: the
+# fused blocks on their plain version).
+LEARN_ROUTE_BF16 = {"conv_prelu_bf16": 15, "scatter_max_bf16": 3,
+                    "scatter_max_bwd_bf16": SCATTER_BWD_PER_STEP}
+
 
 def _counters():
     """name -> (module, attribute) of every kernel wrapper's launch count."""
@@ -434,6 +475,10 @@ def _counters():
             "conv_prelu": (conv_block, "launches"),
             "scatter_max": (pillar_scatter, "launches"),
             "scatter_max_bwd": (pillar_scatter, "launches_bwd"),
+            "mha_block_bf16": (mha_block, "launches_bf16"),
+            "conv_prelu_bf16": (conv_block, "launches_bf16"),
+            "scatter_max_bf16": (pillar_scatter, "launches_bf16"),
+            "scatter_max_bwd_bf16": (pillar_scatter, "launches_bwd_bf16"),
             "packed_attention_fwd": (attention_packed, "launches_fwd"),
             "packed_attention_bwd": (attention_packed, "launches_bwd"),
             "flash_attention_fwd": (attention, "launches_fwd"),
@@ -527,7 +572,8 @@ def _ptxas_report(log):
 def _demangle_kernel(mangled):
     """``name<args>`` of a kernel's Itanium-mangled entry name: the nested
     names (each its length, then its letters) read in order up to the one
-    that ends in "kernel", then its integer template arguments."""
+    that ends in "kernel", then its template arguments (integers, float or
+    bf16)."""
     import re
 
     i = 3 if mangled.startswith("_ZN") else 2
@@ -536,9 +582,13 @@ def _demangle_kernel(mangled):
         name = mangled[i + len(n):i + len(n) + int(n)]
         i += len(n) + int(n)
         if name.endswith("kernel"):
-            args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
-            return name + ("<" + ", ".join(re.findall(
-                r"Li(\d+)E", args.group(1))) + ">" if args else "")
+            arg = r"(f)|\d+(__nv_bfloat16)|Li(\d+)E"
+            args = re.match(rf"I((?:{arg})+)E", mangled[i:])
+            if not args:
+                return name
+            return name + "<" + ", ".join(
+                "float" if f else "bf16" if b else v
+                for f, b, v in re.findall(arg, args.group(1))) + ">"
     return mangled
 
 
@@ -586,7 +636,8 @@ def _bf16_neighbours(pre):
     return y.double(), alt.double(), tie
 
 
-def _bf16_flip_witness(x_q, x_kv, p, heads, idx, values, tie_max=1e-2):
+def _bf16_flip_witness(x_q, x_kv, p, heads, idx, values, tie_max=1e-2,
+                       round_out=False):
     """One output ``idx = (b, i, c)`` of the bf16 mode recomputed in f64 with
     the plain version's bf16 roundings, then once for each single rounding
     taken to its other bf16 neighbour: every entry of q, k and v, of the
@@ -596,7 +647,9 @@ def _bf16_flip_witness(x_q, x_kv, p, heads, idx, values, tie_max=1e-2):
     recomputation itself ("none") and the flips of operands whose f64 value
     lies within ``tie_max`` bf16 steps of its rounding's tie (where a sum
     in another order may round it the other way), as (operand, distance
-    left, its distance from the tie); and the exact f64 output."""
+    left, its distance from the tie); and the exact f64 output. With
+    ``round_out`` (bf16 I/O) each candidate output is first rounded to
+    bf16, as the kernel stores it."""
     import numpy as np
     import torch
 
@@ -682,6 +735,8 @@ def _bf16_flip_witness(x_q, x_kv, p, heads, idx, values, tie_max=1e-2):
     for name, got in values.items():
         best = None
         for op, (vals, ties) in cands.items():
+            if round_out:
+                vals = rnd(vals)
             dist = (vals - got).abs().reshape(-1)
             if op != "none":
                 dist = torch.where(ties.reshape(-1) <= tie_max, dist,
@@ -1105,42 +1160,53 @@ def _scatter_widths(cells):
     return [w for w in (64, 32, 16, 8, 4) if cells * w * 4 <= ps.SMEM_BYTES]
 
 
+def _scatter_counter(feats, bwd=False):
+    """The launch count a scatter kernel call on ``feats`` adds to."""
+    import torch
+
+    return ("launches_bwd" if bwd else "launches") + (
+        "_bf16" if feats.dtype == torch.bfloat16 else "")
+
+
 def _scatter_case(what, feats, cell, cells, timed=True):
     """One shape of the scatter_max forward against its plain version, bit
     for bit, one launch per call; if timed, its row (and a line of times at
-    each slice width)."""
+    each slice width). f32 or bf16 features."""
     import torch
 
     from multimodal_sc_torch.kernels import pillar_scatter as ps
 
     b, n, d = feats.shape
+    esz = feats.element_size()
+    counter = _scatter_counter(feats)
     ref = ps.scatter_max_reference(feats, cell, cells)
-    before = ps.launches
+    before = getattr(ps, counter)
     out = ps.scatter_max(feats, cell, cells)
     torch.cuda.synchronize()
-    if ps.launches != before + 1:
-        raise AssertionError(f"scatter_max: {ps.launches - before} launches "
-                             "for one call")
+    if getattr(ps, counter) != before + 1:
+        raise AssertionError(f"scatter_max: {getattr(ps, counter) - before} "
+                             f"launches ({counter}) for one call")
     err = (out - ref).abs().max().item()
     # Max is exact and order-independent: the kernel must agree bit for bit.
     torch.testing.assert_close(out, ref, atol=0.0, rtol=0.0)
     width, vec = ps.slice_plan(b, d, cells)
     valid = int((cell < cells).sum().item())
-    line = (f"  scatter_max ({what}) B={b} N={n} D={d} cells={cells} ({valid} "
-            f"of {b * n} points in range; slice {width}, vec {vec}): err "
-            f"{err:.3e}")
+    line = (f"  scatter_max ({what}) {feats.dtype} B={b} N={n} D={d} "
+            f"cells={cells} ({valid} of {b * n} points in range; slice "
+            f"{width}, vec {vec}): err {err:.3e}")
     if not timed:
         print(line, flush=True)
         return None
     ms = _device_ms(lambda: ps.scatter_max(feats, cell, cells), iters=50)
     plain = _device_ms(lambda: ps.scatter_max_reference(feats, cell, cells),
                        iters=50)
-    buf = torch.full((b, cells + 1, d), float("-inf"), device="cuda")
+    buf = torch.full((b, cells + 1, d), float("-inf"), dtype=feats.dtype,
+                     device="cuda")
     idx = cell.long().unsqueeze(-1).expand(b, n, d)
     lib = _device_ms(lambda: torch.scatter_reduce(buf, 1, idx, feats, "amax"),
                      iters=50)
     # Cells read once, in-range features read once, the grid written once.
-    nbytes = 4 * (b * n + valid * d + b * cells * d)
+    nbytes = 4 * b * n + esz * (valid * d + b * cells * d)
     bound, by = _bound_ms(valid * d, nbytes, PEAK_F32)
     widths = "; ".join(
         f"{w}: {_device_ms(lambda: ps._scatter_max_cuda(feats, cell, cells, w), iters=50):.4f}"
@@ -1163,15 +1229,18 @@ def _scatter_bwd_case(what, feats, cell, cells, timed=True):
     g = torch.Generator(device="cuda").manual_seed(6)
     feats, cell = _force_ties(feats, cell)
     b, n, d = feats.shape
-    gy = torch.randn(b, cells, d, generator=g, device="cuda")
+    esz = feats.element_size()
+    counter = _scatter_counter(feats, bwd=True)
+    gy = torch.randn(b, cells, d, generator=g, device="cuda").to(feats.dtype)
     x = feats.clone().requires_grad_(True)
     out = ps.scatter_max(x, cell, cells)
-    before = ps.launches_bwd
+    before = getattr(ps, counter)
     (got,) = torch.autograd.grad(out, x, gy)
     torch.cuda.synchronize()
-    if ps.launches_bwd != before + 1:
-        raise AssertionError(f"scatter_max backward: {ps.launches_bwd - before}"
-                             " launches for one gradient")
+    if getattr(ps, counter) != before + 1:
+        raise AssertionError(f"scatter_max backward: "
+                             f"{getattr(ps, counter) - before} launches "
+                             f"({counter}) for one gradient")
     out = out.detach()
     want = ps.scatter_max_backward_reference(feats, cell, out, gy, cells)
     # The same compares and one IEEE division per hit on both sides: bit for
@@ -1184,15 +1253,16 @@ def _scatter_bwd_case(what, feats, cell, cells, timed=True):
     err = (got - want).abs().max().item()
     # Ties among the maxima: (env, cell, feature) entries whose max is
     # reached by two points or more.
-    pad = torch.zeros(b, 1, d, device="cuda")
+    pad = torch.zeros(b, 1, d, dtype=out.dtype, device="cuda")
     idx = cell.long().unsqueeze(-1).expand(b, n, d)
     hit = (cell < cells).unsqueeze(-1) & (
         feats == torch.cat([out, pad], 1).gather(1, idx))
     count = torch.zeros(b, cells + 1, d, device="cuda").scatter_add_(
         1, idx, hit.float())[:, :cells]
     ties = int((count > 1).sum().item())
-    line = (f"  scatter_max backward ({what}) B={b} N={n} D={d} cells={cells}"
-            f" ({ties} tied maxima): err {err:.3e}, two runs bit-equal")
+    line = (f"  scatter_max backward ({what}) {feats.dtype} B={b} N={n} "
+            f"D={d} cells={cells} ({ties} tied maxima): err {err:.3e}, two "
+            "runs bit-equal")
     if not timed:
         print(line, flush=True)
         return None
@@ -1209,7 +1279,7 @@ def _scatter_bwd_case(what, feats, cell, cells, timed=True):
     touched = int(((count > 0).sum(-1) > 0).sum().item())   # (env, cell)
     # Cells and in-range features read once, out and g at the cells that
     # hold points, every point's gradient written once.
-    nbytes = 4 * (b * n + valid * d + 2 * touched * d + b * n * d)
+    nbytes = 4 * b * n + esz * (valid * d + 2 * touched * d + b * n * d)
     bound, by = _bound_ms(valid * d, nbytes, PEAK_F32)
     widths = "; ".join(
         f"{w}: {_device_ms(lambda: ps._scatter_max_bwd_cuda(feats, cell, out, gy, cells, w), iters=50):.4f}"
@@ -2515,6 +2585,15 @@ def compare_c5_routes(cfg, state):
     forward = dqn.learner_forward(cfg, ActorCritic)
     net = state.params
     net64 = copy.deepcopy(net).double()
+    # The modules convert their inputs to their activation dtype: f64 here.
+    # The fused blocks run on their plain version, as the learner's forward
+    # runs them.
+    for m in net64.modules():
+        for attr in ("dtype", "act_dtype"):
+            if getattr(m, attr, None) == torch.float32:
+                setattr(m, attr, torch.float64)
+        if hasattr(m, "use_kernel"):
+            m.use_kernel = False
     coef = ppo._entropy_coef(cfg, state.update)
     plain = [(conv_block, "conv_prelu", conv_block.conv_prelu_reference),
              (lidar_bev, "scatter_max", pillar_scatter.scatter_max_reference)]
@@ -2522,8 +2601,8 @@ def compare_c5_routes(cfg, state):
     expected = {"conv_prelu": convs, "scatter_max": 1, "scatter_max_bwd": 1}
     digital = cfg.camera.arch == "vq" or cfg.lidar.arch == "vq"
 
-    def loss_and_grads(model, batch, noise):
-        loss, _ = ppo._ppo_loss(cfg, forward, model, batch, coef,
+    def loss_and_grads(model, batch, noise, fwd=forward):
+        loss, _ = ppo._ppo_loss(cfg, fwd, model, batch, coef,
                                 channel_noise=noise)
         return loss.detach(), torch.autograd.grad(
             loss, list(model.parameters()), allow_unused=True)
@@ -2543,7 +2622,7 @@ def compare_c5_routes(cfg, state):
             routes = _two_routes(kernels_first, expected, "the c5 loss",
                                  plain)
             held.i = 0
-            # The port's modules cast to f32 with .float(); here it keeps
+            # The port's f32 outputs come from .float(); here it keeps
             # f64.
             before = _read_counts()
             with _patched(plain), mock.patch.object(
@@ -2551,7 +2630,8 @@ def compare_c5_routes(cfg, state):
                 loss_d, grads_d = loss_and_grads(
                     net64, {k: v.double() if v.is_floating_point() else v
                             for k, v in batch.items()},
-                    tuple(z.double() for z in noise))
+                    tuple(z.double() for z in noise),
+                    lambda model, *a, **kw: model(*a, **kw))
             torch.cuda.synchronize()
         if _read_counts() != before:
             raise RuntimeError("the f64 route of the c5 loss launched a "
@@ -2751,7 +2831,7 @@ def _compare_grads(what, net, loss_k, grads_k, loss_p, grads_p,
           f"above 1e-4), over {len(grads_k)} tensors", flush=True)
 
 
-def drive_c1():
+def drive_c1(overrides=(), expected=EXPECTED_C1, name="c1"):
     """The c1 CNN JSCC train step at the preset's full widths (batch 64,
     32x32) through ``train.jscc``: returns the launches of the timed run,
     the train steps/s, and the config, state, train step and batch stream
@@ -2762,7 +2842,7 @@ def drive_c1():
     from multimodal_sc_torch.envs.datasets import ImageDataset
     from multimodal_sc_torch.train import jscc
 
-    cfg = get_preset("c1")
+    cfg = get_preset("c1").override_str(overrides)
     tr = cfg.train
     if tr.batch_size != C1_BATCH:
         raise RuntimeError(f"c1 batch size {tr.batch_size}")
@@ -2793,10 +2873,10 @@ def drive_c1():
     launches = _read_counts()
 
     rate = C1_TIMED_STEPS / wall
-    print(f"  c1 train: {C1_TIMED_STEPS} steps x batch {C1_BATCH} in "
+    print(f"  {name} train: {C1_TIMED_STEPS} steps x batch {C1_BATCH} in "
           f"{wall:.3f} s = {rate:.2f} train steps/s", flush=True)
     print(f"  launches in the timed run: {launches}", flush=True)
-    _check_counts(launches, EXPECTED_C1, C1_TIMED_STEPS, "c1")
+    _check_counts(launches, expected, C1_TIMED_STEPS, name)
     for m in [first] + history:
         if not all(torch.isfinite(v).all() for v in m.values()):
             raise RuntimeError(f"c1: non-finite metrics: {m}")
@@ -2818,7 +2898,7 @@ def drive_c1():
         recon = state.params(eval_img)
     torch.cuda.synchronize()
     ran = {k: v - counts[k] for k, v in _read_counts().items()}
-    _check_counts(ran, EXPECTED_C1, 2, "c1 eval and reconstruction")
+    _check_counts(ran, expected, 2, f"{name} eval and reconstruction")
     if recon.shape != eval_img.shape or not torch.isfinite(recon).all() or \
             not (0 <= recon.min() and recon.max() <= 1):
         raise RuntimeError(f"c1: reconstruction {tuple(recon.shape)}")
@@ -4131,6 +4211,587 @@ def cli_codec_exports(work):
               "near-ties", flush=True)
 
 
+# --- train.bf16: the kernels' bf16-I/O variants and the bf16 paths ---------
+
+def _bf16_step(x):
+    """One bf16 step (unit in the last place) at each |x|: bf16 keeps 8
+    significant bits, so the step of a value in [2^e, 2^(e+1)) is 2^(e-7)."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs().clamp(min=2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+# Outputs below 2^-14 of a tensor's largest entry are held at the step of
+# that floor: there two sums of the same f32 products in other orders
+# differ by more than the value's own bf16 step (a 3200-term conv output
+# near zero), and a bf16 rounding of either says nothing about the kernel.
+BF16_FLOOR = 2.0 ** -14
+
+
+def _ulp_gate(got, ref):
+    """(mask of outputs more than one bf16 step apart, the largest distance
+    in steps, the share of outputs whose bits differ). The step is the
+    larger of the two values' (they may lie in neighbouring binades), at
+    the floor at least."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    floor = BF16_FLOOR * r.abs().max()
+    step = torch.maximum(_bf16_step(torch.maximum(r.abs(), floor)),
+                         _bf16_step(torch.maximum(g.abs(), floor)))
+    steps = (g - r).abs() / step
+    return steps > 1.0, steps.max().item(), (got != ref).float().mean().item()
+
+
+def check_conv_prelu_bf16():
+    """The conv kernel on bf16 operands against its plain version (the
+    widened operands, an f32 conv with TF32 off, bias and PReLU, one
+    rounding) at c4's act shapes (B 1024: the bf16 line's rows), c1's (B 64,
+    encoder and decoder) and c5's (B 32), both routes, and at shapes that
+    reach every predicate: every output within one bf16 step (``_ulp_gate``;
+    the share that differs printed). Times beside cuDNN's bf16 conv2d (with
+    its bias, without the PReLU)."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_sc_torch.kernels import conv_block as cb
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    bf = torch.bfloat16
+    encoder = ((32, 32, 3, 32, 2, True), (16, 16, 32, 64, 2, True),
+               (8, 8, 64, 128, 1, True), (8, 8, 128, 128, 1, True),
+               (8, 8, 128, 16, 1, False))
+    decoder = ((8, 8, 16, 128, 1, True), (32, 32, 32, 3, 1, False))
+    cases = [(NUM_ENVS, shape, True, 1) for shape in encoder]
+    cases += [(C5_ENVS, shape, True, 0) for shape in encoder]
+    cases += [(C1_BATCH, shape, True, 0) for shape in encoder + decoder]
+    cases += [(b, shape, False, 0) for b, shape in (
+        (64, (7, 9, 32, 64, 1, True)), (64, (7, 9, 32, 64, 2, True)),
+        (64, (9, 7, 40, 24, 2, False)), (64, (8, 8, 16, 12, 1, True)),
+        (64, (8, 8, 8, 8, 1, True)), (64, (5, 5, 8, 200, 1, True)),
+        (64, (3, 3, 136, 136, 2, True)), (C3_BATCH, (64, 64, 3, 32, 2, True)),
+        (C3_BATCH, (64, 64, 32, 3, 1, False)))]
+    rows, worst = [], 0.0
+    for b, (h, w, cin, cout, s, prelu), timed, per_step in cases:
+        x = torch.randn(b, h, w, cin, generator=g, device="cuda").to(bf)
+        wt = (torch.randn(5, 5, cin, cout, generator=g, device="cuda")
+              / (25 * cin) ** 0.5).to(bf)
+        bias = (0.1 * torch.randn(cout, generator=g, device="cuda")).to(bf)
+        alpha = (torch.rand(cout, generator=g, device="cuda").to(bf)
+                 if prelu else None)
+        ref = cb.conv_prelu_reference(x, wt, bias, alpha, s)
+        out = cb.conv_prelu(x, wt, bias, alpha, s)
+        torch.cuda.synchronize()
+        if out.dtype != bf or out.shape != ref.shape:
+            raise AssertionError(f"conv_prelu bf16: {out.dtype} "
+                                 f"{tuple(out.shape)}")
+        over, steps, share = _ulp_gate(out, ref)
+        err = (out.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        path = ("tensor cores" if cb.tensor_core_path(cin, cout, bf)
+                else "FMA units, banded")
+        line = (f"  conv_prelu bf16 B={b} {h}x{w}x{cin}->{cout} s{s} ({path})"
+                f": {100 * share:.3f}% of outputs differ, at most "
+                f"{steps:.2f} bf16 steps, err {err:.3e}")
+        if over.any():
+            raise AssertionError(f"{line}: {int(over.sum())} outputs more "
+                                 "than one bf16 step from the plain version")
+        if not timed:
+            print(line, flush=True)
+            continue
+        ms = _device_ms(lambda: cb.conv_prelu(x, wt, bias, alpha, s))
+        plain = _device_ms(lambda: cb.conv_prelu_reference(x, wt, bias,
+                                                           alpha, s))
+        (plo, phi), (qlo, qhi) = cb.same_pads(h, 5, s), cb.same_pads(w, 5, s)
+        xc = F.pad(x.permute(0, 3, 1, 2), (qlo, qhi, plo, phi)).contiguous(
+            memory_format=torch.channels_last)
+        wc = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = _device_ms(lambda: F.conv2d(xc, wc, bias, stride=s))
+        oh, ow = -(-h // s), -(-w // s)
+        flops = 2 * b * oh * ow * cout * 25 * cin
+        nbytes = 2 * (b * h * w * cin + 25 * cin * cout + 2 * cout
+                      + b * oh * ow * cout)
+        bound, by = _bound_ms(flops, nbytes, PEAK_BF16
+                              if cb.tensor_core_path(cin, cout, bf)
+                              else PEAK_F32)
+        print(f"{line}; kernel {ms:.4f} ms, plain {plain:.4f} ms, cuDNN bf16 "
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+        if per_step:
+            rows.append({"per_step": per_step, "err": err, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib})
+    entry = _entry("conv_prelu_bf16", "cuda",
+                   "multimodal_sc_torch/csrc/conv_prelu.cu",
+                   "multimodal_sc_tpu/kernels/conv_block.py:69", rows)
+    entry["max_abs_err"] = worst
+    return entry
+
+
+# The fused block's bf16-I/O gates. Against the plain version that rounds
+# where the kernel does, only the order of the f32 sums differs; now and then
+# that flips one intermediate rounding (a k, v, probability or head output)
+# by a bf16 step, which moves the outputs it feeds by up to the f32-I/O
+# gate, 5e-3, absolute: outputs near zero then lie many of their own bf16
+# steps apart. So every output must lie within one bf16 step of its own
+# (the output's rounding) plus 5e-3; past that it must be one rounding flip
+# at a tie (the witness, at most this many a shape, each recomputed in
+# f64). Flips are rare: at most 1% of the outputs may differ at all (a
+# kernel that rounded elsewhere differs in most of them). At each timed
+# shape a sample of the outputs past one step but inside the gate gets the
+# same witness: the gate's reach rests on their being flips too.
+BF16_WITNESS_MAX = 64
+BF16_WITNESS_SAMPLE = 8
+BF16_MHA_ABS = 5e-3
+BF16_MHA_SHARE = 1e-2
+
+
+def check_mha_block_bf16():
+    """The fused block with bf16 activations (f32 parameters) against its
+    bf16-I/O plain version (``mha_block_reference_bf16``: the kernel's
+    roundings, the output rounded once) at c4's four act shapes and the fog
+    + V2X ones (B 1024: the bf16 line's rows), then shapes that reach the
+    rest of the kernel. Every output within one bf16 step of its own plus
+    ``BF16_MHA_ABS``; past that it must be one rounding flip at a tie
+    (``_bf16_flip_witness``, its candidates rounded to bf16 as the kernel
+    stores them, within one step of the kernel's output); at most
+    ``BF16_MHA_SHARE`` of the outputs differ. Two runs give the same
+    bits."""
+    import torch
+
+    from multimodal_sc_torch.kernels import mha_block as mb
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    bf, dim = torch.bfloat16, 128
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    p = {}
+    for k in mb.PARAM_KEYS:
+        if k.startswith("w"):
+            p[k] = rnd(dim, dim) * dim ** -0.5
+        elif "scale" in k:
+            p[k] = 1.0 + 0.1 * rnd(dim)
+        else:
+            p[k] = 0.1 * rnd(dim)
+    shapes = list(C4_ATTN_SHAPES) + [s for s in V2X_ATTN_SHAPES
+                                     if s not in C4_ATTN_SHAPES]
+    cases = [(NUM_ENVS, lq, lk, 4, True, FUSION_DEPTH) for lq, lk in shapes]
+    cases += [(b, lq, lk, heads, False, 0)
+              for b, lq, lk, heads in ((64, 65, 65, 2), (64, 65, 100, 8),
+                                       (64, 17, 70, 16), (64, 33, 300, 4),
+                                       (16, 100, 2048, 4), (8, 1, 1, 4))]
+    rows, worst = [], 0.0
+    for b, lq, lk, heads, timed, per_step in cases:
+        x_q, x_kv = rnd(b, lq, dim).to(bf), rnd(b, lk, dim).to(bf)
+        ref = mb.mha_block_reference_bf16(x_q, x_kv, p, heads)
+        out = mb.mha_block(x_q, x_kv, p, heads)
+        if not torch.equal(out, mb.mha_block(x_q, x_kv, p, heads)):
+            raise AssertionError("mha_block bf16 I/O: two runs on the same "
+                                 "inputs differ")
+        torch.cuda.synchronize()
+        if out.dtype != bf:
+            raise AssertionError(f"mha_block bf16 I/O: output {out.dtype}")
+        _, steps, share = _ulp_gate(out, ref)
+        diff = (out.float() - ref.float()).abs()
+        over = diff > _bf16_step(out) + BF16_MHA_ABS
+        err = diff.max().item()
+        worst = max(worst, err)
+        n_over = int(over.sum())
+        line = (f"  mha_block bf16 I/O B={b} Lq={lq} Lk={lk} h={heads}: "
+                f"{100 * share:.3f}% of outputs differ, at most {steps:.2f} "
+                f"of their bf16 steps, err {err:.3e} ({n_over} past a step + "
+                f"{BF16_MHA_ABS})")
+        if n_over > BF16_WITNESS_MAX or share > BF16_MHA_SHARE:
+            raise AssertionError(f"{line}: more than {BF16_WITNESS_MAX} past "
+                                 f"the gate or {100 * BF16_MHA_SHARE}% "
+                                 "differing")
+        def witness(idx):
+            got = out[tuple(idx)].float().item()
+            wit = _bf16_flip_witness(x_q.float(), x_kv.float(), p, heads, idx,
+                                     {"kernel": got}, round_out=True)
+            op, left, tie = wit["kernel"]
+            step = _bf16_step(torch.tensor(got)).item()
+            print(f"    output {idx}: kernel {got:.6f}, plain "
+                  f"{ref[tuple(idx)].float().item():.6f}, exact f64 "
+                  f"{wit['exact']:.6f}; nearest single flip {op} "
+                  f"({left:.3e} left, {tie:.2e} from its tie)", flush=True)
+            if left > step:
+                raise AssertionError(
+                    f"mha_block bf16 I/O: output {idx} at B={b} Lq={lq} "
+                    f"Lk={lk} is no single rounding flip at a tie (nearest "
+                    f"{op}, {left:.3e} left, a step {step:.3e})")
+
+        for idx in over.nonzero().tolist():
+            witness(idx)
+        # The gate's reach: outputs past one bf16 step but inside the gate,
+        # a sample spread over them at each timed shape, must each be one
+        # rounding flip at a tie as well.
+        inside = ((diff > _bf16_step(out)) & ~over).nonzero()
+        if timed and len(inside):
+            pick = torch.linspace(0, len(inside) - 1,
+                                  min(len(inside), BF16_WITNESS_SAMPLE),
+                                  device=inside.device).long()
+            print(f"    {len(pick)} of the {len(inside)} outputs past one "
+                  "bf16 step, inside the gate:", flush=True)
+            for idx in inside[pick].tolist():
+                witness(idx)
+        if not timed:
+            print(line, flush=True)
+            continue
+        ms = _device_ms(lambda: mb.mha_block(x_q, x_kv, p, heads))
+        plain = _device_ms(lambda: mb.mha_block_reference(x_q, x_kv, p,
+                                                          heads))
+        flops = 2 * b * (2 * lq * dim * dim + 2 * lk * dim * dim
+                         + 2 * lq * lk * dim)
+        nbytes = (2 * (2 * b * lq * dim + b * lk * dim)
+                  + 4 * (4 * dim * dim + 8 * dim))
+        bound, by = _bound_ms(flops, nbytes, PEAK_BF16)
+        print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+        rows.append({"per_step": per_step, "err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+        del x_q, x_kv, ref, out
+    entry = _entry("mha_block_bf16", "cuda",
+                   "multimodal_sc_torch/csrc/mha_block.cu",
+                   "multimodal_sc_tpu/kernels/mha_block.py:149", rows)
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def check_scatter_max_bf16():
+    """The scatter kernels on bf16 features, bit for bit against their plain
+    versions (the backward: JAX's f32 share rounded to bf16, bf16(g * (1 /
+    count))), with forced ties, at c4's act (the forward's line), learn and
+    fog + V2X shapes, c3's (the backward's line) and c5's, and the edge
+    shapes."""
+    import torch
+
+    bf = torch.bfloat16
+    c4 = _pillar_inputs()
+    c4 = (c4[0].to(bf), c4[1], c4[2])
+    c3 = _c3_pillar_inputs()
+    c3 = (c3[0].to(bf), c3[1], c3[2])
+
+    def first(n):
+        return c4[0][:n], c4[1][:n], c4[2]
+
+    row = _scatter_case("c4 act", *c4)
+    _scatter_case("c4 learn", *first(LEARN_BATCH))
+    _scatter_case("c3-cnn", *c3)
+    _scatter_case("c5 loss", *first(C5_LOSS_BATCH))
+    bwd_row = _scatter_bwd_case("c3-cnn", *c3)
+    _scatter_bwd_case("c4 learn", *first(LEARN_BATCH))
+    _scatter_bwd_case("c5 loss", *first(C5_LOSS_BATCH))
+    ego, rsu = ((f.to(bf), c, n) for f, c, n in _v2x_pillar_inputs())
+    v2x_rows = [_scatter_case("c4 fog+V2X ego", *ego),
+                _scatter_case("c4 fog+V2X RSU", *rsu)]
+    for what, feats, cell, cells in _scatter_edges():
+        _scatter_case(what, feats.to(bf), cell, cells, timed=False)
+        _scatter_bwd_case(what, feats.to(bf), cell, cells, timed=False)
+    src = "multimodal_sc_torch/csrc/pillar_scatter.cu"
+    return [_entry("scatter_max_bf16", "cuda", src,
+                   "multimodal_sc_tpu/kernels/pillar_scatter.py:79",
+                   [row, *v2x_rows]),
+            _entry("scatter_max_bwd_bf16", "cuda", src,
+                   "multimodal_sc_tpu/kernels/pillar_scatter.py:32",
+                   [bwd_row])]
+
+
+def check_kernels_bf16():
+    """The bf16-I/O variants, TF32 off on the plain side."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return [check_mha_block_bf16(), check_conv_prelu_bf16(),
+                *check_scatter_max_bf16()]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _mha_plain_bf16(x_q, x_kv, params, heads, scale=None, mxu_bf16=None):
+    from multimodal_sc_torch.kernels import mha_block as mb
+
+    return mb.mha_block_reference_bf16(x_q, x_kv, params, heads, scale)
+
+
+def _plain_patches_bf16(with_blocks=True):
+    """The plain versions a bf16 route comparison swaps in: the conv and the
+    scatter as the CPU runs them (their bf16 gradients the kernels'), the
+    fused blocks' bf16-mode plain version (the kernel's roundings)."""
+    from multimodal_sc_torch.codec import lidar_bev
+    from multimodal_sc_torch.fusion import transformer
+    from multimodal_sc_torch.kernels import conv_block, pillar_scatter
+
+    out = [(conv_block, "conv_prelu", conv_block.conv_prelu_plain),
+           (lidar_bev, "scatter_max", pillar_scatter.scatter_max_plain)]
+    if with_blocks:
+        out.append((transformer, "mha_block", _mha_plain_bf16))
+    return out
+
+
+# bf16 route gates. Both routes round the same operands to bf16; the sums
+# run in other orders, and now and then that flips one rounding by a bf16
+# step, which later layers carry on. Q and the losses: within 2^-5 of
+# their largest value (8 bf16 steps); each gradient within 16 bf16 steps of
+# the larger of its tensor's largest entry and 1/16 of the network's.
+BF16_Q_GATE = 2.0 ** -5
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_STEPS = 16
+
+
+def compare_act_routes_bf16(name, cfg, state):
+    """Q of the carried observations through the kernels and through their
+    plain versions (the fused blocks' bf16-mode one), the same channel
+    noise: within ``BF16_Q_GATE`` of the largest |Q|; the greedy actions
+    equal but where the plain route's best two lie within twice that."""
+    import torch
+
+    from multimodal_sc_torch.rl import dqn
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    obs = (dqn.dequantize_image(state.obs_image), state.obs_points,
+           state.obs_mask)
+    noise = _link_noise(cfg, obs[0].shape[0], g)
+    net = state.params
+    with torch.no_grad():
+        before = _read_counts()
+        q_k = net(*obs, channel_noise=noise)
+        ran = {k: v - before[k] for k, v in _read_counts().items()}
+        _check_counts(ran, EXPECTED_BF16 if not cfg.env.v2x_rays
+                      else EXPECTED_BF16_V2X, 1, f"{name} act route")
+        before = _read_counts()
+        with _patched(_plain_patches_bf16()):
+            q_p = net(*obs, channel_noise=noise)
+        if _read_counts() != before:
+            raise RuntimeError(f"{name}: the plain act route launched a "
+                               "kernel")
+    tol = BF16_Q_GATE * q_p.abs().max().item()
+    diff = (q_k - q_p).abs().max().item()
+    top2 = q_p.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= 2 * tol
+    same = q_k.argmax(-1) == q_p.argmax(-1)
+    print(f"  {name}, act route: kernels vs plain versions, Q max difference "
+          f"{diff:.3e} (gate {tol:.3e}), greedy actions agree in "
+          f"{100 * same.float().mean().item():.2f}% of {same.numel()} "
+          f"({int((~same).sum())} differ, each at a near-tie)", flush=True)
+    if diff > tol or not bool((same | near).all()):
+        raise RuntimeError(f"{name}: the act routes differ past the gate")
+
+
+def _compare_grads_bf16(what, net, loss_k, grads_k, loss_p, grads_p):
+    """The bf16 route gates on a loss and its gradients; gradients f32."""
+    import torch
+
+    torch.testing.assert_close(loss_k, loss_p, atol=0.0,
+                               rtol=BF16_LOSS_RTOL)
+    floor = max(gp.abs().max().item() for gp in grads_p
+                if gp is not None) / 16
+    worst = (0.0, "")
+    for (pname, _), gk, gp in zip(net.named_parameters(), grads_k, grads_p):
+        if gk is None or gp is None:
+            if gk is not gp:
+                raise RuntimeError(f"{pname}: a gradient on one route only")
+            continue
+        if gk.dtype != torch.float32:
+            raise RuntimeError(f"{pname}: gradient {gk.dtype}")
+        scale = max(gp.abs().max().item(), floor)
+        steps = (gk - gp).abs().max().item() / (2.0 ** -8 * scale)
+        worst = max(worst, (steps, pname))
+    print(f"  {what}, kernels vs plain versions (bf16): loss "
+          f"{loss_k.item():.6f} vs {loss_p.item():.6f}; worst gradient "
+          f"{worst[0]:.2f} bf16 steps ({worst[1]}), over {len(grads_k)} "
+          "tensors", flush=True)
+    if worst[0] > BF16_GRAD_STEPS:
+        raise RuntimeError(f"{what}: {worst[1]} {worst[0]:.2f} bf16 steps "
+                           f"apart, past {BF16_GRAD_STEPS}")
+
+
+def compare_learn_routes_bf16(cfg, state):
+    """One TD loss and its gradients on a fixed batch and channel noise
+    through the kernels and through their plain versions (bf16)."""
+    import torch
+
+    from multimodal_sc_torch.rl import dqn, replay
+
+    bs = cfg.rl.batch_size
+    g = torch.Generator(device="cuda").manual_seed(24)
+    batch = dqn.dequantize_obs(cfg, replay.sample(
+        state.buffer, None, bs, torch.arange(bs, device="cuda")))
+    draws = dqn.LearnDraws(indices=torch.arange(bs, device="cuda"),
+                           snr_db=None, noise_online=_link_noise(cfg, bs, g),
+                           noise_target=_link_noise(cfg, bs, g),
+                           noise_double=_link_noise(cfg, bs, g))
+    forward = dqn.learner_forward(cfg)
+    params = list(state.params.parameters())
+
+    def loss_and_grads():
+        loss = dqn._td_loss(cfg, forward, state.params, state.target_params,
+                            batch, draws)
+        return loss.detach(), torch.autograd.grad(loss, params,
+                                                  allow_unused=True)
+
+    _compare_grads_bf16("learn step", state.params, *_two_routes(
+        loss_and_grads, LEARN_ROUTE_BF16, "the bf16 learn step",
+        _plain_patches_bf16(with_blocks=False)))
+
+
+def compare_c1_routes_bf16(cfg, state, data):
+    import torch
+
+    from multimodal_sc_torch.train import jscc
+
+    img = next(data)
+    model = state.params
+    g = torch.Generator(device="cuda").manual_seed(25)
+    noise = torch.randn(C1_BATCH, model.k, 2, generator=g, device="cuda")
+    snr = torch.full((C1_BATCH,), cfg.channel.snr_db, device="cuda")
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        recon, _ = jscc.reconstruct(cfg, model, img, snr, noise=noise)
+        loss = (recon - img).square().mean()
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _compare_grads_bf16("c1 bf16 train step", model, *_two_routes(
+        loss_and_grads, EXPECTED_BF16_C1, "the c1 bf16 train step",
+        _plain_patches_bf16(with_blocks=False)))
+
+
+def compare_c3_routes_bf16(cfg, state, batches):
+    import torch
+
+    from multimodal_sc_torch.train import fusion_jscc as fj
+
+    img, pts, mask, cls = next(batches)
+    g = torch.Generator(device="cuda").manual_seed(26)
+    model = state.params
+    noise = tuple(torch.randn(C3_BATCH, n, 2, generator=g, device="cuda")
+                  for n in (model.camera.k, model.lidar.k))
+    snr = torch.full((C3_BATCH,), cfg.channel.snr_db, device="cuda")
+    target = fj.bev_target(cfg, pts, mask, cls)
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss, _ = fj.loss_fn(cfg, model, img, pts, mask, target, snr,
+                             channel_noise=noise)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _compare_grads_bf16("c3-cnn bf16 train step", model, *_two_routes(
+        loss_and_grads, EXPECTED_BF16_C3_CNN, "the c3-cnn bf16 train step",
+        _plain_patches_bf16(with_blocks=False)))
+
+
+def _all_f32(what, *nets, opt=None):
+    """Parameters (and an optimizer's moments) stay f32 under train.bf16."""
+    import torch
+
+    for net in nets:
+        for name, p in net.named_parameters():
+            if p.dtype != torch.float32:
+                raise RuntimeError(f"{what}: parameter {name} is {p.dtype}")
+    if opt is not None:
+        for st in opt.state.values():
+            for k, v in st.items():
+                if torch.is_tensor(v) and v.is_floating_point() and \
+                        v.dtype != torch.float32:
+                    raise RuntimeError(f"{what}: optimizer {k} is {v.dtype}")
+
+
+def bf16_paths(profile=False):
+    """The train.bf16 paths at the presets' widths: c4 act-only and
+    act+learn at 1024 envs (route comparisons, a checkpoint round trip),
+    fog + V2X act-only, one c5 update, c1 train steps, c3-cnn train steps.
+    Returns the launches summed and each path's rate."""
+    import torch
+
+    totals, rates = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    print("main path (c4 act-only, train.bf16):", flush=True)
+    launches, rates["c4 act-only"], cfg, state, iteration = drive_main_path(
+        "c4 bf16", BF16, EXPECTED_BF16)
+    add(launches)
+    compare_act_routes_bf16("c4 bf16", cfg, state)
+    if profile:
+        print("profile (c4 act-only, train.bf16):", flush=True)
+        profile_main_path(cfg, state, iteration)
+    del state, iteration
+    print("main path (c4 act+learn, arm A, train.bf16):", flush=True)
+    launches, rates["c4 act+learn, arm A"], cfg, state, iteration = (
+        drive_learn("c4 bf16 act+learn", BF16, EXPECTED_BF16_LEARN))
+    add(launches)
+    _all_f32("c4 bf16", state.params, state.target_params, state.ema_params,
+             opt=state.opt_state)
+    compare_learn_routes_bf16(cfg, state)
+    compare_act_routes_bf16("c4 bf16 after learning", cfg, state)
+    if profile:
+        print("profile (c4 act+learn, train.bf16):", flush=True)
+        profile_learn(cfg, state, iteration)
+    del state, iteration
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        print("checkpoint round trip (c4, train.bf16):", flush=True)
+        checkpoint_round_trip(ckpt_dir, BF16)
+    torch.cuda.empty_cache()
+    print("main path (c4 fog + V2X act-only, train.bf16):", flush=True)
+    launches, rates["c4 fog + V2X act-only"], cfg, state, iteration = (
+        drive_main_path("c4 fog + V2X bf16", FOG_V2X + BF16,
+                        EXPECTED_BF16_V2X))
+    add(launches)
+    compare_act_routes_bf16("c4 fog + V2X bf16", cfg, state)
+    if profile:
+        print("profile (c4 fog + V2X act-only, train.bf16):", flush=True)
+        profile_main_path(cfg, state, iteration)
+    del state, iteration
+    torch.cuda.empty_cache()
+    print("main path (c5 PPO update, train.bf16):", flush=True)
+    launches, rates["c5 update"], cfg, state, train_step = drive_c5(
+        "c5 bf16", BF16, EXPECTED_BF16_C5)
+    add(launches)
+    _all_f32("c5 bf16", state.params, state.ema_params, opt=state.opt_state)
+    if profile:
+        print("profile (c5 PPO update, train.bf16):", flush=True)
+        profile_c5(cfg, state, train_step)
+    del state, train_step
+    torch.cuda.empty_cache()
+    print("main path (c1 CNN JSCC train, train.bf16):", flush=True)
+    launches, rates["c1 train"], cfg, state, train_step, data = drive_c1(
+        BF16, EXPECTED_BF16_C1, "c1 bf16")
+    add(launches)
+    _all_f32("c1 bf16", state.params, opt=state.opt_state)
+    compare_c1_routes_bf16(cfg, state, data)
+    if profile:
+        print("profile (c1 CNN JSCC train, train.bf16):", flush=True)
+        profile_c1(cfg, state, train_step, data)
+    del state, train_step, data
+    torch.cuda.empty_cache()
+    name = "c3-cnn bf16"
+    print(f"main path (c3 late-fusion train, {name}):", flush=True)
+    launches, rates["c3-cnn train"], cfg, state, train_step, batches = (
+        drive_c3(name, C3_CNN + BF16, EXPECTED_BF16_C3_CNN))
+    add(launches)
+    _all_f32(name, state.params, opt=state.opt_state)
+    compare_c3_routes_bf16(cfg, state, batches)
+    if profile:
+        print(f"profile (c3 late-fusion train, {name}):", flush=True)
+        profile_c3(cfg, state, train_step, batches)
+    del state, train_step, batches
+    torch.cuda.empty_cache()
+    return totals, rates
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4177,6 +4838,8 @@ def main() -> int:
 
     print("kernel checks (TF32 off):", flush=True)
     kernels = check_kernels()
+    print("kernel checks, bf16 I/O (train.bf16; TF32 off):", flush=True)
+    kernels += check_kernels_bf16()
     from multimodal_sc_torch.config import get_preset
 
     # Each path is driven with the counts set to 0 just before it and read
@@ -4390,6 +5053,9 @@ def main() -> int:
         print("CLI export (the c1_vq, c3 and c3_vq codecs):", flush=True)
         cli_codec_exports(work)
         torch.cuda.empty_cache()
+    bf16_totals, bf16_rates = bf16_paths(args.profile)
+    for k, v in bf16_totals.items():
+        totals[k] += v
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
@@ -4408,6 +5074,16 @@ def main() -> int:
           f"{cli_times['artifact ms']:.3f} ms a call at B {NUM_ENVS}, the "
           f"live kernels {cli_times['live ms']:.3f} ms; export "
           f"{cli_times['export s']:.1f} s, load {cli_times['load s']:.2f} s",
+          flush=True)
+    f32_rates = {"c4 act-only": rates["act-only"],
+                 "c4 act+learn, arm A": rates["act+learn, arm A: c4 preset"],
+                 "c4 fog + V2X act-only": rates["act-only, c4 fog + V2X"],
+                 "c5 update": c5_rate, "c1 train": c1_rate,
+                 "c3-cnn train": c3_rates["c3-cnn: CNN camera codec at 64x64"]}
+    print(f"train.bf16 against f32 in this call on {card} (agent or env "
+          "steps/s, train steps/s): " + "; ".join(
+              f"{k} {bf16_rates[k]:.2f} vs {f32_rates[k]:.2f} "
+              f"({bf16_rates[k] / f32_rates[k]:.3f}x)" for k in bf16_rates),
           flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

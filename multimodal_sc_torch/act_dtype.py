@@ -1,0 +1,109 @@
+"""The activation dtype of ``train.bf16`` and flax's dtype rules for it.
+
+With ``train.bf16`` the JAX package builds every codec and the fusion trunk
+with ``dtype=bfloat16`` while the parameters stay float32 (its
+``config/configs.py`` ``TrainConfig.bf16``). A flax layer built so:
+
+* ``Dense``, ``Conv`` and ``ConvTranspose`` cast the input, the kernel and
+  the bias to bf16 and return bf16: the product is rounded, then the bias
+  added and rounded again;
+* ``LayerNorm`` takes its statistics in f32 from the upcast input, applies
+  its f32 scale and bias, and rounds once;
+* ``gelu`` and the elementwise ops run in bf16.
+
+``Dense``, ``Conv`` and ``LayerNorm`` below are PyTorch's ``nn.Linear``,
+``nn.Conv2d`` and ``nn.LayerNorm`` (same parameters, same names) with an
+activation dtype: at float32 they run PyTorch's own forward, so the f32
+paths compute as before; at bfloat16 they follow flax. These are not
+PyTorch's autocast rules, which keep a LayerNorm in f32 and round a
+matmul's bias into its sum.
+
+The port runs ``train.bf16`` on the CNN camera, the analog LiDAR and the
+fused attention blocks (their kernels read and write bf16 themselves);
+``activation_dtype`` is the one rule that says which configurations, and
+refuses the rest.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_REFUSED = "train.bf16 activations are not ported (ROADMAP item 13b)"
+
+
+def activation_dtype(cfg, fusion: bool = False) -> torch.dtype:
+    """``torch.bfloat16`` under ``train.bf16``, else ``torch.float32``.
+
+    bf16 is ported for the CNN camera codec, the analog LiDAR codec and,
+    where a fusion transformer runs cross attention (``fusion``), its fused
+    blocks (``pallas_mha_block``). Any configuration that reaches another
+    codec or the packed or flash attention (``pallas_attention``, the
+    unfused fusion MHA) raises ``NotImplementedError`` naming ROADMAP item
+    13b."""
+    if not cfg.train.bf16:
+        return torch.float32
+    why = None
+    if cfg.camera.arch != "cnn":
+        why = f"camera.arch={cfg.camera.arch!r} (only 'cnn')"
+    elif cfg.lidar.arch != "analog":
+        why = f"lidar.arch={cfg.lidar.arch!r} (only 'analog')"
+    elif cfg.pallas_attention:
+        why = "pallas_attention=true (the packed and flash attention)"
+    elif (fusion and cfg.fusion.mode == "cross_attention"
+          and not cfg.pallas_mha_block):
+        why = ("pallas_mha_block=false (the unfused fusion MHA; only the "
+               "fused blocks)")
+    if why is not None:
+        raise NotImplementedError(f"{_REFUSED}: {why}")
+    return torch.bfloat16
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``Dense``'s ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.act_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.act_dtype
+        if d == torch.float32:
+            return super().forward(x)
+        return F.linear(x.to(d), self.weight.to(d)) + self.bias.to(d)
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` (NCHW) with flax ``Conv``'s ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=padding)
+        self.act_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.act_dtype
+        if d == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(d), self.weight.to(d), None)
+        return y + self.bias.to(d)[:, None, None]
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax ``LayerNorm``'s ``dtype``: in bf16 the
+    normalisation, the f32 scale and the f32 bias are applied to the upcast
+    input and the result rounded once (``F.layer_norm`` on bf16 operands
+    would round the scale and bias first)."""
+
+    def __init__(self, features: int, eps: float,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(features, eps=eps)
+        self.act_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.act_dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.act_dtype)

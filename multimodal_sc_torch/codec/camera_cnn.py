@@ -8,6 +8,13 @@ JAX package. The 5x5 convs are ``FusedConvPReLU`` (the CUDA kernel on the
 card); the token decoder's ``conv_in``, the decoder's upsampling transposed
 convs and its segmentation head are plain convolutions in the JAX package
 too (XLA), so they stay ``F.conv2d`` / ``F.conv_transpose2d``.
+
+Under ``train.bf16`` every module takes ``dtype=torch.bfloat16`` and follows
+flax's dtype rules (``act_dtype``): the convs and the PReLU run in bf16 on
+f32 parameters, the FiLMs' MLPs in f32 (flax's ``Dense`` without a dtype
+promotes to f32, and so does the modulation of a bf16 map by their f32
+output); the encoder's symbols, the tokens, the image (its sigmoid taken in
+f32) and the seg logits come out f32, so the channel stays f32.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.act_dtype import Conv
 from multimodal_sc_torch.kernels.conv_block import FusedConvPReLU
 from multimodal_sc_torch.nn_init import init_like_flax_
 
@@ -30,7 +38,7 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.full((features,), 0.25))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, x * self.alpha)
+        return torch.where(x >= 0, x, x * self.alpha.to(x.dtype))
 
 
 class SNRFiLM(nn.Module):
@@ -44,7 +52,7 @@ class SNRFiLM(nn.Module):
 
     def forward(self, x: torch.Tensor, snr_db: torch.Tensor) -> torch.Tensor:
         s = (snr_db.reshape(-1, 1).to(x.dtype) - 10.0) / 15.0
-        gamma, beta = self.fc2(F.relu(self.fc1(s))).chunk(2, dim=-1)
+        gamma, beta = self.fc2(F.relu(self.fc1(s.float()))).chunk(2, dim=-1)
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (self.features,)
         return x * (1.0 + gamma.reshape(shape)) + beta.reshape(shape)
 
@@ -61,7 +69,7 @@ class RateFiLM(nn.Module):
 
     def forward(self, x: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
         r = (rate.reshape(-1, 1).to(x.dtype) - 0.5) * 2.0
-        gamma, beta = self.fc2(F.relu(self.fc1(r))).chunk(2, dim=-1)
+        gamma, beta = self.fc2(F.relu(self.fc1(r.float()))).chunk(2, dim=-1)
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (self.features,)
         return x * (1.0 + gamma.reshape(shape)) + beta.reshape(shape)
 
@@ -75,22 +83,25 @@ class CameraEncoderCNN(nn.Module):
 
     def __init__(self, features: Sequence[int] = (32, 64, 128, 128),
                  c_sym: int = 8, in_channels: int = 3,
-                 snr_conditioning: bool = False, adaptive_rate: bool = False):
+                 snr_conditioning: bool = False, adaptive_rate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.c_sym = c_sym
+        self.c_sym, self.dtype = c_sym, dtype
         cin = in_channels
         for i, (f, s) in enumerate(zip(features, (2, 2, 1, 1))):
-            setattr(self, f"block{i}", FusedConvPReLU(cin, f, 5, stride=s))
+            setattr(self, f"block{i}", FusedConvPReLU(cin, f, 5, stride=s,
+                                                      dtype=dtype))
             cin = f
         self.n_blocks = len(features)
         self.snr_film = SNRFiLM(features[-1]) if snr_conditioning else None
         self.rate_film = RateFiLM(features[-1]) if adaptive_rate else None
-        self.conv_out = FusedConvPReLU(cin, 2 * c_sym, 5, with_prelu=False)
+        self.conv_out = FusedConvPReLU(cin, 2 * c_sym, 5, with_prelu=False,
+                                       dtype=dtype)
 
     def forward(self, img: torch.Tensor,
                 snr_db: Optional[torch.Tensor] = None,
                 rate: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = img.float()
+        x = img.to(self.dtype)
         for i in range(self.n_blocks):
             x = getattr(self, f"block{i}")(x)
         if self.snr_film is not None:
@@ -99,7 +110,7 @@ class CameraEncoderCNN(nn.Module):
             x = self.rate_film(x, rate)
         x = self.conv_out(x)
         b, h, w, _ = x.shape
-        return x.reshape(b, h * w * self.c_sym, 2)
+        return x.reshape(b, h * w * self.c_sym, 2).float()
 
 
 class CameraTokensCNN(nn.Module):
@@ -107,12 +118,13 @@ class CameraTokensCNN(nn.Module):
 
     def __init__(self, dim: int = 128, c_sym: int = 8,
                  image_hw: Tuple[int, int] = (32, 32),
-                 snr_conditioning: bool = False):
+                 snr_conditioning: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dim, self.c_sym = dim, c_sym
+        self.dim, self.c_sym, self.dtype = dim, c_sym, dtype
         self.hw = (image_hw[0] // 4, image_hw[1] // 4)
         # 5x5 stride-1 SAME: symmetric padding 2, as XLA pads it.
-        self.conv_in = nn.Conv2d(2 * c_sym, dim, 5, padding=2)
+        self.conv_in = Conv(2 * c_sym, dim, 5, padding=2, dtype=dtype)
         self.prelu_in = PReLU(dim)
         self.snr_film = SNRFiLM(dim) if snr_conditioning else None
 
@@ -120,11 +132,12 @@ class CameraTokensCNN(nn.Module):
                 snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
         b = z_hat.shape[0]
         h, w = self.hw
-        x = z_hat.reshape(b, h, w, 2 * self.c_sym).permute(0, 3, 1, 2)
-        x = self.prelu_in(self.conv_in(x).permute(0, 2, 3, 1))
+        x = z_hat.reshape(b, h, w, 2 * self.c_sym).to(self.dtype)
+        x = self.prelu_in(self.conv_in(x.permute(0, 3, 1, 2))
+                          .permute(0, 2, 3, 1))
         if self.snr_film is not None:
             x = self.snr_film(x, snr_db)
-        return x.reshape(b, h * w, self.dim)
+        return x.reshape(b, h * w, self.dim).float()
 
 
 class ConvTransposeSame(nn.ConvTranspose2d):
@@ -140,8 +153,10 @@ class ConvTransposeSame(nn.ConvTranspose2d):
     and columns at the end."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, stride: int):
+                 kernel_size: int, stride: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel_size, stride)
+        self.act_dtype = dtype
         k, s = kernel_size, stride
         # lax._conv_transpose_padding for "SAME".
         pad_len = k + s - 2
@@ -153,8 +168,15 @@ class ConvTransposeSame(nn.ConvTranspose2d):
         self.torch_pad, self.crop = k - 1 - pad_a, pad_a - pad_b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                               self.stride, self.torch_pad)
+        d = self.act_dtype
+        if d == torch.float32:
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight,
+                                   self.bias, self.stride, self.torch_pad)
+        else:       # flax's dtype: the product rounded, then the bias added
+            y = F.conv_transpose2d(x.to(d).permute(0, 3, 1, 2),
+                                   self.weight.to(d), None, self.stride,
+                                   self.torch_pad) + self.bias.to(d)[:, None,
+                                                                     None]
         h, w = y.shape[2] - self.crop, y.shape[3] - self.crop
         return y[:, :, :h, :w].permute(0, 2, 3, 1)
 
@@ -168,25 +190,29 @@ class CameraDecoderCNN(nn.Module):
     def __init__(self, features: Sequence[int] = (128, 128, 64, 32),
                  c_sym: int = 8, image_hw: Tuple[int, int] = (32, 32),
                  out_channels: int = 3, seg_classes: int = 0,
-                 snr_conditioning: bool = False, adaptive_rate: bool = False):
+                 snr_conditioning: bool = False, adaptive_rate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.c_sym = c_sym
+        self.c_sym, self.dtype = c_sym, dtype
         self.hw = (image_hw[0] // 4, image_hw[1] // 4)
-        self.block_in = FusedConvPReLU(2 * c_sym, features[0], 5)
+        self.block_in = FusedConvPReLU(2 * c_sym, features[0], 5, dtype=dtype)
         self.snr_film = SNRFiLM(features[0]) if snr_conditioning else None
         self.rate_film = RateFiLM(features[0]) if adaptive_rate else None
         self.strides = (1, 1, 2, 2)
         cin = features[0]
         for i, (f, s) in enumerate(zip(features, self.strides)):
             if s == 1:
-                setattr(self, f"block{i}", FusedConvPReLU(cin, f, 5))
+                setattr(self, f"block{i}", FusedConvPReLU(cin, f, 5,
+                                                          dtype=dtype))
             else:
-                setattr(self, f"deconv{i}", ConvTransposeSame(cin, f, 5, s))
+                setattr(self, f"deconv{i}", ConvTransposeSame(cin, f, 5, s,
+                                                              dtype))
                 setattr(self, f"prelu{i}", PReLU(f))
             cin = f
-        self.conv_out = FusedConvPReLU(cin, out_channels, 5, with_prelu=False)
+        self.conv_out = FusedConvPReLU(cin, out_channels, 5, with_prelu=False,
+                                       dtype=dtype)
         # 3x3 stride-1 SAME: symmetric padding 1.
-        self.seg_head = (nn.Conv2d(cin, seg_classes, 3, padding=1)
+        self.seg_head = (Conv(cin, seg_classes, 3, padding=1, dtype=dtype)
                          if seg_classes > 0 else None)
 
     def forward(self, z_hat: torch.Tensor,
@@ -194,7 +220,8 @@ class CameraDecoderCNN(nn.Module):
                 rate: Optional[torch.Tensor] = None):
         b = z_hat.shape[0]
         h, w = self.hw
-        x = self.block_in(z_hat.reshape(b, h, w, 2 * self.c_sym).float())
+        x = self.block_in(z_hat.reshape(b, h, w, 2 * self.c_sym).to(
+            self.dtype))
         if self.snr_film is not None:
             x = self.snr_film(x, snr_db)
         if self.rate_film is not None:
@@ -204,11 +231,11 @@ class CameraDecoderCNN(nn.Module):
                 x = getattr(self, f"block{i}")(x)
             else:
                 x = getattr(self, f"prelu{i}")(getattr(self, f"deconv{i}")(x))
-        recon = torch.sigmoid(self.conv_out(x))
+        recon = torch.sigmoid(self.conv_out(x).float())
         if self.seg_head is None:
             return recon
         seg = self.seg_head(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        return recon, seg
+        return recon, seg.float()
 
 
 class CameraJSCC(nn.Module):
@@ -220,7 +247,8 @@ class CameraJSCC(nn.Module):
     def __init__(self, features: Sequence[int] = (32, 64, 128, 128),
                  c_sym: int = 8, image_hw: Tuple[int, int] = (32, 32),
                  out_channels: int = 3, seg_classes: int = 0,
-                 snr_conditioning: bool = False, adaptive_rate: bool = False):
+                 snr_conditioning: bool = False, adaptive_rate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.c_sym, self.image_hw = c_sym, tuple(image_hw)
         self.seg_classes = seg_classes
@@ -228,10 +256,11 @@ class CameraJSCC(nn.Module):
         self.adaptive_rate = adaptive_rate
         self.encoder = CameraEncoderCNN(features, c_sym,
                                         snr_conditioning=snr_conditioning,
-                                        adaptive_rate=adaptive_rate)
+                                        adaptive_rate=adaptive_rate,
+                                        dtype=dtype)
         self.decoder = CameraDecoderCNN(tuple(reversed(features)), c_sym,
                                         image_hw, out_channels, seg_classes,
-                                        snr_conditioning, adaptive_rate)
+                                        snr_conditioning, adaptive_rate, dtype)
         init_like_flax_(self)
 
     @property

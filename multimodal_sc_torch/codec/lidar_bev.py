@@ -11,6 +11,14 @@ convs in the JAX package. ``LidarBEVVQCodec`` is the digital codec
 (``lidar.arch="vq"``): BEV features -> codebook indices -> the QPSK link of
 ``codec/semantic_vq.py`` -> semantic BEV logits, with that module's
 quantiser, re-seeding stats, token pruning and selection rules.
+
+Under ``train.bf16`` the analog codec's modules take ``dtype=torch.bfloat16``
+and follow flax's dtype rules (``act_dtype``): the point MLP, the
+LayerNorms, the convs and the heads in bf16 on f32 parameters, the scatter
+on bf16 features (its kernel reads and writes bf16; the JAX module widens
+them first, which gives the same grid, and a tied max's gradient within
+one bf16 step, see ``kernels/pillar_scatter.py``), the symbols, logits and
+tokens out in f32.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.act_dtype import Conv, Dense, LayerNorm
 from multimodal_sc_torch.channel.digital import index_bits
 from multimodal_sc_torch.codec import semantic_vq
 from multimodal_sc_torch.kernels.pillar_scatter import scatter_max
@@ -104,18 +113,20 @@ class PillarFeatureNet(nn.Module):
     def __init__(self, point_features: int = 4, pillar_dim: int = 64,
                  bev_hw: Tuple[int, int] = (16, 16),
                  x_range: Tuple[float, float] = (0.0, 48.0),
-                 y_range: Tuple[float, float] = (-12.0, 12.0)):
+                 y_range: Tuple[float, float] = (-12.0, 12.0),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pillar_dim, self.bev_hw = pillar_dim, tuple(bev_hw)
         self.x_range, self.y_range = tuple(x_range), tuple(y_range)
-        self.fc1 = nn.Linear(point_features + 3, pillar_dim)
-        self.ln = nn.LayerNorm(pillar_dim, eps=_LN_EPS)
-        self.fc2 = nn.Linear(pillar_dim, pillar_dim)
+        self.dtype = dtype
+        self.fc1 = Dense(point_features + 3, pillar_dim, dtype)
+        self.ln = LayerNorm(pillar_dim, _LN_EPS, dtype)
+        self.fc2 = Dense(pillar_dim, pillar_dim, dtype)
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         aug, cell = voxelize(points, mask, self.bev_hw, self.x_range,
                              self.y_range)
-        x = self.fc2(F.relu(self.ln(self.fc1(aug.float()))))
+        x = self.fc2(F.relu(self.ln(self.fc1(aug.to(self.dtype)))))
         h, w = self.bev_hw
         bev = scatter_max(x, cell, h * w)               # (B, H*W, D)
         return bev.reshape(-1, h, w, self.pillar_dim)
@@ -124,17 +135,18 @@ class PillarFeatureNet(nn.Module):
 class BEVBackbone(nn.Module):
     """3x3 SAME conv + LayerNorm + ReLU blocks over the NHWC pillar grid."""
 
-    def __init__(self, in_features: int, features: Tuple[int, ...] = (64, 128)):
+    def __init__(self, in_features: int, features: Tuple[int, ...] = (64, 128),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n = len(features)
+        self.n, self.dtype = len(features), dtype
         cin = in_features
         for i, f in enumerate(features):
-            setattr(self, f"conv{i}", nn.Conv2d(cin, f, 3, padding=1))
-            setattr(self, f"ln{i}", nn.LayerNorm(f, eps=_LN_EPS))
+            setattr(self, f"conv{i}", Conv(cin, f, 3, padding=1, dtype=dtype))
+            setattr(self, f"ln{i}", LayerNorm(f, _LN_EPS, dtype))
             cin = f
 
     def forward(self, bev: torch.Tensor) -> torch.Tensor:
-        x = bev.float()
+        x = bev.to(self.dtype)
         for i in range(self.n):
             x = getattr(self, f"conv{i}")(x.permute(0, 3, 1, 2))
             x = F.relu(getattr(self, f"ln{i}")(x.permute(0, 2, 3, 1)))
@@ -156,18 +168,18 @@ class LidarBEVCodec(nn.Module):
                  seg_classes: int = 1,
                  x_range: Tuple[float, float] = (0.0, 48.0),
                  y_range: Tuple[float, float] = (-12.0, 12.0),
-                 point_features: int = 4):
+                 point_features: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pillar_dim, self.bev_hw, self.c_sym = pillar_dim, tuple(bev_hw), c_sym
-        self.seg_classes = seg_classes
+        self.seg_classes, self.dtype = seg_classes, dtype
         self.pfn = PillarFeatureNet(point_features, pillar_dim, bev_hw,
-                                    x_range, y_range)
+                                    x_range, y_range, dtype)
         feats = (pillar_dim, pillar_dim)
-        self.backbone = BEVBackbone(pillar_dim, feats)
-        self.sym_head = nn.Linear(pillar_dim, 2 * c_sym)
-        self.sym_embed = nn.Linear(2 * c_sym, pillar_dim)
-        self.dec_backbone = BEVBackbone(pillar_dim, feats)
-        self.occ_head = nn.Linear(pillar_dim, max(seg_classes, 1))
+        self.backbone = BEVBackbone(pillar_dim, feats, dtype)
+        self.sym_head = Dense(pillar_dim, 2 * c_sym, dtype)
+        self.sym_embed = Dense(2 * c_sym, pillar_dim, dtype)
+        self.dec_backbone = BEVBackbone(pillar_dim, feats, dtype)
+        self.occ_head = Dense(pillar_dim, max(seg_classes, 1), dtype)
 
     def bev_features(self, points: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
@@ -177,21 +189,23 @@ class LidarBEVCodec(nn.Module):
         points, mask = obs
         x = self.sym_head(self.bev_features(points, mask))   # (B, H, W, 2c)
         b, h, w, _ = x.shape
-        return x.reshape(b, h * w * self.c_sym, 2)
+        return x.reshape(b, h * w * self.c_sym, 2).float()
 
     def _decoded(self, z_hat: torch.Tensor) -> torch.Tensor:
         h, w = self.bev_hw
-        x = z_hat.float().reshape(z_hat.shape[0], h, w, 2 * self.c_sym)
+        x = z_hat.to(self.dtype).reshape(z_hat.shape[0], h, w,
+                                             2 * self.c_sym)
         return self.dec_backbone(self.sym_embed(x))
 
     def decode(self, z_hat: torch.Tensor,
                snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.occ_head(self._decoded(z_hat))           # (B, H, W, C)
+        return self.occ_head(self._decoded(z_hat)).float()   # (B, H, W, C)
 
     def tokens(self, z_hat: torch.Tensor) -> torch.Tensor:
         """Decoded symbols -> BEV tokens for cross-modal fusion."""
         h, w = self.bev_hw
-        return self._decoded(z_hat).reshape(-1, h * w, self.pillar_dim)
+        return self._decoded(z_hat).reshape(-1, h * w,
+                                            self.pillar_dim).float()
 
     def forward(self, obs, snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.decode(self.encode(obs, snr_db), snr_db)

@@ -63,18 +63,65 @@
 // of 32-64 images still gives at least 132 blocks. Each output sums its
 // taps (ky, kx, channel) in the same order whatever the band, so the
 // results do not depend on it.
+//
+// bf16 I/O (train.bf16). The TPU kernel reads bf16 activations and weights,
+// sums their products in f32, adds the bias, applies the PReLU and rounds
+// once at the store. A bf16 x bf16 product is exact in f32, so the 3xTF32
+// split would triple the work for nothing, and the bound becomes the bf16
+// tensor-core rate (989 TFLOP/s):
+//
+//   * conv_mma_bf16_kernel (Cin and Cout multiples of 8, the 16-byte copies
+//     of 8 bf16): the same implicit GEMM, M = N*OH*OW pixels, N = Cout, K =
+//     K*K*Cin, on mma.sync.m16n8k16 with bf16 operands and f32 sums. A
+//     block owns 128 pixels x a tile of 16-128 channels (as above); one
+//     pipeline step is one tap and 32 input channels (two k-steps of 16),
+//     copied by cp.async into a ring of three stages: 128 x 32 gathered
+//     pixels (rows of 40 bf16, so the eight rows an ldmatrix reads fall in
+//     eight bank groups) and 32 x BN weights (rows of BN + 8). Each of the
+//     eight warps owns 16 pixels x all BN channels: per k-step one ldmatrix
+//     of its pixels and BN / 16 transposed ldmatrix of the weights. Each
+//     mma's 16 products start from zero and join the pixel's sum through
+//     the FADD units, which round to nearest (a chain of tensor-core sums
+//     truncates). Channels past Cin, taps outside the image and pixels past
+//     M are zero-filled by cp.async; bias and PReLU in f32, one rounding,
+//     two channels a 4-byte store.
+//   * conv_prelu_kernel<bf16> (any other channel count: the first layer's
+//     Cin = 3, the decoder's Cout = 3): the banded kernel, its window of
+//     the padded input converted to f32 on the way into shared memory, the
+//     weights, bias and slopes converted as they are read, the sum rounded
+//     once at the store.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-template <int CT>
-__device__ __forceinline__ void load_w(const float* __restrict__ p,
+using bf16 = __nv_bfloat16;
+
+// An element of x, w, bias or alpha as f32 (bf16 widens exactly), read
+// through the read-only cache; an f32 result stored as E.
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const bf16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <int CT, typename E>
+__device__ __forceinline__ void load_w(const E* __restrict__ p,
                                        float (&w)[CT]) {
-  if constexpr (CT % 4 == 0) {
+  if constexpr (CT % 4 == 0 && std::is_same_v<E, float>) {
 #pragma unroll
     for (int j = 0; j < CT; j += 4) {
       float4 v = __ldg(reinterpret_cast<const float4*>(p + j));
@@ -82,16 +129,16 @@ __device__ __forceinline__ void load_w(const float* __restrict__ p,
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < CT; ++j) w[j] = __ldg(p + j);
+    for (int j = 0; j < CT; ++j) w[j] = ldg_f32(p + j);
   }
 }
 
-template <int CT, int PT>
-__global__ void conv_prelu_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ w,
-                                  const float* __restrict__ bias,
-                                  const float* __restrict__ alpha,
-                                  float* __restrict__ out, int H, int W,
+template <typename E, int CT, int PT>
+__global__ void conv_prelu_kernel(const E* __restrict__ x,
+                                  const E* __restrict__ w,
+                                  const E* __restrict__ bias,
+                                  const E* __restrict__ alpha,
+                                  E* __restrict__ out, int H, int W,
                                   int Cin, int OH, int OW, int Cout, int K,
                                   int stride, int pad_h, int pad_w, int Wp,
                                   int band, int bands) {
@@ -104,7 +151,7 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
   const int oy0 = (blockIdx.x % bands) * band;
   const int rows = min(band, OH - oy0);
   const int Hb = (rows - 1) * stride + K;
-  const float* xn = x + (int64_t)n * H * W * Cin;
+  const E* xn = x + (int64_t)n * H * W * Cin;
   const int n_load = Hb * Wp * Cin;
   for (int i = threadIdx.x; i < n_load; i += blockDim.x) {
     int c = i % Cin;
@@ -112,7 +159,7 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
     int iy = oy0 * stride + t / Wp - pad_h;
     int ix = t % Wp - pad_w;
     xs[t * Cs + c] = (iy >= 0 && iy < H && ix >= 0 && ix < W)
-                ? xn[((int64_t)iy * W + ix) * Cin + c]
+                ? to_f32(xn[((int64_t)iy * W + ix) * Cin + c])
                 : 0.0f;
   }
   __syncthreads();
@@ -121,7 +168,7 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
   const int groups = Cout / CT;
   const int xgroups = (OW + PT - 1) / PT;
   const int total = rows * xgroups * groups;
-  float* on = out + ((int64_t)n * OH + oy0) * OW * Cout;
+  E* on = out + ((int64_t)n * OH + oy0) * OW * Cout;
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const int g = t % groups;  // neighbouring threads: neighbouring channels
     const int xg = (t / groups) % xgroups;
@@ -141,7 +188,7 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
     for (int ky = 0; ky < K; ++ky) {
       for (int kx = 0; kx < K; ++kx) {
         const float* xr = xs + ((oy * stride + ky) * Wp + kx) * Cs;
-        const float* wr = w + (int64_t)(ky * K + kx) * Cin * Cout + g * CT;
+        const E* wr = w + (int64_t)(ky * K + kx) * Cin * Cout + g * CT;
         for (int ci = 0; ci < Cin; ++ci) {
           float wv[CT];
           load_w<CT>(wr + (int64_t)ci * Cout, wv);
@@ -159,13 +206,13 @@ __global__ void conv_prelu_kernel(const float* __restrict__ x,
     for (int p = 0; p < PT; ++p) {
       const int ox = xg * PT + p;
       if (ox >= OW) break;
-      float* o = on + ((int64_t)oy * OW + ox) * Cout + g * CT;
+      E* o = on + ((int64_t)oy * OW + ox) * Cout + g * CT;
 #pragma unroll
       for (int j = 0; j < CT; ++j) {
         const int co = g * CT + j;
-        float y = acc[p][j] + __ldg(bias + co);
-        if (alpha != nullptr && y < 0.0f) y *= __ldg(alpha + co);
-        o[j] = y;
+        float y = acc[p][j] + ldg_f32(bias + co);
+        if (alpha != nullptr && y < 0.0f) y *= ldg_f32(alpha + co);
+        store_f32(o + j, y);
       }
     }
   }
@@ -422,6 +469,173 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---- implicit GEMM on the tensor cores, bf16 operands (bf16 I/O) ----
+
+constexpr int HB_STAGES = 3;        // pipeline steps in flight
+constexpr int HB_LDA = BK + 8;      // bf16 of a shared pixel row (80 bytes)
+
+constexpr size_t mma_bf16_smem(int bn) {
+  return (size_t)HB_STAGES * (BM * HB_LDA + BK * (bn + 8)) * sizeof(bf16);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(IG_THREADS)
+conv_mma_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     const bf16* __restrict__ bias,
+                     const bf16* __restrict__ alpha, bf16* __restrict__ out,
+                     int M, int H, int W, int Cin, int OH, int OW, int Cout,
+                     int K, int stride, int pad_h, int pad_w) {
+  constexpr int LDB = BN + 8;
+  constexpr int A_ROWS = BM * (BK / 8) / IG_THREADS;     // 2 chunks a thread
+  constexpr int B_CHUNKS = BK * (BN / 8);                // of the weights
+  constexpr int B_ITERS = (B_CHUNKS + IG_THREADS - 1) / IG_THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // HB_STAGES x BM x HB_LDA
+  bf16* Bs = As + HB_STAGES * BM * HB_LDA;        // HB_STAGES x BK x LDB
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  // The gather: this thread copies 16-byte chunk tid % 4 (8 channels) of
+  // pixel rows tid / 4 + 64 i; a pixel past M gets a row no tap brings
+  // inside the image.
+  const int ci_off = (tid & 3) * 8;
+  int iy0[A_ROWS], ix0[A_ROWS], a_base[A_ROWS];
+#pragma unroll
+  for (int i = 0; i < A_ROWS; ++i) {
+    const int m = m0 + (tid >> 2) + 64 * i;
+    iy0[i] = -(1 << 28);
+    ix0[i] = 0;
+    a_base[i] = 0;
+    if (m < M) {
+      const int img = m / (OH * OW);
+      const int rem = m - img * (OH * OW);
+      const int oy = rem / OW;
+      iy0[i] = oy * stride - pad_h;
+      ix0[i] = (rem - oy * OW) * stride - pad_w;
+      a_base[i] = ((img * H + iy0[i]) * W + ix0[i]) * Cin + ci_off;
+    }
+  }
+  int ky = 0, kx = 0, c0 = 0;   // the next step to copy
+  auto load = [&](int stage) {
+    const int tap_off = (ky * W + kx) * Cin + c0;
+    const bool c_ok = c0 + ci_off < Cin;
+    bf16* a_dst = As + (stage * BM + (tid >> 2)) * HB_LDA + ci_off;
+#pragma unroll
+    for (int i = 0; i < A_ROWS; ++i) {
+      const bool ok = c_ok && (unsigned)(iy0[i] + ky) < (unsigned)H &&
+                      (unsigned)(ix0[i] + kx) < (unsigned)W;
+      cp_async16(reinterpret_cast<float*>(a_dst + 64 * i * HB_LDA),
+                 reinterpret_cast<const float*>(
+                     x + (ok ? a_base[i] + tap_off : 0)),
+                 ok);
+    }
+    const int w_row = (ky * K + kx) * Cin + c0;
+#pragma unroll
+    for (int j = 0; j < B_ITERS; ++j) {
+      const int c = tid + j * IG_THREADS;
+      if (c < B_CHUNKS) {
+        const int kr = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        const bool ok = n0 + col < Cout && c0 + kr < Cin;
+        cp_async16(reinterpret_cast<float*>(Bs + (stage * BK + kr) * LDB +
+                                            col),
+                   reinterpret_cast<const float*>(
+                       w + (ok ? (int64_t)(w_row + kr) * Cout + n0 + col
+                               : 0)),
+                   ok);
+      }
+    }
+    c0 += BK;
+    if (c0 >= Cin) {
+      c0 = 0;
+      if (++kx == K) {
+        kx = 0;
+        ++ky;
+      }
+    }
+  };
+
+  const int nsteps = K * K * ((Cin + BK - 1) / BK);
+  for (int s = 0; s < HB_STAGES - 1; ++s) {
+    if (s < nsteps) load(s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  float acc[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int step = 0; step < nsteps; ++step) {
+    // This step's copies have landed, and every warp is done with the
+    // stage the next copies overwrite (the previous step's).
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(HB_STAGES - 2));
+    __syncthreads();
+    if (step + HB_STAGES - 1 < nsteps)
+      load((step + HB_STAGES - 1) % HB_STAGES);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int stage = step % HB_STAGES;
+    const bf16* a_s = As + (stage * BM + 16 * warp) * HB_LDA;
+    const bf16* b_s = Bs + stage * BK * LDB;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, a_s + (li + 8 * lb) * HB_LDA + 16 * ks + 8 * lc);
+#pragma unroll
+      for (int np = 0; np < BN / 16; ++np) {
+        uint32_t f[4];   // the weights of n-tiles 2 np and 2 np + 1
+        ldsm_x4_t(f, b_s + (16 * ks + li + 8 * lb) * LDB + 8 * (2 * np + lc));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_bf16(part, a, f[2 * h], f[2 * h + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[2 * np + h][e] += part[e];
+        }
+      }
+    }
+  }
+
+  // Epilogue: acc[j][2 half + e] is pixel 16 warp + g + 8 half, channel
+  // n0 + 8 j + 2 t + e.
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + j * 8 + 2 * t;
+    if (n >= Cout) continue;
+    const float b0 = ldg_f32(bias + n), b1 = ldg_f32(bias + n + 1);
+    const float s0 = alpha != nullptr ? ldg_f32(alpha + n) : 1.0f;
+    const float s1 = alpha != nullptr ? ldg_f32(alpha + n + 1) : 1.0f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + 16 * warp + g + 8 * half;
+      if (m >= M) continue;
+      float y0 = acc[j][2 * half] + b0, y1 = acc[j][2 * half + 1] + b1;
+      if (y0 < 0.0f) y0 *= s0;
+      if (y1 < 0.0f) y1 *= s1;
+      *reinterpret_cast<uint32_t*>(out + (int64_t)m * Cout + n) =
+          pack_bf16(y0, y1);
+    }
+  }
+}
+
+template <int BN>
+int launch_mma_bf16(const bf16* x, const bf16* w, const bf16* b,
+                    const bf16* a, bf16* out, int M, int H, int W, int Cin,
+                    int OH, int OW, int Cout, int K, int stride, int pad_h,
+                    int pad_w, cudaStream_t stream) {
+  constexpr size_t smem = mma_bf16_smem(BN);
+  auto kernel = conv_mma_bf16_kernel<BN>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
+  kernel<<<grid, IG_THREADS, smem, stream>>>(
+      x, w, b, a, out, M, H, W, Cin, OH, OW, Cout, K, stride, pad_h, pad_w);
+  return (int)cudaGetLastError();
+}
+
 template <int BN>
 int launch_wgmma(const float* x, const float* w, const float* b,
                  const float* a, float* out, int M, int H, int W, int Cin,
@@ -440,35 +654,27 @@ int launch_wgmma(const float* x, const float* w, const float* b,
 
 constexpr int kThreads = 256;
 
-template <int CT, int PT>
-int launch(const float* x, const float* w, const float* b, const float* a,
-           float* out, int N, int H, int W, int Cin, int OH, int OW,
-           int Cout, int K, int stride, int pad_h, int pad_w, int Wp,
-           int band, size_t smem, cudaStream_t stream) {
+template <typename E, int CT, int PT>
+int launch(const E* x, const E* w, const E* b, const E* a, E* out, int N,
+           int H, int W, int Cin, int OH, int OW, int Cout, int K, int stride,
+           int pad_h, int pad_w, int Wp, int band, size_t smem,
+           cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      conv_prelu_kernel<CT, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      conv_prelu_kernel<E, CT, PT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int bands = (OH + band - 1) / band;
-  conv_prelu_kernel<CT, PT><<<N * bands, kThreads, smem, stream>>>(
+  conv_prelu_kernel<E, CT, PT><<<N * bands, kThreads, smem, stream>>>(
       x, w, b, a, out, H, W, Cin, OH, OW, Cout, K, stride, pad_h, pad_w, Wp,
       band, bands);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// alpha may be null (no PReLU). Output (N, ceil(H/s), ceil(W/s), Cout).
-// x, w and out 16-byte aligned. The caller picks the path: tensor_cores
-// (the implicit GEMM; refused unless both channel counts are multiples of
-// 4) or the banded path, with `band` output rows a block, whose padded
-// window must fit a block's shared memory.
-extern "C" int conv_prelu_launch(const float* x, const float* w,
-                                 const float* b, const float* alpha,
-                                 float* out, int N, int H, int W, int Cin,
-                                 int Cout, int K, int stride,
-                                 int tensor_cores, int band,
-                                 cudaStream_t stream) {
+template <typename E>
+int conv_launch(const E* x, const E* w, const E* b, const E* alpha, E* out,
+                int N, int H, int W, int Cin, int Cout, int K, int stride,
+                int tensor_cores, int band, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same_v<E, float>;
   if (N <= 0) return 0;
   const int OH = (H + stride - 1) / stride;
   const int OW = (W + stride - 1) / stride;
@@ -477,21 +683,27 @@ extern "C" int conv_prelu_launch(const float* x, const float* w,
   const int pad_h = (tot_h > 0 ? tot_h : 0) / 2;
   const int pad_w = (tot_w > 0 ? tot_w : 0) / 2;
   if (tensor_cores) {
-    if (Cin % 4 || Cout % 4) return (int)cudaErrorInvalidValue;
+    // 16-byte copies: 4 f32 or 8 bf16 channels.
+    const int chunk = kF32 ? 4 : 8;
+    if (Cin % chunk || Cout % chunk) return (int)cudaErrorInvalidValue;
     const int64_t M = (int64_t)N * OH * OW;
     // The kernel indexes pixels, inputs and weights with 32-bit offsets.
     if (M > 2147483647LL - BM || (Cout + 127) / 128 > 65535 ||
         (int64_t)N * H * W * Cin > 2147483647LL ||
         (int64_t)K * K * Cin * Cout > 2147483647LL)
       return (int)cudaErrorInvalidValue;
-#define WGMMA_LAUNCH(BN)                                                    \
-  return launch_wgmma<BN>(x, w, b, alpha, out, (int)M, H, W, Cin, OH, OW,   \
-                          Cout, K, stride, pad_h, pad_w, stream)
-    if (Cout <= 16) WGMMA_LAUNCH(16);
-    if (Cout <= 32) WGMMA_LAUNCH(32);
-    if (Cout <= 64) WGMMA_LAUNCH(64);
-    WGMMA_LAUNCH(128);
-#undef WGMMA_LAUNCH
+#define TC_LAUNCH(BN)                                                         \
+  if constexpr (kF32)                                                         \
+    return launch_wgmma<BN>(x, w, b, alpha, out, (int)M, H, W, Cin, OH, OW,   \
+                            Cout, K, stride, pad_h, pad_w, stream);           \
+  else                                                                        \
+    return launch_mma_bf16<BN>(x, w, b, alpha, out, (int)M, H, W, Cin, OH,    \
+                               OW, Cout, K, stride, pad_h, pad_w, stream)
+    if (Cout <= 16) TC_LAUNCH(16);
+    if (Cout <= 32) TC_LAUNCH(32);
+    if (Cout <= 64) TC_LAUNCH(64);
+    TC_LAUNCH(128);
+#undef TC_LAUNCH
   }
   if (band < 1 || band > OH) return (int)cudaErrorInvalidValue;
   const int Wp = (OW - 1) * stride + K;
@@ -517,9 +729,9 @@ extern "C" int conv_prelu_launch(const float* x, const float* w,
       best = i;
   }
   if (pick < 0) pick = best;
-#define CONV_LAUNCH(CT, PT)                                                  \
-  return launch<CT, PT>(x, w, b, alpha, out, N, H, W, Cin, OH, OW, Cout, K, \
-                        stride, pad_h, pad_w, Wp, band, smem, stream)
+#define CONV_LAUNCH(CT, PT)                                                \
+  return launch<E, CT, PT>(x, w, b, alpha, out, N, H, W, Cin, OH, OW, Cout, \
+                           K, stride, pad_h, pad_w, Wp, band, smem, stream)
   switch (pick) {
     case 0: CONV_LAUNCH(8, 4);
     case 1: CONV_LAUNCH(8, 2);
@@ -531,4 +743,36 @@ extern "C" int conv_prelu_launch(const float* x, const float* w,
     default: CONV_LAUNCH(1, 1);
   }
 #undef CONV_LAUNCH
+}
+
+}  // namespace
+
+// alpha may be null (no PReLU). Output (N, ceil(H/s), ceil(W/s), Cout).
+// x, w and out 16-byte aligned. The caller picks the path: tensor_cores
+// (the implicit GEMM; refused unless both channel counts are multiples of
+// 4) or the banded path, with `band` output rows a block, whose padded
+// window must fit a block's shared memory.
+extern "C" int conv_prelu_launch(const float* x, const float* w,
+                                 const float* b, const float* alpha,
+                                 float* out, int N, int H, int W, int Cin,
+                                 int Cout, int K, int stride,
+                                 int tensor_cores, int band,
+                                 cudaStream_t stream) {
+  return conv_launch<float>(x, w, b, alpha, out, N, H, W, Cin, Cout, K,
+                            stride, tensor_cores, band, stream);
+}
+
+// The same on bf16 x, w, b, alpha and out (train.bf16): the implicit GEMM
+// on bf16 mma.sync (channel counts multiples of 8) or the banded path.
+extern "C" int conv_prelu_bf16_launch(const void* x, const void* w,
+                                      const void* b, const void* alpha,
+                                      void* out, int N, int H, int W,
+                                      int Cin, int Cout, int K, int stride,
+                                      int tensor_cores, int band,
+                                      cudaStream_t stream) {
+  return conv_launch<bf16>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(b), static_cast<const bf16*>(alpha),
+      static_cast<bf16*>(out), N, H, W, Cin, Cout, K, stride, tensor_cores,
+      band, stream);
 }

@@ -63,6 +63,15 @@
 // an ldmatrix hit eight different bank groups. Head dim 8 is half a k-step:
 // the q fragment's other half is zeroed.
 //
+// bf16 I/O (train.bf16): x_q, x_kv and the output in bf16, the twelve
+// parameters f32, as the TPU kernel takes them (its activation dtype in
+// and out, f32 sums). The same mha_mma_kernel, told so by `io_bf16`: the
+// rows arrive by cp.async as bf16 (half the bytes) and the LayerNorms
+// widen them on read, exactly; the residual is the widened bf16 x_q; the
+// output (x_q + acc Wo) + bo is rounded to bf16 once at the store. The
+// weight scratch and every intermediate are as in the f32-I/O mode. The
+// f32 mode refuses bf16 I/O.
+//
 // f32 mode (mxu_bf16=False: the checks only, no main path): the first
 // design on the f32 FMA units, two launches:
 //   1. kv_proj_kernel: LN_kv + the K and V projections, 32 rows per block,
@@ -127,7 +136,7 @@ __device__ __forceinline__ double warp_sum_f64(double v) {
 __device__ __forceinline__ void ln_rows(const float* rs, int n,
                                         const float* __restrict__ s,
                                         const float* __restrict__ b,
-                                        bf16* dst) {
+                                        bf16* dst, bool io_bf16) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float4 sc = __ldg(reinterpret_cast<const float4*>(s) + lane);
   const float4 bi = __ldg(reinterpret_cast<const float4*>(b) + lane);
@@ -136,7 +145,17 @@ __device__ __forceinline__ void ln_rows(const float* rs, int n,
     const int r = warp + i * NW;
     uint2 o = make_uint2(0u, 0u);
     if (r < n) {
-      const float4 v = reinterpret_cast<const float4*>(rs + r * DM)[lane];
+      float4 v;
+      if (io_bf16) {   // the tile holds bf16 rows (half of it)
+        const uint2 u = reinterpret_cast<const uint2*>(
+            reinterpret_cast<const bf16*>(rs) + r * DM)[lane];
+        v = make_float4(__uint_as_float(u.x << 16),
+                        __uint_as_float(u.x & 0xffff0000u),
+                        __uint_as_float(u.y << 16),
+                        __uint_as_float(u.y & 0xffff0000u));
+      } else {
+        v = reinterpret_cast<const float4*>(rs + r * DM)[lane];
+      }
       const double x[4] = {v.x, v.y, v.z, v.w};
       const double mu = warp_sum_f64(x[0] + x[1] + x[2] + x[3]) / DM;
       const double d[4] = {x[0] - mu, x[1] - mu, x[2] - mu, x[3] - mu};
@@ -154,13 +173,17 @@ __device__ __forceinline__ void ln_rows(const float* rs, int n,
   }
 }
 
-// Rows [0, n) of src (row stride DM) into the RB x DM f32 tile rs by
+// Rows [0, n) of src (row stride DM elements of `esz` bytes) into the
+// tile rs (RB rows of DM f32, or of DM bf16 in its first half) by
 // asynchronous 16-byte copies, zeros past n; one commit group.
-__device__ __forceinline__ void fetch_rows(const float* __restrict__ src,
-                                           int n, float* rs) {
-  for (int i = threadIdx.x; i < RB * DM / 4; i += NT) {
-    const bool ok = i / (DM / 4) < n;
-    cp_async16(rs + 4 * i, ok ? src + 4 * i : src, ok);
+__device__ __forceinline__ void fetch_rows(const char* __restrict__ src,
+                                           int n, int esz, float* rs) {
+  const int per_row = DM * esz / 16;
+  char* dst = reinterpret_cast<char*>(rs);
+  for (int i = threadIdx.x; i < RB * per_row; i += NT) {
+    const bool ok = i / per_row < n;
+    cp_async16(reinterpret_cast<float*>(dst + 16 * i),
+               reinterpret_cast<const float*>(ok ? src + 16 * i : src), ok);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -255,13 +278,13 @@ constexpr size_t mma_smem(int kc) {
 
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
-mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
+mha_mma_kernel(const void* __restrict__ xq, const void* __restrict__ xkv,
                const float* __restrict__ lnqs, const float* __restrict__ lnqb,
                const float* __restrict__ lnks, const float* __restrict__ lnkb,
                const uint2* __restrict__ frag, const float* __restrict__ bq,
                const float* __restrict__ bk, const float* __restrict__ bv,
-               const float* __restrict__ bo, float* __restrict__ out, int Lq,
-               int Lk, float scale, int kc) {
+               const float* __restrict__ bo, void* __restrict__ out, int Lq,
+               int Lk, float scale, int kc, int io_bf16) {
   constexpr int H = DM / D;
   // A query tile's 4 m-tiles x H heads, ordered head-major, MT to a warp
   // (one head each); at 2 heads the last 8 warps have none.
@@ -282,8 +305,14 @@ mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
-  const float* xqb = xq + (int64_t)blockIdx.x * Lq * DM;
-  const float* xkvb = xkv + (int64_t)blockIdx.x * Lk * DM;
+  // Rows of x_q and x_kv (and the output) are DM elements of esz bytes.
+  const bool bf16_io = io_bf16 != 0;
+  const int esz = bf16_io ? 2 : 4;
+  const int64_t row_bytes = (int64_t)DM * esz;
+  const char* xqb = static_cast<const char*>(xq) +
+                    (int64_t)blockIdx.x * Lq * row_bytes;
+  const char* xkvb = static_cast<const char*>(xkv) +
+                     (int64_t)blockIdx.x * Lk * row_bytes;
   const bool resident = Lk <= kc;       // K and V projected once
   const float scale2 = scale * 1.4426950408889634f;   // log2(e)
   // This warp's head and m-tiles mt0 .. mt0 + MT - 1 of every query tile.
@@ -297,16 +326,16 @@ mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
   // cp.async: with K and V resident the rows of the next LayerNorm in the
   // block's order (x_kv's chunks, then x_q's tiles) are fetched as soon as
   // these are read, under the work between; else they are fetched here.
-  auto layer_norm = [&](const float* src, int n, const float* sc,
-                        const float* bi, const float* next, int next_n) {
-    if (!resident) fetch_rows(src, n, Rs);
+  auto layer_norm = [&](const char* src, int n, const float* sc,
+                        const float* bi, const char* next, int next_n) {
+    if (!resident) fetch_rows(src, n, esz, Rs);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();   // Rs landed; Xs (and Ks, Vs, Qs) fully read
-    ln_rows(Rs, n, sc, bi, Xs);
+    ln_rows(Rs, n, sc, bi, Xs, bf16_io);
     __syncthreads();
-    if (resident && next_n > 0) fetch_rows(next, next_n, Rs);
+    if (resident && next_n > 0) fetch_rows(next, next_n, esz, Rs);
   };
-  if (resident) fetch_rows(xkvb, min(RB, Lk), Rs);
+  if (resident) fetch_rows(xkvb, min(RB, Lk), esz, Rs);
 
   // K (and V) of keys [c0, c0 + min(kc, Lk - c0)) into Ks (and Vs), 64
   // rows at a time. Every thread of the block calls it.
@@ -315,8 +344,8 @@ mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
     for (int r0 = 0; r0 < n; r0 += RB) {
       const int nr = min(RB, n - r0), mtiles = (nr + 15) / 16;
       const bool last = r0 + RB >= n;   // then x_q's first tile is next
-      layer_norm(xkvb + (int64_t)(c0 + r0) * DM, nr, lnks, lnkb,
-                 last ? xqb : xkvb + (int64_t)(c0 + r0 + RB) * DM,
+      layer_norm(xkvb + (c0 + r0) * row_bytes, nr, lnks, lnkb,
+                 last ? xqb : xkvb + (c0 + r0 + RB) * row_bytes,
                  last ? min(RB, Lq) : min(RB, n - r0 - RB));
       if (with_v) {
         // Warps 0-7: 16 columns of K for all 64 rows; warps 8-15: of V.
@@ -342,8 +371,8 @@ mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
 
   for (int q0 = 0; q0 < Lq; q0 += RB) {
     const int nq = min(RB, Lq - q0), mtiles = (nq + 15) / 16;
-    layer_norm(xqb + (int64_t)q0 * DM, nq, lnqs, lnqb,
-               xqb + (int64_t)(q0 + RB) * DM, min(RB, Lq - q0 - RB));
+    layer_norm(xqb + q0 * row_bytes, nq, lnqs, lnqb,
+               xqb + (q0 + RB) * row_bytes, min(RB, Lq - q0 - RB));
     {
       float acc[2][2][4];
       project<2, 2>(Xs, pm0, mtiles, wq, pn0, acc);
@@ -531,11 +560,22 @@ mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
           const int row = q0 + 16 * (pm0 + m) + g + 8 * r;
           if (pm0 + m >= mtiles || row >= Lq) continue;
           const int64_t at = (int64_t)row * DM + c;
-          const float2 x = __ldg(reinterpret_cast<const float2*>(xqb + at));
-          *reinterpret_cast<float2*>(out + (int64_t)blockIdx.x * Lq * DM +
-                                     at) =
-              make_float2((x.x + acc[m][jn][2 * r]) + bb.x,
-                          (x.y + acc[m][jn][2 * r + 1]) + bb.y);
+          const int64_t o_at = (int64_t)blockIdx.x * Lq * DM + at;
+          if (bf16_io) {
+            const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(
+                reinterpret_cast<const bf16*>(xqb) + at));
+            *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + o_at) =
+                pack_bf16(
+                    (__uint_as_float(u << 16) + acc[m][jn][2 * r]) + bb.x,
+                    (__uint_as_float(u & 0xffff0000u) +
+                     acc[m][jn][2 * r + 1]) + bb.y);
+          } else {
+            const float2 x = __ldg(reinterpret_cast<const float2*>(
+                reinterpret_cast<const float*>(xqb) + at));
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + o_at) =
+                make_float2((x.x + acc[m][jn][2 * r]) + bb.x,
+                            (x.y + acc[m][jn][2 * r + 1]) + bb.y);
+          }
         }
     }
   }
@@ -543,12 +583,13 @@ mha_mma_kernel(const float* __restrict__ xq, const float* __restrict__ xkv,
 
 // frag: 4 * FRAGS uint2 (128 KB) of scratch for the rounded weights.
 template <int D>
-int launch_mma(const float* xq, const float* xkv, const float* lnqs,
+int launch_mma(const void* xq, const void* xkv, const float* lnqs,
                const float* lnqb, const float* lnks, const float* lnkb,
                const float* wq, const float* bq, const float* wk,
                const float* bk, const float* wv, const float* bv,
-               const float* wo, const float* bo, uint2* frag, float* out,
-               int B, int Lq, int Lk, float scale, cudaStream_t stream) {
+               const float* wo, const float* bo, uint2* frag, void* out,
+               int B, int Lq, int Lk, float scale, int io_bf16,
+               cudaStream_t stream) {
   pack_weights_kernel<<<4 * FRAGS / 256, 256, 0, stream>>>(wq, wk, wv, wo,
                                                            frag);
   cudaError_t e = cudaGetLastError();
@@ -560,7 +601,7 @@ int launch_mma(const float* xq, const float* xkv, const float* lnqs,
   if (e != cudaSuccess) return (int)e;
   mha_mma_kernel<D><<<B, NT, mma_smem(kc), stream>>>(
       xq, xkv, lnqs, lnqb, lnks, lnkb, frag, bq, bk, bv, bo, out, Lq, Lk,
-      scale, kc);
+      scale, kc, io_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -809,25 +850,29 @@ int launch_f32(const float* xq, const float* xkv, const float* lnqs,
   }
 
 // x_q (B, Lq, 128), x_kv (B, Lk, 128), weights (128, 128) (in, out),
-// vectors (128,), out (B, Lq, 128); all f32, contiguous, 16-byte aligned.
-// heads in {2, 4, 8, 16}. Scratch: in f32 mode kbuf and vbuf, (B, Lk, 128)
-// each; in bf16 mode kbuf, 32768 floats (128 KB) for the rounded weights,
-// and vbuf is not read (may be null).
+// vectors (128,), out (B, Lq, 128); contiguous, 16-byte aligned. The
+// weights and vectors f32; x_q, x_kv and out f32, or bf16 under io_bf16
+// (bf16 mode only). heads in {2, 4, 8, 16}. Scratch: in f32 mode kbuf and
+// vbuf, (B, Lk, 128) each; in bf16 mode kbuf, 32768 floats (128 KB) for
+// the rounded weights, and vbuf is not read (may be null).
 extern "C" int mha_block_launch(
-    const float* xq, const float* xkv, const float* lnqs, const float* lnqb,
+    const void* xq, const void* xkv, const float* lnqs, const float* lnqb,
     const float* lnks, const float* lnkb, const float* wq, const float* bq,
     const float* wk, const float* bk, const float* wv, const float* bv,
-    const float* wo, const float* bo, float* kbuf, float* vbuf, float* out,
-    int B, int Lq, int Lk, int heads, float scale, int bf16,
+    const float* wo, const float* bo, float* kbuf, float* vbuf, void* out,
+    int B, int Lq, int Lk, int heads, float scale, int bf16, int io_bf16,
     cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (heads <= 0 || DM % heads) return (int)cudaErrorInvalidValue;
   if (bf16) {
     DISPATCH_HEAD_DIM(DM / heads, (launch_mma<D>(
         xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo,
-        reinterpret_cast<uint2*>(kbuf), out, B, Lq, Lk, scale, stream)))
+        reinterpret_cast<uint2*>(kbuf), out, B, Lq, Lk, scale, io_bf16,
+        stream)))
   }
+  if (io_bf16) return (int)cudaErrorInvalidValue;
   DISPATCH_HEAD_DIM(DM / heads, (launch_f32<D>(
-      xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo, kbuf,
-      vbuf, out, B, Lq, Lk, scale, stream)))
+      static_cast<const float*>(xq), static_cast<const float*>(xkv), lnqs,
+      lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo, kbuf, vbuf,
+      static_cast<float*>(out), B, Lq, Lk, scale, stream)))
 }

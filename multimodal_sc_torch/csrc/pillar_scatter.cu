@@ -40,7 +40,18 @@
 // correctly because every non-negative float is above every negative one
 // in both views. The result does not depend on the order of the atomics,
 // so it is exact and the same on every run.
+//
+// bf16 I/O (train.bf16; the TPU kernel reads and writes the activation
+// dtype): the same kernels instantiated on bf16 rows, read 4 or 1 to a
+// load (8 or 2 bytes) and upcast to f32, which is lossless, so the max on
+// the f32 bits is the bf16 max and its bf16 store is exact. The gradient
+// gives the bits of the JAX package's pillar net, which widens its bf16
+// features to f32 before the scatter: XLA's f32 segment_max gradient, the
+// cotangent times the reciprocal of the tie count, g * (1 / count) in f32,
+// then rounded to bf16 by the widening's transpose. The counts stay exact
+// integers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,6 +59,8 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kThreads = 256;
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ void smem_max(float* addr, float v) {
   if (__float_as_int(v) >= 0) {
@@ -57,27 +70,68 @@ __device__ __forceinline__ void smem_max(float* addr, float v) {
   }
 }
 
-template <int VEC>
-struct Vec;
+// VEC neighbouring elements of a row of E (float or bf16) as floats, in
+// one load (16 bytes of float4, 8 of four bf16) or one element; and back.
+template <typename E, int VEC>
+struct Row;
 template <>
-struct Vec<1> {
-  using T = float;
-  static __device__ __forceinline__ float get(const T& v, int) { return v; }
-  static __device__ __forceinline__ void set(T& v, int, float x) { v = x; }
-};
-template <>
-struct Vec<4> {
-  using T = float4;
-  static __device__ __forceinline__ float get(const T& v, int k) {
-    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+struct Row<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
+    v[0] = __ldg(p);
   }
-  static __device__ __forceinline__ void set(T& v, int k, float x) {
-    if (k == 0) v.x = x;
-    else if (k == 1) v.y = x;
-    else if (k == 2) v.z = x;
-    else v.w = x;
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
+    *p = v[0];
   }
 };
+template <>
+struct Row<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
+__device__ __forceinline__ uint32_t f32_to_bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+template <>
+struct Row<bf16, 1> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[1]) {
+    v[0] = bf16_bits_to_f32(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[1]) {
+    *reinterpret_cast<unsigned short*>(p) =
+        (unsigned short)f32_to_bf16_bits(v[0]);
+  }
+};
+template <>
+struct Row<bf16, 4> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[4]) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf16_bits_to_f32(t.x & 0xffffu); v[1] = bf16_bits_to_f32(t.x >> 16);
+    v[2] = bf16_bits_to_f32(t.y & 0xffffu); v[3] = bf16_bits_to_f32(t.y >> 16);
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[4]) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(f32_to_bf16_bits(v[0]) | (f32_to_bf16_bits(v[1]) << 16),
+                   f32_to_bf16_bits(v[2]) | (f32_to_bf16_bits(v[3]) << 16));
+  }
+};
+
+// A tied max's share of the cell's gradient: g / count in f32 (IEEE, as
+// torch's division); for bf16 rows XLA's f32 share, g * (1 / count), which
+// the store rounds to bf16 (see the note above).
+__device__ __forceinline__ float share(float g, int count, float) {
+  return g / (float)count;
+}
+__device__ __forceinline__ float share(float g, int count, bf16) {
+  return g * (1.0f / (float)count);
+}
 
 // Where a block and a thread sit. Block (env b, slice s) owns features
 // [f0, f0 + w) of env b; `lanes` threads cover one point's (or one cell's)
@@ -105,14 +159,13 @@ __device__ __forceinline__ Slot slot(int dim, int width, int n_slices) {
 
 // Grid: B * n_slices blocks of kThreads; dynamic shared memory
 // num_cells * width floats.
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads)
-    scatter_max_kernel(const float* __restrict__ feats,
-                       const int* __restrict__ cell, float* __restrict__ out,
+    scatter_max_kernel(const E* __restrict__ feats,
+                       const int* __restrict__ cell, E* __restrict__ out,
                        int n_points, int dim, int num_cells, int width,
                        int n_slices) {
-  using V = Vec<VEC>;
-  using T = typename V::T;
+  using R = Row<E, VEC>;
   extern __shared__ float grid[];  // [num_cells][width]
   const Slot s = slot<VEC>(dim, width, n_slices);
   const int size = num_cells * width;
@@ -122,48 +175,48 @@ __global__ void __launch_bounds__(kThreads)
   const int f = s.lane * VEC;
   if (s.active) {
     const int* cb = cell + (int64_t)s.b * n_points;
-    const float* fb = feats + (int64_t)s.b * n_points * dim + s.f0 + f;
+    const E* fb = feats + (int64_t)s.b * n_points * dim + s.f0 + f;
     for (int p = s.row; p < n_points; p += s.rows) {
       const int c = __ldg(cb + p);
       if (c < 0 || c >= num_cells) continue;  // num_cells is the trash cell
-      const T v = __ldg(reinterpret_cast<const T*>(fb + (int64_t)p * dim));
+      float v[VEC];
+      R::load(fb + (int64_t)p * dim, v);
       float* dst = grid + c * width + f;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) smem_max(dst + k, V::get(v, k));
+      for (int k = 0; k < VEC; ++k) smem_max(dst + k, v[k]);
     }
   }
   __syncthreads();
 
   // The slice written once, the epilogue folded in.
-  float* ob = out + (int64_t)s.b * num_cells * dim + s.f0;
+  E* ob = out + (int64_t)s.b * num_cells * dim + s.f0;
   const int n_vec = num_cells * s.lanes;
   for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
     const int c = i / s.lanes;
     const int ff = (i % s.lanes) * VEC;
     if (ff >= s.w) continue;
     const float* src = grid + c * width + ff;
-    T v;
+    float v[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       const float x = src[k];
-      V::set(v, k, x > 0.5f * kNeg ? x : 0.0f);
+      v[k] = x > 0.5f * kNeg ? x : 0.0f;
     }
-    *reinterpret_cast<T*>(ob + (int64_t)c * dim + ff) = v;
+    R::store(ob + (int64_t)c * dim + ff, v);
   }
 }
 
 // The gradient of scatter_max_kernel's result, the same blocks; dynamic
 // shared memory num_cells * width ints.
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(kThreads)
-    scatter_max_bwd_kernel(const float* __restrict__ feats,
+    scatter_max_bwd_kernel(const E* __restrict__ feats,
                            const int* __restrict__ cell,
-                           const float* __restrict__ out,
-                           const float* __restrict__ g,
-                           float* __restrict__ gf, int n_points, int dim,
+                           const E* __restrict__ out,
+                           const E* __restrict__ g,
+                           E* __restrict__ gf, int n_points, int dim,
                            int num_cells, int width, int n_slices) {
-  using V = Vec<VEC>;
-  using T = typename V::T;
+  using R = Row<E, VEC>;
   extern __shared__ int count[];  // [num_cells][width]
   const Slot s = slot<VEC>(dim, width, n_slices);
   const int size = num_cells * width;
@@ -179,14 +232,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int p = s.row; p < n_points; p += s.rows) {
       const int c = __ldg(cb + p);
       if (c < 0 || c >= num_cells) continue;
-      const T v = __ldg(reinterpret_cast<const T*>(feats + env +
-                                                    (int64_t)p * dim));
-      const T m = __ldg(reinterpret_cast<const T*>(out + grid0 +
-                                                   (int64_t)c * dim));
+      float v[VEC], m[VEC];
+      R::load(feats + env + (int64_t)p * dim, v);
+      R::load(out + grid0 + (int64_t)c * dim, m);
       int* dst = count + c * width + f;
 #pragma unroll
       for (int k = 0; k < VEC; ++k)
-        if (V::get(v, k) == V::get(m, k)) atomicAdd(dst + k, 1);
+        if (v[k] == m[k]) atomicAdd(dst + k, 1);
     }
   }
   __syncthreads();
@@ -195,23 +247,20 @@ __global__ void __launch_bounds__(kThreads)
   if (s.active) {
     for (int p = s.row; p < n_points; p += s.rows) {
       const int c = __ldg(cb + p);
-      T r;
+      float r[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) V::set(r, k, 0.0f);
+      for (int k = 0; k < VEC; ++k) r[k] = 0.0f;
       if (c >= 0 && c < num_cells) {
-        const T v = __ldg(reinterpret_cast<const T*>(feats + env +
-                                                      (int64_t)p * dim));
-        const T m = __ldg(reinterpret_cast<const T*>(out + grid0 +
-                                                     (int64_t)c * dim));
-        const T gg = __ldg(reinterpret_cast<const T*>(g + grid0 +
-                                                      (int64_t)c * dim));
+        float v[VEC], m[VEC], gg[VEC];
+        R::load(feats + env + (int64_t)p * dim, v);
+        R::load(out + grid0 + (int64_t)c * dim, m);
+        R::load(g + grid0 + (int64_t)c * dim, gg);
         const int* n = count + c * width + f;
 #pragma unroll
         for (int k = 0; k < VEC; ++k)
-          if (V::get(v, k) == V::get(m, k))
-            V::set(r, k, V::get(gg, k) / (float)n[k]);
+          if (v[k] == m[k]) r[k] = share(gg[k], n[k], E());
       }
-      *reinterpret_cast<T*>(gf + env + (int64_t)p * dim) = r;
+      R::store(gf + env + (int64_t)p * dim, r);
     }
   }
 }
@@ -227,55 +276,79 @@ cudaError_t allow_smem(K kernel, int bytes, int* granted) {
   return err;
 }
 
-int granted_fwd[2] = {0, 0};
-int granted_bwd[2] = {0, 0};
+// Largest shared memory granted to each kernel: [element type][vec].
+int granted_fwd[2][2] = {{0, 0}, {0, 0}};
+int granted_bwd[2][2] = {{0, 0}, {0, 0}};
+
+template <typename E, int VEC>
+int launch_fwd(const void* feats, const int* cell, void* out, int batch,
+               int n_points, int dim, int num_cells, int width,
+               cudaStream_t stream) {
+  const int n_slices = (dim + width - 1) / width;
+  const int smem = num_cells * width * (int)sizeof(float);
+  auto kernel = scatter_max_kernel<E, VEC>;
+  cudaError_t err = allow_smem(
+      kernel, smem, &granted_fwd[sizeof(E) == 2][VEC == 4]);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch * n_slices, kThreads, smem, stream>>>(
+      static_cast<const E*>(feats), cell, static_cast<E*>(out), n_points, dim,
+      num_cells, width, n_slices);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int VEC>
+int launch_bwd(const void* feats, const int* cell, const void* out,
+               const void* g, void* gf, int batch, int n_points, int dim,
+               int num_cells, int width, cudaStream_t stream) {
+  const int n_slices = (dim + width - 1) / width;
+  const int smem = num_cells * width * (int)sizeof(int);
+  auto kernel = scatter_max_bwd_kernel<E, VEC>;
+  cudaError_t err = allow_smem(
+      kernel, smem, &granted_bwd[sizeof(E) == 2][VEC == 4]);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch * n_slices, kThreads, smem, stream>>>(
+      static_cast<const E*>(feats), cell, static_cast<const E*>(out),
+      static_cast<const E*>(g), static_cast<E*>(gf), n_points, dim, num_cells,
+      width, n_slices);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 // One launch: (batch * n_slices) blocks, num_cells * width * 4 bytes of
-// shared memory each. vec is 4 (D and width multiples of 4, 16-byte aligned
-// rows) or 1.
-extern "C" int scatter_max_launch(const float* feats, const int* cell,
-                                  float* out, int batch, int n_points,
+// shared memory each. feats and out are f32, or bf16 when is_bf16. vec is
+// 4 (D and width multiples of 4; rows of 16 or 8 bytes, aligned) or 1.
+extern "C" int scatter_max_launch(const void* feats, const int* cell,
+                                  void* out, int batch, int n_points,
                                   int dim, int num_cells, int width, int vec,
-                                  cudaStream_t stream) {
-  const int n_slices = (dim + width - 1) / width;
-  const int smem = num_cells * width * (int)sizeof(float);
-  const dim3 blocks(batch * n_slices);
-  cudaError_t err;
-  if (vec == 4) {
-    err = allow_smem(scatter_max_kernel<4>, smem, &granted_fwd[1]);
-    if (err != cudaSuccess) return (int)err;
-    scatter_max_kernel<4><<<blocks, kThreads, smem, stream>>>(
-        feats, cell, out, n_points, dim, num_cells, width, n_slices);
-  } else {
-    err = allow_smem(scatter_max_kernel<1>, smem, &granted_fwd[0]);
-    if (err != cudaSuccess) return (int)err;
-    scatter_max_kernel<1><<<blocks, kThreads, smem, stream>>>(
-        feats, cell, out, n_points, dim, num_cells, width, n_slices);
+                                  int is_bf16, cudaStream_t stream) {
+#define FWD(E, V)                                                        \
+  return launch_fwd<E, V>(feats, cell, out, batch, n_points, dim, num_cells, \
+                          width, stream)
+  if (is_bf16) {
+    if (vec == 4) FWD(bf16, 4);
+    FWD(bf16, 1);
   }
-  return (int)cudaGetLastError();
+  if (vec == 4) FWD(float, 4);
+  FWD(float, 1);
+#undef FWD
 }
 
-extern "C" int scatter_max_bwd_launch(const float* feats, const int* cell,
-                                      const float* out, const float* g,
-                                      float* gf, int batch, int n_points,
+// The gradient; feats, out, g and gf all f32, or all bf16 when is_bf16.
+extern "C" int scatter_max_bwd_launch(const void* feats, const int* cell,
+                                      const void* out, const void* g,
+                                      void* gf, int batch, int n_points,
                                       int dim, int num_cells, int width,
-                                      int vec, cudaStream_t stream) {
-  const int n_slices = (dim + width - 1) / width;
-  const int smem = num_cells * width * (int)sizeof(int);
-  const dim3 blocks(batch * n_slices);
-  cudaError_t err;
-  if (vec == 4) {
-    err = allow_smem(scatter_max_bwd_kernel<4>, smem, &granted_bwd[1]);
-    if (err != cudaSuccess) return (int)err;
-    scatter_max_bwd_kernel<4><<<blocks, kThreads, smem, stream>>>(
-        feats, cell, out, g, gf, n_points, dim, num_cells, width, n_slices);
-  } else {
-    err = allow_smem(scatter_max_bwd_kernel<1>, smem, &granted_bwd[0]);
-    if (err != cudaSuccess) return (int)err;
-    scatter_max_bwd_kernel<1><<<blocks, kThreads, smem, stream>>>(
-        feats, cell, out, g, gf, n_points, dim, num_cells, width, n_slices);
+                                      int vec, int is_bf16,
+                                      cudaStream_t stream) {
+#define BWD(E, V)                                                          \
+  return launch_bwd<E, V>(feats, cell, out, g, gf, batch, n_points, dim,   \
+                          num_cells, width, stream)
+  if (is_bf16) {
+    if (vec == 4) BWD(bf16, 4);
+    BWD(bf16, 1);
   }
-  return (int)cudaGetLastError();
+  if (vec == 4) BWD(float, 4);
+  BWD(float, 1);
+#undef BWD
 }

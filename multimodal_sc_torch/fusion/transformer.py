@@ -5,6 +5,12 @@ form (``FusedMHABlock`` layers, the c4/c5 default) and the unfused form
 (LayerNorms around ``camera_vit.MHA``, whose attention is the packed
 kernel under ``use_pallas``) in ``cross_attention`` mode, and
 ``late_concat``.
+
+Under ``train.bf16`` (``dtype=torch.bfloat16``; the fused-block form and
+``late_concat`` only) the projections, the fused blocks, the LayerNorms
+and the MLPs run in bf16 on f32 parameters by flax's dtype rules
+(``act_dtype``), the modality embeddings and the CLS token cast to bf16;
+the state comes out f32.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.act_dtype import Dense, LayerNorm
 from multimodal_sc_torch.codec.camera_vit import MHA
 from multimodal_sc_torch.kernels.mha_block import (kernel_eligible, mha_block,
                                                    mha_block_reference)
@@ -80,7 +87,8 @@ class FusionLayer(nn.Module):
     """
 
     def __init__(self, dim: int, heads: int, use_pallas: bool = False,
-                 fused_block: bool = True, block_kernel: bool = True):
+                 fused_block: bool = True, block_kernel: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fused_block = fused_block
         if fused_block:
@@ -98,9 +106,9 @@ class FusionLayer(nn.Module):
             else:
                 setattr(self, f"ln_{name}_sa", nn.LayerNorm(dim, eps=_LN_EPS))
                 setattr(self, f"{name}_self", MHA(dim, heads, use_pallas))
-            setattr(self, f"ln_{name}_mlp", nn.LayerNorm(dim, eps=_LN_EPS))
-            setattr(self, f"{name}_mlp1", nn.Linear(dim, 4 * dim))
-            setattr(self, f"{name}_mlp2", nn.Linear(4 * dim, dim))
+            setattr(self, f"ln_{name}_mlp", LayerNorm(dim, _LN_EPS, dtype))
+            setattr(self, f"{name}_mlp1", Dense(dim, 4 * dim, dtype))
+            setattr(self, f"{name}_mlp2", Dense(4 * dim, dim, dtype))
 
     def _self_mlp(self, name: str, x: torch.Tensor) -> torch.Tensor:
         if self.fused_block:
@@ -134,16 +142,17 @@ class FusionTransformer(nn.Module):
     def __init__(self, cam_in: int, lid_in: int, dim: int = 128,
                  depth: int = 2, heads: int = 4, state_dim: int = 128,
                  mode: str = "cross_attention", use_pallas: bool = False,
-                 fused_block: bool = True, block_kernel: bool = True):
+                 fused_block: bool = True, block_kernel: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if mode not in ("cross_attention", "late_concat"):
             raise ValueError(f"unknown fusion mode {mode!r}")
-        self.mode, self.depth, self.dim = mode, depth, dim
-        self.cam_proj = nn.Linear(cam_in, dim)
-        self.lid_proj = nn.Linear(lid_in, dim)
+        self.mode, self.depth, self.dim, self.dtype = mode, depth, dim, dtype
+        self.cam_proj = Dense(cam_in, dim, dtype)
+        self.lid_proj = Dense(lid_in, dim, dtype)
         if mode == "late_concat":
-            self.fc1 = nn.Linear(2 * dim, 2 * state_dim)
-            self.fc2 = nn.Linear(2 * state_dim, state_dim)
+            self.fc1 = Dense(2 * dim, 2 * state_dim, dtype)
+            self.fc2 = Dense(2 * state_dim, state_dim, dtype)
             return
         self.mod_cam = nn.Parameter(0.02 * torch.randn(1, 1, dim))
         self.mod_lid = nn.Parameter(0.02 * torch.randn(1, 1, dim))
@@ -151,21 +160,26 @@ class FusionTransformer(nn.Module):
         for i in range(depth):
             setattr(self, f"layer{i}", FusionLayer(
                 dim, heads, use_pallas=use_pallas, fused_block=fused_block,
-                block_kernel=block_kernel))
-        self.ln_out = nn.LayerNorm(dim, eps=_LN_EPS)
-        self.state_head = nn.Linear(dim, state_dim)
+                block_kernel=block_kernel, dtype=dtype))
+        self.ln_out = LayerNorm(dim, _LN_EPS, dtype)
+        self.state_head = Dense(dim, state_dim, dtype)
 
     def forward(self, cam_tokens: torch.Tensor,
                 lid_tokens: torch.Tensor) -> torch.Tensor:
-        cam = self.cam_proj(cam_tokens.float())
-        lid = self.lid_proj(lid_tokens.float())
+        d = self.dtype
+        cam = self.cam_proj(cam_tokens.to(d))
+        lid = self.lid_proj(lid_tokens.to(d))
         if self.mode == "late_concat":
             pooled = torch.cat([cam.mean(1), lid.mean(1)], dim=-1)
-            return self.fc2(F.gelu(self.fc1(pooled), approximate="tanh"))
+            return self.fc2(F.gelu(self.fc1(pooled),
+                                   approximate="tanh")).float()
         b = cam.shape[0]
-        cam = torch.cat([self.cls.expand(b, 1, self.dim), cam + self.mod_cam],
-                        dim=1)
-        lid = lid + self.mod_lid
+        cls, mod_cam, mod_lid = ((self.cls, self.mod_cam, self.mod_lid)
+                                 if d == torch.float32 else
+                                 (self.cls.to(d), self.mod_cam.to(d),
+                                  self.mod_lid.to(d)))
+        cam = torch.cat([cls.expand(b, 1, self.dim), cam + mod_cam], dim=1)
+        lid = lid + mod_lid
         for i in range(self.depth):
             cam, lid = getattr(self, f"layer{i}")(cam, lid)
-        return self.state_head(self.ln_out(cam[:, 0]))
+        return self.state_head(self.ln_out(cam[:, 0])).float()

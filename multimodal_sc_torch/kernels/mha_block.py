@@ -10,6 +10,12 @@ layout (wq/wk/wv (dim, heads*d) head-major in the output columns, wo
 (``csrc/mha_block.cu``) on a CUDA tensor and runs ``mha_block_reference``
 on a CPU tensor; its backward recomputes through the plain version, as the
 JAX package's custom VJP does.
+
+Under ``train.bf16`` the activations ``x_q`` and ``x_kv`` are bf16 and the
+parameters stay f32, as the JAX package passes them; the output takes
+``x_q``'s dtype. The kernel's bf16 mode reads and writes bf16 itself
+(counted apart, ``launches_bf16``); its f32 mode takes f32 activations
+only.
 """
 
 from __future__ import annotations
@@ -32,12 +38,13 @@ PARAM_KEYS = ("ln_q_scale", "ln_q_bias", "ln_kv_scale", "ln_kv_bias",
 
 # Launches of the CUDA kernel (one per mha_block call on the card: one grid
 # in bf16 mode; the f32 mode runs the K/V projection and the attention as
-# two grid launches).
+# two grid launches); with bf16 activations, ``launches_bf16``.
 launches = 0
+launches_bf16 = 0
 
 _SIG = {"mha_block_launch": (ctypes.c_void_p,) * 17 + (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, ctypes.c_void_p)}
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p)}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -84,7 +91,8 @@ def _layer_norm_f64(x: torch.Tensor, scale: torch.Tensor,
 def mha_block_reference(x_q: torch.Tensor, x_kv: torch.Tensor,
                         p: Dict[str, torch.Tensor], heads: int,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version in float32 (and the backward's recompute path)."""
+    """Plain version in float32 (and the backward's recompute path); bf16
+    activations are widened and the output rounded to their dtype once."""
     dm = x_q.shape[-1]
     d = dm // heads
     if scale is None:
@@ -109,7 +117,8 @@ def mha_block_reference(x_q: torch.Tensor, x_kv: torch.Tensor,
 def mha_block_reference_bf16(x_q: torch.Tensor, x_kv: torch.Tensor,
                              p: Dict[str, torch.Tensor], heads: int,
                              scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of the bf16 mode, rounding where the JAX kernel does.
+    """Plain version of the bf16 mode, rounding where the JAX kernel does
+    (bf16 or f32 activations in, the output in their dtype).
 
     Every matmul operand (LN outputs, weights, q, k, v, the probabilities,
     the concatenated head outputs) is rounded to bf16 and every sum kept in
@@ -145,7 +154,7 @@ def mha_block_reference_bf16(x_q: torch.Tensor, x_kv: torch.Tensor,
 
 def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
                     bf16: bool) -> torch.Tensor:
-    global launches
+    global launches, launches_bf16
     b, lq, dm = x_q.shape
     lk = x_kv.shape[1]
     if x_kv.shape[0] != b or x_kv.shape[2] != dm:
@@ -157,17 +166,29 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
     if not bf16 and b > 65535:
         raise ValueError(f"batch {b} exceeds the f32 kernel's grid limit "
                          "65535")
+    io_bf16 = x_q.dtype == torch.bfloat16
+    if x_q.dtype not in (torch.float32, torch.bfloat16) \
+            or x_kv.dtype != x_q.dtype:
+        raise TypeError("mha_block kernel takes x_q and x_kv both float32 "
+                        f"or both bfloat16, got {x_q.dtype} / {x_kv.dtype}")
+    if io_bf16 and not bf16:
+        raise TypeError("mha_block kernel's f32 mode (mxu_bf16=False) takes "
+                        "float32 activations; bf16 ones run in its bf16 mode")
     for t in (x_q, x_kv, *flat):
-        if t.dtype != torch.float32 or t.device != x_q.device:
-            raise TypeError("mha_block kernel takes float32 tensors on one "
-                            f"device, got {t.dtype} on {t.device}")
+        if t.device != x_q.device:
+            raise TypeError("mha_block kernel takes tensors on one device, "
+                            f"got {t.device} and {x_q.device}")
+    for t in flat:
+        if t.dtype != torch.float32:
+            raise TypeError("mha_block kernel takes float32 parameters, got "
+                            f"{t.dtype}")
     for name, t in zip(PARAM_KEYS, flat):
         want = (dm, dm) if name.startswith("w") else (dm,)
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
     x_q, x_kv = _build.aligned(x_q), _build.aligned(x_kv)
     flat = [_build.aligned(t) for t in flat]
-    out = torch.empty((b, lq, dm), dtype=torch.float32, device=x_q.device)
+    out = torch.empty((b, lq, dm), dtype=x_q.dtype, device=x_q.device)
     # The bf16 mode keeps K and V on chip and takes 128 KB of scratch for
     # the four weights rounded to bf16; the f32 mode projects K and V into
     # scratch first.
@@ -182,9 +203,13 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
         _build.ptr(x_q), _build.ptr(x_kv), *(_build.ptr(t) for t in flat),
         *(None if t is None else _build.ptr(t) for t in (kbuf, vbuf)),
         _build.ptr(out),
-        b, lq, lk, heads, scale, int(bf16), _build.stream_ptr(x_q.device))
+        b, lq, lk, heads, scale, int(bf16), int(io_bf16),
+        _build.stream_ptr(x_q.device))
     _build.check(err, "mha_block")
-    launches += 1
+    if io_bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -216,8 +241,10 @@ def mha_block(x_q: torch.Tensor, x_kv: torch.Tensor,
 
     Callers check ``block_eligible`` first. ``mxu_bf16`` mirrors the JAX
     function's flag: bf16 matmul operands with f32 accumulation (the
-    default on the card, as on the TPU), or exact f32 when False. On a CPU
-    tensor the plain f32 version runs and the flag does not apply.
+    default on the card, as on the TPU), or exact f32 when False (f32
+    activations only). On a CPU tensor the plain f32 version runs, on bf16
+    activations widened and its output rounded once, and the flag does not
+    apply.
     """
     dm = x_q.shape[-1]
     if not block_eligible(heads, dm, x_kv.shape[1]):

@@ -15,6 +15,15 @@ max, per feature; trash points get 0 (``scatter_max_backward_reference``).
 ``scatter_max`` launches the CUDA kernels (``csrc/pillar_scatter.cu``) on a
 CUDA tensor: one forward launch per call, one backward launch per gradient.
 On a CPU tensor it runs ``scatter_max_reference`` under autograd.
+
+Under ``train.bf16`` the features are bf16 and the kernels read and write
+bf16 themselves (their own counts, ``launches_bf16`` and
+``launches_bwd_bf16``). The forward is exact in either dtype. The JAX
+package's pillar net widens its bf16 features to f32 before the scatter,
+so a tied max's gradient in bf16 is XLA's f32 share rounded to bf16,
+``bf16(g * (1 / count))``, the product and the reciprocal in f32; in f32
+it is ``g / count`` (torch autograd's), within one unit in the last place
+of XLA's ``g * (1 / count)``.
 """
 
 from __future__ import annotations
@@ -39,11 +48,13 @@ MIN_BLOCKS = 2 * 132
 THREADS = 256       # csrc/pillar_scatter.cu kThreads
 
 # Launches of the CUDA kernels: one per scatter_max call on the card, one
-# per backward.
+# per backward; f32 and bf16 features apart.
 launches = 0
 launches_bwd = 0
+launches_bf16 = 0
+launches_bwd_bf16 = 0
 
-_C = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_C = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 _SIG = {"scatter_max_launch": (ctypes.c_void_p,) * 3 + _C,
         "scatter_max_bwd_launch": (ctypes.c_void_p,) * 5 + _C}
 
@@ -75,10 +86,15 @@ def scatter_max_backward_reference(feats: torch.Tensor, cell_idx: torch.Tensor,
     idx = cell_idx.long().unsqueeze(-1).expand(b, n, d)
     real = ((cell_idx >= 0) & (cell_idx < num_cells)).unsqueeze(-1)
     hit = real & (feats == torch.cat([out, pad], 1).gather(1, idx))
-    count = torch.zeros((b, num_cells + 1, d), dtype=feats.dtype,
-                        device=feats.device).scatter_add_(1, idx, hit.to(
-                            feats.dtype))
-    share = torch.cat([g, pad], 1) / count
+    # Counts in f32 (exact integers; a bf16 count would round past 256).
+    count = torch.zeros((b, num_cells + 1, d), dtype=torch.float32,
+                        device=feats.device).scatter_add_(1, idx, hit.float())
+    g = torch.cat([g, pad], 1)
+    if feats.dtype == torch.bfloat16:
+        # XLA's f32 share, rounded to bf16.
+        share = (g.float() * (1.0 / count)).bfloat16()
+    else:
+        share = g / count.to(feats.dtype)
     return torch.where(hit, share.gather(1, idx),
                        torch.zeros((), dtype=feats.dtype, device=feats.device))
 
@@ -115,9 +131,11 @@ def _check_width(width: int, vec: int, num_cells: int) -> None:
 
 
 def _check(feats, cell_idx):
-    if feats.dtype != torch.float32 or cell_idx.dtype != torch.int32:
-        raise TypeError("scatter_max kernel takes float32 feats and int32 "
-                        f"cells, got {feats.dtype} / {cell_idx.dtype}")
+    if (feats.dtype not in (torch.float32, torch.bfloat16)
+            or cell_idx.dtype != torch.int32):
+        raise TypeError("scatter_max kernel takes float32 or bfloat16 feats "
+                        f"and int32 cells, got {feats.dtype} / "
+                        f"{cell_idx.dtype}")
     if feats.dim() != 3 or cell_idx.shape != feats.shape[:2]:
         raise ValueError(f"feats (B, N, D) and cell_idx (B, N) expected, got "
                          f"{tuple(feats.shape)} / {tuple(cell_idx.shape)}")
@@ -128,7 +146,7 @@ def _check(feats, cell_idx):
 def _scatter_max_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
                       num_cells: int, width=None) -> torch.Tensor:
     """The forward kernel; ``width`` overrides ``slice_plan``'s slice."""
-    global launches
+    global launches, launches_bf16
     _check(feats, cell_idx)
     b, n, d = feats.shape
     out = torch.empty((b, num_cells, d), dtype=feats.dtype,
@@ -141,11 +159,15 @@ def _scatter_max_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
     feats = _build.aligned(feats)
     cell_idx = cell_idx.contiguous()
     lib = _build.load("pillar_scatter", _SIG)
+    bf16 = feats.dtype == torch.bfloat16
     err = lib.scatter_max_launch(
         _build.ptr(feats), _build.ptr(cell_idx), _build.ptr(out), b, n, d,
-        num_cells, width, vec, _build.stream_ptr(feats.device))
+        num_cells, width, vec, int(bf16), _build.stream_ptr(feats.device))
     _build.check(err, "scatter_max")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -153,15 +175,16 @@ def _scatter_max_bwd_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
                           out: torch.Tensor, g: torch.Tensor, num_cells: int,
                           width=None) -> torch.Tensor:
     """The backward kernel: ``scatter_max_backward_reference`` on the card."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_bf16
     _check(feats, cell_idx)
     b, n, d = feats.shape
     for name, t in (("out", out), ("g", g)):
-        if t.shape != (b, num_cells, d) or t.dtype != torch.float32 \
+        if t.shape != (b, num_cells, d) or t.dtype != feats.dtype \
                 or t.device != feats.device:
-            raise ValueError(f"scatter_max backward: {name} must be float32 "
-                             f"{(b, num_cells, d)} on {feats.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"scatter_max backward: {name} must be "
+                             f"{feats.dtype} {(b, num_cells, d)} on "
+                             f"{feats.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     gf = torch.empty((b, n, d), dtype=feats.dtype, device=feats.device)
     if gf.numel() == 0:
         return gf
@@ -171,30 +194,39 @@ def _scatter_max_bwd_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
     feats, out, g = (_build.aligned(t) for t in (feats, out, g))
     cell_idx = cell_idx.contiguous()
     lib = _build.load("pillar_scatter", _SIG)
+    bf16 = feats.dtype == torch.bfloat16
     err = lib.scatter_max_bwd_launch(
         _build.ptr(feats), _build.ptr(cell_idx), _build.ptr(out),
         _build.ptr(g), _build.ptr(gf), b, n, d, num_cells, width, vec,
-        _build.stream_ptr(feats.device))
+        int(bf16), _build.stream_ptr(feats.device))
     _build.check(err, "scatter_max backward")
-    launches_bwd += 1
+    if bf16:
+        launches_bwd_bf16 += 1
+    else:
+        launches_bwd += 1
     return gf
 
 
 class _ScatterMax(torch.autograd.Function):
-    """Kernel forward, kernel backward."""
+    """Kernel forward, kernel backward; or (``plain``) the plain versions of
+    both, which is how bf16 features on the CPU get the kernel's gradient
+    (torch autograd of ``scatter_reduce`` divides in bf16)."""
 
     @staticmethod
-    def forward(ctx, feats, cell_idx, num_cells):
-        out = _scatter_max_cuda(feats, cell_idx, num_cells)
+    def forward(ctx, feats, cell_idx, num_cells, plain=False):
+        fwd = scatter_max_reference if plain else _scatter_max_cuda
+        out = fwd(feats, cell_idx, num_cells)
         ctx.save_for_backward(feats, cell_idx, out)
-        ctx.num_cells = num_cells
+        ctx.num_cells, ctx.plain = num_cells, plain
         return out
 
     @staticmethod
     def backward(ctx, g):
         feats, cell_idx, out = ctx.saved_tensors
-        gf = _scatter_max_bwd_cuda(feats, cell_idx, out, g, ctx.num_cells)
-        return gf, None, None
+        bwd = (scatter_max_backward_reference if ctx.plain
+               else _scatter_max_bwd_cuda)
+        gf = bwd(feats, cell_idx, out, g, ctx.num_cells)
+        return gf, None, None, None
 
 
 def scatter_max(feats: torch.Tensor, cell_idx: torch.Tensor,
@@ -202,4 +234,15 @@ def scatter_max(feats: torch.Tensor, cell_idx: torch.Tensor,
     """Batched scatter-max; the kernels on the card, the plain version on the CPU."""
     if feats.is_cuda:
         return _ScatterMax.apply(feats, cell_idx, num_cells)
+    return scatter_max_plain(feats, cell_idx, num_cells)
+
+
+def scatter_max_plain(feats: torch.Tensor, cell_idx: torch.Tensor,
+                      num_cells: int) -> torch.Tensor:
+    """What ``scatter_max`` runs on a CPU tensor: the plain version, whose
+    gradient on bf16 features is ``scatter_max_backward_reference``'s, as
+    the kernel's."""
+    if (feats.dtype == torch.bfloat16 and torch.is_grad_enabled()
+            and feats.requires_grad):
+        return _ScatterMax.apply(feats, cell_idx, num_cells, True)
     return scatter_max_reference(feats, cell_idx, num_cells)

@@ -25,8 +25,13 @@ What the JAX trunk sows, one entry per digital link call (camera, ego
 LiDAR, V2X), the port's forward reduces as the JAX consumers do and writes
 into the dict passed as ``aux``; the learners add the VQ loss to theirs and
 re-seed dead codes after their step (:func:`collect_reseed_stats`,
-:func:`apply_codebook_reseed`). Not ported, raising: ``train.bf16``
-activations (ROADMAP item 13b).
+:func:`apply_codebook_reseed`).
+
+Under ``train.bf16`` the codecs and the fusion trunk compute in bf16 on f32
+parameters (``act_dtype``), as the JAX trunk takes its dtype from the
+config; the channel symbols, the tokens and the state stay f32, and so do
+the DQN and PPO heads. It runs on the CNN camera, the analog LiDAR and the
+fused blocks; any other combination raises, naming ROADMAP item 13b.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.act_dtype import Dense, activation_dtype
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.channel.layer import draw
@@ -104,9 +110,7 @@ class SemanticPerception(nn.Module):
             raise ValueError(f"unknown lidar arch {lid.arch!r}")
         if cam.arch not in ("cnn", "vit", "vq"):
             raise ValueError(f"unknown camera arch {cam.arch!r}")
-        if cfg.train.bf16:
-            raise NotImplementedError(
-                "train.bf16 activations are not ported (ROADMAP item 13b)")
+        dtype = activation_dtype(cfg, fusion=True)
         self.cfg = cfg
         attn_pallas = cfg.use_pallas or cfg.pallas_attention
         if cam.arch == "vit":
@@ -127,14 +131,17 @@ class SemanticPerception(nn.Module):
         else:
             cond = cam.snr_conditioning
             self.cam_enc = CameraEncoderCNN(cam.features, cam.c_sym,
-                                            snr_conditioning=cond)
+                                            snr_conditioning=cond,
+                                            dtype=dtype)
             self.cam_tok = CameraTokensCNN(fus.dim, cam.c_sym, cam.image_hw,
-                                           snr_conditioning=cond)
+                                           snr_conditioning=cond,
+                                           dtype=dtype)
             cam_in = fus.dim
         self.pfn = PillarFeatureNet(lid.point_features, lid.pillar_dim,
-                                    lid.bev_hw, lid.x_range, lid.y_range)
+                                    lid.bev_hw, lid.x_range, lid.y_range,
+                                    dtype)
         feats = (lid.pillar_dim, lid.pillar_dim)
-        self.lid_backbone = BEVBackbone(lid.pillar_dim, feats)
+        self.lid_backbone = BEVBackbone(lid.pillar_dim, feats, dtype)
         if lid.arch == "vq":
             # Names mirror LidarBEVVQCodec's (to_code, codebook, from_code,
             # mask_embed), so a c3_vq checkpoint warm-starts them by name.
@@ -147,9 +154,9 @@ class SemanticPerception(nn.Module):
                 self.lid_mask_embed = nn.Parameter(
                     torch.empty(lid.vq_dim).normal_(0.0, 0.02))
         else:
-            self.lid_sym_head = nn.Linear(lid.pillar_dim, 2 * lid.c_sym)
-            self.lid_sym_embed = nn.Linear(2 * lid.c_sym, lid.pillar_dim)
-        self.lid_dec = BEVBackbone(lid.pillar_dim, feats)
+            self.lid_sym_head = Dense(lid.pillar_dim, 2 * lid.c_sym, dtype)
+            self.lid_sym_embed = Dense(2 * lid.c_sym, lid.pillar_dim, dtype)
+        self.lid_dec = BEVBackbone(lid.pillar_dim, feats, dtype)
         if cfg.env.v2x_rays > 0:
             self.v2x_embed = nn.Parameter(
                 0.02 * torch.randn(1, 1, lid.pillar_dim))
@@ -158,7 +165,7 @@ class SemanticPerception(nn.Module):
             depth=fus.depth, heads=fus.heads, state_dim=fus.state_dim,
             mode=fus.mode, use_pallas=attn_pallas,
             fused_block=cfg.pallas_mha_block,
-            block_kernel=cfg.mha_block_kernel)
+            block_kernel=cfg.mha_block_kernel, dtype=dtype)
 
     def _vq_camera(self, image, snr_db, generator, noise, sown):
         """The digital camera link: indices over QPSK (FEC or HARQ as
@@ -256,12 +263,12 @@ class SemanticPerception(nn.Module):
         else:
             sym = self.lid_sym_head(bev)
             b, h, w, _ = sym.shape
-            z = sym.reshape(b, h * w * lid.c_sym, 2)
+            z = sym.reshape(b, h * w * lid.c_sym, 2).float()
             z_hat = channel_op(z, snr_db, ch.kind, generator, noise=noise,
                                **channel_kwargs(ch))
             x = self.lid_sym_embed(z_hat.reshape(b, h, w, 2 * lid.c_sym))
         b, h, w, _ = x.shape
-        return self.lid_dec(x).reshape(b, h * w, lid.pillar_dim)
+        return self.lid_dec(x).reshape(b, h * w, lid.pillar_dim).float()
 
     def forward(self, image: torch.Tensor, points: torch.Tensor,
                 mask: torch.Tensor,

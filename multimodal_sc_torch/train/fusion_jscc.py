@@ -19,9 +19,11 @@ its batch-dead codes after the optimizer step (``lidar.vq_reseed``), trains
 under ``lidar.vq_prune`` on per-example kept fractions ~ U[vq_keep_min, 1)
 of randomly selected tokens, and on a fresh run (never a resumed one) seeds
 its codebook from its own encoder's outputs on a point cloud of a stream of
-its own. ``train.bf16`` is not ported yet and raises (ROADMAP item 13b);
-``camera.arch="vq"`` is refused on this path, as the JAX package refuses
-it.
+its own. Under ``train.bf16`` the CNN camera and the analog LiDAR codecs
+compute in bf16 on f32 parameters (their outputs, the loss and the
+optimizer's moments f32); the ViT camera and the digital LiDAR raise under
+it (ROADMAP item 13b). ``camera.arch="vq"`` is refused on this path, as
+the JAX package refuses it.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -46,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.act_dtype import activation_dtype
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.codec.camera_cnn import CameraJSCC
@@ -71,26 +74,25 @@ from multimodal_sc_torch.rl.dqn import clip_by_global_norm_
 ADAMW_WEIGHT_DECAY = 1e-4      # optax.adamw's default
 
 
-def _check_ported(cfg: ExperimentConfig) -> None:
-    if cfg.train.bf16:
-        raise NotImplementedError(
-            "train.bf16 activations are not ported (ROADMAP item 13b)")
+def _check_ported(cfg: ExperimentConfig) -> torch.dtype:
+    """The codecs' activation dtype; raises on what is not ported."""
     if cfg.camera.arch not in ("vit", "cnn"):
         raise NotImplementedError(
             f"camera.arch={cfg.camera.arch!r} on the fusion path is not "
             "supported: the JAX package refuses it too (lidar.arch=vq is "
             "the digital half of c3)")
+    return activation_dtype(cfg)
 
 
 def build_camera_codec(cfg: ExperimentConfig):
     """The fusion pipeline's camera codec, ``ViTJSCC`` or ``CameraJSCC``
     (no seg head, fixed rate: segmentation lives on the LiDAR BEV side)."""
-    _check_ported(cfg)
+    dtype = _check_ported(cfg)
     cam = cfg.camera
     if cam.arch == "cnn":
         return CameraJSCC(features=cam.features, c_sym=cam.c_sym,
                           image_hw=cam.image_hw,
-                          snr_conditioning=cam.snr_conditioning)
+                          snr_conditioning=cam.snr_conditioning, dtype=dtype)
     return ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
                    depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,
                    snr_conditioning=cam.snr_conditioning,
@@ -101,7 +103,7 @@ def build_lidar_codec(cfg: ExperimentConfig):
     """The fusion pipeline's LiDAR BEV codec: ``LidarBEVVQCodec`` under
     ``lidar.arch="vq"`` (its link over ``cfg.channel``), else the analog
     ``LidarBEVCodec``."""
-    _check_ported(cfg)
+    dtype = _check_ported(cfg)
     lid = cfg.lidar
     if lid.arch == "vq":
         return LidarBEVVQCodec(
@@ -115,7 +117,7 @@ def build_lidar_codec(cfg: ExperimentConfig):
     return LidarBEVCodec(pillar_dim=lid.pillar_dim, bev_hw=lid.bev_hw,
                          c_sym=lid.c_sym, seg_classes=lid.seg_classes,
                          x_range=lid.x_range, y_range=lid.y_range,
-                         point_features=lid.point_features)
+                         point_features=lid.point_features, dtype=dtype)
 
 
 class LateFusionJSCC(nn.Module):

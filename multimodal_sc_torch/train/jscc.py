@@ -31,8 +31,11 @@ each example sends a kept fraction ~ U[vq_keep_min, 1) of its tokens,
 selected at random; under ``channel.uep_alpha > 0`` the link's unequal
 power allocation runs inside the forward. Unlike the JAX package's
 pure update, a train step writes the model, the optimizer moments and the
-schedule IN PLACE: the returned state holds the same objects. Not ported
-yet, raising: ``train.bf16`` (ROADMAP item 13b).
+schedule IN PLACE: the returned state holds the same objects. Under
+``train.bf16`` the CNN codec computes in bf16 on f32 parameters, as JAX's
+``build_model`` builds it (its image and seg logits come out f32, so the
+loss, the gradients reaching the parameters and the AdamW moments stay
+f32); the ViT and VQ codecs raise under it (ROADMAP item 13b).
 ``train.iters_per_dispatch`` (the chunked step) has no counterpart:
 PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
 and the value is ignored.
@@ -59,6 +62,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from multimodal_sc_torch.act_dtype import activation_dtype
 from multimodal_sc_torch.channel import ChannelDraws, rate_mask
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
@@ -82,20 +86,19 @@ from multimodal_sc_torch.runtime.prefetch import prefetch_to_device
 from multimodal_sc_torch.train.fusion_jscc import make_optimizer
 
 
-def _check_ported(cfg: ExperimentConfig) -> None:
+def _check_ported(cfg: ExperimentConfig) -> torch.dtype:
+    """The codec's activation dtype; raises on what is not ported."""
     cam = cfg.camera
     if cam.arch not in ("cnn", "vit", "vq"):
         raise ValueError(f"unknown camera arch {cam.arch!r}")
     if cam.arch == "vq":
         check_digital_camera(cfg)
-    if cfg.train.bf16:
-        raise NotImplementedError(
-            "train.bf16 activations are not ported (ROADMAP item 13b)")
+    return activation_dtype(cfg)
 
 
 def build_model(cfg: ExperimentConfig
                 ) -> Union[CameraJSCC, ViTJSCC, VQCameraJSCC]:
-    _check_ported(cfg)
+    dtype = _check_ported(cfg)
     cam = cfg.camera
     if cam.arch == "vq":
         return VQCameraJSCC(cfg)
@@ -109,7 +112,7 @@ def build_model(cfg: ExperimentConfig
     return CameraJSCC(features=cam.features, c_sym=cam.c_sym,
                       image_hw=cam.image_hw, seg_classes=cam.seg_classes,
                       snr_conditioning=cam.snr_conditioning,
-                      adaptive_rate=cam.adaptive_rate)
+                      adaptive_rate=cam.adaptive_rate, dtype=dtype)
 
 
 def lr_schedule(cfg: ExperimentConfig, count: int) -> float:

@@ -33,3 +33,67 @@ def test_banded_kernel_is_bit_equal_to_one_band_an_image_on_the_card(
         torch.testing.assert_close(
             banded, tconv.conv_prelu_reference(x, w, b, None, s),
             atol=1e-4, rtol=1e-4)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_against_their_plain_versions_on_the_card(monkeypatch):
+    """train.bf16's kernels on the card: the conv (both routes) within one
+    bf16 step of its plain version (outputs below 2^-14 of the largest at
+    that floor's step), the scatter forward and backward bit for bit, the
+    fused block's bf16 I/O within a bf16 step of its own plus 5e-3 of its
+    bf16-mode plain version (``chip_smoke.py`` states why)."""
+    from multimodal_sc_torch.kernels import mha_block as tmha
+    from multimodal_sc_torch.kernels import pillar_scatter as tscatter
+
+    _card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+
+    def step(t):
+        _, e = torch.frexp(t.float().abs().clamp(min=2.0 ** -126))
+        return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+    for h, cin, cout, s in ((16, 32, 64, 2), (8, 128, 16, 1), (32, 3, 32, 2),
+                            (32, 32, 3, 1)):
+        x = torch.randn(64, h, h, cin, generator=g, device="cuda").to(bf)
+        w = (torch.randn(5, 5, cin, cout, generator=g, device="cuda")
+             / (25 * cin) ** 0.5).to(bf)
+        b = (0.1 * torch.randn(cout, generator=g, device="cuda")).to(bf)
+        a = torch.rand(cout, generator=g, device="cuda").to(bf)
+        got = tconv.conv_prelu(x, w, b, a, s).float()
+        want = tconv.conv_prelu_reference(x, w, b, a, s).float()
+        floor = 2.0 ** -14 * want.abs().max()
+        gate = torch.maximum(step(torch.maximum(want.abs(), floor)),
+                             step(torch.maximum(got.abs(), floor)))
+        assert bool(((got - want).abs() <= gate).all())
+
+    feats = torch.randn(32, 64, 64, generator=g, device="cuda").to(bf)
+    cell = torch.randint(0, 257, (32, 64), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cell[:, 1::8], feats[:, 1::8] = cell[:, ::8], feats[:, ::8]   # ties
+    x = feats.clone().requires_grad_(True)
+    out = tscatter.scatter_max(x, cell, 256)
+    assert torch.equal(out, tscatter.scatter_max_reference(feats, cell, 256))
+    gy = torch.randn(32, 256, 64, generator=g, device="cuda").to(bf)
+    (gx,) = torch.autograd.grad(out, x, gy)
+    assert torch.equal(gx, tscatter.scatter_max_backward_reference(
+        feats, cell, out.detach(), gy, 256))
+
+    p = {k: (torch.randn(128, 128, generator=g, device="cuda") / 11.3
+             if k.startswith("w") else
+             0.1 * torch.randn(128, generator=g, device="cuda"))
+         for k in tmha.PARAM_KEYS}
+    x_q = torch.randn(64, 65, 128, generator=g, device="cuda").to(bf)
+    x_kv = torch.randn(64, 256, 128, generator=g, device="cuda").to(bf)
+    got = tmha.mha_block(x_q, x_kv, p, 4)
+    want = tmha.mha_block_reference_bf16(x_q, x_kv, p, 4)
+    assert got.dtype == bf
+    assert bool(((got.float() - want.float()).abs()
+                 <= step(got) + 5e-3).all())
+    assert (got != want).float().mean().item() <= 1e-2
