@@ -163,20 +163,31 @@ must launch no kernel.
 Then ``train.bf16`` (the codecs and the fused-block trunk in bf16 on f32
 parameters), whose kernels read and write bf16 themselves, each counted
 apart (``conv_prelu_bf16``, ``mha_block_bf16``, ``scatter_max_bf16``,
-``scatter_max_bwd_bf16``; the ``kernels`` line lists them beside the f32
-ones). The checks: ``conv_prelu`` at c4's act, c1's and c5's shapes on both
-routes, every output within one bf16 step of its plain version (the share
-that differs printed); ``mha_block`` at c4's and fog + V2X's act shapes
-within one bf16 step of its own plus 5e-3 of its bf16-mode plain version,
-past that a witnessed rounding flip, at most 1% of outputs differing, and
-at each timed shape a sample of the outputs past one step witnessed too; the
-scatter forward and backward bit for bit with forced ties. Then the bf16
-paths at the presets' widths: c4 act-only and act+learn at 1024 envs (exact
-launch counts, falling loss, f32 parameters and moments, the act and learn
-routes against the plain versions, a checkpoint round trip), fog + V2X
-act-only, one c5 update's timed run, c1 and c3-cnn train steps with their
-route comparisons; each path's rate is printed beside its f32 rate from the
-same call.
+``scatter_max_bwd_bf16``, ``packed_attention_fwd_bf16``,
+``packed_attention_bwd_bf16``, ``flash_attention_fwd_bf16``,
+``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkv_bf16``; the
+``kernels`` line lists them beside the f32 ones). The checks:
+``conv_prelu`` at c4's act, c1's and c5's shapes on both routes, every
+output within one bf16 step of its plain version (the share that differs
+printed); ``mha_block`` at c4's and fog + V2X's act shapes within one bf16
+step of its own plus 5e-3 of its bf16-mode plain version, past that a
+witnessed rounding flip, at most 1% of outputs differing, and at each timed
+shape a sample of the outputs past one step witnessed too; the scatter
+forward and backward bit for bit with forced ties; the packed and flash
+attention forward and backward at the timed shapes of their f32 checks
+(and ragged, Lq > 128, several-key-split and odd head-dim ones) within
+1e-2 plus one bf16 step of their bf16-I/O plain versions (dK and dV of the
+packed backward rounded per 128-query block), mean under 1e-5, within
+3e-2 of exact f32, and within one step of the same kernels' f32-I/O
+results, their one rounding. Then the bf16 paths at the presets' widths:
+c4 act-only and act+learn at 1024 envs (exact launch counts, falling loss,
+f32 parameters and moments, the act and learn routes against the plain
+versions, a checkpoint round trip), fog + V2X act-only, one c5 update's
+timed run, c1 and c3-cnn train steps with their route comparisons; then
+the c4 ViT trunk act-only and act+learn, c4 arm B act+learn and the c3
+arms P and F train steps, each with its route comparison against the
+attention kernels' plain versions; each path's rate is printed beside its
+f32 rate from the same call.
 
 The pillar scatter runs on every path but c1, c2 and the camera VQ
 paths: its forward kernel in every forward, its backward kernel once per
@@ -445,7 +456,10 @@ EXPECTED_C1_VQ_PRUNE_UEP = {"conv_prelu": (
 # bf16 path launches what its f32 path launches, each kernel in its bf16-I/O
 # variant, counted apart (``<kernel>_bf16``).
 BF16 = ["train.bf16=true"]
-BF16_KERNELS = ("mha_block", "conv_prelu", "scatter_max", "scatter_max_bwd")
+BF16_KERNELS = ("mha_block", "conv_prelu", "scatter_max", "scatter_max_bwd",
+                "packed_attention_fwd", "packed_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")
 
 
 def _bf16_counts(expected):
@@ -459,10 +473,13 @@ EXPECTED_BF16_V2X = _bf16_counts(EXPECTED_V2X)
 EXPECTED_BF16_C5 = _bf16_counts(EXPECTED_C5)
 EXPECTED_BF16_C1 = _bf16_counts(EXPECTED_C1)
 EXPECTED_BF16_C3_CNN = _bf16_counts(EXPECTED_C3_CNN)
-# A learn step's three forwards at batch 128 and its backward (arm A: the
-# fused blocks on their plain version).
-LEARN_ROUTE_BF16 = {"conv_prelu_bf16": 15, "scatter_max_bf16": 3,
-                    "scatter_max_bwd_bf16": SCATTER_BWD_PER_STEP}
+# The attention kernels' paths in bf16: the c4 ViT trunk, c4 arm B (the
+# unfused fusion MHA on the packed kernels) and c3 arms P and F.
+EXPECTED_BF16_VIT = _bf16_counts(EXPECTED_VIT)
+EXPECTED_BF16_VIT_LEARN = _bf16_counts(EXPECTED_VIT_LEARN)
+EXPECTED_BF16_LEARN_B = _bf16_counts(EXPECTED_LEARN_B)
+EXPECTED_BF16_C3_P = _bf16_counts(EXPECTED_C3_P)
+EXPECTED_BF16_C3_F = _bf16_counts(EXPECTED_C3_F)
 
 
 def _counters():
@@ -483,7 +500,16 @@ def _counters():
             "packed_attention_bwd": (attention_packed, "launches_bwd"),
             "flash_attention_fwd": (attention, "launches_fwd"),
             "flash_attention_bwd_dq": (attention, "launches_bwd_dq"),
-            "flash_attention_bwd_dkv": (attention, "launches_bwd_dkv")}
+            "flash_attention_bwd_dkv": (attention, "launches_bwd_dkv"),
+            "packed_attention_fwd_bf16": (attention_packed,
+                                          "launches_fwd_bf16"),
+            "packed_attention_bwd_bf16": (attention_packed,
+                                          "launches_bwd_bf16"),
+            "flash_attention_fwd_bf16": (attention, "launches_fwd_bf16"),
+            "flash_attention_bwd_dq_bf16": (attention,
+                                            "launches_bwd_dq_bf16"),
+            "flash_attention_bwd_dkv_bf16": (attention,
+                                             "launches_bwd_dkv_bf16")}
 
 
 def _reset_counts():
@@ -4501,6 +4527,388 @@ def check_scatter_max_bf16():
                    [bwd_row])]
 
 
+def _bf16_io_readings(got, ref_io):
+    """A bf16 output against its bf16-I/O plain version: (max error, mean
+    error, outputs past 1e-2 alone, outputs past 1e-2 plus one bf16 step of
+    the plain version's value)."""
+    diff = (got.float() - ref_io.float()).abs()
+    return (diff.max().item(), diff.mean().item(), int((diff > 1e-2).sum()),
+            int((diff > 1e-2 + _bf16_step(ref_io)).sum()))
+
+
+def _gate_bf16_io(name, got, ref_io, ref_f32):
+    """The gates of a bf16-I/O attention kernel's outputs (``PERF.md``
+    section 6), against its plain version that rounds where it does, bf16
+    in and out: within 1e-2 of it (the bf16 mode's gate) widened by one
+    bf16 step of the output, whose final rounding two sums in other orders
+    can flip (at |x| >= 2 one step is 1.56e-2, past 1e-2 alone); the mean
+    error under 1e-5; and within 3e-2 of exact f32. Returns (max, mean,
+    share of outputs whose bits differ, outputs past 1e-2 alone)."""
+    import torch
+
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: output {got.dtype}, not bf16")
+    mx, mean, strict, over = _bf16_io_readings(got, ref_io)
+    if over or mean > 1e-5:
+        raise AssertionError(f"{name}: {over} outputs past 1e-2 + a bf16 "
+                             f"step of the plain version, max {mx:.3e}, "
+                             f"mean {mean:.3e}")
+    torch.testing.assert_close(got.float(), ref_f32.float(), atol=3e-2,
+                               rtol=3e-2,
+                               msg=lambda m: f"{name} against f32: {m}")
+    return mx, mean, (got != ref_io).float().mean().item(), strict
+
+
+def _own_rounding(name, got, f32_io):
+    """A bf16-I/O output against the same kernel's f32-I/O output on the
+    same values: the one rounding at the store, so within one bf16 step.
+    Returns the share not bit-equal to round-to-nearest of it."""
+    steps = ((got.float() - f32_io).abs() / _bf16_step(f32_io)).max().item()
+    if steps > 1.0:
+        raise AssertionError(f"{name}: {steps:.2f} bf16 steps from its f32 "
+                             "I/O result, not its one rounding")
+    return (got != f32_io.to(got.dtype)).float().mean().item()
+
+
+def check_packed_attention_bf16():
+    """The packed kernels' bf16 mode with bf16 tensors (train.bf16) against
+    their bf16-I/O plain versions (``_gate_bf16_io``; dK and dV rounded per
+    128-query block as the JAX kernel sums them) at the timed shapes of the
+    f32 check (arm B's act+learn iteration and the ViT trunk's, the c3
+    arm-P shape, whose 256 queries are two blocks, printed per c3 step),
+    and at ragged, Lq > 128, several-key-split, d = 64, 16 and 8 shapes.
+    The output, lse and dQ (and dK, dV where Lq is one block) are held to
+    the same mode's f32-I/O results: their one rounding. Every backward
+    runs twice, bit-equal. Times beside SDPA on the same bf16 tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_sc_torch.kernels import attention_packed as ap
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(bf)
+
+    def heads_first(t, heads):
+        b, l, dm = t.shape
+        return t.reshape(b, l, heads, dm // heads).transpose(1, 2).contiguous()
+
+    # (B, Lq, Lk, dm, heads, forward and backward launches per iteration),
+    # as in check_packed_attention.
+    cases = [(NUM_ENVS, lq, lk, 128, 4, FUSION_DEPTH, 0)
+             for lq, lk in C4_ATTN_SHAPES]
+    cases += [(C3_BATCH, 256, 256, 128, 4, -C3_ATTN_PER_STEP,
+               -C3_ATTN_PER_STEP)]
+    cases += [(NUM_ENVS, VIT_TOKENS, VIT_TOKENS, 128, 4, VIT_ATTN_PER_FWD, 0),
+              (LEARN_BATCH, VIT_TOKENS, VIT_TOKENS, 128, 4,
+               3 * VIT_ATTN_PER_FWD, VIT_ATTN_PER_FWD)]
+    cases += [(LEARN_BATCH, lq, lk, 128, 4, 3 * FUSION_DEPTH,
+               FUSION_DEPTH if lq == 65 else FUSION_DEPTH - 1)
+              for lq, lk in C4_ATTN_SHAPES]
+    cases += [(64, 200, 48, 128, 4, 0, 0), (64, 33, 70, 128, 4, 0, 0),
+              (64, 129, 100, 256, 8, 0, 0), (4, 100, 1100, 128, 4, 0, 0),
+              (8, 130, 300, 128, 2, 0, 0), (16, 70, 130, 128, 8, 0, 0),
+              (16, 50, 300, 128, 16, 0, 0)]
+    fwd_rows, bwd_rows = [], []
+    worst_fwd = worst_bwd = 0.0
+    strict = outputs = 0        # outputs past 1e-2 alone, outputs held
+    once = [0.0, 0.0, 0, 0]     # a once-rounded dK/dV's readings, worst
+    for b, lq, lk, dm, heads, n_fwd, n_bwd in cases:
+        q, k, v, do = rnd(b, lq, dm), rnd(b, lk, dm), rnd(b, lk, dm), \
+            rnd(b, lq, dm)
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        scale = (dm // heads) ** -0.5
+        out, lse = ap._fwd_cuda(q, k, v, heads, scale, True, want_lse=True)
+        out32, lse32 = ap._fwd_cuda(qf, kf, vf, heads, scale, True,
+                                    want_lse=True)
+        ref, ref_lse = ap.packed_attention_fwd_reference(q, k, v, heads,
+                                                         scale, bf16=True)
+        exact = ap.packed_attention_reference(qf, kf, vf, heads, scale)
+        torch.cuda.synchronize()
+        err, mean, share, n = _gate_bf16_io(
+            "packed_attention forward bf16 I/O", out, ref, exact)
+        strict, outputs = strict + n, outputs + out.numel()
+        own = _own_rounding("packed_attention forward bf16 I/O", out, out32)
+        if not torch.equal(lse, lse32):
+            raise AssertionError("packed_attention bf16 I/O: lse differs "
+                                 "from the f32-I/O kernel's")
+        torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+        # Backward through autograd: the Function's backward on bf16.
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(ap.packed_attention(*ins, heads), ins, do)
+        again = ap._bwd_cuda(q, k, v, out, lse, do, heads, scale, True)
+        if not all(torch.equal(a, b_) for a, b_ in zip(again, grads)):
+            raise AssertionError("packed_attention backward bf16 I/O: two "
+                                 "runs on the same inputs differ")
+        g32 = ap._bwd_cuda(qf, kf, vf, out.float(), lse, dof, heads, scale,
+                           True)
+        ref_g = ap.packed_attention_bwd_reference(q, k, v, out, do, heads,
+                                                  scale, bf16=True,
+                                                  lse=ref_lse)
+        exact_g = ap.packed_attention_bwd_reference(qf, kf, vf, exact, dof,
+                                                    heads, scale)
+        torch.cuda.synchronize()
+        berrs, bmeans, bshares, owns = [], [], [], [own]
+        for i, (got, want, ex, f32_io) in enumerate(zip(grads, ref_g,
+                                                        exact_g, g32)):
+            e, m, s, n = _gate_bf16_io(f"packed_attention backward bf16 "
+                                       f"I/O d{'qkv'[i]}", got, want, ex)
+            strict, outputs = strict + n, outputs + got.numel()
+            berrs.append(e)
+            bmeans.append(m)
+            bshares.append(s)
+            if i == 0 or lq <= ap.BLOCK_Q:
+                owns.append(_own_rounding(
+                    f"packed_attention backward bf16 I/O d{'qkv'[i]}", got,
+                    f32_io))
+        berr = max(berrs)
+        worst_fwd, worst_bwd = max(worst_fwd, err), max(worst_bwd, berr)
+        line = (f"  packed_attention bf16 I/O B={b} Lq={lq} Lk={lk} dm={dm} "
+                f"h={heads}: fwd err {err:.3e} mean {mean:.2e} "
+                f"({100 * share:.3f}% differ); bwd err {berr:.3e} mean "
+                f"{max(bmeans):.2e} ({100 * max(bshares):.3f}% differ); "
+                f"{100 * max(owns):.3f}% off their one rounding")
+        if lq > ap.BLOCK_Q:
+            # What the gate reads of a dK / dV summed over all query blocks
+            # in f32 and rounded once (the f32-I/O result rounded), not per
+            # block as the JAX kernel sums them.
+            case = [max(x) for x in zip(*(
+                _bf16_io_readings(f32_io.to(bf), want)
+                for f32_io, want in zip(g32[1:], ref_g[1:])))]
+            once = [max(x) for x in zip(once, case)]
+            line += (f"; dK/dV rounded once would read: max {case[0]:.3e}, "
+                     f"mean {case[1]:.2e}, {case[3]} past the gate")
+        if not (n_fwd or n_bwd):
+            print(line, flush=True)
+            continue
+        ms = _device_ms(lambda: ap.packed_attention(q, k, v, heads))
+        plain = _device_ms(lambda: ap.packed_attention_fwd_reference(
+            q, k, v, heads, scale, bf16=True))
+        qh, kh, vh = (heads_first(t, heads) for t in (q, k, v))
+        lib = _device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        # bf16 rows read and written once at two bytes.
+        bound, by = _bound_ms(4 * b * lq * lk * dm,
+                              2 * 2 * b * (lq + lk) * dm, PEAK_BF16)
+        line += (f"; fwd kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA bf16 "
+                 f"{lib:.3f} ms, bound {bound:.4f} ms ({by})")
+        if n_fwd > 0:
+            fwd_rows.append({"per_step": n_fwd, "err": err, "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": by, "library_ms": lib})
+        else:
+            line += f" (c3 arm P: x{-n_fwd} per train step)"
+        if n_bwd:
+            ms = _device_ms(lambda: ap._bwd_cuda(q, k, v, out, lse, do, heads,
+                                                 scale, True))
+            plain = _device_ms(lambda: ap.packed_attention_bwd_reference(
+                q, k, v, out, do, heads, scale, bf16=True, lse=lse))
+            for t in (qh, kh, vh):
+                t.requires_grad_(True)
+            lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = heads_first(do, heads)
+            lib = _device_ms(lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), doh, retain_graph=True))
+            bound, by = _bound_ms(10 * b * lq * lk * dm,
+                                  2 * 4 * b * (lq + lk) * dm
+                                  + 4 * b * heads * lq, PEAK_BF16)
+            line += (f"; bwd kernel {ms:.3f} ms, plain {plain:.3f} ms, SDPA "
+                     f"bf16 backward {lib:.3f} ms, bound {bound:.4f} ms ({by})")
+            if n_bwd > 0:
+                bwd_rows.append({"per_step": n_bwd, "err": berr, "ms": ms,
+                                 "plain_ms": plain, "bound_ms": bound,
+                                 "bound_by": by, "library_ms": lib})
+        print(line, flush=True)
+        del q, k, v, do, qf, kf, vf, dof, out, out32, ref, exact, grads, g32
+        del ref_g, exact_g
+    print(f"  packed_attention bf16 I/O gate readings: largest error "
+          f"{max(worst_fwd, worst_bwd):.3e}, {strict} of {outputs} outputs "
+          f"past 1e-2 alone (each within one more bf16 step); a once-rounded "
+          f"dK/dV at Lq > {ap.BLOCK_Q}: max {once[0]:.3e}, largest mean "
+          f"{once[1]:.2e} (gate 1e-5), {once[3]} outputs past 1e-2 + a step, "
+          f"{once[2]} past 1e-2 alone: the gate "
+          f"{'fails' if once[3] or once[1] > 1e-5 else 'passes'} it",
+          flush=True)
+    src = "multimodal_sc_torch/csrc/attention_packed.cu"
+    entries = [
+        _entry("packed_attention_fwd_bf16", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention_packed.py:170", fwd_rows),
+        _entry("packed_attention_bwd_bf16", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention_packed.py:201", bwd_rows)]
+    entries[0]["max_abs_err"], entries[1]["max_abs_err"] = worst_fwd, worst_bwd
+    return entries
+
+
+def check_flash_attention_bf16():
+    """The flash kernels' bf16-I/O instances against their plain versions
+    (``_gate_bf16_io``) at the c3 arm-F shape on the transposed views the
+    ViT's MHA hands in (timed, per arm-F train step), and at ragged, cross,
+    odd-D, head-dim-128 (the FMA-unit backward) and contiguous shapes; the
+    output, dQ, dK and dV held to the f32-I/O kernels' results on the same
+    values (their one rounding), lse and delta bit-equal to them; every
+    backward run twice, bit-equal. Times beside SDPA on bf16 tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_sc_torch.kernels import attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    bf = torch.bfloat16
+
+    def heads_view(b, h, l, d):
+        return torch.randn(b, l, h, d, generator=g,
+                           device="cuda").to(bf).transpose(1, 2)
+
+    def contiguous(b, h, l, d):
+        return torch.randn(b, h, l, d, generator=g, device="cuda").to(bf)
+
+    cases = [(C3_BATCH, 3, 256, 256, 64, heads_view, C3_ATTN_PER_STEP),
+             (2, 4, 100, 70, 32, contiguous, 0),
+             (C3_BATCH, 3, 257, 257, 64, heads_view, 0),
+             (2, 2, 17, 17, 64, contiguous, 0),
+             (3, 2, 33, 130, 128, heads_view, 0),
+             (2, 3, 40, 24, 96, contiguous, 0),
+             (4, 5, 300, 7, 8, heads_view, 0)]
+    rows = {"fwd": [], "dq": [], "dkv": []}
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    strict = outputs = 0        # outputs past 1e-2 alone, outputs held
+    for b, h, lq, lk, d, make, per_step in cases:
+        q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
+        do = make(b, h, lq, d)
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        scale = d ** -0.5
+        out, lse = fa._fwd_cuda(q, k, v, scale)
+        out32, lse32 = fa._fwd_cuda(qf, kf, vf, scale)
+        ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+        exact = fa.flash_attention_fwd_reference(qf, kf, vf, scale)[0]
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(fa.attention(*ins, use_pallas=True), ins, do)
+        runs = []
+        for _ in range(2):
+            dq_, delta_ = fa._bwd_dq_cuda(q, k, v, out, lse, do, scale)
+            runs.append((dq_, delta_,
+                         *fa._bwd_dkv_cuda(q, k, v, lse, delta_, do, scale)))
+        if not all(torch.equal(a, b_) for a, b_ in zip(*runs)):
+            raise AssertionError("flash_attention backward bf16 I/O: two "
+                                 "runs on the same inputs differ")
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, (runs[0][0],
+                                                             *runs[0][2:]))):
+            raise AssertionError("flash_attention bf16 I/O: autograd's "
+                                 "backward differs from the kernels'")
+        dq32, delta32 = fa._bwd_dq_cuda(qf, kf, vf, out.float(), lse, dof,
+                                        scale)
+        g32 = (dq32, *fa._bwd_dkv_cuda(qf, kf, vf, lse, delta32, dof, scale))
+        ref_g = fa.flash_attention_bwd_reference(q, k, v, out, ref_lse, do,
+                                                 scale)
+        exact_g = fa.flash_attention_bwd_reference(qf, kf, vf, exact, ref_lse,
+                                                   dof, scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(lse, lse32) and torch.equal(runs[0][1], delta32)):
+            raise AssertionError("flash_attention bf16 I/O: lse or delta "
+                                 "differs from the f32-I/O kernels'")
+        torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+        errs, means, shares = {}, [], []
+        owns = [_own_rounding("flash_attention forward bf16 I/O", out, out32)]
+        errs["fwd"], m, s, n = _gate_bf16_io(
+            "flash_attention forward bf16 I/O", out, ref, exact)
+        strict, outputs = strict + n, outputs + out.numel()
+        means.append(m)
+        shares.append(s)
+        bwd = []
+        for i, (a, w, ex, f) in enumerate(zip(got, ref_g, exact_g, g32)):
+            what = f"flash_attention backward bf16 I/O d{'qkv'[i]}"
+            e, m, s, n = _gate_bf16_io(what, a, w, ex)
+            strict, outputs = strict + n, outputs + a.numel()
+            owns.append(_own_rounding(what, a, f))
+            bwd.append(e)
+            means.append(m)
+            shares.append(s)
+        errs["dq"], errs["dkv"] = bwd[0], max(bwd[1:])
+        for key, e in errs.items():
+            worst[key] = max(worst[key], e)
+        line = (f"  flash_attention bf16 I/O B={b} H={h} Lq={lq} Lk={lk} "
+                f"D={d} ({make.__name__}): err fwd {errs['fwd']:.3e}, dq "
+                f"{errs['dq']:.3e}, dk/dv {errs['dkv']:.3e}, mean "
+                f"{max(means):.2e}, {100 * max(shares):.3f}% differ, "
+                f"{100 * max(owns):.3f}% off their one rounding; lse and "
+                "delta those of the f32 I/O; two backward runs bit-equal")
+        if not per_step:
+            print(line, flush=True)
+            continue
+        delta = runs[0][1]
+        work = b * h * lq * lk * d
+        rows_bytes = 2 * b * h * d      # a bf16 row of every (batch, head)
+        ms = {"fwd": _device_ms(lambda: fa._fwd_cuda(q, k, v, scale)),
+              "dq": _device_ms(lambda: fa._bwd_dq_cuda(q, k, v, out, lse, do,
+                                                       scale)),
+              "dkv": _device_ms(lambda: fa._bwd_dkv_cuda(q, k, v, lse, delta,
+                                                         do, scale))}
+        plain = {
+            "fwd": _device_ms(lambda: fa.flash_attention_fwd_reference(
+                q, k, v, scale)),
+            "dq": _device_ms(lambda: fa.flash_attention_dq_reference(
+                q, k, v, out, lse, do, scale)),
+            "dkv": _device_ms(lambda: fa.flash_attention_dkv_reference(
+                q, k, v, lse, delta, do, scale))}
+        qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+        lib_fwd = _device_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc))
+        lib_out = F.scaled_dot_product_attention(qc, kc, vc)
+        doc = do.contiguous()
+        lib_bwd = _device_ms(lambda: torch.autograd.grad(
+            lib_out, (qc, kc, vc), doc, retain_graph=True))
+        lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+        # Operations, counted from the exactness of each product's operands
+        # (2 * work each): a product of two bf16-exact operands is one bf16
+        # tensor-core pass (its f32 sums are exact), one with an f32 operand
+        # three (that operand split into three bf16 pieces, its 24 bits),
+        # all at the bf16 rate; an f32 x f32 product would take six, the
+        # time of the f32 check's 3xTF32. Exact: q, k, v, dO, and q * scale
+        # where the scale is a power of two (D = 64); not P, dS. Forward
+        # S, PV; dQ kernel S, dP = dO V^T, dQ; dK/dV kernel S, dP, dV, dK.
+        # Bytes: the rows at two bytes, lse and delta at four.
+        s_passes = 1 if math.frexp(scale)[0] == 0.5 else 3
+        passes = {"fwd": s_passes + 3, "dq": s_passes + 1 + 3,
+                  "dkv": s_passes + 1 + 3 + 3}
+        bounds = {
+            "fwd": _bound_ms(passes["fwd"] * 2 * work,
+                             rows_bytes * (2 * lq + 2 * lk) + 4 * b * h * lq,
+                             PEAK_BF16),
+            "dq": _bound_ms(passes["dq"] * 2 * work,
+                            rows_bytes * (4 * lq + 2 * lk) + 8 * b * h * lq,
+                            PEAK_BF16),
+            "dkv": _bound_ms(passes["dkv"] * 2 * work,
+                             rows_bytes * (2 * lq + 4 * lk) + 8 * b * h * lq,
+                             PEAK_BF16)}
+        for key in rows:
+            bound, by = bounds[key]
+            line += (f"; {key} kernel {ms[key]:.3f} ms, plain "
+                     f"{plain[key]:.3f} ms, bound {bound:.4f} ms ({by})")
+            rows[key].append({"per_step": per_step, "err": errs[key],
+                              "ms": ms[key], "plain_ms": plain[key],
+                              "bound_ms": bound, "bound_by": by,
+                              "library_ms": lib[key]})
+        line += (f"; SDPA bf16 forward {lib_fwd:.3f} ms, backward (dQ, dK and "
+                 f"dV together) {lib_bwd:.3f} ms")
+        print(line, flush=True)
+        del q, k, v, do, qf, kf, vf, dof, out, out32, ref, exact, ins, got
+        del runs, g32, ref_g, exact_g, qc, kc, vc, lib_out
+    print(f"  flash_attention bf16 I/O gate readings: largest error "
+          f"{max(worst.values()):.3e}, {strict} of {outputs} outputs past "
+          f"1e-2 alone (each within one more bf16 step)", flush=True)
+    src = "multimodal_sc_torch/csrc/flash_attention.cu"
+    entries = [
+        _entry("flash_attention_fwd_bf16", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention.py:103", rows["fwd"]),
+        _entry("flash_attention_bwd_dq_bf16", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention.py:221", rows["dq"]),
+        _entry("flash_attention_bwd_dkv_bf16", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention.py:252", rows["dkv"])]
+    for e, key in zip(entries, ("fwd", "dq", "dkv")):
+        e["max_abs_err"] = worst[key]
+    return entries
+
+
 def check_kernels_bf16():
     """The bf16-I/O variants, TF32 off on the plain side."""
     import torch
@@ -4511,7 +4919,8 @@ def check_kernels_bf16():
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         return [check_mha_block_bf16(), check_conv_prelu_bf16(),
-                *check_scatter_max_bf16()]
+                *check_scatter_max_bf16(), *check_packed_attention_bf16(),
+                *check_flash_attention_bf16()]
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
@@ -4523,16 +4932,31 @@ def _mha_plain_bf16(x_q, x_kv, params, heads, scale=None, mxu_bf16=None):
     return mb.mha_block_reference_bf16(x_q, x_kv, params, heads, scale)
 
 
+def _flash_plain_bf16(q, k, v, scale=None, use_pallas=False):
+    from multimodal_sc_torch.kernels import attention
+
+    if use_pallas:
+        return attention.flash_attention_plain(q, k, v, scale)
+    return attention.attention_reference(q, k, v, scale)
+
+
 def _plain_patches_bf16(with_blocks=True):
     """The plain versions a bf16 route comparison swaps in: the conv and the
     scatter as the CPU runs them (their bf16 gradients the kernels'), the
-    fused blocks' bf16-mode plain version (the kernel's roundings)."""
-    from multimodal_sc_torch.codec import lidar_bev
+    fused blocks' bf16-mode plain version (the kernel's roundings), and the
+    attention kernels' plain versions in the mode the card runs (bf16
+    operands for the packed ones), whose backward rounds where the kernels
+    store."""
+    from multimodal_sc_torch.codec import camera_vit, lidar_bev
     from multimodal_sc_torch.fusion import transformer
-    from multimodal_sc_torch.kernels import conv_block, pillar_scatter
+    from multimodal_sc_torch.kernels import (attention_packed, conv_block,
+                                             pillar_scatter)
 
     out = [(conv_block, "conv_prelu", conv_block.conv_prelu_plain),
-           (lidar_bev, "scatter_max", pillar_scatter.scatter_max_plain)]
+           (lidar_bev, "scatter_max", pillar_scatter.scatter_max_plain),
+           (camera_vit, "packed_attention", functools.partial(
+               attention_packed.packed_attention_plain, mxu_bf16=True)),
+           (camera_vit, "attention", _flash_plain_bf16)]
     if with_blocks:
         out.append((transformer, "mha_block", _mha_plain_bf16))
     return out
@@ -4546,9 +4970,15 @@ def _plain_patches_bf16(with_blocks=True):
 BF16_Q_GATE = 2.0 ** -5
 BF16_LOSS_RTOL = 1e-2
 BF16_GRAD_STEPS = 16
+# A learn step's three forwards at batch 128 and its backward: arm A (the
+# fused blocks on their plain version), arm B and the ViT trunk.
+LEARN_ROUTE_BF16 = _bf16_counts({"conv_prelu": 15, "scatter_max": 3,
+                                 "scatter_max_bwd": SCATTER_BWD_PER_STEP})
+LEARN_ROUTE_BF16_B = _bf16_counts(LEARN_ROUTE_B)
+LEARN_ROUTE_BF16_VIT = _bf16_counts(LEARN_ROUTE_VIT)
 
 
-def compare_act_routes_bf16(name, cfg, state):
+def compare_act_routes_bf16(name, cfg, state, expected=None):
     """Q of the carried observations through the kernels and through their
     plain versions (the fused blocks' bf16-mode one), the same channel
     noise: within ``BF16_Q_GATE`` of the largest |Q|; the greedy actions
@@ -4566,8 +4996,10 @@ def compare_act_routes_bf16(name, cfg, state):
         before = _read_counts()
         q_k = net(*obs, channel_noise=noise)
         ran = {k: v - before[k] for k, v in _read_counts().items()}
-        _check_counts(ran, EXPECTED_BF16 if not cfg.env.v2x_rays
-                      else EXPECTED_BF16_V2X, 1, f"{name} act route")
+        if expected is None:
+            expected = (EXPECTED_BF16_V2X if cfg.env.v2x_rays
+                        else EXPECTED_BF16)
+        _check_counts(ran, expected, 1, f"{name} act route")
         before = _read_counts()
         with _patched(_plain_patches_bf16()):
             q_p = net(*obs, channel_noise=noise)
@@ -4615,7 +5047,7 @@ def _compare_grads_bf16(what, net, loss_k, grads_k, loss_p, grads_p):
                            f"apart, past {BF16_GRAD_STEPS}")
 
 
-def compare_learn_routes_bf16(cfg, state):
+def compare_learn_routes_bf16(cfg, state, expected=LEARN_ROUTE_BF16):
     """One TD loss and its gradients on a fixed batch and channel noise
     through the kernels and through their plain versions (bf16)."""
     import torch
@@ -4640,7 +5072,7 @@ def compare_learn_routes_bf16(cfg, state):
                                                   allow_unused=True)
 
     _compare_grads_bf16("learn step", state.params, *_two_routes(
-        loss_and_grads, LEARN_ROUTE_BF16, "the bf16 learn step",
+        loss_and_grads, expected, "the bf16 learn step",
         _plain_patches_bf16(with_blocks=False)))
 
 
@@ -4666,7 +5098,8 @@ def compare_c1_routes_bf16(cfg, state, data):
         _plain_patches_bf16(with_blocks=False)))
 
 
-def compare_c3_routes_bf16(cfg, state, batches):
+def compare_c3_routes_bf16(cfg, state, batches,
+                           expected=EXPECTED_BF16_C3_CNN):
     import torch
 
     from multimodal_sc_torch.train import fusion_jscc as fj
@@ -4685,8 +5118,9 @@ def compare_c3_routes_bf16(cfg, state, batches):
                              channel_noise=noise)
         return loss.detach(), torch.autograd.grad(loss, params)
 
-    _compare_grads_bf16("c3-cnn bf16 train step", model, *_two_routes(
-        loss_and_grads, EXPECTED_BF16_C3_CNN, "the c3-cnn bf16 train step",
+    what = f"c3 {cfg.camera.arch} bf16 train step"
+    _compare_grads_bf16(what, model, *_two_routes(
+        loss_and_grads, expected, f"the {what}",
         _plain_patches_bf16(with_blocks=False)))
 
 
@@ -4709,8 +5143,11 @@ def _all_f32(what, *nets, opt=None):
 def bf16_paths(profile=False):
     """The train.bf16 paths at the presets' widths: c4 act-only and
     act+learn at 1024 envs (route comparisons, a checkpoint round trip),
-    fog + V2X act-only, one c5 update, c1 train steps, c3-cnn train steps.
-    Returns the launches summed and each path's rate."""
+    fog + V2X act-only, one c5 update, c1 train steps, c3-cnn train steps;
+    then the attention kernels' paths: the c4 ViT trunk act-only and
+    act+learn, c4 arm B act+learn, c3 arms P and F train steps, each with
+    its route comparison. Returns the launches summed and each path's
+    rate."""
     import torch
 
     totals, rates = {}, {}
@@ -4789,6 +5226,60 @@ def bf16_paths(profile=False):
         profile_c3(cfg, state, train_step, batches)
     del state, train_step, batches
     torch.cuda.empty_cache()
+    # The packed and flash attention kernels' bf16-I/O instances.
+    name = "c4 ViT trunk bf16"
+    print(f"main path ({name} act-only):", flush=True)
+    launches, rates["c4 ViT act-only"], cfg, state, iteration = (
+        drive_main_path(name, VIT + BF16, EXPECTED_BF16_VIT))
+    add(launches)
+    compare_act_routes_bf16(name, cfg, state, EXPECTED_BF16_VIT)
+    if profile:
+        print(f"profile ({name} act-only):", flush=True)
+        profile_main_path(cfg, state, iteration)
+    del state, iteration
+    print(f"main path ({name} act+learn):", flush=True)
+    launches, rates["c4 ViT act+learn"], cfg, state, iteration = (
+        drive_learn(f"{name} act+learn", VIT + BF16, EXPECTED_BF16_VIT_LEARN))
+    add(launches)
+    _all_f32(name, state.params, state.target_params, state.ema_params,
+             opt=state.opt_state)
+    compare_learn_routes_bf16(cfg, state, LEARN_ROUTE_BF16_VIT)
+    compare_act_routes_bf16(f"{name} after learning", cfg, state,
+                            EXPECTED_BF16_VIT)
+    if profile:
+        print(f"profile ({name} act+learn):", flush=True)
+        profile_learn(cfg, state, iteration)
+    del state, iteration
+    torch.cuda.empty_cache()
+    name = "c4 arm B bf16: unfused fusion on packed_attention"
+    print(f"main path (c4 act+learn, {name}):", flush=True)
+    launches, rates["c4 act+learn, arm B"], cfg, state, iteration = (
+        drive_learn(name, ARM_B + BF16, EXPECTED_BF16_LEARN_B))
+    add(launches)
+    _all_f32(name, state.params, state.target_params, state.ema_params,
+             opt=state.opt_state)
+    compare_learn_routes_bf16(cfg, state, LEARN_ROUTE_BF16_B)
+    if profile:
+        print(f"profile (c4 act+learn, {name}):", flush=True)
+        profile_learn(cfg, state, iteration)
+    del state, iteration
+    torch.cuda.empty_cache()
+    for key, name, overrides, expected in (
+            ("c3 arm P train", "arm P bf16: ViT on packed_attention",
+             C3_ARM_P, EXPECTED_BF16_C3_P),
+            ("c3 arm F train", "arm F bf16: ViT dim 192 on flash_attention",
+             C3_ARM_F, EXPECTED_BF16_C3_F)):
+        print(f"main path (c3 late-fusion train, {name}):", flush=True)
+        launches, rates[key], cfg, state, train_step, batches = drive_c3(
+            name, overrides + BF16, expected)
+        add(launches)
+        _all_f32(name, state.params, opt=state.opt_state)
+        compare_c3_routes_bf16(cfg, state, batches, expected)
+        if profile:
+            print(f"profile (c3 late-fusion train, {name}):", flush=True)
+            profile_c3(cfg, state, train_step, batches)
+        del state, train_step, batches
+        torch.cuda.empty_cache()
     return totals, rates
 
 
@@ -5079,7 +5570,14 @@ def main() -> int:
                  "c4 act+learn, arm A": rates["act+learn, arm A: c4 preset"],
                  "c4 fog + V2X act-only": rates["act-only, c4 fog + V2X"],
                  "c5 update": c5_rate, "c1 train": c1_rate,
-                 "c3-cnn train": c3_rates["c3-cnn: CNN camera codec at 64x64"]}
+                 "c3-cnn train": c3_rates["c3-cnn: CNN camera codec at 64x64"],
+                 "c4 ViT act-only": rates["act-only, c4 ViT trunk"],
+                 "c4 ViT act+learn": rates["act+learn, c4 ViT trunk"],
+                 "c4 act+learn, arm B": rates[
+                     "act+learn, arm B: unfused fusion on packed_attention"],
+                 "c3 arm P train": c3_rates["arm P: ViT on packed_attention"],
+                 "c3 arm F train": c3_rates[
+                     "arm F: ViT dim 192 on flash_attention"]}
     print(f"train.bf16 against f32 in this call on {card} (agent or env "
           "steps/s, train steps/s): " + "; ".join(
               f"{k} {bf16_rates[k]:.2f} vs {f32_rates[k]:.2f} "

@@ -18,10 +18,11 @@ paths compute as before; at bfloat16 they follow flax. These are not
 PyTorch's autocast rules, which keep a LayerNorm in f32 and round a
 matmul's bias into its sum.
 
-The port runs ``train.bf16`` on the CNN camera, the analog LiDAR and the
-fused attention blocks (their kernels read and write bf16 themselves);
-``activation_dtype`` is the one rule that says which configurations, and
-refuses the rest.
+The port runs ``train.bf16`` on the CNN and ViT camera codecs, the analog
+LiDAR, the fused attention blocks and the unfused fusion MHA, with the
+packed and flash attention under ``pallas_attention`` (each kernel reads
+and writes bf16 itself); ``activation_dtype`` is the one rule that says
+which configurations, and refuses the VQ codecs.
 """
 
 from __future__ import annotations
@@ -30,33 +31,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_REFUSED = "train.bf16 activations are not ported (ROADMAP item 13b)"
+_REFUSED = "train.bf16 activations are not ported (ROADMAP item 13b(i))"
 
 
-def activation_dtype(cfg, fusion: bool = False) -> torch.dtype:
+def activation_dtype(cfg) -> torch.dtype:
     """``torch.bfloat16`` under ``train.bf16``, else ``torch.float32``.
 
-    bf16 is ported for the CNN camera codec, the analog LiDAR codec and,
-    where a fusion transformer runs cross attention (``fusion``), its fused
-    blocks (``pallas_mha_block``). Any configuration that reaches another
-    codec or the packed or flash attention (``pallas_attention``, the
-    unfused fusion MHA) raises ``NotImplementedError`` naming ROADMAP item
-    13b."""
+    bf16 is ported for the CNN and ViT camera codecs, the analog LiDAR
+    codec and the fusion transformer in either form (fused blocks or the
+    unfused MHA), with or without ``pallas_attention``. A VQ codec
+    (``camera.arch='vq'``, ``lidar.arch='vq'``) raises
+    ``NotImplementedError`` naming ROADMAP item 13b(i)."""
     if not cfg.train.bf16:
         return torch.float32
-    why = None
-    if cfg.camera.arch != "cnn":
-        why = f"camera.arch={cfg.camera.arch!r} (only 'cnn')"
-    elif cfg.lidar.arch != "analog":
-        why = f"lidar.arch={cfg.lidar.arch!r} (only 'analog')"
-    elif cfg.pallas_attention:
-        why = "pallas_attention=true (the packed and flash attention)"
-    elif (fusion and cfg.fusion.mode == "cross_attention"
-          and not cfg.pallas_mha_block):
-        why = ("pallas_mha_block=false (the unfused fusion MHA; only the "
-               "fused blocks)")
-    if why is not None:
-        raise NotImplementedError(f"{_REFUSED}: {why}")
+    for part in ("camera", "lidar"):
+        arch = getattr(cfg, part).arch
+        if arch == "vq":
+            raise NotImplementedError(
+                f"{_REFUSED}: {part}.arch='vq' (the VQ codecs)")
     return torch.bfloat16
 
 
@@ -79,9 +71,10 @@ class Conv(nn.Conv2d):
     """``nn.Conv2d`` (NCHW) with flax ``Conv``'s ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 padding: int = 0, dtype: torch.dtype = torch.float32):
+                 padding: int = 0, dtype: torch.dtype = torch.float32,
+                 stride: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
-                         padding=padding)
+                         stride=stride, padding=padding)
         self.act_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

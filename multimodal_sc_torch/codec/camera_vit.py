@@ -6,8 +6,13 @@ transformer encoder -> per-patch symbol head; symmetric transformer decoder
 -> patch de-embed. An optional SNR token conditions both directions. Images
 are NHWC at the module boundary, as in the JAX package. Attention runs
 through ``kernels.attention_packed`` or ``kernels.attention`` (the CUDA
-kernels under ``use_pallas`` on the card). Activations are float32
-(``train.bf16`` is not ported).
+kernels under ``use_pallas`` on the card).
+
+Under ``train.bf16`` (``dtype=torch.bfloat16``) every projection, the
+patch embedding, the LayerNorms, the MLPs and the attention run in bf16 on
+f32 parameters by flax's dtype rules (``act_dtype``); the image, the
+positional table and ``snr_db`` are cast to bf16 on the way in, and the
+symbols, tokens and image come out f32, as the JAX modules build them.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.act_dtype import Conv, Dense, LayerNorm
 from multimodal_sc_torch.kernels.attention import attention
 from multimodal_sc_torch.kernels.attention_packed import (packed_attention,
                                                           packed_eligible)
@@ -28,22 +34,24 @@ _LN_EPS = 1e-6      # flax LayerNorm's epsilon (torch's default is 1e-5)
 class MHA(nn.Module):
     """q/k/v/o projections around softmax attention.
 
-    The projections are ``nn.Linear(dim, dim)`` with the heads head-major in
+    The projections are ``Dense(dim, dim)`` with the heads head-major in
     the output columns (flax ``DenseGeneral((heads, hd))`` flattened), so
-    q, k and v come out in the packed (B, L, H*d) layout. With
+    q, k and v come out in the packed (B, L, H*d) layout; ``o`` reads the
+    flattened heads (flax's ``DenseGeneral(dim, axis=(-2, -1))``). With
     ``use_pallas`` and a ``packed_eligible`` shape the packed kernel runs
     on them as they are; otherwise heads are split out for ``attention``.
     """
 
-    def __init__(self, dim: int, heads: int, use_pallas: bool = False):
+    def __init__(self, dim: int, heads: int, use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
         self.dim, self.heads, self.use_pallas = dim, heads, use_pallas
-        self.q = nn.Linear(dim, dim)
-        self.k = nn.Linear(dim, dim)
-        self.v = nn.Linear(dim, dim)
-        self.o = nn.Linear(dim, dim)
+        self.q = Dense(dim, dim, dtype)
+        self.k = Dense(dim, dim, dtype)
+        self.v = Dense(dim, dim, dtype)
+        self.o = Dense(dim, dim, dtype)
 
     def forward(self, x_q: torch.Tensor,
                 x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -69,13 +77,14 @@ class TransformerBlock(nn.Module):
     GELU (flax ``nn.gelu``'s default)."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln1 = nn.LayerNorm(dim, eps=_LN_EPS)
-        self.attn = MHA(dim, heads, use_pallas)
-        self.ln2 = nn.LayerNorm(dim, eps=_LN_EPS)
-        self.mlp1 = nn.Linear(dim, dim * mlp_ratio)
-        self.mlp2 = nn.Linear(dim * mlp_ratio, dim)
+        self.ln1 = LayerNorm(dim, _LN_EPS, dtype)
+        self.attn = MHA(dim, heads, use_pallas, dtype)
+        self.ln2 = LayerNorm(dim, _LN_EPS, dtype)
+        self.mlp1 = Dense(dim, dim * mlp_ratio, dtype)
+        self.mlp2 = Dense(dim * mlp_ratio, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -86,14 +95,14 @@ class TransformerBlock(nn.Module):
 class SNRToken(nn.Module):
     """Embed snr_db into one extra token prepended to the sequence."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dim = dim
-        self.fc1 = nn.Linear(1, dim)
-        self.fc2 = nn.Linear(dim, dim)
+        self.dim, self.dtype = dim, dtype
+        self.fc1 = Dense(1, dim, dtype)
+        self.fc2 = Dense(dim, dim, dtype)
 
     def forward(self, snr_db: torch.Tensor, batch: int) -> torch.Tensor:
-        s = (snr_db.reshape(-1, 1).float() - 10.0) / 15.0
+        s = (snr_db.reshape(-1, 1).to(self.dtype) - 10.0) / 15.0
         return self.fc2(torch.tanh(self.fc1(s))).reshape(batch, 1, self.dim)
 
 
@@ -102,17 +111,19 @@ class _ViTTrunk(nn.Module):
     SNR token, ``depth`` transformer blocks and the output LayerNorm."""
 
     def __init__(self, image_hw, patch: int, dim: int, depth: int, heads: int,
-                 snr_conditioning: bool, use_pallas: bool):
+                 snr_conditioning: bool, use_pallas: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.image_hw, self.patch, self.dim = tuple(image_hw), patch, dim
         self.depth, self.snr_conditioning = depth, snr_conditioning
+        self.dtype = dtype
         self.pos = nn.Parameter(0.02 * torch.randn(1, self.num_patches, dim))
         if snr_conditioning:
-            self.snr_token = SNRToken(dim)
+            self.snr_token = SNRToken(dim, dtype)
         for i in range(depth):
             setattr(self, f"block{i}", TransformerBlock(
-                dim, heads, use_pallas=use_pallas))
-        self.ln_out = nn.LayerNorm(dim, eps=_LN_EPS)
+                dim, heads, use_pallas=use_pallas, dtype=dtype))
+        self.ln_out = LayerNorm(dim, _LN_EPS, dtype)
 
     @property
     def num_patches(self) -> int:
@@ -122,7 +133,7 @@ class _ViTTrunk(nn.Module):
                 snr_db: Optional[torch.Tensor]) -> torch.Tensor:
         """(B, n, dim) embedded tokens -> (B, n, dim) after ln_out; the SNR
         token rides along in front and is dropped at the end."""
-        x = x + self.pos
+        x = x + self.pos.to(self.dtype)
         with_snr = self.snr_conditioning and snr_db is not None
         if with_snr:
             x = torch.cat([self.snr_token(snr_db, x.shape[0]), x], dim=1)
@@ -138,21 +149,22 @@ class ViTEncoderJSCC(_ViTTrunk):
     def __init__(self, image_hw=(32, 32), patch: int = 4, dim: int = 128,
                  depth: int = 4, heads: int = 4, c_sym: int = 8,
                  snr_conditioning: bool = True, use_pallas: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__(image_hw, patch, dim, depth, heads, snr_conditioning,
-                         use_pallas)
+                         use_pallas, dtype)
         self.c_sym = c_sym
         # VALID conv with stride = patch.
-        self.patch_embed = nn.Conv2d(in_channels, dim, patch, stride=patch)
-        self.sym_head = nn.Linear(dim, 2 * c_sym)
+        self.patch_embed = Conv(in_channels, dim, patch, dtype=dtype,
+                                stride=patch)
+        self.sym_head = Dense(dim, 2 * c_sym, dtype)
 
     def forward(self, img: torch.Tensor,
                 snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
         b = img.shape[0]
-        x = self.patch_embed(img.float().permute(0, 3, 1, 2))   # (B,dim,hp,wp)
+        x = self.patch_embed(img.to(self.dtype).permute(0, 3, 1, 2))
         x = x.flatten(2).transpose(1, 2)                        # (B, n, dim)
         x = self.sym_head(self._blocks(x, snr_db))
-        return x.reshape(b, self.num_patches * self.c_sym, 2)
+        return x.reshape(b, self.num_patches * self.c_sym, 2).float()
 
 
 class ViTDecoderJSCC(_ViTTrunk):
@@ -162,24 +174,25 @@ class ViTDecoderJSCC(_ViTTrunk):
     def __init__(self, image_hw=(32, 32), patch: int = 4, dim: int = 128,
                  depth: int = 4, heads: int = 4, c_sym: int = 8,
                  out_channels: int = 3, snr_conditioning: bool = True,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(image_hw, patch, dim, depth, heads, snr_conditioning,
-                         use_pallas)
+                         use_pallas, dtype)
         self.c_sym, self.out_channels = c_sym, out_channels
-        self.sym_embed = nn.Linear(2 * c_sym, dim)
-        self.pixel_head = nn.Linear(dim, patch * patch * out_channels)
+        self.sym_embed = Dense(2 * c_sym, dim, dtype)
+        self.pixel_head = Dense(dim, patch * patch * out_channels, dtype)
 
     def forward(self, z_hat: torch.Tensor,
                 snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, p = z_hat.shape[0], self.patch
-        x = self.sym_embed(z_hat.float().reshape(b, self.num_patches,
-                                                 2 * self.c_sym))
+        x = self.sym_embed(z_hat.to(self.dtype).reshape(
+            b, self.num_patches, 2 * self.c_sym))
         x = self.pixel_head(self._blocks(x, snr_db))
         hp, wp = self.image_hw[0] // p, self.image_hw[1] // p
         x = x.reshape(b, hp, wp, p, p, self.out_channels)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(
             b, self.image_hw[0], self.image_hw[1], self.out_channels)
-        return torch.sigmoid(x)
+        return torch.sigmoid(x.float())
 
 
 class ViTTokensDecoder(_ViTTrunk):
@@ -188,17 +201,19 @@ class ViTTokensDecoder(_ViTTrunk):
 
     def __init__(self, image_hw=(32, 32), patch: int = 4, dim: int = 128,
                  depth: int = 2, heads: int = 4, c_sym: int = 8,
-                 use_pallas: bool = False):
-        super().__init__(image_hw, patch, dim, depth, heads, False, use_pallas)
+                 use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(image_hw, patch, dim, depth, heads, False, use_pallas,
+                         dtype)
         self.c_sym = c_sym
-        self.sym_embed = nn.Linear(2 * c_sym, dim)
+        self.sym_embed = Dense(2 * c_sym, dim, dtype)
 
     def forward(self, z_hat: torch.Tensor,
                 snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
         b = z_hat.shape[0]
-        x = self.sym_embed(z_hat.float().reshape(b, self.num_patches,
-                                                 2 * self.c_sym))
-        return self._blocks(x, None)
+        x = self.sym_embed(z_hat.to(self.dtype).reshape(
+            b, self.num_patches, 2 * self.c_sym))
+        return self._blocks(x, None).float()
 
 
 class ViTJSCC(nn.Module):
@@ -207,12 +222,13 @@ class ViTJSCC(nn.Module):
     def __init__(self, image_hw=(32, 32), patch: int = 4, dim: int = 128,
                  depth: int = 4, heads: int = 4, c_sym: int = 8,
                  out_channels: int = 3, snr_conditioning: bool = True,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.c_sym = c_sym
         kw = dict(image_hw=image_hw, patch=patch, dim=dim, depth=depth,
                   heads=heads, c_sym=c_sym, snr_conditioning=snr_conditioning,
-                  use_pallas=use_pallas)
+                  use_pallas=use_pallas, dtype=dtype)
         self.encoder = ViTEncoderJSCC(**kw)
         self.decoder = ViTDecoderJSCC(out_channels=out_channels, **kw)
 

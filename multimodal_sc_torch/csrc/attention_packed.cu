@@ -77,12 +77,28 @@
 // rows), so the eight row addresses of an ldmatrix hit eight different
 // bank groups; d = 8 is half a k-step, its rows zero-filled to 16 columns.
 // No padded copy of any input exists in device memory.
+//
+// bf16 I/O (train.bf16): both bf16-mode kernels also have an instance that
+// reads q, k, v, O and dO in bf16 (exact as the bf16 operands they already
+// were) and writes the output, dq, dk and dv in bf16, as the TPU kernel
+// does when handed bf16 arrays. The output and dQ are summed in f32 and
+// rounded once at the store (with several key splits the partial dQ stay
+// f32 in the scratch and their fixed-order sum is rounded); lse stays f32.
+// dK and dV follow the TPU kernel's blocking: it keeps dk/dv in the output
+// dtype across its 128-query grid steps (_accum), so each block's partial
+// is rounded to bf16 and added to the running bf16 sum, which is rounded
+// again. Here a block is two 64-query tiles: each warp rounds its dK, dV
+// accumulators into a running bf16 pair after every second tile (and after
+// the last), the first block's partial taken as it is. The TPU kernel
+// pads Lq to its blocks with zero rows, which add exact zeros; rows past
+// Lq here are P = 0 as well. The f32 mode takes f32 tensors only.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "elem_io.cuh"
 #include "flash_kernels.cuh"
 
 namespace {
@@ -94,19 +110,18 @@ constexpr int GW = 128;   // columns of one lane group
 constexpr int QT = 64;    // query rows staged per tile
 constexpr int PAD = 8;    // bf16 elements (16 bytes) of padding per shared row
 
-// Rows [0, n_valid) x D columns of src (row stride `stride` floats) into
+// Rows [0, n_valid) x D columns of src (row stride `stride` elements) into
 // the first `rows` rows of a shared (DP + PAD)-wide bf16 tile, rounded to
 // nearest even; rows past n_valid and columns [D, DP) read as zeros.
-template <int D, int NTHREADS>
-__device__ __forceinline__ void load_tile_bf16(const float* __restrict__ src,
+template <int D, int NTHREADS, typename T>
+__device__ __forceinline__ void load_tile_bf16(const T* __restrict__ src,
                                                int64_t stride, int n_valid,
                                                int rows, __nv_bfloat16* dst) {
   constexpr int DP = D < 16 ? 16 : D, LD = DP + PAD, C4 = DP / 4;
   for (int i = threadIdx.x; i < rows * C4; i += NTHREADS) {
     const int r = i / C4, c = (i % C4) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid && c < D)
-      v = __ldg(reinterpret_cast<const float4*>(src + r * stride + c));
+    if (r < n_valid && c < D) v = io::ld4(src + r * stride + c);
     *reinterpret_cast<uint2*>(dst + r * LD + c) =
         make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
@@ -128,10 +143,10 @@ constexpr size_t fwd_mma_smem(int D, int kc) {
 // (what the c4 shapes at Lk = 65 want; a cap of 64 spills); at the other
 // widths the hint of two blocks, without which ptxas spills a few bytes at
 // d = 16 and 64.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(FNW * 32, D == 32 ? 0 : 2)
-fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ out,
+fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ out,
                float* __restrict__ lse, int Lq, int Lk, int dm, int heads,
                float scale, int kc) {
   constexpr int DP = D < 16 ? 16 : D;   // columns of a shared row
@@ -149,8 +164,8 @@ fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
   const int64_t stride = dm;
   const int64_t col = (int64_t)head * D;
-  const float* kb = k + (int64_t)b * Lk * stride + col;
-  const float* vb = v + (int64_t)b * Lk * stride + col;
+  const T* kb = k + (int64_t)b * Lk * stride + col;
+  const T* vb = v + (int64_t)b * Lk * stride + col;
   const bool resident = Lk <= kc;       // K and V staged once for both passes
 
   // K (and V) rows [c0, c0 + kc) into shared memory, rounded to bf16. Every
@@ -175,15 +190,14 @@ fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // rows g, columns 2t, 2t + 1 of the k-step; a1 rows g + 8; a2, a3
     // columns + 8. Rows past Lq and columns past D are zeros.
     uint32_t qa[KD][4];
-    const float* qb = q + ((int64_t)b * Lq + row0) * stride + col;
+    const T* qb = q + ((int64_t)b * Lq + row0) * stride + col;
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = g + 8 * (r & 1), c = 16 * kd + 2 * t + 8 * (r >> 1);
         float2 x = make_float2(0.f, 0.f);
-        if (row0 + row < Lq && c < D)
-          x = __ldg(reinterpret_cast<const float2*>(qb + row * stride + c));
+        if (row0 + row < Lq && c < D) x = io::ld2(qb + row * stride + c);
         qa[kd][r] = pack_bf16(x.x, x.y);
       }
 
@@ -292,11 +306,10 @@ fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + g + 8 * r;
       if (row >= Lq) continue;
-      float* dst = out + ((int64_t)b * Lq + row) * stride + col;
+      T* dst = out + ((int64_t)b * Lq + row) * stride + col;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<float2*>(dst + 8 * nd + 2 * t) =
-            make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+        io::st2(dst + 8 * nd + 2 * t, o[nd][2 * r], o[nd][2 * r + 1]);
       if (t == 0 && lse != nullptr)
         lse[((int64_t)b * heads + head) * Lq + row] = ls[r];
     }
@@ -311,16 +324,30 @@ constexpr size_t bwd_mma_smem(int D, int NW) {
          2 * QT * sizeof(float);
 }
 
-// dq_dst: dq itself with one key split, else the scratch for the partial
-// dQ of each split, `split_stride` floats apart.
-template <int D, int NW>
+// bf16 pair `run` + the pair (a, b) rounded to bf16, rounded again (the
+// first block: the rounded pair alone).
+__device__ __forceinline__ uint32_t accum_bf16(uint32_t run, float a, float b,
+                                               bool first) {
+  const uint32_t part = pack_bf16(a, b);
+  if (first) return part;
+  const float2 r = io::widen2(run), p = io::widen2(part);
+  return pack_bf16(r.x + p.x, r.y + p.y);
+}
+
+constexpr int BQ = 128;   // the TPU kernel's query block (dK, dV rounding)
+static_assert(BQ % QT == 0, "a query block is whole tiles");
+
+// dq_part: null with one key split (dq written in place), else the f32
+// scratch for the partial dQ of each split, `split_stride` floats apart.
+template <typename T, int D, int NW>
 __global__ void __launch_bounds__(NW * 32, (NW == 8 && D < 64) ? 2 : 1)
-bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ o,
-               const float* __restrict__ dout, const float* __restrict__ lse,
-               float* __restrict__ dq_dst, float* __restrict__ dk,
-               float* __restrict__ dv, int Lq, int Lk, int dm, int heads,
-               float scale, int64_t split_stride) {
+bwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ o,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               T* __restrict__ dq, float* __restrict__ dq_part,
+               T* __restrict__ dk, T* __restrict__ dv, int Lq, int Lk, int dm,
+               int heads, float scale, int64_t split_stride) {
+  constexpr bool IO_BF16 = io::is_bf16<T>;
   constexpr int DP = D < 16 ? 16 : D;   // columns of a shared row
   constexpr int LD = DP + PAD;          // its length with padding
   constexpr int KB = NW * 16;           // keys of a block
@@ -348,12 +375,14 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nkeys = min(KB, Lk - key0);
   const int64_t stride = dm;
   const int64_t col = (int64_t)head * D;
-  const float* qb = q + (int64_t)b * Lq * stride + col;
-  const float* ob = o + (int64_t)b * Lq * stride + col;
-  const float* dob = dout + (int64_t)b * Lq * stride + col;
+  const T* qb = q + (int64_t)b * Lq * stride + col;
+  const T* ob = o + (int64_t)b * Lq * stride + col;
+  const T* dob = dout + (int64_t)b * Lq * stride + col;
   const float* lse_b = lse + ((int64_t)b * heads + head) * Lq;
   const int64_t krow0 = ((int64_t)b * Lk + key0) * stride + col;
-  float* dqb = dq_dst + split * split_stride + (int64_t)b * Lq * stride + col;
+  T* dqb = dq + (int64_t)b * Lq * stride + col;
+  float* dqp = dq_part == nullptr ? nullptr
+               : dq_part + split * split_stride + (int64_t)b * Lq * stride + col;
 
   load_tile_bf16<D, NTHREADS>(k + krow0, stride, nkeys, KB, Ks);
   load_tile_bf16<D, NTHREADS>(v + krow0, stride, nkeys, KB, Vs);
@@ -375,6 +404,23 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) dk_acc[nd][j] = dv_acc[nd][j] = 0.0f;
   const int nkt = (nkeys + 15) / 16;    // 16-key tiles that hold a key
+  // bf16 I/O: the running bf16 sums of dK and dV over the query blocks
+  // done, as pairs (accumulator elements 2 h, 2 h + 1); the accumulators
+  // then hold the current block's partial.
+  uint32_t dk_run[ND][2] = {}, dv_run[ND][2] = {};
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dk_run[nd][h] = accum_bf16(dk_run[nd][h], dk_acc[nd][2 * h],
+                                   dk_acc[nd][2 * h + 1], first);
+        dv_run[nd][h] = accum_bf16(dv_run[nd][h], dv_acc[nd][2 * h],
+                                   dv_acc[nd][2 * h + 1], first);
+        dk_acc[nd][2 * h] = dk_acc[nd][2 * h + 1] = 0.0f;
+        dv_acc[nd][2 * h] = dv_acc[nd][2 * h + 1] = 0.0f;
+      }
+  };
 
   for (int q0 = 0; q0 < Lq; q0 += QT) {
     const int nq = min(QT, Lq - q0);
@@ -391,8 +437,8 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f), y = a;
       if (in && r < nq && c < D) {
         const int64_t at = (int64_t)(q0 + r) * stride + c;
-        a = __ldg(reinterpret_cast<const float4*>(dob + at));
-        y = __ldg(reinterpret_cast<const float4*>(ob + at));
+        a = io::ld4(dob + at);
+        y = io::ld4(ob + at);
       }
       float part = a.x * y.x + a.y * y.y + a.z * y.z + a.w * y.w;
 #pragma unroll
@@ -467,6 +513,9 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
           if (nd + 1 < ND) mma_bf16(dk_acc[nd + 1], dsa, f[2], f[3]);
         }
       }
+      if constexpr (IO_BF16) {
+        if ((q0 + QT) % BQ == 0 || q0 + QT >= Lq) flush(q0 < BQ);
+      }
     }
     __syncthreads();
 
@@ -491,10 +540,13 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int row = q0 + mt * 16 + g + 8 * half;
-            if (row < Lq)
-              *reinterpret_cast<float2*>(dqb + (int64_t)row * stride +
-                                         8 * (nd + j) + 2 * t) =
+            if (row >= Lq) continue;
+            const int64_t at = (int64_t)row * stride + 8 * (nd + j) + 2 * t;
+            if (dqp != nullptr)
+              *reinterpret_cast<float2*>(dqp + at) =
                   make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+            else
+              io::st2(dqb + at, acc[j][2 * half], acc[j][2 * half + 1]);
           }
         }
       }
@@ -511,18 +563,23 @@ bwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (!(half ? key_hi : key_lo)) continue;
         const int64_t at =
             krow0 + (int64_t)(wkey + g + 8 * half) * stride + 8 * nd + 2 * t;
-        *reinterpret_cast<float2*>(dk + at) =
-            make_float2(dk_acc[nd][2 * half], dk_acc[nd][2 * half + 1]);
-        *reinterpret_cast<float2*>(dv + at) =
-            make_float2(dv_acc[nd][2 * half], dv_acc[nd][2 * half + 1]);
+        if constexpr (IO_BF16) {
+          *reinterpret_cast<uint32_t*>(dk + at) = dk_run[nd][half];
+          *reinterpret_cast<uint32_t*>(dv + at) = dv_run[nd][half];
+        } else {
+          io::st2(dk + at, dk_acc[nd][2 * half], dk_acc[nd][2 * half + 1]);
+          io::st2(dv + at, dv_acc[nd][2 * half], dv_acc[nd][2 * half + 1]);
+        }
       }
     }
   }
 }
 
-// dq = the sum of the key splits' partial dQ, in the order of the splits.
+// dq = the sum of the key splits' partial dQ, in the order of the splits
+// (f32), rounded once to T.
+template <typename T>
 __global__ void sum_splits_kernel(const float4* __restrict__ part,
-                                  float4* __restrict__ dq, int64_t n4,
+                                  T* __restrict__ dq, int64_t n4,
                                   int splits) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
@@ -531,7 +588,7 @@ __global__ void sum_splits_kernel(const float4* __restrict__ part,
     const float4 b = part[s * n4 + i];
     a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
   }
-  dq[i] = a;
+  io::st4(dq + 4 * i, a);
 }
 
 // Warps (of 16 keys each) of a bf16-mode backward block: 16 when that
@@ -544,45 +601,49 @@ int bwd_splits(int Lk, int D) {
   return (Lk + kb - 1) / kb;
 }
 
-template <int D, int NW>
-int launch_bwd_mma(const float* q, const float* k, const float* v,
-                   const float* o, const float* dout, const float* lse,
-                   float* dq, float* dk, float* dv, float* scratch, int B,
-                   int Lq, int Lk, int dm, int heads, float scale,
-                   cudaStream_t stream) {
+template <typename T, int D, int NW>
+int launch_bwd_mma(const T* q, const T* k, const T* v, const T* o,
+                   const T* dout, const float* lse, T* dq, T* dk, T* dv,
+                   float* scratch, int B, int Lq, int Lk, int dm, int heads,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem = bwd_mma_smem(D, NW);
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_mma_kernel<D, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_mma_kernel<T, D, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int splits = (Lk + NW * 16 - 1) / (NW * 16);
   const int64_t n = (int64_t)B * Lq * dm;
   dim3 grid(splits, B, heads);
-  bwd_mma_kernel<D, NW><<<grid, NW * 32, smem, stream>>>(
-      q, k, v, o, dout, lse, splits > 1 ? scratch : dq, dk, dv, Lq, Lk, dm,
-      heads, scale, splits > 1 ? n : 0);
+  bwd_mma_kernel<T, D, NW><<<grid, NW * 32, smem, stream>>>(
+      q, k, v, o, dout, lse, dq, splits > 1 ? scratch : nullptr, dk, dv, Lq,
+      Lk, dm, heads, scale, splits > 1 ? n : 0);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const int64_t n4 = n / 4;
-  sum_splits_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(scratch), reinterpret_cast<float4*>(dq),
-      n4, splits);
+  sum_splits_kernel<T><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(scratch), dq, n4, splits);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bwd_bf16(const float* q, const float* k, const float* v,
-                    const float* o, const float* dout, const float* lse,
-                    float* dq, float* dk, float* dv, float* scratch, int B,
+template <typename T, int D>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    void* dq, void* dk, void* dv, float* scratch, int B,
                     int Lq, int Lk, int dm, int heads, float scale,
                     cudaStream_t stream) {
+  const T *q_ = static_cast<const T*>(q), *k_ = static_cast<const T*>(k),
+          *v_ = static_cast<const T*>(v), *o_ = static_cast<const T*>(o),
+          *do_ = static_cast<const T*>(dout);
+  T *dq_ = static_cast<T*>(dq), *dk_ = static_cast<T*>(dk),
+    *dv_ = static_cast<T*>(dv);
   if constexpr (D < 64) {
     if (bwd_warps(Lk, D) == 16)
-      return launch_bwd_mma<D, 16>(q, k, v, o, dout, lse, dq, dk, dv, scratch,
-                                   B, Lq, Lk, dm, heads, scale, stream);
+      return launch_bwd_mma<T, D, 16>(q_, k_, v_, o_, do_, lse, dq_, dk_, dv_,
+                                      scratch, B, Lq, Lk, dm, heads, scale,
+                                      stream);
   }
-  return launch_bwd_mma<D, 8>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B,
-                              Lq, Lk, dm, heads, scale, stream);
+  return launch_bwd_mma<T, D, 8>(q_, k_, v_, o_, do_, lse, dq_, dk_, dv_,
+                                 scratch, B, Lq, Lk, dm, heads, scale, stream);
 }
 
 // ---- backward, f32 mode: the strided f32 kernels on the packed layout ----
@@ -606,20 +667,21 @@ int launch_bwd_f32(const float* q, const float* k, const float* v,
                                    stream);
 }
 
-template <int D>
-int launch_fwd_bf16(const float* q, const float* k, const float* v,
-                    float* out, float* lse, int B, int Lq, int Lk, int dm,
-                    int heads, float scale, cudaStream_t stream) {
+template <typename T, int D>
+int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int B, int Lq, int Lk, int dm, int heads,
+                    float scale, cudaStream_t stream) {
   const int kc = Lk < KC ? (Lk + 15) & ~15 : KC;
   const size_t smem = fwd_mma_smem(D, kc);
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)fwd_mma_smem(D, KC));
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + FQ - 1) / FQ, B, heads);
-  fwd_mma_kernel<D><<<grid, FNW * 32, smem, stream>>>(q, k, v, out, lse, Lq,
-                                                       Lk, dm, heads, scale,
-                                                       kc);
+  fwd_mma_kernel<T, D><<<grid, FNW * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Lq, Lk, dm, heads,
+      scale, kc);
   return (int)cudaGetLastError();
 }
 
@@ -654,21 +716,33 @@ bool shape_ok(int B, int dm, int heads) {
     default: return (int)cudaErrorInvalidValue;     \
   }
 
-// q, out (B, Lq, dm), k, v (B, Lk, dm): f32, contiguous, 16-byte aligned;
-// dm a multiple of 128, head dim dm / heads in {8, 16, 32, 64}. lse, if not
-// null, receives the softmax's logsumexp, (B, heads, Lq).
+// The launchers' mode: f32 operands and I/O, bf16 operands with f32 I/O,
+// or bf16 operands and I/O.
+enum Mode { kF32 = 0, kBf16 = 1, kBf16Io = 2 };
+
+// q, out (B, Lq, dm), k, v (B, Lk, dm): contiguous, 16-byte aligned; bf16
+// in mode kBf16Io, else f32; dm a multiple of 128, head dim dm / heads in
+// {8, 16, 32, 64}. lse, if not null, receives the softmax's logsumexp,
+// (B, heads, Lq), f32.
 extern "C" int packed_attention_fwd_launch(
-    const float* q, const float* k, const float* v, float* out, float* lse,
-    int B, int Lq, int Lk, int dm, int heads, float scale, int bf16,
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int B, int Lq, int Lk, int dm, int heads, float scale, int mode,
     cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (!shape_ok(B, dm, heads)) return (int)cudaErrorInvalidValue;
-  if (bf16) {
-    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_bf16<D>(
+  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kBf16Io)
+    return (int)cudaErrorInvalidValue;
+  if (mode == kBf16Io) {
+    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_bf16<io::bf16, D>(
+        q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
+  }
+  if (mode == kBf16) {
+    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_bf16<float, D>(
         q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
   }
   DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_f32<(D <= 32 ? 32 : 64)>(
-      q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, B, Lq, Lk,
+      dm, heads, scale, stream)))
 }
 
 // Key splits of the bf16-mode backward for this shape: with more than one
@@ -678,24 +752,38 @@ extern "C" int packed_attention_bwd_splits(int Lk, int dm, int heads) {
 }
 
 // As the forward, plus o = its output, lse = its logsumexp and dout
-// (B, Lq, dm); writes dq (B, Lq, dm), dk, dv (B, Lk, dm). scratch: in f32
-// mode B * heads * Lq floats (delta); in bf16 mode the partial dQ of the
-// key splits when there is more than one, else unused.
+// (B, Lq, dm); writes dq (B, Lq, dm), dk, dv (B, Lk, dm), all in the
+// forward's element type. scratch (f32): in f32 mode B * heads * Lq floats
+// (delta); in bf16 mode the partial dQ of the key splits when there is
+// more than one, else unused.
 extern "C" int packed_attention_bwd_launch(
-    const float* q, const float* k, const float* v, const float* o,
-    const float* dout, const float* lse, float* dq, float* dk, float* dv,
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
     float* scratch, int B, int Lq, int Lk, int dm, int heads, float scale,
-    int bf16, cudaStream_t stream) {
+    int mode, cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (!shape_ok(B, dm, heads)) return (int)cudaErrorInvalidValue;
-  if (bf16) {
-    DISPATCH_HEAD_DIM(dm / heads, (launch_bwd_bf16<D>(
+  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kBf16Io)
+    return (int)cudaErrorInvalidValue;
+  if (mode == kBf16Io) {
+    DISPATCH_HEAD_DIM(dm / heads, (launch_bwd_bf16<io::bf16, D>(
         q, k, v, o, dout, lse, dq, dk, dv, scratch, B, Lq, Lk, dm, heads,
         scale, stream)))
   }
+  if (mode == kBf16) {
+    DISPATCH_HEAD_DIM(dm / heads, (launch_bwd_bf16<float, D>(
+        q, k, v, o, dout, lse, dq, dk, dv, scratch, B, Lq, Lk, dm, heads,
+        scale, stream)))
+  }
+  const float *q_ = static_cast<const float*>(q),
+              *k_ = static_cast<const float*>(k),
+              *v_ = static_cast<const float*>(v),
+              *o_ = static_cast<const float*>(o),
+              *do_ = static_cast<const float*>(dout);
+  float *dq_ = static_cast<float*>(dq), *dk_ = static_cast<float*>(dk),
+        *dv_ = static_cast<float*>(dv);
   if (dm / heads <= 32)
-    return launch_bwd_f32<32>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B,
-                              Lq, Lk, dm, heads, scale, stream);
-  return launch_bwd_f32<64>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, Lq,
-                            Lk, dm, heads, scale, stream);
+    return launch_bwd_f32<32>(q_, k_, v_, o_, do_, lse, dq_, dk_, dv_,
+                              scratch, B, Lq, Lk, dm, heads, scale, stream);
+  return launch_bwd_f32<64>(q_, k_, v_, o_, do_, lse, dq_, dk_, dv_, scratch,
+                            B, Lq, Lk, dm, heads, scale, stream);
 }

@@ -78,6 +78,19 @@
 //                      owned by 4 neighbouring lanes, 32 columns each in
 //                      registers, the other side streamed 32 rows at a time
 //                      through shared memory.
+//
+// bf16 I/O (train.bf16): each kernel also has an instance that reads q, k,
+// v, O and dO in bf16 and writes the output, dQ, dK and dV in bf16, as the
+// TPU kernels do when handed bf16 arrays. Every value is widened to f32 on
+// the way into the kernel, so everything between (the scale applied to q in
+// f32, the online softmax, the 3xTF32 products, delta = rowsum(dO O) of
+// the widened values) is the f32 instance's arithmetic; the output, and dQ,
+// dK and dV summed in f32 over every block, are rounded once at the store;
+// lse and delta stay f32. A bf16 row cannot be copied by cp.async into the
+// f32 stages as it lies, so those instances load, widen and store their
+// chunks of each tile with plain loads, by the thread that later splits
+// them (the ordering a cp.async wait gave). Launchers take `bf16` to pick
+// the instance.
 
 #include "flash_kernels.cuh"
 
@@ -97,58 +110,88 @@ bool shape_ok(int B, int H, int Lq, int Lk, int D) {
          bh * (longest / 32 + 1) < 2147483647LL;
 }
 
-}  // namespace
-
 #define DISPATCH_HEAD_TILE(D_, CALL)                      \
   if ((D_) <= 32) { constexpr int DT = 32; return CALL; } \
   if ((D_) <= 64) { constexpr int DT = 64; return CALL; } \
   { constexpr int DT = 128; return CALL; }
 
-// q, out (B, H, Lq, D), k, v (B, H, Lk, D): f32, last dim contiguous, every
-// other stride a multiple of 4 floats and every base 16-byte aligned.
-// `strides`: (batch, head, row) strides in floats of q, k, v, out, on the
-// host. lse (B, H, Lq) f32 contiguous. D a multiple of 4, at most 128.
-extern "C" int flash_attention_fwd_launch(
-    const float* q, const float* k, const float* v, float* out, float* lse,
-    const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
-    cudaStream_t stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+        const long long* s, int B, int H, int Lq, int Lk, int D, float scale,
+        cudaStream_t stream) {
   DISPATCH_HEAD_TILE(D, (flash::launch_fwd<DT>(
-      q, k, v, out, lse, strides_at(strides, 0), strides_at(strides, 1),
-      strides_at(strides, 2), strides_at(strides, 3), B, H, Lq, Lk, D, scale,
-      stream)))
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, strides_at(s, 0),
+      strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), B, H, Lq, Lk, D,
+      scale, stream)))
 }
 
-// dQ: as above, plus o = the forward's output, dout (B, H, Lq, D) and the
-// forward's lse; writes dq (B, H, Lq, D) and delta (B, H, Lq) = rowsum(dO*O)
-// for the dK/dV kernel. `strides`: of q, k, v, o, dout, dq.
-extern "C" int flash_attention_bwd_dq_launch(
-    const float* q, const float* k, const float* v, const float* o,
-    const float* dout, const float* lse, float* dq, float* delta,
-    const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
-    cudaStream_t stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
+template <typename T>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, void* dq, float* delta,
+           const long long* s, int B, int H, int Lq, int Lk, int D,
+           float scale, cudaStream_t stream) {
   DISPATCH_HEAD_TILE(D, (flash::launch_bwd_dq<DT>(
-      q, k, v, o, dout, lse, dq, delta, strides_at(strides, 0),
-      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3),
-      strides_at(strides, 4), strides_at(strides, 5), B, H, Lq, Lk, D, scale,
-      stream)))
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), lse, static_cast<T*>(dq), delta,
+      strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
+      strides_at(s, 4), strides_at(s, 5), B, H, Lq, Lk, D, scale, stream)))
 }
 
-// dK and dV (B, H, Lk, D) from the forward's lse and the dQ kernel's delta.
-// `strides`: of q, k, v, dout, dk, dv.
-extern "C" int flash_attention_bwd_dkv_launch(
-    const float* q, const float* k, const float* v, const float* dout,
-    const float* lse, const float* delta, float* dk, float* dv,
+template <typename T>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const float* lse, const float* delta, void* dk, void* dv,
+            const long long* s, int B, int H, int Lq, int Lk, int D,
+            float scale, cudaStream_t stream) {
+  DISPATCH_HEAD_TILE(D, (flash::launch_bwd_dkv<DT>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), strides_at(s, 0),
+      strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4),
+      strides_at(s, 5), B, H, Lq, Lk, D, scale, stream)))
+}
+
+}  // namespace
+
+// q, k, v, out (and o, dout, dq, dk, dv): f32, or bf16 when `bf16`, read
+// and written through their (batch, head, row) strides in elements
+// (`strides`: three per tensor, in argument order); rows 16-byte aligned in
+// f32, 8-byte in bf16. lse and delta: f32 (B, H, Lq), contiguous.
+extern "C" int flash_attention_fwd_launch(
+    const void* q, const void* k, const void* v, void* out, float* lse,
     const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
-    cudaStream_t stream) {
+    int bf16, cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  DISPATCH_HEAD_TILE(D, (flash::launch_bwd_dkv<DT>(
-      q, k, v, dout, lse, delta, dk, dv, strides_at(strides, 0),
-      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3),
-      strides_at(strides, 4), strides_at(strides, 5), B, H, Lq, Lk, D, scale,
-      stream)))
+  return bf16 ? fwd<io::bf16>(q, k, v, out, lse, strides, B, H, Lq, Lk, D,
+                              scale, stream)
+              : fwd<float>(q, k, v, out, lse, strides, B, H, Lq, Lk, D, scale,
+                           stream);
+}
+
+extern "C" int flash_attention_bwd_dq_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, void* dq, float* delta,
+    const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
+    int bf16, cudaStream_t stream) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
+  if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
+  return bf16 ? bwd_dq<io::bf16>(q, k, v, o, dout, lse, dq, delta, strides, B,
+                                 H, Lq, Lk, D, scale, stream)
+              : bwd_dq<float>(q, k, v, o, dout, lse, dq, delta, strides, B, H,
+                              Lq, Lk, D, scale, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv,
+    const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
+    int bf16, cudaStream_t stream) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
+  if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
+  return bf16 ? bwd_dkv<io::bf16>(q, k, v, dout, lse, delta, dk, dv, strides,
+                                  B, H, Lq, Lk, D, scale, stream)
+              : bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, strides, B,
+                               H, Lq, Lk, D, scale, stream);
 }

@@ -1,6 +1,9 @@
 // Device code of the f32-grade softmax-attention kernels: forward, dQ and
 // dK/dV (3xTF32 on the tensor cores; the backward at head width 128 on the
-// f32 FMA units) on any (batch, head, row)-strided layout.
+// f32 FMA units) on any (batch, head, row)-strided layout. Each is a
+// template on its element type T: f32, or bf16 I/O (q, k, v, O, dO read as
+// bf16 and widened to f32 on the way in, the output, dQ, dK and dV summed
+// in f32 and rounded once at the store; lse and delta stay f32).
 // flash_attention.cu documents the design and launches all three on
 // (B, H, L, D) tensors; attention_packed.cu launches them as its f32 mode on
 // the packed (B, L, H*d) layout, which is the same thing under other
@@ -12,6 +15,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "elem_io.cuh"
 #include "tensor_core.cuh"
 
 namespace flash {
@@ -26,44 +30,37 @@ struct Strides {               // of a (B, H, L, D) tensor, in floats; D: 1
   long long b, h, l;
 };
 
-__device__ __forceinline__ const float* at(const float* p, Strides s, int b,
-                                           int h, int64_t row) {
+template <typename P>
+__device__ __forceinline__ P* at(P* p, Strides s, int b, int h, int64_t row) {
   return p + b * s.b + h * s.h + row * s.l;
 }
 
-__device__ __forceinline__ float* at(float* p, Strides s, int b, int h,
-                                     int64_t row) {
-  return p + b * s.b + h * s.h + row * s.l;
-}
-
-// Rows [0, n_valid) x columns [0, D) of src (row stride `stride` floats)
-// into a shared KT x DT tile; everything else reads as zeros.
-template <int DT>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+// Rows [0, n_valid) x columns [0, D) of src (row stride `stride` elements)
+// into a shared f32 KT x DT tile; everything else reads as zeros.
+template <int DT, typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src,
                                           int64_t stride, int n_valid, int D,
                                           float* dst) {
   constexpr int C = DT / 4;
   for (int i = threadIdx.x; i < KT * C; i += THREADS) {
     const int r = i / C, c = i % C;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid && c * 4 < D)
-      v = __ldg(reinterpret_cast<const float4*>(src + r * stride) + c);
+    if (r < n_valid && c * 4 < D) v = io::ld4(src + r * stride + 4 * c);
     reinterpret_cast<float4*>(dst)[i] = v;
   }
 }
 
 // This lane's 32 columns of a row in device memory; zeros when !valid and
 // past D.
-template <int LPR>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
+template <int LPR, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ src,
                                          bool valid, int seg, int D,
                                          float (&dst)[W]) {
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int c = i * LPR + seg;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid && c * 4 < D)
-      v = __ldg(reinterpret_cast<const float4*>(src) + c);
+    if (valid && c * 4 < D) v = io::ld4(src + 4 * c);
     dst[4 * i] = v.x;
     dst[4 * i + 1] = v.y;
     dst[4 * i + 2] = v.z;
@@ -72,16 +69,16 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src,
 }
 
 // src * f into this lane's columns of a row in device memory.
-template <int LPR>
-__device__ __forceinline__ void store_row(float* dst, int seg, int D,
+template <int LPR, typename T>
+__device__ __forceinline__ void store_row(T* dst, int seg, int D,
                                           const float (&src)[W], float f) {
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int c = i * LPR + seg;
     if (c * 4 < D)
-      reinterpret_cast<float4*>(dst)[c] =
-          make_float4(src[4 * i] * f, src[4 * i + 1] * f, src[4 * i + 2] * f,
-                      src[4 * i + 3] * f);
+      io::st4(dst + 4 * c,
+              make_float4(src[4 * i] * f, src[4 * i + 1] * f,
+                          src[4 * i + 2] * f, src[4 * i + 3] * f));
   }
 }
 
@@ -165,10 +162,10 @@ __device__ __forceinline__ int v_slot(int key) {
 
 // One block, a warpgroup of four warps, per (batch*head, 64 queries); warp
 // w holds queries [16w, 16w + 16) of the block in every accumulator.
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                  Strides so, int H, int Lq, int Lk, int D, int row_blocks,
                  float scale) {
@@ -191,8 +188,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x / row_blocks;
   const int b = bh / H, h = bh % H;
   const int row0 = (blockIdx.x % row_blocks) * TQ + warp * 16;
-  const float* kb = at(k, sk, b, h, 0);
-  const float* vb = at(v, sv, b, h, 0);
+  const T* kb = at(k, sk, b, h, 0);
+  const T* vb = at(v, sv, b, h, 0);
   const int ntiles = (Lk + TK - 1) / TK;
 
   // Raw K and V rows of key tile `tile` into stage `stage`; keys past Lk
@@ -208,9 +205,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int i = tid + it * THREADS;
       const int r = i / C4, c = (i % C4) * 4;
       const bool ok = k0 + r < Lk && c < D;
-      cp_async16(dk + r * RLD + c, ok ? kb + (k0 + r) * sk.l + c : kb, ok);
-      cp_async16(dk + RAW + r * RLD + c, ok ? vb + (k0 + r) * sv.l + c : vb,
-                 ok);
+      // bf16 rows cannot be copied into the f32 stages by cp.async as they
+      // lie: they are loaded, widened and stored by the thread that later
+      // splits them, which orders the two in program order.
+      if constexpr (io::is_bf16<T>) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dk + r * RLD + c) =
+            ok ? io::ld4(kb + (k0 + r) * sk.l + c) : z;
+        *reinterpret_cast<float4*>(dk + RAW + r * RLD + c) =
+            ok ? io::ld4(vb + (k0 + r) * sv.l + c) : z;
+      } else {
+        cp_async16(dk + r * RLD + c, ok ? kb + (k0 + r) * sk.l + c : kb, ok);
+        cp_async16(dk + RAW + r * RLD + c,
+                   ok ? vb + (k0 + r) * sv.l + c : vb, ok);
+      }
     }
   };
   // This thread's raw chunks of stage `stage` into the hi and lo planes of
@@ -268,7 +276,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // q * scale, split once: the A fragments of each k-step (a0: row g,
   // column t; a1: row g + 8; a2, a3: column t + 4) in registers or, at
   // DT = 128, planes of the block's rows in shared memory.
-  const float* qrow = at(q, sq, b, h, row0);
+  const T* qrow = at(q, sq, b, h, row0);
   uint32_t qh[Q_REGS ? KS : 1][4], ql[Q_REGS ? KS : 1][4];
   if constexpr (Q_REGS) {
 #pragma unroll
@@ -277,7 +285,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = 0; r < 4; ++r) {
         const int row = g + 8 * (r & 1), col = 8 * ks + t + 4 * (r >> 1);
         const float x =
-            row0 + row < Lq && col < D ? __ldg(qrow + row * sq.l + col) : 0.f;
+            row0 + row < Lq && col < D ? io::ld1(qrow + row * sq.l + col) : 0.f;
         split_tf32(x * scale, qh[ks][r], ql[ks][r]);
       }
   } else {
@@ -286,8 +294,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int i = lane + it * 32;
       const int r = i / C4, c = (i % C4) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < Lq && c < D)
-        x = __ldg(reinterpret_cast<const float4*>(qrow + r * sq.l + c));
+      if (row0 + r < Lq && c < D) x = io::ld4(qrow + r * sq.l + c);
       uint4 hi, lo;
       split_tf32(x.x * scale, hi.x, lo.x);
       split_tf32(x.y * scale, hi.y, lo.y);
@@ -433,32 +440,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = row0 + g + 8 * r;
     if (row >= Lq) continue;
     const float lc = fmaxf(lr, 1e-30f), inv = 1.0f / lc;
-    float* dst = at(out, so, b, h, row);
+    T* dst = at(out, so, b, h, row);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
       if (col < D)
-        *reinterpret_cast<float2*>(dst + col) =
-            make_float2(o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
+        io::st2(dst + col, o[4 * nd + 2 * r] * inv,
+                o[4 * nd + 2 * r + 1] * inv);
     }
     if (t == 0 && lse != nullptr) lse[(int64_t)bh * Lq + row] = m[r] + logf(lc);
   }
 }
 
 // The forward on (batch, head, row)-strided tensors; lse may be null.
-template <int DT>
-int launch_fwd(const float* q, const float* k, const float* v, float* out,
-               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
-               int B, int H, int Lq, int Lk, int D, float scale,
-               cudaStream_t stream) {
+template <int DT, typename T>
+int launch_fwd(const T* q, const T* k, const T* v, T* out, float* lse,
+               Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
+               int Lq, int Lk, int D, float scale, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem(DT);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int rb = (Lq + TQ - 1) / TQ;
-  flash_fwd_kernel<DT><<<(unsigned)((int64_t)B * H * rb), THREADS, smem,
-                         stream>>>(q, k, v, out, lse, sq, sk, sv, so, H, Lq,
+  flash_fwd_kernel<T, DT><<<(unsigned)((int64_t)B * H * rb), THREADS, smem,
+                            stream>>>(q, k, v, out, lse, sq, sk, sv, so, H, Lq,
                                    Lk, D, rb, scale);
   return (int)cudaGetLastError();
 }
@@ -569,10 +575,10 @@ __device__ __forceinline__ void put_t(uint32_t* p, int plane, int r, int c,
 // (two tiles of BT x (DT + 4)); rows past n and columns past D are
 // zero-filled. Thread tid copies chunks tid, tid + BTH, ... of each;
 // split_pair() splits the same ones, so the thread's own cp.async wait
-// orders them. One commit group.
-template <int DT>
-__device__ __forceinline__ void load_pair(float* raw, const float* a,
-                                          long long sa, const float* b,
+// (bf16 rows: its own loads) orders them. One commit group.
+template <int DT, typename T>
+__device__ __forceinline__ void load_pair(float* raw, const T* a,
+                                          long long sa, const T* b,
                                           long long sb, int r0, int n, int D) {
   constexpr int RLD = DT + 4, C4 = DT / 4;
 #pragma unroll
@@ -580,9 +586,17 @@ __device__ __forceinline__ void load_pair(float* raw, const float* a,
     const int i = threadIdx.x + it * BTH;
     const int r = i / C4, c = (i % C4) * 4;
     const bool ok = r0 + r < n && c < D;
-    cp_async16(raw + r * RLD + c, ok ? a + (r0 + r) * sa + c : a, ok);
-    cp_async16(raw + BT * RLD + r * RLD + c, ok ? b + (r0 + r) * sb + c : b,
-               ok);
+    if constexpr (io::is_bf16<T>) {
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(raw + r * RLD + c) =
+          ok ? io::ld4(a + (r0 + r) * sa + c) : z;
+      *reinterpret_cast<float4*>(raw + BT * RLD + r * RLD + c) =
+          ok ? io::ld4(b + (r0 + r) * sb + c) : z;
+    } else {
+      cp_async16(raw + r * RLD + c, ok ? a + (r0 + r) * sa + c : a, ok);
+      cp_async16(raw + BT * RLD + r * RLD + c,
+                 ok ? b + (r0 + r) * sb + c : b, ok);
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -612,11 +626,11 @@ __device__ __forceinline__ void split_pair(const float* raw, uint32_t* ad,
 // Rows [r0, r0 + BR) of x times f into the r-plane xr (hi, lo), zeros past
 // n and D; with z (rows of x's shape), also each row's sum of x z into
 // sums[row].
-template <int DT>
-__device__ __forceinline__ void put_rows(const float* x, long long sx,
-                                         float f, const float* z,
-                                         long long sz, int r0, int n, int D,
-                                         uint32_t* xr, float* sums) {
+template <int DT, typename T>
+__device__ __forceinline__ void put_rows(const T* x, long long sx, float f,
+                                         const T* z, long long sz, int r0,
+                                         int n, int D, uint32_t* xr,
+                                         float* sums) {
   constexpr int C4 = DT / 4;
 #pragma unroll
   for (int it = 0; it < BR * C4 / BTH; ++it) {
@@ -624,9 +638,8 @@ __device__ __forceinline__ void put_rows(const float* x, long long sx,
     const int r = i / C4, c = (i % C4) * 4;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
     if (r0 + r < n && c < D) {
-      a = __ldg(reinterpret_cast<const float4*>(x + (r0 + r) * sx + c));
-      if (z != nullptr)
-        b = __ldg(reinterpret_cast<const float4*>(z + (r0 + r) * sz + c));
+      a = io::ld4(x + (r0 + r) * sx + c);
+      if (z != nullptr) b = io::ld4(z + (r0 + r) * sz + c);
     }
     put_d<BR>(xr, br_plane(DT), r, c,
               make_float4(a.x * f, a.y * f, a.z * f, a.w * f));
@@ -703,12 +716,12 @@ __device__ __forceinline__ void acc_by_tile(float (&part)[DT / 2],
 
 // dQ = dS K scale and delta = rowsum(dO O), one block per (batch*head, BR
 // queries), key tiles of BT.
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(BTH)
-flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ o,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse, float* __restrict__ dq,
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ o,
+                       const T* __restrict__ dout,
+                       const float* __restrict__ lse, T* __restrict__ dq,
                        float* __restrict__ delta, Strides sq, Strides sk,
                        Strides sv, Strides so, Strides sdo, Strides sdq, int H,
                        int Lq, int Lk, int D, int row_blocks, float scale) {
@@ -732,14 +745,15 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int row0 = (blockIdx.x % row_blocks) * BR;
   const uint32_t* dor_wg = dor + (warp / 4) * 64 * 4;   // its rows' planes
-  const float* kb = at(k, sk, b, h, 0);
-  const float* vb = at(v, sv, b, h, 0);
+  const T* kb = at(k, sk, b, h, 0);
+  const T* vb = at(v, sv, b, h, 0);
   const int ntiles = (Lk + BT - 1) / BT;
 
-  // Tile 0 into plane set 0, tile 1 in flight.
+  // Tile 0 into plane set 0, tile 1 in flight. delta = rowsum(dO O) of the
+  // widened values.
   load_pair<DT>(raw, kb, sk.l, vb, sv.l, 0, Lk, D);
-  put_rows<DT>(at(dout, sdo, b, h, 0), sdo.l, 1.0f, at(o, so, b, h, 0), so.l,
-               row0, Lq, D, dor, delta_s);
+  put_rows<DT, T>(at(dout, sdo, b, h, 0), sdo.l, 1.0f, at(o, so, b, h, 0),
+                  so.l, row0, Lq, D, dor, delta_s);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   split_pair<DT>(raw, kd(0), kt(0), vd(0), nullptr);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -748,7 +762,7 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // q scale, split once: the A fragments of each k-step (a0: row g, column
   // t; a1: row g + 8; a2, a3: column t + 4).
   const int wrow0 = row0 + warp * 16;
-  const float* qrow = at(q, sq, b, h, wrow0);
+  const T* qrow = at(q, sq, b, h, wrow0);
   uint32_t qh[KS][4], ql[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
@@ -756,7 +770,7 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < 4; ++r) {
       const int row = g + 8 * (r & 1), col = 8 * ks + t + 4 * (r >> 1);
       const float x =
-          wrow0 + row < Lq && col < D ? __ldg(qrow + row * sq.l + col) : 0.f;
+          wrow0 + row < Lq && col < D ? io::ld1(qrow + row * sq.l + col) : 0.f;
       split_tf32(x * scale, qh[ks][r], ql[ks][r]);
     }
   __syncthreads();   // delta_s, dO's planes and plane set 0 complete
@@ -834,14 +848,13 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = wrow0 + g + 8 * r;
     if (row >= Lq) continue;
-    float* dst = at(dq, sdq, b, h, row);
+    T* dst = at(dq, sdq, b, h, row);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
       if (col < D)
-        *reinterpret_cast<float2*>(dst + col) =
-            make_float2(acc[4 * nd + 2 * r] * scale,
-                        acc[4 * nd + 2 * r + 1] * scale);
+        io::st2(dst + col, acc[4 * nd + 2 * r] * scale,
+                acc[4 * nd + 2 * r + 1] * scale);
     }
   }
 }
@@ -850,15 +863,13 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // query tiles of BT; no atomics. One plane set: the next tile is split
 // after the tensor cores are done with this one (two barriers a tile), its
 // copy in flight meanwhile.
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(BTH)
-flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv,
+                        T* __restrict__ dk, T* __restrict__ dv,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         Strides sdk, Strides sdv, int H, int Lq, int Lk, int D,
                         int row_blocks, float scale) {
@@ -882,8 +893,8 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
   const int key0 = (blockIdx.x % row_blocks) * BR;
   const uint32_t* kr_wg = kr + (warp / 4) * 64 * 4;
   const uint32_t* vr_wg = vr + (warp / 4) * 64 * 4;
-  const float* qb = at(q, sq, b, h, 0);
-  const float* dob = at(dout, sdo, b, h, 0);
+  const T* qb = at(q, sq, b, h, 0);
+  const T* dob = at(dout, sdo, b, h, 0);
   const float* lse_b = lse + (int64_t)bh * Lq;
   const float* delta_b = delta + (int64_t)bh * Lq;
   const int ntiles = (Lq + BT - 1) / BT;
@@ -904,10 +915,10 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
       load_pair<DT>(raw, qb, sq.l, dob, sdo.l, (j + 1) * BT, Lq, D);
   };
   load_pair<DT>(raw, qb, sq.l, dob, sdo.l, 0, Lq, D);
-  put_rows<DT>(at(k, sk, b, h, 0), sk.l, scale, nullptr, 0, key0, Lk, D, kr,
-               nullptr);
-  put_rows<DT>(at(v, sv, b, h, 0), sv.l, 1.0f, nullptr, 0, key0, Lk, D, vr,
-               nullptr);
+  put_rows<DT, T>(at(k, sk, b, h, 0), sk.l, scale, nullptr, 0, key0, Lk, D,
+                  kr, nullptr);
+  put_rows<DT, T>(at(v, sv, b, h, 0), sv.l, 1.0f, nullptr, 0, key0, Lk, D,
+                  vr, nullptr);
   next_tile(0);
 
   float dka[DT / 2], dva[DT / 2];
@@ -963,17 +974,15 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + warp * 16 + g + 8 * r;
     if (key >= Lk) continue;
-    float* ddk = at(dk, sdk, b, h, key);
-    float* ddv = at(dv, sdv, b, h, key);
+    T* ddk = at(dk, sdk, b, h, key);
+    T* ddv = at(dv, sdv, b, h, key);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
       if (col < D) {
-        *reinterpret_cast<float2*>(ddk + col) =
-            make_float2(dka[4 * nd + 2 * r] * scale,
-                        dka[4 * nd + 2 * r + 1] * scale);
-        *reinterpret_cast<float2*>(ddv + col) =
-            make_float2(dva[4 * nd + 2 * r], dva[4 * nd + 2 * r + 1]);
+        io::st2(ddk + col, dka[4 * nd + 2 * r] * scale,
+                dka[4 * nd + 2 * r + 1] * scale);
+        io::st2(ddv + col, dva[4 * nd + 2 * r], dva[4 * nd + 2 * r + 1]);
       }
     }
   }
@@ -981,12 +990,12 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
 
 // ---- backward on the f32 FMA units (compiled width 128) ----
 
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ dq,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout,
+                    const float* __restrict__ lse, T* __restrict__ dq,
                     float* __restrict__ delta, Strides sq, Strides sk,
                     Strides sv, Strides so, Strides sdo, Strides sdq, int H,
                     int Lq, int Lk, int D, int row_blocks, float scale) {
@@ -1017,8 +1026,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float ls = has_row ? lse[(int64_t)bh * Lq + row] : 0.0f;
   if (has_row && seg == 0) delta[(int64_t)bh * Lq + row] = dl;
-  const float* kb = at(k, sk, b, h, 0);
-  const float* vb = at(v, sv, b, h, 0);
+  const T* kb = at(k, sk, b, h, 0);
+  const T* vb = at(v, sv, b, h, 0);
 
   for (int k0 = 0; k0 < Lk; k0 += KT) {
     const int nk = min(KT, Lk - k0);
@@ -1037,14 +1046,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (has_row) store_row<LPR>(at(dq, sdq, b, h, row), seg, D, acc, scale);
 }
 
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, Strides sq, Strides sk,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, Strides sq, Strides sk,
                      Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
                      int Lq, int Lk, int D, int row_blocks, float scale) {
   constexpr int LPR = DT / W;
@@ -1068,8 +1076,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     acc_dk[d] = 0.0f;
     acc_dv[d] = 0.0f;
   }
-  const float* qb = at(q, sq, b, h, 0);
-  const float* dob = at(dout, sdo, b, h, 0);
+  const T* qb = at(q, sq, b, h, 0);
+  const T* dob = at(dout, sdo, b, h, 0);
   const float* lse_b = lse + (int64_t)bh * Lq;
   const float* delta_b = delta + (int64_t)bh * Lq;
 
@@ -1102,10 +1110,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // The backward kernels on (batch, head, row)-strided tensors: on the tensor
 // cores at compiled widths 32 and 64, on the FMA units at 128.
-template <int DT>
-int launch_bwd_dq(const float* q, const float* k, const float* v,
-                  const float* o, const float* dout, const float* lse,
-                  float* dq, float* delta, Strides sq, Strides sk, Strides sv,
+template <int DT, typename T>
+int launch_bwd_dq(const T* q, const T* k, const T* v, const T* o,
+                  const T* dout, const float* lse, T* dq, float* delta,
+                  Strides sq, Strides sk, Strides sv,
                   Strides so, Strides sdo, Strides sdq, int B, int H, int Lq,
                   int Lk, int D, float scale, cudaStream_t stream) {
   const int rows = DT <= 64 ? BR : THREADS / (DT / W);
@@ -1115,24 +1123,24 @@ int launch_bwd_dq(const float* q, const float* k, const float* v,
   if constexpr (DT <= 64) {
     constexpr size_t smem = dq_smem(DT);
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<DT>,
+        flash_bwd_dq_tc_kernel<T, DT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dq_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+    flash_bwd_dq_tc_kernel<T, DT><<<(unsigned)blocks, BTH, smem, stream>>>(
         q, k, v, o, dout, lse, dq, delta, sq, sk, sv, so, sdo, sdq, H, Lq, Lk,
         D, rb, scale);
   } else {
-    flash_bwd_dq_kernel<DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    flash_bwd_dq_kernel<T, DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
         q, k, v, o, dout, lse, dq, delta, sq, sk, sv, so, sdo, sdq, H, Lq, Lk,
         D, rb, scale);
   }
   return (int)cudaGetLastError();
 }
 
-template <int DT>
-int launch_bwd_dkv(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   float* dk, float* dv, Strides sq, Strides sk, Strides sv,
+template <int DT, typename T>
+int launch_bwd_dkv(const T* q, const T* k, const T* v, const T* dout,
+                   const float* lse, const float* delta, T* dk, T* dv,
+                   Strides sq, Strides sk, Strides sv,
                    Strides sdo, Strides sdk, Strides sdv, int B, int H, int Lq,
                    int Lk, int D, float scale, cudaStream_t stream) {
   const int rows = DT <= 64 ? BR : THREADS / (DT / W);
@@ -1142,14 +1150,14 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
   if constexpr (DT <= 64) {
     constexpr size_t smem = dkv_smem(DT);
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_tc_kernel<DT>,
+        flash_bwd_dkv_tc_kernel<T, DT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dkv_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+    flash_bwd_dkv_tc_kernel<T, DT><<<(unsigned)blocks, BTH, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, H, Lq,
         Lk, D, rb, scale);
   } else {
-    flash_bwd_dkv_kernel<DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    flash_bwd_dkv_kernel<T, DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, H, Lq,
         Lk, D, rb, scale);
   }

@@ -6,9 +6,9 @@ form (``FusedMHABlock`` layers, the c4/c5 default) and the unfused form
 kernel under ``use_pallas``) in ``cross_attention`` mode, and
 ``late_concat``.
 
-Under ``train.bf16`` (``dtype=torch.bfloat16``; the fused-block form and
-``late_concat`` only) the projections, the fused blocks, the LayerNorms
-and the MLPs run in bf16 on f32 parameters by flax's dtype rules
+Under ``train.bf16`` (``dtype=torch.bfloat16``) the projections, the fused
+blocks or the unfused form's ``MHA``s and LayerNorms, the MLPs and the
+output LayerNorm run in bf16 on f32 parameters by flax's dtype rules
 (``act_dtype``), the modality embeddings and the CLS token cast to bf16;
 the state comes out f32.
 """
@@ -95,17 +95,18 @@ class FusionLayer(nn.Module):
             self.cam2lid_f = FusedMHABlock(dim, heads, use_kernel=block_kernel)
             self.lid2cam_f = FusedMHABlock(dim, heads, use_kernel=block_kernel)
         else:
-            self.cam2lid = MHA(dim, heads, use_pallas)
-            self.lid2cam = MHA(dim, heads, use_pallas)
+            self.cam2lid = MHA(dim, heads, use_pallas, dtype)
+            self.lid2cam = MHA(dim, heads, use_pallas, dtype)
             for name in ("c1", "l1", "l2", "c2"):
-                setattr(self, f"ln_{name}", nn.LayerNorm(dim, eps=_LN_EPS))
+                setattr(self, f"ln_{name}", LayerNorm(dim, _LN_EPS, dtype))
         for name in ("cam", "lid"):
             if fused_block:
                 setattr(self, f"{name}_self_f", FusedMHABlock(
                     dim, heads, self_attn=True, use_kernel=block_kernel))
             else:
-                setattr(self, f"ln_{name}_sa", nn.LayerNorm(dim, eps=_LN_EPS))
-                setattr(self, f"{name}_self", MHA(dim, heads, use_pallas))
+                setattr(self, f"ln_{name}_sa", LayerNorm(dim, _LN_EPS, dtype))
+                setattr(self, f"{name}_self", MHA(dim, heads, use_pallas,
+                                                  dtype))
             setattr(self, f"ln_{name}_mlp", LayerNorm(dim, _LN_EPS, dtype))
             setattr(self, f"{name}_mlp1", Dense(dim, 4 * dim, dtype))
             setattr(self, f"{name}_mlp2", Dense(4 * dim, dim, dtype))

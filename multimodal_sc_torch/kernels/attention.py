@@ -8,8 +8,16 @@ of ``csrc/flash_attention.cu`` and its autograd backward launches the two
 backward kernels (dQ with delta, then dK/dV) on the saved q, k, v, output
 and logsumexp; all three form f32-grade products on the TF32 tensor cores
 by the 3xTF32 split (the backward at head dims above 64 on the f32 FMA
-units). On a CPU tensor the plain version runs and autograd differentiates
-it.
+units). On a CPU tensor the plain version runs: for float32 the twin
+``attention_reference`` under autograd; for bf16 the kernels' plain
+versions, whose backward rounds dQ, dK and dV once, where the kernels
+store them (``flash_attention_plain``).
+
+bf16 tensors (``train.bf16``) take the kernels' bf16-I/O instances, counted
+apart (``launches_*_bf16``): every value widened to f32 on the way in, the
+f32 arithmetic of the f32 instances, the output, dQ, dK and dV rounded once
+at the store; lse and delta stay f32. The JAX kernels compute so when
+handed bf16 arrays.
 
 The kernels read q, k, v and dO where they lie, through their (batch, head,
 row) strides, so the transposed views of a (B, L, H, D) projection need no
@@ -29,34 +37,44 @@ from multimodal_sc_torch.kernels import _build
 _MAX_HEAD_DIM = 128
 
 # Launches of the CUDA forward, dQ and dK/dV kernels (one backward pass
-# launches the dQ kernel, which also writes delta, then the dK/dV kernel).
+# launches the dQ kernel, which also writes delta, then the dK/dV kernel);
+# the bf16-I/O instances apart.
 launches_fwd = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+launches_fwd_bf16 = 0
+launches_bwd_dq_bf16 = 0
+launches_bwd_dkv_bf16 = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
-    "flash_attention_fwd_launch": (_P,) * 6 + (_I,) * 5 + (_F, _P),
-    "flash_attention_bwd_dq_launch": (_P,) * 9 + (_I,) * 5 + (_F, _P),
-    "flash_attention_bwd_dkv_launch": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    "flash_attention_fwd_launch": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
+    "flash_attention_bwd_dq_launch": (_P,) * 9 + (_I,) * 5 + (_F, _I, _P),
+    "flash_attention_bwd_dkv_launch": (_P,) * 9 + (_I,) * 5 + (_F, _I, _P),
 }
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Plain softmax attention. q (B,H,Lq,D), k and v (B,H,Lk,D)."""
+    """Plain softmax attention, the JAX package's XLA twin: f32 scores and
+    softmax, the probabilities rounded to V's dtype before P V (a no-op in
+    f32), f32 sums. q (B,H,Lq,D), k and v (B,H,Lk,D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     probs = torch.softmax(q.float() @ k.float().transpose(-1, -2) * scale,
                           dim=-1)
-    return (probs @ v.float()).to(q.dtype)
+    return (probs.to(v.dtype).float() @ v.float()).to(q.dtype)
 
 
 def flash_attention_fwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: ``(out, lse)``, lse (B, H, Lq)
-    the f32 logsumexp of the scaled scores of each row."""
+    the f32 logsumexp of the scaled scores of each row. Every operand is
+    widened to f32 and the probabilities are not rounded (the JAX kernel's
+    online softmax keeps them f32); the output is rounded once to q's
+    dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = q.float() @ k.float().transpose(-1, -2) * scale
@@ -106,18 +124,48 @@ def flash_attention_bwd_reference(
         lse: torch.Tensor, g: torch.Tensor, scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward pass: (dq, dk, dv) from the saved
-    q, k, v, output and logsumexp, as the two backward kernels compute it."""
+    q, k, v, output and logsumexp, as the two backward kernels compute it:
+    f32 sums over every block, each result rounded once to its input's
+    dtype; delta of the widened dO and O."""
     dq, delta = flash_attention_dq_reference(q, k, v, out, lse, g, scale)
     dk, dv = flash_attention_dkv_reference(q, k, v, lse, delta, g, scale)
     return dq, dk, dv
 
 
+class _FlashAttentionPlain(torch.autograd.Function):
+    """The kernels' plain versions under one backward: the gradients are
+    rounded once, where the kernels store them (autograd through the plain
+    forward would round each op's result in the activation dtype)."""
+
+    @staticmethod
+    def forward(ctx, scale, q, k, v):
+        out, lse = flash_attention_fwd_reference(q, k, v, scale)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (None,) + flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                                       ctx.scale)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """What the kernels compute, by their plain versions, on any device:
+    the forward, and a backward that rounds where the kernels store."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttentionPlain.apply(float(scale), q, k, v)
+
+
 def _readable(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels can read it in place: last dim contiguous, every
-    other stride a multiple of 4 floats, 16-byte aligned base (rows are read
-    as float4). A copy only when it is not."""
+    other stride a multiple of 4 elements, its base aligned to 4 elements
+    (rows are read 4 values at a time). A copy only when it is not."""
     ok = (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
-          and t.data_ptr() % 16 == 0)
+          and t.data_ptr() % (4 * t.element_size()) == 0)
     return t if ok else _build.aligned(t)
 
 
@@ -145,10 +193,11 @@ def _check_cuda(*tensors: torch.Tensor) -> Tuple[int, int, int, int, int]:
         raise ValueError("the flash attention kernels take a head dim that "
                          f"is a multiple of 4 up to {_MAX_HEAD_DIM}, got {d}")
     for t in tensors:
-        if t.dtype != torch.float32 or t.device != q.device:
-            raise TypeError("the flash attention kernels take float32 "
-                            f"tensors on one device, got {t.dtype} on "
-                            f"{t.device}")
+        if (t.dtype not in _DTYPES or t.dtype != q.dtype
+                or t.device != q.device):
+            raise TypeError("the flash attention kernels take float32 or "
+                            "bfloat16 tensors of one dtype on one device, "
+                            f"got {t.dtype} on {t.device} beside {q.dtype}")
     return b, h, lq, lk, d
 
 
@@ -161,24 +210,29 @@ def _heads_inner(b: int, h: int, l: int, d: int, like: torch.Tensor):
 
 
 def _fwd_cuda(q, k, v, scale: float):
-    global launches_fwd
+    global launches_fwd, launches_fwd_bf16
     b, h, lq, lk, d = _check_cuda(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
     q, k, v = (_readable(t) for t in (q, k, v))
     out = _heads_inner(b, h, lq, d, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention", _SIG)
     err = lib.flash_attention_fwd_launch(
         *(_build.ptr(t) for t in (q, k, v, out, lse)), _strides(q, k, v, out),
-        b, h, lq, lk, d, scale, _build.stream_ptr(q.device))
+        b, h, lq, lk, d, scale, int(bf16), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention forward")
-    launches_fwd += 1
+    if bf16:
+        launches_fwd_bf16 += 1
+    else:
+        launches_fwd += 1
     return out, lse
 
 
 def _bwd_dq_cuda(q, k, v, out, lse, dout, scale: float):
     """dq, and delta = rowsum(dO * O) (B, H, Lq) for the dK/dV kernel."""
-    global launches_bwd_dq
+    global launches_bwd_dq, launches_bwd_dq_bf16
     b, h, lq, lk, d = _check_cuda(q, k, v, out, dout)
+    bf16 = q.dtype == torch.bfloat16
     if lse.shape != (b, h, lq) or lse.dtype != torch.float32:
         raise ValueError(f"lse (B, H, Lq) float32 expected, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
@@ -190,15 +244,19 @@ def _bwd_dq_cuda(q, k, v, out, lse, dout, scale: float):
     err = lib.flash_attention_bwd_dq_launch(
         *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, delta)),
         _strides(q, k, v, out, dout, dq),
-        b, h, lq, lk, d, scale, _build.stream_ptr(q.device))
+        b, h, lq, lk, d, scale, int(bf16), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dQ")
-    launches_bwd_dq += 1
+    if bf16:
+        launches_bwd_dq_bf16 += 1
+    else:
+        launches_bwd_dq += 1
     return dq, delta
 
 
 def _bwd_dkv_cuda(q, k, v, lse, delta, dout, scale: float):
-    global launches_bwd_dkv
+    global launches_bwd_dkv, launches_bwd_dkv_bf16
     b, h, lq, lk, d = _check_cuda(q, k, v, dout)
+    bf16 = q.dtype == torch.bfloat16
     q, k, v, dout = (_readable(t) for t in (q, k, v, dout))
     lse, delta = lse.contiguous(), delta.contiguous()
     dk, dv = _heads_inner(b, h, lk, d, q), _heads_inner(b, h, lk, d, q)
@@ -206,9 +264,12 @@ def _bwd_dkv_cuda(q, k, v, lse, delta, dout, scale: float):
     err = lib.flash_attention_bwd_dkv_launch(
         *(_build.ptr(t) for t in (q, k, v, dout, lse, delta, dk, dv)),
         _strides(q, k, v, dout, dk, dv),
-        b, h, lq, lk, d, scale, _build.stream_ptr(q.device))
+        b, h, lq, lk, d, scale, int(bf16), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dK/dV")
-    launches_bwd_dkv += 1
+    if bf16:
+        launches_bwd_dkv_bf16 += 1
+    else:
+        launches_bwd_dkv += 1
     return dk, dv
 
 
@@ -237,12 +298,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On a CUDA tensor the kernels run, or the call raises for what they do
     not take (a head dim above 128 or no multiple of 4, a type other than
-    float32). On a CPU tensor the plain version runs.
+    float32 or bfloat16). On a CPU tensor the plain version runs: float32
+    through the twin, as autograd differentiates it; bf16 through the
+    kernels' plain versions (``flash_attention_plain``), as JAX's kernels
+    in interpret mode compute it.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
-        return attention_reference(q, k, v, scale)
+        if q.dtype == torch.float32:
+            return attention_reference(q, k, v, scale)
+        return flash_attention_plain(q, k, v, scale)
     return _FlashAttention.apply(float(scale), q, k, v)
 
 

@@ -30,8 +30,9 @@ re-seed dead codes after their step (:func:`collect_reseed_stats`,
 Under ``train.bf16`` the codecs and the fusion trunk compute in bf16 on f32
 parameters (``act_dtype``), as the JAX trunk takes its dtype from the
 config; the channel symbols, the tokens and the state stay f32, and so do
-the DQN and PPO heads. It runs on the CNN camera, the analog LiDAR and the
-fused blocks; any other combination raises, naming ROADMAP item 13b.
+the DQN and PPO heads. It runs on the CNN and ViT cameras, the analog
+LiDAR and either fusion form; a VQ codec raises, naming ROADMAP item
+13b(i).
 """
 
 from __future__ import annotations
@@ -110,16 +111,17 @@ class SemanticPerception(nn.Module):
             raise ValueError(f"unknown lidar arch {lid.arch!r}")
         if cam.arch not in ("cnn", "vit", "vq"):
             raise ValueError(f"unknown camera arch {cam.arch!r}")
-        dtype = activation_dtype(cfg, fusion=True)
+        dtype = activation_dtype(cfg)
         self.cfg = cfg
         attn_pallas = cfg.use_pallas or cfg.pallas_attention
         if cam.arch == "vit":
             self.cam_enc = ViTEncoderJSCC(
                 cam.image_hw, cam.patch, cam.dim, cam.depth, cam.heads,
-                cam.c_sym, snr_conditioning=False, use_pallas=attn_pallas)
+                cam.c_sym, snr_conditioning=False, use_pallas=attn_pallas,
+                dtype=dtype)
             self.cam_tok = ViTTokensDecoder(
                 cam.image_hw, cam.patch, cam.dim, max(1, cam.depth // 2),
-                cam.heads, cam.c_sym, use_pallas=attn_pallas)
+                cam.heads, cam.c_sym, use_pallas=attn_pallas, dtype=dtype)
             cam_in = cam.dim
         elif cam.arch == "vq":
             check_digital_camera(cfg)

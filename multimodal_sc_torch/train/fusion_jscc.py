@@ -19,11 +19,11 @@ its batch-dead codes after the optimizer step (``lidar.vq_reseed``), trains
 under ``lidar.vq_prune`` on per-example kept fractions ~ U[vq_keep_min, 1)
 of randomly selected tokens, and on a fresh run (never a resumed one) seeds
 its codebook from its own encoder's outputs on a point cloud of a stream of
-its own. Under ``train.bf16`` the CNN camera and the analog LiDAR codecs
-compute in bf16 on f32 parameters (their outputs, the loss and the
-optimizer's moments f32); the ViT camera and the digital LiDAR raise under
-it (ROADMAP item 13b). ``camera.arch="vq"`` is refused on this path, as
-the JAX package refuses it.
+its own. Under ``train.bf16`` the ViT or CNN camera and the analog LiDAR
+codecs compute in bf16 on f32 parameters (their outputs, the loss and the
+optimizer's moments f32); the digital LiDAR raises under it (ROADMAP item
+13b(i)). ``camera.arch="vq"`` is refused on this path, as the JAX package
+refuses it.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -96,7 +96,8 @@ def build_camera_codec(cfg: ExperimentConfig):
     return ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
                    depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,
                    snr_conditioning=cam.snr_conditioning,
-                   use_pallas=cfg.use_pallas or cfg.pallas_attention)
+                   use_pallas=cfg.use_pallas or cfg.pallas_attention,
+                   dtype=dtype)
 
 
 def build_lidar_codec(cfg: ExperimentConfig):

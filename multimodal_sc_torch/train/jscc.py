@@ -32,10 +32,10 @@ selected at random; under ``channel.uep_alpha > 0`` the link's unequal
 power allocation runs inside the forward. Unlike the JAX package's
 pure update, a train step writes the model, the optimizer moments and the
 schedule IN PLACE: the returned state holds the same objects. Under
-``train.bf16`` the CNN codec computes in bf16 on f32 parameters, as JAX's
-``build_model`` builds it (its image and seg logits come out f32, so the
-loss, the gradients reaching the parameters and the AdamW moments stay
-f32); the ViT and VQ codecs raise under it (ROADMAP item 13b).
+``train.bf16`` the CNN and ViT codecs compute in bf16 on f32 parameters,
+as JAX's ``build_model`` builds them (their image and seg logits come out
+f32, so the loss, the gradients reaching the parameters and the AdamW
+moments stay f32); the VQ codec raises under it (ROADMAP item 13b(i)).
 ``train.iters_per_dispatch`` (the chunked step) has no counterpart:
 PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
 and the value is ignored.
@@ -106,7 +106,8 @@ def build_model(cfg: ExperimentConfig
         model = ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
                         depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,
                         snr_conditioning=cam.snr_conditioning,
-                        use_pallas=cfg.use_pallas or cfg.pallas_attention)
+                        use_pallas=cfg.use_pallas or cfg.pallas_attention,
+                        dtype=dtype)
         init_like_flax_(model)
         return model
     return CameraJSCC(features=cam.features, c_sym=cam.c_sym,

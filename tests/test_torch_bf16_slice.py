@@ -11,8 +11,10 @@ bf16 run on the CPU, and the refusals of everything else.
   gradients against JAX's;
 * c3 on the CNN camera (``camera.arch=cnn``): the loss and its gradients,
   then one train step's metrics and parameters;
-* each combination that is not ported raises, naming ROADMAP item 13b;
-  each ported one builds, ``cli.main`` among them.
+* each combination that is not ported (a VQ codec) raises, naming ROADMAP
+  item 13b(i); each ported one builds, ``cli.main`` among them (the ViT
+  camera, the packed and flash attention and the unfused fusion MHA since
+  their bf16 slice: ``test_torch_bf16_attention.py``).
 
 JAX runs with ``use_pallas=True`` (its conv, scatter and fused-block
 kernels in interpret mode on the CPU) where it only runs forward, on c1,
@@ -520,16 +522,15 @@ def test_c3_cnn_step_bf16_matches_jax():
 # --- what is ported, what raises ------------------------------------------------
 
 REFUSED = {
-    "c4 vit camera": ("c4", ["camera.arch=vit"]),
     "c4 vq camera": ("c4", ["camera.arch=vq"]),
     "c4 vq lidar": ("c4", ["lidar.arch=vq"]),
-    "c4 packed attention": ("c4", ["pallas_attention=true"]),
-    "c4 unfused MHA": ("c4", ["pallas_mha_block=false"]),
     "c5 vq camera": ("c5", ["camera.arch=vq"]),
-    "c1 vit": ("c1", ["camera.arch=vit"]),
     "c1 vq": ("c1", ["camera.arch=vq"]),
-    "c3 vit (the preset)": ("c3", []),
     "c3 cnn, vq lidar": ("c3", ["camera.arch=cnn", "lidar.arch=vq"]),
+    "c3 vit, vq lidar": ("c3", ["lidar.arch=vq"]),
+    "c4 vit camera, vq lidar": ("c4", ["camera.arch=vit", "lidar.arch=vq"]),
+    "c4 unfused MHA, vq camera": ("c4", ["pallas_mha_block=false",
+                                         "camera.arch=vq"]),
 }
 PORTED = {
     "c4": ("c4", []), "c4 fog + v2x": ("c4", ["env.fog_range=20",
@@ -539,6 +540,12 @@ PORTED = {
                               "pallas_mha_block=false"]),
     "c5": ("c5", []), "c1": ("c1", []), "c2": ("c2", []),
     "c3 cnn": ("c3", ["camera.arch=cnn"]),
+    "c4 vit camera": ("c4", ["camera.arch=vit"]),
+    "c5 vit camera": ("c5", ["camera.arch=vit"]),
+    "c4 packed attention": ("c4", ["pallas_attention=true"]),
+    "c4 unfused MHA": ("c4", ["pallas_mha_block=false"]),
+    "c1 vit": ("c1", ["camera.arch=vit"]),
+    "c3 vit (the preset)": ("c3", []),
 }
 
 
@@ -556,7 +563,7 @@ def _build(preset, over):
 def test_unported_bf16_combinations_raise(name):
     with pytest.raises(NotImplementedError,
                        match=r"train\.bf16 activations are not ported "
-                             r"\(ROADMAP item 13b\)"):
+                             r"\(ROADMAP item 13b\(i\)\)"):
         _build(*REFUSED[name])
 
 

@@ -244,8 +244,9 @@ def test_train_run_keys_match_jax_run(tmp_path):
     # package too, still raises.
     (["camera.arch=vq", "camera.vq_prune=true", "channel.uep_alpha=0.25"],
      ValueError, "uep_alpha with camera.vq_prune"),
-    # train.bf16 runs on the CNN codec; on the ViT codec it still raises.
-    (["train.bf16=true", "camera.arch=vit"], NotImplementedError, "bf16"),
+    # train.bf16 runs on the CNN and ViT codecs; on the VQ codec it still
+    # raises.
+    (["train.bf16=true", "camera.arch=vq"], NotImplementedError, "bf16"),
 ])
 def test_refusals(over, exc, match):
     _, tcfg = _configs(over)

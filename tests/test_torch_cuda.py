@@ -97,3 +97,107 @@ def test_bf16_kernels_against_their_plain_versions_on_the_card(monkeypatch):
     assert bool(((got.float() - want.float()).abs()
                  <= step(got) + 5e-3).all())
     assert (got != want).float().mean().item() <= 1e-2
+
+
+def _bf16_io_close(got, want):
+    """A bf16-I/O attention kernel's output against its plain version that
+    rounds where it does: within 1e-2 plus one bf16 step of the output (its
+    own rounding, which sums in other orders can flip), at most 1% of the
+    entries differing (``chip_smoke.py`` states the gates)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    _, e = torch.frexp(want.float().abs().clamp(min=2.0 ** -126))
+    step = torch.ldexp(torch.ones_like(want, dtype=torch.float32), e - 8)
+    assert bool(((got.float() - want.float()).abs() <= 1e-2 + step).all())
+    assert (got != want).float().mean().item() <= 1e-2
+
+
+def _packed_inputs(lq=200, lk=70):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    return [torch.randn(16, n, 128, generator=g, device="cuda").to(
+        torch.bfloat16) for n in (lq, lk, lk, lq)]
+
+
+@pytest.mark.cuda
+def test_packed_attention_bf16_io_forward_on_the_card():
+    from multimodal_sc_torch.kernels import attention_packed as ap
+
+    _card()
+    q, k, v, _ = _packed_inputs()
+    before = ap.launches_fwd_bf16
+    got = ap.packed_attention(q, k, v, 4)
+    assert ap.launches_fwd_bf16 == before + 1
+    _bf16_io_close(got, ap.packed_attention_fwd_reference(q, k, v, 4,
+                                                          bf16=True)[0])
+
+
+@pytest.mark.cuda
+def test_packed_attention_bf16_io_backward_on_the_card():
+    """Lq = 200: dK and dV summed per 128-query block in bf16."""
+    from multimodal_sc_torch.kernels import attention_packed as ap
+
+    _card()
+    q, k, v, do = _packed_inputs()
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ap.packed_attention(*ins, 4)
+    before = ap.launches_bwd_bf16
+    got = torch.autograd.grad(out, ins, do)
+    assert ap.launches_bwd_bf16 == before + 1
+    _, lse = ap.packed_attention_fwd_reference(q, k, v, 4, bf16=True)
+    want = ap.packed_attention_bwd_reference(q, k, v, out.detach(), do, 4,
+                                             bf16=True, lse=lse)
+    for a, w in zip(got, want):
+        _bf16_io_close(a, w)
+    with pytest.raises(NotImplementedError):
+        ap.packed_attention(q, k, v, 4, mxu_bf16=False)
+
+
+def _flash_inputs():
+    g = torch.Generator(device="cuda").manual_seed(3)
+    return [torch.randn(8, n, 3, 64, generator=g, device="cuda").to(
+        torch.bfloat16).transpose(1, 2) for n in (200, 70, 70, 200)]
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_io_forward_on_the_card():
+    from multimodal_sc_torch.kernels import attention as fa
+
+    _card()
+    q, k, v, _ = _flash_inputs()
+    before = fa.launches_fwd_bf16
+    out, lse = fa._fwd_cuda(q, k, v, 0.125)
+    assert fa.launches_fwd_bf16 == before + 1
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v, 0.125)
+    _bf16_io_close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_io_dq_on_the_card():
+    from multimodal_sc_torch.kernels import attention as fa
+
+    _card()
+    q, k, v, do = _flash_inputs()
+    out, lse = fa._fwd_cuda(q, k, v, 0.125)
+    before = fa.launches_bwd_dq_bf16
+    dq, delta = fa._bwd_dq_cuda(q, k, v, out, lse, do, 0.125)
+    assert fa.launches_bwd_dq_bf16 == before + 1
+    want, want_delta = fa.flash_attention_dq_reference(q, k, v, out, lse, do,
+                                                       0.125)
+    _bf16_io_close(dq, want)
+    torch.testing.assert_close(delta, want_delta, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_io_dkv_on_the_card():
+    from multimodal_sc_torch.kernels import attention as fa
+
+    _card()
+    q, k, v, do = _flash_inputs()
+    out, lse = fa._fwd_cuda(q, k, v, 0.125)
+    _, delta = fa._bwd_dq_cuda(q, k, v, out, lse, do, 0.125)
+    before = fa.launches_bwd_dkv_bf16
+    got = fa._bwd_dkv_cuda(q, k, v, lse, delta, do, 0.125)
+    assert fa.launches_bwd_dkv_bf16 == before + 1
+    want = fa.flash_attention_dkv_reference(q, k, v, lse, delta, do, 0.125)
+    for a, w in zip(got, want):
+        _bf16_io_close(a, w)

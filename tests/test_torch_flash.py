@@ -133,8 +133,14 @@ def test_kernel_wrapper_validation(what):
         with pytest.raises(ValueError, match="head dim.*got 132"):
             tattn._check_cuda(bad, bad, bad)
     elif what == "bf16":
-        with pytest.raises(TypeError, match="float32"):
-            tattn._check_cuda(q.bfloat16(), k.bfloat16(), k.bfloat16())
+        # bf16 tensors are taken (the kernels' bf16-I/O instances), mixed
+        # or other float types are not.
+        assert tattn._check_cuda(q.bfloat16(), k.bfloat16(),
+                                 k.bfloat16()) == (2, 3, 5, 7, 16)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            tattn._check_cuda(q.bfloat16(), k, k)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            tattn._check_cuda(q.half(), k.half(), k.half())
     elif what == "kv_mismatch":
         with pytest.raises(ValueError, match="disagree"):
             tattn._check_cuda(q, k, torch.zeros(2, 3, 8, 16))

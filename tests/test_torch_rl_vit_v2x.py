@@ -229,5 +229,10 @@ def test_vit_trunk_shapes_and_names():
     assert {"lid_to_code", "lid_codebook", "lid_from_code"} <= {
         n.split(".")[0] for n, _ in digital.named_parameters()}
     assert not hasattr(digital, "lid_sym_head")
-    with pytest.raises(NotImplementedError, match="13b"):
-        TQNetwork(tcfg.override_str(["train.bf16=true"]))
+    # train.bf16 builds the ViT in bf16 (parameters f32); the digital
+    # LiDAR under it is not ported yet.
+    bf16 = TQNetwork(tcfg.override_str(["train.bf16=true"])).perception
+    assert bf16.cam_enc.dtype == bf16.cam_tok.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    with pytest.raises(NotImplementedError, match=r"13b\(i\)"):
+        TQNetwork(tcfg.override_str(["train.bf16=true", "lidar.arch=vq"]))
