@@ -186,8 +186,15 @@ versions, a checkpoint round trip), fog + V2X act-only, one c5 update's
 timed run, c1 and c3-cnn train steps with their route comparisons; then
 the c4 ViT trunk act-only and act+learn, c4 arm B act+learn and the c3
 arms P and F train steps, each with its route comparison against the
-attention kernels' plain versions; each path's rate is printed beside its
-f32 rate from the same call.
+attention kernels' plain versions; last the VQ codecs in bf16: c4_vq and
+c4_digital act-only and act+learn at 1024 envs, one c5 digital update
+with a minibatch's route comparison, c1_vq (800 steps) and c3_vq train
+steps. Their route comparisons hold the plain route to the codes the
+kernels' route picks (``_vq_routes``), a differing code allowed only at a
+near-tie within ``BF16_TIE`` (2^-5) of the distances' scale, the count
+printed. Each path's rate is printed beside its f32 rate from the same
+call. The c1_vq timed steps run inside an ``annotate`` scope, which opens
+an NVTX range on the card.
 
 The pillar scatter runs on every path but c1, c2 and the camera VQ
 paths: its forward kernel in every forward, its backward kernel once per
@@ -2239,8 +2246,7 @@ def time_c4_digital_parts(cfg, state):
     with torch.no_grad():
         bev = per.lid_backbone(per.pfn(batch.points[:, :cfg.env.lidar_rays],
                                        batch.mask[:, :cfg.env.lidar_rays]))
-        z_e = torch.nn.functional.linear(
-            bev, per.lid_to_code.weight[:, :, 0, 0], per.lid_to_code.bias)
+        z_e = per.lid_to_code(bev).float()
     cb = per.lid_codebook.detach()
     n, d, k = z_e.numel() // lid.vq_dim, lid.vq_dim, lid.vq_codes
     codes = semantic_vq.vector_quantize(z_e, cb)[1].reshape(-1).long()
@@ -2724,15 +2730,17 @@ class _HeldCodes:
     comparison to one set of codes. The kernels' route records the codes
     its own nearest-code search picks (``record``); the plain route then
     quantises to those codes (``hold``). Its own pick may differ only where
-    the two codes lie at a near-tie, within 1e-5 of the distances' scale
-    (the routes' features differ by f32 rounding); anywhere else it raises.
-    ``held`` counts the codes taken over from the first route."""
+    the two codes lie at a near-tie, within ``tie`` of the distances' scale
+    (1e-5 where the routes' features differ by f32 rounding, ``BF16_TIE``
+    under train.bf16); anywhere else it raises. ``held`` counts the codes
+    taken over from the first route, ``worst`` their largest gap."""
 
-    def __init__(self):
+    def __init__(self, tie=1e-5):
         from multimodal_sc_torch.codec import semantic_vq
 
         self.orig = semantic_vq.vector_quantize
         self.codes, self.mode, self.i, self.held = [], "record", 0, 0
+        self.tie, self.worst = tie, 0.0
 
     def __call__(self, z_e, codebook, beta=0.25, usage_coef=0.0,
                  usage_temp=0.5, with_stats=False):
@@ -2757,12 +2765,14 @@ class _HeldCodes:
         pos = (own != held).nonzero()[:, 0]
         gap = (d2[pos, held[pos]] - d2[pos, own[pos]]).abs()
         scale = (flat[pos] ** 2).sum(1) + (cb[held[pos]] ** 2).sum(1)
-        if (gap > 1e-5 * scale).any():
+        worst = (gap / scale).max().item()
+        if worst > self.tie:
             raise RuntimeError(
                 f"the routes picked {pos.numel()} different codes, not all "
-                f"at near-ties (largest gap {(gap / scale).max().item():.3e}"
-                " of the distances' scale)")
+                f"at near-ties (largest gap {worst:.3e} of the distances' "
+                f"scale, past {self.tie:.3e})")
         self.held += pos.numel()
+        self.worst = max(self.worst, worst)
         z_q = semantic_vq.code_rows(codebook, held).reshape(z_e.shape)
         z_q_own = semantic_vq.code_rows(codebook, own).reshape(z_e.shape)
         # The same loss terms on the held codes (the usage term does not
@@ -2776,13 +2786,13 @@ class _HeldCodes:
 
 
 def _vq_routes(loss_and_grads, expected, what, plain_patches,
-               kernel_patches=()):
+               kernel_patches=(), tie=1e-5):
     """``_two_routes`` for a loss with a VQ bottleneck: the plain route is
-    held to the codes the kernels' route picked (``_HeldCodes``); prints
-    how many were held at near-ties."""
+    held to the codes the kernels' route picked (``_HeldCodes`` with its
+    near-tie bound ``tie``); prints how many were held at near-ties."""
     from multimodal_sc_torch.codec import semantic_vq
 
-    held = _HeldCodes()
+    held = _HeldCodes(tie)
     with mock.patch.object(semantic_vq, "vector_quantize", held):
         def both():
             out = loss_and_grads()
@@ -2793,7 +2803,8 @@ def _vq_routes(loss_and_grads, expected, what, plain_patches,
                              kernel_patches)
     print(f"  {what}: the plain route picked the kernels' route's codes at "
           f"all but {held.held} of "
-          f"{sum(c.numel() for c in held.codes)} tokens (near-ties)",
+          f"{sum(c.numel() for c in held.codes)} tokens (near-ties: largest "
+          f"gap {held.worst:.3e} of the distances' scale, bound {tie:.3e})",
           flush=True)
     return routes
 
@@ -2960,20 +2971,22 @@ def compare_c1_routes(cfg, state, data):
         [(conv_block, "conv_prelu", conv_block.conv_prelu_reference)]))
 
 
-def drive_c1_vq():
+def drive_c1_vq(overrides=C1_VQ, expected=EXPECTED_C1_VQ, name="c1_vq"):
     """The c1_vq train step (``--config c1 --set camera.arch=vq``: 256 codes
     of dimension 64 over QPSK, batch 64, 32x32) through ``train.jscc``, its
-    codebook seeded from a real batch as a fresh run seeds it: returns the
-    launches of the timed run, the train steps/s, and the config, state,
-    train step and batch stream it ended with."""
+    codebook seeded from a real batch as a fresh run seeds it, the timed
+    steps inside an ``annotate`` scope: returns the launches of the timed
+    run, the train steps/s, and the config, state, train step and batch
+    stream it ended with."""
     import torch
 
     from multimodal_sc_torch.codec.semantic_vq import init_codebook_from_batch
     from multimodal_sc_torch.config import get_preset
     from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.obs import annotate
     from multimodal_sc_torch.train import jscc
 
-    cfg = get_preset("c1").override_str(C1_VQ)
+    cfg = get_preset("c1").override_str(overrides)
     tr = cfg.train
     t0 = time.perf_counter()
     state = jscc.create_train_state(cfg, seed=0, device="cuda")
@@ -2997,29 +3010,30 @@ def drive_c1_vq():
     _reset_counts()
     t0 = time.perf_counter()
     history = []
-    for _ in range(C1_VQ_TIMED_STEPS):
-        state, metrics = train_step(state, next(data))
-        history.append(metrics)
-    torch.cuda.synchronize()
+    with annotate(f"{name} train steps"):
+        for _ in range(C1_VQ_TIMED_STEPS):
+            state, metrics = train_step(state, next(data))
+            history.append(metrics)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_counts()
     rate = C1_VQ_TIMED_STEPS / wall
-    print(f"  c1_vq train: {C1_VQ_TIMED_STEPS} steps x batch {C1_BATCH} in "
+    print(f"  {name} train: {C1_VQ_TIMED_STEPS} steps x batch {C1_BATCH} in "
           f"{wall:.3f} s = {rate:.2f} train steps/s", flush=True)
     print(f"  launches in the timed run: {launches}", flush=True)
-    _check_counts(launches, EXPECTED_C1_VQ, C1_VQ_TIMED_STEPS, "c1_vq")
+    _check_counts(launches, expected, C1_VQ_TIMED_STEPS, name)
     while state.step < C1_VQ_LOSS_STEPS:
         state, metrics = train_step(state, next(data))
         history.append(metrics)
     for m in [first] + history:
         if not all(torch.isfinite(v).all() for v in m.values()):
-            raise RuntimeError(f"c1_vq: non-finite metrics: {m}")
+            raise RuntimeError(f"{name}: non-finite metrics: {m}")
     if _same(state.params, before):
-        raise RuntimeError("c1_vq: the parameters did not change")
+        raise RuntimeError(f"{name}: the parameters did not change")
     last = torch.stack([m["loss"] for m in history[-20:]]).mean()
     if not float(last) < float(first["loss"]):
         raise RuntimeError(
-            f"c1_vq: mean loss of steps {state.step - 19}-{state.step} "
+            f"{name}: mean loss of steps {state.step - 19}-{state.step} "
             f"{float(last):.4f}, not below the first step's "
             f"{float(first['loss']):.4f}")
     eval_img = next(ImageDataset(tr.dataset, tr.batch_size,
@@ -3029,7 +3043,7 @@ def drive_c1_vq():
         state.params, eval_img, torch.Generator(device="cuda").manual_seed(10))
     torch.cuda.synchronize()
     ran = {k: v - counts[k] for k, v in _read_counts().items()}
-    _check_counts(ran, EXPECTED_C1_VQ, 1, "c1_vq eval")
+    _check_counts(ran, expected, 1, f"{name} eval")
     print(f"  loss {float(first['loss']):.4f} -> {float(last):.4f} (mean "
           f"of the last 20 of {state.step} steps), PSNR "
           f"{float(first['psnr']):.2f} -> "
@@ -4970,6 +4984,14 @@ def _plain_patches_bf16(with_blocks=True):
 BF16_Q_GATE = 2.0 ** -5
 BF16_LOSS_RTOL = 1e-2
 BF16_GRAD_STEPS = 16
+# The near-tie bound of a VQ route comparison under bf16 (``_HeldCodes``):
+# the plain route's own code may differ from the kernels' route's only where
+# its distance gap lies within 2^-5 of the distances' scale |z|^2 + |c|^2.
+# Features that differ by d (one bf16 rounding flipped somewhere upstream)
+# move the gap between codes h and o by at most 2 |d| |o - h|; at d within 4
+# bf16 steps of |z| that stays under 2^-5 of the scale. The f32 routes keep
+# 1e-5.
+BF16_TIE = 2.0 ** -5
 # A learn step's three forwards at batch 128 and its backward: arm A (the
 # fused blocks on their plain version), arm B and the ViT trunk.
 LEARN_ROUTE_BF16 = _bf16_counts({"conv_prelu": 15, "scatter_max": 3,
@@ -4985,6 +5007,7 @@ def compare_act_routes_bf16(name, cfg, state, expected=None):
     equal but where the plain route's best two lie within twice that."""
     import torch
 
+    from multimodal_sc_torch.codec import semantic_vq
     from multimodal_sc_torch.rl import dqn
 
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -4992,7 +5015,12 @@ def compare_act_routes_bf16(name, cfg, state, expected=None):
            state.obs_mask)
     noise = _link_noise(cfg, obs[0].shape[0], g)
     net = state.params
-    with torch.no_grad():
+    # Over a digital link the plain route quantises to the kernels' codes.
+    vq = "vq" in (cfg.camera.arch, cfg.lidar.arch)
+    held = _HeldCodes(BF16_TIE)
+    with torch.no_grad(), (mock.patch.object(
+            semantic_vq, "vector_quantize", held) if vq
+            else contextlib.nullcontext()):
         before = _read_counts()
         q_k = net(*obs, channel_noise=noise)
         ran = {k: v - before[k] for k, v in _read_counts().items()}
@@ -5000,12 +5028,19 @@ def compare_act_routes_bf16(name, cfg, state, expected=None):
             expected = (EXPECTED_BF16_V2X if cfg.env.v2x_rays
                         else EXPECTED_BF16)
         _check_counts(ran, expected, 1, f"{name} act route")
+        held.mode = "hold"
         before = _read_counts()
         with _patched(_plain_patches_bf16()):
             q_p = net(*obs, channel_noise=noise)
         if _read_counts() != before:
             raise RuntimeError(f"{name}: the plain act route launched a "
                                "kernel")
+    if vq:
+        print(f"  {name}, act route: the plain route picked the kernels' "
+              f"route's codes at all but {held.held} of "
+              f"{sum(c.numel() for c in held.codes)} tokens (near-ties: "
+              f"largest gap {held.worst:.3e} of the distances' scale, bound "
+              f"{BF16_TIE:.3e})", flush=True)
     tol = BF16_Q_GATE * q_p.abs().max().item()
     diff = (q_k - q_p).abs().max().item()
     top2 = q_p.topk(2, dim=-1).values
@@ -5047,6 +5082,14 @@ def _compare_grads_bf16(what, net, loss_k, grads_k, loss_p, grads_p):
                            f"apart, past {BF16_GRAD_STEPS}")
 
 
+def _bf16_routes(cfg):
+    """``_two_routes``, or over a digital link ``_vq_routes`` at the bf16
+    near-tie bound."""
+    if "vq" in (cfg.camera.arch, cfg.lidar.arch):
+        return functools.partial(_vq_routes, tie=BF16_TIE)
+    return _two_routes
+
+
 def compare_learn_routes_bf16(cfg, state, expected=LEARN_ROUTE_BF16):
     """One TD loss and its gradients on a fixed batch and channel noise
     through the kernels and through their plain versions (bf16)."""
@@ -5071,7 +5114,7 @@ def compare_learn_routes_bf16(cfg, state, expected=LEARN_ROUTE_BF16):
         return loss.detach(), torch.autograd.grad(loss, params,
                                                   allow_unused=True)
 
-    _compare_grads_bf16("learn step", state.params, *_two_routes(
+    _compare_grads_bf16("learn step", state.params, *_bf16_routes(cfg)(
         loss_and_grads, expected, "the bf16 learn step",
         _plain_patches_bf16(with_blocks=False)))
 
@@ -5102,13 +5145,16 @@ def compare_c3_routes_bf16(cfg, state, batches,
                            expected=EXPECTED_BF16_C3_CNN):
     import torch
 
+    from multimodal_sc_torch.channel.digital import index_bits
     from multimodal_sc_torch.train import fusion_jscc as fj
 
     img, pts, mask, cls = next(batches)
     g = torch.Generator(device="cuda").manual_seed(26)
     model = state.params
+    n_lid = (model.lidar.n_tokens * index_bits(model.lidar.vq_codes) // 2
+             if cfg.lidar.arch == "vq" else model.lidar.k)
     noise = tuple(torch.randn(C3_BATCH, n, 2, generator=g, device="cuda")
-                  for n in (model.camera.k, model.lidar.k))
+                  for n in (model.camera.k, n_lid))
     snr = torch.full((C3_BATCH,), cfg.channel.snr_db, device="cuda")
     target = fj.bev_target(cfg, pts, mask, cls)
     params = list(model.parameters())
@@ -5119,8 +5165,63 @@ def compare_c3_routes_bf16(cfg, state, batches,
         return loss.detach(), torch.autograd.grad(loss, params)
 
     what = f"c3 {cfg.camera.arch} bf16 train step"
-    _compare_grads_bf16(what, model, *_two_routes(
+    _compare_grads_bf16(what, model, *_bf16_routes(cfg)(
         loss_and_grads, expected, f"the {what}",
+        _plain_patches_bf16(with_blocks=False)))
+
+
+def compare_c1_vq_routes_bf16(cfg, state, data):
+    """``compare_c1_vq_routes`` under train.bf16: the bf16 gates, the codes
+    held at the bf16 near-tie bound."""
+    import torch
+
+    img = next(data)
+    model = state.params
+    g = torch.Generator(device="cuda").manual_seed(27)
+    noise = torch.randn(C1_BATCH, model.bits_per_image // 2, 2, generator=g,
+                        device="cuda")
+    snr = torch.full((C1_BATCH,), cfg.channel.snr_db, device="cuda")
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        recon, aux = model(img, snr, noise=noise)
+        loss = (recon - img).square().mean() + aux["vq_loss"]
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    _compare_grads_bf16("c1_vq bf16 train step", model, *_bf16_routes(cfg)(
+        loss_and_grads, _bf16_counts(EXPECTED_C1_VQ),
+        "the c1_vq bf16 train step", _plain_patches_bf16(with_blocks=False)))
+
+
+def compare_c5_routes_bf16(cfg, state):
+    """One PPO minibatch loss and its gradients on a fixed minibatch and
+    channel noise, as the update runs it (the convs and the scatter on
+    their kernels, the fused blocks on their plain version) and through
+    the plain versions, under train.bf16; over a digital link on the
+    kernels' route's codes."""
+    import torch
+
+    from multimodal_sc_torch.rl import dqn, ppo
+    from multimodal_sc_torch.rl.perception import ActorCritic
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    forward = dqn.learner_forward(cfg, ActorCritic)
+    net = state.params
+    coef = ppo._entropy_coef(cfg, state.update)
+    batch = _c5_minibatches(cfg, state)[0]
+    noise = _link_noise(cfg, C5_LOSS_BATCH, g)
+    params = list(net.parameters())
+    expected = _bf16_counts({"conv_prelu": 4 if cfg.camera.arch == "vq"
+                             else 5, "scatter_max": 1, "scatter_max_bwd": 1})
+
+    def loss_and_grads():
+        loss, _ = ppo._ppo_loss(cfg, forward, net, batch, coef,
+                                channel_noise=noise)
+        return loss.detach(), torch.autograd.grad(loss, params,
+                                                  allow_unused=True)
+
+    _compare_grads_bf16("PPO minibatch (bf16)", net, *_bf16_routes(cfg)(
+        loss_and_grads, expected, "the bf16 c5 loss",
         _plain_patches_bf16(with_blocks=False)))
 
 
@@ -5145,9 +5246,10 @@ def bf16_paths(profile=False):
     act+learn at 1024 envs (route comparisons, a checkpoint round trip),
     fog + V2X act-only, one c5 update, c1 train steps, c3-cnn train steps;
     then the attention kernels' paths: the c4 ViT trunk act-only and
-    act+learn, c4 arm B act+learn, c3 arms P and F train steps, each with
-    its route comparison. Returns the launches summed and each path's
-    rate."""
+    act+learn, c4 arm B act+learn, c3 arms P and F train steps; then the
+    VQ codecs: c4_vq and c4_digital act-only and act+learn, one c5 digital
+    update, c1_vq and c3_vq train steps; each with its route comparison.
+    Returns the launches summed and each path's rate."""
     import torch
 
     totals, rates = {}, {}
@@ -5280,6 +5382,75 @@ def bf16_paths(profile=False):
             profile_c3(cfg, state, train_step, batches)
         del state, train_step, batches
         torch.cuda.empty_cache()
+    # The VQ codecs: their code features bf16-valued, the nearest-code
+    # searches in f32, the route comparisons on the kernels' route's codes.
+    for key, overrides, act_exp, learn_exp, route_exp in (
+            ("c4_vq", VQ4, EXPECTED_VQ4, EXPECTED_VQ4_LEARN,
+             LEARN_ROUTE_VQ4),
+            ("c4_digital", C4_DIGITAL, EXPECTED_C4_DIGITAL,
+             EXPECTED_C4_DIGITAL_LEARN, LEARN_ROUTE_C4_DIGITAL)):
+        name = f"{key} bf16"
+        print(f"main path ({name} act-only):", flush=True)
+        launches, rates[f"{key} act-only"], cfg, state, iteration = (
+            drive_main_path(name, overrides + BF16, _bf16_counts(act_exp)))
+        add(launches)
+        compare_act_routes_bf16(name, cfg, state, _bf16_counts(act_exp))
+        if profile:
+            print(f"profile ({name} act-only):", flush=True)
+            profile_main_path(cfg, state, iteration)
+        del state, iteration
+        print(f"main path ({name} act+learn):", flush=True)
+        launches, rates[f"{key} act+learn"], cfg, state, iteration = (
+            drive_learn(f"{name} act+learn", overrides + BF16,
+                        _bf16_counts(learn_exp)))
+        add(launches)
+        _all_f32(name, state.params, state.target_params, state.ema_params,
+                 opt=state.opt_state)
+        compare_learn_routes_bf16(cfg, state, _bf16_counts(route_exp))
+        compare_act_routes_bf16(f"{name} after learning", cfg, state,
+                                _bf16_counts(act_exp))
+        if profile:
+            print(f"profile ({name} act+learn):", flush=True)
+            profile_learn(cfg, state, iteration)
+        del state, iteration
+        torch.cuda.empty_cache()
+    name = "c5 digital bf16"
+    print(f"main path ({name}: PPO update over both digital links):",
+          flush=True)
+    launches, rates["c5 digital update"], cfg, state, train_step = drive_c5(
+        name, C5_DIGITAL + BF16, _bf16_counts(EXPECTED_C5_DIGITAL))
+    add(launches)
+    _all_f32(name, state.params, state.ema_params, opt=state.opt_state)
+    compare_c5_routes_bf16(cfg, state)
+    if profile:
+        print(f"profile ({name}):", flush=True)
+        profile_c5(cfg, state, train_step)
+    del state, train_step
+    torch.cuda.empty_cache()
+    name = "c1_vq bf16"
+    print(f"main path ({name} digital camera JSCC train):", flush=True)
+    launches, rates["c1_vq train"], cfg, state, train_step, data = (
+        drive_c1_vq(C1_VQ + BF16, _bf16_counts(EXPECTED_C1_VQ), name))
+    add(launches)
+    _all_f32(name, state.params, opt=state.opt_state)
+    compare_c1_vq_routes_bf16(cfg, state, data)
+    if profile:
+        print(f"profile ({name} train):", flush=True)
+        profile_c1(cfg, state, train_step, data)
+    del state, train_step, data
+    torch.cuda.empty_cache()
+    name = "c3_vq bf16: digital LiDAR codec, ViT on packed_attention"
+    print(f"main path (c3 late-fusion train, {name}):", flush=True)
+    launches, rates["c3_vq train"], cfg, state, train_step, batches = (
+        drive_c3(name, C3_VQ + BF16, EXPECTED_BF16_C3_P))
+    add(launches)
+    _all_f32(name, state.params, opt=state.opt_state)
+    compare_c3_routes_bf16(cfg, state, batches, EXPECTED_BF16_C3_P)
+    if profile:
+        print(f"profile (c3 late-fusion train, {name}):", flush=True)
+        profile_c3(cfg, state, train_step, batches)
+    del state, train_step, batches
+    torch.cuda.empty_cache()
     return totals, rates
 
 
@@ -5512,6 +5683,9 @@ def main() -> int:
     for k, v in launches.items():
         totals[k] += v
     compare_c5_routes(cfg, state)
+    if args.profile:
+        print("profile (c5 PPO update over both digital links):", flush=True)
+        profile_c5(cfg, state, train_step)
     del state, train_step
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -5577,7 +5751,17 @@ def main() -> int:
                      "act+learn, arm B: unfused fusion on packed_attention"],
                  "c3 arm P train": c3_rates["arm P: ViT on packed_attention"],
                  "c3 arm F train": c3_rates[
-                     "arm F: ViT dim 192 on flash_attention"]}
+                     "arm F: ViT dim 192 on flash_attention"],
+                 "c4_vq act-only": rates["act-only, c4_vq digital camera"],
+                 "c4_vq act+learn": rates["act+learn, c4_vq digital camera"],
+                 "c4_digital act-only": rates[
+                     "act-only, c4_digital full-digital"],
+                 "c4_digital act+learn": rates[
+                     "act+learn, c4_digital full-digital"],
+                 "c5 digital update": c5_digital_rate,
+                 "c1_vq train": c1_vq_rate,
+                 "c3_vq train": c3_rates[
+                     "c3_vq: digital LiDAR codec, ViT on packed_attention"]}
     print(f"train.bf16 against f32 in this call on {card} (agent or env "
           "steps/s, train steps/s): " + "; ".join(
               f"{k} {bf16_rates[k]:.2f} vs {f32_rates[k]:.2f} "

@@ -13,16 +13,20 @@ with ``dtype=bfloat16`` while the parameters stay float32 (its
 
 ``Dense``, ``Conv`` and ``LayerNorm`` below are PyTorch's ``nn.Linear``,
 ``nn.Conv2d`` and ``nn.LayerNorm`` (same parameters, same names) with an
-activation dtype: at float32 they run PyTorch's own forward, so the f32
-paths compute as before; at bfloat16 they follow flax. These are not
-PyTorch's autocast rules, which keep a LayerNorm in f32 and round a
+activation dtype, and ``PointwiseConv`` is flax's 1x1 ``Conv`` on NHWC
+features (an ``nn.Conv2d`` weight of shape (out, in, 1, 1), applied as a
+matmul over the channels): at float32 they run PyTorch's own forward, so
+the f32 paths compute as before; at bfloat16 they follow flax. These are
+not PyTorch's autocast rules, which keep a LayerNorm in f32 and round a
 matmul's bias into its sum.
 
-The port runs ``train.bf16`` on the CNN and ViT camera codecs, the analog
-LiDAR, the fused attention blocks and the unfused fusion MHA, with the
-packed and flash attention under ``pallas_attention`` (each kernel reads
-and writes bf16 itself); ``activation_dtype`` is the one rule that says
-which configurations, and refuses the VQ codecs.
+The port runs ``train.bf16`` on every codec the JAX package builds with a
+dtype: the CNN, ViT and VQ camera codecs, the analog and VQ LiDAR codecs,
+the fused attention blocks and the unfused fusion MHA, with the packed and
+flash attention under ``pallas_attention`` (each kernel reads and writes
+bf16 itself). The VQ codecs widen their code features to f32 before the
+nearest-code search, as JAX does, so codebooks, indices and VQ losses stay
+f32.
 """
 
 from __future__ import annotations
@@ -31,25 +35,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_REFUSED = "train.bf16 activations are not ported (ROADMAP item 13b(i))"
-
 
 def activation_dtype(cfg) -> torch.dtype:
-    """``torch.bfloat16`` under ``train.bf16``, else ``torch.float32``.
-
-    bf16 is ported for the CNN and ViT camera codecs, the analog LiDAR
-    codec and the fusion transformer in either form (fused blocks or the
-    unfused MHA), with or without ``pallas_attention``. A VQ codec
-    (``camera.arch='vq'``, ``lidar.arch='vq'``) raises
-    ``NotImplementedError`` naming ROADMAP item 13b(i)."""
-    if not cfg.train.bf16:
-        return torch.float32
-    for part in ("camera", "lidar"):
-        arch = getattr(cfg, part).arch
-        if arch == "vq":
-            raise NotImplementedError(
-                f"{_REFUSED}: {part}.arch='vq' (the VQ codecs)")
-    return torch.bfloat16
+    """``torch.bfloat16`` under ``train.bf16``, else ``torch.float32``, for
+    every configuration: the camera (CNN, ViT or VQ), the LiDAR (analog or
+    VQ) and the fusion transformer in either form, with or without
+    ``pallas_attention``, as the JAX package takes its dtype from the
+    config."""
+    return torch.bfloat16 if cfg.train.bf16 else torch.float32
 
 
 class Dense(nn.Linear):
@@ -83,6 +76,24 @@ class Conv(nn.Conv2d):
             return super().forward(x)
         y = self._conv_forward(x.to(d), self.weight.to(d), None)
         return y + self.bias.to(d)[:, None, None]
+
+
+class PointwiseConv(nn.Conv2d):
+    """flax's 1x1 ``Conv`` with its ``dtype`` on NHWC features (B, H, W, C):
+    a matmul over the channels with the ``nn.Conv2d`` weight (out, in, 1,
+    1) and bias. In bf16 the product is rounded, then the bias added and
+    rounded again, as ``Dense``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, 1)
+        self.act_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, d = self.weight[:, :, 0, 0], self.act_dtype
+        if d == torch.float32:
+            return F.linear(x, w, self.bias)
+        return F.linear(x.to(d), w.to(d)) + self.bias.to(d)
 
 
 class LayerNorm(nn.LayerNorm):

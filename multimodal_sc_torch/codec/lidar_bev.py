@@ -12,13 +12,15 @@ convs in the JAX package. ``LidarBEVVQCodec`` is the digital codec
 ``codec/semantic_vq.py`` -> semantic BEV logits, with that module's
 quantiser, re-seeding stats, token pruning and selection rules.
 
-Under ``train.bf16`` the analog codec's modules take ``dtype=torch.bfloat16``
-and follow flax's dtype rules (``act_dtype``): the point MLP, the
-LayerNorms, the convs and the heads in bf16 on f32 parameters, the scatter
-on bf16 features (its kernel reads and writes bf16; the JAX module widens
-them first, which gives the same grid, and a tied max's gradient within
-one bf16 step, see ``kernels/pillar_scatter.py``), the symbols, logits and
-tokens out in f32.
+Under ``train.bf16`` both codecs' modules take ``dtype=torch.bfloat16`` and
+follow flax's dtype rules (``act_dtype``): the point MLP, the LayerNorms,
+the convs and the heads in bf16 on f32 parameters, the scatter on bf16
+features (its kernel reads and writes bf16; the JAX module widens them
+first, which gives the same grid, and a tied max's gradient within one
+bf16 step, see ``kernels/pillar_scatter.py``), the symbols, logits and
+tokens out in f32. The digital codec's ``to_code`` rounds the code
+features to bf16 and widens them to f32 for the nearest-code search; its
+codebook, indices and VQ loss stay f32.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_sc_torch.act_dtype import Conv, Dense, LayerNorm
+from multimodal_sc_torch.act_dtype import (Conv, Dense, LayerNorm,
+                                           PointwiseConv)
 from multimodal_sc_torch.channel.digital import index_bits
 from multimodal_sc_torch.codec import semantic_vq
 from multimodal_sc_torch.kernels.pillar_scatter import scatter_max
@@ -231,7 +234,8 @@ class LidarBEVVQCodec(nn.Module):
     ``from_code``, ``mask_embed``, ``dec_backbone``, ``occ_head``; a fresh
     layer is redrawn as flax's by its owner (``LateFusionJSCC``).
     ``channel_cfg``: the ``ChannelConfig`` of the link inside the
-    forward."""
+    forward. ``dtype``: the activation dtype (``act_dtype``); the logits
+    come out f32."""
 
     def __init__(self, pillar_dim: int = 64,
                  bev_hw: Tuple[int, int] = (16, 16), vq_codes: int = 256,
@@ -241,7 +245,8 @@ class LidarBEVVQCodec(nn.Module):
                  seg_classes: int = 1,
                  x_range: Tuple[float, float] = (0.0, 48.0),
                  y_range: Tuple[float, float] = (-12.0, 12.0),
-                 channel_cfg=None, point_features: int = 4):
+                 channel_cfg=None, point_features: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n_bits = index_bits(vq_codes)                 # a power of 4
         if channel_cfg is not None and channel_cfg.fec != "none":
@@ -255,19 +260,20 @@ class LidarBEVVQCodec(nn.Module):
         self.vq_usage_coef, self.vq_usage_temp = vq_usage_coef, vq_usage_temp
         self.vq_reseed, self.vq_prune = vq_reseed, vq_prune
         self.seg_classes, self.channel_cfg = seg_classes, channel_cfg
+        self.dtype = dtype
         feats = (pillar_dim, pillar_dim)
         self.pfn = PillarFeatureNet(point_features, pillar_dim, bev_hw,
-                                    x_range, y_range)
-        self.backbone = BEVBackbone(pillar_dim, feats)
-        self.to_code = nn.Conv2d(pillar_dim, vq_dim, 1)
+                                    x_range, y_range, dtype)
+        self.backbone = BEVBackbone(pillar_dim, feats, dtype)
+        self.to_code = PointwiseConv(pillar_dim, vq_dim, dtype)
         self.codebook = nn.Parameter(
             variance_scaling_uniform_(torch.empty(vq_codes, vq_dim)))
-        self.from_code = nn.Linear(vq_dim, pillar_dim)
+        self.from_code = Dense(vq_dim, pillar_dim, dtype)
         if vq_prune:
             self.mask_embed = nn.Parameter(
                 torch.empty(vq_dim).normal_(0.0, 0.02))
-        self.dec_backbone = BEVBackbone(pillar_dim, feats)
-        self.occ_head = nn.Linear(pillar_dim, max(seg_classes, 1))
+        self.dec_backbone = BEVBackbone(pillar_dim, feats, dtype)
+        self.occ_head = Dense(pillar_dim, max(seg_classes, 1), dtype)
 
     @property
     def n_tokens(self) -> int:
@@ -276,9 +282,8 @@ class LidarBEVVQCodec(nn.Module):
     def encode_features(self, points: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
         """Point cloud -> pre-quantisation code features (B, H, W, D), what
-        ``seed_codebook`` samples."""
-        x = self.backbone(self.pfn(points, mask))
-        return F.linear(x, self.to_code.weight[:, :, 0, 0], self.to_code.bias)
+        ``seed_codebook`` samples; f32."""
+        return self.to_code(self.backbone(self.pfn(points, mask))).float()
 
     def _quantize(self, points, mask):
         out = semantic_vq.vector_quantize(
@@ -295,10 +300,10 @@ class LidarBEVVQCodec(nn.Module):
         return self._quantize(points, mask)[:3]
 
     def codes_to_logits(self, z: torch.Tensor) -> torch.Tensor:
-        """(B, N, D) code vectors -> BEV logits (B, H, W, C)."""
+        """(B, N, D) code vectors -> BEV logits (B, H, W, C), f32."""
         h, w = self.bev_hw
-        x = z.reshape(z.shape[0], h, w, self.vq_dim).float()
-        return self.occ_head(self.dec_backbone(self.from_code(x)))
+        x = z.reshape(z.shape[0], h, w, self.vq_dim).to(self.dtype)
+        return self.occ_head(self.dec_backbone(self.from_code(x))).float()
 
     def decode_tokens(self, idx: torch.Tensor) -> torch.Tensor:
         """(B, N) received indices -> logits (the receiver alone)."""

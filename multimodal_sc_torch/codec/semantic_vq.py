@@ -13,7 +13,12 @@ codebook moves only through the VQ loss.
 The encoder's 5x5 convs and the decoder's stride-1 convs are
 ``FusedConvPReLU`` (the CUDA kernel on the card); the 1x1 ``to_code``, the
 token decoder's conv, the transposed convs and the nearest-code search are
-plain PyTorch, as they are plain XLA in the JAX package. The search is one
+plain PyTorch, as they are plain XLA in the JAX package. Under
+``train.bf16`` the encoder, the token decoder and the image decoder take
+``dtype=torch.bfloat16`` and follow flax's dtype rules (``act_dtype``):
+the code features are rounded to bf16 by ``to_code`` and widened to f32
+before the search, the image's sigmoid is taken in f32, and the codebook,
+the indices, the VQ losses and the channel stay f32. The search is one
 (B*N, K) distance matmul, ``|x|^2 - 2 x.c + |c|^2``, whose cancellation
 wants f32 products: on the card it runs at PyTorch's default f32 matmul
 precision (no TF32), so acting and learning pick the same codes.
@@ -54,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_sc_torch.act_dtype import Conv, PointwiseConv
 from multimodal_sc_torch.channel.digital import (bits_from_indices,
                                                  bits_to_qpsk, index_bits,
                                                  indices_from_bits,
@@ -371,32 +377,36 @@ class VQEncoderTokens(nn.Module):
     PReLU blocks (``enc0``-``enc3``), a 1x1 ``to_code`` and the
     ``codebook``. The deployed VQ transmitter of the RL trunk; its names
     mirror :class:`VQCameraJSCC`'s, which extends it, so a c1_vq checkpoint
-    warm-starts it by name. Fresh weights are drawn as flax's."""
+    warm-starts it by name. Fresh weights are drawn as flax's. ``dtype``:
+    the activation dtype of the convs and ``to_code``."""
 
     def __init__(self, features: Sequence[int], vq_dim: int, vq_codes: int,
                  vq_beta: float = 0.25, vq_usage_coef: float = 0.0,
                  vq_usage_temp: float = 0.5, vq_reseed: float = 0.0,
-                 in_channels: int = 3):
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
         index_bits(vq_codes)                 # codes must be a power of 4
+        self.dtype = dtype
         self.vq_dim, self.vq_codes, self.vq_beta = vq_dim, vq_codes, vq_beta
         self.vq_usage_coef, self.vq_usage_temp = vq_usage_coef, vq_usage_temp
         self.vq_reseed = vq_reseed
         self.n_enc = len(features)
         cin = in_channels
         for i, (f, s) in enumerate(zip(features, (2, 2, 1, 1))):
-            setattr(self, f"enc{i}", FusedConvPReLU(cin, f, 5, stride=s))
+            setattr(self, f"enc{i}", FusedConvPReLU(cin, f, 5, stride=s,
+                                                    dtype=dtype))
             cin = f
-        self.to_code = init_like_flax_(nn.Conv2d(cin, vq_dim, 1))
+        self.to_code = init_like_flax_(PointwiseConv(cin, vq_dim, dtype))
         self.codebook = nn.Parameter(
             variance_scaling_uniform_(torch.empty(vq_codes, vq_dim)))
 
     def encode_features(self, img: torch.Tensor) -> torch.Tensor:
-        """Image (B, H, W, 3) -> pre-quantisation features (B, h, w, D)."""
-        x = img.float()
+        """Image (B, H, W, 3) -> pre-quantisation features (B, h, w, D),
+        f32."""
+        x = img.to(self.dtype)
         for i in range(self.n_enc):
             x = getattr(self, f"enc{i}")(x)
-        return F.linear(x, self.to_code.weight[:, :, 0, 0], self.to_code.bias)
+        return self.to_code(x).float()
 
     def quantize(self, z_e: torch.Tensor, with_stats: bool = True):
         """(B, h, w, D) features -> ``(indices (B, N) int32, vq_loss, z_ste
@@ -419,23 +429,25 @@ class VQEncoderTokens(nn.Module):
 class VQTokensCamera(nn.Module):
     """Received code vectors (B, N, vq_dim) -> fusion tokens (B, N, dim): one
     plain 5x5 conv + PReLU on the token grid, the receiver half of the RL
-    VQ camera branch."""
+    VQ camera branch; in ``dtype``, the tokens out in f32."""
 
     def __init__(self, dim: int, vq_dim: int,
-                 image_hw: Tuple[int, int] = (32, 32)):
+                 image_hw: Tuple[int, int] = (32, 32),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dim, self.vq_dim = dim, vq_dim
+        self.dim, self.vq_dim, self.dtype = dim, vq_dim, dtype
         self.hw = (image_hw[0] // 4, image_hw[1] // 4)
         # 5x5 stride-1 SAME: symmetric padding 2, as XLA pads it.
-        self.conv_in = nn.Conv2d(vq_dim, dim, 5, padding=2)
+        self.conv_in = Conv(vq_dim, dim, 5, padding=2, dtype=dtype)
         self.prelu_in = PReLU(dim)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         b = z.shape[0]
         h, w = self.hw
-        x = z.reshape(b, h, w, self.vq_dim).permute(0, 3, 1, 2).float()
+        x = z.reshape(b, h, w, self.vq_dim).permute(0, 3, 1, 2).to(
+            self.dtype)
         x = self.prelu_in(self.conv_in(x).permute(0, 2, 3, 1))
-        return x.reshape(b, h * w, self.dim)
+        return x.reshape(b, h * w, self.dim).float()
 
 
 def check_digital_camera(cfg: ExperimentConfig) -> None:
@@ -464,13 +476,17 @@ class VQCameraJSCC(VQEncoderTokens):
     ``from_code`` and ``dec0``, ``dec1`` (5x5 conv + PReLU),
     ``deconv2``/``deprelu2`` and ``deconv3``/``deprelu3`` (stride-2
     transposed convs + PReLU), and ``conv_out`` (5x5, no PReLU), then a
-    sigmoid. Fresh weights are drawn as flax's."""
+    sigmoid. Fresh weights are drawn as flax's. ``dtype``: the activation
+    dtype of the encoder and the decoder (``act_dtype.activation_dtype``);
+    the image comes out f32."""
 
-    def __init__(self, cfg: ExperimentConfig):
+    def __init__(self, cfg: ExperimentConfig,
+                 dtype: torch.dtype = torch.float32):
         cam = cfg.camera
         check_digital_camera(cfg)
         super().__init__(cam.features, cam.vq_dim, cam.vq_codes, cam.vq_beta,
-                         cam.vq_usage_coef, cam.vq_usage_temp, cam.vq_reseed)
+                         cam.vq_usage_coef, cam.vq_usage_temp, cam.vq_reseed,
+                         dtype=dtype)
         self.cfg = cfg
         self.image_hw = tuple(cam.image_hw)
         self.vq_prune = cam.vq_prune
@@ -479,17 +495,20 @@ class VQCameraJSCC(VQEncoderTokens):
             self.mask_embed = nn.Parameter(
                 torch.empty(cam.vq_dim).normal_(0.0, 0.02))
         feats = tuple(cam.features)
-        self.from_code = FusedConvPReLU(cam.vq_dim, feats[-1], 5)
+        self.from_code = FusedConvPReLU(cam.vq_dim, feats[-1], 5, dtype=dtype)
         self.dec_strides = (1, 1, 2, 2)
         cin = feats[-1]
         for i, (f, s) in enumerate(zip(reversed(feats), self.dec_strides)):
             if s == 1:
-                setattr(self, f"dec{i}", FusedConvPReLU(cin, f, 5))
+                setattr(self, f"dec{i}", FusedConvPReLU(cin, f, 5,
+                                                        dtype=dtype))
             else:
-                setattr(self, f"deconv{i}", ConvTransposeSame(cin, f, 5, s))
+                setattr(self, f"deconv{i}", ConvTransposeSame(cin, f, 5, s,
+                                                              dtype))
                 setattr(self, f"deprelu{i}", PReLU(f))
             cin = f
-        self.conv_out = FusedConvPReLU(cin, 3, 5, with_prelu=False)
+        self.conv_out = FusedConvPReLU(cin, 3, 5, with_prelu=False,
+                                       dtype=dtype)
         init_like_flax_(self)
 
     @property
@@ -507,16 +526,18 @@ class VQCameraJSCC(VQEncoderTokens):
         return self.quantize(self.encode_features(img))[:3]
 
     def codes_to_image(self, z: torch.Tensor) -> torch.Tensor:
-        """(B, N, D) code vectors -> reconstructed image, the receiver."""
+        """(B, N, D) code vectors -> reconstructed image (f32), the
+        receiver."""
         h, w = self.image_hw[0] // 4, self.image_hw[1] // 4
-        x = self.from_code(z.reshape(z.shape[0], h, w, self.vq_dim).float())
+        x = self.from_code(z.reshape(z.shape[0], h, w, self.vq_dim).to(
+            self.dtype))
         for i, s in enumerate(self.dec_strides):
             if s == 1:
                 x = getattr(self, f"dec{i}")(x)
             else:
                 x = getattr(self, f"deprelu{i}")(
                     getattr(self, f"deconv{i}")(x))
-        return torch.sigmoid(self.conv_out(x))
+        return torch.sigmoid(self.conv_out(x).float())
 
     def decode_tokens(self, idx: torch.Tensor) -> torch.Tensor:
         """(B, N) received indices -> image."""

@@ -1,8 +1,9 @@
 """Tracing hook and the training watchdogs.
 
 Counterpart of ``multimodal_sc_tpu/obs/profiling.py``: ``maybe_trace`` on
-``torch.profiler`` (a Chrome trace in the given directory), the NaN
-watchdog, the greedy-collapse watchdog and the fault-injection hook
+``torch.profiler`` (a Chrome trace in the given directory), the named
+scope ``annotate`` (a profiler range, and an NVTX range on the card), the
+NaN watchdog, the greedy-collapse watchdog and the fault-injection hook
 ``corrupt_symbols``.
 """
 
@@ -35,6 +36,22 @@ def maybe_trace(logdir: Optional[str]) -> Iterator[None]:
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named scope visible in a ``torch.profiler`` trace (per-layer
+    attribution), the counterpart of JAX's ``TraceAnnotation``; where CUDA
+    is available, also an NVTX range of the same name."""
+    with torch.profiler.record_function(name):
+        if not torch.cuda.is_available():
+            yield
+            return
+        torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()
 
 
 class NaNWatchdog:

@@ -30,9 +30,11 @@ re-seed dead codes after their step (:func:`collect_reseed_stats`,
 Under ``train.bf16`` the codecs and the fusion trunk compute in bf16 on f32
 parameters (``act_dtype``), as the JAX trunk takes its dtype from the
 config; the channel symbols, the tokens and the state stay f32, and so do
-the DQN and PPO heads. It runs on the CNN and ViT cameras, the analog
-LiDAR and either fusion form; a VQ codec raises, naming ROADMAP item
-13b(i).
+the DQN and PPO heads. On a digital link the code features are rounded to
+bf16 by the 1x1 ``to_code`` and widened to f32 for the nearest-code
+search; the codebooks, the indices, the VQ losses and ``lid_mask_embed``
+stay f32, and the received codes are cast to the BEV dtype for
+``lid_from_code``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_sc_torch.act_dtype import Dense, activation_dtype
+from multimodal_sc_torch.act_dtype import (Dense, PointwiseConv,
+                                           activation_dtype)
 from multimodal_sc_torch.channel import channel as channel_op
 from multimodal_sc_torch.channel import channel_kwargs
 from multimodal_sc_torch.channel.layer import draw
@@ -127,8 +130,10 @@ class SemanticPerception(nn.Module):
             check_digital_camera(cfg)
             self.cam_vq = VQEncoderTokens(
                 cam.features, cam.vq_dim, cam.vq_codes, cam.vq_beta,
-                cam.vq_usage_coef, cam.vq_usage_temp, cam.vq_reseed)
-            self.cam_tok = VQTokensCamera(fus.dim, cam.vq_dim, cam.image_hw)
+                cam.vq_usage_coef, cam.vq_usage_temp, cam.vq_reseed,
+                dtype=dtype)
+            self.cam_tok = VQTokensCamera(fus.dim, cam.vq_dim, cam.image_hw,
+                                          dtype)
             cam_in = fus.dim
         else:
             cond = cam.snr_conditioning
@@ -148,10 +153,11 @@ class SemanticPerception(nn.Module):
             # Names mirror LidarBEVVQCodec's (to_code, codebook, from_code,
             # mask_embed), so a c3_vq checkpoint warm-starts them by name.
             index_bits(lid.vq_codes)             # codes must be a power of 4
-            self.lid_to_code = nn.Conv2d(lid.pillar_dim, lid.vq_dim, 1)
+            self.lid_to_code = PointwiseConv(lid.pillar_dim, lid.vq_dim,
+                                             dtype)
             self.lid_codebook = nn.Parameter(variance_scaling_uniform_(
                 torch.empty(lid.vq_codes, lid.vq_dim)))
-            self.lid_from_code = nn.Linear(lid.vq_dim, lid.pillar_dim)
+            self.lid_from_code = Dense(lid.vq_dim, lid.pillar_dim, dtype)
             if lid.vq_prune:
                 self.lid_mask_embed = nn.Parameter(
                     torch.empty(lid.vq_dim).normal_(0.0, 0.02))
@@ -208,8 +214,7 @@ class SemanticPerception(nn.Module):
         farthest-point order under ``scatter``, uniform ``scores``
         otherwise) and the rest decode as ``lid_mask_embed``."""
         lid, ch = self.cfg.lidar, self.cfg.channel
-        z_e = F.linear(bev, self.lid_to_code.weight[:, :, 0, 0],
-                       self.lid_to_code.bias)
+        z_e = self.lid_to_code(bev).float()
         b, h, w, _ = z_e.shape
         out = semantic_vq.vector_quantize(
             z_e, self.lid_codebook, lid.vq_beta, lid.vq_usage_coef,
@@ -253,7 +258,8 @@ class SemanticPerception(nn.Module):
             if len(out) > 3:
                 sown["lid_vq_counts"].append(out[3]["counts"])
                 sown["lid_vq_candidates"].append(out[3]["candidates"])
-        return self.lid_from_code(z_rx.reshape(b, h, w, lid.vq_dim))
+        return self.lid_from_code(z_rx.reshape(b, h, w, lid.vq_dim).to(
+            bev.dtype))
 
     def _lidar_branch(self, pts, msk, snr_db, generator, noise,
                       scores=None, lidar_keep=None, sown=None):

@@ -6,6 +6,7 @@ functional updates, ``add_batch`` writes the rows IN PLACE into the stores
 (no second copy of a buffer of hundreds of MB) and returns the buffer with
 the advanced cursor. Cursor and size are Python ints: they depend only on
 how many rows were added, so keeping them on the host costs no device sync.
+``add`` writes one transition the same way.
 """
 
 from __future__ import annotations
@@ -43,6 +44,15 @@ def create(example: Any, capacity: int, device) -> ReplayBuffer:
                     dtype=torch.as_tensor(x).dtype, device=device)
         for x in example))
     return ReplayBuffer(data=data, cursor=0, size=0, capacity=capacity)
+
+
+def add(buf: ReplayBuffer, transition: Any) -> ReplayBuffer:
+    """Write one transition (no batch dim) at the cursor, wrapping around."""
+    for store, x in zip(buf.data, transition):
+        store[buf.cursor] = torch.as_tensor(x, device=store.device).to(
+            store.dtype)
+    return buf._replace(cursor=(buf.cursor + 1) % buf.capacity,
+                        size=min(buf.size + 1, buf.capacity))
 
 
 def add_batch(buf: ReplayBuffer, transitions: Any) -> ReplayBuffer:

@@ -37,7 +37,6 @@ import warnings
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from multimodal_sc_torch.codec.semantic_vq import seed_codebook
@@ -154,11 +153,12 @@ def seed_vq_codebook_params(cfg: ExperimentConfig, net: nn.Module,
     interchangeable codes): the camera's (``camera.arch="vq"`` and
     ``seed_camera``) from the images, the LiDAR's (``lidar.arch="vq"`` and
     ``seed_lidar``) from ``lid_to_code``'s BEV features of the ego rays
-    only. ``generator`` defaults to one seeded by ``train.seed``; the JAX
-    package draws from ``fold_in(key(seed), 0xC0DE)``, the port from its
-    own generator. The drivers call it on fresh runs only, never on
-    resume, and after a warm start only for a codebook it did not
-    bring."""
+    only. Under ``train.bf16`` the features are the bf16 encoders',
+    widened to f32, as JAX seeds them. ``generator`` defaults to one
+    seeded by ``train.seed``; the JAX package draws from
+    ``fold_in(key(seed), 0xC0DE)``, the port from its own generator. The
+    drivers call it on fresh runs only, never on resume, and after a warm
+    start only for a codebook it did not bring."""
     from multimodal_sc_torch.envs import driving
 
     per = net.perception
@@ -174,9 +174,8 @@ def seed_vq_codebook_params(cfg: ExperimentConfig, net: nn.Module,
     if cfg.lidar.arch == "vq" and seed_lidar:
         r = cfg.env.lidar_rays
         bev = per.lid_backbone(per.pfn(pts[:, :r], mask[:, :r]))
-        z = F.linear(bev, per.lid_to_code.weight[:, :, 0, 0],
-                     per.lid_to_code.bias)
-        seed_codebook(per.lid_codebook, z, generator)
+        seed_codebook(per.lid_codebook, per.lid_to_code(bev).float(),
+                      generator)
     return net
 
 

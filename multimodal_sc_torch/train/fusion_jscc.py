@@ -19,11 +19,12 @@ its batch-dead codes after the optimizer step (``lidar.vq_reseed``), trains
 under ``lidar.vq_prune`` on per-example kept fractions ~ U[vq_keep_min, 1)
 of randomly selected tokens, and on a fresh run (never a resumed one) seeds
 its codebook from its own encoder's outputs on a point cloud of a stream of
-its own. Under ``train.bf16`` the ViT or CNN camera and the analog LiDAR
-codecs compute in bf16 on f32 parameters (their outputs, the loss and the
-optimizer's moments f32); the digital LiDAR raises under it (ROADMAP item
-13b(i)). ``camera.arch="vq"`` is refused on this path, as the JAX package
-refuses it.
+its own. Under ``train.bf16`` the ViT or CNN camera and the analog or
+digital LiDAR codecs compute in bf16 on f32 parameters (their outputs,
+the loss and the optimizer's moments f32; the digital codec's features
+widened to f32 for the nearest-code search, its codebook f32).
+``camera.arch="vq"`` is refused on this path, as the JAX package refuses
+it.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -75,7 +76,8 @@ ADAMW_WEIGHT_DECAY = 1e-4      # optax.adamw's default
 
 
 def _check_ported(cfg: ExperimentConfig) -> torch.dtype:
-    """The codecs' activation dtype; raises on what is not ported."""
+    """The codecs' activation dtype; raises on a camera arch the fusion
+    path does not take."""
     if cfg.camera.arch not in ("vit", "cnn"):
         raise NotImplementedError(
             f"camera.arch={cfg.camera.arch!r} on the fusion path is not "
@@ -114,7 +116,8 @@ def build_lidar_codec(cfg: ExperimentConfig):
             vq_usage_temp=lid.vq_usage_temp, vq_reseed=lid.vq_reseed,
             vq_prune=lid.vq_prune, seg_classes=lid.seg_classes,
             x_range=lid.x_range, y_range=lid.y_range,
-            channel_cfg=cfg.channel, point_features=lid.point_features)
+            channel_cfg=cfg.channel, point_features=lid.point_features,
+            dtype=dtype)
     return LidarBEVCodec(pillar_dim=lid.pillar_dim, bev_hw=lid.bev_hw,
                          c_sym=lid.c_sym, seg_classes=lid.seg_classes,
                          x_range=lid.x_range, y_range=lid.y_range,

@@ -32,10 +32,11 @@ selected at random; under ``channel.uep_alpha > 0`` the link's unequal
 power allocation runs inside the forward. Unlike the JAX package's
 pure update, a train step writes the model, the optimizer moments and the
 schedule IN PLACE: the returned state holds the same objects. Under
-``train.bf16`` the CNN and ViT codecs compute in bf16 on f32 parameters,
-as JAX's ``build_model`` builds them (their image and seg logits come out
-f32, so the loss, the gradients reaching the parameters and the AdamW
-moments stay f32); the VQ codec raises under it (ROADMAP item 13b(i)).
+``train.bf16`` the CNN, ViT and VQ codecs compute in bf16 on f32
+parameters, as JAX's ``build_model`` builds them (their image and seg
+logits come out f32, so the loss, the gradients reaching the parameters
+and the AdamW moments stay f32; the VQ codec's features are widened to f32
+for the nearest-code search, so its codebook and VQ loss stay f32).
 ``train.iters_per_dispatch`` (the chunked step) has no counterpart:
 PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
 and the value is ignored.
@@ -87,7 +88,8 @@ from multimodal_sc_torch.train.fusion_jscc import make_optimizer
 
 
 def _check_ported(cfg: ExperimentConfig) -> torch.dtype:
-    """The codec's activation dtype; raises on what is not ported."""
+    """The codec's activation dtype; raises on an unknown camera arch and
+    on what a digital camera link refuses."""
     cam = cfg.camera
     if cam.arch not in ("cnn", "vit", "vq"):
         raise ValueError(f"unknown camera arch {cam.arch!r}")
@@ -101,7 +103,7 @@ def build_model(cfg: ExperimentConfig
     dtype = _check_ported(cfg)
     cam = cfg.camera
     if cam.arch == "vq":
-        return VQCameraJSCC(cfg)
+        return VQCameraJSCC(cfg, dtype)
     if cam.arch == "vit":
         model = ViTJSCC(image_hw=cam.image_hw, patch=cam.patch, dim=cam.dim,
                         depth=cam.depth, heads=cam.heads, c_sym=cam.c_sym,

@@ -384,9 +384,9 @@ ACCEPTED = {
                                       "pallas_attention=true"]),
     "c1 ViT": ("c1", ["camera.arch=vit"]),
 }
-STILL_REFUSED = {"camera vq": ("c4", ["camera.arch=vq"]),
-                 "lidar vq": ("c3", ["lidar.arch=vq"]),
-                 "both vq": ("c4", ["camera.arch=vq", "lidar.arch=vq"])}
+VQ_CODECS = {"camera vq": ("c4", ["camera.arch=vq"]),
+             "lidar vq": ("c3", ["lidar.arch=vq"]),
+             "both vq": ("c4", ["camera.arch=vq", "lidar.arch=vq"])}
 
 
 @pytest.mark.parametrize("name", sorted(ACCEPTED))
@@ -398,10 +398,23 @@ def test_activation_dtype_takes_the_attention_paths(name):
         torch.float32
 
 
-@pytest.mark.parametrize("name", sorted(STILL_REFUSED))
-def test_activation_dtype_still_refuses_the_vq_codecs(name):
-    preset, over = STILL_REFUSED[name]
+@pytest.mark.parametrize("name", sorted(VQ_CODECS))
+def test_activation_dtype_takes_the_vq_codecs(name):
+    """The VQ codecs build in bf16 on f32 parameters (their slice:
+    ``test_torch_bf16_vq.py``)."""
+    preset, over = VQ_CODECS[name]
     cfg = t_preset(preset).override_str(["train.bf16=true", *over])
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported \(ROADMAP item 13b\(i\)\).*vq"):
-        activation_dtype(cfg)
+    assert activation_dtype(cfg) == BF16
+    if preset == "c3":
+        net = tfj.build_lidar_codec(cfg)
+        to_code = [net.to_code]
+    else:
+        with torch.device("meta"):
+            net = TQNetwork(cfg)
+        per = net.perception
+        to_code = [m.to_code if m is per.cam_vq else m for m in (
+            getattr(per, "cam_vq", None), getattr(per, "lid_to_code", None))
+            if m is not None]
+    assert len(to_code) == len([o for o in over if o.endswith("=vq")])
+    assert all(m.act_dtype == BF16 for m in to_code)
+    assert all(p.dtype == torch.float32 for p in net.parameters())

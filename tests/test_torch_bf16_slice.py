@@ -11,10 +11,10 @@ bf16 run on the CPU, and the refusals of everything else.
   gradients against JAX's;
 * c3 on the CNN camera (``camera.arch=cnn``): the loss and its gradients,
   then one train step's metrics and parameters;
-* each combination that is not ported (a VQ codec) raises, naming ROADMAP
-  item 13b(i); each ported one builds, ``cli.main`` among them (the ViT
-  camera, the packed and flash attention and the unfused fusion MHA since
-  their bf16 slice: ``test_torch_bf16_attention.py``).
+* each combination builds in bf16 on f32 parameters, ``cli.main`` among
+  them (the ViT camera, the packed and flash attention and the unfused
+  fusion MHA since their bf16 slice: ``test_torch_bf16_attention.py``; the
+  VQ codecs since theirs: ``test_torch_bf16_vq.py``).
 
 JAX runs with ``use_pallas=True`` (its conv, scatter and fused-block
 kernels in interpret mode on the CPU) where it only runs forward, on c1,
@@ -54,6 +54,7 @@ import pytest
 import torch
 
 from multimodal_sc_torch import bridge, cli
+from multimodal_sc_torch.act_dtype import activation_dtype
 from multimodal_sc_torch.config import get_preset as t_preset
 from multimodal_sc_torch.io.checkpoint import CheckpointManager
 from multimodal_sc_torch.rl import dqn as tdqn
@@ -519,19 +520,8 @@ def test_c3_cnn_step_bf16_matches_jax():
     assert settled > total // 2
 
 
-# --- what is ported, what raises ------------------------------------------------
+# --- what is ported ----------------------------------------------------------
 
-REFUSED = {
-    "c4 vq camera": ("c4", ["camera.arch=vq"]),
-    "c4 vq lidar": ("c4", ["lidar.arch=vq"]),
-    "c5 vq camera": ("c5", ["camera.arch=vq"]),
-    "c1 vq": ("c1", ["camera.arch=vq"]),
-    "c3 cnn, vq lidar": ("c3", ["camera.arch=cnn", "lidar.arch=vq"]),
-    "c3 vit, vq lidar": ("c3", ["lidar.arch=vq"]),
-    "c4 vit camera, vq lidar": ("c4", ["camera.arch=vit", "lidar.arch=vq"]),
-    "c4 unfused MHA, vq camera": ("c4", ["pallas_mha_block=false",
-                                         "camera.arch=vq"]),
-}
 PORTED = {
     "c4": ("c4", []), "c4 fog + v2x": ("c4", ["env.fog_range=20",
                                              "env.v2x_rays=32"]),
@@ -546,6 +536,16 @@ PORTED = {
     "c4 unfused MHA": ("c4", ["pallas_mha_block=false"]),
     "c1 vit": ("c1", ["camera.arch=vit"]),
     "c3 vit (the preset)": ("c3", []),
+    # The VQ codecs (their bf16 slice).
+    "c4 vq camera": ("c4", ["camera.arch=vq"]),
+    "c4 vq lidar": ("c4", ["lidar.arch=vq"]),
+    "c5 vq camera": ("c5", ["camera.arch=vq"]),
+    "c1 vq": ("c1", ["camera.arch=vq"]),
+    "c3 cnn, vq lidar": ("c3", ["camera.arch=cnn", "lidar.arch=vq"]),
+    "c3 vit, vq lidar": ("c3", ["lidar.arch=vq"]),
+    "c4 vit camera, vq lidar": ("c4", ["camera.arch=vit", "lidar.arch=vq"]),
+    "c4 unfused MHA, vq camera": ("c4", ["pallas_mha_block=false",
+                                         "camera.arch=vq"]),
 }
 
 
@@ -553,23 +553,22 @@ def _build(preset, over):
     cfg = t_preset(preset).override_str(["train.bf16=true", *over])
     if preset in ("c4", "c5"):
         with torch.device("meta"):
-            return (TActorCritic if preset == "c5" else TQNetwork)(cfg)
+            return cfg, (TActorCritic if preset == "c5" else TQNetwork)(cfg)
     if preset == "c3":
-        return tfj.build_camera_codec(cfg), tfj.build_lidar_codec(cfg)
-    return tjscc.build_model(cfg)
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_bf16_combinations_raise(name):
-    with pytest.raises(NotImplementedError,
-                       match=r"train\.bf16 activations are not ported "
-                             r"\(ROADMAP item 13b\(i\)\)"):
-        _build(*REFUSED[name])
+        return cfg, torch.nn.ModuleList([tfj.build_camera_codec(cfg),
+                                         tfj.build_lidar_codec(cfg)])
+    return cfg, tjscc.build_model(cfg)
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_ported_bf16_combinations_build(name):
-    assert _build(*PORTED[name]) is not None
+    """bf16 activations (``activation_dtype``) on f32 parameters."""
+    cfg, net = _build(*PORTED[name])
+    assert activation_dtype(cfg) == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    dtypes = {getattr(m, a) for m in net.modules()
+              for a in ("dtype", "act_dtype") if hasattr(m, a)}
+    assert torch.bfloat16 in dtypes and torch.float32 not in dtypes
 
 
 def test_cli_trains_c1_with_bf16(capsys):

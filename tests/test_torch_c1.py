@@ -244,14 +244,21 @@ def test_train_run_keys_match_jax_run(tmp_path):
     # package too, still raises.
     (["camera.arch=vq", "camera.vq_prune=true", "channel.uep_alpha=0.25"],
      ValueError, "uep_alpha with camera.vq_prune"),
-    # train.bf16 runs on the CNN and ViT codecs; on the VQ codec it still
-    # raises.
-    (["train.bf16=true", "camera.arch=vq"], NotImplementedError, "bf16"),
 ])
 def test_refusals(over, exc, match):
     _, tcfg = _configs(over)
     with pytest.raises(exc, match=match):
         tjscc.make_train_step(tcfg)
+
+
+def test_bf16_vq_codec_builds():
+    """train.bf16 on the VQ codec, refused until its bf16 slice: the train
+    step builds, the codec computes in bf16 on f32 parameters."""
+    _, tcfg = _configs(["train.bf16=true", "camera.arch=vq"])
+    tjscc.make_train_step(tcfg)
+    model = tjscc.build_model(tcfg)
+    assert model.dtype == model.to_code.act_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_vit_codec_trains(capsys):

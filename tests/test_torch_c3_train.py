@@ -303,11 +303,11 @@ def test_c3_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("what", ["lidar_vq_codec", "lidar.arch=vq",
                                   "camera.arch=vq", "train.bf16=true"])
 def test_what_the_c3_slice_does_not_port_raises(what):
-    """``camera.arch=vq`` (refused by the JAX package too) and
-    ``train.bf16`` on the digital LiDAR raise (the preset's ViT camera on
-    the analog LiDAR builds under it). The digital LiDAR codec is ported:
-    it builds, and keeps the JAX package's refusals of a codebook that is
-    no power of 4 and of FEC over a payload that is no whole number of
+    """``camera.arch=vq`` raises (refused by the JAX package too).
+    ``train.bf16`` builds on the analog and on the digital LiDAR, bf16
+    activations on f32 parameters. The digital LiDAR codec is ported: it
+    builds, and keeps the JAX package's refusals of a codebook that is no
+    power of 4 and of FEC over a payload that is no whole number of
     bytes."""
     cfg = t_preset("c3")
     if what == "lidar_vq_codec":
@@ -322,8 +322,11 @@ def test_what_the_c3_slice_does_not_port_raises(what):
                 "channel.fec=hamming74"]))
     elif what == "train.bf16=true":
         tfj.make_train_step(cfg.override_str([what]))
-        with pytest.raises(NotImplementedError, match=r"13b\(i\)"):
-            tfj.make_train_step(cfg.override_str([what, "lidar.arch=vq"]))
+        codec = tfj.build_lidar_codec(cfg.override_str([what,
+                                                        "lidar.arch=vq"]))
+        assert isinstance(codec, tlid.LidarBEVVQCodec)
+        assert codec.dtype == codec.to_code.act_dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in codec.parameters())
     else:
         with pytest.raises(NotImplementedError):
             tfj.make_train_step(cfg.override_str([what]))

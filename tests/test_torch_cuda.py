@@ -201,3 +201,47 @@ def test_flash_attention_bf16_io_dkv_on_the_card():
     want = fa.flash_attention_dkv_reference(q, k, v, lse, delta, do, 0.125)
     for a, w in zip(got, want):
         _bf16_io_close(a, w)
+
+
+@pytest.mark.cuda
+def test_bf16_c4_vq_act_step_on_the_card(monkeypatch):
+    """One act iteration of c4_vq under train.bf16 at 64 envs: the camera's
+    4 encoder convs, the 8 fused blocks and the scatter on their bf16-I/O
+    kernels, no f32 kernel; the code features bf16-valued, widened to f32
+    for the nearest-code search; Q finite; parameters f32."""
+    from multimodal_sc_torch.codec import semantic_vq
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.kernels import mha_block as tmha
+    from multimodal_sc_torch.kernels import pillar_scatter as tscatter
+    from multimodal_sc_torch.rl import dqn
+    from multimodal_sc_torch.rl.warmstart import cold_start
+
+    _card()
+    cfg = get_preset("c4").override_str(["camera.arch=vq", "train.bf16=true"])
+    state = dqn.init(cfg, seed=0, num_envs=64, device="cuda")
+    cold_start(cfg, (state.params, state.target_params, state.ema_params))
+    mods = {"conv": (tconv, 4), "mha": (tmha, 8), "scatter": (tscatter, 1)}
+    before = {k: (m.launches, m.launches_bf16) for k, (m, _) in mods.items()}
+    features = []
+    quantize = semantic_vq.vector_quantize
+
+    def seen(z_e, *args, **kwargs):
+        features.append(z_e.detach())
+        return quantize(z_e, *args, **kwargs)
+
+    monkeypatch.setattr(semantic_vq, "vector_quantize", seen)
+    state, metrics = dqn.make_iteration(cfg, learn=False)(state)
+    torch.cuda.synchronize()
+    for k, (m, n) in mods.items():
+        assert (m.launches, m.launches_bf16) == (before[k][0],
+                                                 before[k][1] + n), k
+    (z,) = features
+    assert z.dtype == torch.float32
+    assert torch.equal(z, z.to(torch.bfloat16).float())
+    with torch.no_grad():
+        q = state.params(dqn.dequantize_image(state.obs_image),
+                         state.obs_points, state.obs_mask,
+                         generator=state.generator)
+    assert q.shape == (64, cfg.rl.num_actions) and torch.isfinite(q).all()
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert all(p.dtype == torch.float32 for p in state.params.parameters())

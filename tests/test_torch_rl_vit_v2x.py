@@ -229,10 +229,13 @@ def test_vit_trunk_shapes_and_names():
     assert {"lid_to_code", "lid_codebook", "lid_from_code"} <= {
         n.split(".")[0] for n, _ in digital.named_parameters()}
     assert not hasattr(digital, "lid_sym_head")
-    # train.bf16 builds the ViT in bf16 (parameters f32); the digital
-    # LiDAR under it is not ported yet.
+    # train.bf16 builds the ViT in bf16 (parameters f32), and the digital
+    # LiDAR under it.
     bf16 = TQNetwork(tcfg.override_str(["train.bf16=true"])).perception
     assert bf16.cam_enc.dtype == bf16.cam_tok.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in bf16.parameters())
-    with pytest.raises(NotImplementedError, match=r"13b\(i\)"):
-        TQNetwork(tcfg.override_str(["train.bf16=true", "lidar.arch=vq"]))
+    bf16 = TQNetwork(tcfg.override_str(["train.bf16=true",
+                                        "lidar.arch=vq"])).perception
+    assert bf16.lid_to_code.act_dtype == bf16.lid_from_code.act_dtype == \
+        torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
