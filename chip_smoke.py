@@ -1696,7 +1696,8 @@ def check_flash_attention():
                              + 8 * b * h * lq, PEAK_TF32)}
         for key in rows:
             bound, by = bounds[key]
-            line += (f"; {key} kernel {ms[key]:.3f} ms, plain "
+            line += (f"; {key} kernel {ms[key]:.4f} ms (earlier "
+                     f"{FLASH_BF16_EARLIER_MS[key]:.4f}), plain "
                      f"{plain[key]:.3f} ms, bound {bound:.4f} ms ({by})")
             rows[key].append({"per_step": per_step, "err": errs[key],
                               "ms": ms[key], "plain_ms": plain[key],
@@ -4754,14 +4755,27 @@ def check_packed_attention_bf16():
     return entries
 
 
+# The earlier bf16 kernels, bf16-I/O instances of the f32 kernels (3xTF32
+# wgmma, plain loads), at the c3 arm-F shape, ms per launch on an NVIDIA
+# H100 80GB HBM3 at 700 W (``PERF.md`` section 6): the times the bf16
+# wgmma kernels replace.
+FLASH_BF16_EARLIER_MS = {"fwd": 0.601 / 8, "dq": 0.916 / 8, "dkv": 1.094 / 8}
+
+
 def check_flash_attention_bf16():
-    """The flash kernels' bf16-I/O instances against their plain versions
-    (``_gate_bf16_io``) at the c3 arm-F shape on the transposed views the
-    ViT's MHA hands in (timed, per arm-F train step), and at ragged, cross,
-    odd-D, head-dim-128 (the FMA-unit backward) and contiguous shapes; the
-    output, dQ, dK and dV held to the f32-I/O kernels' results on the same
-    values (their one rounding), lse and delta bit-equal to them; every
-    backward run twice, bit-equal. Times beside SDPA on bf16 tensors."""
+    """The flash kernels on bf16 tensors (``csrc/flash_bf16.cuh``, bf16
+    wgmma) against their plain versions (``_gate_bf16_io``) at the c3
+    arm-F shape on the transposed views the ViT's MHA hands in (timed, per
+    arm-F train step), and at ragged, cross, odd-D (D 8 and 96: q scale in
+    three pieces; D 8 on 16-byte copies of a 16-byte row), head-dim-128 and
+    contiguous shapes, and a head dim no multiple of 8 (8-byte copies); the
+    output, dQ, dK and dV held to the same kernels' f32 outputs (their one
+    rounding at the store), those to the f32 kernels' results on the widened
+    values within the f32 check's gates, delta bit-equal to theirs and lse
+    within 2e-5 (S, and near-zero outputs, come from other tensor-core
+    sums); every backward run twice, bit-equal; each case's launches
+    counted. Times beside SDPA on bf16
+    tensors, the bound, and the earlier kernels' times."""
     import torch
     import torch.nn.functional as F
 
@@ -4783,16 +4797,23 @@ def check_flash_attention_bf16():
              (2, 2, 17, 17, 64, contiguous, 0),
              (3, 2, 33, 130, 128, heads_view, 0),
              (2, 3, 40, 24, 96, contiguous, 0),
-             (4, 5, 300, 7, 8, heads_view, 0)]
+             (4, 5, 300, 7, 8, heads_view, 0),
+             (2, 3, 90, 150, 12, contiguous, 0)]
     rows = {"fwd": [], "dq": [], "dkv": []}
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     strict = outputs = 0        # outputs past 1e-2 alone, outputs held
+    counts = ("launches_fwd_bf16", "launches_bwd_dq_bf16",
+              "launches_bwd_dkv_bf16")
     for b, h, lq, lk, d, make, per_step in cases:
+        before = [getattr(fa, c) for c in counts]
         q, k, v = make(b, h, lq, d), make(b, h, lk, d), make(b, h, lk, d)
         do = make(b, h, lq, d)
         qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
         scale = d ** -0.5
         out, lse = fa._fwd_cuda(q, k, v, scale)
+        # The same kernel's f32 output (its sums before their one rounding)
+        # and the f32 kernels' results on the widened values.
+        own32 = fa._fwd_cuda(q, k, v, scale, out_dtype=torch.float32)[0]
         out32, lse32 = fa._fwd_cuda(qf, kf, vf, scale)
         ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
         exact = fa.flash_attention_fwd_reference(qf, kf, vf, scale)[0]
@@ -4813,24 +4834,40 @@ def check_flash_attention_bf16():
         dq32, delta32 = fa._bwd_dq_cuda(qf, kf, vf, out.float(), lse, dof,
                                         scale)
         g32 = (dq32, *fa._bwd_dkv_cuda(qf, kf, vf, lse, delta32, dof, scale))
+        delta_ = runs[0][1]
+        own_g = (fa._bwd_dq_cuda(q, k, v, out, lse, do, scale,
+                                 out_dtype=torch.float32)[0],
+                 *fa._bwd_dkv_cuda(q, k, v, lse, delta_, do, scale,
+                                   out_dtype=torch.float32))
         ref_g = fa.flash_attention_bwd_reference(q, k, v, out, ref_lse, do,
                                                  scale)
         exact_g = fa.flash_attention_bwd_reference(qf, kf, vf, exact, ref_lse,
                                                    dof, scale)
         torch.cuda.synchronize()
-        if not (torch.equal(lse, lse32) and torch.equal(runs[0][1], delta32)):
-            raise AssertionError("flash_attention bf16 I/O: lse or delta "
-                                 "differs from the f32-I/O kernels'")
+        # The forward twice, autograd's backward once, two more runs and
+        # each kernel once more with f32 outputs.
+        if [getattr(fa, c) - n for c, n in zip(counts, before)] != [3, 4, 4]:
+            raise AssertionError("flash_attention bf16: the bf16 kernels' "
+                                 "launches not counted")
+        if not torch.equal(runs[0][1], delta32):
+            raise AssertionError("flash_attention bf16 I/O: delta differs "
+                                 "from the f32 kernels'")
+        torch.testing.assert_close(lse, lse32, atol=2e-5, rtol=2e-5)
         torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+        # The f32 sums against the f32 kernels': the f32 check's gates (2e-5
+        # forward, 2e-4 backward), the two tensor-core sums in other orders.
+        torch.testing.assert_close(own32, out32, atol=2e-5, rtol=2e-5)
+        for a, f in zip(own_g, g32):
+            torch.testing.assert_close(a, f, atol=2e-4, rtol=2e-4)
         errs, means, shares = {}, [], []
-        owns = [_own_rounding("flash_attention forward bf16 I/O", out, out32)]
+        owns = [_own_rounding("flash_attention forward bf16 I/O", out, own32)]
         errs["fwd"], m, s, n = _gate_bf16_io(
             "flash_attention forward bf16 I/O", out, ref, exact)
         strict, outputs = strict + n, outputs + out.numel()
         means.append(m)
         shares.append(s)
         bwd = []
-        for i, (a, w, ex, f) in enumerate(zip(got, ref_g, exact_g, g32)):
+        for i, (a, w, ex, f) in enumerate(zip(got, ref_g, exact_g, own_g)):
             what = f"flash_attention backward bf16 I/O d{'qkv'[i]}"
             e, m, s, n = _gate_bf16_io(what, a, w, ex)
             strict, outputs = strict + n, outputs + a.numel()
@@ -4845,8 +4882,9 @@ def check_flash_attention_bf16():
                 f"D={d} ({make.__name__}): err fwd {errs['fwd']:.3e}, dq "
                 f"{errs['dq']:.3e}, dk/dv {errs['dkv']:.3e}, mean "
                 f"{max(means):.2e}, {100 * max(shares):.3f}% differ, "
-                f"{100 * max(owns):.3f}% off their one rounding; lse and "
-                "delta those of the f32 I/O; two backward runs bit-equal")
+                f"{100 * max(owns):.3f}% off their one rounding; lse "
+                f"{(lse - lse32).abs().max().item():.2e} from the f32 "
+                "kernel's, delta its bits; two backward runs bit-equal")
         if not per_step:
             print(line, flush=True)
             continue
@@ -4896,7 +4934,8 @@ def check_flash_attention_bf16():
                              PEAK_BF16)}
         for key in rows:
             bound, by = bounds[key]
-            line += (f"; {key} kernel {ms[key]:.3f} ms, plain "
+            line += (f"; {key} kernel {ms[key]:.4f} ms (earlier "
+                     f"{FLASH_BF16_EARLIER_MS[key]:.4f}), plain "
                      f"{plain[key]:.3f} ms, bound {bound:.4f} ms ({by})")
             rows[key].append({"per_step": per_step, "err": errs[key],
                               "ms": ms[key], "plain_ms": plain[key],
@@ -4906,11 +4945,11 @@ def check_flash_attention_bf16():
                  f"dV together) {lib_bwd:.3f} ms")
         print(line, flush=True)
         del q, k, v, do, qf, kf, vf, dof, out, out32, ref, exact, ins, got
-        del runs, g32, ref_g, exact_g, qc, kc, vc, lib_out
+        del runs, g32, ref_g, exact_g, qc, kc, vc, lib_out, own32, own_g
     print(f"  flash_attention bf16 I/O gate readings: largest error "
           f"{max(worst.values()):.3e}, {strict} of {outputs} outputs past "
           f"1e-2 alone (each within one more bf16 step)", flush=True)
-    src = "multimodal_sc_torch/csrc/flash_attention.cu"
+    src = "multimodal_sc_torch/csrc/flash_bf16.cuh"
     entries = [
         _entry("flash_attention_fwd_bf16", "cuda", src,
                "multimodal_sc_tpu/kernels/attention.py:103", rows["fwd"]),

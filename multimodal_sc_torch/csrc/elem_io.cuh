@@ -2,7 +2,8 @@
 // f32 on the way in and rounded once (to nearest even) on the way out. A
 // kernel templated on its element type T reads and writes its tensors
 // through these, so its f32 and bf16-I/O instances share every line of the
-// arithmetic between. Included by flash_kernels.cuh and attention_packed.cu.
+// arithmetic between. Included by attention_packed.cu, flash_kernels.cuh
+// (f32 only) and flash_bf16.cuh (bf16 in, bf16 or f32 out).
 
 #pragma once
 

@@ -13,11 +13,12 @@
 // and V stream through shared memory 32 rows at a time, the ragged ends of
 // Lq and Lk are predicates, and the logsumexp is a plain (B, H, Lq) array.
 //
-// The kernels themselves are in flash_kernels.cuh (attention_packed.cu
-// launches all three as its f32 mode); this file holds their launchers.
-// All arithmetic is f32-grade (the TPU kernels cast every operand to f32
-// too). Keys past Lk score -1e30 (probability exactly 0); rows past Lq or Lk
-// compute on zeros and store nothing.
+// The kernels on f32 tensors are in flash_kernels.cuh (attention_packed.cu
+// launches all three as its f32 mode), those on bf16 tensors in
+// flash_bf16.cuh; this file holds their launchers. All arithmetic is
+// f32-grade (the TPU kernels cast every operand to f32 too). Keys past Lk
+// score -1e30 (probability exactly 0); rows past Lq or Lk compute on zeros
+// and store nothing. The f32 kernels:
 //
 //   flash_fwd_kernel   one block, a warpgroup of four warps, per
 //                      (batch*head, 64 queries). Bound on the card: its
@@ -79,19 +80,38 @@
 //                      registers, the other side streamed 32 rows at a time
 //                      through shared memory.
 //
-// bf16 I/O (train.bf16): each kernel also has an instance that reads q, k,
-// v, O and dO in bf16 and writes the output, dQ, dK and dV in bf16, as the
-// TPU kernels do when handed bf16 arrays. Every value is widened to f32 on
-// the way into the kernel, so everything between (the scale applied to q in
-// f32, the online softmax, the 3xTF32 products, delta = rowsum(dO O) of
-// the widened values) is the f32 instance's arithmetic; the output, and dQ,
-// dK and dV summed in f32 over every block, are rounded once at the store;
-// lse and delta stay f32. A bf16 row cannot be copied by cp.async into the
-// f32 stages as it lies, so those instances load, widen and store their
-// chunks of each tile with plain loads, by the thread that later splits
-// them (the ordering a cp.async wait gave). Launchers take `bf16` to pick
-// the instance.
+// On bf16 tensors (train.bf16) three other kernels run, designed for bf16
+// (flash_bf16.cuh): what they compute is the f32 kernels' function on the
+// widened values, as the TPU kernels compute when handed bf16 arrays (the
+// forward scales q in f32, the backward scales q K^T; the output, dQ, dK
+// and dV rounded to bf16 once at the store; lse and delta f32). Their bound
+// on the card is their bytes at two a value against products on the bf16
+// tensor cores (989 TFLOP/s): a product of two bf16 values is exact in f32,
+// so it is one bf16 wgmma pass, and one with an f32 operand (P, dS, q scale
+// where the scale is no power of two) is three, that operand split exactly
+// into bf16 hi, mid and lo. So:
+//   - K and V tiles (forward, dQ) and Q and dO tiles (dK/dV) are copied as
+//     bf16 by cp.async, 16 bytes a chunk (8 where the head dim is no
+//     multiple of 8 or a row is not 16-byte aligned), three stages deep:
+//     tiles j + 1 and j + 2 land while the tensor cores work on tile j, one
+//     barrier a tile. They are stored in the 128-byte (64 at head dim 32)
+//     swizzle wgmma's descriptors read, so a tile is a K-major operand
+//     (K of S = q K^T, V of dP = dO V^T) and an MN-major one (V of P V, K
+//     of dS K, Q and dO of dK, dV) as it landed: no transposed copy, no
+//     hi and lo planes.
+//   - The block's own rows (q scale in one or three pieces; q and dO; k
+//     and v) are split once into shared tiles, the A operands of S, dP and
+//     their transposes; P and dS stay in registers in the accumulator
+//     layout, which is the A fragment of the products over the tile's rows.
+//   - One warpgroup a block, 64 of its own rows (queries; keys for dK/dV),
+//     64-key tiles forward, 64-row tiles backward (32 at head dims above
+//     64, where dK and dV take 128 accumulator registers). The running
+//     output, dQ, dK and dV accumulate on the tensor cores in f32 (the f32
+//     kernels join each tile's product through the FADD units instead: the
+//     registers of a second accumulator would cost a block an SM here).
+// Launchers take `mode` to pick them.
 
+#include "flash_bf16.cuh"
 #include "flash_kernels.cuh"
 
 namespace {
@@ -115,83 +135,108 @@ bool shape_ok(int B, int H, int Lq, int Lk, int D) {
   if ((D_) <= 64) { constexpr int DT = 64; return CALL; } \
   { constexpr int DT = 128; return CALL; }
 
-template <typename T>
+// The launchers of flash_kernels.cuh (f32) and flash_bf16.cuh (bf16), one
+// name each: the element type of the pointers picks.
+using flash::launch_bwd_dkv;
+using flash::launch_bwd_dq;
+using flash::launch_fwd;
+using flash_bf16::launch_bwd_dkv;
+using flash_bf16::launch_bwd_dq;
+using flash_bf16::launch_fwd;
+
+// T: the inputs' element type; OT: the outputs' (float for T = float).
+template <typename T, typename OT>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         const long long* s, int B, int H, int Lq, int Lk, int D, float scale,
         cudaStream_t stream) {
-  DISPATCH_HEAD_TILE(D, (flash::launch_fwd<DT>(
+  DISPATCH_HEAD_TILE(D, (launch_fwd<DT>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, strides_at(s, 0),
+      static_cast<const T*>(v), static_cast<OT*>(out), lse, strides_at(s, 0),
       strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), B, H, Lq, Lk, D,
       scale, stream)))
 }
 
-template <typename T>
+template <typename T, typename OT>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, float* delta,
            const long long* s, int B, int H, int Lq, int Lk, int D,
            float scale, cudaStream_t stream) {
-  DISPATCH_HEAD_TILE(D, (flash::launch_bwd_dq<DT>(
+  DISPATCH_HEAD_TILE(D, (launch_bwd_dq<DT>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, static_cast<T*>(dq), delta,
+      static_cast<const T*>(dout), lse, static_cast<OT*>(dq), delta,
       strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
       strides_at(s, 4), strides_at(s, 5), B, H, Lq, Lk, D, scale, stream)))
 }
 
-template <typename T>
+template <typename T, typename OT>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dk, void* dv,
             const long long* s, int B, int H, int Lq, int Lk, int D,
             float scale, cudaStream_t stream) {
-  DISPATCH_HEAD_TILE(D, (flash::launch_bwd_dkv<DT>(
+  DISPATCH_HEAD_TILE(D, (launch_bwd_dkv<DT>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), strides_at(s, 0),
+      static_cast<OT*>(dk), static_cast<OT*>(dv), strides_at(s, 0),
       strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4),
       strides_at(s, 5), B, H, Lq, Lk, D, scale, stream)))
 }
 
 }  // namespace
 
-// q, k, v, out (and o, dout, dq, dk, dv): f32, or bf16 when `bf16`, read
-// and written through their (batch, head, row) strides in elements
-// (`strides`: three per tensor, in argument order); rows 16-byte aligned in
-// f32, 8-byte in bf16. lse and delta: f32 (B, H, Lq), contiguous.
+// q, k, v, out (and o, dout, dq, dk, dv) read and written through their
+// (batch, head, row) strides in elements (`strides`: three per tensor, in
+// argument order); rows 16-byte aligned in f32, 8-byte in bf16. `mode`: 0,
+// all f32 (flash_kernels.cuh); 1, all bf16 (flash_bf16.cuh); 2, bf16 inputs
+// and f32 outputs (flash_bf16.cuh's sums before their rounding). lse and
+// delta: f32 (B, H, Lq), contiguous.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
-    int bf16, cudaStream_t stream) {
+    int mode, cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  return bf16 ? fwd<io::bf16>(q, k, v, out, lse, strides, B, H, Lq, Lk, D,
-                              scale, stream)
-              : fwd<float>(q, k, v, out, lse, strides, B, H, Lq, Lk, D, scale,
-                           stream);
+  if (mode == 0)
+    return fwd<float, float>(q, k, v, out, lse, strides, B, H, Lq, Lk, D,
+                             scale, stream);
+  if (mode == 1)
+    return fwd<bw::bf16, bw::bf16>(q, k, v, out, lse, strides, B, H, Lq, Lk,
+                                   D, scale, stream);
+  return fwd<bw::bf16, float>(q, k, v, out, lse, strides, B, H, Lq, Lk, D,
+                              scale, stream);
 }
 
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, float* delta,
     const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
-    int bf16, cudaStream_t stream) {
+    int mode, cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  return bf16 ? bwd_dq<io::bf16>(q, k, v, o, dout, lse, dq, delta, strides, B,
-                                 H, Lq, Lk, D, scale, stream)
-              : bwd_dq<float>(q, k, v, o, dout, lse, dq, delta, strides, B, H,
-                              Lq, Lk, D, scale, stream);
+  if (mode == 0)
+    return bwd_dq<float, float>(q, k, v, o, dout, lse, dq, delta, strides, B,
+                                H, Lq, Lk, D, scale, stream);
+  if (mode == 1)
+    return bwd_dq<bw::bf16, bw::bf16>(q, k, v, o, dout, lse, dq, delta,
+                                      strides, B, H, Lq, Lk, D, scale, stream);
+  return bwd_dq<bw::bf16, float>(q, k, v, o, dout, lse, dq, delta, strides, B,
+                                 H, Lq, Lk, D, scale, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
     const long long* strides, int B, int H, int Lq, int Lk, int D, float scale,
-    int bf16, cudaStream_t stream) {
+    int mode, cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  return bf16 ? bwd_dkv<io::bf16>(q, k, v, dout, lse, delta, dk, dv, strides,
-                                  B, H, Lq, Lk, D, scale, stream)
-              : bwd_dkv<float>(q, k, v, dout, lse, delta, dk, dv, strides, B,
-                               H, Lq, Lk, D, scale, stream);
+  if (mode == 0)
+    return bwd_dkv<float, float>(q, k, v, dout, lse, delta, dk, dv, strides,
+                                 B, H, Lq, Lk, D, scale, stream);
+  if (mode == 1)
+    return bwd_dkv<bw::bf16, bw::bf16>(q, k, v, dout, lse, delta, dk, dv,
+                                       strides, B, H, Lq, Lk, D, scale,
+                                       stream);
+  return bwd_dkv<bw::bf16, float>(q, k, v, dout, lse, delta, dk, dv, strides,
+                                  B, H, Lq, Lk, D, scale, stream);
 }

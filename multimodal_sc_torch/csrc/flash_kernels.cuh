@@ -1,13 +1,10 @@
-// Device code of the f32-grade softmax-attention kernels: forward, dQ and
-// dK/dV (3xTF32 on the tensor cores; the backward at head width 128 on the
-// f32 FMA units) on any (batch, head, row)-strided layout. Each is a
-// template on its element type T: f32, or bf16 I/O (q, k, v, O, dO read as
-// bf16 and widened to f32 on the way in, the output, dQ, dK and dV summed
-// in f32 and rounded once at the store; lse and delta stay f32).
+// Device code of the f32-grade softmax-attention kernels on f32 tensors:
+// forward, dQ and dK/dV (3xTF32 on the tensor cores; the backward at head
+// width 128 on the f32 FMA units) on any (batch, head, row)-strided layout.
 // flash_attention.cu documents the design and launches all three on
 // (B, H, L, D) tensors; attention_packed.cu launches them as its f32 mode on
 // the packed (B, L, H*d) layout, which is the same thing under other
-// strides.
+// strides. The kernels on bf16 tensors are in flash_bf16.cuh.
 
 #pragma once
 
@@ -37,8 +34,8 @@ __device__ __forceinline__ P* at(P* p, Strides s, int b, int h, int64_t row) {
 
 // Rows [0, n_valid) x columns [0, D) of src (row stride `stride` elements)
 // into a shared f32 KT x DT tile; everything else reads as zeros.
-template <int DT, typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+template <int DT>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           int64_t stride, int n_valid, int D,
                                           float* dst) {
   constexpr int C = DT / 4;
@@ -52,8 +49,8 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
 
 // This lane's 32 columns of a row in device memory; zeros when !valid and
 // past D.
-template <int LPR, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ src,
+template <int LPR>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
                                          bool valid, int seg, int D,
                                          float (&dst)[W]) {
 #pragma unroll
@@ -69,8 +66,8 @@ __device__ __forceinline__ void load_row(const T* __restrict__ src,
 }
 
 // src * f into this lane's columns of a row in device memory.
-template <int LPR, typename T>
-__device__ __forceinline__ void store_row(T* dst, int seg, int D,
+template <int LPR>
+__device__ __forceinline__ void store_row(float* dst, int seg, int D,
                                           const float (&src)[W], float f) {
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
@@ -162,10 +159,10 @@ __device__ __forceinline__ int v_slot(int key) {
 
 // One block, a warpgroup of four warps, per (batch*head, 64 queries); warp
 // w holds queries [16w, 16w + 16) of the block in every accumulator.
-template <typename T, int DT>
+template <int DT>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                  Strides so, int H, int Lq, int Lk, int D, int row_blocks,
                  float scale) {
@@ -188,8 +185,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x / row_blocks;
   const int b = bh / H, h = bh % H;
   const int row0 = (blockIdx.x % row_blocks) * TQ + warp * 16;
-  const T* kb = at(k, sk, b, h, 0);
-  const T* vb = at(v, sv, b, h, 0);
+  const float* kb = at(k, sk, b, h, 0);
+  const float* vb = at(v, sv, b, h, 0);
   const int ntiles = (Lk + TK - 1) / TK;
 
   // Raw K and V rows of key tile `tile` into stage `stage`; keys past Lk
@@ -205,20 +202,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = tid + it * THREADS;
       const int r = i / C4, c = (i % C4) * 4;
       const bool ok = k0 + r < Lk && c < D;
-      // bf16 rows cannot be copied into the f32 stages by cp.async as they
-      // lie: they are loaded, widened and stored by the thread that later
-      // splits them, which orders the two in program order.
-      if constexpr (io::is_bf16<T>) {
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(dk + r * RLD + c) =
-            ok ? io::ld4(kb + (k0 + r) * sk.l + c) : z;
-        *reinterpret_cast<float4*>(dk + RAW + r * RLD + c) =
-            ok ? io::ld4(vb + (k0 + r) * sv.l + c) : z;
-      } else {
-        cp_async16(dk + r * RLD + c, ok ? kb + (k0 + r) * sk.l + c : kb, ok);
-        cp_async16(dk + RAW + r * RLD + c,
-                   ok ? vb + (k0 + r) * sv.l + c : vb, ok);
-      }
+      cp_async16(dk + r * RLD + c, ok ? kb + (k0 + r) * sk.l + c : kb, ok);
+      cp_async16(dk + RAW + r * RLD + c, ok ? vb + (k0 + r) * sv.l + c : vb,
+                 ok);
     }
   };
   // This thread's raw chunks of stage `stage` into the hi and lo planes of
@@ -276,7 +262,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // q * scale, split once: the A fragments of each k-step (a0: row g,
   // column t; a1: row g + 8; a2, a3: column t + 4) in registers or, at
   // DT = 128, planes of the block's rows in shared memory.
-  const T* qrow = at(q, sq, b, h, row0);
+  const float* qrow = at(q, sq, b, h, row0);
   uint32_t qh[Q_REGS ? KS : 1][4], ql[Q_REGS ? KS : 1][4];
   if constexpr (Q_REGS) {
 #pragma unroll
@@ -440,7 +426,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + g + 8 * r;
     if (row >= Lq) continue;
     const float lc = fmaxf(lr, 1e-30f), inv = 1.0f / lc;
-    T* dst = at(out, so, b, h, row);
+    float* dst = at(out, so, b, h, row);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
@@ -453,18 +439,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // The forward on (batch, head, row)-strided tensors; lse may be null.
-template <int DT, typename T>
-int launch_fwd(const T* q, const T* k, const T* v, T* out, float* lse,
-               Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-               int Lq, int Lk, int D, float scale, cudaStream_t stream) {
+template <int DT>
+int launch_fwd(const float* q, const float* k, const float* v, float* out,
+               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+               int B, int H, int Lq, int Lk, int D, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = fwd_smem(DT);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int rb = (Lq + TQ - 1) / TQ;
-  flash_fwd_kernel<T, DT><<<(unsigned)((int64_t)B * H * rb), THREADS, smem,
-                            stream>>>(q, k, v, out, lse, sq, sk, sv, so, H, Lq,
+  flash_fwd_kernel<DT><<<(unsigned)((int64_t)B * H * rb), THREADS, smem,
+                         stream>>>(q, k, v, out, lse, sq, sk, sv, so, H, Lq,
                                    Lk, D, rb, scale);
   return (int)cudaGetLastError();
 }
@@ -575,10 +562,10 @@ __device__ __forceinline__ void put_t(uint32_t* p, int plane, int r, int c,
 // (two tiles of BT x (DT + 4)); rows past n and columns past D are
 // zero-filled. Thread tid copies chunks tid, tid + BTH, ... of each;
 // split_pair() splits the same ones, so the thread's own cp.async wait
-// (bf16 rows: its own loads) orders them. One commit group.
-template <int DT, typename T>
-__device__ __forceinline__ void load_pair(float* raw, const T* a,
-                                          long long sa, const T* b,
+// orders them. One commit group.
+template <int DT>
+__device__ __forceinline__ void load_pair(float* raw, const float* a,
+                                          long long sa, const float* b,
                                           long long sb, int r0, int n, int D) {
   constexpr int RLD = DT + 4, C4 = DT / 4;
 #pragma unroll
@@ -586,17 +573,9 @@ __device__ __forceinline__ void load_pair(float* raw, const T* a,
     const int i = threadIdx.x + it * BTH;
     const int r = i / C4, c = (i % C4) * 4;
     const bool ok = r0 + r < n && c < D;
-    if constexpr (io::is_bf16<T>) {
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(raw + r * RLD + c) =
-          ok ? io::ld4(a + (r0 + r) * sa + c) : z;
-      *reinterpret_cast<float4*>(raw + BT * RLD + r * RLD + c) =
-          ok ? io::ld4(b + (r0 + r) * sb + c) : z;
-    } else {
-      cp_async16(raw + r * RLD + c, ok ? a + (r0 + r) * sa + c : a, ok);
-      cp_async16(raw + BT * RLD + r * RLD + c,
-                 ok ? b + (r0 + r) * sb + c : b, ok);
-    }
+    cp_async16(raw + r * RLD + c, ok ? a + (r0 + r) * sa + c : a, ok);
+    cp_async16(raw + BT * RLD + r * RLD + c, ok ? b + (r0 + r) * sb + c : b,
+               ok);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -626,9 +605,9 @@ __device__ __forceinline__ void split_pair(const float* raw, uint32_t* ad,
 // Rows [r0, r0 + BR) of x times f into the r-plane xr (hi, lo), zeros past
 // n and D; with z (rows of x's shape), also each row's sum of x z into
 // sums[row].
-template <int DT, typename T>
-__device__ __forceinline__ void put_rows(const T* x, long long sx, float f,
-                                         const T* z, long long sz, int r0,
+template <int DT>
+__device__ __forceinline__ void put_rows(const float* x, long long sx, float f,
+                                         const float* z, long long sz, int r0,
                                          int n, int D, uint32_t* xr,
                                          float* sums) {
   constexpr int C4 = DT / 4;
@@ -716,12 +695,14 @@ __device__ __forceinline__ void acc_by_tile(float (&part)[DT / 2],
 
 // dQ = dS K scale and delta = rowsum(dO O), one block per (batch*head, BR
 // queries), key tiles of BT.
-template <typename T, int DT>
+template <int DT>
 __global__ void __launch_bounds__(BTH)
-flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ o,
-                       const T* __restrict__ dout,
-                       const float* __restrict__ lse, T* __restrict__ dq,
+flash_bwd_dq_tc_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ o,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse, float* __restrict__ dq,
                        float* __restrict__ delta, Strides sq, Strides sk,
                        Strides sv, Strides so, Strides sdo, Strides sdq, int H,
                        int Lq, int Lk, int D, int row_blocks, float scale) {
@@ -745,15 +726,15 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int row0 = (blockIdx.x % row_blocks) * BR;
   const uint32_t* dor_wg = dor + (warp / 4) * 64 * 4;   // its rows' planes
-  const T* kb = at(k, sk, b, h, 0);
-  const T* vb = at(v, sv, b, h, 0);
+  const float* kb = at(k, sk, b, h, 0);
+  const float* vb = at(v, sv, b, h, 0);
   const int ntiles = (Lk + BT - 1) / BT;
 
   // Tile 0 into plane set 0, tile 1 in flight. delta = rowsum(dO O) of the
   // widened values.
   load_pair<DT>(raw, kb, sk.l, vb, sv.l, 0, Lk, D);
-  put_rows<DT, T>(at(dout, sdo, b, h, 0), sdo.l, 1.0f, at(o, so, b, h, 0),
-                  so.l, row0, Lq, D, dor, delta_s);
+  put_rows<DT>(at(dout, sdo, b, h, 0), sdo.l, 1.0f, at(o, so, b, h, 0),
+               so.l, row0, Lq, D, dor, delta_s);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   split_pair<DT>(raw, kd(0), kt(0), vd(0), nullptr);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -762,7 +743,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // q scale, split once: the A fragments of each k-step (a0: row g, column
   // t; a1: row g + 8; a2, a3: column t + 4).
   const int wrow0 = row0 + warp * 16;
-  const T* qrow = at(q, sq, b, h, wrow0);
+  const float* qrow = at(q, sq, b, h, wrow0);
   uint32_t qh[KS][4], ql[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
@@ -848,7 +829,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = wrow0 + g + 8 * r;
     if (row >= Lq) continue;
-    T* dst = at(dq, sdq, b, h, row);
+    float* dst = at(dq, sdq, b, h, row);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
@@ -863,13 +844,15 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // query tiles of BT; no atomics. One plane set: the next tile is split
 // after the tensor cores are done with this one (two barriers a tile), its
 // copy in flight meanwhile.
-template <typename T, int DT>
+template <int DT>
 __global__ void __launch_bounds__(BTH)
-flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        T* __restrict__ dk, T* __restrict__ dv,
+                        float* __restrict__ dk, float* __restrict__ dv,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         Strides sdk, Strides sdv, int H, int Lq, int Lk, int D,
                         int row_blocks, float scale) {
@@ -893,8 +876,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int key0 = (blockIdx.x % row_blocks) * BR;
   const uint32_t* kr_wg = kr + (warp / 4) * 64 * 4;
   const uint32_t* vr_wg = vr + (warp / 4) * 64 * 4;
-  const T* qb = at(q, sq, b, h, 0);
-  const T* dob = at(dout, sdo, b, h, 0);
+  const float* qb = at(q, sq, b, h, 0);
+  const float* dob = at(dout, sdo, b, h, 0);
   const float* lse_b = lse + (int64_t)bh * Lq;
   const float* delta_b = delta + (int64_t)bh * Lq;
   const int ntiles = (Lq + BT - 1) / BT;
@@ -915,10 +898,10 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_pair<DT>(raw, qb, sq.l, dob, sdo.l, (j + 1) * BT, Lq, D);
   };
   load_pair<DT>(raw, qb, sq.l, dob, sdo.l, 0, Lq, D);
-  put_rows<DT, T>(at(k, sk, b, h, 0), sk.l, scale, nullptr, 0, key0, Lk, D,
-                  kr, nullptr);
-  put_rows<DT, T>(at(v, sv, b, h, 0), sv.l, 1.0f, nullptr, 0, key0, Lk, D,
-                  vr, nullptr);
+  put_rows<DT>(at(k, sk, b, h, 0), sk.l, scale, nullptr, 0, key0, Lk, D, kr,
+               nullptr);
+  put_rows<DT>(at(v, sv, b, h, 0), sv.l, 1.0f, nullptr, 0, key0, Lk, D, vr,
+               nullptr);
   next_tile(0);
 
   float dka[DT / 2], dva[DT / 2];
@@ -974,8 +957,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + warp * 16 + g + 8 * r;
     if (key >= Lk) continue;
-    T* ddk = at(dk, sdk, b, h, key);
-    T* ddv = at(dv, sdv, b, h, key);
+    float* ddk = at(dk, sdk, b, h, key);
+    float* ddv = at(dv, sdv, b, h, key);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
@@ -990,12 +973,12 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---- backward on the f32 FMA units (compiled width 128) ----
 
-template <typename T, int DT>
+template <int DT>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq,
                     float* __restrict__ delta, Strides sq, Strides sk,
                     Strides sv, Strides so, Strides sdo, Strides sdq, int H,
                     int Lq, int Lk, int D, int row_blocks, float scale) {
@@ -1026,8 +1009,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float ls = has_row ? lse[(int64_t)bh * Lq + row] : 0.0f;
   if (has_row && seg == 0) delta[(int64_t)bh * Lq + row] = dl;
-  const T* kb = at(k, sk, b, h, 0);
-  const T* vb = at(v, sv, b, h, 0);
+  const float* kb = at(k, sk, b, h, 0);
+  const float* vb = at(v, sv, b, h, 0);
 
   for (int k0 = 0; k0 < Lk; k0 += KT) {
     const int nk = min(KT, Lk - k0);
@@ -1046,13 +1029,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (has_row) store_row<LPR>(at(dq, sdq, b, h, row), seg, D, acc, scale);
 }
 
-template <typename T, int DT>
+template <int DT>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, Strides sq, Strides sk,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, Strides sq, Strides sk,
                      Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
                      int Lq, int Lk, int D, int row_blocks, float scale) {
   constexpr int LPR = DT / W;
@@ -1076,8 +1061,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc_dk[d] = 0.0f;
     acc_dv[d] = 0.0f;
   }
-  const T* qb = at(q, sq, b, h, 0);
-  const T* dob = at(dout, sdo, b, h, 0);
+  const float* qb = at(q, sq, b, h, 0);
+  const float* dob = at(dout, sdo, b, h, 0);
   const float* lse_b = lse + (int64_t)bh * Lq;
   const float* delta_b = delta + (int64_t)bh * Lq;
 
@@ -1110,9 +1095,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // The backward kernels on (batch, head, row)-strided tensors: on the tensor
 // cores at compiled widths 32 and 64, on the FMA units at 128.
-template <int DT, typename T>
-int launch_bwd_dq(const T* q, const T* k, const T* v, const T* o,
-                  const T* dout, const float* lse, T* dq, float* delta,
+template <int DT>
+int launch_bwd_dq(const float* q, const float* k, const float* v,
+                  const float* o, const float* dout, const float* lse,
+                  float* dq, float* delta,
                   Strides sq, Strides sk, Strides sv,
                   Strides so, Strides sdo, Strides sdq, int B, int H, int Lq,
                   int Lk, int D, float scale, cudaStream_t stream) {
@@ -1123,23 +1109,24 @@ int launch_bwd_dq(const T* q, const T* k, const T* v, const T* o,
   if constexpr (DT <= 64) {
     constexpr size_t smem = dq_smem(DT);
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<T, DT>,
+        flash_bwd_dq_tc_kernel<DT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dq_tc_kernel<T, DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+    flash_bwd_dq_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
         q, k, v, o, dout, lse, dq, delta, sq, sk, sv, so, sdo, sdq, H, Lq, Lk,
         D, rb, scale);
   } else {
-    flash_bwd_dq_kernel<T, DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    flash_bwd_dq_kernel<DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
         q, k, v, o, dout, lse, dq, delta, sq, sk, sv, so, sdo, sdq, H, Lq, Lk,
         D, rb, scale);
   }
   return (int)cudaGetLastError();
 }
 
-template <int DT, typename T>
-int launch_bwd_dkv(const T* q, const T* k, const T* v, const T* dout,
-                   const float* lse, const float* delta, T* dk, T* dv,
+template <int DT>
+int launch_bwd_dkv(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dk, float* dv,
                    Strides sq, Strides sk, Strides sv,
                    Strides sdo, Strides sdk, Strides sdv, int B, int H, int Lq,
                    int Lk, int D, float scale, cudaStream_t stream) {
@@ -1150,14 +1137,14 @@ int launch_bwd_dkv(const T* q, const T* k, const T* v, const T* dout,
   if constexpr (DT <= 64) {
     constexpr size_t smem = dkv_smem(DT);
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_tc_kernel<T, DT>,
+        flash_bwd_dkv_tc_kernel<DT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dkv_tc_kernel<T, DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+    flash_bwd_dkv_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, H, Lq,
         Lk, D, rb, scale);
   } else {
-    flash_bwd_dkv_kernel<T, DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    flash_bwd_dkv_kernel<DT><<<(unsigned)blocks, THREADS, 0, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, H, Lq,
         Lk, D, rb, scale);
   }

@@ -6,18 +6,24 @@ version, the flash kernels (forward, dQ, fused dK/dV; they serve the shapes
 dispatch. On a CUDA tensor ``flash_attention`` launches the forward kernel
 of ``csrc/flash_attention.cu`` and its autograd backward launches the two
 backward kernels (dQ with delta, then dK/dV) on the saved q, k, v, output
-and logsumexp; all three form f32-grade products on the TF32 tensor cores
-by the 3xTF32 split (the backward at head dims above 64 on the f32 FMA
-units). On a CPU tensor the plain version runs: for float32 the twin
-``attention_reference`` under autograd; for bf16 the kernels' plain
-versions, whose backward rounds dQ, dK and dV once, where the kernels
-store them (``flash_attention_plain``).
+and logsumexp; on float32 tensors all three form f32-grade products on the
+TF32 tensor cores by the 3xTF32 split (the backward at head dims above 64
+on the f32 FMA units). On a CPU tensor the plain version runs: for float32
+the twin ``attention_reference`` under autograd; for bf16 the kernels'
+plain versions, whose backward rounds dQ, dK and dV once, where the
+kernels store them (``flash_attention_plain``).
 
-bf16 tensors (``train.bf16``) take the kernels' bf16-I/O instances, counted
-apart (``launches_*_bf16``): every value widened to f32 on the way in, the
-f32 arithmetic of the f32 instances, the output, dQ, dK and dV rounded once
-at the store; lse and delta stay f32. The JAX kernels compute so when
-handed bf16 arrays.
+bf16 tensors (``train.bf16``) take three kernels of their own
+(``csrc/flash_bf16.cuh``), counted apart (``launches_*_bf16``), at every
+shape the wrapper takes: the same function on the widened values (the
+forward's q scale in f32, the backward's scale after q K^T, f32 softmax and
+sums, the output, dQ, dK and dV rounded once at the store; lse and delta
+f32), as the JAX kernels compute when handed bf16 arrays, with every product
+on the bf16 tensor cores (``wgmma``): one pass where both operands are bf16
+values, three where one is f32 (P, dS, q scale), split exactly into bf16
+hi, mid and lo. Their K, V (Q, dO) tiles are copied as bf16 by ``cp.async``,
+16 bytes a chunk, or 8 where the head dim is no multiple of 8 or a row is
+not 16-byte aligned (``_readable`` guarantees 8).
 
 The kernels read q, k, v and dO where they lie, through their (batch, head,
 row) strides, so the transposed views of a (B, L, H, D) projection need no
@@ -38,7 +44,7 @@ _MAX_HEAD_DIM = 128
 
 # Launches of the CUDA forward, dQ and dK/dV kernels (one backward pass
 # launches the dQ kernel, which also writes delta, then the dK/dV kernel);
-# the bf16-I/O instances apart.
+# the kernels on bf16 inputs (csrc/flash_bf16.cuh) apart.
 launches_fwd = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
@@ -201,72 +207,87 @@ def _check_cuda(*tensors: torch.Tensor) -> Tuple[int, int, int, int, int]:
     return b, h, lq, lk, d
 
 
-def _heads_inner(b: int, h: int, l: int, d: int, like: torch.Tensor):
-    """An uninitialised (B, H, L, D) tensor in the (B, L, H, D) memory order
-    of a projection's output, so a caller's transpose to (B, L, H*D), or
-    the one autograd applies on the way back, is a view."""
-    return torch.empty((b, l, h, d), dtype=like.dtype,
+def _heads_inner(b: int, h: int, l: int, d: int, like: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None):
+    """An uninitialised (B, H, L, D) tensor (``like``'s dtype unless
+    ``dtype`` is given) in the (B, L, H, D) memory order of a projection's
+    output, so a caller's transpose to (B, L, H*D), or the one autograd
+    applies on the way back, is a view."""
+    return torch.empty((b, l, h, d), dtype=dtype or like.dtype,
                        device=like.device).transpose(1, 2)
 
 
-def _fwd_cuda(q, k, v, scale: float):
+def _mode(q: torch.Tensor, out_dtype: Optional[torch.dtype]):
+    """(the C entry's mode, the outputs' dtype): 0 f32 in and out; 1 bf16 in
+    and out; 2 bf16 in, f32 out (the bf16 kernels' sums before their one
+    rounding, which ``chip_smoke.py`` holds their bf16 outputs to)."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if q.dtype == torch.float32 and out_dtype == torch.float32:
+        return 0, out_dtype
+    if q.dtype == torch.bfloat16 and out_dtype in _DTYPES:
+        return (1 if out_dtype == torch.bfloat16 else 2), out_dtype
+    raise TypeError(f"no flash attention kernel takes {q.dtype} to "
+                    f"{out_dtype}")
+
+
+def _fwd_cuda(q, k, v, scale: float, out_dtype=None):
     global launches_fwd, launches_fwd_bf16
     b, h, lq, lk, d = _check_cuda(q, k, v)
-    bf16 = q.dtype == torch.bfloat16
+    mode, out_dtype = _mode(q, out_dtype)
     q, k, v = (_readable(t) for t in (q, k, v))
-    out = _heads_inner(b, h, lq, d, q)
+    out = _heads_inner(b, h, lq, d, q, out_dtype)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention", _SIG)
     err = lib.flash_attention_fwd_launch(
         *(_build.ptr(t) for t in (q, k, v, out, lse)), _strides(q, k, v, out),
-        b, h, lq, lk, d, scale, int(bf16), _build.stream_ptr(q.device))
+        b, h, lq, lk, d, scale, mode, _build.stream_ptr(q.device))
     _build.check(err, "flash_attention forward")
-    if bf16:
+    if mode:
         launches_fwd_bf16 += 1
     else:
         launches_fwd += 1
     return out, lse
 
 
-def _bwd_dq_cuda(q, k, v, out, lse, dout, scale: float):
+def _bwd_dq_cuda(q, k, v, out, lse, dout, scale: float, out_dtype=None):
     """dq, and delta = rowsum(dO * O) (B, H, Lq) for the dK/dV kernel."""
     global launches_bwd_dq, launches_bwd_dq_bf16
     b, h, lq, lk, d = _check_cuda(q, k, v, out, dout)
-    bf16 = q.dtype == torch.bfloat16
+    mode, out_dtype = _mode(q, out_dtype)
     if lse.shape != (b, h, lq) or lse.dtype != torch.float32:
         raise ValueError(f"lse (B, H, Lq) float32 expected, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     q, k, v, out, dout = (_readable(t) for t in (q, k, v, out, dout))
     lse = lse.contiguous()
-    dq = _heads_inner(b, h, lq, d, q)
+    dq = _heads_inner(b, h, lq, d, q, out_dtype)
     delta = torch.empty_like(lse)
     lib = _build.load("flash_attention", _SIG)
     err = lib.flash_attention_bwd_dq_launch(
         *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, delta)),
         _strides(q, k, v, out, dout, dq),
-        b, h, lq, lk, d, scale, int(bf16), _build.stream_ptr(q.device))
+        b, h, lq, lk, d, scale, mode, _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dQ")
-    if bf16:
+    if mode:
         launches_bwd_dq_bf16 += 1
     else:
         launches_bwd_dq += 1
     return dq, delta
 
 
-def _bwd_dkv_cuda(q, k, v, lse, delta, dout, scale: float):
+def _bwd_dkv_cuda(q, k, v, lse, delta, dout, scale: float, out_dtype=None):
     global launches_bwd_dkv, launches_bwd_dkv_bf16
     b, h, lq, lk, d = _check_cuda(q, k, v, dout)
-    bf16 = q.dtype == torch.bfloat16
+    mode, out_dtype = _mode(q, out_dtype)
     q, k, v, dout = (_readable(t) for t in (q, k, v, dout))
     lse, delta = lse.contiguous(), delta.contiguous()
-    dk, dv = _heads_inner(b, h, lk, d, q), _heads_inner(b, h, lk, d, q)
+    dk, dv = (_heads_inner(b, h, lk, d, q, out_dtype) for _ in range(2))
     lib = _build.load("flash_attention", _SIG)
     err = lib.flash_attention_bwd_dkv_launch(
         *(_build.ptr(t) for t in (q, k, v, dout, lse, delta, dk, dv)),
         _strides(q, k, v, dout, dk, dv),
-        b, h, lq, lk, d, scale, int(bf16), _build.stream_ptr(q.device))
+        b, h, lq, lk, d, scale, mode, _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dK/dV")
-    if bf16:
+    if mode:
         launches_bwd_dkv_bf16 += 1
     else:
         launches_bwd_dkv += 1

@@ -203,6 +203,66 @@ def test_flash_attention_bf16_io_dkv_on_the_card():
         _bf16_io_close(a, w)
 
 
+# The bf16 wgmma kernels at their other shapes: (B, H, Lq, Lk, D, layout).
+# D 32 and 96: q scale in three bf16 pieces (no power-of-two scale); D 96
+# and 128 at compiled width 128 (32-row backward tiles); D 12 no multiple of
+# 8 (8-byte copies); ragged Lk and Lq throughout; "heads" the (B, L, H, D)
+# projection read as (B, H, L, D) in place.
+FLASH_BF16_SHAPES = {
+    "d32_ragged": (2, 4, 100, 70, 32, "contiguous"),
+    "d96_heads": (2, 3, 40, 130, 96, "heads"),
+    "d128_heads": (3, 2, 33, 130, 128, "heads"),
+    "d12_8byte": (2, 3, 90, 150, 12, "contiguous"),
+    "d8_heads": (4, 5, 300, 7, 8, "heads"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_BF16_SHAPES))
+def test_flash_attention_bf16_wgmma_kernels_on_the_card(name):
+    from multimodal_sc_torch.kernels import attention as fa
+
+    _card()
+    b, h, lq, lk, d, layout = FLASH_BF16_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def make(n):
+        if layout == "heads":
+            return torch.randn(b, n, h, d, generator=g, device="cuda").to(
+                torch.bfloat16).transpose(1, 2)
+        return torch.randn(b, h, n, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = make(lq), make(lk), make(lk), make(lq)
+    scale = d ** -0.5
+    counts = ("launches_fwd_bf16", "launches_bwd_dq_bf16",
+              "launches_bwd_dkv_bf16")
+    before = [getattr(fa, c) for c in counts]
+    out, lse = fa._fwd_cuda(q, k, v, scale)
+    dq, delta = fa._bwd_dq_cuda(q, k, v, out, lse, do, scale)
+    dk, dv = fa._bwd_dkv_cuda(q, k, v, lse, delta, do, scale)
+    assert [getattr(fa, c) - n for c, n in zip(counts, before)] == [1, 1, 1]
+    # Each result is its f32 sums rounded once, at the store.
+    f32 = torch.float32
+    assert torch.equal(out, fa._fwd_cuda(q, k, v, scale, out_dtype=f32)[0]
+                       .bfloat16())
+    assert torch.equal(dq, fa._bwd_dq_cuda(q, k, v, out, lse, do, scale,
+                                           out_dtype=f32)[0].bfloat16())
+    for a, w in zip((dk, dv), fa._bwd_dkv_cuda(q, k, v, lse, delta, do,
+                                               scale, out_dtype=f32)):
+        assert torch.equal(a, w.bfloat16())
+    want, want_lse = fa.flash_attention_fwd_reference(q, k, v, scale)
+    _bf16_io_close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+    want_dq, want_delta = fa.flash_attention_dq_reference(q, k, v, out, lse,
+                                                          do, scale)
+    _bf16_io_close(dq, want_dq)
+    torch.testing.assert_close(delta, want_delta, atol=1e-5, rtol=1e-5)
+    for a, w in zip((dk, dv), fa.flash_attention_dkv_reference(
+            q, k, v, lse, delta, do, scale)):
+        _bf16_io_close(a, w)
+
+
 @pytest.mark.cuda
 def test_bf16_c4_vq_act_step_on_the_card(monkeypatch):
     """One act iteration of c4_vq under train.bf16 at 64 envs: the camera's
