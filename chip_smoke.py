@@ -605,8 +605,8 @@ def _ptxas_report(log):
 def _demangle_kernel(mangled):
     """``name<args>`` of a kernel's Itanium-mangled entry name: the nested
     names (each its length, then its letters) read in order up to the one
-    that ends in "kernel", then its template arguments (integers, float or
-    bf16)."""
+    that ends in "kernel", then its template arguments (integers, bools,
+    float or bf16)."""
     import re
 
     i = 3 if mangled.startswith("_ZN") else 2
@@ -615,13 +615,14 @@ def _demangle_kernel(mangled):
         name = mangled[i + len(n):i + len(n) + int(n)]
         i += len(n) + int(n)
         if name.endswith("kernel"):
-            arg = r"(f)|\d+(__nv_bfloat16)|Li(\d+)E"
+            arg = r"(f)|\d+(__nv_bfloat16)|Li(\d+)E|Lb([01])E"
             args = re.match(rf"I((?:{arg})+)E", mangled[i:])
             if not args:
                 return name
             return name + "<" + ", ".join(
-                "float" if f else "bf16" if b else v
-                for f, b, v in re.findall(arg, args.group(1))) + ">"
+                "float" if f else "bf16" if b else v if v else
+                ("true" if t == "1" else "false")
+                for f, b, v, t in re.findall(arg, args.group(1))) + ">"
     return mangled
 
 
@@ -4285,14 +4286,22 @@ def _ulp_gate(got, ref):
     return steps > 1.0, steps.max().item(), (got != ref).float().mean().item()
 
 
+# The bf16 convs' time per step before the bf16 wgmma kernel
+# (conv_mma_bf16_kernel on mma.sync and the banded Cin = 3 layer; NVIDIA
+# H100 80GB HBM3, 700.00 W): ms per c4 act step (``PERF.md`` section 6).
+CONV_BF16_EARLIER_MS = {"c4": 0.707}
+
+
 def check_conv_prelu_bf16():
     """The conv kernel on bf16 operands against its plain version (the
     widened operands, an f32 conv with TF32 off, bias and PReLU, one
     rounding) at c4's act shapes (B 1024: the bf16 line's rows), c1's (B 64,
     encoder and decoder) and c5's (B 32), both routes, and at shapes that
     reach every predicate: every output within one bf16 step (``_ulp_gate``;
-    the share that differs printed). Times beside cuDNN's bf16 conv2d (with
-    its bias, without the PReLU)."""
+    the share that differs printed). A shape whose output tiles split their
+    taps over a cluster of blocks runs twice and must give the same bits.
+    Times beside cuDNN's bf16 conv2d (with its bias, without the PReLU),
+    summed per c4 act step, c5 act forward and c1 train step."""
     import torch
     import torch.nn.functional as F
 
@@ -4313,7 +4322,7 @@ def check_conv_prelu_bf16():
         (64, (8, 8, 8, 8, 1, True)), (64, (5, 5, 8, 200, 1, True)),
         (64, (3, 3, 136, 136, 2, True)), (C3_BATCH, (64, 64, 3, 32, 2, True)),
         (C3_BATCH, (64, 64, 32, 3, 1, False)))]
-    rows, worst = [], 0.0
+    rows, worst, timed_at = [], 0.0, {}
     for b, (h, w, cin, cout, s, prelu), timed, per_step in cases:
         x = torch.randn(b, h, w, cin, generator=g, device="cuda").to(bf)
         wt = (torch.randn(5, 5, cin, cout, generator=g, device="cuda")
@@ -4330,7 +4339,9 @@ def check_conv_prelu_bf16():
         over, steps, share = _ulp_gate(out, ref)
         err = (out.float() - ref.float()).abs().max().item()
         worst = max(worst, err)
-        path = ("tensor cores" if cb.tensor_core_path(cin, cout, bf)
+        tc = cb.tensor_core_path(cin, cout, bf)
+        splits = cb.bf16_splits(b, h, w, cin, cout, 5, s) if tc else 1
+        path = (f"tensor cores, {splits} blocks a tile" if tc
                 else "FMA units, banded")
         line = (f"  conv_prelu bf16 B={b} {h}x{w}x{cin}->{cout} s{s} ({path})"
                 f": {100 * share:.3f}% of outputs differ, at most "
@@ -4338,6 +4349,13 @@ def check_conv_prelu_bf16():
         if over.any():
             raise AssertionError(f"{line}: {int(over.sum())} outputs more "
                                  "than one bf16 step from the plain version")
+        if splits > 1:
+            # The split tile's sums are added in rank order: no run-to-run
+            # difference.
+            if not torch.equal(out, cb.conv_prelu(x, wt, bias, alpha, s)):
+                raise AssertionError(f"{line}: two runs of the split conv "
+                                     "differ")
+            line += "; rerun bit-equal"
         if not timed:
             print(line, flush=True)
             continue
@@ -4354,15 +4372,34 @@ def check_conv_prelu_bf16():
         flops = 2 * b * oh * ow * cout * 25 * cin
         nbytes = 2 * (b * h * w * cin + 25 * cin * cout + 2 * cout
                       + b * oh * ow * cout)
-        bound, by = _bound_ms(flops, nbytes, PEAK_BF16
-                              if cb.tensor_core_path(cin, cout, bf)
-                              else PEAK_F32)
+        # The function's bound, bf16 operands at the bf16 peak, whichever
+        # path the kernel takes.
+        bound, by = _bound_ms(flops, nbytes, PEAK_BF16)
         print(f"{line}; kernel {ms:.4f} ms, plain {plain:.4f} ms, cuDNN bf16 "
               f"{lib:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+        row = {"per_step": per_step, "err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by, "library_ms": lib}
+        timed_at[b, (h, w, cin, cout, s, prelu)] = row
         if per_step:
-            rows.append({"per_step": per_step, "err": err, "ms": ms,
-                         "plain_ms": plain, "bound_ms": bound,
-                         "bound_by": by, "library_ms": lib})
+            rows.append(row)
+    # Per step of each path: c4's act step and c5's act forward run the five
+    # encoder convs once; a c1 train step its nine (the decoder's block0 and
+    # block1 have enc3's shape).
+    c1_convs = [(shape, 3 if shape == encoder[3] else 1)
+                for shape in encoder + decoder]
+    for what, b, shapes in (
+            ("c4 act step, 5 convs", NUM_ENVS, [(x, 1) for x in encoder]),
+            ("c5 act forward, 5 convs", C5_ENVS, [(x, 1) for x in encoder]),
+            ("c1 train step, 9 convs", C1_BATCH, c1_convs)):
+        group = [dict(timed_at[b, shape], per_step=n) for shape, n in shapes]
+        line = _entry("conv_prelu_bf16", "cuda", "", "", group)
+        earlier = CONV_BF16_EARLIER_MS.get(what.split()[0])
+        print(f"  conv_prelu bf16, {what} at B={b}: kernel {line['ms']:.4f} "
+              f"ms, plain {line['plain_ms']:.4f} ms, cuDNN bf16 "
+              f"{line['library_ms']:.4f} ms, bound {line['bound_ms']:.4f} ms "
+              f"({line['bound_by']})" + (
+                  f", before the bf16 wgmma kernel {earlier} ms" if earlier
+                  else ""), flush=True)
     entry = _entry("conv_prelu_bf16", "cuda",
                    "multimodal_sc_torch/csrc/conv_prelu.cu",
                    "multimodal_sc_tpu/kernels/conv_block.py:69", rows)
@@ -4585,16 +4622,26 @@ def _own_rounding(name, got, f32_io):
     return (got != f32_io.to(got.dtype)).float().mean().item()
 
 
+# The bf16-I/O packed forward's time per arm-B act+learn step before the
+# bf16 wgmma kernel (fwd_mma_kernel's bf16-I/O instance on mma.sync; NVIDIA
+# H100 80GB HBM3, 700.00 W; ``PERF.md`` section 6).
+PACKED_FWD_BF16_EARLIER_MS = 3.589
+
+
 def check_packed_attention_bf16():
     """The packed kernels' bf16 mode with bf16 tensors (train.bf16) against
     their bf16-I/O plain versions (``_gate_bf16_io``; dK and dV rounded per
     128-query block as the JAX kernel sums them) at the timed shapes of the
     f32 check (arm B's act+learn iteration and the ViT trunk's, the c3
     arm-P shape, whose 256 queries are two blocks, printed per c3 step),
-    and at ragged, Lq > 128, several-key-split, d = 64, 16 and 8 shapes.
-    The output, lse and dQ (and dK, dV where Lq is one block) are held to
-    the same mode's f32-I/O results: their one rounding. Every backward
-    runs twice, bit-equal. Times beside SDPA on the same bf16 tensors."""
+    and at ragged, Lq > 128, Lk > 256 (the forward's two passes),
+    several-key-split, d = 64, 16 and 8 shapes. The forward's output is
+    held to the same mode's f32-I/O kernel on the widened values (its output
+    rounded, at ``_gate_bf16_io``), its lse within 2e-5 of that kernel's and
+    the plain version's; dQ (and dK, dV where Lq is one block) to the same
+    mode's f32-I/O backward: their one rounding. Every backward runs twice,
+    bit-equal. Times beside SDPA on the same bf16 tensors; the forward
+    summed per arm-B act+learn step."""
     import torch
     import torch.nn.functional as F
 
@@ -4630,6 +4677,7 @@ def check_packed_attention_bf16():
     worst_fwd = worst_bwd = 0.0
     strict = outputs = 0        # outputs past 1e-2 alone, outputs held
     once = [0.0, 0.0, 0, 0]     # a once-rounded dK/dV's readings, worst
+    exps = 0                    # the forward's exponentials a step
     for b, lq, lk, dm, heads, n_fwd, n_bwd in cases:
         q, k, v, do = rnd(b, lq, dm), rnd(b, lk, dm), rnd(b, lk, dm), \
             rnd(b, lq, dm)
@@ -4645,10 +4693,13 @@ def check_packed_attention_bf16():
         err, mean, share, n = _gate_bf16_io(
             "packed_attention forward bf16 I/O", out, ref, exact)
         strict, outputs = strict + n, outputs + out.numel()
-        own = _own_rounding("packed_attention forward bf16 I/O", out, out32)
-        if not torch.equal(lse, lse32):
-            raise AssertionError("packed_attention bf16 I/O: lse differs "
-                                 "from the f32-I/O kernel's")
+        # The f32-I/O kernel sums S and P V in other orders, so its P
+        # roundings flip elsewhere: the plain version's gates, not its one
+        # rounding.
+        _, _, own, _ = _gate_bf16_io(
+            "packed_attention forward bf16 I/O against the f32-I/O kernel",
+            out, out32.to(bf), exact)
+        torch.testing.assert_close(lse, lse32, atol=2e-5, rtol=2e-5)
         torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
         # Backward through autograd: the Function's backward on bf16.
         ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -4665,7 +4716,7 @@ def check_packed_attention_bf16():
         exact_g = ap.packed_attention_bwd_reference(qf, kf, vf, exact, dof,
                                                     heads, scale)
         torch.cuda.synchronize()
-        berrs, bmeans, bshares, owns = [], [], [], [own]
+        berrs, bmeans, bshares, owns = [], [], [], []
         for i, (got, want, ex, f32_io) in enumerate(zip(grads, ref_g,
                                                         exact_g, g32)):
             e, m, s, n = _gate_bf16_io(f"packed_attention backward bf16 "
@@ -4684,7 +4735,8 @@ def check_packed_attention_bf16():
                 f"h={heads}: fwd err {err:.3e} mean {mean:.2e} "
                 f"({100 * share:.3f}% differ); bwd err {berr:.3e} mean "
                 f"{max(bmeans):.2e} ({100 * max(bshares):.3f}% differ); "
-                f"{100 * max(owns):.3f}% off their one rounding")
+                f"fwd {100 * own:.3f}% differ from the f32-I/O kernel's, "
+                f"bwd {100 * max(owns):.3f}% off their one rounding")
         if lq > ap.BLOCK_Q:
             # What the gate reads of a dK / dV summed over all query blocks
             # in f32 and rounded once (the f32-I/O result rounded), not per
@@ -4712,6 +4764,7 @@ def check_packed_attention_bf16():
             fwd_rows.append({"per_step": n_fwd, "err": err, "ms": ms,
                              "plain_ms": plain, "bound_ms": bound,
                              "bound_by": by, "library_ms": lib})
+            exps += n_fwd * b * heads * lq * lk
         else:
             line += f" (c3 arm P: x{-n_fwd} per train step)"
         if n_bwd:
@@ -4737,6 +4790,23 @@ def check_packed_attention_bf16():
         print(line, flush=True)
         del q, k, v, do, qf, kf, vf, dof, out, out32, ref, exact, grads, g32
         del ref_g, exact_g
+    step = _entry("packed_attention_fwd_bf16", "cuda", "", "", fwd_rows)
+    # Each probability's exponential once, on the exp2 units: 16 a clock on
+    # each SM (the CUDA guide's throughput table for sm_90), at the card's
+    # highest SM clock.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    exp_ms = exps / (16 * sms * mhz * 1e6) * 1e3
+    print(f"  packed_attention_fwd_bf16, arm B act+learn step (with the ViT "
+          f"trunk's rows): kernel {step['ms']:.4f} ms, plain "
+          f"{step['plain_ms']:.4f} ms, SDPA bf16 {step['library_ms']:.4f} ms, "
+          f"bound {step['bound_ms']:.4f} ms ({step['bound_by']}); "
+          f"exponential floor {exp_ms:.4f} ms ({exps} exponentials, 16 a "
+          f"clock on each of {sms} SMs at {mhz:.0f} MHz); before the bf16 "
+          f"wgmma kernel {PACKED_FWD_BF16_EARLIER_MS} ms", flush=True)
     print(f"  packed_attention bf16 I/O gate readings: largest error "
           f"{max(worst_fwd, worst_bwd):.3e}, {strict} of {outputs} outputs "
           f"past 1e-2 alone (each within one more bf16 step); a once-rounded "

@@ -31,13 +31,13 @@
 // between shared memory and registers (ldmatrix), the exponentials and the
 // f32 loads of their operands, not the products.
 //
-// Forward, bf16 mode: fwd_mma_kernel, one block of 4 warps per (128 query
-// rows, batch element, head); a head is a strided d-column slice of the
-// packed rows, read in place, so no warp idles whatever d is. K and V of
-// the (batch, head) are rounded to bf16 and staged once into padded shared
-// rows (Lk <= 256, every main-path shape: at d = 32 about 40 KB); a longer
-// Lk re-stages them 256 keys at a time per pass. Warps take 16-row query tiles in turn, Q in registers as the
-// left operand. The softmax keeps the plain two passes, because the
+// Forward, bf16 mode on f32 tensors: fwd_mma_kernel, one block of 4 warps
+// per (128 query rows, batch element, head); a head is a strided d-column
+// slice of the packed rows, read in place, so no warp idles whatever d is.
+// K and V of the (batch, head) are rounded to bf16 and staged once into
+// padded shared rows (Lk <= 256, every main-path shape: at d = 32 about 40
+// KB); a longer Lk re-stages them 256 keys at a time per pass. Warps take
+// 16-row query tiles in turn, Q in registers as the left operand. The softmax keeps the plain two passes, because the
 // definition rounds the NORMALISED probability to bf16 (an online softmax
 // would round exp(s - m_running) instead): pass 1 forms S = Q K^T on the
 // tensor cores (K rows by ldmatrix as the right operand) and takes each
@@ -78,12 +78,14 @@
 // bank groups; d = 8 is half a k-step, its rows zero-filled to 16 columns.
 // No padded copy of any input exists in device memory.
 //
-// bf16 I/O (train.bf16): both bf16-mode kernels also have an instance that
-// reads q, k, v, O and dO in bf16 (exact as the bf16 operands they already
-// were) and writes the output, dq, dk and dv in bf16, as the TPU kernel
-// does when handed bf16 arrays. The output and dQ are summed in f32 and
-// rounded once at the store (with several key splits the partial dQ stay
-// f32 in the scratch and their fixed-order sum is rounded); lse stays f32.
+// bf16 I/O (train.bf16): q, k, v, O and dO are read in bf16 (exact as the
+// bf16 operands they already were) and the output, dq, dk and dv written
+// in bf16, as the TPU kernel does when handed bf16 arrays. The forward is
+// fwd_wgmma_bf16_kernel (packed_fwd_bf16.cuh: bf16 wgmma, one pass while
+// Lk <= 256, S formed once). The backward is bwd_mma_kernel's bf16-I/O instance. The output and dQ are
+// summed in f32 and rounded once at the store (with several key splits the
+// partial dQ stay f32 in the scratch and their fixed-order sum is
+// rounded); lse stays f32.
 // dK and dV follow the TPU kernel's blocking: it keeps dk/dv in the output
 // dtype across its 128-query grid steps (_accum), so each block's partial
 // is rounded to bf16 and added to the running bf16 sum, which is rounded
@@ -100,6 +102,7 @@
 #include "bf16_mma.cuh"
 #include "elem_io.cuh"
 #include "flash_kernels.cuh"
+#include "packed_fwd_bf16.cuh"
 
 namespace {
 
@@ -143,10 +146,10 @@ constexpr size_t fwd_mma_smem(int D, int kc) {
 // (what the c4 shapes at Lk = 65 want; a cap of 64 spills); at the other
 // widths the hint of two blocks, without which ptxas spills a few bytes at
 // d = 16 and 64.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FNW * 32, D == 32 ? 0 : 2)
-fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out,
+fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
                float* __restrict__ lse, int Lq, int Lk, int dm, int heads,
                float scale, int kc) {
   constexpr int DP = D < 16 ? 16 : D;   // columns of a shared row
@@ -164,8 +167,8 @@ fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
   const int64_t stride = dm;
   const int64_t col = (int64_t)head * D;
-  const T* kb = k + (int64_t)b * Lk * stride + col;
-  const T* vb = v + (int64_t)b * Lk * stride + col;
+  const float* kb = k + (int64_t)b * Lk * stride + col;
+  const float* vb = v + (int64_t)b * Lk * stride + col;
   const bool resident = Lk <= kc;       // K and V staged once for both passes
 
   // K (and V) rows [c0, c0 + kc) into shared memory, rounded to bf16. Every
@@ -190,7 +193,7 @@ fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // rows g, columns 2t, 2t + 1 of the k-step; a1 rows g + 8; a2, a3
     // columns + 8. Rows past Lq and columns past D are zeros.
     uint32_t qa[KD][4];
-    const T* qb = q + ((int64_t)b * Lq + row0) * stride + col;
+    const float* qb = q + ((int64_t)b * Lq + row0) * stride + col;
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd)
 #pragma unroll
@@ -306,7 +309,7 @@ fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + g + 8 * r;
       if (row >= Lq) continue;
-      T* dst = out + ((int64_t)b * Lq + row) * stride + col;
+      float* dst = out + ((int64_t)b * Lq + row) * stride + col;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
         io::st2(dst + 8 * nd + 2 * t, o[nd][2 * r], o[nd][2 * r + 1]);
@@ -667,22 +670,34 @@ int launch_bwd_f32(const float* q, const float* k, const float* v,
                                    stream);
 }
 
-template <typename T, int D>
-int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                    float* lse, int B, int Lq, int Lk, int dm, int heads,
-                    float scale, cudaStream_t stream) {
+// bf16 mode on f32 tensors.
+template <int D>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int B, int Lq, int Lk, int dm, int heads,
+                   float scale, cudaStream_t stream) {
   const int kc = Lk < KC ? (Lk + 15) & ~15 : KC;
   const size_t smem = fwd_mma_smem(D, kc);
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)fwd_mma_smem(D, KC));
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + FQ - 1) / FQ, B, heads);
-  fwd_mma_kernel<T, D><<<grid, FNW * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Lq, Lk, dm, heads,
-      scale, kc);
+  fwd_mma_kernel<D><<<grid, FNW * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Lq, Lk, dm,
+      heads, scale, kc);
   return (int)cudaGetLastError();
+}
+
+// bf16 tensors: the bf16 wgmma forward.
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int B, int Lq, int Lk, int dm, int heads,
+                     float scale, cudaStream_t stream) {
+  return packed_bf16::launch_fwd<D>(
+      static_cast<const io::bf16*>(q), static_cast<const io::bf16*>(k),
+      static_cast<const io::bf16*>(v), static_cast<io::bf16*>(out), lse, B,
+      Lq, Lk, dm, heads, scale, stream);
 }
 
 // f32 mode: the strided forward of flash_kernels.cuh on the packed layout.
@@ -732,11 +747,11 @@ extern "C" int packed_attention_fwd_launch(
   if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kBf16Io)
     return (int)cudaErrorInvalidValue;
   if (mode == kBf16Io) {
-    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_bf16<io::bf16, D>(
+    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_wgmma<D>(
         q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
   }
   if (mode == kBf16) {
-    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_bf16<float, D>(
+    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_mma<D>(
         q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
   }
   DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_f32<(D <= 32 ? 32 : 64)>(

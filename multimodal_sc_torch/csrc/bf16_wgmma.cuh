@@ -2,7 +2,7 @@
 // Hopper's warpgroup mma (wgmma m64nNk16, bf16 operands, f32 sums) reads
 // through descriptors in either major order, asynchronous 8- and 16-byte
 // copies into them, and the split of an f32 value into three bf16 pieces.
-// Included by flash_bf16.cuh.
+// Included by flash_bf16.cuh, attention_packed.cu and conv_prelu.cu.
 //
 // A tile of R rows x DT bf16 columns is stored as DT / AW atom columns of R
 // rows of SW bytes (SW = 2 AW: 128 bytes for DT >= 64, 64 for DT = 32), each
@@ -168,11 +168,13 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[BN / 2],
                                               uint64_t a_desc,
                                               uint64_t b_desc,
                                               int accumulate) {
-  static_assert(BN == 32 || BN == 64, "tile width");
+  static_assert(BN == 32 || BN == 64 || BN == 128, "tile width");
   if constexpr (BN == 32) {
     WGMMA_BF16_SS(32, WG_R16, WG_D16(0), "16", "17", "18", "19");
-  } else {
+  } else if constexpr (BN == 64) {
     WGMMA_BF16_SS(64, WG_R32, WG_D32(0), "32", "33", "34", "35");
+  } else {
+    WGMMA_BF16_SS(128, WG_R64, WG_D64(0), "64", "65", "66", "67");
   }
 }
 
@@ -184,6 +186,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Every committed group but the N most recent complete.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void wgmma_commit_wait() {
   wgmma_commit();
@@ -200,6 +207,11 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// Every group but the N most recent complete.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace bw

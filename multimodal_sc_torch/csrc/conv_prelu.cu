@@ -65,31 +65,59 @@
 // results do not depend on it.
 //
 // bf16 I/O (train.bf16). The TPU kernel reads bf16 activations and weights,
-// sums their products in f32, adds the bias, applies the PReLU and rounds
-// once at the store. A bf16 x bf16 product is exact in f32, so the 3xTF32
-// split would triple the work for nothing, and the bound becomes the bf16
-// tensor-core rate (989 TFLOP/s):
+// adds the per-tap dots of the widened values to a running f32 sum in tap
+// order, adds the bias, applies the PReLU and rounds once at the store. A
+// bf16 x bf16 product is exact in f32, so one bf16 tensor-core pass computes
+// it, and the bound becomes the bf16 tensor-core rate (989 TFLOP/s):
 //
-//   * conv_mma_bf16_kernel (Cin and Cout multiples of 8, the 16-byte copies
-//     of 8 bf16): the same implicit GEMM, M = N*OH*OW pixels, N = Cout, K =
-//     K*K*Cin, on mma.sync.m16n8k16 with bf16 operands and f32 sums. A
-//     block owns 128 pixels x a tile of 16-128 channels (as above); one
-//     pipeline step is one tap and 32 input channels (two k-steps of 16),
-//     copied by cp.async into a ring of three stages: 128 x 32 gathered
-//     pixels (rows of 40 bf16, so the eight rows an ldmatrix reads fall in
-//     eight bank groups) and 32 x BN weights (rows of BN + 8). Each of the
-//     eight warps owns 16 pixels x all BN channels: per k-step one ldmatrix
-//     of its pixels and BN / 16 transposed ldmatrix of the weights. Each
-//     mma's 16 products start from zero and join the pixel's sum through
-//     the FADD units, which round to nearest (a chain of tensor-core sums
-//     truncates). Channels past Cin, taps outside the image and pixels past
-//     M are zero-filled by cp.async; bias and PReLU in f32, one rounding,
-//     two channels a 4-byte store.
-//   * conv_prelu_kernel<bf16> (any other channel count: the first layer's
-//     Cin = 3, the decoder's Cout = 3): the banded kernel, its window of
-//     the padded input converted to f32 on the way into shared memory, the
-//     weights, bias and slopes converted as they are read, the sum rounded
-//     once at the store.
+//   * conv_wgmma_bf16_kernel<BN, FLAT> (Cout a multiple of 8, any Cin): the
+//     implicit GEMM, M = N*OH*OW pixels, N = Cout, K = K*K*Cin, on
+//     wgmma.m64nBNk16 (bf16 operands, f32 sums). A block is two warpgroups,
+//     each owning 64 of its 128 pixels and all BN = 32, 64 or 128 of its
+//     channels (128 only where the grid still fills two waves of the SMs;
+//     else 64, two blocks an SM). One pipeline step is 64 consecutive
+//     values of the flattened K, (ky, kx, c) in HWIO order: half a tap at
+//     Cin 128, a tap at 64, two taps at 32 (a step of one tap there would
+//     leave half of each k-step zeros), in a ring of three stages filled by
+//     cp.async: the gathered pixel rows (NHWC: channels contiguous, so a
+//     K-major operand; a 16-byte chunk of 8 channels never leaves its tap)
+//     land in the 128-byte swizzle wgmma's descriptors read, and the step's
+//     HWIO weight rows (Cout contiguous: the MN-major operand, read through
+//     the descriptor, no transposed copy). Both operands come from shared
+//     memory, so no warp reads another's share: the old mma.sync kernel had
+//     every warp ldmatrix the whole weight slice each k-step. A step's
+//     products (one chain of four k-steps) start from zero and join the
+//     running f32 sum once, through the FADD units, which round to nearest
+//     (the tensor cores truncate where they add to an accumulator): JAX's
+//     order of per-tap dots joined in tap order, with a join every 64
+//     values of K. Values past K*K*Cin, taps outside the image, pixels past
+//     M and channels past Cout are zero-filled by cp.async itself. FLAT
+//     (Cin no multiple of 8: the first layer's Cin = 3, whose 6-byte pixels
+//     cannot be copied in 16-byte chunks): the same steps (two at Cin 3: 75
+//     values, zeros past them), gathered by plain 2-byte loads, (ky, kx, c)
+//     advanced by additions. What holds it back (PERF.md): a step's copies
+//     and products barely overlap; keeping a block's two 8 x 8 images
+//     resident in shared memory (copied once, each tap's operand a
+//     descriptor into them) ran slower than the gather.
+//   * Small grids. Where the output tiles give fewer blocks than two waves
+//     of the 132 SMs (c5's act forward at B 32, c1 / c2 at B 64 on 8 x 8
+//     maps), a thread-block cluster of up to 8 blocks splits the steps of
+//     one tile: each block sums its own run of steps, writes its f32 sums
+//     to its shared memory, and after a cluster barrier block r finishes
+//     1 / splits of the tile's rows, adding every block's sums through
+//     distributed shared memory in rank order, then bias, PReLU and the one
+//     rounding. One
+//     launch, and a fixed order of summation: the bits are the same from run
+//     to run. (A second summing kernel over f32 partials in device memory
+//     would cost a launch and a round trip of the partials; the cluster
+//     keeps them on chip.)
+//   * Epilogue: the sums through shared memory, bias and PReLU in f32, one
+//     rounding, 8 channels a 16-byte store.
+//   * conv_prelu_kernel<bf16> (Cout no multiple of 8: the decoder's Cout =
+//     3, bound by bytes, where a tensor-core tile would leave 29 of its 32
+//     columns idle): the banded kernel, its window of the padded input
+//     converted to f32 on the way into shared memory, the weights, bias and
+//     slopes converted as they are read, the sum rounded once at the store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,7 +125,10 @@
 
 #include <type_traits>
 
-#include "bf16_mma.cuh"
+#include <cooperative_groups.h>
+
+#include "bf16_wgmma.cuh"
+#include "elem_io.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -469,171 +500,336 @@ conv_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// ---- implicit GEMM on the tensor cores, bf16 operands (bf16 I/O) ----
+// ---- implicit GEMM on bf16 wgmma (bf16 I/O) ----
 
-constexpr int HB_STAGES = 3;        // pipeline steps in flight
-constexpr int HB_LDA = BK + 8;      // bf16 of a shared pixel row (80 bytes)
+constexpr int CB_M = 128;        // output pixels of a block: two warpgroups
+constexpr int CB_K = 64;         // values of the flattened K a step takes
+constexpr int CB_STAGES = 3;     // step j in use, j + 1 and j + 2 copying
+                                 // (four stages: 0.509 against 0.500 ms a
+                                 // c4 act step)
+constexpr int CB_THREADS = 256;
+constexpr int CB_MAX_SPLIT = 8;  // blocks of a cluster (the portable most)
+constexpr int CB_WAVES = 2 * 132;   // a small grid: under two waves of SMs
+constexpr int CB_A_BYTES = CB_M * CB_K * 2;
 
-constexpr size_t mma_bf16_smem(int bn) {
-  return (size_t)HB_STAGES * (BM * HB_LDA + BK * (bn + 8)) * sizeof(bf16);
+__host__ __device__ constexpr int cb_b_bytes(int bn) { return CB_K * bn * 2; }
+// Row stride (floats) of the f32 partial sums in shared memory: 8 floats of
+// padding keep a half-warp's 8-byte writes on 32 different banks.
+__host__ __device__ constexpr int cb_red_ld(int bn) { return bn + 8; }
+constexpr size_t cb_smem(int bn) {
+  const size_t ring = (size_t)CB_STAGES * (CB_A_BYTES + cb_b_bytes(bn));
+  const size_t red = (size_t)CB_M * cb_red_ld(bn) * 4;
+  return 1024 + (ring > red ? ring : red);
 }
 
-template <int BN>
-__global__ void __launch_bounds__(IG_THREADS)
-conv_mma_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     const bf16* __restrict__ bias,
-                     const bf16* __restrict__ alpha, bf16* __restrict__ out,
-                     int M, int H, int W, int Cin, int OH, int OW, int Cout,
-                     int K, int stride, int pad_h, int pad_w) {
-  constexpr int LDB = BN + 8;
-  constexpr int A_ROWS = BM * (BK / 8) / IG_THREADS;     // 2 chunks a thread
-  constexpr int B_CHUNKS = BK * (BN / 8);                // of the weights
-  constexpr int B_ITERS = (B_CHUNKS + IG_THREADS - 1) / IG_THREADS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // HB_STAGES x BM x HB_LDA
-  bf16* Bs = As + HB_STAGES * BM * HB_LDA;        // HB_STAGES x BK x LDB
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (bw::smem_addr(p) & 1023)) & 1023);
+}
+
+// One block: 128 output pixels x BN output channels, over the steps of its
+// split (blockIdx.z of gridDim.z blocks in one cluster). The pixels are
+// gathered a step at a time, by 16-byte copies (Cin a multiple of 8) or,
+// FLAT, value by value (any other Cin).
+template <int BN, bool FLAT>
+__global__ void __launch_bounds__(CB_THREADS, 1)
+conv_wgmma_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                       const bf16* __restrict__ bias,
+                       const bf16* __restrict__ alpha, bf16* __restrict__ out,
+                       int M, int H, int W, int Cin, int OH, int OW, int Cout,
+                       int K, int stride, int pad_h, int pad_w) {
+  constexpr int B_BYTES = cb_b_bytes(BN), STAGE = CB_A_BYTES + B_BYTES;
+  constexpr int ACH = CB_K / 8;                    // 16-byte chunks a row
+  constexpr int A_ROWS = CB_M * ACH / CB_THREADS;  // rows a thread copies
+  constexpr int FK = CB_K / 2;                     // FLAT: values a thread
+  constexpr int B_CHUNKS = CB_K * (BN / 8);
+  constexpr int B_ITERS = B_CHUNKS / CB_THREADS > 0 ? B_CHUNKS / CB_THREADS : 1;
+  constexpr int NACC = BN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t s0 = bw::smem_addr(sm);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int li = lane & 7, lb = (lane >> 3) & 1, lc = lane >> 4;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * CB_M, n0 = blockIdx.y * BN;
+  const int splits = gridDim.z, rank = blockIdx.z;
 
-  // The gather: this thread copies 16-byte chunk tid % 4 (8 channels) of
-  // pixel rows tid / 4 + 64 i; a pixel past M gets a row no tap brings
-  // inside the image.
-  const int ci_off = (tid & 3) * 8;
+  // This block's steps: a step is 64 consecutive values of the flattened
+  // K, (ky, kx, c) in HWIO order (Cin 128: half a tap; 64: a tap; 32: two),
+  // the last one zero-filled past K*K*Cin. The split hands each block a
+  // run of whole steps, in order.
+  const int ktot = K * K * Cin;
+  const int units = (ktot + CB_K - 1) / CB_K;
+  const int step0 = (int)((int64_t)units * rank / splits);
+  const int nsteps = (int)((int64_t)units * (rank + 1) / splits) - step0;
+
+  // The gather (Cin a multiple of 8): this thread copies 16-byte chunk
+  // tid % ACH (8 channels) of pixel rows tid / ACH + CB_THREADS / ACH * i;
+  // a pixel past M gets a row no tap brings inside the image.
+  const int ch = (tid % ACH) * 8;
   int iy0[A_ROWS], ix0[A_ROWS], a_base[A_ROWS];
+  uint32_t a_dst[A_ROWS];
 #pragma unroll
   for (int i = 0; i < A_ROWS; ++i) {
-    const int m = m0 + (tid >> 2) + 64 * i;
+    const int r = tid / ACH + CB_THREADS / ACH * i, m = m0 + r;
     iy0[i] = -(1 << 28);
     ix0[i] = 0;
     a_base[i] = 0;
     if (m < M) {
-      const int img = m / (OH * OW);
-      const int rem = m - img * (OH * OW);
+      const int img = m / (OH * OW), rem = m - img * (OH * OW);
       const int oy = rem / OW;
       iy0[i] = oy * stride - pad_h;
       ix0[i] = (rem - oy * OW) * stride - pad_w;
-      a_base[i] = ((img * H + iy0[i]) * W + ix0[i]) * Cin + ci_off;
+      a_base[i] = ((img * H + iy0[i]) * W + ix0[i]) * Cin + ch;
     }
+    a_dst[i] = bw::tile_off<CB_M, CB_K>(r, ch);
   }
-  int ky = 0, kx = 0, c0 = 0;   // the next step to copy
-  auto load = [&](int stage) {
-    const int tap_off = (ky * W + kx) * Cin + c0;
-    const bool c_ok = c0 + ci_off < Cin;
-    bf16* a_dst = As + (stage * BM + (tid >> 2)) * HB_LDA + ci_off;
+
+  // FLAT: this thread gathers FK neighbouring K values of pixel row tid / 2,
+  // its (image, first input row and column) decoded once.
+  const int frow = tid >> 1, fk = FK * (tid & 1);
+  int fbase = 0, fiy = -(1 << 28), fix = 0;
+  if (FLAT && m0 + frow < M) {
+    const int m = m0 + frow, img = m / (OH * OW), rem = m - img * (OH * OW);
+    const int oy = rem / OW;
+    fiy = oy * stride - pad_h;
+    fix = (rem - oy * OW) * stride - pad_w;
+    fbase = img * H * W * Cin;
+  }
+
+  // Copies step `step` into stage `st`: the 128 x 64 pixel slice (K-major)
+  // and the 64 x BN weight rows (MN-major, HWIO rows as they lie), zeros
+  // past Cin, past the tap's or the flattened K's end, past M and Cout.
+  auto load = [&](int step, int st) {
+    const uint32_t as = s0 + st * STAGE, bs = as + CB_A_BYTES;
+    const int wrow = step * CB_K, kvalid = min(CB_K, ktot - wrow);
+    if constexpr (FLAT) {
+      // Plain 2-byte loads (a pixel's Cin values are no whole 16-byte
+      // chunk), (ky, kx, c) advanced by additions; four 16-byte stores.
+      int k = wrow + fk, tap = k / Cin, c = k - tap * Cin;
+      int ky = tap / K, kx = tap - ky * K;
+      uint32_t v[FK / 2];
 #pragma unroll
-    for (int i = 0; i < A_ROWS; ++i) {
-      const bool ok = c_ok && (unsigned)(iy0[i] + ky) < (unsigned)H &&
-                      (unsigned)(ix0[i] + kx) < (unsigned)W;
-      cp_async16(reinterpret_cast<float*>(a_dst + 64 * i * HB_LDA),
-                 reinterpret_cast<const float*>(
-                     x + (ok ? a_base[i] + tap_off : 0)),
-                 ok);
-    }
-    const int w_row = (ky * K + kx) * Cin + c0;
+      for (int j = 0; j < FK; ++j) {
+        const bool ok = k < ktot && (unsigned)(fiy + ky) < (unsigned)H &&
+                        (unsigned)(fix + kx) < (unsigned)W;
+        const uint32_t u =
+            ok ? __ldg(reinterpret_cast<const unsigned short*>(x) + fbase +
+                       ((fiy + ky) * W + fix + kx) * Cin + c)
+               : 0u;
+        v[j / 2] = j % 2 ? v[j / 2] | (u << 16) : u;
+        ++k;
+        if (++c == Cin) {
+          c = 0;
+          if (++kx == K) {
+            kx = 0;
+            ++ky;
+          }
+        }
+      }
 #pragma unroll
-    for (int j = 0; j < B_ITERS; ++j) {
-      const int c = tid + j * IG_THREADS;
-      if (c < B_CHUNKS) {
-        const int kr = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        const bool ok = n0 + col < Cout && c0 + kr < Cin;
-        cp_async16(reinterpret_cast<float*>(Bs + (stage * BK + kr) * LDB +
-                                            col),
-                   reinterpret_cast<const float*>(
-                       w + (ok ? (int64_t)(w_row + kr) * Cout + n0 + col
-                               : 0)),
-                   ok);
+      for (int q = 0; q < FK / 8; ++q)
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         as + bw::tile_off<CB_M, CB_K>(frow, fk + 8 * q)),
+                     "r"(v[4 * q]), "r"(v[4 * q + 1]), "r"(v[4 * q + 2]),
+                     "r"(v[4 * q + 3])
+                     : "memory");
+    } else {
+      // This thread's 8 values (ch .. ch + 7 of the step) lie in one tap:
+      // Cin is a multiple of 8.
+      const int k = wrow + ch, tap = k / Cin, c = k - tap * Cin;
+      const int ky = tap / K, kx = tap - ky * K;
+      const int tap_off = (ky * W + kx) * Cin + c - ch;
+      const bool k_ok = ch < kvalid;
+#pragma unroll
+      for (int i = 0; i < A_ROWS; ++i) {
+        const bool ok = k_ok && (unsigned)(iy0[i] + ky) < (unsigned)H &&
+                        (unsigned)(ix0[i] + kx) < (unsigned)W;
+        bw::cp_async16(as + a_dst[i], ok ? x + a_base[i] + tap_off : x, ok);
       }
     }
-    c0 += BK;
-    if (c0 >= Cin) {
-      c0 = 0;
-      if (++kx == K) {
-        kx = 0;
-        ++ky;
+#pragma unroll
+    for (int j = 0; j < B_ITERS; ++j) {
+      const int c = tid + j * CB_THREADS;
+      if (c < B_CHUNKS) {
+        const int kr = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        const bool ok = kr < kvalid && n0 + col < Cout;
+        bw::cp_async16(bs + bw::tile_off<CB_K, BN>(kr, col),
+                       ok ? w + (int64_t)(wrow + kr) * Cout + n0 + col : w,
+                       ok);
       }
     }
   };
-
-  const int nsteps = K * K * ((Cin + BK - 1) / BK);
-  for (int s = 0; s < HB_STAGES - 1; ++s) {
-    if (s < nsteps) load(s);
-    asm volatile("cp.async.commit_group;\n" ::);
+  // Steps 0 .. CB_STAGES - 2 in flight before the loop.
+#pragma unroll
+  for (int s = 0; s < CB_STAGES - 1; ++s) {
+    if (s < nsteps) load(step0 + s, s);
+    bw::cp_async_commit();
   }
-  float acc[BN / 8][4];
+
+  float acc[NACC], part[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+
+  for (int i = 0; i < nsteps; ++i) {
+    // One barrier a step: past it step i is in shared memory and every
+    // warpgroup has waited for its products of step i - 1, whose stage
+    // takes step i + CB_STAGES - 1, copied while step i's products run.
+    bw::cp_async_wait<CB_STAGES - 2>();
+    bw::fence_async_shared();
+    __syncthreads();
+    const int st = i % CB_STAGES;
+    // The warpgroup's 64 rows of the pixel tile: 64 rows on in each of its
+    // 128-byte atom columns.
+    const uint32_t as = s0 + st * STAGE + wg * 64 * 128;
+    const uint32_t bs = s0 + st * STAGE + CB_A_BYTES;
+    // The step's products from zero: one chain of four k-steps, every one
+    // issued (a wgmma under a runtime condition makes ptxas serialize them
+    // all, C7514); the zero-filled columns add exact zeros.
+    wgmma_operand_fence(part);
+    bw::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < CB_K / 16; ++ks)
+      bw::wgmma_bf16_ss<BN, 1>(part, bw::kmajor<CB_M, CB_K>(as, ks),
+                               bw::mnmajor<CB_K, BN>(bs, ks), ks > 0);
+    bw::wgmma_commit();
+    if (i + CB_STAGES - 1 < nsteps)
+      load(step0 + i + CB_STAGES - 1, (i + CB_STAGES - 1) % CB_STAGES);
+    bw::cp_async_commit();
+    bw::wgmma_wait();
+    wgmma_operand_fence(part);
+    // The join, through the FADD units (round to nearest): the tensor cores
+    // truncate where they add to an accumulator. (Leaving the chain in
+    // flight while the step before joins, in a second set of registers,
+    // ran slower: ptxas then serializes the wgmma, C7514.)
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) acc[j] += part[j];
+  }
+
+  // The block's sums into shared memory, f32, [pixel][channel]: accumulator
+  // element 4 j + 2 r + e is row 16 warp + g + 8 r, channel 8 j + 2 t + e.
+  bw::cp_async_wait<0>();
+  __syncthreads();   // every stage read and landed: the ring is free
+  constexpr int LDR = cb_red_ld(BN);
+  float* red = reinterpret_cast<float*>(sm);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-
-  for (int step = 0; step < nsteps; ++step) {
-    // This step's copies have landed, and every warp is done with the
-    // stage the next copies overwrite (the previous step's).
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(HB_STAGES - 2));
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(red + (16 * warp + g + 8 * r) * LDR + 8 * j +
+                                 2 * t) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  namespace cg = cooperative_groups;
+  if (splits > 1)
+    cg::this_cluster().sync();   // every split's sums written, and seen
+  else
     __syncthreads();
-    if (step + HB_STAGES - 1 < nsteps)
-      load((step + HB_STAGES - 1) % HB_STAGES);
-    asm volatile("cp.async.commit_group;\n" ::);
-    const int stage = step % HB_STAGES;
-    const bf16* a_s = As + (stage * BM + 16 * warp) * HB_LDA;
-    const bf16* b_s = Bs + stage * BK * LDB;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, a_s + (li + 8 * lb) * HB_LDA + 16 * ks + 8 * lc);
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t f[4];   // the weights of n-tiles 2 np and 2 np + 1
-        ldsm_x4_t(f, b_s + (16 * ks + li + 8 * lb) * LDB + 8 * (2 * np + lc));
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_bf16(part, a, f[2 * h], f[2 * h + 1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[2 * np + h][e] += part[e];
-        }
-      }
-    }
-  }
 
-  // Epilogue: acc[j][2 half + e] is pixel 16 warp + g + 8 half, channel
-  // n0 + 8 j + 2 t + e.
+  // Block `rank` of the cluster finishes rows [rank, rank + 1) * 128 /
+  // splits of the tile: the splits' sums added in rank order (a fixed
+  // order: the bits are the same from run to run), bias, PReLU, one
+  // rounding, 8 channels a 16-byte store.
+  const int rows = CB_M / splits;
+  for (int it = tid; it < rows * (BN / 8); it += CB_THREADS) {
+    const int row = rank * rows + it / (BN / 8), col = (it % (BN / 8)) * 8;
+    const int m = m0 + row, n = n0 + col;
+    if (m >= M || n >= Cout) continue;
+    float v[8];
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int n = n0 + j * 8 + 2 * t;
-    if (n >= Cout) continue;
-    const float b0 = ldg_f32(bias + n), b1 = ldg_f32(bias + n + 1);
-    const float s0 = alpha != nullptr ? ldg_f32(alpha + n) : 1.0f;
-    const float s1 = alpha != nullptr ? ldg_f32(alpha + n + 1) : 1.0f;
+    for (int r2 = 0; r2 < CB_MAX_SPLIT; ++r2) {
+      if (r2 >= splits) break;
+      const float* src = red + row * LDR + col;
+      if (splits > 1) src = cg::this_cluster().map_shared_rank(src, r2);
+      const float4 p0 = *reinterpret_cast<const float4*>(src);
+      const float4 p1 = *reinterpret_cast<const float4*>(src + 4);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + 16 * warp + g + 8 * half;
-      if (m >= M) continue;
-      float y0 = acc[j][2 * half] + b0, y1 = acc[j][2 * half + 1] + b1;
-      if (y0 < 0.0f) y0 *= s0;
-      if (y1 < 0.0f) y1 *= s1;
-      *reinterpret_cast<uint32_t*>(out + (int64_t)m * Cout + n) =
-          pack_bf16(y0, y1);
+      for (int e = 0; e < 8; ++e) v[e] = r2 == 0 ? pv[e] : v[e] + pv[e];
     }
+    // Bias and slopes of the 8 channels, one 16-byte load each (the
+    // wrapper hands them 16-byte aligned; Cout is a multiple of 8).
+    const uint4 bv = __ldg(reinterpret_cast<const uint4*>(bias + n));
+    const uint4 av = alpha != nullptr
+                         ? __ldg(reinterpret_cast<const uint4*>(alpha + n))
+                         : make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
+                                      0x3f803f80u);   // slopes of 1
+    const uint32_t bw_[4] = {bv.x, bv.y, bv.z, bv.w};
+    const uint32_t aw_[4] = {av.x, av.y, av.z, av.w};
+    uint32_t packed[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const float2 bb = io::widen2(bw_[e / 2]), aa = io::widen2(aw_[e / 2]);
+      float y0 = v[e] + bb.x, y1 = v[e + 1] + bb.y;
+      if (y0 < 0.0f) y0 *= aa.x;
+      if (y1 < 0.0f) y1 *= aa.y;
+      packed[e / 2] = bw::bits(__floats2bfloat162_rn(y0, y1));
+    }
+    *reinterpret_cast<uint4*>(out + (int64_t)m * Cout + n) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
   }
+  // No block leaves while another still reads its shared memory.
+  if (splits > 1) cg::this_cluster().sync();
 }
 
-template <int BN>
-int launch_mma_bf16(const bf16* x, const bf16* w, const bf16* b,
-                    const bf16* a, bf16* out, int M, int H, int W, int Cin,
-                    int OH, int OW, int Cout, int K, int stride, int pad_h,
-                    int pad_w, cudaStream_t stream) {
-  constexpr size_t smem = mma_bf16_smem(BN);
-  auto kernel = conv_mma_bf16_kernel<BN>;
+// Blocks of a cluster that split the steps of one output tile: the most (a
+// power of two, at most 8 and at most the steps) that keeps the grid within
+// two waves of the 132 SMs, so a small batch still fills the card.
+int cb_splits(int64_t blocks, int units) {
+  int cs = 1;
+  while (cs < CB_MAX_SPLIT && blocks * cs * 2 <= CB_WAVES && cs * 2 <= units)
+    cs *= 2;
+  return cs;
+}
+
+template <int BN, bool FLAT>
+int launch_wgmma_bf16(const bf16* x, const bf16* w, const bf16* b,
+                      const bf16* a, bf16* out, int M, int H, int W, int Cin,
+                      int OH, int OW, int Cout, int K, int stride, int pad_h,
+                      int pad_w, int splits, cudaStream_t stream) {
+  constexpr size_t smem = cb_smem(BN);
+  auto kernel = conv_wgmma_bf16_kernel<BN, FLAT>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
-  kernel<<<grid, IG_THREADS, smem, stream>>>(
-      x, w, b, a, out, M, H, W, Cin, OH, OW, Cout, K, stride, pad_h, pad_w);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + CB_M - 1) / CB_M, (Cout + BN - 1) / BN, splits);
+  cfg.blockDim = dim3(CB_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;   // a cluster only where taps split
+  e = cudaLaunchKernelEx(&cfg, kernel, x, w, b, a, out, M, H, W, Cin, OH, OW,
+                         Cout, K, stride, pad_h, pad_w);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The bf16 implicit GEMM's plan for a shape: its tile width, gather and
+// splits.
+struct Bf16Plan {
+  int bn;
+  bool flat;
+  int splits;
+};
+
+// Tiles 128 channels wide where the grid still fills two waves of the SMs
+// (a block an SM: 194 registers a thread); else 64 wide, two blocks an SM,
+// so one block's products run while the other waits (c5's act forward at
+// B 32: 0.082 against 0.093 ms; c4's at B 1024 the other way, 0.546 against
+// 0.514; scripts/torch_conv_packed_bf16_variants.py).
+Bf16Plan bf16_plan(int64_t M, int Cin, int Cout, int K) {
+  Bf16Plan p;
+  const int64_t mb = (M + CB_M - 1) / CB_M;
+  p.bn = Cout <= 32 ? 32
+         : Cout <= 64 || mb * ((Cout + 127) / 128) < CB_WAVES ? 64 : 128;
+  p.flat = Cin % 8 != 0;
+  p.splits = cb_splits(((M + CB_M - 1) / CB_M) * ((Cout + p.bn - 1) / p.bn),
+                       (K * K * Cin + CB_K - 1) / CB_K);
+  return p;
 }
 
 template <int BN>
@@ -683,27 +879,41 @@ int conv_launch(const E* x, const E* w, const E* b, const E* alpha, E* out,
   const int pad_h = (tot_h > 0 ? tot_h : 0) / 2;
   const int pad_w = (tot_w > 0 ? tot_w : 0) / 2;
   if (tensor_cores) {
-    // 16-byte copies: 4 f32 or 8 bf16 channels.
-    const int chunk = kF32 ? 4 : 8;
-    if (Cin % chunk || Cout % chunk) return (int)cudaErrorInvalidValue;
     const int64_t M = (int64_t)N * OH * OW;
-    // The kernel indexes pixels, inputs and weights with 32-bit offsets.
-    if (M > 2147483647LL - BM || (Cout + 127) / 128 > 65535 ||
+    // The kernels index pixels, inputs and weights with 32-bit offsets.
+    if (M > 2147483647LL - CB_M || (Cout + 127) / 128 > 65535 ||
         (int64_t)N * H * W * Cin > 2147483647LL ||
         (int64_t)K * K * Cin * Cout > 2147483647LL)
       return (int)cudaErrorInvalidValue;
-#define TC_LAUNCH(BN)                                                         \
-  if constexpr (kF32)                                                         \
-    return launch_wgmma<BN>(x, w, b, alpha, out, (int)M, H, W, Cin, OH, OW,   \
-                            Cout, K, stride, pad_h, pad_w, stream);           \
-  else                                                                        \
-    return launch_mma_bf16<BN>(x, w, b, alpha, out, (int)M, H, W, Cin, OH,    \
-                               OW, Cout, K, stride, pad_h, pad_w, stream)
-    if (Cout <= 16) TC_LAUNCH(16);
-    if (Cout <= 32) TC_LAUNCH(32);
-    if (Cout <= 64) TC_LAUNCH(64);
-    TC_LAUNCH(128);
+    if constexpr (kF32) {
+      // 16-byte copies of 4 channels.
+      if (Cin % 4 || Cout % 4) return (int)cudaErrorInvalidValue;
+#define TC_LAUNCH(BN)                                                       \
+  return launch_wgmma<BN>(x, w, b, alpha, out, (int)M, H, W, Cin, OH, OW,  \
+                          Cout, K, stride, pad_h, pad_w, stream)
+      if (Cout <= 16) TC_LAUNCH(16);
+      if (Cout <= 32) TC_LAUNCH(32);
+      if (Cout <= 64) TC_LAUNCH(64);
+      TC_LAUNCH(128);
 #undef TC_LAUNCH
+    } else {
+      // 16-byte stores of 8 channels; any Cin (FLAT below 8-channel chunks).
+      if (Cout % 8) return (int)cudaErrorInvalidValue;
+      const Bf16Plan p = bf16_plan(M, Cin, Cout, K);
+#define TC_LAUNCH(BN, FLAT)                                                 \
+  return launch_wgmma_bf16<BN, FLAT>(x, w, b, alpha, out, (int)M, H, W,     \
+                                     Cin, OH, OW, Cout, K, stride, pad_h,   \
+                                     pad_w, p.splits, stream)
+      if (p.flat) {
+        if (p.bn == 32) TC_LAUNCH(32, true);
+        if (p.bn == 64) TC_LAUNCH(64, true);
+        TC_LAUNCH(128, true);
+      }
+      if (p.bn == 32) TC_LAUNCH(32, false);
+      if (p.bn == 64) TC_LAUNCH(64, false);
+      TC_LAUNCH(128, false);
+#undef TC_LAUNCH
+    }
   }
   if (band < 1 || band > OH) return (int)cudaErrorInvalidValue;
   const int Wp = (OW - 1) * stride + K;
@@ -763,7 +973,7 @@ extern "C" int conv_prelu_launch(const float* x, const float* w,
 }
 
 // The same on bf16 x, w, b, alpha and out (train.bf16): the implicit GEMM
-// on bf16 mma.sync (channel counts multiples of 8) or the banded path.
+// on bf16 wgmma (Cout a multiple of 8, any Cin) or the banded path.
 extern "C" int conv_prelu_bf16_launch(const void* x, const void* w,
                                       const void* b, const void* alpha,
                                       void* out, int N, int H, int W,
@@ -775,4 +985,13 @@ extern "C" int conv_prelu_bf16_launch(const void* x, const void* w,
       static_cast<const bf16*>(b), static_cast<const bf16*>(alpha),
       static_cast<bf16*>(out), N, H, W, Cin, Cout, K, stride, tensor_cores,
       band, stream);
+}
+
+// The bf16 implicit GEMM's blocks to a cluster for this shape (the steps of
+// one output tile split across them), as conv_prelu_bf16_launch plans it.
+extern "C" int conv_prelu_bf16_splits(int N, int H, int W, int Cin, int Cout,
+                                      int K, int stride) {
+  const int64_t M = (int64_t)N * ((H + stride - 1) / stride) *
+                    ((W + stride - 1) / stride);
+  return bf16_plan(M, Cin, Cout, K).splits;
 }

@@ -7,7 +7,9 @@ tensor ``packed_attention`` launches the forward kernel of
 ``csrc/attention_packed.cu``, which also hands back the softmax's logsumexp
 when a gradient is wanted, and its autograd backward launches the backward
 kernel on the saved q, k, v, output and logsumexp. In bf16 mode both are
-one kernel each on the tensor cores (bf16 ``mma``, f32 sums); in f32 mode
+one kernel each on the tensor cores (bf16 operands, f32 sums: ``mma.sync``
+on f32 tensors and for the backward; the forward on bf16 tensors on bf16
+``wgmma``, one pass while Lk <= 256); in f32 mode
 the packed layout is handed, as (batch, head, row) strides, to the flash
 kernels of ``csrc/flash_kernels.cuh``: the forward, dQ and dK/dV kernels on
 3xTF32 tensor cores. On a CPU tensor the plain version runs: for float32

@@ -19,8 +19,13 @@ by ``band_plan``.
 Under ``train.bf16`` ``FusedConvPReLU`` casts ``x`` and its f32 kernel, bias
 and slopes to bf16, as the JAX module does, and the kernel reads and writes
 bf16 itself (counted apart, ``launches_bf16``): the implicit GEMM on bf16
-``mma.sync`` when both channel counts are multiples of 8, else the banded
-path; the products summed in f32, bias and PReLU applied, one rounding.
+``wgmma`` when Cout is a multiple of 8 (any Cin: the first layer's Cin = 3
+too), else the banded path; the products summed in f32 a step at a time
+(64 consecutive values of the flattened (ky, kx, c) K), the steps' sums
+joined in order, bias and PReLU applied, one rounding. Where the output
+tiles give a small grid (a batch of 32-64 on 8 x 8 maps), a cluster of up
+to 8 blocks splits the steps of a tile and adds its blocks' sums in rank
+order (``bf16_splits``).
 The plain version computes the same: widened operands, an f32 conv, one
 rounding. The JAX package's XLA route (``use_pallas=False``) rounds a bf16
 conv after the conv, again after the bias and again after the PReLU; its
@@ -52,7 +57,8 @@ _SMEM_AIM = 56 * 1024   # a banded window this size lets 4 blocks share an SM
 _SMS = 132              # streaming multiprocessors of an H100 SXM
 
 _ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
-_SIG = {"conv_prelu_launch": _ARGS, "conv_prelu_bf16_launch": _ARGS}
+_SIG = {"conv_prelu_launch": _ARGS, "conv_prelu_bf16_launch": _ARGS,
+        "conv_prelu_bf16_splits": (ctypes.c_int,) * 7}
 
 
 def same_pads(size: int, k: int, stride: int):
@@ -87,12 +93,23 @@ def conv_prelu_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def tensor_core_path(cin: int, cout: int,
                      dtype: torch.dtype = torch.float32) -> bool:
-    """Whether the kernel runs its implicit GEMM (16-byte copies need both
-    channel counts to be multiples of 4 f32, or of 8 bf16) or its banded
-    path. The C entry is told the path and only refuses one the shape
-    cannot take."""
-    chunk = 8 if dtype == torch.bfloat16 else 4
-    return cin % chunk == 0 and cout % chunk == 0
+    """Whether the kernel runs its implicit GEMM or its banded path. f32:
+    16-byte copies need both channel counts to be multiples of 4. bf16:
+    Cout a multiple of 8 (its 16-byte stores), any Cin (a Cin no multiple
+    of 8 is gathered value by value). The C entry is told the path and only
+    refuses one the shape cannot take."""
+    if dtype == torch.bfloat16:
+        return cout % 8 == 0
+    return cin % 4 == 0 and cout % 4 == 0
+
+
+def bf16_splits(n: int, h: int, w: int, cin: int, cout: int, k: int,
+                stride: int) -> int:
+    """Blocks of a cluster that split one output tile's steps on the bf16
+    implicit GEMM (1: no split), as the kernel's launcher plans them. Asks
+    the built library: the rule lives in ``csrc/conv_prelu.cu``."""
+    lib = _build.load("conv_prelu", _SIG)
+    return lib.conv_prelu_bf16_splits(n, h, w, cin, cout, k, stride)
 
 
 def band_window_bytes(band: int, ow: int, cin: int, k: int,
@@ -160,10 +177,11 @@ def _conv_prelu_cuda(x, w, b, alpha, stride: int,
         band = 0
     elif band is None:
         band = band_plan(n, oh, ow, cin, k, stride)
-    # 16-byte copies and float4 weight loads need aligned bases.
+    # 16-byte copies and loads need aligned bases (the bf16 kernel reads
+    # bias and slopes 8 at a time).
     x, w = _build.aligned(x), _build.aligned(w)
-    b = b.contiguous()
-    alpha = alpha.contiguous() if alpha is not None else None
+    b = _build.aligned(b)
+    alpha = _build.aligned(alpha) if alpha is not None else None
     out = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
     lib = _build.load("conv_prelu", _SIG)
     entry = lib.conv_prelu_bf16_launch if bf16 else lib.conv_prelu_launch

@@ -305,3 +305,94 @@ def test_bf16_c4_vq_act_step_on_the_card(monkeypatch):
     assert q.shape == (64, cfg.rl.num_actions) and torch.isfinite(q).all()
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert all(p.dtype == torch.float32 for p in state.params.parameters())
+
+
+def _bf16_step(t):
+    _, e = torch.frexp(t.float().abs().clamp(min=2.0 ** -126))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+# The bf16 wgmma conv: a small grid whose output tiles split their taps over
+# a cluster of blocks (B 32 on 8 x 8 maps: 16 tiles) and a large one that
+# does not (B 1024), the first layer's Cin = 3 (K flattened), and a ragged M
+# (3 images of 7 x 9) with Cout 24 (a 32-wide tile, 8 columns masked).
+CONV_BF16_SHAPES = {  # (B, H, W, Cin, Cout, stride)
+    "split_b32": (32, 8, 8, 128, 128, 1),
+    "unsplit_b1024": (1024, 8, 8, 128, 128, 1),
+    "cin3_flat": (64, 32, 32, 3, 32, 2),
+    "ragged_m": (3, 7, 9, 32, 24, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONV_BF16_SHAPES))
+def test_conv_prelu_bf16_wgmma_kernel_on_the_card(name, monkeypatch):
+    """Within one bf16 step of the plain version (outputs below 2^-14 of the
+    largest at that floor's step), one launch, and the same bits on a second
+    run (a split tile adds its blocks' sums in rank order)."""
+    _card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    b, h, w, cin, cout, s = CONV_BF16_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+    x = torch.randn(b, h, w, cin, generator=g, device="cuda").to(bf)
+    wt = (torch.randn(5, 5, cin, cout, generator=g, device="cuda")
+          / (25 * cin) ** 0.5).to(bf)
+    bias = (0.1 * torch.randn(cout, generator=g, device="cuda")).to(bf)
+    a = torch.rand(cout, generator=g, device="cuda").to(bf)
+    assert tconv.tensor_core_path(cin, cout, bf)
+    splits = tconv.bf16_splits(b, h, w, cin, cout, 5, s)
+    if name == "split_b32":
+        assert splits > 1
+    if name == "unsplit_b1024":
+        assert splits == 1
+    before = tconv.launches_bf16
+    got = tconv.conv_prelu(x, wt, bias, a, s)
+    assert tconv.launches_bf16 == before + 1
+    want = tconv.conv_prelu_reference(x, wt, bias, a, s)
+    g32, w32 = got.float(), want.float()
+    floor = 2.0 ** -14 * w32.abs().max()
+    gate = torch.maximum(_bf16_step(torch.maximum(w32.abs(), floor)),
+                         _bf16_step(torch.maximum(g32.abs(), floor)))
+    assert bool(((g32 - w32).abs() <= gate).all())
+    assert torch.equal(got, tconv.conv_prelu(x, wt, bias, a, s))
+
+
+# The bf16 wgmma packed forward: one pass at Lk 65 and 256 (one and four
+# 64-key chunks), two passes over 256-key chunks at Lk 300 and 1100; head
+# dims 8 (tiles 32 wide, half a k-step) and 64, with d 32 beside them.
+PACKED_BF16_SHAPES = {  # (B, Lq, Lk, dm, heads)
+    "lk65_d32": (64, 65, 65, 128, 4),
+    "lk65_d64": (16, 130, 65, 128, 2),
+    "lk256_d8": (8, 65, 256, 128, 16),
+    "lk256_d64": (8, 256, 256, 128, 2),
+    "lk300_d8": (8, 70, 300, 128, 16),
+    "lk1100_d64": (4, 100, 1100, 128, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PACKED_BF16_SHAPES))
+def test_packed_attention_bf16_wgmma_forward_on_the_card(name):
+    """The bf16-I/O output and lse within the plain version's gates, and
+    within the same gates of the bf16 mode's f32-I/O kernel on the widened
+    values (its output rounded to bf16)."""
+    from multimodal_sc_torch.kernels import attention_packed as ap
+
+    _card()
+    b, lq, lk, dm, heads = PACKED_BF16_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(b, n, dm, generator=g, device="cuda").to(
+        torch.bfloat16) for n in (lq, lk, lk))
+    scale = (dm // heads) ** -0.5
+    before = ap.launches_fwd_bf16
+    out, lse = ap._fwd_cuda(q, k, v, heads, scale, True, want_lse=True)
+    assert ap.launches_fwd_bf16 == before + 1
+    out32, lse32 = ap._fwd_cuda(q.float(), k.float(), v.float(), heads,
+                                scale, True, want_lse=True)
+    _bf16_io_close(out, out32.bfloat16())
+    torch.testing.assert_close(lse, lse32, atol=2e-5, rtol=2e-5)
+    want, want_lse = ap.packed_attention_fwd_reference(q, k, v, heads, scale,
+                                                       bf16=True)
+    _bf16_io_close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
