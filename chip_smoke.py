@@ -169,11 +169,13 @@ apart (``conv_prelu_bf16``, ``mha_block_bf16``, ``scatter_max_bf16``,
 ``kernels`` line lists them beside the f32 ones). The checks:
 ``conv_prelu`` at c4's act, c1's and c5's shapes on both routes, every
 output within one bf16 step of its plain version (the share that differs
-printed); ``mha_block`` at c4's and fog + V2X's act shapes within one bf16
-step of its own plus 5e-3 of its bf16-mode plain version, past that a
-witnessed rounding flip, at most 1% of outputs differing, and at each timed
-shape a sample of the outputs past one step witnessed too; the scatter
-forward and backward bit for bit with forced ties; the packed and flash
+printed); ``mha_block`` at c4's, fog + V2X's and c5's act shapes (up to 256
+keys on ``mha_wgmma_bf16_kernel``, past them on ``mha_mma_kernel``) within
+one bf16 step of its own plus 5e-3 of its bf16-mode plain version, past
+that a witnessed rounding flip, at most 1% of outputs differing, and at
+each timed shape a sample of the outputs past one step witnessed too, with
+``mha_mma_kernel`` timed beside the new kernel at c4's and c5's shapes;
+the scatter forward and backward bit for bit with forced ties; the packed and flash
 attention forward and backward at the timed shapes of their f32 checks
 (and ragged, Lq > 128, several-key-split and odd head-dim ones) within
 1e-2 plus one bf16 step of their bf16-I/O plain versions (dK and dV of the
@@ -4429,13 +4431,18 @@ def check_mha_block_bf16():
     """The fused block with bf16 activations (f32 parameters) against its
     bf16-I/O plain version (``mha_block_reference_bf16``: the kernel's
     roundings, the output rounded once) at c4's four act shapes and the fog
-    + V2X ones (B 1024: the bf16 line's rows), then shapes that reach the
-    rest of the kernel. Every output within one bf16 step of its own plus
-    ``BF16_MHA_ABS``; past that it must be one rounding flip at a tie
-    (``_bf16_flip_witness``, its candidates rounded to bf16 as the kernel
-    stores them, within one step of the kernel's output); at most
-    ``BF16_MHA_SHARE`` of the outputs differ. Two runs give the same
-    bits."""
+    + V2X ones (B 1024: the bf16 line's rows), c5's act shapes (B 32), then
+    shapes that reach the rest of the kernels. Up to 256 keys the call runs
+    ``mha_wgmma_bf16_kernel`` (bf16 wgmma), past them ``mha_mma_kernel``.
+    Every output within one bf16 step of its own plus ``BF16_MHA_ABS``;
+    past that it must be one rounding flip at a tie (``_bf16_flip_witness``,
+    its candidates rounded to bf16 as the kernel stores them, within one
+    step of the kernel's output); at most ``BF16_MHA_SHARE`` of the outputs
+    differ. Two runs give the same bits. At c4's and c5's shapes
+    ``mha_mma_kernel``'s bf16-I/O instance runs beside it on the same
+    inputs: its share of differing outputs, its outputs past one bf16 step
+    and its time are printed beside the new kernel's (not gated), and
+    summed per c4 act step and c5 act forward."""
     import torch
 
     from multimodal_sc_torch.kernels import mha_block as mb
@@ -4457,15 +4464,19 @@ def check_mha_block_bf16():
     shapes = list(C4_ATTN_SHAPES) + [s for s in V2X_ATTN_SHAPES
                                      if s not in C4_ATTN_SHAPES]
     cases = [(NUM_ENVS, lq, lk, 4, True, FUSION_DEPTH) for lq, lk in shapes]
+    cases += [(C5_ENVS, lq, lk, 4, True, 0) for lq, lk in C4_ATTN_SHAPES]
     cases += [(b, lq, lk, heads, False, 0)
               for b, lq, lk, heads in ((64, 65, 65, 2), (64, 65, 100, 8),
                                        (64, 17, 70, 16), (64, 33, 300, 4),
-                                       (16, 100, 2048, 4), (8, 1, 1, 4))]
-    rows, worst = [], 0.0
+                                       (16, 130, 256, 2), (16, 100, 2048, 4),
+                                       (8, 1, 1, 4))]
+    flat = tuple(p[k] for k in mb.PARAM_KEYS)
+    rows, worst, side = [], 0.0, {}
     for b, lq, lk, heads, timed, per_step in cases:
         x_q, x_kv = rnd(b, lq, dim).to(bf), rnd(b, lk, dim).to(bf)
         ref = mb.mha_block_reference_bf16(x_q, x_kv, p, heads)
         out = mb.mha_block(x_q, x_kv, p, heads)
+        wgmma = mb.wgmma_route(True, True, lk)
         if not torch.equal(out, mb.mha_block(x_q, x_kv, p, heads)):
             raise AssertionError("mha_block bf16 I/O: two runs on the same "
                                  "inputs differ")
@@ -4478,10 +4489,12 @@ def check_mha_block_bf16():
         err = diff.max().item()
         worst = max(worst, err)
         n_over = int(over.sum())
-        line = (f"  mha_block bf16 I/O B={b} Lq={lq} Lk={lk} h={heads}: "
-                f"{100 * share:.3f}% of outputs differ, at most {steps:.2f} "
-                f"of their bf16 steps, err {err:.3e} ({n_over} past a step + "
-                f"{BF16_MHA_ABS})")
+        n_step = int((diff > _bf16_step(out)).sum())
+        line = (f"  mha_block bf16 I/O B={b} Lq={lq} Lk={lk} h={heads} ("
+                f"{'mha_wgmma_bf16_kernel' if wgmma else 'mha_mma_kernel'}"
+                f"): {100 * share:.3f}% of outputs differ, {n_step} past one "
+                f"bf16 step, at most {steps:.2f} of their bf16 steps, err "
+                f"{err:.3e} ({n_over} past a step + {BF16_MHA_ABS})")
         if n_over > BF16_WITNESS_MAX or share > BF16_MHA_SHARE:
             raise AssertionError(f"{line}: more than {BF16_WITNESS_MAX} past "
                                  f"the gate or {100 * BF16_MHA_SHARE}% "
@@ -4529,13 +4542,46 @@ def check_mha_block_bf16():
         bound, by = _bound_ms(flops, nbytes, PEAK_BF16)
         print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
               f"{bound:.4f} ms ({by})", flush=True)
-        rows.append({"per_step": per_step, "err": err, "ms": ms,
-                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                     "library_ms": None})
+        row = {"per_step": per_step, "err": err, "ms": ms,
+               "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+               "library_ms": None}
+        if per_step:
+            rows.append(row)
+        if wgmma:
+            # mha_mma_kernel's bf16-I/O instance on the same inputs.
+            scale = (dim // heads) ** -0.5
+            old = mb._mha_block_cuda(x_q, x_kv, flat, heads, scale, True,
+                                     kernel="mma")
+            torch.cuda.synchronize()
+            _, old_steps, old_share = _ulp_gate(old, ref)
+            old_step = int(((old.float() - ref.float()).abs()
+                            > _bf16_step(old)).sum())
+            old_ms = _device_ms(lambda: mb._mha_block_cuda(
+                x_q, x_kv, flat, heads, scale, True, kernel="mma"))
+            print(f"    mha_mma_kernel on the same inputs: "
+                  f"{100 * old_share:.3f}% of outputs differ, {old_step} past "
+                  f"one bf16 step, at most {old_steps:.2f} of their bf16 "
+                  f"steps; {old_ms:.3f} ms", flush=True)
+            side[b, lq, lk] = (row, old_ms, share, old_share, n_step,
+                               old_step)
         del x_q, x_kv, ref, out
+    for what, b in (("c4 act step", NUM_ENVS), ("c5 act forward", C5_ENVS)):
+        got = [side[b, lq, lk] for lq, lk in C4_ATTN_SHAPES]
+        new = FUSION_DEPTH * sum(r["ms"] for r, *_ in got)
+        old = FUSION_DEPTH * sum(o for _, o, *_ in got)
+        bound = FUSION_DEPTH * sum(r["bound_ms"] for r, *_ in got)
+        print(f"  mha_block bf16 I/O per {what} (B={b}, 4 shapes x "
+              f"{FUSION_DEPTH}): mha_wgmma_bf16_kernel {new:.4f} ms, "
+              f"mha_mma_kernel {old:.4f} ms, bound {bound:.4f} ms; outputs "
+              f"differing {', '.join(f'{100 * g[2]:.3f}%' for g in got)} "
+              f"against {', '.join(f'{100 * g[3]:.3f}%' for g in got)}, "
+              f"past one step {sum(g[4] for g in got)} against "
+              f"{sum(g[5] for g in got)}", flush=True)
     entry = _entry("mha_block_bf16", "cuda",
-                   "multimodal_sc_torch/csrc/mha_block.cu",
+                   "multimodal_sc_torch/csrc/mha_bf16.cuh",
                    "multimodal_sc_tpu/kernels/mha_block.py:149", rows)
+    entry["kernel"] = ("mha_wgmma_bf16_kernel (bf16 wgmma) up to 256 keys; "
+                       "mha_mma_kernel (csrc/mha_block.cu) past them")
     entry["max_abs_err"] = worst
     return entry
 

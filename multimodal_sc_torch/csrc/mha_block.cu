@@ -87,6 +87,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "mha_bf16.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -875,4 +876,24 @@ extern "C" int mha_block_launch(
       static_cast<const float*>(xq), static_cast<const float*>(xkv), lnqs,
       lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo, kbuf, vbuf,
       static_cast<float*>(out), B, Lq, Lk, scale, stream)))
+}
+
+// bf16 I/O at Lk <= 256 on bf16 wgmma (mha_bf16.cuh): x_q, x_kv and out
+// bf16, the weights and vectors f32, as mha_block_launch takes them;
+// scratch 32768 floats (128 KB) for the rounded weight tiles.
+extern "C" int mha_wgmma_bf16_launch(
+    const void* xq, const void* xkv, const float* lnqs, const float* lnqb,
+    const float* lnks, const float* lnkb, const float* wq, const float* bq,
+    const float* wk, const float* bk, const float* wv, const float* bv,
+    const float* wo, const float* bo, float* scratch, void* out, int B,
+    int Lq, int Lk, int heads, float scale, cudaStream_t stream) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
+  if (heads <= 0 || DM % heads ||
+      Lk > mha_bf16::MAX_CHUNKS * mha_bf16::CHUNK)
+    return (int)cudaErrorInvalidValue;
+  DISPATCH_HEAD_DIM(DM / heads, (mha_bf16::launch<D>(
+      static_cast<const __nv_bfloat16*>(xq),
+      static_cast<const __nv_bfloat16*>(xkv), lnqs, lnqb, lnks, lnkb, wq, bq,
+      wk, bk, wv, bv, wo, bo, reinterpret_cast<uint8_t*>(scratch),
+      static_cast<__nv_bfloat16*>(out), B, Lq, Lk, scale, stream)))
 }

@@ -11,6 +11,12 @@ layout (wq/wk/wv (dim, heads*d) head-major in the output columns, wo
 on a CPU tensor; its backward recomputes through the plain version, as the
 JAX package's custom VJP does.
 
+Which kernel runs which shapes on the card: bf16 activations with Lk <=
+256 (every c4, c4_vq, c4_digital and c5 shape) run ``mha_wgmma_bf16_kernel``
+(``csrc/mha_bf16.cuh``, bf16 ``wgmma``); f32 activations, and bf16 ones
+past 256 keys (fog + V2X's 512), run ``mha_mma_kernel`` (bf16 ``mma.sync``)
+or, with ``mxu_bf16=False``, the f32 mode on the FMA units.
+
 Under ``train.bf16`` the activations ``x_q`` and ``x_kv`` are bf16 and the
 parameters stay f32, as the JAX package passes them; the output takes
 ``x_q``'s dtype. The kernel's bf16 mode reads and writes bf16 itself
@@ -32,6 +38,7 @@ _MAX_LK_PAD = 2048
 _EPS = 1e-6
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
 _WEIGHT_SCRATCH = 4 * 128 * 128 // 2   # floats: four bf16 128 x 128 weights
+_WGMMA_MAX_LK = 256   # keys mha_wgmma_bf16_kernel holds in shared memory
 
 PARAM_KEYS = ("ln_q_scale", "ln_q_bias", "ln_kv_scale", "ln_kv_bias",
               "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
@@ -42,9 +49,14 @@ PARAM_KEYS = ("ln_q_scale", "ln_q_bias", "ln_kv_scale", "ln_kv_bias",
 launches = 0
 launches_bf16 = 0
 
-_SIG = {"mha_block_launch": (ctypes.c_void_p,) * 17 + (
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p)}
+_SIG = {
+    "mha_block_launch": (ctypes.c_void_p,) * 17 + (
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+    "mha_wgmma_bf16_launch": (ctypes.c_void_p,) * 16 + (
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p),
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -152,8 +164,17 @@ def mha_block_reference_bf16(x_q: torch.Tensor, x_kv: torch.Tensor,
     return ((x_q.float() + att @ r(p["wo"])) + p["bo"]).to(x_q.dtype)
 
 
+def wgmma_route(io_bf16: bool, bf16: bool, lk: int) -> bool:
+    """Whether a call on the card runs ``mha_wgmma_bf16_kernel``: bf16
+    activations in the bf16 mode with at most 256 keys."""
+    return io_bf16 and bf16 and lk <= _WGMMA_MAX_LK
+
+
 def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
-                    bf16: bool) -> torch.Tensor:
+                    bf16: bool, kernel: Optional[str] = None) -> torch.Tensor:
+    """The kernel's launch. ``kernel`` names which one runs ("wgmma" or
+    "mma"); by default ``wgmma_route`` picks. Naming one serves the checks
+    that time the two bf16-I/O kernels side by side at the same shapes."""
     global launches, launches_bf16
     b, lq, dm = x_q.shape
     lk = x_kv.shape[1]
@@ -186,12 +207,20 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
         want = (dm, dm) if name.startswith("w") else (dm,)
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
+    if kernel is None:
+        kernel = "wgmma" if wgmma_route(io_bf16, bf16, lk) else "mma"
+    if kernel not in ("wgmma", "mma"):
+        raise ValueError(f"no mha_block kernel {kernel!r}")
+    if kernel == "wgmma" and not wgmma_route(io_bf16, bf16, lk):
+        raise ValueError("mha_wgmma_bf16_kernel takes bf16 activations in "
+                         f"the bf16 mode and at most {_WGMMA_MAX_LK} keys, "
+                         f"got {x_q.dtype}, mxu_bf16={bf16}, Lk {lk}")
     x_q, x_kv = _build.aligned(x_q), _build.aligned(x_kv)
     flat = [_build.aligned(t) for t in flat]
     out = torch.empty((b, lq, dm), dtype=x_q.dtype, device=x_q.device)
-    # The bf16 mode keeps K and V on chip and takes 128 KB of scratch for
-    # the four weights rounded to bf16; the f32 mode projects K and V into
-    # scratch first.
+    # The bf16 mode (either kernel) keeps K and V on chip and takes 128 KB
+    # of scratch for the four weights rounded to bf16; the f32 mode
+    # projects K and V into scratch first.
     if bf16:
         kbuf, vbuf = torch.empty(_WEIGHT_SCRATCH, dtype=torch.float32,
                                  device=x_q.device), None
@@ -199,13 +228,19 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
         kbuf = torch.empty((b, lk, dm), dtype=torch.float32, device=x_q.device)
         vbuf = torch.empty_like(kbuf)
     lib = _build.load("mha_block", _SIG)
-    err = lib.mha_block_launch(
-        _build.ptr(x_q), _build.ptr(x_kv), *(_build.ptr(t) for t in flat),
-        *(None if t is None else _build.ptr(t) for t in (kbuf, vbuf)),
-        _build.ptr(out),
-        b, lq, lk, heads, scale, int(bf16), int(io_bf16),
-        _build.stream_ptr(x_q.device))
-    _build.check(err, "mha_block")
+    if kernel == "wgmma":
+        err = lib.mha_wgmma_bf16_launch(
+            _build.ptr(x_q), _build.ptr(x_kv), *(_build.ptr(t) for t in flat),
+            _build.ptr(kbuf), _build.ptr(out), b, lq, lk, heads, scale,
+            _build.stream_ptr(x_q.device))
+    else:
+        err = lib.mha_block_launch(
+            _build.ptr(x_q), _build.ptr(x_kv), *(_build.ptr(t) for t in flat),
+            *(None if t is None else _build.ptr(t) for t in (kbuf, vbuf)),
+            _build.ptr(out),
+            b, lq, lk, heads, scale, int(bf16), int(io_bf16),
+            _build.stream_ptr(x_q.device))
+    _build.check(err, f"mha_block ({kernel})")
     if io_bf16:
         launches_bf16 += 1
     else:

@@ -396,3 +396,55 @@ def test_packed_attention_bf16_wgmma_forward_on_the_card(name):
                                                        bf16=True)
     _bf16_io_close(out, want)
     torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
+# The bf16 wgmma fused block (mha_wgmma_bf16_kernel): the CPU model's shapes
+# (tests/test_torch_mha_bf16_wgmma.py). At B 2 a batch element's query
+# tiles split over blocks wherever it has two or more; in a batch of 140
+# they do not.
+MHA_BF16_SHAPES = {  # (B, Lq, Lk, heads)
+    "lq17_lk70_h4": (2, 17, 70, 4),
+    "lq65_lk65_h2": (2, 65, 65, 2),
+    "lq33_lk256_h4": (2, 33, 256, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MHA_BF16_SHAPES))
+def test_mha_block_bf16_wgmma_kernel_on_the_card(name):
+    """At each shape in a batch of 140: every output within one bf16 step
+    of its own plus 5e-3 of the plain version and at most 1% of them
+    differing (``chip_smoke.py``'s gates; the share is taken over the whole
+    batch: over B 2's few thousand outputs it is noise, up to 0.75% for
+    ``mha_mma_kernel``). The batch's first B elements alone: one launch,
+    query tiles split over blocks, the same bits as inside the batch and
+    on a second run."""
+    from multimodal_sc_torch.kernels import mha_block as tmha
+
+    _card()
+    b, lq, lk, heads = MHA_BF16_SHAPES[name]
+    assert tmha.wgmma_route(True, True, lk)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    p = {}
+    for k in tmha.PARAM_KEYS:
+        if k.startswith("w"):
+            p[k] = torch.randn(128, 128, generator=g, device="cuda") / 11.3
+        elif "scale" in k:
+            p[k] = 1.0 + 0.1 * torch.randn(128, generator=g, device="cuda")
+        else:
+            p[k] = 0.1 * torch.randn(128, generator=g, device="cuda")
+    x_q = torch.randn(140, lq, 128, generator=g, device="cuda").to(
+        torch.bfloat16)
+    x_kv = torch.randn(140, lk, 128, generator=g, device="cuda").to(
+        torch.bfloat16)
+    big = tmha.mha_block(x_q, x_kv, p, heads)
+    want = tmha.mha_block_reference_bf16(x_q, x_kv, p, heads)
+    assert big.dtype == torch.bfloat16
+    assert bool(((big.float() - want.float()).abs()
+                 <= _bf16_step(big) + 5e-3).all())
+    assert (big != want).float().mean().item() <= 1e-2
+    before = tmha.launches_bf16
+    got = tmha.mha_block(x_q[:b], x_kv[:b], p, heads)
+    assert tmha.launches_bf16 == before + 1
+    assert torch.equal(got, big[:b])
+    assert torch.equal(got, tmha.mha_block(x_q[:b], x_kv[:b], p, heads))
