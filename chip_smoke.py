@@ -4685,9 +4685,15 @@ def check_packed_attention_bf16():
     held to the same mode's f32-I/O kernel on the widened values (its output
     rounded, at ``_gate_bf16_io``), its lse within 2e-5 of that kernel's and
     the plain version's; dQ (and dK, dV where Lq is one block) to the same
-    mode's f32-I/O backward: their one rounding. Every backward runs twice,
-    bit-equal. Times beside SDPA on the same bf16 tensors; the forward
-    summed per arm-B act+learn step."""
+    backward kernel's f32-I/O instance: their one rounding. Up to 256 keys
+    the backward is ``bwd_wgmma_bf16_kernel`` (bf16 wgmma), past them
+    ``bwd_mma_kernel``. Every backward runs twice, bit-equal. Times beside
+    SDPA on the same bf16 tensors; the forward summed per arm-B act+learn
+    step. At arm B's, the ViT trunk's and c3 arm P's shapes
+    ``bwd_mma_kernel``'s bf16-I/O instance runs beside the new backward on
+    the same inputs: its time, its share of outputs that differ from the
+    plain version and its outputs past 1e-2 alone are printed beside the
+    new kernel's (not gated), and summed per arm-B step."""
     import torch
     import torch.nn.functional as F
 
@@ -4718,12 +4724,14 @@ def check_packed_attention_bf16():
     cases += [(64, 200, 48, 128, 4, 0, 0), (64, 33, 70, 128, 4, 0, 0),
               (64, 129, 100, 256, 8, 0, 0), (4, 100, 1100, 128, 4, 0, 0),
               (8, 130, 300, 128, 2, 0, 0), (16, 70, 130, 128, 8, 0, 0),
-              (16, 50, 300, 128, 16, 0, 0)]
+              (16, 50, 300, 128, 16, 0, 0), (16, 130, 200, 128, 2, 0, 0),
+              (16, 65, 256, 128, 16, 0, 0)]
     fwd_rows, bwd_rows = [], []
     worst_fwd = worst_bwd = 0.0
     strict = outputs = 0        # outputs past 1e-2 alone, outputs held
     once = [0.0, 0.0, 0, 0]     # a once-rounded dK/dV's readings, worst
     exps = 0                    # the forward's exponentials a step
+    side = []                   # the two backward kernels, timed shapes
     for b, lq, lk, dm, heads, n_fwd, n_bwd in cases:
         q, k, v, do = rnd(b, lq, dm), rnd(b, lk, dm), rnd(b, lk, dm), \
             rnd(b, lq, dm)
@@ -4754,20 +4762,22 @@ def check_packed_attention_bf16():
         if not all(torch.equal(a, b_) for a, b_ in zip(again, grads)):
             raise AssertionError("packed_attention backward bf16 I/O: two "
                                  "runs on the same inputs differ")
+        wgmma = ap.bwd_wgmma_route(True, True, lk)
         g32 = ap._bwd_cuda(qf, kf, vf, out.float(), lse, dof, heads, scale,
-                           True)
+                           True, kernel="wgmma" if wgmma else None)
         ref_g = ap.packed_attention_bwd_reference(q, k, v, out, do, heads,
                                                   scale, bf16=True,
                                                   lse=ref_lse)
         exact_g = ap.packed_attention_bwd_reference(qf, kf, vf, exact, dof,
                                                     heads, scale)
         torch.cuda.synchronize()
-        berrs, bmeans, bshares, owns = [], [], [], []
+        berrs, bmeans, bshares, owns, bstrict = [], [], [], [], 0
         for i, (got, want, ex, f32_io) in enumerate(zip(grads, ref_g,
                                                         exact_g, g32)):
             e, m, s, n = _gate_bf16_io(f"packed_attention backward bf16 "
                                        f"I/O d{'qkv'[i]}", got, want, ex)
             strict, outputs = strict + n, outputs + got.numel()
+            bstrict += n
             berrs.append(e)
             bmeans.append(m)
             bshares.append(s)
@@ -4778,7 +4788,9 @@ def check_packed_attention_bf16():
         berr = max(berrs)
         worst_fwd, worst_bwd = max(worst_fwd, err), max(worst_bwd, berr)
         line = (f"  packed_attention bf16 I/O B={b} Lq={lq} Lk={lk} dm={dm} "
-                f"h={heads}: fwd err {err:.3e} mean {mean:.2e} "
+                f"h={heads} (backward "
+                f"{'bwd_wgmma_bf16_kernel' if wgmma else 'bwd_mma_kernel'}): "
+                f"fwd err {err:.3e} mean {mean:.2e} "
                 f"({100 * share:.3f}% differ); bwd err {berr:.3e} mean "
                 f"{max(bmeans):.2e} ({100 * max(bshares):.3f}% differ); "
                 f"fwd {100 * own:.3f}% differ from the f32-I/O kernel's, "
@@ -4833,6 +4845,23 @@ def check_packed_attention_bf16():
                 bwd_rows.append({"per_step": n_bwd, "err": berr, "ms": ms,
                                  "plain_ms": plain, "bound_ms": bound,
                                  "bound_by": by, "library_ms": lib})
+            if wgmma:
+                # bwd_mma_kernel's bf16-I/O instance on the same inputs.
+                old = ap._bwd_cuda(q, k, v, out, lse, do, heads, scale, True,
+                                   kernel="mma")
+                torch.cuda.synchronize()
+                old_share = max((a != w).float().mean().item()
+                                for a, w in zip(old, ref_g))
+                old_strict = sum(_bf16_io_readings(a, w)[2]
+                                 for a, w in zip(old, ref_g))
+                old_ms = _device_ms(lambda: ap._bwd_cuda(
+                    q, k, v, out, lse, do, heads, scale, True, kernel="mma"))
+                line += (f"; bwd_mma_kernel on the same inputs {old_ms:.3f} "
+                         f"ms, {100 * old_share:.3f}% differ, {old_strict} "
+                         f"past 1e-2 alone (the new kernel {ms:.3f} ms, "
+                         f"{100 * max(bshares):.3f}%, {bstrict})")
+                side.append((n_bwd, ms, old_ms, max(bshares), old_share,
+                             bstrict, old_strict, bound))
         print(line, flush=True)
         del q, k, v, do, qf, kf, vf, dof, out, out32, ref, exact, grads, g32
         del ref_g, exact_g
@@ -4853,6 +4882,20 @@ def check_packed_attention_bf16():
           f"exponential floor {exp_ms:.4f} ms ({exps} exponentials, 16 a "
           f"clock on each of {sms} SMs at {mhz:.0f} MHz); before the bf16 "
           f"wgmma kernel {PACKED_FWD_BF16_EARLIER_MS} ms", flush=True)
+    arm_b = [x for x in side if x[0] > 0]
+    c3 = [x for x in side if x[0] < 0]
+    for what, got in (("arm-B act+learn step (the ViT trunk's rows "
+                       "included)", arm_b), ("c3 arm-P train step", c3)):
+        n = [abs(x[0]) for x in got]
+        print(f"  packed_attention_bwd_bf16 per {what}: bwd_wgmma_bf16_kernel "
+              f"{sum(c * x[1] for c, x in zip(n, got)):.4f} ms, "
+              f"bwd_mma_kernel {sum(c * x[2] for c, x in zip(n, got)):.4f} "
+              f"ms, bound {sum(c * x[7] for c, x in zip(n, got)):.4f} ms; "
+              f"outputs differing "
+              f"{', '.join(f'{100 * x[3]:.3f}%' for x in got)} against "
+              f"{', '.join(f'{100 * x[4]:.3f}%' for x in got)}, past 1e-2 "
+              f"alone {sum(x[5] for x in got)} against "
+              f"{sum(x[6] for x in got)}", flush=True)
     print(f"  packed_attention bf16 I/O gate readings: largest error "
           f"{max(worst_fwd, worst_bwd):.3e}, {strict} of {outputs} outputs "
           f"past 1e-2 alone (each within one more bf16 step); a once-rounded "
@@ -4865,8 +4908,12 @@ def check_packed_attention_bf16():
     entries = [
         _entry("packed_attention_fwd_bf16", "cuda", src,
                "multimodal_sc_tpu/kernels/attention_packed.py:170", fwd_rows),
-        _entry("packed_attention_bwd_bf16", "cuda", src,
+        _entry("packed_attention_bwd_bf16", "cuda",
+               "multimodal_sc_torch/csrc/packed_bwd_bf16.cuh",
                "multimodal_sc_tpu/kernels/attention_packed.py:201", bwd_rows)]
+    entries[1]["kernel"] = ("bwd_wgmma_bf16_kernel (bf16 wgmma) up to 256 "
+                            "keys; bwd_mma_kernel (csrc/attention_packed.cu) "
+                            "past them")
     entries[0]["max_abs_err"], entries[1]["max_abs_err"] = worst_fwd, worst_bwd
     return entries
 

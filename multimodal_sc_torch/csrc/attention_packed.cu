@@ -82,7 +82,9 @@
 // bf16 operands they already were) and the output, dq, dk and dv written
 // in bf16, as the TPU kernel does when handed bf16 arrays. The forward is
 // fwd_wgmma_bf16_kernel (packed_fwd_bf16.cuh: bf16 wgmma, one pass while
-// Lk <= 256, S formed once). The backward is bwd_mma_kernel's bf16-I/O instance. The output and dQ are
+// Lk <= 256, S formed once). The backward is bwd_wgmma_bf16_kernel
+// (packed_bwd_bf16.cuh: bf16 wgmma, a warpgroup a 64-key tile) while Lk <=
+// 256, past that bwd_mma_kernel's bf16-I/O instance. The output and dQ are
 // summed in f32 and rounded once at the store (with several key splits the
 // partial dQ stay f32 in the scratch and their fixed-order sum is
 // rounded); lse stays f32.
@@ -102,6 +104,7 @@
 #include "bf16_mma.cuh"
 #include "elem_io.cuh"
 #include "flash_kernels.cuh"
+#include "packed_bwd_bf16.cuh"
 #include "packed_fwd_bf16.cuh"
 
 namespace {
@@ -649,6 +652,21 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
                                  scratch, B, Lq, Lk, dm, heads, scale, stream);
 }
 
+// The bf16 wgmma backward (Lk <= 256): bf16 tensors, or (the checks) the
+// bf16 mode's f32 tensors.
+template <typename T, int D>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     void* dq, void* dk, void* dv, int B, int Lq, int Lk,
+                     int dm, int heads, float scale, cudaStream_t stream) {
+  return packed_bwd_bf16::launch_bwd<T, D>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), lse, static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), B, Lq, Lk, dm, heads, scale,
+      stream);
+}
+
 // ---- backward, f32 mode: the strided f32 kernels on the packed layout ----
 
 template <int DT>
@@ -766,19 +784,37 @@ extern "C" int packed_attention_bwd_splits(int Lk, int dm, int heads) {
   return bwd_splits(Lk, dm / heads);
 }
 
+// The bf16 mode's backward kernels: by the rule (bf16 I/O with Lk <= 256
+// the wgmma kernel, else bwd_mma_kernel), or one named by the checks.
+enum BwdKernel { kByRule = 0, kWgmma = 1, kMma = 2 };
+
 // As the forward, plus o = its output, lse = its logsumexp and dout
 // (B, Lq, dm); writes dq (B, Lq, dm), dk, dv (B, Lk, dm), all in the
 // forward's element type. scratch (f32): in f32 mode B * heads * Lq floats
-// (delta); in bf16 mode the partial dQ of the key splits when there is
-// more than one, else unused.
+// (delta); in bf16 mode on bwd_mma_kernel the partial dQ of the key splits
+// when there is more than one, else unused. kernel (bf16 mode): a
+// BwdKernel; the wgmma kernel takes Lk <= 256.
 extern "C" int packed_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
     float* scratch, int B, int Lq, int Lk, int dm, int heads, float scale,
-    int mode, cudaStream_t stream) {
+    int mode, int kernel, cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kBf16Io)
+  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kBf16Io ||
+      kernel < kByRule || kernel > kMma || (mode == kF32 && kernel != kByRule))
     return (int)cudaErrorInvalidValue;
+  if (kernel == kWgmma || (kernel == kByRule && mode == kBf16Io &&
+                           Lk <= packed_bwd_bf16::MAX_WG *
+                                     packed_bwd_bf16::KEYS)) {
+    if (mode == kBf16Io) {
+      DISPATCH_HEAD_DIM(dm / heads, (launch_bwd_wgmma<io::bf16, D>(
+          q, k, v, o, dout, lse, dq, dk, dv, B, Lq, Lk, dm, heads, scale,
+          stream)))
+    }
+    DISPATCH_HEAD_DIM(dm / heads, (launch_bwd_wgmma<float, D>(
+        q, k, v, o, dout, lse, dq, dk, dv, B, Lq, Lk, dm, heads, scale,
+        stream)))
+  }
   if (mode == kBf16Io) {
     DISPATCH_HEAD_DIM(dm / heads, (launch_bwd_bf16<io::bf16, D>(
         q, k, v, o, dout, lse, dq, dk, dv, scratch, B, Lq, Lk, dm, heads,

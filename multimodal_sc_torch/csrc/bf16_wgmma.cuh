@@ -2,7 +2,8 @@
 // Hopper's warpgroup mma (wgmma m64nNk16, bf16 operands, f32 sums) reads
 // through descriptors in either major order, asynchronous 8- and 16-byte
 // copies into them, and the split of an f32 value into three bf16 pieces.
-// Included by flash_bf16.cuh, attention_packed.cu and conv_prelu.cu.
+// Included by flash_bf16.cuh, attention_packed.cu (with packed_fwd_bf16.cuh
+// and packed_bwd_bf16.cuh) and conv_prelu.cu.
 //
 // A tile of R rows x DT bf16 columns is stored as DT / AW atom columns of R
 // rows of SW bytes (SW = 2 AW: 128 bytes for DT >= 64, 64 for DT = 32), each
@@ -151,30 +152,34 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2],
   }
 }
 
-// As wgmma_bf16, with a (64 x 16) read K-major from shared memory too.
-#define WGMMA_BF16_SS(n, sums, outs, adesc, bdesc, pred, tb)                 \
+// As wgmma_bf16, with a (64 x 16) read from shared memory too: K-major, or
+// with TA MN-major (a stored [k][row], the transpose wgmma does in the
+// descriptor).
+#define WGMMA_BF16_SS(n, sums, outs, adesc, bdesc, pred, tb, ta)             \
   asm volatile(                                                             \
       "{\n"                                                                 \
       ".reg .pred p;\n"                                                     \
       "setp.ne.b32 p, %" pred ", 0;\n"                                      \
       "wgmma.mma_async.sync.aligned.m64n" #n "k16.f32.bf16.bf16 {" sums "}, " \
-      "%" adesc ", %" bdesc ", p, 1, 1, 0, %" tb ";\n"                       \
+      "%" adesc ", %" bdesc ", p, 1, 1, %" ta ", %" tb ";\n"                \
       "}\n"                                                                 \
       : outs                                                                \
-      : "l"(a_desc), "l"(b_desc), "r"(accumulate), "n"(TB))
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate), "n"(TB), "n"(TA))
 
-template <int BN, int TB>
+template <int BN, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[BN / 2],
                                               uint64_t a_desc,
                                               uint64_t b_desc,
                                               int accumulate) {
-  static_assert(BN == 32 || BN == 64 || BN == 128, "tile width");
-  if constexpr (BN == 32) {
-    WGMMA_BF16_SS(32, WG_R16, WG_D16(0), "16", "17", "18", "19");
+  static_assert(BN == 16 || BN == 32 || BN == 64 || BN == 128, "tile width");
+  if constexpr (BN == 16) {
+    WGMMA_BF16_SS(16, WG_R8, WG_D8(0), "8", "9", "10", "11", "12");
+  } else if constexpr (BN == 32) {
+    WGMMA_BF16_SS(32, WG_R16, WG_D16(0), "16", "17", "18", "19", "20");
   } else if constexpr (BN == 64) {
-    WGMMA_BF16_SS(64, WG_R32, WG_D32(0), "32", "33", "34", "35");
+    WGMMA_BF16_SS(64, WG_R32, WG_D32(0), "32", "33", "34", "35", "36");
   } else {
-    WGMMA_BF16_SS(128, WG_R64, WG_D64(0), "64", "65", "66", "67");
+    WGMMA_BF16_SS(128, WG_R64, WG_D64(0), "64", "65", "66", "67", "68");
   }
 }
 

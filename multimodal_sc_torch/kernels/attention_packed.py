@@ -12,7 +12,11 @@ on f32 tensors and for the backward; the forward on bf16 tensors on bf16
 ``wgmma``, one pass while Lk <= 256); in f32 mode
 the packed layout is handed, as (batch, head, row) strides, to the flash
 kernels of ``csrc/flash_kernels.cuh``: the forward, dQ and dK/dV kernels on
-3xTF32 tensor cores. On a CPU tensor the plain version runs: for float32
+3xTF32 tensor cores. Which backward runs in bf16 mode: on bf16 tensors with
+Lk <= 256 (every main-path shape) ``bwd_wgmma_bf16_kernel``
+(``csrc/packed_bwd_bf16.cuh``, bf16 ``wgmma``); on f32 tensors, and past 256
+keys, ``bwd_mma_kernel`` (bf16 ``mma.sync``). On a CPU tensor the plain
+version runs: for float32
 the twin ``packed_attention_reference`` under autograd; for bf16 the
 kernels' plain versions (``packed_attention_plain``), whose backward rounds
 where the kernels store.
@@ -51,12 +55,18 @@ launches_bwd_bf16 = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
     "packed_attention_fwd_launch": (_P,) * 5 + (_I,) * 5 + (_F, _I, _P),
-    "packed_attention_bwd_launch": (_P,) * 10 + (_I,) * 5 + (_F, _I, _P),
+    "packed_attention_bwd_launch": (_P,) * 10 + (_I,) * 5 + (_F, _I, _I,
+                                                            _P),
     "packed_attention_bwd_splits": (_I,) * 3,
 }
 # The JAX kernel's query block: its backward sums dK and dV across blocks
 # in the output dtype.
 BLOCK_Q = 128
+# Keys the bf16 wgmma backward holds: four warpgroups of 64.
+_WGMMA_MAX_LK = 256
+# The backward launcher's kernel argument (``BwdKernel`` in
+# csrc/attention_packed.cu).
+_BWD_KERNELS = {"wgmma": 1, "mma": 2}
 
 
 def packed_eligible(heads: int, head_dim: int, lk: int) -> bool:
@@ -278,10 +288,34 @@ def _fwd_cuda(q, k, v, heads: int, scale: float, bf16: bool,
     return out, lse
 
 
-def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool):
+def bwd_wgmma_route(io_bf16: bool, bf16: bool, lk: int) -> bool:
+    """Whether a backward on the card runs ``bwd_wgmma_bf16_kernel``: bf16
+    tensors in the bf16 mode with at most 256 keys."""
+    return io_bf16 and bf16 and lk <= _WGMMA_MAX_LK
+
+
+def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool,
+              kernel: Optional[str] = None):
+    """The backward's launch. ``kernel`` names which bf16-mode kernel runs
+    ("wgmma" or "mma"); by default ``bwd_wgmma_route`` picks. Naming one
+    serves the checks: "mma" runs ``bwd_mma_kernel`` on bf16 tensors at Lk
+    <= 256 too, "wgmma" the new kernel's f32-I/O instance on f32 tensors;
+    a shape the named kernel does not take raises before a launch."""
     global launches_bwd, launches_bwd_bf16
     b, lq, lk, dm = _check_cuda(heads, q, k, v, out, dout)
     mode = _mode(q, bf16)
+    if kernel is not None:
+        if kernel not in _BWD_KERNELS:
+            raise ValueError(f"no packed attention backward kernel "
+                             f"{kernel!r}")
+        if not bf16:
+            raise ValueError("the named backward kernels are the bf16 "
+                             "mode's (mxu_bf16=True)")
+        if kernel == "wgmma" and lk > _WGMMA_MAX_LK:
+            raise ValueError(f"bwd_wgmma_bf16_kernel takes at most "
+                             f"{_WGMMA_MAX_LK} keys, got {lk}")
+    wgmma = (kernel == "wgmma" if kernel is not None
+             else bwd_wgmma_route(mode == _MODE_BF16_IO, bf16, lk))
     if (lse.shape != (b, heads, lq) or lse.dtype != torch.float32
             or lse.device != q.device):
         raise ValueError(f"lse must be float32 {(b, heads, lq)} on "
@@ -291,9 +325,11 @@ def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("attention_packed", _SIG)
     # Scratch (f32): f32 mode keeps delta = rowsum(dO * O) between its two
-    # kernels; bf16 mode the partial dQ of each key split, when Lk takes
-    # more than one block, summed in f32 before dQ is stored.
-    if bf16:
+    # kernels; bwd_mma_kernel the partial dQ of each key split, when Lk
+    # takes more than one block, summed in f32 before dQ is stored.
+    if wgmma:
+        scratch = None
+    elif bf16:
         splits = lib.packed_attention_bwd_splits(lk, dm, heads)
         scratch = (torch.empty((splits,) + tuple(q.shape),
                                dtype=torch.float32, device=q.device)
@@ -303,7 +339,9 @@ def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool):
     err = lib.packed_attention_bwd_launch(
         *(_build.ptr(t) for t in (q, k, v, out, dout, lse, dq, dk, dv)),
         _build.ptr(scratch) if scratch is not None else None,
-        b, lq, lk, dm, heads, scale, mode, _build.stream_ptr(q.device))
+        b, lq, lk, dm, heads, scale, mode,
+        _BWD_KERNELS[kernel] if kernel is not None else 0,
+        _build.stream_ptr(q.device))
     _build.check(err, "packed_attention backward")
     if mode == _MODE_BF16_IO:
         launches_bwd_bf16 += 1

@@ -448,3 +448,40 @@ def test_mha_block_bf16_wgmma_kernel_on_the_card(name):
     assert tmha.launches_bf16 == before + 1
     assert torch.equal(got, big[:b])
     assert torch.equal(got, tmha.mha_block(x_q[:b], x_kv[:b], p, heads))
+
+
+# The bf16 wgmma packed backward (bwd_wgmma_bf16_kernel): the CPU model's
+# shapes (tests/test_torch_packed_bwd_bf16_wgmma.py), each tensor at least
+# 30,000 outputs.
+PACKED_BWD_BF16_SHAPES = {  # (B, Lq, Lk, heads)
+    "lq65_lk65_h4": (4, 65, 65, 4),
+    "lq65_lk256_h4": (4, 65, 256, 4),
+    "lq200_lk48_h4": (5, 200, 48, 4),
+    "lq130_lk100_h2": (2, 130, 120, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PACKED_BWD_BF16_SHAPES))
+def test_packed_attention_bf16_wgmma_backward_on_the_card(name):
+    """dQ, dK and dV within the plain version's gates (``_bf16_io_close``),
+    one launch counted, and the same bits on a second run."""
+    from multimodal_sc_torch.kernels import attention_packed as ap
+
+    _card()
+    b, lq, lk, heads = PACKED_BWD_BF16_SHAPES[name]
+    assert ap.bwd_wgmma_route(True, True, lk)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(b, n, 128, generator=g, device="cuda").to(
+        torch.bfloat16) for n in (lq, lk, lk, lq))
+    scale = (128 // heads) ** -0.5
+    out, lse = ap._fwd_cuda(q, k, v, heads, scale, True, want_lse=True)
+    before = ap.launches_bwd_bf16
+    got = ap._bwd_cuda(q, k, v, out, lse, do, heads, scale, True)
+    assert ap.launches_bwd_bf16 == before + 1
+    want = ap.packed_attention_bwd_reference(q, k, v, out, do, heads, scale,
+                                             bf16=True, lse=lse)
+    for a, w in zip(got, want):
+        _bf16_io_close(a, w)
+    again = ap._bwd_cuda(q, k, v, out, lse, do, heads, scale, True)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
