@@ -175,7 +175,10 @@ one bf16 step of its own plus 5e-3 of its bf16-mode plain version, past
 that a witnessed rounding flip, at most 1% of outputs differing, and at
 each timed shape a sample of the outputs past one step witnessed too, with
 ``mha_mma_kernel`` timed beside the new kernel at c4's and c5's shapes;
-the scatter forward and backward bit for bit with forced ties; the packed and flash
+the scatter forward and backward bit for bit with forced ties (a tie of
+more than 256 points among the edge shapes), D % 8 == 0 on the kernels of
+``csrc/scatter_bf16.cuh`` with the f32 kernels' bf16 instances timed beside
+them at each timed shape (``kernel="atomics"``); the packed and flash
 attention forward and backward at the timed shapes of their f32 checks
 (and ragged, Lq > 128, several-key-split and odd head-dim ones) within
 1e-2 plus one bf16 step of their bf16-I/O plain versions (dK and dV of the
@@ -1189,11 +1192,30 @@ def _force_ties(feats, cell):
     return feats, cell
 
 
-def _scatter_widths(cells):
-    """The slice widths the kernels take at this shape, widest first."""
+def _scatter_widths(cells, feats=None, bwd=False):
+    """The slice widths the kernels of ``feats`` take at this shape, widest
+    first (the bf16 kernels of ``csrc/scatter_bf16.cuh``: their planned
+    widths that fit)."""
     from multimodal_sc_torch.kernels import pillar_scatter as ps
 
+    if feats is not None and ps.lists_route(feats):
+        n = feats.shape[1]
+        return [w for w in ps.bf16_widths(feats.shape[2])
+                if ps.bf16_smem_bytes(n, w, cells, bwd) <= ps.SMEM_BYTES]
     return [w for w in (64, 32, 16, 8, 4) if cells * w * 4 <= ps.SMEM_BYTES]
+
+
+def _scatter_plan(feats, cells, bwd=False):
+    """The kernels a scatter call on ``feats`` runs and their slice."""
+    from multimodal_sc_torch.kernels import pillar_scatter as ps
+
+    b, n, d = feats.shape
+    if ps.lists_route(feats):
+        width = ps.bf16_plan(b, n, d, cells, bwd)
+        return (f"scatter_bf16.cuh, slice {width}, "
+                f"{ps.bf16_threads(b, n, d, cells, width, bwd)} threads")
+    width, vec = ps.slice_plan(b, d, cells)
+    return f"slice {width}, vec {vec}"
 
 
 def _scatter_counter(feats, bwd=False):
@@ -1225,11 +1247,10 @@ def _scatter_case(what, feats, cell, cells, timed=True):
     err = (out - ref).abs().max().item()
     # Max is exact and order-independent: the kernel must agree bit for bit.
     torch.testing.assert_close(out, ref, atol=0.0, rtol=0.0)
-    width, vec = ps.slice_plan(b, d, cells)
     valid = int((cell < cells).sum().item())
     line = (f"  scatter_max ({what}) {feats.dtype} B={b} N={n} D={d} "
-            f"cells={cells} ({valid} of {b * n} points in range; slice "
-            f"{width}, vec {vec}): err {err:.3e}")
+            f"cells={cells} ({valid} of {b * n} points in range; "
+            f"{_scatter_plan(feats, cells)}): err {err:.3e}")
     if not timed:
         print(line, flush=True)
         return None
@@ -1244,14 +1265,19 @@ def _scatter_case(what, feats, cell, cells, timed=True):
     # Cells read once, in-range features read once, the grid written once.
     nbytes = 4 * b * n + esz * (valid * d + b * cells * d)
     bound, by = _bound_ms(valid * d, nbytes, PEAK_F32)
+    lists = ps.lists_route(feats)
     widths = "; ".join(
         f"{w}: {_device_ms(lambda: ps._scatter_max_cuda(feats, cell, cells, w), iters=50):.4f}"
-        for w in _scatter_widths(cells))
-    print(f"{line}; kernel {ms:.4f} ms, plain {plain:.4f} ms, scatter_reduce "
-          f"{lib:.4f} ms, bound {bound:.5f} ms ({by}); by slice width (ms) "
-          f"{widths}", flush=True)
+        for w in _scatter_widths(cells, feats))
+    old = (_device_ms(lambda: ps._scatter_max_cuda(
+        feats, cell, cells, kernel="atomics"), iters=50) if lists else None)
+    print(f"{line}; kernel {ms:.4f} ms, "
+          + (f"scatter_max_kernel<bf16, 4> {old:.4f} ms, " if lists else "")
+          + f"plain {plain:.4f} ms, scatter_reduce {lib:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}); by slice width (ms) {widths}", flush=True)
     return {"per_step": 1, "err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib}
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "old_ms": old}
 
 
 def _scatter_bwd_case(what, feats, cell, cells, timed=True):
@@ -1297,8 +1323,10 @@ def _scatter_bwd_case(what, feats, cell, cells, timed=True):
         1, idx, hit.float())[:, :cells]
     ties = int((count > 1).sum().item())
     line = (f"  scatter_max backward ({what}) {feats.dtype} B={b} N={n} "
-            f"D={d} cells={cells} ({ties} tied maxima): err {err:.3e}, two "
-            "runs bit-equal")
+            f"D={d} cells={cells} ({ties} tied maxima, the most "
+            f"{int(count.max().item())} points; "
+            f"{_scatter_plan(feats, cells, bwd=True)})"
+            f": err {err:.3e}, two runs bit-equal")
     if not timed:
         print(line, flush=True)
         return None
@@ -1317,14 +1345,22 @@ def _scatter_bwd_case(what, feats, cell, cells, timed=True):
     # hold points, every point's gradient written once.
     nbytes = 4 * b * n + esz * (valid * d + 2 * touched * d + b * n * d)
     bound, by = _bound_ms(valid * d, nbytes, PEAK_F32)
+    lists = ps.lists_route(feats)
     widths = "; ".join(
         f"{w}: {_device_ms(lambda: ps._scatter_max_bwd_cuda(feats, cell, out, gy, cells, w), iters=50):.4f}"
-        for w in _scatter_widths(cells))
-    print(f"{line}; kernel {ms:.4f} ms, plain {plain:.4f} ms, autograd of "
-          f"the plain forward {autograd:.4f} ms, bound {bound:.5f} ms ({by}); "
-          f"by slice width (ms) {widths}", flush=True)
+        for w in _scatter_widths(cells, feats, bwd=True))
+    old = (_device_ms(lambda: ps._scatter_max_bwd_cuda(
+        feats, cell, out, gy, cells, kernel="atomics"), iters=50)
+        if lists else None)
+    print(f"{line}; kernel {ms:.4f} ms, "
+          + (f"scatter_max_bwd_kernel<bf16, 4> {old:.4f} ms, " if lists
+             else "")
+          + f"plain {plain:.4f} ms, autograd of the plain forward "
+          f"{autograd:.4f} ms, bound {bound:.5f} ms ({by}); by slice width "
+          f"(ms) {widths}", flush=True)
     return {"per_step": 1, "err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "old_ms": old}
 
 
 def _scatter_edges():
@@ -4586,12 +4622,31 @@ def check_mha_block_bf16():
     return entry
 
 
+def _big_tie_case():
+    """bf16 features of 4 envs of 600 points whose first 300 points of env
+    0 share cell 5 and tie at its max in feature 0 (a count past 256, which
+    bf16 cannot hold)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    feats = torch.randn(4, 600, 64, generator=g, device="cuda")
+    cell = torch.randint(0, 257, (4, 600), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cell[0] = torch.where(cell[0] == 5, 6, cell[0])
+    cell[0, :300] = 5
+    feats[0, :300, 0] = 7.0
+    return "a tie of 300 points, N=600", feats.to(torch.bfloat16), cell, 256
+
+
 def check_scatter_max_bf16():
     """The scatter kernels on bf16 features, bit for bit against their plain
     versions (the backward: JAX's f32 share rounded to bf16, bf16(g * (1 /
     count))), with forced ties, at c4's act (the forward's line), learn and
     fog + V2X shapes, c3's (the backward's line) and c5's, and the edge
-    shapes."""
+    shapes (a tie of 300 points among them). D % 8 == 0 runs the kernels of
+    ``csrc/scatter_bf16.cuh``; at each timed shape the f32 kernels' bf16
+    instances (``kernel="atomics"``), which D 30 and D 7 still run, are
+    timed beside them."""
     import torch
 
     bf = torch.bfloat16
@@ -4613,16 +4668,29 @@ def check_scatter_max_bf16():
     ego, rsu = ((f.to(bf), c, n) for f, c, n in _v2x_pillar_inputs())
     v2x_rows = [_scatter_case("c4 fog+V2X ego", *ego),
                 _scatter_case("c4 fog+V2X RSU", *rsu)]
-    for what, feats, cell, cells in _scatter_edges():
+    for what, feats, cell, cells in [*_scatter_edges(), _big_tie_case()]:
         _scatter_case(what, feats.to(bf), cell, cells, timed=False)
         _scatter_bwd_case(what, feats.to(bf), cell, cells, timed=False)
-    src = "multimodal_sc_torch/csrc/pillar_scatter.cu"
-    return [_entry("scatter_max_bf16", "cuda", src,
-                   "multimodal_sc_tpu/kernels/pillar_scatter.py:79",
-                   [row, *v2x_rows]),
-            _entry("scatter_max_bwd_bf16", "cuda", src,
-                   "multimodal_sc_tpu/kernels/pillar_scatter.py:32",
-                   [bwd_row])]
+    for what, rows in (("scatter_max_bf16_kernel per c4 act step and fog + "
+                        "V2X act forward", [row, *v2x_rows]),
+                       ("scatter_max_bwd_bf16_kernel per c3-cnn step",
+                        [bwd_row])):
+        print(f"  {what}: " + ", ".join(
+            f"{r['ms']:.4f} ms (old instance {r['old_ms']:.4f}, bound "
+            f"{r['bound_ms']:.5f})" for r in rows), flush=True)
+    src = "multimodal_sc_torch/csrc/scatter_bf16.cuh"
+    fwd = _entry("scatter_max_bf16", "cuda", src,
+                 "multimodal_sc_tpu/kernels/pillar_scatter.py:79",
+                 [row, *v2x_rows])
+    fwd["kernel"] = ("scatter_max_bf16_kernel (csrc/scatter_bf16.cuh) at D "
+                     "% 8 == 0; scatter_max_kernel<bf16, 4 | 1> "
+                     "(csrc/pillar_scatter.cu) at other D")
+    bwd = _entry("scatter_max_bwd_bf16", "cuda", src,
+                 "multimodal_sc_tpu/kernels/pillar_scatter.py:32", [bwd_row])
+    bwd["kernel"] = ("scatter_max_bwd_bf16_kernel (csrc/scatter_bf16.cuh) at "
+                     "D % 8 == 0; scatter_max_bwd_kernel<bf16, 4 | 1> "
+                     "(csrc/pillar_scatter.cu) at other D")
+    return [fwd, bwd]
 
 
 def _bf16_io_readings(got, ref_io):

@@ -42,7 +42,10 @@
 // so it is exact and the same on every run.
 //
 // bf16 I/O (train.bf16; the TPU kernel reads and writes the activation
-// dtype): the same kernels instantiated on bf16 rows, read 4 or 1 to a
+// dtype): where D is a multiple of 8 (every bf16 path's D 64), the kernels
+// of scatter_bf16.cuh, designed for bf16 rows (scatter_max_bf16_launch,
+// scatter_max_bwd_bf16_launch); for other D the same kernels as f32
+// instantiated on bf16 rows, read 4 or 1 to a
 // load (8 or 2 bytes) and upcast to f32, which is lossless, so the max on
 // the f32 bits is the bf16 max and its bf16 store is exact. The gradient
 // gives the bits of the JAX package's pillar net, which widens its bf16
@@ -54,6 +57,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "scatter_bf16.cuh"
 
 namespace {
 
@@ -351,4 +356,24 @@ extern "C" int scatter_max_bwd_launch(const void* feats, const int* cell,
   if (vec == 4) BWD(float, 4);
   BWD(float, 1);
 #undef BWD
+}
+
+// bf16 features with D a multiple of 8 (scatter_bf16.cuh): a block of
+// `threads` (256 or 512) an env and slice of `width` features (a multiple
+// of 8); shared memory as scatter_bf16::smem_fwd / smem_bwd.
+extern "C" int scatter_max_bf16_launch(const void* feats, const int* cell,
+                                       void* out, int batch, int n_points,
+                                       int dim, int num_cells, int width,
+                                       int threads, cudaStream_t stream) {
+  return scatter_bf16::launch_fwd(feats, cell, out, batch, n_points, dim,
+                                  num_cells, width, threads, stream);
+}
+
+extern "C" int scatter_max_bwd_bf16_launch(const void* feats, const int* cell,
+                                           const void* out, const void* g,
+                                           void* gf, int batch, int n_points,
+                                           int dim, int num_cells, int width,
+                                           int threads, cudaStream_t stream) {
+  return scatter_bf16::launch_bwd(feats, cell, out, g, gf, batch, n_points,
+                                  dim, num_cells, width, threads, stream);
 }

@@ -18,7 +18,10 @@ On a CPU tensor it runs ``scatter_max_reference`` under autograd.
 
 Under ``train.bf16`` the features are bf16 and the kernels read and write
 bf16 themselves (their own counts, ``launches_bf16`` and
-``launches_bwd_bf16``). The forward is exact in either dtype. The JAX
+``launches_bwd_bf16``). Where D is a multiple of 8 (every bf16 path's D
+64) they are the kernels of ``csrc/scatter_bf16.cuh`` (``lists_route``;
+``bf16_plan`` picks their feature slice); for other D the f32 kernels'
+instances on bf16 rows. The forward is exact in either dtype. The JAX
 package's pillar net widens its bf16 features to f32 before the scatter,
 so a tied max's gradient in bf16 is XLA's f32 share rounded to bf16,
 ``bf16(g * (1 / count))``, the product and the reciprocal in f32; in f32
@@ -54,9 +57,24 @@ launches_bwd = 0
 launches_bf16 = 0
 launches_bwd_bf16 = 0
 
+# The bf16 kernels of csrc/scatter_bf16.cuh (kernel "lists") and the f32
+# kernels' bf16 instances (kernel "atomics"). A block of the former takes an
+# env and a slice of features; the slice it prefers leaves two blocks room
+# on a multiprocessor (BF16_SLICE_BYTES of shared memory each) and the card
+# at least BF16_MIN_ITEMS blocks. Chosen from the widths' times at the main
+# path's shapes (``chip_smoke.py`` prints them).
+KERNELS = ("lists", "atomics")
+BF16_SLICE_BYTES = 113 * 1024
+BF16_MIN_ITEMS = 132
+BF16_FEW_BLOCKS = 2 * 132     # below it, 512-thread blocks (bf16_threads)
+BF16_MAX_POINTS = 65535       # the backward's tie counts are 16 bits
+
 _C = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_C_BF16 = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 _SIG = {"scatter_max_launch": (ctypes.c_void_p,) * 3 + _C,
-        "scatter_max_bwd_launch": (ctypes.c_void_p,) * 5 + _C}
+        "scatter_max_bwd_launch": (ctypes.c_void_p,) * 5 + _C,
+        "scatter_max_bf16_launch": (ctypes.c_void_p,) * 3 + _C_BF16,
+        "scatter_max_bwd_bf16_launch": (ctypes.c_void_p,) * 5 + _C_BF16}
 
 
 def scatter_max_reference(feats: torch.Tensor, cell_idx: torch.Tensor,
@@ -130,6 +148,93 @@ def _check_width(width: int, vec: int, num_cells: int) -> None:
                          f"{num_cells} cells is not one the kernels take")
 
 
+def lists_route(feats: torch.Tensor) -> bool:
+    """Whether a call on the card runs the kernels of
+    ``csrc/scatter_bf16.cuh``: bf16 features whose D is a multiple of 8
+    (rows of whole 16-byte pieces)."""
+    return feats.dtype == torch.bfloat16 and feats.shape[-1] % 8 == 0
+
+
+def bf16_smem_bytes(n_points: int, width: int, num_cells: int,
+                    bwd: bool = False) -> int:
+    """Shared memory of a block of the bf16 kernels: the env's feature slice
+    and cells, and the forward's list heads and links or the backward's
+    slice of ``g`` at each point's cell, tie counts (two 16-bit counts a
+    word) and hit masks (a byte a 16-byte piece)."""
+    if bwd:
+        return (n_points * (4 * width + 4 + width // 8)
+                + 2 * width * num_cells)
+    return n_points * (2 * width + 8) + 4 * num_cells
+
+
+def bf16_widths(dim: int) -> list:
+    """The feature slices the bf16 kernels are planned with, widest first:
+    D halved while it stays a multiple of 8, and 8."""
+    out, w = [], dim
+    while w % 8 == 0 and w >= 8:
+        out.append(w)
+        w //= 2
+    return out if out[-1] == 8 else out + [8]
+
+
+def bf16_plan(batch: int, n_points: int, dim: int, num_cells: int,
+              bwd: bool = False) -> int:
+    """The feature slice of a bf16 kernel's blocks (the forward's, or with
+    ``bwd`` the backward's): the widest of ``bf16_widths`` whose block takes
+    at most ``BF16_SLICE_BYTES`` and that gives at least ``BF16_MIN_ITEMS``
+    blocks, else the narrowest. Raises when not even that fits in shared
+    memory."""
+    widths = bf16_widths(dim)
+    for w in widths:
+        if (bf16_smem_bytes(n_points, w, num_cells, bwd) <= BF16_SLICE_BYTES
+                and batch * -(-dim // w) >= BF16_MIN_ITEMS):
+            return w
+    _check_lists(n_points, dim, num_cells, widths[-1], bwd)
+    return widths[-1]
+
+
+def bf16_threads(batch: int, n_points: int, dim: int, num_cells: int,
+                 width: int, bwd: bool = False) -> int:
+    """Threads of a bf16 kernel's block: 512 where the grid has fewer than
+    ``BF16_FEW_BLOCKS`` blocks and a block at least 1024 16-byte pieces to
+    take (the forward's cells, the backward's points, times width / 8),
+    else 256."""
+    pieces = (n_points if bwd else num_cells) * (width // 8)
+    blocks = batch * -(-dim // width)
+    return 512 if blocks < BF16_FEW_BLOCKS and pieces >= 1024 else 256
+
+
+def _check_lists(n_points: int, dim: int, num_cells: int, width: int,
+                 bwd: bool = False) -> None:
+    if n_points > BF16_MAX_POINTS:
+        raise ValueError(
+            f"scatter_max bf16 kernels: {n_points} points an env, at most "
+            f"{BF16_MAX_POINTS} (the backward counts ties in 16 bits)")
+    smem = bf16_smem_bytes(n_points, width, num_cells, bwd)
+    if (dim % 8 or width % 8 or not 8 <= width <= dim
+            or smem > SMEM_BYTES):
+        raise ValueError(
+            f"scatter_max bf16 kernels: slice width {width} of D {dim} for "
+            f"{n_points} points and {num_cells} cells is not one they take "
+            f"(multiples of 8, {smem} bytes of shared memory, at most "
+            f"{SMEM_BYTES})")
+
+
+def _lists(feats: torch.Tensor, kernel) -> bool:
+    """Whether ``kernel`` (None: ``lists_route``) names the bf16 kernels;
+    raises on a name it does not know or on features "lists" does not
+    take."""
+    if kernel is None:
+        return lists_route(feats)
+    if kernel not in KERNELS:
+        raise ValueError(f"no scatter_max kernel {kernel!r}; {KERNELS}")
+    if kernel == "lists" and not lists_route(feats):
+        raise ValueError("the scatter_max bf16 kernels take bf16 features "
+                         "with D a multiple of 8, got "
+                         f"{feats.dtype} D {feats.shape[-1]}")
+    return kernel == "lists"
+
+
 def _check(feats, cell_idx):
     if (feats.dtype not in (torch.float32, torch.bfloat16)
             or cell_idx.dtype != torch.int32):
@@ -144,14 +249,32 @@ def _check(feats, cell_idx):
 
 
 def _scatter_max_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
-                      num_cells: int, width=None) -> torch.Tensor:
-    """The forward kernel; ``width`` overrides ``slice_plan``'s slice."""
+                      num_cells: int, width=None, kernel=None) -> torch.Tensor:
+    """The forward kernel. ``kernel`` names the bf16 kernels ("lists") or
+    the f32 kernel's instance ("atomics", bf16 features of any D too); by
+    default ``lists_route`` picks. ``width`` overrides the slice of
+    ``bf16_plan`` or ``slice_plan``."""
     global launches, launches_bf16
     _check(feats, cell_idx)
     b, n, d = feats.shape
+    lists = _lists(feats, kernel)
+    if lists:
+        width = bf16_plan(b, n, d, num_cells) if width is None else width
+        _check_lists(n, d, num_cells, width)
     out = torch.empty((b, num_cells, d), dtype=feats.dtype,
                       device=feats.device)
     if out.numel() == 0:
+        return out
+    if lists:
+        feats = _build.aligned(feats)
+        cell_idx = cell_idx.contiguous()
+        lib = _build.load("pillar_scatter", _SIG)
+        err = lib.scatter_max_bf16_launch(
+            _build.ptr(feats), _build.ptr(cell_idx), _build.ptr(out), b, n,
+            d, num_cells, width, bf16_threads(b, n, d, num_cells, width),
+            _build.stream_ptr(feats.device))
+        _build.check(err, "scatter_max")
+        launches_bf16 += 1
         return out
     plan_width, vec = slice_plan(b, d, num_cells)
     width = plan_width if width is None else width
@@ -173,11 +296,17 @@ def _scatter_max_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
 
 def _scatter_max_bwd_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
                           out: torch.Tensor, g: torch.Tensor, num_cells: int,
-                          width=None) -> torch.Tensor:
-    """The backward kernel: ``scatter_max_backward_reference`` on the card."""
+                          width=None, kernel=None) -> torch.Tensor:
+    """The backward kernel: ``scatter_max_backward_reference`` on the card.
+    ``kernel`` and ``width`` as ``_scatter_max_cuda``'s."""
     global launches_bwd, launches_bwd_bf16
     _check(feats, cell_idx)
     b, n, d = feats.shape
+    lists = _lists(feats, kernel)
+    if lists:
+        width = (bf16_plan(b, n, d, num_cells, bwd=True) if width is None
+                 else width)
+        _check_lists(n, d, num_cells, width, bwd=True)
     for name, t in (("out", out), ("g", g)):
         if t.shape != (b, num_cells, d) or t.dtype != feats.dtype \
                 or t.device != feats.device:
@@ -187,6 +316,18 @@ def _scatter_max_bwd_cuda(feats: torch.Tensor, cell_idx: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
     gf = torch.empty((b, n, d), dtype=feats.dtype, device=feats.device)
     if gf.numel() == 0:
+        return gf
+    if lists:
+        feats, out, g = (_build.aligned(t) for t in (feats, out, g))
+        cell_idx = cell_idx.contiguous()
+        lib = _build.load("pillar_scatter", _SIG)
+        err = lib.scatter_max_bwd_bf16_launch(
+            _build.ptr(feats), _build.ptr(cell_idx), _build.ptr(out),
+            _build.ptr(g), _build.ptr(gf), b, n, d, num_cells, width,
+            bf16_threads(b, n, d, num_cells, width, bwd=True),
+            _build.stream_ptr(feats.device))
+        _build.check(err, "scatter_max backward")
+        launches_bwd_bf16 += 1
         return gf
     plan_width, vec = slice_plan(b, d, num_cells)
     width = plan_width if width is None else width

@@ -485,3 +485,54 @@ def test_packed_attention_bf16_wgmma_backward_on_the_card(name):
         _bf16_io_close(a, w)
     again = ap._bwd_cuda(q, k, v, out, lse, do, heads, scale, True)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+# The bf16 scatter kernels of csrc/scatter_bf16.cuh at the main path's
+# shapes (B, N, D, cells, slice width or the plan's): c4 act, c4 learn, c3
+# and the c5 loss minibatch; and D 40 in one slice (5 lanes a row).
+SCATTER_BF16_SHAPES = {"c4 act": (1024, 64, 64, 256, None),
+                       "c4 learn": (128, 64, 64, 256, None),
+                       "c3": (64, 1024, 64, 1024, None),
+                       "c5 loss": (512, 64, 64, 256, None),
+                       "D 40, one slice": (96, 64, 40, 256, 40)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCATTER_BF16_SHAPES))
+def test_scatter_bf16_kernels_on_the_card(name):
+    """``scatter_max_bf16_kernel`` and ``scatter_max_bwd_bf16_kernel``, one
+    launch each, bit for bit against their plain versions and the f32
+    kernels' bf16 instances they replace, on inputs with trash points, a
+    crowded cell and forced ties; two runs of each give the same bits."""
+    from multimodal_sc_torch.kernels import pillar_scatter as tscatter
+
+    _card()
+    b, n, d, cells, width = SCATTER_BF16_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    feats = torch.randn(b, n, d, generator=g, device="cuda")
+    cell = torch.randint(0, cells + 1, (b, n), generator=g, device="cuda",
+                         dtype=torch.int32)
+    cell[:, : n // 8] = 3                                      # crowded
+    cell[:, 1::8], feats[:, 1::8] = cell[:, ::8], feats[:, ::8]   # ties
+    feats = feats.to(torch.bfloat16)
+    gy = torch.randn(b, cells, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    assert tscatter.lists_route(feats)
+    before = (tscatter.launches_bf16, tscatter.launches_bwd_bf16)
+    out = tscatter._scatter_max_cuda(feats, cell, cells, width)
+    gf = tscatter._scatter_max_bwd_cuda(feats, cell, out, gy, cells, width)
+    torch.cuda.synchronize()
+    assert (tscatter.launches_bf16, tscatter.launches_bwd_bf16) == (
+        before[0] + 1, before[1] + 1)
+    ref = tscatter.scatter_max_reference(feats, cell, cells)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    torch.testing.assert_close(gf, tscatter.scatter_max_backward_reference(
+        feats, cell, out, gy, cells), atol=0, rtol=0)
+    assert torch.equal(out, tscatter._scatter_max_cuda(feats, cell, cells,
+                                                       width))
+    assert torch.equal(gf, tscatter._scatter_max_bwd_cuda(feats, cell, out,
+                                                          gy, cells, width))
+    assert torch.equal(out, tscatter._scatter_max_cuda(
+        feats, cell, cells, kernel="atomics"))
+    assert torch.equal(gf, tscatter._scatter_max_bwd_cuda(
+        feats, cell, out, gy, cells, kernel="atomics"))
