@@ -201,6 +201,38 @@ printed. Each path's rate is printed beside its f32 rate from the same
 call. The c1_vq timed steps run inside an ``annotate`` scope, which opens
 an NVTX range on the card.
 
+Last the distributed path (``runtime/mesh.py``, ``rl/dqn_sharded.py``,
+``kernels/ring_attention.py``, data-parallel ``train.jscc``):
+
+* (a) a process group of one over NCCL: the c4 act+learn iteration at
+  1024 envs, once through ``rl/dqn.py``'s ``make_iteration`` and once
+  through the sharded iteration from the same seed (cuDNN deterministic),
+  parameters, target, EMA, replay, generator and every metric bit-equal,
+  the sharded run's launches of ``mha_block``, ``conv_prelu``,
+  ``scatter_max`` and ``scatter_max_bwd`` counted, both rates printed;
+* (b) two spawned ranks sharing the card on gloo with CUDA tensors (NCCL
+  refuses two ranks on one device), 512 envs each: the collectives the
+  sharded path runs (all-reduce, broadcast, all-gather, barrier; gloo
+  takes no CUDA tensor in all-to-all or point-to-point,
+  ``scripts/gloo_cuda_probe.py``), the networks bit-equal across the ranks
+  after each learn step of the first iterations and after the timed ones,
+  one gradient all-reduce's time and bytes, and each rank's agent steps/s;
+* (c) ring and Ulysses attention on the NCCL group of one against
+  ``attention_reference``, outputs and gradients;
+* (d) one c1 JSCC step on the two ranks of (b), each on its rows of one
+  global batch and of its draws, against the same step in this process
+  (TF32 off) within the CPU test's atol 1e-5 / rtol 1e-4;
+* (e) one tensor-parallel step on the two ranks of (b) at data 1 x
+  model 2: c4 arm B's fusion transformer at the learner's shapes, each
+  rank on 2 of the 4 heads, its forward and one SGD step against the
+  replicated step in this process on the plain versions (TF32 off) within
+  the CPU TP test's 1e-5. The local model dim (64) is not whole 128-lane
+  groups, so ``packed_eligible`` refuses it and the ranks' attention runs
+  on the flash kernels: their launches are counted, the packed kernels'
+  must be 0.
+
+A rank that fails fails the run; every spawned process is joined.
+
 The pillar scatter runs on every path but c1, c2 and the camera VQ
 paths: its forward kernel in every forward, its backward kernel once per
 learn, train or minibatch step.
@@ -5724,6 +5756,535 @@ def bf16_paths(profile=False):
     return totals, rates
 
 
+# The distributed phase. (a) runs DIST_WARM + DIST_TIMED iterations: the
+# replay warms at iteration 3 (n_step 3), so the timed ones all learn.
+DIST_WARM = 4
+DIST_TIMED = 20
+DIST_RANK_ENVS = 512
+DIST_RANK_ITERS = 8
+DIST_TIMEOUT_S = 400
+DIST_ATTN_SHAPE = (64, 4, 256, 32)
+DIST_TP_LR = 1e-2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _flat_cpu(net):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in net.parameters()]).cpu()
+
+
+@contextlib.contextmanager
+def _exact_cuda():
+    """TF32 off and cuDNN deterministic for the bit-equal comparisons."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+
+
+def dist_world_of_one():
+    """(a) The sharded c4 iteration on a process group of one (NCCL)
+    against ``rl/dqn.py``'s, bit for bit; returns the sharded run's
+    launches and both rates."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.rl import dqn, dqn_sharded
+    from multimodal_sc_torch.runtime.mesh import make_mesh
+
+    cfg = get_preset("c4")
+    mesh = make_mesh()
+    runs = {"single-card": [dqn.init(cfg, 0, NUM_ENVS, "cuda"),
+                            dqn.make_iteration(cfg), [], 0.0],
+            "sharded": [dqn_sharded.init(cfg, 0, mesh, NUM_ENVS, "cuda"),
+                        dqn_sharded.make_iteration(cfg, mesh), [], 0.0]}
+
+    def advance(name, iters, timed):
+        run = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run[0], metrics = run[1](run[0])
+            run[2].append(metrics)
+        torch.cuda.synchronize()
+        if timed:
+            run[3] += time.perf_counter() - t0
+
+    for name in runs:
+        advance(name, DIST_WARM, False)
+    # The timed iterations in turns (single, sharded, sharded, single); the
+    # two states draw from generators of their own, so the order leaves
+    # their results alone.
+    launches = dict.fromkeys(_read_counts(), 0)
+    half = DIST_TIMED // 2
+    for name in ("single-card", "sharded", "sharded", "single-card"):
+        _reset_counts()
+        advance(name, half, True)
+        if name == "sharded":
+            for k, v in _read_counts().items():
+                launches[k] += v
+    rates = {}
+    for name, (state, _, _, wall) in runs.items():
+        rates[name] = 2 * half * NUM_ENVS / wall
+        print(f"  {name}: {2 * half} act+learn iterations x {NUM_ENVS} "
+              f"envs in {wall:.3f} s = {rates[name]:.1f} agent steps/s; "
+              f"learn steps {state.step}", flush=True)
+    a, b = (dqn_sharded.from_dqn_state(runs["single-card"][0]),
+            runs["sharded"][0])
+    ha, hb = runs["single-card"][2], runs["sharded"][2]
+    rate_a, rate_b = rates["single-card"], rates["sharded"]
+    if a.step != DIST_WARM + 2 * half - (cfg.rl.n_step - 1):
+        raise RuntimeError(f"world of one: {a.step} learn steps")
+    for name in ("params", "target_params", "ema_params"):
+        if not torch.equal(_flat_cpu(getattr(a, name)),
+                           _flat_cpu(getattr(b, name))):
+            raise RuntimeError(f"world of one: {name} differ")
+    for x, y in zip(a.buffer_data, b.buffer_data):
+        if not torch.equal(x, y):
+            raise RuntimeError("world of one: the replay differs")
+    if (a.buffer_size, a.buffer_cursor) != (b.buffer_size, b.buffer_cursor):
+        raise RuntimeError("world of one: replay size or cursor differ")
+    if not torch.equal(a.keys.get_state(), b.keys.get_state()):
+        raise RuntimeError("world of one: the generators differ")
+    for i, (ma, mb) in enumerate(zip(ha, hb)):
+        for k in ma:
+            if not torch.equal(ma[k], mb[k]):
+                raise RuntimeError(f"world of one: iteration {i} metric {k}: "
+                                   f"{float(ma[k])} vs {float(mb[k])}")
+    print(f"  bit-equal: parameters, target, EMA, replay "
+          f"({b.buffer_size} rows), generator and {len(ha)} iterations' "
+          "metrics", flush=True)
+    print(f"  sharded run's launches: {launches}", flush=True)
+    _check_counts(launches, EXPECTED_LEARN_A, 2 * half, "world of one")
+    return launches, rate_a, rate_b
+
+
+def dist_ring_attention():
+    """(c) Ring and Ulysses attention on the process group of one against
+    ``attention_reference``, outputs and gradients."""
+    import torch
+
+    from multimodal_sc_torch.kernels.attention import attention_reference
+    from multimodal_sc_torch.kernels.ring_attention import (
+        ring_attention, shard_sequence, ulysses_attention)
+    from multimodal_sc_torch.runtime.mesh import make_mesh
+
+    mesh = make_mesh()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, go = (torch.randn(DIST_ATTN_SHAPE, generator=g, device="cuda")
+                   for _ in range(4))
+    ref_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = attention_reference(*ref_in)
+    ref.backward(go)
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        xs = [shard_sequence(t, mesh).clone().requires_grad_(True)
+              for t in (q, k, v)]
+        out = fn(*xs, mesh)
+        out.backward(go)
+        err = (out - ref).abs().max().item()
+        gerr = max((x.grad - r.grad).abs().max().item()
+                   for x, r in zip(xs, ref_in))
+        print(f"  {name} attention at {DIST_ATTN_SHAPE}: max |out - ref| "
+              f"{err:.3e}, max |grad - ref| {gerr:.3e}", flush=True)
+        if err > 2e-5 or gerr > 1e-3:
+            raise RuntimeError(f"{name} attention disagrees with "
+                               "attention_reference")
+
+
+def _c1_dist_inputs():
+    """The c1 preset's state dict, one global batch and its draws, and the
+    one-process step's parameters and metrics on the card (TF32 off)."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.train import jscc
+
+    cfg = get_preset("c1")
+    state = jscc.create_train_state(cfg, 0, "cuda")
+    sd = {k: v.detach().cpu().numpy().copy()
+          for k, v in state.params.state_dict().items()}
+    img = next(ImageDataset(cfg.train.dataset, C1_BATCH, seed=3,
+                            device="cuda"))
+    draws = jscc.draw_step(cfg, C1_BATCH, state.generator, "cuda")
+    with torch.no_grad():
+        z = state.params.encode(img, draws.snr_db)
+    noise = torch.randn(z.shape, generator=state.generator, device="cuda")
+    draws = draws._replace(channel=noise)
+    state, metrics = jscc.make_train_step(cfg)(state, img, draws)
+    want = {k: v.detach().cpu() for k, v in state.params.state_dict().items()}
+    inputs = {"sd": sd, "img": img.cpu().numpy(),
+              "snr_db": draws.snr_db.cpu().numpy(),
+              "noise": noise.cpu().numpy()}
+    return inputs, want, {k: float(v) for k, v in metrics.items()}
+
+
+def _tp_fusion_kw(cfg):
+    """c4 arm B's ``FusionTransformer`` arguments and its (camera, LiDAR)
+    token counts."""
+    hw, bev = cfg.camera.image_hw, cfg.lidar.bev_hw
+    kw = dict(cam_in=cfg.fusion.dim, lid_in=cfg.lidar.pillar_dim,
+              dim=cfg.fusion.dim, depth=cfg.fusion.depth,
+              heads=cfg.fusion.heads, state_dim=cfg.fusion.state_dim,
+              fused_block=False)
+    return kw, ((hw[0] // 4) * (hw[1] // 4), bev[0] * bev[1])
+
+
+def _tp_dist_inputs():
+    """(e)'s inputs (a fusion transformer's state dict, camera and LiDAR
+    tokens at the learner's batch, a target) and the replicated step's
+    output, loss and parameters on the plain versions (TF32 off)."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.fusion.transformer import FusionTransformer
+
+    kw, (lc, ll) = _tp_fusion_kw(get_preset("c4"))
+    torch.manual_seed(0)
+    net = FusionTransformer(**kw, use_pallas=False).cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cam = torch.randn(LEARN_BATCH, lc, kw["cam_in"], generator=g,
+                      device="cuda")
+    lid = torch.randn(LEARN_BATCH, ll, kw["lid_in"], generator=g,
+                      device="cuda")
+    tgt = torch.randn(LEARN_BATCH, kw["state_dim"], generator=g,
+                      device="cuda")
+    inputs = {"sd": {k: v.detach().cpu().numpy().copy()
+                     for k, v in net.state_dict().items()},
+              "cam": cam.cpu().numpy(), "lid": lid.cpu().numpy(),
+              "tgt": tgt.cpu().numpy()}
+    y = net(cam, lid)
+    loss = (y - tgt).square().mean()
+    params = list(net.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    with torch.no_grad():
+        for p, gr in zip(params, grads):
+            if gr is not None:
+                p -= DIST_TP_LR * gr
+    want = {"y": y.detach().cpu(), "loss": float(loss.detach()),
+            "params": {k: p.detach().cpu() for k, p in net.named_parameters()}}
+    return inputs, want
+
+
+def _tp_rank_step(tp_inputs):
+    """(e) on this rank: the fusion transformer under TP at data 1 x model
+    2 on the card, its forward and one SGD step; the output, the loss, the
+    updated parameters gathered whole, the local head count and the
+    launches of the forward and backward."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.fusion.transformer import FusionTransformer
+    from multimodal_sc_torch.runtime.mesh import make_mesh
+    from multimodal_sc_torch.runtime.tp import apply_tp, tp_param_shardings
+
+    kw, _ = _tp_fusion_kw(get_preset("c4"))
+    mesh = make_mesh(data=1, model=2)
+    net = FusionTransformer(**kw, use_pallas=True)
+    net.load_state_dict({k: torch.tensor(v)
+                         for k, v in tp_inputs["sd"].items()})
+    net.cuda()
+    specs = tp_param_shardings(net)
+    apply_tp(net, mesh)
+    cam, lid, tgt = (torch.tensor(tp_inputs[k], device="cuda")
+                     for k in ("cam", "lid", "tgt"))
+    _reset_counts()
+    y = net(cam, lid)
+    loss = (y - tgt).square().mean()
+    params = list(net.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            if g is not None:
+                p -= DIST_TP_LR * g
+    full = {}
+    for name, p in net.named_parameters():
+        t = p.detach()
+        if specs[name]:
+            parts = [torch.empty_like(t) for _ in range(mesh.model)]
+            dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
+            t = torch.cat(parts, dim=0 if specs[name][0] is None else 1)
+        full[name] = t.cpu().numpy()
+    attn = net.layer0.cam2lid
+    return {"y": y.detach().cpu().numpy(), "loss": float(loss.detach()),
+            "params": full, "heads": attn.heads,
+            "head_dim": attn.dim // attn.heads, "lk": lid.shape[1],
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def _dist_rank(rank, world, init_method, c1_inputs, results):
+    """One rank of (b), (d) and (e); puts ``(rank, ok, payload)``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                                world_size=world)
+        results.put((rank, True, _dist_rank_work(rank, c1_inputs)))
+    except Exception:           # the parent reports the rank's traceback
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _gloo_cuda_collectives():
+    """The collectives the sharded path runs, each once on CUDA tensors
+    over gloo (gloo copies them through the host); returns their names.
+    ``all_to_all_single`` and point-to-point sends are not among them:
+    gloo takes no CUDA tensor there (``scripts/gloo_cuda_probe.py``)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(8, device="cuda")
+    n = dist.get_world_size()
+    dist.all_reduce(x)
+    dist.broadcast(x, src=0)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x)
+    dist.barrier()
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, torch.full_like(x, float(n))) for p in parts):
+        raise RuntimeError(f"gloo on CUDA tensors: all_gather read {parts}")
+    return ["all_reduce", "broadcast", "all_gather", "barrier"]
+
+
+def _dist_rank_work(rank, c1_inputs):
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.rl import dqn_sharded
+    from multimodal_sc_torch.runtime.mesh import make_mesh, shard_batch
+    from multimodal_sc_torch.train import jscc
+
+    out = {"collectives": _gloo_cuda_collectives()}
+    # (b) The sharded c4 iteration, 512 envs on each rank.
+    cfg = get_preset("c4")
+    mesh = make_mesh()
+    state = dqn_sharded.init(cfg, 0, mesh, DIST_RANK_ENVS, "cuda")
+    iteration = dqn_sharded.make_iteration(cfg, mesh)
+    def equal_across_ranks():
+        flat = torch.cat([_flat_cpu(n) for n in (
+            state.params, state.target_params, state.ema_params)])
+        parts = [torch.empty_like(flat) for _ in range(2)]
+        dist.all_gather(parts, flat)
+        return bool(torch.equal(parts[0], parts[1]))
+
+    equal, steps = [], 0
+    for _ in range(DIST_RANK_ITERS):
+        state, metrics = iteration(state)
+        if state.step > steps:          # after every learn step
+            steps = state.step
+            equal.append(equal_across_ranks())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_TIMED):
+        state, metrics = iteration(state)
+    torch.cuda.synchronize()
+    out["rate"] = DIST_TIMED * DIST_RANK_ENVS / (time.perf_counter() - t0)
+    equal.append(equal_across_ranks())
+    out["equal"] = equal
+    out["steps"] = state.step
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    # One gradient bucket's all-reduce: the QNetwork's f32 parameters.
+    n = sum(p.numel() for p in state.params.parameters()) + 1
+    bucket = torch.ones(n, device="cuda")
+    for _ in range(2):
+        dist.all_reduce(bucket)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dist.all_reduce(bucket)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+    out["allreduce_bytes"] = n * 4
+    del state, iteration, bucket
+    torch.cuda.empty_cache()
+    # (d) One c1 step on this rank's rows of the global batch.
+    c1 = get_preset("c1")
+    st = jscc.create_train_state(c1, 0, "cuda")
+    st.params.load_state_dict({k: torch.tensor(v)
+                               for k, v in c1_inputs["sd"].items()})
+    step = jscc.make_train_step(c1, mesh=mesh)
+    draws = jscc.StepDraws(
+        snr_db=torch.tensor(c1_inputs["snr_db"], device="cuda"),
+        channel=torch.tensor(c1_inputs["noise"], device="cuda"))
+    st, m = step(st, shard_batch(mesh, torch.tensor(c1_inputs["img"],
+                                                    device="cuda")), draws)
+    # numpy through the queue: no tensor handles outlive the rank.
+    out["c1_params"] = {k: v.detach().cpu().numpy()
+                        for k, v in st.params.state_dict().items()}
+    out["c1_metrics"] = {k: float(v) for k, v in m.items()}
+    del st, step
+    torch.cuda.empty_cache()
+    # (e) One tensor-parallel step at data 1 x model 2.
+    out["tp"] = _tp_rank_step(c1_inputs["tp"])
+    return out
+
+
+def dist_two_ranks():
+    """(b), (d) and (e): two spawned ranks on the card over gloo."""
+    import multiprocessing as mp
+
+    import torch
+
+    from multimodal_sc_torch.kernels.attention_packed import packed_eligible
+
+    with _exact_cuda():
+        c1_inputs, c1_want, c1_metrics = _c1_dist_inputs()
+        c1_inputs["tp"], tp_want = _tp_dist_inputs()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://localhost:{_free_port()}"
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, 2, init, c1_inputs, results))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            rank, ok, payload = results.get(timeout=DIST_TIMEOUT_S)
+            (got.__setitem__(rank, payload) if ok
+             else errors.append(f"rank {rank}:\n{payload}"))
+            if errors:
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        raise RuntimeError("distributed phase: " + errors[0])
+    print(f"  two ranks: {time.perf_counter() - t0:.1f} s with the spawn",
+          flush=True)
+    print(f"  gloo on CUDA tensors ran {got[0]['collectives']}", flush=True)
+    for rank in (0, 1):
+        r = got[rank]
+        print(f"  rank {rank}: {r['steps']} learn steps, networks equal "
+              f"across ranks after each: {r['equal']}; "
+              f"{r['rate']:.1f} agent steps/s at {DIST_RANK_ENVS} envs; "
+              f"gradient all-reduce of {r['allreduce_bytes']} bytes "
+              f"{r['allreduce_ms']:.3f} ms", flush=True)
+        if not r["equal"] or not all(r["equal"]):
+            raise RuntimeError(f"rank {rank}: the networks diverged: "
+                               f"{r['equal']}")
+    if got[0]["metrics"] != got[1]["metrics"]:
+        raise RuntimeError("the ranks' pooled metrics differ")
+    # (d) Against the one-process step.
+    worst = 0.0
+    for rank in (0, 1):
+        r = got[rank]
+        for k, w in c1_metrics.items():
+            if not math.isclose(r["c1_metrics"][k], w, rel_tol=1e-4,
+                                abs_tol=1e-5):
+                raise RuntimeError(f"c1 on two ranks: {k} "
+                                   f"{r['c1_metrics'][k]} vs {w}")
+        for k, w in c1_want.items():
+            d = (torch.tensor(r["c1_params"][k]) - w).abs()
+            worst = max(worst, d.max().item())
+            if (d > 1e-5 + 1e-4 * w.abs()).any():
+                raise RuntimeError(f"c1 on two ranks: {k} off by "
+                                   f"{d.max().item():.3e}")
+    print(f"  c1 step on two ranks against one process: metrics "
+          f"{got[0]['c1_metrics']} vs {c1_metrics}; worst parameter "
+          f"difference {worst:.3e}", flush=True)
+    # (e) Against the replicated step on the plain versions.
+    for rank in (0, 1):
+        r = got[rank]["tp"]
+        y_err = float((torch.tensor(r["y"]) - tp_want["y"]).abs().max())
+        if not torch.allclose(torch.tensor(r["y"]), tp_want["y"], atol=1e-5,
+                              rtol=1e-5):
+            raise RuntimeError(f"TP step, rank {rank}: output off by "
+                               f"{y_err:.3e}")
+        if not math.isclose(r["loss"], tp_want["loss"], rel_tol=1e-5):
+            raise RuntimeError(f"TP step, rank {rank}: loss {r['loss']} vs "
+                               f"{tp_want['loss']}")
+        p_err = 0.0
+        for k, w in tp_want["params"].items():
+            d = (torch.tensor(r["params"][k]) - w).abs()
+            p_err = max(p_err, d.max().item())
+            if (d > 1e-5 + 1e-4 * w.abs()).any():
+                raise RuntimeError(f"TP step, rank {rank}: {k} off by "
+                                   f"{d.max().item():.3e}")
+        packed = packed_eligible(r["heads"], r["head_dim"], r["lk"])
+        on = {k: v for k, v in r["launches"].items()
+              if k.startswith(("packed_attention", "flash_attention"))}
+        want_on = (("packed_attention_fwd", "packed_attention_bwd") if packed
+                   else ("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"))
+        if sorted(on) != sorted(want_on):
+            raise RuntimeError(f"TP step, rank {rank}: attention launches "
+                               f"{on}, expected {want_on} "
+                               f"(packed_eligible {packed})")
+        print(f"  TP step (data 1 x model 2), rank {rank}: {r['heads']} "
+              f"local heads of dim {r['head_dim']}, packed_eligible "
+              f"{packed}; launches {r['launches']}; against the replicated "
+              f"plain step: output {y_err:.3e}, loss {r['loss']:.7g} vs "
+              f"{tp_want['loss']:.7g}, worst parameter {p_err:.3e}",
+              flush=True)
+    return got
+
+
+def distributed_phase():
+    """(a)-(d); returns (a)'s launches and the rates it printed."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        print(" (a) world of one over NCCL, c4 act+learn at "
+              f"{NUM_ENVS} envs:", flush=True)
+        with _exact_cuda():
+            launches, rate_single, rate_sharded = dist_world_of_one()
+        torch.cuda.empty_cache()
+        print(" (c) ring and Ulysses attention, world of one over NCCL:",
+              flush=True)
+        with _exact_cuda():
+            dist_ring_attention()
+    finally:
+        dist.destroy_process_group()
+    print(" (b) two ranks sharing the card over gloo, (d) one c1 step on "
+          "them and (e) one TP step at data 1 x model 2:", flush=True)
+    got = dist_two_ranks()
+    print(f"  distributed phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, {"single": rate_single, "sharded": rate_sharded,
+                      "rank0": got[0]["rate"], "rank1": got[1]["rate"],
+                      "allreduce_ms": got[0]["allreduce_ms"],
+                      "allreduce_bytes": got[0]["allreduce_bytes"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5991,6 +6552,11 @@ def main() -> int:
     bf16_totals, bf16_rates = bf16_paths(args.profile)
     for k, v in bf16_totals.items():
         totals[k] += v
+    print("distributed path (process mesh, sharded c4 DQN, ring and Ulysses "
+          "attention, data-parallel c1):", flush=True)
+    launches, dist_rates = distributed_phase()
+    for k, v in launches.items():
+        totals[k] += v
     for k in kernels:
         k["launches"] = totals[k["name"]]
         if k["launches"] <= 0:
@@ -6037,6 +6603,14 @@ def main() -> int:
               f"{k} {bf16_rates[k]:.2f} vs {f32_rates[k]:.2f} "
               f"({bf16_rates[k] / f32_rates[k]:.3f}x)" for k in bf16_rates),
           flush=True)
+    print(f"distributed on {card}: c4 act+learn at {NUM_ENVS} envs, "
+          f"single-card {dist_rates['single']:.1f} vs sharded world of one "
+          f"{dist_rates['sharded']:.1f} agent steps/s "
+          f"({dist_rates['sharded'] / dist_rates['single']:.3f}x); two "
+          f"gloo ranks sharing the card at {DIST_RANK_ENVS} envs each "
+          f"{dist_rates['rank0']:.1f} and {dist_rates['rank1']:.1f} agent "
+          f"steps/s; gradient all-reduce {dist_rates['allreduce_bytes']} "
+          f"bytes in {dist_rates['allreduce_ms']:.3f} ms", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

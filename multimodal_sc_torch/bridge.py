@@ -54,16 +54,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def to_state_dict(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
-    """A flax parameter tree -> a ``state_dict`` for ``module``.
-
-    ``module`` is the port's counterpart of the flax module the tree came
-    from; its own parameter names decide each conversion. Raises when a
-    parameter is missing on either side or a shape disagrees.
-    """
-    target = module.state_dict()
-    flat = _flatten(flax_params)
-    out = {}
+def _converted(flat: Dict[str, np.ndarray], module: nn.Module,
+               target: Mapping):
+    """Yield ``(flax path, port key, array in the port's layout)`` for each
+    leaf of a flattened flax tree (paths joined by ``.``)."""
     for path, a in flat.items():
         mod, _, leaf = path.rpartition(".")
         key = path
@@ -83,6 +77,54 @@ def to_state_dict(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Te
             a = a.reshape(-1)
         elif leaf == "scale":
             key = f"{mod}.weight"
+        yield path, key, a
+
+
+def key_map(flax_params: Mapping, module: nn.Module) -> Dict[str, str]:
+    """The map :func:`to_state_dict` applies: flax path (joined by ``/``,
+    as ``jax.tree_util`` key paths print) -> the port's parameter name."""
+    target = module.state_dict()
+    return {path.replace(".", "/"): key for path, key, _ in
+            _converted(_flatten(flax_params), module, target)}
+
+
+def flax_leaf(module: nn.Module, key: str):
+    """The inverse of :func:`key_map` for one parameter of ``module``:
+    ``(flax path joined by "/", the flax leaf's ndim)``. A ``Linear``'s
+    ``weight`` is a ``kernel`` (three axes for the q/k/v/o projections of
+    an attention module, flax ``DenseGeneral``), a conv's ``weight`` a
+    four-axis ``kernel``, a LayerNorm's ``weight`` its ``scale``; any other
+    name is kept."""
+    from multimodal_sc_torch.codec.camera_vit import MHA
+
+    mod, _, leaf = key.rpartition(".")
+    p = module.get_parameter(key)
+    sub = module.get_submodule(mod) if mod else module
+    parent_mod, _, attr = mod.rpartition(".")
+    parent = module.get_submodule(parent_mod) if parent_mod else module
+    general = isinstance(parent, MHA) and attr in ("q", "k", "v", "o")
+    path = key.replace(".", "/")
+    if isinstance(sub, nn.Linear) and leaf == "weight":
+        return f"{mod.replace('.', '/')}/kernel", 3 if general else 2
+    if isinstance(sub, nn.Linear) and leaf == "bias":
+        return path, 2 if general and attr != "o" else 1
+    if isinstance(sub, (nn.Conv2d, nn.ConvTranspose2d)) and leaf == "weight":
+        return f"{mod.replace('.', '/')}/kernel", 4
+    if isinstance(sub, nn.LayerNorm) and leaf == "weight":
+        return f"{mod.replace('.', '/')}/scale", 1
+    return path, p.dim()
+
+
+def to_state_dict(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree -> a ``state_dict`` for ``module``.
+
+    ``module`` is the port's counterpart of the flax module the tree came
+    from; its own parameter names decide each conversion. Raises when a
+    parameter is missing on either side or a shape disagrees.
+    """
+    target = module.state_dict()
+    out = {}
+    for path, key, a in _converted(_flatten(flax_params), module, target):
         if key not in target:
             raise KeyError(f"flax parameter {path!r} has no counterpart "
                            f"{key!r} in {type(module).__name__}")

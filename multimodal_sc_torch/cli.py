@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -113,7 +114,11 @@ def _train(cfg, args, dev) -> int:
                       init_from=args.init_from, device=dev)
     else:
         _, last = run(cfg, metrics_path=args.metrics, device=dev)
-    print(json.dumps({k: float(v) for k, v in last.items()}))
+    import torch.distributed as dist
+
+    # Under torchrun the result is rank 0's to print.
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps({k: float(v) for k, v in last.items()}))
     return 0
 
 
@@ -196,7 +201,8 @@ def main(argv=None) -> int:
     from multimodal_sc_torch.device import card_name, resolve_device
 
     dev = resolve_device(args.device)
-    print(f"card: {card_name(dev)}", file=sys.stderr, flush=True)
+    if os.environ.get("RANK", "0") == "0":     # torchrun: rank 0 alone
+        print(f"card: {card_name(dev)}", file=sys.stderr, flush=True)
     if args.cmd == "train":
         return _train(cfg, args, dev)
     if args.cmd == "eval":

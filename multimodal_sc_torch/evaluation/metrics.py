@@ -126,7 +126,12 @@ def confusion_matrix(pred: torch.Tensor, label: torch.Tensor,
 def miou(pred: torch.Tensor, label: torch.Tensor,
          num_classes: int) -> torch.Tensor:
     """Mean IoU over classes present in either pred or label."""
-    cm = confusion_matrix(pred, label, num_classes).float()
+    return miou_from_confusion(confusion_matrix(pred, label, num_classes))
+
+
+def miou_from_confusion(cm: torch.Tensor) -> torch.Tensor:
+    """Mean IoU of a confusion matrix (classes present in either axis)."""
+    cm = cm.float()
     inter = cm.diagonal()
     union = cm.sum(0) + cm.sum(1) - inter
     present = union > 0

@@ -155,12 +155,46 @@ class CheckpointManager:
         torch.save(payload, tmp)
         os.replace(tmp, path)
 
-    def save(self, step: int, state: NamedTuple) -> None:
-        """Write ``state`` as the checkpoint of ``step``; drop the oldest
-        beyond ``max_to_keep``."""
-        self._write(self._path(step), _save_field(state))
+    def save(self, step: int, state: NamedTuple,
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        """Write ``state`` (and the plain entries of ``extra``) as the
+        checkpoint of ``step``; drop the oldest beyond ``max_to_keep``."""
+        self._write(self._path(step), {**_save_field(state), **(extra or {})})
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
+
+    def _shard_path(self, step: int, shard: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.shard{shard}.pt")
+
+    def save_shard(self, step: int, shard: int, state: NamedTuple,
+                   fields) -> None:
+        """Write ``fields`` of ``state`` as data shard ``shard``'s part of
+        the checkpoint of ``step`` (beside the step's own file, which a
+        resume and ``steps`` read); drop this shard's parts of steps no
+        longer kept."""
+        self._write(self._shard_path(step, shard),
+                    {f: _save_field(getattr(state, f)) for f in fields})
+        suffix = f".shard{shard}.pt"
+        kept = set(self.steps()[-self.max_to_keep:]) | {step}
+        for name in os.listdir(self.directory):
+            if name.startswith("ckpt_") and name.endswith(suffix):
+                old = int(name[len("ckpt_"):-len(suffix)])
+                if old not in kept:
+                    os.remove(os.path.join(self.directory, name))
+
+    def read(self, step: int, shard: Optional[int] = None) -> Dict[str, Any]:
+        """The checkpoint of ``step`` as written (or data shard
+        ``shard``'s part of it), mapped from disk."""
+        return _read(self._path(step) if shard is None
+                     else self._shard_path(step, shard))
+
+    @staticmethod
+    def load_into(state: NamedTuple, saved: Dict[str, Any]) -> NamedTuple:
+        """``saved`` (one entry a field of ``state``) loaded into
+        ``state``'s live objects, as ``restore_latest`` loads."""
+        _check_fields(saved, state._fields)
+        return type(state)(**{f: _load_field(f, getattr(state, f), saved[f])
+                              for f in state._fields})
 
     def restore_latest(self, state: NamedTuple) -> Optional[NamedTuple]:
         """The newest checkpoint loaded into ``state``'s live objects (a
@@ -219,3 +253,51 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Saves are synchronous; nothing is left to flush."""
+
+
+def guard_world(ckpt: CheckpointManager, n_shards: int) -> None:
+    """Refuse to resume a checkpoint written by another number of data
+    shards (a single-process run's counts one): its per-shard state is
+    split otherwise."""
+    step = ckpt.latest_step()
+    if step is None:
+        return
+    saved = int(ckpt.read(step).get("data_shards", 1))
+    if saved != n_shards:
+        raise ValueError(
+            f"checkpoint dir {ckpt.directory!r} holds a run of {saved} data "
+            f"shard(s) but this run has {n_shards}; resume it at the world "
+            "size that wrote it, or start a fresh checkpoint dir")
+
+
+def save_sharded(ckpt: CheckpointManager, step: int, state: NamedTuple,
+                 mesh, shard_fields) -> None:
+    """The checkpoint of ``step`` of a data-parallel run
+    (``runtime/mesh.py``): the first rank writes every field (its own
+    shard's among them) and the number of data shards; the first model
+    rank of each other data shard writes its ``shard_fields`` beside it.
+    Returns when every rank has written."""
+    import torch.distributed as dist
+
+    if mesh.rank == 0:
+        ckpt.save(step, state, extra={"data_shards": mesh.data})
+    dist.barrier()
+    if mesh.data_index != 0 and mesh.model_index == 0:
+        ckpt.save_shard(step, mesh.data_index, state, shard_fields)
+    dist.barrier()
+
+
+def restore_sharded(ckpt: CheckpointManager, state: NamedTuple,
+                    mesh) -> Optional[NamedTuple]:
+    """The newest checkpoint of a data-parallel run loaded into
+    ``state``'s live objects: the replicated fields from the step's file,
+    the shard's own from its part; None if there is none."""
+    step = ckpt.latest_step()
+    if step is None:
+        return None
+    guard_world(ckpt, mesh.data)
+    saved = dict(ckpt.read(step))
+    saved.pop("data_shards", None)
+    if mesh.data_index != 0:
+        saved.update(ckpt.read(step, mesh.data_index))
+    return ckpt.load_into(state, saved)

@@ -112,13 +112,24 @@ def make_optimizer(cfg: ExperimentConfig, net: QNetwork) -> torch.optim.Adam:
                             betas=(0.9, 0.999), eps=1e-8)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         params: Optional[List[torch.Tensor]] = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``,
     as optax does: ``g * max_norm / max(norm, max_norm)`` (exactly 1 below
     the threshold; torch's ``clip_grad_norm_`` divides by ``norm + 1e-6``).
-    Returns the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    Returns the norm before clipping. ``params`` (the gradients'
+    parameters): where some hold a model rank's slice (``runtime/tp.py``)
+    the norm is the whole network's, its slices summed over the model
+    group."""
+    norms = torch._foreach_norm(grads)
+    if params is not None and any(getattr(p, "tp_group", None) is not None
+                                  for p in params):
+        from multimodal_sc_torch.runtime.tp import global_norm
+
+        norm = global_norm(norms, params)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
     return norm
 
@@ -233,6 +244,13 @@ def learner_forward(cfg: ExperimentConfig,
         skeleton = network(cfg.override(mha_block_kernel=False))
 
     def forward(net, *args, **kwargs):
+        tp_mesh = getattr(net, "tp_mesh", None)
+        if tp_mesh is not None and getattr(skeleton, "tp_mesh", None) is None:
+            # A network under tensor parallelism (runtime/tp.py): the
+            # skeleton takes the same layout, slicing nothing real.
+            from multimodal_sc_torch.runtime.tp import apply_tp
+
+            apply_tp(skeleton, tp_mesh)
         return functional_call(skeleton, dict(net.named_parameters()), args,
                                kwargs)
 
@@ -297,14 +315,18 @@ def _td_loss(cfg: ExperimentConfig, forward, online: QNetwork,
 
 
 def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
-               draws: LearnDraws, forward=None):
+               draws: LearnDraws, forward=None, sync=None):
     """One gradient step on ``batch``: ``(state', loss)``.
 
     Updates ``state.params``, the Adam moments, ``state.target_params``
     (hard sync every ``rl.target_update_period`` steps, or Polyak under
     ``rl.target_tau``) and ``state.ema_params`` in place; re-seeds the
     online codebooks' dead codes after the optimizer step under
-    ``camera.vq_reseed`` / ``lidar.vq_reseed``."""
+    ``camera.vq_reseed`` / ``lidar.vq_reseed``. ``sync`` (data
+    parallelism, ``rl/dqn_sharded.py``): its ``grads(grads, loss)`` means
+    the gradients in place before the clip and returns the logged loss,
+    its ``reseed(rs, generator, coin, lid_coin)`` pools the re-seeding
+    inputs and draws."""
     if forward is None:
         forward = learner_forward(cfg)
     opt = state.opt_state
@@ -317,16 +339,23 @@ def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
+    loss = loss.detach()
     with torch.no_grad():
-        clip_by_global_norm_(grads, cfg.train.grad_clip)
+        if sync is not None:
+            loss = sync.grads(grads, loss)
+        clip_by_global_norm_(grads, cfg.train.grad_clip, params)
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
         opt.zero_grad(set_to_none=True)
         step = state.step + 1
-        apply_codebook_reseed(cfg, state.params,
-                              collect_reseed_stats(cfg, aux),
-                              state.generator, draws.coin, draws.lid_coin)
+        rs, coin, lid_coin = (collect_reseed_stats(cfg, aux), draws.coin,
+                              draws.lid_coin)
+        if sync is not None and rs:
+            rs, coin, lid_coin = sync.reseed(rs, state.generator, coin,
+                                             lid_coin)
+        apply_codebook_reseed(cfg, state.params, rs, state.generator, coin,
+                              lid_coin)
         targets = list(state.target_params.parameters())
         if cfg.rl.target_tau > 0:
             torch._foreach_lerp_(targets, params, cfg.rl.target_tau)
@@ -335,7 +364,63 @@ def learn_step(cfg: ExperimentConfig, state: DQNState, batch: Transition,
         if cfg.rl.ema_tau > 0:
             torch._foreach_lerp_(list(state.ema_params.parameters()), params,
                                  cfg.rl.ema_tau)
-    return state._replace(step=step), loss.detach()
+    return state._replace(step=step), loss
+
+
+@torch.no_grad()
+def act_and_store(cfg: ExperimentConfig, state: DQNState,
+                  carry_obs: bool = True):
+    """The actor half of an iteration: act on the carried (or, with
+    ``carry_obs=False``, a fresh) observation, step every env, push the
+    n-step window and add what it emits to the replay. Returns ``(state,
+    metrics, actions)``; the metrics' loss is 0."""
+    if carry_obs:
+        img_store = state.obs_image
+        img = dequantize_image(img_store)
+        pts, mask = state.obs_points, state.obs_mask
+    else:
+        img, pts, mask = driving.observe_batch(cfg.env, state.env_states)
+        img_store = quantize_image(cfg, img)
+    g = state.generator
+    eps = _epsilon(cfg, state.step)
+    snr = _sample_snr(cfg, g, img.shape[0], img.device)
+    actions = act(cfg, state.params, img, pts, mask, g, eps, snr_db=snr)
+    env_states, ts = driving.step_batch(cfg.env, state.env_states,
+                                        actions, g)
+
+    ep_return = state.ep_return + ts.reward
+    last_return = torch.where(ts.done, ep_return, state.last_return)
+    ep_return = torch.where(ts.done, 0.0, ep_return)
+
+    next_store = quantize_image(cfg, ts.image)
+    window, oldest, n_ret, n_done, valid = nstep.push(
+        state.window, {"image": img_store, "points": pts, "mask": mask,
+                       "action": actions},
+        ts.reward, ts.done, cfg.rl.gamma)
+    buf = state.buffer
+    # Until the window fills its rows are placeholders: nothing is
+    # added (the JAX package scattered them but froze cursor/size).
+    if valid:
+        buf = replay.add_batch(buf, quantize_obs(cfg, Transition(
+            image=oldest["image"], points=oldest["points"],
+            mask=oldest["mask"], action=oldest["action"],
+            reward=n_ret, done=n_done, next_image=next_store,
+            next_points=ts.points, next_mask=ts.mask)))
+
+    new_state = state._replace(
+        env_states=env_states, buffer=buf, window=window,
+        ep_return=ep_return, last_return=last_return,
+        obs_image=next_store, obs_points=ts.points, obs_mask=ts.mask)
+    hist = F.one_hot(actions.long(), cfg.rl.num_actions).float().mean(0)
+    dev = img.device
+    metrics = {
+        "loss": torch.zeros((), device=dev),
+        "epsilon": torch.tensor(eps, dtype=torch.float32, device=dev),
+        "reward": ts.reward.mean(),
+        "episode_return": last_return.mean(),
+        "action_entropy": -(hist * torch.log(hist + 1e-9)).sum(),
+        "buffer_size": torch.tensor(float(buf.size), device=dev)}
+    return new_state, metrics, actions
 
 
 def make_iteration(cfg: ExperimentConfig, learn: bool = True,
@@ -352,58 +437,8 @@ def make_iteration(cfg: ExperimentConfig, learn: bool = True,
     """
     forward = learner_forward(cfg) if learn else None
 
-    @torch.no_grad()
-    def act_and_store(state: DQNState):
-        if carry_obs:
-            img_store = state.obs_image
-            img = dequantize_image(img_store)
-            pts, mask = state.obs_points, state.obs_mask
-        else:
-            img, pts, mask = driving.observe_batch(cfg.env, state.env_states)
-            img_store = quantize_image(cfg, img)
-        g = state.generator
-        eps = _epsilon(cfg, state.step)
-        snr = _sample_snr(cfg, g, img.shape[0], img.device)
-        actions = act(cfg, state.params, img, pts, mask, g, eps, snr_db=snr)
-        env_states, ts = driving.step_batch(cfg.env, state.env_states,
-                                            actions, g)
-
-        ep_return = state.ep_return + ts.reward
-        last_return = torch.where(ts.done, ep_return, state.last_return)
-        ep_return = torch.where(ts.done, 0.0, ep_return)
-
-        next_store = quantize_image(cfg, ts.image)
-        window, oldest, n_ret, n_done, valid = nstep.push(
-            state.window, {"image": img_store, "points": pts, "mask": mask,
-                           "action": actions},
-            ts.reward, ts.done, cfg.rl.gamma)
-        buf = state.buffer
-        # Until the window fills its rows are placeholders: nothing is
-        # added (the JAX package scattered them but froze cursor/size).
-        if valid:
-            buf = replay.add_batch(buf, quantize_obs(cfg, Transition(
-                image=oldest["image"], points=oldest["points"],
-                mask=oldest["mask"], action=oldest["action"],
-                reward=n_ret, done=n_done, next_image=next_store,
-                next_points=ts.points, next_mask=ts.mask)))
-
-        new_state = state._replace(
-            env_states=env_states, buffer=buf, window=window,
-            ep_return=ep_return, last_return=last_return,
-            obs_image=next_store, obs_points=ts.points, obs_mask=ts.mask)
-        hist = F.one_hot(actions.long(), cfg.rl.num_actions).float().mean(0)
-        dev = img.device
-        metrics = {
-            "loss": torch.zeros((), device=dev),
-            "epsilon": torch.tensor(eps, dtype=torch.float32, device=dev),
-            "reward": ts.reward.mean(),
-            "episode_return": last_return.mean(),
-            "action_entropy": -(hist * torch.log(hist + 1e-9)).sum(),
-            "buffer_size": torch.tensor(float(buf.size), device=dev)}
-        return new_state, metrics
-
     def iteration(state: DQNState):
-        state, metrics = act_and_store(state)
+        state, metrics, _ = act_and_store(cfg, state, carry_obs)
         buf = state.buffer
         if learn and buf.size >= cfg.rl.batch_size:
             draws = draw_learn(cfg, buf.size, state.generator,
@@ -415,3 +450,19 @@ def make_iteration(cfg: ExperimentConfig, learn: bool = True,
         return state, metrics
 
     return iteration
+
+
+def shard_state(state: DQNState, mesh, tp: bool = True) -> DQNState:
+    """Place a ``DQNState`` on ``mesh`` (``runtime/mesh.py``): with ``tp``
+    and a model axis of more than one rank the online, target and EMA
+    networks (and the Adam moments) keep this model rank's slice of the
+    transformer blocks' tensor-parallel weights (``runtime/tp.py``). The
+    envs, replay and window are this process's already. A no-op on a
+    ``1 x 1`` mesh."""
+    if tp and mesh.model > 1:
+        from multimodal_sc_torch.runtime.tp import apply_tp
+
+        apply_tp(state.params, mesh, state.opt_state)
+        apply_tp(state.target_params, mesh)
+        apply_tp(state.ema_params, mesh)
+    return state

@@ -18,9 +18,22 @@ modules. Over a digital link (``camera.arch="vq"``, ``lidar.arch="vq"``)
 the loss adds ``rl.vq_loss_coef`` x the summed VQ losses and each
 minibatch step re-seeds the dead codes of the re-seeding codebooks after
 its optimizer step; under ``lidar.vq_prune`` the loss forward trains at
-random kept fractions, as the DQN learner does. ``shard_state`` waits for
-item 16, and ``make_train_step_chunked`` has no counterpart: PyTorch runs
-eagerly, so there is no per-dispatch round trip to amortize.
+random kept fractions, as the DQN learner does. ``make_train_step_chunked``
+has no counterpart: PyTorch runs eagerly, so there is no per-dispatch
+round trip to amortize.
+
+On a mesh whose data axis has S > 1 ranks (``runtime/mesh.py``) an update
+keeps the JAX package's one global batch, as GSPMD does: each rank steps
+``rl.num_envs / S`` envs from a generator of its own, the rollouts are
+gathered into the global ``(T, rl.num_envs)`` one (every rank computes the
+same GAE on it), every permutation is the first rank's draw over the
+global ``T x B`` rows, and each minibatch step normalises the advantages
+over the whole global minibatch, then takes its 1/S of the rows. The loss
+is a mean over equal slices, so the gradients meaned over the data group
+are the global minibatch's; the entropy floor reads the global entropy.
+``shard_state`` puts the network under tensor parallelism on the model
+axis (``runtime/tp.py``). Data-parallel training of a digital trunk is
+refused: its re-seeding and usage statistics are not pooled here.
 """
 
 from __future__ import annotations
@@ -41,6 +54,11 @@ from multimodal_sc_torch.rl.gae import gae
 from multimodal_sc_torch.rl.perception import (ActorCritic, LinkDraws,
                                                apply_codebook_reseed,
                                                collect_reseed_stats)
+from multimodal_sc_torch.runtime.mesh import (Mesh, all_gather_rows,
+                                              all_reduce_mean_,
+                                              local_batch_size,
+                                              mean_over_data, replicate,
+                                              shard_batch, shard_seed)
 
 
 class PPOState(NamedTuple):
@@ -92,13 +110,35 @@ def init_params(cfg: ExperimentConfig, seed: int = 0,
     return net.to(dev)
 
 
-def init(cfg: ExperimentConfig, seed: int = 0, device="cuda") -> PPOState:
-    """A fresh network, its EMA and Adam, and ``rl.num_envs`` envs."""
+def _data_parallel(cfg: ExperimentConfig, mesh: Optional[Mesh]) -> bool:
+    if mesh is None or mesh.data == 1:
+        return False
+    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
+        raise ValueError("data-parallel PPO of a digital trunk "
+                         "(camera.arch / lidar.arch 'vq') is not ported; "
+                         "run it on one data shard")
+    return True
+
+
+def init(cfg: ExperimentConfig, seed: int = 0, device="cuda",
+         mesh: Optional[Mesh] = None) -> PPOState:
+    """A fresh network, its EMA and Adam, and ``rl.num_envs`` envs; on a
+    data axis of S ranks this rank's ``rl.num_envs / S`` of them, from a
+    generator seeded by ``runtime/mesh.py``'s ``shard_seed``, and the
+    network broadcast from the first rank."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    env_states = driving.reset_batch(cfg.env, cfg.rl.num_envs, g, dev)
+    n_envs = cfg.rl.num_envs
+    if _data_parallel(cfg, mesh):
+        n_envs = local_batch_size(mesh, n_envs)
+        g = torch.Generator(device=dev).manual_seed(
+            shard_seed(seed, mesh.data_index))
+    else:
+        g = torch.Generator(device=dev).manual_seed(seed)
+    env_states = driving.reset_batch(cfg.env, n_envs, g, dev)
     params = init_params(cfg, seed, dev)
-    zeros = torch.zeros((cfg.rl.num_envs,), dtype=torch.float32, device=dev)
+    if mesh is not None:
+        replicate(mesh, params)
+    zeros = torch.zeros((n_envs,), dtype=torch.float32, device=dev)
     return PPOState(params=params, ema_params=copy.deepcopy(params),
                     opt_state=make_optimizer(cfg, params),
                     env_states=env_states, generator=g, update=0,
@@ -173,7 +213,7 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
               batch: Dict[str, torch.Tensor], entropy_coef: float,
               generator: Optional[torch.Generator] = None,
               channel_noise=None, keep: Optional[torch.Tensor] = None,
-              aux: Optional[dict] = None):
+              aux: Optional[dict] = None, mesh: Optional[Mesh] = None):
     """``(total, {"pg_loss", "v_loss", "entropy"})`` of one minibatch: the
     clipped surrogate on normalised advantages, the value loss and the
     entropy bonus (and the entropy floor's hinge under
@@ -181,7 +221,10 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
     the forward's summed VQ losses. ``keep``: the kept fractions of the
     pruned digital LiDAR (``lidar.vq_prune``), else drawn from
     ``generator``; ``aux`` (optional dict) receives what the trunk returns
-    (the re-seeding inputs among them)."""
+    (the re-seeding inputs among them). On a data axis of more than one
+    rank (``mesh``) ``batch`` is this rank's slice of the global minibatch
+    and its advantages come normalised over the whole of it; the entropy
+    floor reads the global entropy."""
     r = cfg.rl
     aux = {} if aux is None else aux
     keep = learner_keep(cfg, batch["action"].shape[0], generator,
@@ -194,8 +237,8 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
     logp = logp_all.gather(1, batch["action"].long()[:, None])[:, 0]
     ratio = torch.exp(logp - batch["logp"])
     adv = batch["adv"]
-    # jnp.std is the population standard deviation.
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if mesh is None or mesh.data == 1:
+        adv = _normalise(adv)
     clipped = torch.clamp(ratio, 1 - r.clip_eps, 1 + r.clip_eps)
     pg_loss = -torch.minimum(ratio * adv, clipped * adv).mean()
     v_loss = 0.5 * (value - batch["ret"]).square().mean()
@@ -205,10 +248,15 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
         # Inactive above the floor; pushes back only when the policy
         # collapses below it.
         total = total + r.entropy_floor_coef * F.relu(
-            r.entropy_floor - entropy)
+            r.entropy_floor - mean_over_data(entropy, mesh))
     if "vq_loss" in aux:
         total = total + r.vq_loss_coef * aux["vq_loss"]
     return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy}
+
+
+def _normalise(adv: torch.Tensor) -> torch.Tensor:
+    # jnp.std is the population standard deviation.
+    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
 
 
 def _entropy_coef(cfg: ExperimentConfig, update: int) -> float:
@@ -228,11 +276,22 @@ def _step_draw(draws: Optional[UpdateDraws], name: str, e: int, i: int):
 
 def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
             last_value: torch.Tensor, forward,
-            draws: Optional[UpdateDraws] = None):
+            draws: Optional[UpdateDraws] = None,
+            mesh: Optional[Mesh] = None):
     """GAE, the minibatch epochs and the EMA lerp on a collected rollout:
-    ``(state', metrics)``."""
+    ``(state', metrics)``. On a data axis of more than one rank
+    (``mesh``) the rollout is this rank's envs: it is gathered into the
+    global one, and each minibatch step trains on this rank's slice of the
+    global minibatch (given ``draws.noise`` are the global minibatch's
+    link draws; this rank reads its rows)."""
     r = cfg.rl
     net, opt, g = state.params, state.opt_state, state.generator
+    dp = _data_parallel(cfg, mesh)
+    last_return = state.last_return
+    if dp:
+        rollout = Rollout(*(all_gather_rows(x, mesh, 1) for x in rollout))
+        last_value = all_gather_rows(last_value, mesh)
+        last_return = all_gather_rows(last_return, mesh)
     t_len, b = rollout.reward.shape
     n = t_len * b
     mb = n // r.num_minibatches
@@ -246,25 +305,43 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
     flat = {k: v.reshape(n, *v.shape[2:]) for k, v in flat.items()}
     params = list(net.parameters())
     losses, auxes = [], []
+    if dp:
+        part = local_batch_size(mesh, mb)
+        rows = slice(mesh.data_index * part, (mesh.data_index + 1) * part)
     for e in range(r.ppo_epochs):
         perm = (draws.perms[e] if draws is not None and draws.perms is not None
                 else torch.randperm(n, generator=g, device=g.device))
+        if dp:
+            # Every rank walks the first rank's permutation.
+            perm = perm.contiguous()
+            torch.distributed.broadcast(perm, src=mesh.data_ranks[0],
+                                        group=mesh.data_group)
         for i in range(r.num_minibatches):
             idx = perm[i * mb:(i + 1) * mb]
             batch = {k: v[idx] for k, v in flat.items()}
             noise, keep, coins = (_step_draw(draws, name, e, i)
                                   for name in ("noise", "keep", "coins"))
+            if dp:
+                batch["adv"] = _normalise(batch["adv"])
+                batch = {k: v[rows] for k, v in batch.items()}
+                if noise is not None:
+                    noise = shard_batch(mesh, noise)
             trunk = {}
             loss, aux = _ppo_loss(cfg, forward, net, batch, ent_coef, g,
-                                  noise, keep, trunk)
+                                  noise, keep, trunk, mesh if dp else None)
             # Parameters the loss does not reach (the last fusion layer's
             # LiDAR stream) get zero gradients, as jax.grad gives them:
             # their Adam moments then decay as optax's do.
             grads = torch.autograd.grad(loss, params, allow_unused=True)
             grads = [torch.zeros_like(p) if gr is None else gr
                      for p, gr in zip(params, grads)]
+            loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
             with torch.no_grad():
-                clip_by_global_norm_(grads, cfg.train.grad_clip)
+                if dp:
+                    loss, *vals = all_reduce_mean_(grads, mesh,
+                                                   [loss, *aux.values()])
+                    aux = dict(zip(aux, vals))
+                clip_by_global_norm_(grads, cfg.train.grad_clip, params)
                 for p, gr in zip(params, grads):
                     p.grad = gr
                 opt.step()
@@ -272,8 +349,8 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
                 apply_codebook_reseed(cfg, net,
                                       collect_reseed_stats(cfg, trunk), g,
                                       *(coins or ()))
-            losses.append(loss.detach())
-            auxes.append({k: v.detach() for k, v in aux.items()})
+            losses.append(loss)
+            auxes.append(aux)
     with torch.no_grad():
         if r.ema_tau > 0:
             torch._foreach_lerp_(list(state.ema_params.parameters()), params,
@@ -286,15 +363,16 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
         "entropy_coef": torch.tensor(ent_coef, dtype=torch.float32,
                                      device=dev),
         "reward": rollout.reward.mean(),
-        "episode_return": state.last_return.mean(),
+        "episode_return": last_return.mean(),
     }
     return state._replace(update=state.update + 1), metrics
 
 
-def make_train_step(cfg: ExperimentConfig):
+def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
     """``train_step(state) -> (state, metrics)``: one full PPO update
     (rollout, bootstrap value, GAE, ``rl.ppo_epochs`` x
-    ``rl.num_minibatches`` minibatch steps, EMA lerp)."""
+    ``rl.num_minibatches`` minibatch steps, EMA lerp), data-parallel over
+    ``mesh``'s data axis."""
     r = cfg.rl
     t_len, b, n_mb = r.rollout_length, r.num_envs, r.num_minibatches
     if (t_len * b) % n_mb != 0:
@@ -315,6 +393,20 @@ def make_train_step(cfg: ExperimentConfig):
                                    snr_db=snr)
         state = state._replace(env_states=env_states, ep_return=ep_return,
                                last_return=last_return)
-        return _update(cfg, state, rollout, last_value, forward)
+        return _update(cfg, state, rollout, last_value, forward, mesh=mesh)
 
     return train_step
+
+
+def shard_state(state: PPOState, mesh: Mesh, tp: bool = True) -> PPOState:
+    """Place a ``PPOState`` on ``mesh``: with ``tp`` and a model axis of
+    more than one rank the network and its EMA (and the Adam moments)
+    keep this model rank's slice of the tensor-parallel weights
+    (``runtime/tp.py``); the envs are this process's already. A no-op on a
+    ``1 x 1`` mesh."""
+    if tp and mesh.model > 1:
+        from multimodal_sc_torch.runtime.tp import apply_tp
+
+        apply_tp(state.params, mesh, state.opt_state)
+        apply_tp(state.ema_params, mesh)
+    return state

@@ -16,8 +16,19 @@ out of the steady rate and reported as ``ckpt_save_s`` / ``ckpt_close_s``.
 A digital trunk (``camera.arch="vq"``, ``lidar.arch="vq"``) starting cold
 seeds its codebooks from its encoders' outputs on rendered env
 observations; a warm start seeds only a codebook it did not bring, and a
-resume keeps its own. Not ported: the sharded iteration (item 16: one
-process drives one card).
+resume keeps its own.
+
+On more than one process (``torchrun --nproc-per-node N``, one process a
+card) the run takes the sharded iteration (``rl/dqn_sharded.py``):
+``rl.num_envs`` is split over the data shards, each with its own replay,
+and the gradients are meaned over them. As in the JAX package's driver,
+every process lies on the data axis (``make_mesh()``): ``mesh.data_axis``
+/ ``mesh.model_axis`` are read by the PPO and JSCC drivers, not by this
+one. Metrics, prints, the snapshot evaluation and the result come from
+rank 0 only; the rate is each card's own. A checkpoint holds the replicated fields once
+(rank 0's file, which ``eval-policy`` reads as it reads a single-card one)
+and each rank's envs, replay, window and generator in a file of its own;
+a resume needs the world size that wrote it and refuses another.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -26,6 +37,8 @@ As a script it trains a preset and evaluates the result:
     python -m multimodal_sc_torch.train.dqn --config c4 \\
         [--set train.steps=200 --set train.checkpoint_dir=DIR ...] \\
         [--init-from JSCC_DIR] [--eval-envs 256] [--device cuda]
+    torchrun --nproc-per-node N -m multimodal_sc_torch.train.dqn \\
+        --config c4 [...]
 
 prints the card, then one JSON object: the result of ``run``, the wall time
 and the greedy and eps-0.05 ``evaluate_dqn`` of the EMA and the online
@@ -41,17 +54,23 @@ import sys
 import time
 from typing import Optional
 
+import torch.distributed as dist
+
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.evaluation import policy_eval
-from multimodal_sc_torch.io.checkpoint import CheckpointManager
+from multimodal_sc_torch.io.checkpoint import (CheckpointManager,
+                                               guard_world, restore_sharded,
+                                               save_sharded)
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     steps_per_sec_per_chip,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import (CollapseWatchdog, NaNWatchdog,
                                                maybe_trace)
 from multimodal_sc_torch.rl import dqn as dqn_lib
+from multimodal_sc_torch.rl import dqn_sharded
 from multimodal_sc_torch.rl.warmstart import cold_start, warm_start
+from multimodal_sc_torch.runtime.mesh import init_distributed, make_mesh
 
 
 def guard_replay_dtype(cfg: ExperimentConfig) -> None:
@@ -93,7 +112,20 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
     if num_envs is None:
         num_envs = cfg.rl.num_envs
     dev = resolve_device(device)
-    state = dqn_lib.init(cfg, cfg.train.seed, num_envs, dev)
+    init_distributed(dev)
+    mesh = make_mesh()
+    n_shards = mesh.data
+    sharded = n_shards > 1
+    lead = mesh.rank == 0
+    if sharded:
+        if num_envs % n_shards != 0:
+            raise ValueError(
+                f"num_envs {num_envs} not divisible by data shards {n_shards}")
+        envs_here = num_envs // n_shards
+        state = dqn_sharded.init(cfg, cfg.train.seed, mesh, envs_here, dev)
+    else:
+        envs_here = num_envs
+        state = dqn_lib.init(cfg, cfg.train.seed, num_envs, dev)
     nets = (state.params, state.target_params, state.ema_params)
     if init_from:
         warm_start(cfg, nets, init_from)
@@ -101,17 +133,25 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
         # A cold VQ start seeds its codebooks (a resume below overwrites
         # them).
         cold_start(cfg, nets)
-    iteration = dqn_lib.make_iteration(cfg)
+    if sharded:
+        dqn_sharded.replicate_networks(state, mesh)
+        iteration = dqn_sharded.make_iteration(cfg, mesh)
+    else:
+        iteration = dqn_lib.make_iteration(cfg)
 
-    writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
+    writer = MetricsWriter(metrics_path if lead else None, stdout=lead,
+                           config_json=cfg.to_json())
     watchdog = NaNWatchdog()
     collapse_dog = CollapseWatchdog(num_actions=cfg.rl.num_actions)
     ckpt = None
     if cfg.train.checkpoint_dir:
         guard_replay_dtype(cfg)
         ckpt = CheckpointManager(cfg.train.checkpoint_dir)
-        ckpt.save_config(cfg.to_json())
-        restored = ckpt.restore_latest(state)
+        guard_world(ckpt, n_shards)
+        if lead:
+            ckpt.save_config(cfg.to_json())
+        restored = (restore_sharded(ckpt, state, mesh)
+                    if sharded else ckpt.restore_latest(state))
         if restored is not None:
             state = restored
     start_it = (ckpt.latest_step() or 0) if ckpt else 0
@@ -131,6 +171,8 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
 
     def snapshot_eval(it: int) -> None:
         nonlocal snap_s, best_ret, best_it, best_tree
+        if not lead:
+            return
         synchronize(dev)
         t_ev = time.perf_counter()
         out = policy_eval.evaluate_dqn(cfg, state.params,
@@ -161,13 +203,17 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
                 snapshot_eval(it)
             if ckpt and it % cfg.train.checkpoint_every == 0:
                 t_ck = time.perf_counter()
-                ckpt.save(it, state)
+                if sharded:
+                    save_sharded(ckpt, it, state, mesh,
+                                 dqn_sharded.SHARD_FIELDS)
+                else:
+                    ckpt.save(it, state)
                 ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
 
     n_iters = cfg.train.steps - start_it
     extra = {"agent_steps_per_sec_per_chip": steps_per_sec_per_chip(
-        n_iters * num_envs, t.elapsed)}
+        n_iters * envs_here, t.elapsed)}
     if ckpt:
         t_ck = time.perf_counter()
         ckpt.close()
@@ -177,7 +223,7 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
         extra["best_eval_return"] = round(best_ret, 3)
         extra["best_eval_iter"] = best_it
         extra["snapshot_eval_s"] = round(snap_s, 2)
-        if ckpt:
+        if ckpt and lead:
             ckpt.save_best_policy({**best_tree, "step": best_it,
                                    "eval_return": best_ret})
     steady_steps = n_iters - 1
@@ -185,7 +231,9 @@ def run(cfg: ExperimentConfig, num_envs: Optional[int] = None,
             t.elapsed > first_s + ckpt_s + snap_s:
         extra["first_dispatch_s"] = round(first_s, 2)
         extra["steady_steps_per_sec_per_chip"] = steps_per_sec_per_chip(
-            steady_steps * num_envs, t.elapsed - first_s - ckpt_s - snap_s)
+            steady_steps * envs_here, t.elapsed - first_s - ckpt_s - snap_s)
+    if sharded:
+        extra["data_shards"] = n_shards
     writer.write(cfg.train.steps, {**last, **extra})
     writer.close()
     return state, {**to_host(last), **extra}
@@ -209,11 +257,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = get_preset(args.config).override_str(args.set).validate()
     dev = resolve_device(args.device)
+    init_distributed(dev)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     card = card_name(dev)
-    print(f"card: {card}", flush=True)
+    if lead:
+        print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     state, result = run(cfg, args.num_envs, args.metrics_path,
                         init_from=args.init_from, device=dev)
+    if not lead:
+        return 0
     result["train_wall_s"] = round(time.perf_counter() - t0, 2)
     seed = cfg.train.seed + 0xE7A1
     for name, net in (("ema", state.ema_params), ("online", state.params)):

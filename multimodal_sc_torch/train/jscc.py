@@ -37,6 +37,16 @@ parameters, as JAX's ``build_model`` builds them (their image and seg
 logits come out f32, so the loss, the gradients reaching the parameters
 and the AdamW moments stay f32; the VQ codec's features are widened to f32
 for the nearest-code search, so its codebook and VQ loss stay f32).
+On a mesh whose data axis has S > 1 ranks (``torchrun --nproc-per-node
+N``; ``runtime/mesh.py``) a step keeps the JAX package's one global batch:
+every rank reads the dataset's global batch of the step and trains on its
+rows (``shard_batch``), its draws from a generator of its own (given
+draws are the global batch's: each rank reads its rows), and the
+gradients are meaned over the data group; the loss is meaned, the PSNR
+taken from the meaned MSE and the mIoU from the summed confusion matrix.
+Rank 0 writes the metrics and the checkpoint (each other rank its
+generator beside it). Data-parallel training of the VQ codec is refused:
+its batch statistics (usage, perplexity, dead codes) are not pooled here.
 ``train.iters_per_dispatch`` (the chunked step) has no counterpart:
 PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
 and the value is ignored.
@@ -76,13 +86,21 @@ from multimodal_sc_torch.codec.semantic_vq import (VQCameraJSCC,
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.envs.datasets import ImageDataset
-from multimodal_sc_torch.evaluation.metrics import miou, psnr
-from multimodal_sc_torch.io.checkpoint import CheckpointManager
+from multimodal_sc_torch.evaluation.metrics import (confusion_matrix, miou,
+                                                    miou_from_confusion, mse,
+                                                    psnr)
+from multimodal_sc_torch.io.checkpoint import (CheckpointManager,
+                                               guard_world, restore_sharded,
+                                               save_sharded)
 from multimodal_sc_torch.nn_init import init_like_flax_
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
 from multimodal_sc_torch.rl.dqn import clip_by_global_norm_
+from multimodal_sc_torch.runtime.mesh import (Mesh, all_reduce_mean_,
+                                              init_distributed,
+                                              mesh_from_config, replicate,
+                                              shard_batch, shard_seed)
 from multimodal_sc_torch.runtime.prefetch import prefetch_to_device
 from multimodal_sc_torch.train.fusion_jscc import make_optimizer
 
@@ -279,21 +297,30 @@ def vq_loss_fn(model: VQCameraJSCC, img, draws: StepDraws, generator=None):
     return (recon - img).square().mean() + aux["vq_loss"], (recon, aux)
 
 
-def make_train_step(cfg: ExperimentConfig):
+def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
     """``train_step(state, batch, draws=None) -> (state, metrics)``: one
     clip + AdamW step at the scheduled lr on one batch, ``img`` or ``(img,
     seg)`` as the dataset yields it. ``draws``: a ``StepDraws``, or a tensor
     of the channel's standard-normal noise. A VQ codec's step then re-seeds
-    its batch-dead codes (``camera.vq_reseed > 0``)."""
+    its batch-dead codes (``camera.vq_reseed > 0``). On a data axis of more
+    than one rank (``mesh``) ``batch`` is this rank's rows of the global
+    batch and given ``draws`` the global batch's."""
     _check_ported(cfg)
     with_seg = _with_seg(cfg)
     vq = cfg.camera.arch == "vq"
+    dp = mesh is not None and mesh.data > 1
+    if dp and vq:
+        raise ValueError("data-parallel training of the VQ codec "
+                         "(camera.arch='vq') is not ported; run it on one "
+                         "data shard")
 
     def train_step(state: TrainState, batch, draws=None):
         model, opt = state.params, state.opt_state
         img, seg = batch if with_seg else (batch, None)
         if isinstance(draws, torch.Tensor):
             draws = StepDraws(channel=draws)
+        if dp and draws is not None:
+            draws = shard_batch(mesh, draws)
         draws = draw_step(cfg, img.shape[0], state.generator, img.device,
                           draws)
         if vq:
@@ -303,18 +330,29 @@ def make_train_step(cfg: ExperimentConfig):
             loss, (recon, logits) = loss_fn(cfg, model, img, seg, draws,
                                             state.generator)
         params = list(model.parameters())
-        grads = torch.autograd.grad(loss, params)
+        grads = list(torch.autograd.grad(loss, params))
         with torch.no_grad():
-            clip_by_global_norm_(list(grads), cfg.train.grad_clip)
+            loss = loss.detach()
+            if dp:
+                loss, err = all_reduce_mean_(grads, mesh,
+                                             [loss, mse(recon, img)])
+            clip_by_global_norm_(grads, cfg.train.grad_clip)
             for p, g in zip(params, grads):
                 p.grad = g
             opt.step()
             opt.zero_grad(set_to_none=True)
             state.schedule.step()
-            metrics = {"loss": loss.detach(), "psnr": psnr(recon, img)}
+            metrics = {"loss": loss, "psnr": (
+                10.0 * torch.log10(1.0 / torch.clamp(err, min=1e-12)) if dp
+                else psnr(recon, img))}
             if with_seg:
-                metrics["miou"] = miou(logits.argmax(dim=-1), seg,
-                                       cfg.camera.seg_classes)
+                pred = logits.argmax(dim=-1)
+                if dp:
+                    cm = confusion_matrix(pred, seg, cfg.camera.seg_classes)
+                    torch.distributed.all_reduce(cm, group=mesh.data_group)
+                    metrics["miou"] = miou_from_confusion(cm)
+                else:
+                    metrics["miou"] = miou(pred, seg, cfg.camera.seg_classes)
             if vq:
                 metrics.update({k: aux[k].detach() for k in (
                     "vq_loss", "index_error_rate", "code_perplexity")})
@@ -360,16 +398,28 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
     ``(state, result)``."""
     dev = resolve_device(device)
     tr = cfg.train
+    init_distributed(dev)
+    mesh = mesh_from_config(cfg.mesh)
+    dp = mesh.data > 1
+    lead = mesh.rank == 0
     state = create_train_state(cfg, tr.seed, dev)
-    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    if dp:
+        # The same network everywhere, each shard's draws of its own.
+        replicate(mesh, state.params)
+        state.generator.manual_seed(shard_seed(tr.seed, mesh.data_index))
+    train_step = make_train_step(cfg, mesh)
+    eval_step = make_eval_step(cfg)
     data = ImageDataset(tr.dataset, tr.batch_size, seed=tr.seed,
                         with_seg=_with_seg(cfg), device=dev,
                         data_root=tr.data_root)
     ckpt = None
     if tr.checkpoint_dir:
         ckpt = CheckpointManager(tr.checkpoint_dir)
-        ckpt.save_config(cfg.to_json())
-        restored = ckpt.restore_latest(state)
+        guard_world(ckpt, mesh.data)
+        if lead:
+            ckpt.save_config(cfg.to_json())
+        restored = (restore_sharded(ckpt, state, mesh) if dp
+                    else ckpt.restore_latest(state))
         if restored is not None:
             state = restored
     start = state.step
@@ -384,7 +434,8 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
                                     & 0xFFFFFFFF))
     # The batches of an uninterrupted run from here on.
     data._step = start
-    batches = prefetch_to_device(data, size=2, device=dev)
+    batches = prefetch_to_device(data, size=2, device=dev,
+                                 mesh=mesh if dp else None)
     # The held-out batch comes from a stream of its own; each evaluation's
     # channel noise from a generator seeded by its step, apart from the
     # training stream's.
@@ -392,7 +443,8 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
                                  device=dev, real_bank=data._real))
     eval_img = eval_img.to(dev)
     eval_gen = torch.Generator(device=dev)
-    writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
+    writer = MetricsWriter(metrics_path if lead else None, stdout=lead,
+                           config_json=cfg.to_json())
     watchdog = NaNWatchdog()
 
     # First-step wall (allocator warm-up, kernel build and load) recorded
@@ -418,7 +470,10 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
                 writer.write(step, {"eval_psnr": ep})
             if ckpt and step % tr.checkpoint_every == 0:
                 t_ck = time.perf_counter()
-                ckpt.save(step, state)
+                if dp:
+                    save_sharded(ckpt, step, state, mesh, ("generator",))
+                else:
+                    ckpt.save(step, state)
                 ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
     out = to_host(last)
@@ -450,10 +505,16 @@ def main(argv=None) -> int:
     # The JAX package's refusals of flag combinations it would ignore.
     cfg = get_preset(args.config).override_str(args.set).validate()
     dev = resolve_device(args.device)
+    init_distributed(dev)
+    lead = not torch.distributed.is_initialized() or \
+        torch.distributed.get_rank() == 0
     card = card_name(dev)
-    print(f"card: {card}", flush=True)
+    if lead:
+        print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     state, result = run(cfg, args.metrics_path, device=dev)
+    if not lead:
+        return 0
     result["train_wall_s"] = round(time.perf_counter() - t0, 2)
     result["train_steps"] = state.step
     result["card"] = card

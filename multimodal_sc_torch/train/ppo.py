@@ -11,8 +11,16 @@ states, generator, counters) and saves every ``train.checkpoint_every``
 updates, the writes kept out of the steady rate.
 
 A digital trunk starting cold seeds its codebooks, and after a warm start
-only a codebook the source did not bring, as the DQN driver does. Not
-ported: the sharded state (item 16: one process drives one card).
+only a codebook the source did not bring, as the DQN driver does.
+
+Under ``torchrun --nproc-per-node N`` (one process a card) the run lays
+the processes out as ``mesh.data_axis`` x ``mesh.model_axis``
+(``runtime/mesh.py``): the data axis splits the envs and trains on slices
+of one global batch (``rl/ppo.py``), the model axis puts the network under
+tensor parallelism (``shard_state``). Metrics, prints and the result come
+from rank 0; the rate is each card's own. A checkpoint holds the
+replicated fields once and each data shard's envs and generator beside
+them; a resume needs the world size that wrote it.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -21,6 +29,8 @@ As a script it trains a preset and evaluates the result:
     python -m multimodal_sc_torch.train.ppo --config c5 \\
         [--set train.steps=150 --set rl.num_envs=64 ...] \\
         [--init-from JSCC_DIR] [--eval-envs 256] [--device cuda]
+    torchrun --nproc-per-node N -m multimodal_sc_torch.train.ppo \\
+        --config c5 [--set mesh.model_axis=2 ...]
 
 prints the card, then one JSON object: the result of ``run``, the wall time
 and ``evaluate_ppo`` of the online and the EMA network, sampled (T = 1)
@@ -35,16 +45,25 @@ import sys
 import time
 from typing import Optional
 
+import torch.distributed as dist
+
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
 from multimodal_sc_torch.evaluation import policy_eval
-from multimodal_sc_torch.io.checkpoint import CheckpointManager
+from multimodal_sc_torch.io.checkpoint import (CheckpointManager,
+                                               guard_world, restore_sharded,
+                                               save_sharded)
 from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
                                                     steps_per_sec_per_chip,
                                                     to_host)
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
 from multimodal_sc_torch.rl import ppo as ppo_lib
 from multimodal_sc_torch.rl.warmstart import cold_start, warm_start
+from multimodal_sc_torch.runtime.mesh import (init_distributed,
+                                              mesh_from_config, replicate)
+
+# What each data shard holds of its own: a checkpoint writes it per shard.
+SHARD_FIELDS = ("env_states", "generator", "ep_return", "last_return")
 
 
 def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
@@ -53,22 +72,36 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
     ``train.checkpoint_dir`` when it holds a checkpoint); returns
     ``(state, result)``."""
     dev = resolve_device(device)
-    state = ppo_lib.init(cfg, cfg.train.seed, dev)
+    init_distributed(dev)
+    mesh = mesh_from_config(cfg.mesh)
+    sharded = mesh.data > 1
+    lead = mesh.rank == 0
+    state = ppo_lib.init(cfg, cfg.train.seed, dev, mesh)
     nets = (state.params, state.ema_params)
     if init_from:
         warm_start(cfg, nets, init_from)
     else:
         cold_start(cfg, nets)       # a resume below overwrites it
-    train_step = ppo_lib.make_train_step(cfg)
-    writer = MetricsWriter(metrics_path, config_json=cfg.to_json())
+    replicate(mesh, nets)
+    train_step = ppo_lib.make_train_step(cfg, mesh)
+    writer = MetricsWriter(metrics_path if lead else None, stdout=lead,
+                           config_json=cfg.to_json())
     watchdog = NaNWatchdog()
     ckpt = None
     if cfg.train.checkpoint_dir:
+        if mesh.model > 1:
+            raise ValueError("checkpoints of a tensor-parallel run "
+                             "(mesh.model_axis > 1) are not ported")
         ckpt = CheckpointManager(cfg.train.checkpoint_dir)
-        ckpt.save_config(cfg.to_json())
-        restored = ckpt.restore_latest(state)
+        guard_world(ckpt, mesh.data)
+        if lead:
+            ckpt.save_config(cfg.to_json())
+        restored = (restore_sharded(ckpt, state, mesh) if sharded
+                    else ckpt.restore_latest(state))
         if restored is not None:
             state = restored
+    # Tensor parallelism once the whole network is in place.
+    state = ppo_lib.shard_state(state, mesh)
     start_it = (ckpt.latest_step() or 0) if ckpt else 0
 
     # First-update wall (allocator warm-up, kernel build and load) and the
@@ -89,10 +122,13 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
                 watchdog.check(it, last)
             if ckpt and it % cfg.train.checkpoint_every == 0:
                 t_ck = time.perf_counter()
-                ckpt.save(it, state)
+                if sharded:
+                    save_sharded(ckpt, it, state, mesh, SHARD_FIELDS)
+                else:
+                    ckpt.save(it, state)
                 ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
-    per_update = cfg.rl.rollout_length * cfg.rl.num_envs
+    per_update = cfg.rl.rollout_length * cfg.rl.num_envs // mesh.data
     n_updates = steps - start_it
     extra = {"agent_steps_per_sec_per_chip": steps_per_sec_per_chip(
         n_updates * per_update, t.elapsed)}
@@ -106,6 +142,8 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         extra["first_dispatch_s"] = round(first_s, 2)
         extra["steady_steps_per_sec_per_chip"] = steps_per_sec_per_chip(
             (n_updates - 1) * per_update, t.elapsed - first_s - ckpt_s)
+    if sharded:
+        extra["data_shards"] = mesh.data
     writer.write(steps, {**last, **extra})
     writer.close()
     return state, {**to_host(last), **extra}
@@ -128,12 +166,24 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = get_preset(args.config).override_str(args.set).validate()
     dev = resolve_device(args.device)
+    init_distributed(dev)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     card = card_name(dev)
-    print(f"card: {card}", flush=True)
+    if lead:
+        print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     state, result = run(cfg, args.metrics_path, init_from=args.init_from,
                         device=dev)
+    if not lead:
+        return 0
     result["train_wall_s"] = round(time.perf_counter() - t0, 2)
+    if getattr(state.params, "tp_mesh", None) is not None:
+        # A network under tensor parallelism runs only with all its model
+        # ranks: rank 0 alone cannot evaluate it.
+        result["card"] = card
+        result["updates"] = state.update
+        print(json.dumps(result), flush=True)
+        return 0
     seed = cfg.train.seed + 0xE7A1
     for name, net in (("online", state.params), ("ema", state.ema_params)):
         for mode, greedy in (("sampled", False), ("greedy", True)):
