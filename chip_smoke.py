@@ -202,7 +202,8 @@ call. The c1_vq timed steps run inside an ``annotate`` scope, which opens
 an NVTX range on the card.
 
 Last the distributed path (``runtime/mesh.py``, ``rl/dqn_sharded.py``,
-``kernels/ring_attention.py``, data-parallel ``train.jscc``):
+``kernels/ring_attention.py``, data-parallel ``train.jscc`` and
+``rl/ppo.py``, tensor-parallel checkpoints):
 
 * (a) a process group of one over NCCL: the c4 act+learn iteration at
   1024 envs, once through ``rl/dqn.py``'s ``make_iteration`` and once
@@ -229,7 +230,16 @@ Last the distributed path (``runtime/mesh.py``, ``rl/dqn_sharded.py``,
   the CPU TP test's 1e-5. The local model dim (64) is not whole 128-lane
   groups, so ``packed_eligible`` refuses it and the ranks' attention runs
   on the flash kernels: their launches are counted, the packed kernels'
-  must be 0.
+  must be 0;
+* (f) one c1_vq step (usage loss and re-seeding on) on the two ranks of
+  (b), each on its rows of a global batch of 8 and of its draws, against
+  the same step in this process within 1e-5 / 1e-4: the usage loss, the
+  counts, the candidates, perplexity and index errors pooled;
+* (g) c5 (rollout 16, one epoch of two minibatch steps) at data 1 x model
+  2 through ``train.ppo.run``: two updates with a checkpoint after each,
+  against one update, a stop and a resume, each rank's slices bit-equal;
+* (h) one c5 digital update at data 2 (both codebooks re-seeding, usage
+  pooled): the replicas bit-equal after it, its metrics finite and equal.
 
 A rank that fails fails the run; every spawned process is joined.
 
@@ -239,7 +249,12 @@ learn, train or minibatch step.
 
 Each path is driven with the launch counts set to 0 just before and read
 just after, and fails unless every kernel of that path ran the expected
-number of times and the outputs are finite. Prints the card, the
+number of times and the outputs are finite. The f32 modes' bf16-I/O
+instances (``mxu_bf16=False`` on bf16 tensors: the packed kernels' flash
+instances with dK and dV per 128-query block, ``mha_block``'s f32 mode)
+are held to their plain versions and timed as the others, with a witness
+that the packed backward rounds per block; no config passes the flag, so
+every path holds them to 0 launches and their lines print 0, per path. Prints the card, the
 per-kernel JSON line and, last, ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is absent or any phase fails.
 Imports nothing of JAX.
@@ -553,7 +568,19 @@ def _counters():
             "flash_attention_bwd_dq_bf16": (attention,
                                             "launches_bwd_dq_bf16"),
             "flash_attention_bwd_dkv_bf16": (attention,
-                                             "launches_bwd_dkv_bf16")}
+                                             "launches_bwd_dkv_bf16"),
+            "packed_attention_fwd_f32io_bf16": (attention_packed,
+                                                "launches_fwd_f32io_bf16"),
+            "packed_attention_bwd_f32io_bf16": (attention_packed,
+                                                "launches_bwd_f32io_bf16"),
+            "mha_block_f32io_bf16": (mha_block, "launches_f32io_bf16")}
+
+
+# The f32 modes' bf16-I/O instances: the kernels' own entry points
+# (mxu_bf16=False on bf16 tensors), on no main path. Every path's counts
+# hold them to 0 launches (``_check_counts``); their lines report 0.
+OFF_PATH_KERNELS = ("packed_attention_fwd_f32io_bf16",
+                    "packed_attention_bwd_f32io_bf16", "mha_block_f32io_bf16")
 
 
 def _reset_counts():
@@ -565,7 +592,13 @@ def _read_counts():
     return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
 
 
+# The off-path kernels' launches on each path whose counts were checked.
+_OFF_PATH_SEEN = {}
+
+
 def _check_counts(launches, expected, iters, what):
+    for k in OFF_PATH_KERNELS:
+        _OFF_PATH_SEEN.setdefault(k, {})[what] = launches.get(k, 0)
     for k in launches:
         per_iter = expected.get(k, 0)
         if launches[k] != per_iter * iters:
@@ -961,6 +994,103 @@ def check_mha_block():
                          "library_ms": None})
         del x_q, x_kv, ref, ref_bf16, out_f32, out_bf16
     entry = _entry("mha_block", "cuda", "multimodal_sc_torch/csrc/mha_block.cu",
+                   "multimodal_sc_tpu/kernels/mha_block.py:149", rows)
+    entry["max_abs_err"] = worst
+    return [entry, _check_mha_f32_mode_bf16(p)]
+
+
+def _gate_f32_mode_bf16(name, got, ref, tol, mag=None, roundings=1):
+    """The gate of an f32 mode's bf16-I/O instance against its plain
+    version on the same bf16 inputs: every output within the f32 mode's
+    gate (atol and rtol ``tol``) plus one bf16 step of the plain value for
+    each of its ``roundings`` (two f32 sums in other orders may round to
+    neighbouring bf16 values), the step taken at ``mag`` where that is
+    larger (the largest value a rounding of it took: a dK or dV block sum
+    whose rounding flips moves a running sum that cancels to a small value
+    by a step of the block sum), and the mean absolute difference under
+    1e-5 (such flips are rare). Returns (max, mean, share of outputs whose
+    bits differ)."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or got.shape != ref.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, want "
+                             f"bf16 {tuple(ref.shape)}")
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    m = r.abs() if mag is None else torch.maximum(r.abs(), mag)
+    over = int((diff > tol + tol * r.abs()
+                + roundings * _bf16_step(m)).sum())
+    mx, mean = diff.max().item(), diff.mean().item()
+    if over or mean > 1e-5:
+        raise AssertionError(f"{name}: {over} outputs past {tol} + a bf16 "
+                             f"step of the plain version, max {mx:.3e}, "
+                             f"mean {mean:.3e}")
+    return mx, mean, (got != ref).float().mean().item()
+
+
+def _check_mha_f32_mode_bf16(p):
+    """``mha_block``'s f32 mode on bf16 activations (``mxu_bf16=False``:
+    ``kv_proj_kernel<bf16>`` and ``attn_kernel<D, bf16>``) against
+    ``mha_block_reference`` on the same bf16 inputs (widened, f32, the
+    output rounded once), at c4's act shapes and fog + V2X's 512-key ones (B
+    1024, timed: the line's rows, weighted as the kernel's own line), then
+    untimed head dims 64, 16 and 8 and a ragged query tile. Two runs give
+    the same bits. On no main path: its launches are printed, 0."""
+    import torch
+
+    from multimodal_sc_torch.kernels import mha_block as mb
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    bf, dim = torch.bfloat16, 128
+    shapes = list(C4_ATTN_SHAPES) + [s for s in V2X_ATTN_SHAPES
+                                     if s not in C4_ATTN_SHAPES]
+    cases = [(NUM_ENVS, lq, lk, 4, FUSION_DEPTH) for lq, lk in shapes]
+    cases += [(64, 65, 100, 2, 0), (64, 17, 70, 8, 0), (32, 33, 300, 16, 0)]
+    rows, worst = [], 0.0
+    for b, lq, lk, heads, per_step in cases:
+        x_q = torch.randn(b, lq, dim, generator=g, device="cuda").to(bf)
+        x_kv = torch.randn(b, lk, dim, generator=g, device="cuda").to(bf)
+        before = (mb.launches_f32io_bf16, mb.launches_bf16)
+        out = mb.mha_block(x_q, x_kv, p, heads, mxu_bf16=False)
+        if (mb.launches_f32io_bf16, mb.launches_bf16) != tuple(
+                n + 1 for n in before):
+            raise AssertionError("mha_block f32 mode, bf16 I/O: not counted "
+                                 "as its instance")
+        if not torch.equal(out, mb.mha_block(x_q, x_kv, p, heads,
+                                             mxu_bf16=False)):
+            raise AssertionError("mha_block f32 mode, bf16 I/O: two runs on "
+                                 "the same inputs differ")
+        ref = mb.mha_block_reference(x_q, x_kv, p, heads)
+        torch.cuda.synchronize()
+        err, mean, share = _gate_f32_mode_bf16(
+            f"mha_block f32 mode, bf16 I/O B={b} Lq={lq} Lk={lk}", out, ref,
+            1e-4)
+        worst = max(worst, err)
+        line = (f"  mha_block f32 mode, bf16 I/O B={b} Lq={lq} Lk={lk} "
+                f"h={heads}: err {err:.3e} mean {mean:.2e}, "
+                f"{100 * share:.4f}% of outputs differ; two runs bit-equal")
+        if not per_step:
+            print(line, flush=True)
+            continue
+        ms = _device_ms(lambda: mb.mha_block(x_q, x_kv, p, heads,
+                                             mxu_bf16=False))
+        plain = _device_ms(lambda: mb.mha_block_reference(x_q, x_kv, p,
+                                                          heads))
+        # f32-grade products: at least three TF32 tensor-core passes each
+        # (3 x operations / 495 TFLOP/s); bf16 activations, f32 parameters.
+        flops = 2 * b * (2 * lq * dim * dim + 2 * lk * dim * dim
+                         + 2 * lq * lk * dim)
+        nbytes = (2 * (2 * b * lq * dim + b * lk * dim)
+                  + 4 * (4 * dim * dim + 8 * dim))
+        bound, by = _bound_ms(3 * flops, nbytes, PEAK_TF32)
+        print(f"{line}; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+        rows.append({"per_step": per_step, "err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+        del x_q, x_kv, out, ref
+    entry = _entry("mha_block_f32io_bf16", "cuda",
+                   "multimodal_sc_torch/csrc/mha_block.cu",
                    "multimodal_sc_tpu/kernels/mha_block.py:149", rows)
     entry["max_abs_err"] = worst
     return entry
@@ -1649,6 +1779,188 @@ def check_packed_attention():
         _entry("packed_attention_bwd", "cuda", src,
                "multimodal_sc_tpu/kernels/attention_packed.py:201", bwd_rows)]
     entries[0]["max_abs_err"], entries[1]["max_abs_err"] = worst_fwd, worst_bwd
+    return entries + _check_packed_f32_mode_bf16()
+
+
+def _block_magnitudes(q, k, v, out, dout, heads, scale, lse):
+    """The largest value each dK and dV rounding of the packed f32 mode on
+    bf16 tensors takes, by the plain version: over the 128-query blocks,
+    each block's f32 sum and the running bf16 sum after it."""
+    import torch
+
+    from multimodal_sc_torch.kernels import attention_packed as ap
+
+    mags, runs = [None, None], [None, None]
+    for q0 in range(0, q.shape[1], ap.BLOCK_Q):
+        rows = slice(q0, q0 + ap.BLOCK_Q)
+        parts = ap.packed_attention_bwd_reference(
+            q[:, rows].float(), k.float(), v.float(),
+            out[:, rows].float(), dout[:, rows].float(), heads, scale,
+            lse=lse[..., rows])[1:]
+        for i, part in enumerate(parts):
+            pb = part.bfloat16()
+            runs[i] = pb if runs[i] is None else runs[i] + pb
+            m = torch.maximum(part.abs(), runs[i].float().abs())
+            mags[i] = m if mags[i] is None else torch.maximum(mags[i], m)
+    return mags
+
+
+def _check_packed_f32_mode_bf16():
+    """The packed kernels' f32 mode on bf16 tensors (``mxu_bf16=False``:
+    the flash kernels' bf16-I/O instances) against their plain versions on
+    the same bf16 inputs (``packed_attention_fwd_reference`` and
+    ``packed_attention_bwd_reference`` with bf16 off: f32 arithmetic, the
+    output and dQ rounded once, dK and dV per 128-query block), forward and
+    backward (through autograd) each run twice for the same bits. Timed at
+    arm B's learn shapes (B 128, 65 x 256 and 256 x 65) and the ViT
+    trunk's (L 64), one call each (the lines' rows); untimed at head dims
+    64, 16 and 8 and at Lq = 300, three query blocks, the last partial:
+    there the share of dK and dV elements that differ from the per-block
+    plain version must be smaller than the share that differ from a plain
+    version rounding once, or the block flush is untested. SDPA on the
+    widened f32 tensors (TF32 off) is printed as a reference only: it
+    computes no bf16 I/O. On no main path: its launches are printed, 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_sc_torch.kernels import attention_packed as ap
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    bf = torch.bfloat16
+
+    def heads_first(t, heads):
+        b, l, dm = t.shape
+        return t.float().reshape(b, l, heads, dm // heads).transpose(
+            1, 2).contiguous()
+
+    # (B, Lq, Lk, dm, heads, timed)
+    cases = [(LEARN_BATCH, 65, 256, 128, 4, True),
+             (LEARN_BATCH, 256, 65, 128, 4, True),
+             (LEARN_BATCH, VIT_TOKENS, VIT_TOKENS, 128, 4, True),
+             (8, 130, 300, 128, 2, False), (16, 70, 130, 128, 8, False),
+             (16, 50, 300, 128, 16, False), (16, 300, 100, 128, 4, False)]
+    fwd_rows, bwd_rows = [], []
+    worst_fwd = worst_bwd = 0.0
+    for b, lq, lk, dm, heads, timed in cases:
+        q, k, v, do = (torch.randn(b, n, dm, generator=g,
+                                   device="cuda").to(bf)
+                       for n in (lq, lk, lk, lq))
+        scale = (dm // heads) ** -0.5
+        counts = (ap.launches_fwd_f32io_bf16, ap.launches_bwd_f32io_bf16)
+        out, lse = ap._fwd_cuda(q, k, v, heads, scale, False, want_lse=True)
+        if not torch.equal(out, ap._fwd_cuda(q, k, v, heads, scale,
+                                             False)[0]):
+            raise AssertionError("packed_attention f32 mode, bf16 I/O "
+                                 "forward: two runs on the same inputs "
+                                 "differ")
+        want, want_lse = ap.packed_attention_fwd_reference(q, k, v, heads,
+                                                           scale)
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = ap.packed_attention(*ins, heads, mxu_bf16=False)
+        got = torch.autograd.grad(o, ins, do)
+        again = ap._bwd_cuda(q, k, v, o.detach(), lse, do, heads, scale,
+                             False)
+        if not all(torch.equal(a, b_) for a, b_ in zip(again, got)):
+            raise AssertionError("packed_attention f32 mode, bf16 I/O "
+                                 "backward: two runs on the same inputs "
+                                 "differ")
+        if (ap.launches_fwd_f32io_bf16, ap.launches_bwd_f32io_bf16) != (
+                counts[0] + 3, counts[1] + 2):
+            raise AssertionError("packed_attention f32 mode, bf16 I/O: not "
+                                 "counted as its instances")
+        want_g = ap.packed_attention_bwd_reference(q, k, v, o.detach(), do,
+                                                   heads, scale, lse=lse)
+        torch.cuda.synchronize()
+        name = f"packed_attention f32 mode, bf16 I/O B={b} Lq={lq} Lk={lk}"
+        # The f32 mode's gates: 1e-4 forward, 5e-4 backward; the lse as the
+        # flash kernels', 2e-5.
+        err, mean, share = _gate_f32_mode_bf16(name + " forward", out, want,
+                                               1e-4)
+        torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+        berr, bmean, bshare = 0.0, 0.0, 0.0
+        # dK and dV round each block's sum and each join to the running
+        # sum: 2 x blocks - 1 roundings, at the blocks' magnitudes.
+        blocks = -(-lq // ap.BLOCK_Q)
+        mags = [None] + _block_magnitudes(q, k, v, o.detach(), do, heads,
+                                          scale, lse)
+        for n_, a, w, mg in zip(("dq", "dk", "dv"), got, want_g, mags):
+            e, m_, s_ = _gate_f32_mode_bf16(
+                f"{name} {n_}", a, w, 5e-4, mg,
+                1 if mg is None else 2 * blocks - 1)
+            berr, bmean, bshare = max(berr, e), max(bmean, m_), max(bshare,
+                                                                   s_)
+        worst_fwd, worst_bwd = max(worst_fwd, err), max(worst_bwd, berr)
+        line = (f"  {name} dm={dm} h={heads}: fwd err {err:.3e} mean "
+                f"{mean:.2e} ({100 * share:.4f}% differ), bwd err "
+                f"{berr:.3e} mean {bmean:.2e} ({100 * bshare:.4f}% differ); "
+                "two runs bit-equal")
+        if lq > ap.BLOCK_Q:
+            once = [t.to(bf) for t in ap.packed_attention_bwd_reference(
+                *(t.float() for t in (q, k, v, o.detach(), do)), heads, scale,
+                lse=lse)]
+            for n_, a, w, w1 in zip(("dk", "dv"), got[1:], want_g[1:],
+                                    once[1:]):
+                blocked = (a != w).float().mean().item()
+                rounded_once = (a != w1).float().mean().item()
+                line += (f"; {n_} differs from the per-block plain version "
+                         f"in {100 * blocked:.4f}%, from the once-rounded "
+                         f"one in {100 * rounded_once:.4f}%")
+                if not blocked < rounded_once:
+                    raise AssertionError(f"{name}: {n_} is no nearer the "
+                                         "per-block rounding than the "
+                                         "rounding once")
+        if not timed:
+            print(line, flush=True)
+            continue
+        qh, kh, vh, doh = (heads_first(t, heads) for t in (q, k, v, do))
+        ms = _device_ms(lambda: ap.packed_attention(q, k, v, heads,
+                                                    mxu_bf16=False))
+        plain = _device_ms(lambda: ap.packed_attention_fwd_reference(
+            q, k, v, heads, scale))
+        sdpa = _device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        # f32-grade products: S and P V, 4 operations per score and column,
+        # each at least three TF32 passes; q, k, v read and the output
+        # written once in bf16.
+        work = b * lq * lk * dm
+        bound, by = _bound_ms(3 * 4 * work, 2 * 2 * b * (lq + lk) * dm,
+                              PEAK_TF32)
+        line += (f"; fwd kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+                 f"{bound:.4f} ms ({by}), SDPA on the widened f32 tensors "
+                 f"{sdpa:.4f} ms (a reference only)")
+        fwd_rows.append({"per_step": 1, "err": err, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bound,
+                         "bound_by": by, "library_ms": None})
+        o = o.detach()
+        bms = _device_ms(lambda: ap._bwd_cuda(q, k, v, o, lse, do, heads,
+                                              scale, False))
+        bplain = _device_ms(lambda: ap.packed_attention_bwd_reference(
+            q, k, v, o, do, heads, scale, lse=lse))
+        for t in (qh, kh, vh):
+            t.requires_grad_(True)
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+        bsdpa = _device_ms(lambda: torch.autograd.grad(
+            lib_out, (qh, kh, vh), doh, retain_graph=True))
+        # S, dP and dQ (6), S, dP, dV and dK (8) per score and column, three
+        # TF32 passes each; q, k, v, O, dO and lse read, dq, dk, dv written
+        # once.
+        bound, by = _bound_ms(3 * 14 * work,
+                              2 * b * (4 * lq + 4 * lk) * dm
+                              + 4 * b * heads * lq, PEAK_TF32)
+        line += (f"; bwd kernels {bms:.4f} ms, plain {bplain:.3f} ms, bound "
+                 f"{bound:.4f} ms ({by}), SDPA backward on the widened f32 "
+                 f"tensors {bsdpa:.4f} ms (a reference only)")
+        bwd_rows.append({"per_step": 1, "err": berr, "ms": bms,
+                         "plain_ms": bplain, "bound_ms": bound,
+                         "bound_by": by, "library_ms": None})
+        print(line, flush=True)
+        del q, k, v, do, out, o, got, again, want_g, qh, kh, vh, doh, lib_out
+    src = "multimodal_sc_torch/csrc/flash_kernels.cuh"
+    entries = [
+        _entry("packed_attention_fwd_f32io_bf16", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention_packed.py:170", fwd_rows),
+        _entry("packed_attention_bwd_f32io_bf16", "cuda", src,
+               "multimodal_sc_tpu/kernels/attention_packed.py:201", bwd_rows)]
+    entries[0]["max_abs_err"], entries[1]["max_abs_err"] = worst_fwd, worst_bwd
     return entries
 
 
@@ -1804,7 +2116,7 @@ def check_kernels():
     try:
         conv = check_conv_prelu()
         conv["max_abs_err"] = max(conv["max_abs_err"], check_conv_bands())
-        return [check_mha_block(), conv, *check_scatter_max(),
+        return [*check_mha_block(), conv, *check_scatter_max(),
                 *check_packed_attention(), *check_flash_attention()]
     finally:
         (torch.backends.cudnn.allow_tf32,
@@ -5765,6 +6077,14 @@ DIST_RANK_ITERS = 8
 DIST_TIMEOUT_S = 400
 DIST_ATTN_SHAPE = (64, 4, 256, 32)
 DIST_TP_LR = 1e-2
+# (f) c1_vq with usage and re-seeding, a global batch of 8 (512 tokens: a
+# nearest-code tie that two sums in other orders break apart is rare).
+DIST_VQ = C1_VQ + ["camera.vq_usage_coef=0.1", "camera.vq_reseed=0.3"]
+DIST_VQ_BATCH = 8
+# (g) and (h): c5 cut to 16 steps of rollout and one epoch of two
+# minibatch steps an update.
+DIST_C5_CUT = ["rl.rollout_length=16", "rl.ppo_epochs=1",
+               "rl.num_minibatches=2"]
 
 
 def _free_port() -> int:
@@ -5935,6 +6255,114 @@ def _c1_dist_inputs():
               "snr_db": draws.snr_db.cpu().numpy(),
               "noise": noise.cpu().numpy()}
     return inputs, want, {k: float(v) for k, v in metrics.items()}
+
+
+def _c1_vq_dist_inputs():
+    """(f)'s inputs (the c1_vq state dict, one global batch, its SNR,
+    channel noise and re-seeding coin) and the one-process step's
+    parameters and metrics on the card (TF32 off)."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.envs.datasets import ImageDataset
+    from multimodal_sc_torch.train import jscc
+
+    cfg = get_preset("c1").override_str(DIST_VQ)
+    state = jscc.create_train_state(cfg, 0, "cuda")
+    sd = {k: v.detach().cpu().numpy().copy()
+          for k, v in state.params.state_dict().items()}
+    img = next(ImageDataset(cfg.train.dataset, DIST_VQ_BATCH, seed=4,
+                            device="cuda"))
+    g = state.generator
+    draws = jscc.StepDraws(
+        snr_db=torch.full((DIST_VQ_BATCH,), cfg.channel.snr_db,
+                          device="cuda"),
+        channel=torch.randn(DIST_VQ_BATCH, state.params.bits_per_image // 2,
+                            2, generator=g, device="cuda"),
+        coin=torch.rand(cfg.camera.vq_codes, generator=g, device="cuda"))
+    state, metrics = jscc.make_train_step(cfg)(state, img, draws)
+    want = {k: v.detach().cpu() for k, v in state.params.state_dict().items()}
+    inputs = {"sd": sd, "img": img.cpu().numpy(),
+              **{k: getattr(draws, k).cpu().numpy()
+                 for k in ("snr_db", "channel", "coin")}}
+    return inputs, want, {k: float(v) for k, v in metrics.items()}
+
+
+def _c1_vq_rank_step(inputs):
+    """(f) on this rank: the c1_vq step on its rows of the global batch
+    and draws; the parameters and metrics after it."""
+    import torch
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.runtime.mesh import make_mesh, shard_batch
+    from multimodal_sc_torch.train import jscc
+
+    cfg = get_preset("c1").override_str(DIST_VQ)
+    mesh = make_mesh()
+    st = jscc.create_train_state(cfg, 0, "cuda")
+    st.params.load_state_dict({k: torch.tensor(v)
+                               for k, v in inputs["sd"].items()})
+    draws = jscc.StepDraws(**{k: torch.tensor(inputs[k], device="cuda")
+                              for k in ("snr_db", "channel", "coin")})
+    st, m = jscc.make_train_step(cfg, mesh=mesh)(
+        st, shard_batch(mesh, torch.tensor(inputs["img"], device="cuda")),
+        draws)
+    return {"params": {k: v.detach().cpu().numpy()
+                       for k, v in st.params.state_dict().items()},
+            "metrics": {k: float(v) for k, v in m.items()}}
+
+
+def _c5_tp_run(ckpt_dir, steps):
+    """``train.ppo.run`` at data 1 x model 2 with a checkpoint after every
+    update: this rank's slices of the network and its update count."""
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.train import ppo as train_ppo
+
+    cfg = get_preset("c5").override_str(DIST_C5_CUT + [
+        "mesh.model_axis=2", f"train.steps={steps}",
+        "train.checkpoint_every=1", f"train.checkpoint_dir={ckpt_dir}"])
+    state, _ = train_ppo.run(cfg, device="cuda")
+    return _flat_cpu(state.params), state.update
+
+
+def _c5_tp_checkpoint(tmpdir):
+    """(g) on this rank: two TP updates with a checkpoint after each,
+    against one update, a stop and a resume (the runs' checkpoint
+    directories under ``tmpdir``, which rank 0 writes and both ranks
+    read). Returns whether this rank's slices agree bit for bit and the
+    update counts."""
+    import os
+
+    import torch
+
+    whole = _c5_tp_run(os.path.join(tmpdir, "whole"), 2)
+    _c5_tp_run(os.path.join(tmpdir, "stopped"), 1)
+    resumed = _c5_tp_run(os.path.join(tmpdir, "stopped"), 2)
+    return {"equal": bool(torch.equal(whole[0], resumed[0])),
+            "updates": (whole[1], resumed[1])}
+
+
+def _c5_digital_rank_update():
+    """(h) on this rank: one c5 digital update at data 2 (both codebooks
+    re-seeding, the LiDAR one under its usage loss), each rank stepping
+    half the envs; whether the replicas are bit-equal after it, and its
+    metrics."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.rl import ppo
+    from multimodal_sc_torch.runtime.mesh import make_mesh
+
+    cfg = get_preset("c5").override_str(C5_DIGITAL + DIST_C5_CUT)
+    mesh = make_mesh()
+    state = ppo.init(cfg, 0, "cuda", mesh)
+    state, metrics = ppo.make_train_step(cfg, mesh)(state)
+    flat = _flat_cpu(state.params)
+    parts = [torch.empty_like(flat) for _ in range(2)]
+    dist.all_gather(parts, flat)
+    return {"equal": bool(torch.equal(parts[0], parts[1])),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 def _tp_fusion_kw(cfg):
@@ -6146,11 +6574,19 @@ def _dist_rank_work(rank, c1_inputs):
     torch.cuda.empty_cache()
     # (e) One tensor-parallel step at data 1 x model 2.
     out["tp"] = _tp_rank_step(c1_inputs["tp"])
+    torch.cuda.empty_cache()
+    # (f) One c1_vq step on this rank's rows, its statistics pooled.
+    out["c1_vq"] = _c1_vq_rank_step(c1_inputs["c1_vq"])
+    # (g) c5 under TP: a checkpoint, a stop and a resume.
+    out["tp_ckpt"] = _c5_tp_checkpoint(c1_inputs["tmpdir"])
+    torch.cuda.empty_cache()
+    # (h) One data-parallel c5 digital update.
+    out["c5_digital"] = _c5_digital_rank_update()
     return out
 
 
 def dist_two_ranks():
-    """(b), (d) and (e): two spawned ranks on the card over gloo."""
+    """(b), (d)-(h): two spawned ranks on the card over gloo."""
     import multiprocessing as mp
 
     import torch
@@ -6160,6 +6596,9 @@ def dist_two_ranks():
     with _exact_cuda():
         c1_inputs, c1_want, c1_metrics = _c1_dist_inputs()
         c1_inputs["tp"], tp_want = _tp_dist_inputs()
+        c1_inputs["c1_vq"], vq_want, vq_metrics = _c1_vq_dist_inputs()
+    tmp = tempfile.TemporaryDirectory()
+    c1_inputs["tmpdir"] = tmp.name
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     init = f"tcp://localhost:{_free_port()}"
@@ -6183,6 +6622,7 @@ def dist_two_ranks():
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+        tmp.cleanup()
     if errors:
         raise RuntimeError("distributed phase: " + errors[0])
     print(f"  two ranks: {time.perf_counter() - t0:.1f} s with the spawn",
@@ -6252,6 +6692,51 @@ def dist_two_ranks():
               f"plain step: output {y_err:.3e}, loss {r['loss']:.7g} vs "
               f"{tp_want['loss']:.7g}, worst parameter {p_err:.3e}",
               flush=True)
+    # (f) The c1_vq step against one process on the global batch.
+    worst = 0.0
+    for rank in (0, 1):
+        r = got[rank]["c1_vq"]
+        if r["metrics"].keys() != vq_metrics.keys():
+            raise RuntimeError(f"c1_vq on two ranks: metrics "
+                               f"{sorted(r['metrics'])}")
+        for k, w in vq_metrics.items():
+            if not math.isclose(r["metrics"][k], w, rel_tol=1e-4,
+                                abs_tol=1e-5):
+                raise RuntimeError(f"c1_vq on two ranks: {k} "
+                                   f"{r['metrics'][k]} vs {w}")
+        for k, w in vq_want.items():
+            d = (torch.tensor(r["params"][k]) - w).abs()
+            worst = max(worst, d.max().item())
+            if (d > 1e-5 + 1e-4 * w.abs()).any():
+                raise RuntimeError(f"c1_vq on two ranks: {k} off by "
+                                   f"{d.max().item():.3e}")
+    print(f"  (f) c1_vq step on two ranks against one process (usage and "
+          f"re-seeding pooled): metrics {got[0]['c1_vq']['metrics']} vs "
+          f"{vq_metrics}; worst parameter difference {worst:.3e}",
+          flush=True)
+    # (g) and (h): bit-equal resume under TP; replicas equal.
+    for rank in (0, 1):
+        r = got[rank]
+        if not r["tp_ckpt"]["equal"] or r["tp_ckpt"]["updates"] != (2, 2):
+            raise RuntimeError(f"c5 under TP, rank {rank}: the resumed run "
+                               f"differs from the run without a stop "
+                               f"({r['tp_ckpt']})")
+        if not r["c5_digital"]["equal"]:
+            raise RuntimeError(f"c5 digital on two data ranks, rank {rank}: "
+                               "the replicas diverged")
+        bad = [k for k, v in r["c5_digital"]["metrics"].items()
+               if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"c5 digital on two data ranks: {bad} not "
+                               "finite")
+    if got[0]["c5_digital"]["metrics"] != got[1]["c5_digital"]["metrics"]:
+        raise RuntimeError("c5 digital on two data ranks: the pooled "
+                           "metrics differ")
+    print(f"  (g) c5 at data 1 x model 2: two updates with a checkpoint "
+          f"each, against one, a stop and a resume: each rank's slices "
+          f"bit-equal; (h) a c5 digital update at data 2: replicas "
+          f"bit-equal, metrics {got[0]['c5_digital']['metrics']}",
+          flush=True)
     return got
 
 
@@ -6276,7 +6761,9 @@ def distributed_phase():
     finally:
         dist.destroy_process_group()
     print(" (b) two ranks sharing the card over gloo, (d) one c1 step on "
-          "them and (e) one TP step at data 1 x model 2:", flush=True)
+          "them, (e) one TP step at data 1 x model 2, (f) one c1_vq step, "
+          "(g) a c5 TP run resumed from its checkpoint and (h) one c5 "
+          "digital update at data 2:", flush=True)
     got = dist_two_ranks()
     print(f"  distributed phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, {"single": rate_single, "sharded": rate_sharded,
@@ -6559,7 +7046,12 @@ def main() -> int:
         totals[k] += v
     for k in kernels:
         k["launches"] = totals[k["name"]]
-        if k["launches"] <= 0:
+        if k["name"] in OFF_PATH_KERNELS:
+            print(f"{k['name']}: {k['launches']} launches on the main paths "
+                  "(the f32 mode on bf16 tensors: no config passes "
+                  "mxu_bf16=False); per path: "
+                  f"{_OFF_PATH_SEEN.get(k['name'], {})}", flush=True)
+        elif k["launches"] <= 0:
             raise RuntimeError(f"{k['name']} was launched on no main path")
     print(f"agent steps/s at {NUM_ENVS} envs on {card}: " + "; ".join(
         f"{k} {v:.1f}" for k, v in rates.items()), flush=True)

@@ -47,6 +47,17 @@ grid shape.
 Random draws (the channel, code seeding, the re-seeding coin, the random
 selection scores, the damage probes) come from an explicit
 ``torch.Generator`` or are handed in, so the tests can feed JAX's draws.
+
+Data parallelism: handed a ``runtime/mesh.py`` mesh whose data axis has S >
+1 ranks, each holding its rows of one global batch, the quantiser's batch
+statistics cover the global batch, as GSPMD computes them in the JAX
+package: the usage loss's softmax scale and soft-usage mean are taken over
+the data group (``mean_over_data``: its identity backward, followed by the
+gradient mean over the group, gives the global batch's gradient), the usage
+counts are summed, the re-seeding candidates are the global batch's
+worst-quantised rows in the order one process's ``topk`` gives them, and
+``VQCameraJSCC``'s code perplexity and index error rate come from the
+summed histogram and error counts.
 """
 
 from __future__ import annotations
@@ -77,6 +88,10 @@ from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.kernels.conv_block import FusedConvPReLU
 from multimodal_sc_torch.nn_init import (init_like_flax_,
                                          variance_scaling_uniform_)
+from multimodal_sc_torch.runtime.mesh import (Mesh, all_gather_rows,
+                                              data_parallel,
+                                              from_first_shard,
+                                              mean_over_data)
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,16 +227,19 @@ USAGE_SAMPLE_WEIGHT = 0.0
 
 
 def vq_usage_loss(d2: torch.Tensor, temp: float = 0.5,
-                  sample_weight: Optional[float] = None) -> torch.Tensor:
+                  sample_weight: Optional[float] = None,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Codebook-usage regulariser on soft assignments q_i = softmax(-d2_i /
     s): ``sample_weight * mean_i H(q_i) - H(mean_i q_i)``, the softmax scale
-    s = ``temp * mean(d2)`` held out of the gradient."""
+    s = ``temp * mean(d2)`` held out of the gradient. With ``mesh`` (this
+    rank's rows of a global batch) s and mean_i q_i are the global batch's;
+    the sample entropy, a plain mean, stays this rank's."""
     if sample_weight is None:
         sample_weight = USAGE_SAMPLE_WEIGHT
-    scale = temp * d2.mean().detach() + 1e-9
+    scale = temp * mean_over_data(d2.mean().detach(), mesh) + 1e-9
     logp = F.log_softmax(-d2 / scale, dim=-1)
     p = logp.exp()
-    avg = p.reshape(-1, p.shape[-1]).mean(0)
+    avg = mean_over_data(p.reshape(-1, p.shape[-1]).mean(0), mesh)
     avg_ent = -(avg * torch.log(avg + 1e-9)).sum()
     if sample_weight == 0.0:
         return -avg_ent
@@ -255,15 +273,35 @@ def code_rows(codebook: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _CodeRows.apply(codebook, idx)
 
 
+def _global_candidates(flat: torch.Tensor, err: torch.Tensor, k: int,
+                       mesh: Mesh) -> torch.Tensor:
+    """The rows of the global batch (each rank's ``flat`` rows in data
+    order) with the ``min(k, rows)`` largest errors, in the order ``topk``
+    gives them on the global batch's errors: the errors are gathered, the
+    chosen rows taken from the rank that holds each."""
+    n = flat.shape[0]
+    err_g = all_gather_rows(err, mesh)
+    sel = err_g.topk(min(k, err_g.shape[0])).indices
+    owner = sel // n
+    mine = torch.where((owner == mesh.data_index)[:, None], flat[sel % n],
+                       torch.zeros((), dtype=flat.dtype, device=flat.device))
+    parts = all_gather_rows(mine[None], mesh)             # (S, kk, D)
+    return parts[owner, torch.arange(sel.shape[0], device=sel.device)]
+
+
 def vector_quantize(z_e: torch.Tensor, codebook: torch.Tensor,
                     beta: float = 0.25, usage_coef: float = 0.0,
-                    usage_temp: float = 0.5, with_stats: bool = False):
+                    usage_temp: float = 0.5, with_stats: bool = False,
+                    mesh: Optional[Mesh] = None):
     """Nearest-code quantisation with the straight-through estimator:
     z_e (..., D), codebook (K, D) -> ``(z_ste, indices int32 (...),
     vq_loss)``, and with ``with_stats`` also ``{"counts": (K,) int32 batch
     usage, "candidates": (K, D) the encoder outputs with the largest
     quantisation error, tiled up to K}`` for dead-code re-seeding, both out
-    of the graph."""
+    of the graph. With ``mesh`` (``z_e`` this rank's rows of a global
+    batch) the usage loss, the counts and the candidates are the global
+    batch's; the codebook and commitment losses, plain means, this
+    rank's."""
     dim = codebook.shape[1]
     flat = z_e.reshape(-1, dim)
     d2 = ((flat * flat).sum(1, keepdim=True)
@@ -275,7 +313,8 @@ def vector_quantize(z_e: torch.Tensor, codebook: torch.Tensor,
     commit_loss = (z_e - z_q.detach()).square().mean()
     vq_loss = codebook_loss + beta * commit_loss
     if usage_coef > 0:
-        vq_loss = vq_loss + usage_coef * vq_usage_loss(d2, usage_temp)
+        vq_loss = vq_loss + usage_coef * vq_usage_loss(d2, usage_temp,
+                                                       mesh=mesh)
     z_ste = z_e + (z_q - z_e).detach()
     idx_r = idx.reshape(z_e.shape[:-1]).to(torch.int32)
     if not with_stats:
@@ -284,13 +323,30 @@ def vector_quantize(z_e: torch.Tensor, codebook: torch.Tensor,
     with torch.no_grad():
         counts = torch.bincount(idx, minlength=k).to(torch.int32)
         err = d2.gather(1, idx[:, None])[:, 0]
+        if data_parallel(mesh):
+            torch.distributed.all_reduce(counts, group=mesh.data_group)
+            cand = _global_candidates(flat, err, k, mesh)
+        else:
+            cand = flat[err.topk(min(k, flat.shape[0])).indices]
         # Fewer rows than codes (a tiny batch): tile the worst rows up to K.
-        kk = min(k, flat.shape[0])
-        cand = flat[err.topk(kk).indices]
+        kk = cand.shape[0]
         if kk < k:
             cand = cand.repeat(-(-k // kk), 1)[:k]
     return z_ste, idx_r, vq_loss, {"counts": counts,
                                    "candidates": cand.detach()}
+
+
+def reseed_coin(counts: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                coin: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The (K,) uniform draws of one re-seeding: ``coin``, else drawn from
+    ``generator``; with ``mesh`` the data group's first rank's, so every
+    rank re-seeds the same codes."""
+    if coin is None:
+        coin = torch.rand(counts.shape, generator=generator,
+                          device=counts.device)
+    return coin if mesh is None else from_first_shard(coin, mesh)
 
 
 def reseed_dead_codes(codebook: torch.Tensor, counts: torch.Tensor,
@@ -302,9 +358,7 @@ def reseed_dead_codes(codebook: torch.Tensor, counts: torch.Tensor,
     probability ``rate``, to its row of the batch's worst-quantised encoder
     outputs. ``coin``: the (K,) uniform draws, in place of draws from
     ``generator``. Returns ``(new_codebook, n_reseeded)``."""
-    if coin is None:
-        coin = torch.rand(counts.shape, generator=generator,
-                          device=counts.device)
+    coin = reseed_coin(counts, generator, coin)
     take = (counts < 1) & (coin < rate)
     new_cb = torch.where(take[:, None], candidates.to(codebook.dtype),
                          codebook)
@@ -408,22 +462,28 @@ class VQEncoderTokens(nn.Module):
             x = getattr(self, f"enc{i}")(x)
         return self.to_code(x).float()
 
-    def quantize(self, z_e: torch.Tensor, with_stats: bool = True):
+    def quantize(self, z_e: torch.Tensor, with_stats: bool = True,
+                 mesh: Optional[Mesh] = None):
         """(B, h, w, D) features -> ``(indices (B, N) int32, vq_loss, z_ste
         (B, N, D), stats)``; ``stats`` the re-seeding inputs of
         :func:`vector_quantize` when ``vq_reseed > 0`` and ``with_stats``,
-        else None (what the JAX module sows, returned)."""
+        else None (what the JAX module sows, returned). ``mesh``: pool the
+        batch statistics over its data group (:func:`vector_quantize`)."""
+        # ``mesh`` only where pooled: stand-ins for vector_quantize that
+        # hold a route's codes take the one-process arguments.
         out = vector_quantize(z_e, self.codebook, self.vq_beta,
                               self.vq_usage_coef, self.vq_usage_temp,
-                              with_stats=with_stats and self.vq_reseed > 0)
+                              with_stats=with_stats and self.vq_reseed > 0,
+                              **({} if mesh is None else {"mesh": mesh}))
         z_ste, idx, vq_loss = out[:3]
         b, h, w, _ = z_e.shape
         return (idx.reshape(b, h * w), vq_loss,
                 z_ste.reshape(b, h * w, self.vq_dim),
                 out[3] if len(out) > 3 else None)
 
-    def forward(self, img: torch.Tensor, with_stats: bool = True):
-        return self.quantize(self.encode_features(img), with_stats)
+    def forward(self, img: torch.Tensor, with_stats: bool = True,
+                mesh: Optional[Mesh] = None):
+        return self.quantize(self.encode_features(img), with_stats, mesh)
 
 
 class VQTokensCamera(nn.Module):
@@ -615,7 +675,8 @@ class VQCameraJSCC(VQEncoderTokens):
                 select: Optional[str] = None,
                 select_draws: Optional[torch.Tensor] = None,
                 uep_draws: Optional[torch.Tensor] = None,
-                side_generator: Optional[torch.Generator] = None):
+                side_generator: Optional[torch.Generator] = None,
+                data_mesh: Optional[Mesh] = None):
         """``(recon, aux)``: transmitter, channel and receiver in one
         forward at ``snr_db`` (scalar or (B,)) over ``ch`` (a
         ``ChannelConfig``, by default ``cfg.channel``).
@@ -637,11 +698,15 @@ class VQCameraJSCC(VQEncoderTokens):
         scores or a damage rule's probes), ``uep_draws`` (the UEP damage
         probes), ``noise`` (the channel's). ``side_generator``, when
         given, draws the selection and UEP draws instead, so that
-        deployments of one point meet the same channel noise."""
+        deployments of one point meet the same channel noise.
+        ``data_mesh``: ``img`` is this rank's rows of a global batch; the
+        usage loss, the re-seeding inputs, ``code_perplexity`` and
+        ``index_error_rate`` are the global batch's (the other entries,
+        plain means, this rank's)."""
         ch = self.cfg.channel if ch is None else ch
         side = generator if side_generator is None else side_generator
         idx_tx, vq_loss, z_ste, stats = self.quantize(
-            self.encode_features(img))
+            self.encode_features(img), mesh=data_mesh)
         b = idx_tx.shape[0]
         if keep is None and self.vq_prune and ch.token_keep < 1.0:
             keep = torch.full((b,), ch.token_keep, dtype=torch.float32,
@@ -672,16 +737,23 @@ class VQCameraJSCC(VQEncoderTokens):
         err = (idx_rx != idx_tx).float()
         # Received codes on the forward path, the clean STE on the backward.
         z_rx = z_ste + (self.codebook[idx_rx.long()] - z_ste).detach()
+        sent = torch.ones_like(err) if kept is None else kept.to(torch.float32)
         if kept is not None:
             z_rx = torch.where(kept[..., None], z_rx,
                                self.mask_embed.expand_as(z_rx))
-            kf = kept.to(torch.float32)
-            idx_err = (err * kf).sum() / kf.sum().clamp(min=1.0)
-        else:
-            idx_err = err.mean()
+        counts = torch.bincount(idx_tx.reshape(-1).long(),
+                                minlength=self.vq_codes)
+        # Errors and sent tokens: whole numbers, exact in any order.
+        sums = torch.stack([(err * sent).sum(), sent.sum()])
+        n_tok = idx_tx.numel()
+        if data_parallel(data_mesh):
+            for t in (counts, sums):
+                torch.distributed.all_reduce(t, group=data_mesh.data_group)
+            n_tok *= data_mesh.data
+        idx_err = (sums[0] / sums[1].clamp(min=1.0) if kept is not None
+                   else sums[0] / n_tok)
         recon = self.codes_to_image(z_rx)
-        p = torch.bincount(idx_tx.reshape(-1).long(),
-                           minlength=self.vq_codes).float() / idx_tx.numel()
+        p = counts.float() / n_tok
         aux = {"vq_loss": vq_loss, "index_error_rate": idx_err,
                "code_perplexity": torch.exp(-(p * torch.log(p + 1e-10)).sum())}
         if stats is not None:

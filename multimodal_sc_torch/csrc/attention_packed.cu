@@ -95,7 +95,15 @@
 // accumulators into a running bf16 pair after every second tile (and after
 // the last), the first block's partial taken as it is. The TPU kernel
 // pads Lq to its blocks with zero rows, which add exact zeros; rows past
-// Lq here are P = 0 as well. The f32 mode takes f32 tensors only.
+// Lq here are P = 0 as well.
+//
+// f32 mode on bf16 tensors (mxu_bf16=False with bf16 I/O, mode kF32Bf16Io:
+// no main path, the kernels' own entry points): the flash kernels' bf16-I/O
+// instances (flash_kernels.cuh, T = bf16). Every value is read in bf16 and
+// widened exactly, the arithmetic is the f32 mode's, the output and dQ are
+// rounded once at the store, lse and delta stay f32, and dK and dV are
+// summed per 128-query block and rounded into running bf16 sums, as the TPU
+// kernel computes them on bf16 arrays with bf16=False.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -667,25 +675,31 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
       stream);
 }
 
-// ---- backward, f32 mode: the strided f32 kernels on the packed layout ----
+// ---- backward, f32 mode: the strided flash kernels on the packed layout,
+// on f32 tensors (T = float) or bf16 ones (T = bf16) ----
 
-template <int DT>
-int launch_bwd_f32(const float* q, const float* k, const float* v,
-                   const float* o, const float* dout, const float* lse,
-                   float* dq, float* dk, float* dv, float* delta, int B,
+template <int DT, typename T>
+int launch_bwd_f32(const void* q_, const void* k_, const void* v_,
+                   const void* o_, const void* dout_, const float* lse,
+                   void* dq_, void* dk_, void* dv_, float* delta, int B,
                    int Lq, int Lk, int dm, int heads, float scale,
                    cudaStream_t stream) {
+  const T *q = static_cast<const T*>(q_), *k = static_cast<const T*>(k_),
+          *v = static_cast<const T*>(v_), *o = static_cast<const T*>(o_),
+          *dout = static_cast<const T*>(dout_);
+  T *dq = static_cast<T*>(dq_), *dk = static_cast<T*>(dk_),
+    *dv = static_cast<T*>(dv_);
   const int D = dm / heads;
   // (B, L, heads * D) read as (B, heads, L, D): batch, head, row strides.
   const flash::Strides sq{(long long)Lq * dm, D, dm};
   const flash::Strides sk{(long long)Lk * dm, D, dm};
-  const int e = flash::launch_bwd_dq<DT>(q, k, v, o, dout, lse, dq, delta,
-                                         sq, sk, sk, sq, sq, sq, B, heads, Lq,
-                                         Lk, D, scale, stream);
+  const int e = flash::launch_bwd_dq<DT, T>(q, k, v, o, dout, lse, dq, delta,
+                                            sq, sk, sk, sq, sq, sq, B, heads,
+                                            Lq, Lk, D, scale, stream);
   if (e != 0) return e;
-  return flash::launch_bwd_dkv<DT>(q, k, v, dout, lse, delta, dk, dv, sq, sk,
-                                   sk, sq, sk, sk, B, heads, Lq, Lk, D, scale,
-                                   stream);
+  return flash::launch_bwd_dkv<DT, T>(q, k, v, dout, lse, delta, dk, dv, sq,
+                                      sk, sk, sq, sk, sk, B, heads, Lq, Lk, D,
+                                      scale, stream);
 }
 
 // bf16 mode on f32 tensors.
@@ -718,19 +732,22 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
       Lq, Lk, dm, heads, scale, stream);
 }
 
-// f32 mode: the strided forward of flash_kernels.cuh on the packed layout.
-template <int DT>
-int launch_fwd_f32(const float* q, const float* k, const float* v,
-                   float* out, float* lse, int B, int Lq, int Lk, int dm,
-                   int heads, float scale, cudaStream_t stream) {
+// f32 mode: the strided forward of flash_kernels.cuh on the packed layout,
+// on f32 tensors (T = float) or bf16 ones (T = bf16).
+template <int DT, typename T>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int B, int Lq, int Lk, int dm, int heads,
+                   float scale, cudaStream_t stream) {
   const int D = dm / heads;
   if ((int64_t)B * heads * ((Lq + flash::TQ - 1) / flash::TQ) >= 2147483647LL)
     return (int)cudaErrorInvalidValue;
   // (B, L, heads * D) read as (B, heads, L, D): batch, head, row strides.
   const flash::Strides sq{(long long)Lq * dm, D, dm};
   const flash::Strides sk{(long long)Lk * dm, D, dm};
-  return flash::launch_fwd<DT>(q, k, v, out, lse, sq, sk, sk, sq, B, heads,
-                               Lq, Lk, D, scale, stream);
+  return flash::launch_fwd<DT, T>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, sk, sq, B,
+      heads, Lq, Lk, D, scale, stream);
 }
 
 bool shape_ok(int B, int dm, int heads) {
@@ -750,19 +767,19 @@ bool shape_ok(int B, int dm, int heads) {
   }
 
 // The launchers' mode: f32 operands and I/O, bf16 operands with f32 I/O,
-// or bf16 operands and I/O.
-enum Mode { kF32 = 0, kBf16 = 1, kBf16Io = 2 };
+// bf16 operands and I/O, or f32 operands with bf16 I/O.
+enum Mode { kF32 = 0, kBf16 = 1, kBf16Io = 2, kF32Bf16Io = 3 };
 
 // q, out (B, Lq, dm), k, v (B, Lk, dm): contiguous, 16-byte aligned; bf16
-// in mode kBf16Io, else f32; dm a multiple of 128, head dim dm / heads in
-// {8, 16, 32, 64}. lse, if not null, receives the softmax's logsumexp,
-// (B, heads, Lq), f32.
+// in modes kBf16Io and kF32Bf16Io, else f32; dm a multiple of 128, head dim
+// dm / heads in {8, 16, 32, 64}. lse, if not null, receives the softmax's
+// logsumexp, (B, heads, Lq), f32.
 extern "C" int packed_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int B, int Lq, int Lk, int dm, int heads, float scale, int mode,
     cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kBf16Io)
+  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kF32Bf16Io)
     return (int)cudaErrorInvalidValue;
   if (mode == kBf16Io) {
     DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_wgmma<D>(
@@ -772,10 +789,13 @@ extern "C" int packed_attention_fwd_launch(
     DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_mma<D>(
         q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
   }
-  DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_f32<(D <= 32 ? 32 : 64)>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, B, Lq, Lk,
-      dm, heads, scale, stream)))
+  if (mode == kF32Bf16Io) {
+    DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_f32<(D <= 32 ? 32 : 64),
+                                                  io::bf16>(
+        q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
+  }
+  DISPATCH_HEAD_DIM(dm / heads, (launch_fwd_f32<(D <= 32 ? 32 : 64), float>(
+      q, k, v, out, lse, B, Lq, Lk, dm, heads, scale, stream)))
 }
 
 // Key splits of the bf16-mode backward for this shape: with more than one
@@ -790,9 +810,9 @@ enum BwdKernel { kByRule = 0, kWgmma = 1, kMma = 2 };
 
 // As the forward, plus o = its output, lse = its logsumexp and dout
 // (B, Lq, dm); writes dq (B, Lq, dm), dk, dv (B, Lk, dm), all in the
-// forward's element type. scratch (f32): in f32 mode B * heads * Lq floats
-// (delta); in bf16 mode on bwd_mma_kernel the partial dQ of the key splits
-// when there is more than one, else unused. kernel (bf16 mode): a
+// forward's element type. scratch (f32): in the f32 modes B * heads * Lq
+// floats (delta); in bf16 mode on bwd_mma_kernel the partial dQ of the key
+// splits when there is more than one, else unused. kernel (bf16 modes): a
 // BwdKernel; the wgmma kernel takes Lk <= 256.
 extern "C" int packed_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -800,8 +820,9 @@ extern "C" int packed_attention_bwd_launch(
     float* scratch, int B, int Lq, int Lk, int dm, int heads, float scale,
     int mode, int kernel, cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0) return 0;
-  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kBf16Io ||
-      kernel < kByRule || kernel > kMma || (mode == kF32 && kernel != kByRule))
+  if (!shape_ok(B, dm, heads) || mode < kF32 || mode > kF32Bf16Io ||
+      kernel < kByRule || kernel > kMma ||
+      ((mode == kF32 || mode == kF32Bf16Io) && kernel != kByRule))
     return (int)cudaErrorInvalidValue;
   if (kernel == kWgmma || (kernel == kByRule && mode == kBf16Io &&
                            Lk <= packed_bwd_bf16::MAX_WG *
@@ -825,16 +846,19 @@ extern "C" int packed_attention_bwd_launch(
         q, k, v, o, dout, lse, dq, dk, dv, scratch, B, Lq, Lk, dm, heads,
         scale, stream)))
   }
-  const float *q_ = static_cast<const float*>(q),
-              *k_ = static_cast<const float*>(k),
-              *v_ = static_cast<const float*>(v),
-              *o_ = static_cast<const float*>(o),
-              *do_ = static_cast<const float*>(dout);
-  float *dq_ = static_cast<float*>(dq), *dk_ = static_cast<float*>(dk),
-        *dv_ = static_cast<float*>(dv);
+  if (mode == kF32Bf16Io) {
+    if (dm / heads <= 32)
+      return launch_bwd_f32<32, io::bf16>(q, k, v, o, dout, lse, dq, dk, dv,
+                                          scratch, B, Lq, Lk, dm, heads,
+                                          scale, stream);
+    return launch_bwd_f32<64, io::bf16>(q, k, v, o, dout, lse, dq, dk, dv,
+                                        scratch, B, Lq, Lk, dm, heads, scale,
+                                        stream);
+  }
   if (dm / heads <= 32)
-    return launch_bwd_f32<32>(q_, k_, v_, o_, do_, lse, dq_, dk_, dv_,
-                              scratch, B, Lq, Lk, dm, heads, scale, stream);
-  return launch_bwd_f32<64>(q_, k_, v_, o_, do_, lse, dq_, dk_, dv_, scratch,
-                            B, Lq, Lk, dm, heads, scale, stream);
+    return launch_bwd_f32<32, float>(q, k, v, o, dout, lse, dq, dk, dv,
+                                     scratch, B, Lq, Lk, dm, heads, scale,
+                                     stream);
+  return launch_bwd_f32<64, float>(q, k, v, o, dout, lse, dq, dk, dv, scratch,
+                                   B, Lq, Lk, dm, heads, scale, stream);
 }

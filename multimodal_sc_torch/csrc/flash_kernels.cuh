@@ -5,6 +5,17 @@
 // (B, H, L, D) tensors; attention_packed.cu launches them as its f32 mode on
 // the packed (B, L, H*d) layout, which is the same thing under other
 // strides. The kernels on bf16 tensors are in flash_bf16.cuh.
+//
+// The tensor-core kernels are templated on the element type T of their
+// tensors (lse and delta stay f32). T = float is the f32 instance; T = bf16
+// is the packed kernels' f32 mode on bf16 tensors (mxu_bf16=False, as the
+// TPU kernel computes it on bf16 arrays): every value is read in bf16 and
+// widened exactly, the arithmetic is the f32 instance's, the output and dQ
+// are rounded once at the store, and dK and dV follow the TPU kernel's
+// blocking: each 128-query block's f32 sum is rounded to bf16 and added to
+// a running bf16 sum, which is rounded again (its _init / _accum). Raw
+// tiles of bf16 rows arrive by 8-byte cp.async and widen as they are split;
+// every `if constexpr` on T leaves the f32 instance's code as it was.
 
 #pragma once
 
@@ -118,6 +129,40 @@ __device__ __forceinline__ void axpy_row(float w, const float* row, int seg,
   }
 }
 
+// The element type of a launcher below is named, never deduced: the
+// launchers of flash_bf16.cuh take bf16 pointers under the same names, and
+// flash_attention.cu picks between the two by its pointers' type.
+template <typename T>
+struct named {
+  using type = T;
+};
+template <typename T>
+using named_t = typename named<T>::type;
+
+// Four neighbouring values global -> shared, asynchronously: 16 bytes of
+// f32 or 8 of bf16; zeros when !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void cp_async4(io::bf16* dst, const io::bf16* src,
+                                          bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+// Four neighbouring values of a raw shared tile, widened to f32.
+__device__ __forceinline__ float4 raw4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 raw4(const io::bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = io::widen2(u.x), b = io::widen2(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 // ---- forward, f32-grade, on the TF32 tensor cores (3xTF32, wgmma) ----
 
 constexpr int TQ = 64;         // query rows of a forward block (a warpgroup)
@@ -159,10 +204,12 @@ __device__ __forceinline__ int v_slot(int key) {
 
 // One block, a warpgroup of four warps, per (batch*head, 64 queries); warp
 // w holds queries [16w, 16w + 16) of the block in every accumulator.
-template <int DT>
+// Raw rows of element type T, f32 planes: a bf16 raw stage fills half the
+// bytes the f32 one does, and the planes lie where they do for f32.
+template <int DT, typename T = float>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                  Strides so, int H, int Lq, int Lk, int D, int row_blocks,
                  float scale) {
@@ -176,7 +223,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int SET = 2 * KP + 2 * VP;  // K hi, K lo, V hi, V lo
   constexpr bool Q_REGS = DT <= 64;     // DT = 128: Q planes in shared
   extern __shared__ __align__(16) float smem[];
-  float* raw = smem;                    // [stage][K, V][TK][RLD]
+  T* raw = reinterpret_cast<T*>(smem);  // [stage][K, V][TK][RLD]
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem + 4 * RAW);
   uint32_t* qplanes = planes + 2 * SET; // [hi, lo], DT = 128 only
 
@@ -185,8 +232,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x / row_blocks;
   const int b = bh / H, h = bh % H;
   const int row0 = (blockIdx.x % row_blocks) * TQ + warp * 16;
-  const float* kb = at(k, sk, b, h, 0);
-  const float* vb = at(v, sv, b, h, 0);
+  const T* kb = at(k, sk, b, h, 0);
+  const T* vb = at(v, sv, b, h, 0);
   const int ntiles = (Lk + TK - 1) / TK;
 
   // Raw K and V rows of key tile `tile` into stage `stage`; keys past Lk
@@ -195,16 +242,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the same chunks, so its own wait for its copies is all the ordering the
   // raw stages need.
   auto load = [&](int tile, int stage) {
-    float* dk = raw + stage * 2 * RAW;
+    T* dk = raw + stage * 2 * RAW;
     const int k0 = tile * TK;
 #pragma unroll
     for (int it = 0; it < TK * C4 / THREADS; ++it) {
       const int i = tid + it * THREADS;
       const int r = i / C4, c = (i % C4) * 4;
       const bool ok = k0 + r < Lk && c < D;
-      cp_async16(dk + r * RLD + c, ok ? kb + (k0 + r) * sk.l + c : kb, ok);
-      cp_async16(dk + RAW + r * RLD + c, ok ? vb + (k0 + r) * sv.l + c : vb,
-                 ok);
+      cp_async4(dk + r * RLD + c, ok ? kb + (k0 + r) * sk.l + c : kb, ok);
+      cp_async4(dk + RAW + r * RLD + c, ok ? vb + (k0 + r) * sv.l + c : vb,
+                ok);
     }
   };
   // This thread's raw chunks of stage `stage` into the hi and lo planes of
@@ -212,7 +259,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // that lets wgmma, which reads shared memory through the asynchronous
   // proxy, see them.
   auto split = [&](int stage, int set) {
-    const float* src = raw + stage * 2 * RAW;
+    const T* src = raw + stage * 2 * RAW;
     uint32_t* kp = planes + set * SET;
     uint32_t* vp = kp + 2 * KP;
 #pragma unroll
@@ -220,7 +267,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int i = tid + it * THREADS;
       const int r = i / C4, c = (i % C4) * 4;
       uint4 hi, lo;
-      float4 x = *reinterpret_cast<const float4*>(src + r * RLD + c);
+      float4 x = raw4(src + r * RLD + c);
       split_tf32(x.x, hi.x, lo.x);
       split_tf32(x.y, hi.y, lo.y);
       split_tf32(x.z, hi.z, lo.z);
@@ -228,7 +275,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int ka = (c / 4) * (TK * 4 + 4) + r * 4;
       *reinterpret_cast<uint4*>(kp + ka) = hi;
       *reinterpret_cast<uint4*>(kp + KP + ka) = lo;
-      x = *reinterpret_cast<const float4*>(src + RAW + r * RLD + c);
+      x = raw4(src + RAW + r * RLD + c);
       split_tf32(x.x, hi.x, lo.x);
       split_tf32(x.y, hi.y, lo.y);
       split_tf32(x.z, hi.z, lo.z);
@@ -262,7 +309,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // q * scale, split once: the A fragments of each k-step (a0: row g,
   // column t; a1: row g + 8; a2, a3: column t + 4) in registers or, at
   // DT = 128, planes of the block's rows in shared memory.
-  const float* qrow = at(q, sq, b, h, row0);
+  const T* qrow = at(q, sq, b, h, row0);
   uint32_t qh[Q_REGS ? KS : 1][4], ql[Q_REGS ? KS : 1][4];
   if constexpr (Q_REGS) {
 #pragma unroll
@@ -426,7 +473,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = row0 + g + 8 * r;
     if (row >= Lq) continue;
     const float lc = fmaxf(lr, 1e-30f), inv = 1.0f / lc;
-    float* dst = at(out, so, b, h, row);
+    T* dst = at(out, so, b, h, row);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
@@ -438,21 +485,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The forward on (batch, head, row)-strided tensors; lse may be null.
-template <int DT>
-int launch_fwd(const float* q, const float* k, const float* v, float* out,
-               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+// The forward on (batch, head, row)-strided tensors of f32 (or, at DT <=
+// 64, bf16); lse may be null.
+template <int DT, typename T = float>
+int launch_fwd(const named_t<T>* q, const named_t<T>* k, const named_t<T>* v,
+               named_t<T>* out, float* lse, Strides sq, Strides sk, Strides sv, Strides so,
                int B, int H, int Lq, int Lk, int D, float scale,
                cudaStream_t stream) {
+  static_assert(!io::is_bf16<T> || DT <= 64, "bf16 I/O at widths 32, 64");
   constexpr size_t smem = fwd_smem(DT);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int rb = (Lq + TQ - 1) / TQ;
-  flash_fwd_kernel<DT><<<(unsigned)((int64_t)B * H * rb), THREADS, smem,
-                         stream>>>(q, k, v, out, lse, sq, sk, sv, so, H, Lq,
-                                   Lk, D, rb, scale);
+  flash_fwd_kernel<DT, T><<<(unsigned)((int64_t)B * H * rb), THREADS, smem,
+                            stream>>>(q, k, v, out, lse, sq, sk, sv, so, H,
+                                      Lq, Lk, D, rb, scale);
   return (int)cudaGetLastError();
 }
 
@@ -563,19 +612,19 @@ __device__ __forceinline__ void put_t(uint32_t* p, int plane, int r, int c,
 // zero-filled. Thread tid copies chunks tid, tid + BTH, ... of each;
 // split_pair() splits the same ones, so the thread's own cp.async wait
 // orders them. One commit group.
-template <int DT>
-__device__ __forceinline__ void load_pair(float* raw, const float* a,
-                                          long long sa, const float* b,
-                                          long long sb, int r0, int n, int D) {
+template <int DT, typename T>
+__device__ __forceinline__ void load_pair(T* raw, const T* a, long long sa,
+                                          const T* b, long long sb, int r0,
+                                          int n, int D) {
   constexpr int RLD = DT + 4, C4 = DT / 4;
 #pragma unroll
   for (int it = 0; it < BT * C4 / BTH; ++it) {
     const int i = threadIdx.x + it * BTH;
     const int r = i / C4, c = (i % C4) * 4;
     const bool ok = r0 + r < n && c < D;
-    cp_async16(raw + r * RLD + c, ok ? a + (r0 + r) * sa + c : a, ok);
-    cp_async16(raw + BT * RLD + r * RLD + c, ok ? b + (r0 + r) * sb + c : b,
-               ok);
+    cp_async4(raw + r * RLD + c, ok ? a + (r0 + r) * sa + c : a, ok);
+    cp_async4(raw + BT * RLD + r * RLD + c, ok ? b + (r0 + r) * sb + c : b,
+              ok);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -583,8 +632,8 @@ __device__ __forceinline__ void load_pair(float* raw, const float* a,
 // This thread's raw chunks of the two tiles into their planes: the first
 // into a d-plane and a t-plane, the second into a d-plane and, if bt is
 // not null, a t-plane.
-template <int DT>
-__device__ __forceinline__ void split_pair(const float* raw, uint32_t* ad,
+template <int DT, typename T>
+__device__ __forceinline__ void split_pair(const T* raw, uint32_t* ad,
                                            uint32_t* at_, uint32_t* bd,
                                            uint32_t* bt) {
   constexpr int RLD = DT + 4, C4 = DT / 4;
@@ -593,10 +642,10 @@ __device__ __forceinline__ void split_pair(const float* raw, uint32_t* ad,
   for (int it = 0; it < BT * C4 / BTH; ++it) {
     const int i = threadIdx.x + it * BTH;
     const int r = i / C4, c = (i % C4) * 4;
-    float4 x = *reinterpret_cast<const float4*>(raw + r * RLD + c);
+    float4 x = raw4(raw + r * RLD + c);
     put_d<BT>(ad, DP, r, c, x);
     put_t<DT>(at_, TP, r, c, x);
-    x = *reinterpret_cast<const float4*>(raw + BT * RLD + r * RLD + c);
+    x = raw4(raw + BT * RLD + r * RLD + c);
     put_d<BT>(bd, DP, r, c, x);
     if (bt != nullptr) put_t<DT>(bt, TP, r, c, x);
   }
@@ -605,9 +654,9 @@ __device__ __forceinline__ void split_pair(const float* raw, uint32_t* ad,
 // Rows [r0, r0 + BR) of x times f into the r-plane xr (hi, lo), zeros past
 // n and D; with z (rows of x's shape), also each row's sum of x z into
 // sums[row].
-template <int DT>
-__device__ __forceinline__ void put_rows(const float* x, long long sx, float f,
-                                         const float* z, long long sz, int r0,
+template <int DT, typename T>
+__device__ __forceinline__ void put_rows(const T* x, long long sx, float f,
+                                         const T* z, long long sz, int r0,
                                          int n, int D, uint32_t* xr,
                                          float* sums) {
   constexpr int C4 = DT / 4;
@@ -695,21 +744,21 @@ __device__ __forceinline__ void acc_by_tile(float (&part)[DT / 2],
 
 // dQ = dS K scale and delta = rowsum(dO O), one block per (batch*head, BR
 // queries), key tiles of BT.
-template <int DT>
+template <int DT, typename T = float>
 __global__ void __launch_bounds__(BTH)
-flash_bwd_dq_tc_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ o,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse, float* __restrict__ dq,
+flash_bwd_dq_tc_kernel(const T* __restrict__ q,
+                       const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const T* __restrict__ o,
+                       const T* __restrict__ dout,
+                       const float* __restrict__ lse, T* __restrict__ dq,
                        float* __restrict__ delta, Strides sq, Strides sk,
                        Strides sv, Strides so, Strides sdo, Strides sdq, int H,
                        int Lq, int Lk, int D, int row_blocks, float scale) {
   constexpr int KS = DT / 8;
   constexpr int DP = bd_plane(DT), TP = bt_plane(DT), SET = dq_set(DT);
   extern __shared__ __align__(16) float smem[];
-  float* raw = smem;                     // [K, V][BT][DT + 4]
+  T* raw = reinterpret_cast<T*>(smem);   // [K, V][BT][DT + 4]
   uint32_t* sets = reinterpret_cast<uint32_t*>(smem + 2 * BT * (DT + 4));
   uint32_t* dor = sets + 2 * SET;        // dO of the block's rows
   float* delta_s = reinterpret_cast<float*>(dor + 2 * br_plane(DT));
@@ -726,24 +775,24 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q,
   const int b = bh / H, h = bh % H;
   const int row0 = (blockIdx.x % row_blocks) * BR;
   const uint32_t* dor_wg = dor + (warp / 4) * 64 * 4;   // its rows' planes
-  const float* kb = at(k, sk, b, h, 0);
-  const float* vb = at(v, sv, b, h, 0);
+  const T* kb = at(k, sk, b, h, 0);
+  const T* vb = at(v, sv, b, h, 0);
   const int ntiles = (Lk + BT - 1) / BT;
 
   // Tile 0 into plane set 0, tile 1 in flight. delta = rowsum(dO O) of the
   // widened values.
-  load_pair<DT>(raw, kb, sk.l, vb, sv.l, 0, Lk, D);
-  put_rows<DT>(at(dout, sdo, b, h, 0), sdo.l, 1.0f, at(o, so, b, h, 0),
-               so.l, row0, Lq, D, dor, delta_s);
+  load_pair<DT, T>(raw, kb, sk.l, vb, sv.l, 0, Lk, D);
+  put_rows<DT, T>(at(dout, sdo, b, h, 0), sdo.l, 1.0f, at(o, so, b, h, 0),
+                  so.l, row0, Lq, D, dor, delta_s);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  split_pair<DT>(raw, kd(0), kt(0), vd(0), nullptr);
+  split_pair<DT, T>(raw, kd(0), kt(0), vd(0), nullptr);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  if (ntiles > 1) load_pair<DT>(raw, kb, sk.l, vb, sv.l, BT, Lk, D);
+  if (ntiles > 1) load_pair<DT, T>(raw, kb, sk.l, vb, sv.l, BT, Lk, D);
 
   // q scale, split once: the A fragments of each k-step (a0: row g, column
   // t; a1: row g + 8; a2, a3: column t + 4).
   const int wrow0 = row0 + warp * 16;
-  const float* qrow = at(q, sq, b, h, wrow0);
+  const T* qrow = at(q, sq, b, h, wrow0);
   uint32_t qh[KS][4], ql[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
@@ -795,10 +844,11 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q,
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if (j + 1 < ntiles) {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");   // own tile j+1
-      split_pair<DT>(raw, kd(cur ^ 1), kt(cur ^ 1), vd(cur ^ 1), nullptr);
+      split_pair<DT, T>(raw, kd(cur ^ 1), kt(cur ^ 1), vd(cur ^ 1),
+                        nullptr);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       if (j + 2 < ntiles)
-        load_pair<DT>(raw, kb, sk.l, vb, sv.l, (j + 2) * BT, Lk, D);
+        load_pair<DT, T>(raw, kb, sk.l, vb, sv.l, (j + 2) * BT, Lk, D);
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     wgmma_operand_fence(s);
@@ -829,7 +879,7 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = wrow0 + g + 8 * r;
     if (row >= Lq) continue;
-    float* dst = at(dq, sdq, b, h, row);
+    T* dst = at(dq, sdq, b, h, row);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
@@ -840,25 +890,34 @@ flash_bwd_dq_tc_kernel(const float* __restrict__ q,
   }
 }
 
+// Queries of the TPU kernel's block, over which its backward sums dK and dV
+// before it rounds them to a bf16 output (its min(128, round_up(Lq, 8))).
+constexpr int BLOCK_Q = 128;
+
 // dK = dS^T Q scale and dV = P^T dO, one block per (batch*head, BR keys),
 // query tiles of BT; no atomics. One plane set: the next tile is split
 // after the tensor cores are done with this one (two barriers a tile), its
-// copy in flight meanwhile.
-template <int DT>
+// copy in flight meanwhile. With bf16 I/O the f32 sums of each BLOCK_Q
+// queries (BLOCK_Q / BT tiles counted from query 0, the last block cut at
+// Lq) are rounded into running bf16 sums held in registers, a bf16 pair a
+// word: the first block's sum as it is, each later one added to the
+// running sum and rounded again.
+template <int DT, typename T = float>
 __global__ void __launch_bounds__(BTH)
-flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
+                        const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv,
+                        T* __restrict__ dk, T* __restrict__ dv,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         Strides sdk, Strides sdv, int H, int Lq, int Lk, int D,
                         int row_blocks, float scale) {
   constexpr int DP = bd_plane(DT), TP = bt_plane(DT), RP = br_plane(DT);
+  constexpr bool BLOCKED = io::is_bf16<T>;
   extern __shared__ __align__(16) float smem[];
-  float* raw = smem;                     // [Q, dO][BT][DT + 4]
+  T* raw = reinterpret_cast<T*>(smem);   // [Q, dO][BT][DT + 4]
   uint32_t* qd = reinterpret_cast<uint32_t*>(smem + 2 * BT * (DT + 4));
   uint32_t* dod = qd + 2 * DP;           // Q, dO d-planes, t-planes (hi, lo)
   uint32_t* qt = dod + 2 * DP;
@@ -876,8 +935,8 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
   const int key0 = (blockIdx.x % row_blocks) * BR;
   const uint32_t* kr_wg = kr + (warp / 4) * 64 * 4;
   const uint32_t* vr_wg = vr + (warp / 4) * 64 * 4;
-  const float* qb = at(q, sq, b, h, 0);
-  const float* dob = at(dout, sdo, b, h, 0);
+  const T* qb = at(q, sq, b, h, 0);
+  const T* dob = at(dout, sdo, b, h, 0);
   const float* lse_b = lse + (int64_t)bh * Lq;
   const float* delta_b = delta + (int64_t)bh * Lq;
   const int ntiles = (Lq + BT - 1) / BT;
@@ -887,7 +946,7 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
   // then the copy of tile j + 1 into the raw stage.
   auto next_tile = [&](int j) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");   // own tile j
-    split_pair<DT>(raw, qd, qt, dod, dot);
+    split_pair<DT, T>(raw, qd, qt, dod, dot);
     if (tid < BT) {
       const int qq = j * BT + tid;
       stats[tid] = qq < Lq ? lse_b[qq] : INFINITY;
@@ -895,18 +954,46 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     if (j + 1 < ntiles)
-      load_pair<DT>(raw, qb, sq.l, dob, sdo.l, (j + 1) * BT, Lq, D);
+      load_pair<DT, T>(raw, qb, sq.l, dob, sdo.l, (j + 1) * BT, Lq, D);
   };
-  load_pair<DT>(raw, qb, sq.l, dob, sdo.l, 0, Lq, D);
-  put_rows<DT>(at(k, sk, b, h, 0), sk.l, scale, nullptr, 0, key0, Lk, D, kr,
-               nullptr);
-  put_rows<DT>(at(v, sv, b, h, 0), sv.l, 1.0f, nullptr, 0, key0, Lk, D, vr,
-               nullptr);
+  load_pair<DT, T>(raw, qb, sq.l, dob, sdo.l, 0, Lq, D);
+  put_rows<DT, T>(at(k, sk, b, h, 0), sk.l, scale, nullptr, 0, key0, Lk, D,
+                  kr, nullptr);
+  put_rows<DT, T>(at(v, sv, b, h, 0), sv.l, 1.0f, nullptr, 0, key0, Lk, D,
+                  vr, nullptr);
   next_tile(0);
 
   float dka[DT / 2], dva[DT / 2];
 #pragma unroll
   for (int i = 0; i < DT / 2; ++i) dka[i] = dva[i] = 0.0f;
+  // Running bf16 sums (bf16 I/O): word i holds the pair of accumulator
+  // elements 2i, 2i + 1 (one row, two neighbouring columns).
+  uint32_t dkr[DT / 4], dvr[DT / 4];
+  // The block's f32 sums into the running ones; the sums restart at zero.
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int i = 0; i < DT / 4; ++i) {
+      const __nv_bfloat162 pk =
+          __floats2bfloat162_rn(dka[2 * i] * scale, dka[2 * i + 1] * scale);
+      const __nv_bfloat162 pv =
+          __floats2bfloat162_rn(dva[2 * i], dva[2 * i + 1]);
+      uint32_t wk = *reinterpret_cast<const uint32_t*>(&pk);
+      uint32_t wv = *reinterpret_cast<const uint32_t*>(&pv);
+      if (!first) {
+        const float2 ak = io::widen2(dkr[i]), bk = io::widen2(wk);
+        const float2 av = io::widen2(dvr[i]), bv = io::widen2(wv);
+        const __nv_bfloat162 sk2 =
+            __floats2bfloat162_rn(ak.x + bk.x, ak.y + bk.y);
+        const __nv_bfloat162 sv2 =
+            __floats2bfloat162_rn(av.x + bv.x, av.y + bv.y);
+        wk = *reinterpret_cast<const uint32_t*>(&sk2);
+        wv = *reinterpret_cast<const uint32_t*>(&sv2);
+      }
+      dkr[i] = wk;
+      dvr[i] = wv;
+      dka[2 * i] = dka[2 * i + 1] = dva[2 * i] = dva[2 * i + 1] = 0.0f;
+    }
+  };
   for (int j = 0; j < ntiles; ++j) {
     if (j > 0) {
       __syncthreads();   // every warp is done with tile j - 1's planes
@@ -951,21 +1038,30 @@ flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
     wgmma_operand_fence(part);
 #pragma unroll
     for (int i = 0; i < DT / 2; ++i) dka[i] += part[i];
+    if constexpr (BLOCKED) {
+      if ((j + 1) % (BLOCK_Q / BT) == 0 || j + 1 == ntiles)
+        flush(j < BLOCK_Q / BT);
+    }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + warp * 16 + g + 8 * r;
     if (key >= Lk) continue;
-    float* ddk = at(dk, sdk, b, h, key);
-    float* ddv = at(dv, sdv, b, h, key);
+    T* ddk = at(dk, sdk, b, h, key);
+    T* ddv = at(dv, sdv, b, h, key);
 #pragma unroll
     for (int nd = 0; nd < DT / 8; ++nd) {
       const int col = 8 * nd + 2 * t;
       if (col < D) {
-        io::st2(ddk + col, dka[4 * nd + 2 * r] * scale,
-                dka[4 * nd + 2 * r + 1] * scale);
-        io::st2(ddv + col, dva[4 * nd + 2 * r], dva[4 * nd + 2 * r + 1]);
+        if constexpr (BLOCKED) {
+          *reinterpret_cast<uint32_t*>(ddk + col) = dkr[2 * nd + r];
+          *reinterpret_cast<uint32_t*>(ddv + col) = dvr[2 * nd + r];
+        } else {
+          io::st2(ddk + col, dka[4 * nd + 2 * r] * scale,
+                  dka[4 * nd + 2 * r + 1] * scale);
+          io::st2(ddv + col, dva[4 * nd + 2 * r], dva[4 * nd + 2 * r + 1]);
+        }
       }
     }
   }
@@ -1095,13 +1191,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 
 // The backward kernels on (batch, head, row)-strided tensors: on the tensor
 // cores at compiled widths 32 and 64, on the FMA units at 128.
-template <int DT>
-int launch_bwd_dq(const float* q, const float* k, const float* v,
-                  const float* o, const float* dout, const float* lse,
-                  float* dq, float* delta,
+template <int DT, typename T = float>
+int launch_bwd_dq(const named_t<T>* q, const named_t<T>* k,
+                  const named_t<T>* v, const named_t<T>* o,
+                  const named_t<T>* dout, const float* lse, named_t<T>* dq,
+                  float* delta,
                   Strides sq, Strides sk, Strides sv,
                   Strides so, Strides sdo, Strides sdq, int B, int H, int Lq,
                   int Lk, int D, float scale, cudaStream_t stream) {
+  static_assert(!io::is_bf16<T> || DT <= 64, "bf16 I/O at widths 32, 64");
   const int rows = DT <= 64 ? BR : THREADS / (DT / W);
   const int rb = (Lq + rows - 1) / rows;
   const int64_t blocks = (int64_t)B * H * rb;
@@ -1109,10 +1207,10 @@ int launch_bwd_dq(const float* q, const float* k, const float* v,
   if constexpr (DT <= 64) {
     constexpr size_t smem = dq_smem(DT);
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_tc_kernel<DT>,
+        flash_bwd_dq_tc_kernel<DT, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dq_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+    flash_bwd_dq_tc_kernel<DT, T><<<(unsigned)blocks, BTH, smem, stream>>>(
         q, k, v, o, dout, lse, dq, delta, sq, sk, sv, so, sdo, sdq, H, Lq, Lk,
         D, rb, scale);
   } else {
@@ -1123,13 +1221,15 @@ int launch_bwd_dq(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-template <int DT>
-int launch_bwd_dkv(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   float* dk, float* dv,
+template <int DT, typename T = float>
+int launch_bwd_dkv(const named_t<T>* q, const named_t<T>* k,
+                   const named_t<T>* v, const named_t<T>* dout,
+                   const float* lse, const float* delta, named_t<T>* dk,
+                   named_t<T>* dv,
                    Strides sq, Strides sk, Strides sv,
                    Strides sdo, Strides sdk, Strides sdv, int B, int H, int Lq,
                    int Lk, int D, float scale, cudaStream_t stream) {
+  static_assert(!io::is_bf16<T> || DT <= 64, "bf16 I/O at widths 32, 64");
   const int rows = DT <= 64 ? BR : THREADS / (DT / W);
   const int rb = (Lk + rows - 1) / rows;
   const int64_t blocks = (int64_t)B * H * rb;
@@ -1137,10 +1237,10 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
   if constexpr (DT <= 64) {
     constexpr size_t smem = dkv_smem(DT);
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_tc_kernel<DT>,
+        flash_bwd_dkv_tc_kernel<DT, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dkv_tc_kernel<DT><<<(unsigned)blocks, BTH, smem, stream>>>(
+    flash_bwd_dkv_tc_kernel<DT, T><<<(unsigned)blocks, BTH, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, H, Lq,
         Lk, D, rb, scale);
   } else {

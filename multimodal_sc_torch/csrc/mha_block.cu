@@ -69,8 +69,7 @@
 // rows arrive by cp.async as bf16 (half the bytes) and the LayerNorms
 // widen them on read, exactly; the residual is the widened bf16 x_q; the
 // output (x_q + acc Wo) + bo is rounded to bf16 once at the store. The
-// weight scratch and every intermediate are as in the f32-I/O mode. The
-// f32 mode refuses bf16 I/O.
+// weight scratch and every intermediate are as in the f32-I/O mode.
 //
 // f32 mode (mxu_bf16=False: the checks only, no main path): the first
 // design on the f32 FMA units, two launches:
@@ -80,6 +79,13 @@
 //      projection into shared memory, then K/V streamed in tiles of 32 keys
 //      with an online softmax; then the output projection. A warp owns a
 //      head (more when d < 32), a lane a query row.
+// Both are templated on the activation type T. With bf16 activations (T =
+// bf16, io_bf16 in the f32 mode) they compute as the TPU kernel does on
+// bf16 arrays with bf16=False: x_q and x_kv are widened exactly as the
+// LayerNorms read them, the LayerNorms, the projections, the softmax, the
+// biases and the residual (the widened x_q) stay f32, K and V scratch
+// stays f32, and the output (x_q + acc Wo) + bo is rounded to bf16 once at
+// the store. T = float is the f32 instance as it was.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +93,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "elem_io.cuh"
 #include "mha_bf16.cuh"
 #include "tensor_core.cuh"
 
@@ -610,9 +617,11 @@ int launch_mma(const void* xq, const void* xkv, const float* lnqs,
 
 constexpr int RT = 32;      // rows per tile (query rows, kv rows, keys)
 
-// LayerNorm of rows [row0, row0 + RT) of src (n_valid of them real) into
-// dst (RT x DM, shared); missing rows read as zeros. One warp per row.
-__device__ void ln_tile(const float* __restrict__ src, int64_t row0,
+// LayerNorm of rows [row0, row0 + RT) of src (f32 or bf16, widened; n_valid
+// of them real) into dst (RT x DM, shared, f32); missing rows read as
+// zeros. One warp per row.
+template <typename T>
+__device__ void ln_tile(const T* __restrict__ src, int64_t row0,
                         int n_valid, const float* __restrict__ s,
                         const float* __restrict__ b, float* dst) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -621,8 +630,7 @@ __device__ void ln_tile(const float* __restrict__ src, int64_t row0,
   const float4 bi = __ldg(reinterpret_cast<const float4*>(b) + lane);
   for (int r = warp; r < RT; r += nw) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid)
-      v = __ldg(reinterpret_cast<const float4*>(src + (row0 + r) * DM) + lane);
+    if (r < n_valid) v = io::ld4(src + (row0 + r) * DM + 4 * lane);
     const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.0f / DM);
     const float dx = v.x - mu, dy = v.y - mu, dz = v.z - mu, dw = v.w - mu;
     const float var =
@@ -660,9 +668,10 @@ __device__ __forceinline__ void proj_col(const float* src,
 }
 
 // Launch 1: K = LN_kv(x_kv) Wk + bk, V = LN_kv(x_kv) Wv + bv over the
-// flattened B * Lk rows.
+// flattened B * Lk rows; x_kv of T, K and V f32.
+template <typename T>
 __global__ void __launch_bounds__(128)
-kv_proj_kernel(const float* __restrict__ xkv, const float* __restrict__ lns,
+kv_proj_kernel(const T* __restrict__ xkv, const float* __restrict__ lns,
                const float* __restrict__ lnb, const float* __restrict__ wk,
                const float* __restrict__ bk, const float* __restrict__ wv,
                const float* __restrict__ bv, float* __restrict__ kout,
@@ -682,14 +691,15 @@ kv_proj_kernel(const float* __restrict__ xkv, const float* __restrict__ lns,
   for (int r = 0; r < n_valid; ++r) vout[(row0 + r) * DM + c] = acc[r] + bvc;
 }
 
-// Launch 2: one block (4 warps) per (query tile, batch element).
-template <int D>
+// Launch 2: one block (4 warps) per (query tile, batch element); x_q and
+// out of T.
+template <int D, typename T>
 __global__ void __launch_bounds__(128)
-attn_kernel(const float* __restrict__ xq, const float* __restrict__ lns,
+attn_kernel(const T* __restrict__ xq, const float* __restrict__ lns,
             const float* __restrict__ lnb, const float* __restrict__ wq,
             const float* __restrict__ bq, const float* __restrict__ kbuf,
             const float* __restrict__ vbuf, const float* __restrict__ wo,
-            const float* __restrict__ bo, float* __restrict__ out, int Lq,
+            const float* __restrict__ bo, T* __restrict__ out, int Lq,
             int Lk, float scale) {
   constexpr int H = DM / D;                   // heads
   constexpr int HPW = H >= 4 ? H / 4 : 1;     // heads per warp
@@ -704,7 +714,7 @@ attn_kernel(const float* __restrict__ xq, const float* __restrict__ lns,
   const int nq = min(RT, Lq - q0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = threadIdx.x;
-  const float* xqb = xq + (int64_t)b * Lq * DM;
+  const T* xqb = xq + (int64_t)b * Lq * DM;
   const float* kb = kbuf + (int64_t)b * Lk * DM;
   const float* vb = vbuf + (int64_t)b * Lk * DM;
 
@@ -806,36 +816,44 @@ attn_kernel(const float* __restrict__ xq, const float* __restrict__ lns,
   float acc[RT];
   proj_col(xs, wo, c, acc);
   const float boc = __ldg(bo + c);
-  float* ob = out + (int64_t)b * Lq * DM;
+  T* ob = out + (int64_t)b * Lq * DM;
   for (int r = 0; r < nq; ++r) {
     const int64_t off = (int64_t)(q0 + r) * DM + c;
-    ob[off] = (xqb[off] + acc[r]) + boc;
+    if constexpr (io::is_bf16<T>)
+      ob[off] = __float2bfloat16_rn((__bfloat162float(xqb[off]) + acc[r]) +
+                                    boc);
+    else
+      ob[off] = (xqb[off] + acc[r]) + boc;
   }
 }
 
-template <int D>
-int launch_f32(const float* xq, const float* xkv, const float* lnqs,
+// x_q, x_kv and out of T (f32, or bf16 activations).
+template <int D, typename T>
+int launch_f32(const void* xq_, const void* xkv_, const float* lnqs,
                const float* lnqb, const float* lnks, const float* lnkb,
                const float* wq, const float* bq, const float* wk,
                const float* bk, const float* wv, const float* bv,
                const float* wo, const float* bo, float* kbuf, float* vbuf,
-               float* out, int B, int Lq, int Lk, float scale,
+               void* out_, int B, int Lq, int Lk, float scale,
                cudaStream_t stream) {
   if (B > 65535) return (int)cudaErrorInvalidValue;
+  const T* xq = static_cast<const T*>(xq_);
+  const T* xkv = static_cast<const T*>(xkv_);
+  T* out = static_cast<T*>(out_);
   const int64_t rows = (int64_t)B * Lk;
-  kv_proj_kernel<<<(unsigned)((rows + RT - 1) / RT), 128, 0, stream>>>(
+  kv_proj_kernel<T><<<(unsigned)((rows + RT - 1) / RT), 128, 0, stream>>>(
       xkv, lnks, lnkb, wk, bk, wv, bv, kbuf, vbuf, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t smem = 4 * RT * DM * sizeof(float);
-  e = cudaFuncSetAttribute(attn_kernel<D>,
+  e = cudaFuncSetAttribute(attn_kernel<D, T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + RT - 1) / RT, B);
-  attn_kernel<D><<<grid, 128, smem, stream>>>(xq, lnqs, lnqb, wq, bq, kbuf,
-                                              vbuf, wo, bo, out, Lq, Lk,
-                                              scale);
+  attn_kernel<D, T><<<grid, 128, smem, stream>>>(xq, lnqs, lnqb, wq, bq,
+                                                 kbuf, vbuf, wo, bo, out, Lq,
+                                                 Lk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -853,7 +871,7 @@ int launch_f32(const float* xq, const float* xkv, const float* lnqs,
 // x_q (B, Lq, 128), x_kv (B, Lk, 128), weights (128, 128) (in, out),
 // vectors (128,), out (B, Lq, 128); contiguous, 16-byte aligned. The
 // weights and vectors f32; x_q, x_kv and out f32, or bf16 under io_bf16
-// (bf16 mode only). heads in {2, 4, 8, 16}. Scratch: in f32 mode kbuf and
+// (either mode). heads in {2, 4, 8, 16}. Scratch: in f32 mode kbuf and
 // vbuf, (B, Lk, 128) each; in bf16 mode kbuf, 32768 floats (128 KB) for
 // the rounded weights, and vbuf is not read (may be null).
 extern "C" int mha_block_launch(
@@ -871,11 +889,14 @@ extern "C" int mha_block_launch(
         reinterpret_cast<uint2*>(kbuf), out, B, Lq, Lk, scale, io_bf16,
         stream)))
   }
-  if (io_bf16) return (int)cudaErrorInvalidValue;
-  DISPATCH_HEAD_DIM(DM / heads, (launch_f32<D>(
-      static_cast<const float*>(xq), static_cast<const float*>(xkv), lnqs,
-      lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo, kbuf, vbuf,
-      static_cast<float*>(out), B, Lq, Lk, scale, stream)))
+  if (io_bf16) {
+    DISPATCH_HEAD_DIM(DM / heads, (launch_f32<D, __nv_bfloat16>(
+        xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo,
+        kbuf, vbuf, out, B, Lq, Lk, scale, stream)))
+  }
+  DISPATCH_HEAD_DIM(DM / heads, (launch_f32<D, float>(
+      xq, xkv, lnqs, lnqb, lnks, lnkb, wq, bq, wk, bk, wv, bv, wo, bo, kbuf,
+      vbuf, out, B, Lq, Lk, scale, stream)))
 }
 
 // bf16 I/O at Lk <= 256 on bf16 wgmma (mha_bf16.cuh): x_q, x_kv and out

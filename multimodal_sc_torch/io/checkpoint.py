@@ -270,15 +270,37 @@ def guard_world(ckpt: CheckpointManager, n_shards: int) -> None:
             "size that wrote it, or start a fresh checkpoint dir")
 
 
+def _whole(state: NamedTuple) -> NamedTuple:
+    """``state`` with its modules and optimizers as their state dicts in
+    the single-card layout (``runtime/tp.py``: each model-sharded tensor
+    gathered whole). Every rank of the mesh calls it."""
+    from multimodal_sc_torch.runtime.tp import (whole_optimizer_state,
+                                                whole_state_dict)
+
+    def whole(value):
+        if isinstance(value, nn.Module):
+            return whole_state_dict(value)
+        if isinstance(value, torch.optim.Optimizer):
+            return whole_optimizer_state(value)
+        return value
+
+    return type(state)(*(whole(v) for v in state))
+
+
 def save_sharded(ckpt: CheckpointManager, step: int, state: NamedTuple,
                  mesh, shard_fields) -> None:
-    """The checkpoint of ``step`` of a data-parallel run
+    """The checkpoint of ``step`` of a run on a mesh of several processes
     (``runtime/mesh.py``): the first rank writes every field (its own
     shard's among them) and the number of data shards; the first model
     rank of each other data shard writes its ``shard_fields`` beside it.
-    Returns when every rank has written."""
+    On a model axis of several ranks the networks and the optimizer
+    moments are written whole (``_whole``), so the checkpoint restores at
+    any model-axis size and on one card. Returns when every rank has
+    written."""
     import torch.distributed as dist
 
+    if mesh.model > 1:
+        state = _whole(state)
     if mesh.rank == 0:
         ckpt.save(step, state, extra={"data_shards": mesh.data})
     dist.barrier()

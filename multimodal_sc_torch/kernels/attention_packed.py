@@ -25,9 +25,13 @@ bf16 tensors (``train.bf16``) take the bf16 mode's bf16-I/O instances,
 counted apart (``launches_*_bf16``): q, k, v, O and dO read in bf16, the
 output and dQ summed in f32 and rounded once, lse f32, and dK, dV summed
 per 128-query block and rounded into a running bf16 sum, as the JAX kernel
-accumulates them across its query blocks in the output dtype. The f32 mode
-(``mxu_bf16=False``) takes float32 tensors only: on the card its route, the
-flash kernels, would round dK and dV once, so a bf16 tensor there raises.
+accumulates them across its query blocks in the output dtype. bf16 tensors
+in the f32 mode (``mxu_bf16=False``, no main path: the kernels' own entry
+points) take the flash kernels' bf16-I/O instances (``csrc/flash_kernels.cuh``
+with T = bf16), counted apart again (``launches_*_f32io_bf16``): every value
+widened exactly, the f32 mode's arithmetic, the output and dQ rounded once,
+lse f32, and dK, dV summed per 128-query block into running bf16 sums as
+above.
 """
 
 from __future__ import annotations
@@ -46,11 +50,14 @@ _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
 # Calls that launched a CUDA forward kernel (whichever serves the mode) /
 # the backward kernels (one backward call is one count: in bf16 mode one kernel, plus the sum of the
 # key splits' partial dQ when Lk takes more than one block; in f32 mode the
-# dQ kernel, then the dK/dV kernel); with bf16 tensors, the ``_bf16`` ones.
+# dQ kernel, then the dK/dV kernel); with bf16 tensors, the ``_bf16`` ones,
+# and with bf16 tensors in the f32 mode the ``_f32io_bf16`` ones.
 launches_fwd = 0
 launches_bwd = 0
 launches_fwd_bf16 = 0
 launches_bwd_bf16 = 0
+launches_fwd_f32io_bf16 = 0
+launches_bwd_f32io_bf16 = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
@@ -249,26 +256,29 @@ def _check_cuda(heads: int, *tensors: torch.Tensor) -> Tuple[int, int, int, int]
     return b, lq, lk, dm
 
 
-# The launchers' modes (``Mode`` in csrc/attention_packed.cu).
-_MODE_F32, _MODE_BF16, _MODE_BF16_IO = 0, 1, 2
+# The launchers' modes (``Mode`` in csrc/attention_packed.cu): operands in
+# f32 or bf16, I/O in ``q``'s dtype.
+_MODE_F32, _MODE_BF16, _MODE_BF16_IO, _MODE_F32_BF16_IO = 0, 1, 2, 3
 
 
 def _mode(q: torch.Tensor, bf16: bool) -> int:
-    """The launchers' mode for ``q``'s dtype and the operand flag; raises
-    for bf16 tensors in the f32 mode."""
+    """The launchers' mode for ``q``'s dtype and the operand flag."""
     if q.dtype != torch.bfloat16:
         return _MODE_BF16 if bf16 else _MODE_F32
-    if not bf16:
-        raise NotImplementedError(
-            "packed_attention: bfloat16 tensors run in the kernels' bf16 "
-            "mode only (mxu_bf16=False takes float32; ROADMAP section 2)")
-    return _MODE_BF16_IO
+    return _MODE_BF16_IO if bf16 else _MODE_F32_BF16_IO
+
+
+def _count(mode: int, which: str) -> None:
+    """One more launch of the ``which`` ("fwd" or "bwd") kernels of
+    ``mode``, on its counter."""
+    suffix = {_MODE_BF16_IO: "_bf16",
+              _MODE_F32_BF16_IO: "_f32io_bf16"}.get(mode, "")
+    globals()[f"launches_{which}{suffix}"] += 1
 
 
 def _fwd_cuda(q, k, v, heads: int, scale: float, bf16: bool,
               want_lse: bool = False):
     """The forward kernel: ``(out, lse)``, ``lse`` None unless wanted."""
-    global launches_fwd, launches_fwd_bf16
     b, lq, lk, dm = _check_cuda(heads, q, k, v)
     mode = _mode(q, bf16)
     q, k, v = (_build.aligned(t) for t in (q, k, v))
@@ -281,10 +291,7 @@ def _fwd_cuda(q, k, v, heads: int, scale: float, bf16: bool,
         _build.ptr(lse) if want_lse else None,
         b, lq, lk, dm, heads, scale, mode, _build.stream_ptr(q.device))
     _build.check(err, "packed_attention forward")
-    if mode == _MODE_BF16_IO:
-        launches_fwd_bf16 += 1
-    else:
-        launches_fwd += 1
+    _count(mode, "fwd")
     return out, lse
 
 
@@ -301,7 +308,6 @@ def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool,
     serves the checks: "mma" runs ``bwd_mma_kernel`` on bf16 tensors at Lk
     <= 256 too, "wgmma" the new kernel's f32-I/O instance on f32 tensors;
     a shape the named kernel does not take raises before a launch."""
-    global launches_bwd, launches_bwd_bf16
     b, lq, lk, dm = _check_cuda(heads, q, k, v, out, dout)
     mode = _mode(q, bf16)
     if kernel is not None:
@@ -324,8 +330,8 @@ def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool,
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("attention_packed", _SIG)
-    # Scratch (f32): f32 mode keeps delta = rowsum(dO * O) between its two
-    # kernels; bwd_mma_kernel the partial dQ of each key split, when Lk
+    # Scratch (f32): the f32 modes keep delta = rowsum(dO * O) between their
+    # two kernels; bwd_mma_kernel the partial dQ of each key split, when Lk
     # takes more than one block, summed in f32 before dQ is stored.
     if wgmma:
         scratch = None
@@ -343,10 +349,7 @@ def _bwd_cuda(q, k, v, out, lse, dout, heads: int, scale: float, bf16: bool,
         _BWD_KERNELS[kernel] if kernel is not None else 0,
         _build.stream_ptr(q.device))
     _build.check(err, "packed_attention backward")
-    if mode == _MODE_BF16_IO:
-        launches_bwd_bf16 += 1
-    else:
-        launches_bwd += 1
+    _count(mode, "bwd")
     return dq, dk, dv
 
 
@@ -381,7 +384,7 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     apply); bf16 through the kernels' plain versions with the flag, False
     by default, as JAX's kernel runs in interpret mode. On a CUDA tensor the
     kernels run, or the call raises for a shape they do not take (head dims
-    other than 8-64) or a bf16 tensor with ``mxu_bf16=False``.
+    other than 8-64).
     """
     dm = q.shape[-1]
     if dm % heads:

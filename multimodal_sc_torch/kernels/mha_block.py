@@ -19,9 +19,12 @@ or, with ``mxu_bf16=False``, the f32 mode on the FMA units.
 
 Under ``train.bf16`` the activations ``x_q`` and ``x_kv`` are bf16 and the
 parameters stay f32, as the JAX package passes them; the output takes
-``x_q``'s dtype. The kernel's bf16 mode reads and writes bf16 itself
-(counted apart, ``launches_bf16``); its f32 mode takes f32 activations
-only.
+``x_q``'s dtype. Both modes read and write bf16 activations themselves
+(counted apart, ``launches_bf16``). In the f32 mode (``mxu_bf16=False``, no
+main path) they run the f32 kernels' bf16-I/O instance, counted again in
+``launches_f32io_bf16``: x_q and x_kv widened exactly, everything f32, the
+output rounded once, as JAX's kernel computes bf16 arrays with
+``bf16=False``.
 """
 
 from __future__ import annotations
@@ -45,9 +48,11 @@ PARAM_KEYS = ("ln_q_scale", "ln_q_bias", "ln_kv_scale", "ln_kv_bias",
 
 # Launches of the CUDA kernel (one per mha_block call on the card: one grid
 # in bf16 mode; the f32 mode runs the K/V projection and the attention as
-# two grid launches); with bf16 activations, ``launches_bf16``.
+# two grid launches); with bf16 activations, ``launches_bf16``, and of
+# those the f32 mode's also ``launches_f32io_bf16``.
 launches = 0
 launches_bf16 = 0
+launches_f32io_bf16 = 0
 
 _SIG = {
     "mha_block_launch": (ctypes.c_void_p,) * 17 + (
@@ -175,7 +180,7 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
     """The kernel's launch. ``kernel`` names which one runs ("wgmma" or
     "mma"); by default ``wgmma_route`` picks. Naming one serves the checks
     that time the two bf16-I/O kernels side by side at the same shapes."""
-    global launches, launches_bf16
+    global launches, launches_bf16, launches_f32io_bf16
     b, lq, dm = x_q.shape
     lk = x_kv.shape[1]
     if x_kv.shape[0] != b or x_kv.shape[2] != dm:
@@ -192,9 +197,6 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
             or x_kv.dtype != x_q.dtype:
         raise TypeError("mha_block kernel takes x_q and x_kv both float32 "
                         f"or both bfloat16, got {x_q.dtype} / {x_kv.dtype}")
-    if io_bf16 and not bf16:
-        raise TypeError("mha_block kernel's f32 mode (mxu_bf16=False) takes "
-                        "float32 activations; bf16 ones run in its bf16 mode")
     for t in (x_q, x_kv, *flat):
         if t.device != x_q.device:
             raise TypeError("mha_block kernel takes tensors on one device, "
@@ -243,6 +245,8 @@ def _mha_block_cuda(x_q, x_kv, flat, heads: int, scale: float,
     _build.check(err, f"mha_block ({kernel})")
     if io_bf16:
         launches_bf16 += 1
+        if not bf16:
+            launches_f32io_bf16 += 1
     else:
         launches += 1
     return out
@@ -276,10 +280,9 @@ def mha_block(x_q: torch.Tensor, x_kv: torch.Tensor,
 
     Callers check ``block_eligible`` first. ``mxu_bf16`` mirrors the JAX
     function's flag: bf16 matmul operands with f32 accumulation (the
-    default on the card, as on the TPU), or exact f32 when False (f32
-    activations only). On a CPU tensor the plain f32 version runs, on bf16
-    activations widened and its output rounded once, and the flag does not
-    apply.
+    default on the card, as on the TPU), or exact f32 when False. On a CPU
+    tensor the plain f32 version runs, on bf16 activations widened and its
+    output rounded once, and the flag does not apply.
     """
     dm = x_q.shape[-1]
     if not block_eligible(heads, dm, x_kv.shape[1]):

@@ -37,9 +37,11 @@ import torch.distributed as dist
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.rl import dqn as dqn_lib
 from multimodal_sc_torch.rl import replay
+from multimodal_sc_torch.codec.semantic_vq import reseed_coin
 from multimodal_sc_torch.rl.perception import QNetwork
 from multimodal_sc_torch.runtime.mesh import (Mesh, all_reduce_mean_,
-                                              replicate, shard_seed)
+                                              from_first_shard, replicate,
+                                              shard_seed)
 
 # The per-shard fields: what a checkpoint holds once for each process.
 SHARD_FIELDS = ("env_states", "buffer_data", "buffer_cursor", "buffer_size",
@@ -130,24 +132,17 @@ class DataSync:
         first shard's generator's, camera's first, where not given) from
         the first shard."""
         mesh = self.mesh
-        first = mesh.data_ranks[0]
         coins = {"cam": coin, "lid": lid_coin}
         out = {}
         for name in ("cam", "lid"):
             if name not in rs:
                 continue
             counts, cands = rs[name]
-            if coins[name] is None:
-                coins[name] = torch.rand(counts.shape, generator=generator,
-                                         device=counts.device)
+            coins[name] = reseed_coin(counts, generator, coins[name], mesh)
             if mesh.data > 1:
                 counts = counts.clone()
-                cands = cands.contiguous().clone()
-                c = coins[name].contiguous().clone()
                 dist.all_reduce(counts, group=mesh.data_group)
-                dist.broadcast(cands, src=first, group=mesh.data_group)
-                dist.broadcast(c, src=first, group=mesh.data_group)
-                coins[name] = c
+                cands = from_first_shard(cands, mesh)
             out[name] = (counts, cands)
         return out, coins["cam"], coins["lid"]
 

@@ -25,7 +25,10 @@ What the JAX trunk sows, one entry per digital link call (camera, ego
 LiDAR, V2X), the port's forward reduces as the JAX consumers do and writes
 into the dict passed as ``aux``; the learners add the VQ loss to theirs and
 re-seed dead codes after their step (:func:`collect_reseed_stats`,
-:func:`apply_codebook_reseed`).
+:func:`apply_codebook_reseed`). A data-parallel learner hands the forward
+its mesh (``data_mesh``): the digital links' usage losses, usage counts and
+re-seeding candidates are then the global batch's
+(``codec/semantic_vq.py``).
 
 Under ``train.bf16`` the codecs and the fusion trunk compute in bf16 on f32
 parameters (``act_dtype``), as the JAX trunk takes its dtype from the
@@ -175,7 +178,8 @@ class SemanticPerception(nn.Module):
             fused_block=cfg.pallas_mha_block,
             block_kernel=cfg.mha_block_kernel, dtype=dtype)
 
-    def _vq_camera(self, image, snr_db, generator, noise, sown):
+    def _vq_camera(self, image, snr_db, generator, noise, sown,
+                   data_mesh=None):
         """The digital camera link: indices over QPSK (FEC or HARQ as
         configured); the token decoder sees the received codes, the
         gradient the clean straight-through path. ``sown`` (None on the act
@@ -183,7 +187,7 @@ class SemanticPerception(nn.Module):
         computed only then."""
         ch, codes = self.cfg.channel, self.cfg.camera.vq_codes
         idx_tx, vq_loss, z_ste, stats = self.cam_vq(
-            image, with_stats=sown is not None)
+            image, with_stats=sown is not None, mesh=data_mesh)
         hinfo = None
         if ch.harq:
             idx_rx, hinfo = transmit_indices_harq(ch, idx_tx, codes, snr_db,
@@ -203,7 +207,7 @@ class SemanticPerception(nn.Module):
         return self.cam_tok(z_rx)
 
     def _vq_lidar(self, bev, snr_db, generator, noise, scores, lidar_keep,
-                  sown):
+                  sown, data_mesh=None):
         """The digital LiDAR link on the BEV features (B, H, W, C): the
         nearest codes of ``lid_to_code``'s outputs, their indices over
         QPSK (FEC or HARQ as configured), the received codes through
@@ -219,7 +223,8 @@ class SemanticPerception(nn.Module):
         out = semantic_vq.vector_quantize(
             z_e, self.lid_codebook, lid.vq_beta, lid.vq_usage_coef,
             lid.vq_usage_temp,
-            with_stats=sown is not None and lid.vq_reseed > 0)
+            with_stats=sown is not None and lid.vq_reseed > 0,
+            **({} if data_mesh is None else {"mesh": data_mesh}))
         z_ste, idx_tx, vq_loss = out[:3]
         idx_tx = idx_tx.reshape(b, h * w)
         z_ste = z_ste.reshape(b, h * w, lid.vq_dim)
@@ -262,12 +267,13 @@ class SemanticPerception(nn.Module):
             bev.dtype))
 
     def _lidar_branch(self, pts, msk, snr_db, generator, noise,
-                      scores=None, lidar_keep=None, sown=None):
+                      scores=None, lidar_keep=None, sown=None,
+                      data_mesh=None):
         lid, ch = self.cfg.lidar, self.cfg.channel
         bev = self.lid_backbone(self.pfn(pts, msk))
         if lid.arch == "vq":
             x = self._vq_lidar(bev, snr_db, generator, noise, scores,
-                               lidar_keep, sown)
+                               lidar_keep, sown, data_mesh)
         else:
             sym = self.lid_sym_head(bev)
             b, h, w, _ = sym.shape
@@ -284,7 +290,8 @@ class SemanticPerception(nn.Module):
                 snr_db: Optional[torch.Tensor] = None,
                 v2x_offset_db: Optional[float] = None,
                 channel_noise=None, aux: Optional[dict] = None,
-                lidar_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lidar_keep: Optional[torch.Tensor] = None,
+                data_mesh=None) -> torch.Tensor:
         """``channel_noise`` (optional): a :class:`LinkDraws` (or a tuple
         ``(camera, ego LiDAR[, V2X])``) of the links' draws, in place of
         draws from ``generator``. ``aux`` (optional dict): receives what
@@ -297,7 +304,9 @@ class SemanticPerception(nn.Module):
         ``lid_vq_counts`` summed over ego and V2X, ``lid_vq_candidates``
         the ego call's). ``lidar_keep`` (optional (B,)): the kept-token
         fractions of the pruned digital LiDAR (``lidar.vq_prune``), kept
-        at random, as the learners train it."""
+        at random, as the learners train it. ``data_mesh`` (optional): the
+        batch is this rank's rows of a global batch, whose statistics the
+        digital links pool over the mesh's data group."""
         ch = self.cfg.channel
         if snr_db is None:
             snr_db = torch.full((image.shape[0],), ch.snr_db,
@@ -326,7 +335,7 @@ class SemanticPerception(nn.Module):
 
         if cam.arch == "vq":
             cam_tokens = self._vq_camera(image, snr_db, generator,
-                                         draws.camera, sown)
+                                         draws.camera, sown, data_mesh)
         else:
             z_cam = self.cam_enc(image, snr_in)
             z_cam_hat = channel_op(z_cam, snr_db, ch.kind, generator,
@@ -335,11 +344,11 @@ class SemanticPerception(nn.Module):
 
         lid_tokens = self._lidar_branch(points, mask, snr_db, generator,
                                         draws.lidar, draws.lidar_scores,
-                                        lidar_keep, sown)
+                                        lidar_keep, sown, data_mesh)
         if v2x:
             v2x_tokens = self._lidar_branch(
                 pts_v2x, mask_v2x, snr_db + v2x_offset_db, generator,
-                draws.v2x, draws.v2x_scores, lidar_keep, sown)
+                draws.v2x, draws.v2x_scores, lidar_keep, sown, data_mesh)
             lid_tokens = torch.cat([lid_tokens, v2x_tokens + self.v2x_embed],
                                    dim=1)
         if aux is not None:
@@ -427,8 +436,9 @@ class ActorCritic(nn.Module):
 
     def forward(self, image, points, mask, generator=None, snr_db=None,
                 v2x_offset_db=None, channel_noise=None, aux=None,
-                lidar_keep=None):
+                lidar_keep=None, data_mesh=None):
         s = self.perception(image, points, mask, generator, snr_db,
-                            v2x_offset_db, channel_noise, aux, lidar_keep)
+                            v2x_offset_db, channel_noise, aux, lidar_keep,
+                            data_mesh)
         logits = self.pi(torch.tanh(self.pi_h(s)))
         return logits, self.v(torch.tanh(self.v_h(s)))[..., 0]

@@ -31,9 +31,12 @@ global ``T x B`` rows, and each minibatch step normalises the advantages
 over the whole global minibatch, then takes its 1/S of the rows. The loss
 is a mean over equal slices, so the gradients meaned over the data group
 are the global minibatch's; the entropy floor reads the global entropy.
-``shard_state`` puts the network under tensor parallelism on the model
-axis (``runtime/tp.py``). Data-parallel training of a digital trunk is
-refused: its re-seeding and usage statistics are not pooled here.
+Over a digital link the trunk's usage losses, usage counts and re-seeding
+candidates are the global minibatch's (``rl/perception.py`` and
+``codec/semantic_vq.py`` pool them over the data group) and the re-seeding
+coins are the first rank's, so every rank re-seeds the same rows with the
+same codes. ``shard_state`` puts the network under tensor parallelism on
+the model axis (``runtime/tp.py``).
 """
 
 from __future__ import annotations
@@ -54,8 +57,10 @@ from multimodal_sc_torch.rl.gae import gae
 from multimodal_sc_torch.rl.perception import (ActorCritic, LinkDraws,
                                                apply_codebook_reseed,
                                                collect_reseed_stats)
+from multimodal_sc_torch.codec.semantic_vq import reseed_coin
 from multimodal_sc_torch.runtime.mesh import (Mesh, all_gather_rows,
                                               all_reduce_mean_,
+                                              data_parallel,
                                               local_batch_size,
                                               mean_over_data, replicate,
                                               shard_batch, shard_seed)
@@ -110,16 +115,6 @@ def init_params(cfg: ExperimentConfig, seed: int = 0,
     return net.to(dev)
 
 
-def _data_parallel(cfg: ExperimentConfig, mesh: Optional[Mesh]) -> bool:
-    if mesh is None or mesh.data == 1:
-        return False
-    if cfg.camera.arch == "vq" or cfg.lidar.arch == "vq":
-        raise ValueError("data-parallel PPO of a digital trunk "
-                         "(camera.arch / lidar.arch 'vq') is not ported; "
-                         "run it on one data shard")
-    return True
-
-
 def init(cfg: ExperimentConfig, seed: int = 0, device="cuda",
          mesh: Optional[Mesh] = None) -> PPOState:
     """A fresh network, its EMA and Adam, and ``rl.num_envs`` envs; on a
@@ -128,7 +123,7 @@ def init(cfg: ExperimentConfig, seed: int = 0, device="cuda",
     network broadcast from the first rank."""
     dev = resolve_device(device)
     n_envs = cfg.rl.num_envs
-    if _data_parallel(cfg, mesh):
+    if data_parallel(mesh):
         n_envs = local_batch_size(mesh, n_envs)
         g = torch.Generator(device=dev).manual_seed(
             shard_seed(seed, mesh.data_index))
@@ -224,7 +219,8 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
     (the re-seeding inputs among them). On a data axis of more than one
     rank (``mesh``) ``batch`` is this rank's slice of the global minibatch
     and its advantages come normalised over the whole of it; the entropy
-    floor reads the global entropy."""
+    floor reads the global entropy, the digital links' statistics the
+    global minibatch's."""
     r = cfg.rl
     aux = {} if aux is None else aux
     keep = learner_keep(cfg, batch["action"].shape[0], generator,
@@ -232,7 +228,7 @@ def _ppo_loss(cfg: ExperimentConfig, forward, net: ActorCritic,
     logits, value = forward(net, replay.dequantize_frame(batch["image"]),
                             batch["points"], batch["mask"], generator,
                             batch["snr"], channel_noise=channel_noise,
-                            aux=aux, lidar_keep=keep)
+                            aux=aux, lidar_keep=keep, data_mesh=mesh)
     logp_all = F.log_softmax(logits, dim=-1)
     logp = logp_all.gather(1, batch["action"].long()[:, None])[:, 0]
     ratio = torch.exp(logp - batch["logp"])
@@ -282,11 +278,11 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
     ``(state', metrics)``. On a data axis of more than one rank
     (``mesh``) the rollout is this rank's envs: it is gathered into the
     global one, and each minibatch step trains on this rank's slice of the
-    global minibatch (given ``draws.noise`` are the global minibatch's
-    link draws; this rank reads its rows)."""
+    global minibatch (given ``draws.noise`` and ``draws.keep`` are the
+    global minibatch's; this rank reads its rows)."""
     r = cfg.rl
     net, opt, g = state.params, state.opt_state, state.generator
-    dp = _data_parallel(cfg, mesh)
+    dp = data_parallel(mesh)
     last_return = state.last_return
     if dp:
         rollout = Rollout(*(all_gather_rows(x, mesh, 1) for x in rollout))
@@ -326,6 +322,8 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
                 batch = {k: v[rows] for k, v in batch.items()}
                 if noise is not None:
                     noise = shard_batch(mesh, noise)
+                if keep is not None:
+                    keep = shard_batch(mesh, keep)
             trunk = {}
             loss, aux = _ppo_loss(cfg, forward, net, batch, ent_coef, g,
                                   noise, keep, trunk, mesh if dp else None)
@@ -346,9 +344,14 @@ def _update(cfg: ExperimentConfig, state: PPOState, rollout: Rollout,
                     p.grad = gr
                 opt.step()
                 opt.zero_grad(set_to_none=True)
-                apply_codebook_reseed(cfg, net,
-                                      collect_reseed_stats(cfg, trunk), g,
-                                      *(coins or ()))
+                rs = collect_reseed_stats(cfg, trunk)
+                coins = coins or (None, None)
+                if dp:
+                    # The same coins on every rank, camera's first, as
+                    # apply_codebook_reseed draws them.
+                    coins = [reseed_coin(rs[n][0], g, c, mesh) if n in rs
+                             else c for n, c in zip(("cam", "lid"), coins)]
+                apply_codebook_reseed(cfg, net, rs, g, *coins)
             losses.append(loss)
             auxes.append(aux)
     with torch.no_grad():

@@ -249,9 +249,25 @@ class _MeanOverData(torch.autograd.Function):
 def mean_over_data(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """``x`` meaned over the data group (identity on one rank); see
     ``_MeanOverData`` for its gradient."""
-    if mesh is None or mesh.data == 1:
+    if not data_parallel(mesh):
         return x
     return _MeanOverData.apply(x, mesh)
+
+
+def data_parallel(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` splits a batch: a data axis of more than one rank."""
+    return mesh is not None and mesh.data > 1
+
+
+def from_first_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` as the data group's first rank holds it (a copy broadcast from
+    there; ``x`` itself on a data axis of one rank): draws that must be the
+    same on every shard, such as a re-seeding coin."""
+    if mesh.data == 1:
+        return x
+    x = x.contiguous().clone()
+    dist.broadcast(x, src=mesh.data_ranks[0], group=mesh.data_group)
+    return x
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:

@@ -28,6 +28,13 @@ whole bias gradient.
 
 The fused blocks' packed ``wq`` ... ``wo`` match no rule: they stay
 replicated and ``mha_block`` runs whole on every model rank.
+
+A checkpoint holds the single-card layout, as orbax writes the JAX
+package's global arrays: ``whole_state_dict`` and ``whole_optimizer_state``
+gather each model-sharded tensor (a parameter, its EMA, its Adam moments)
+along the dimension it was sliced on. A run restores into the whole
+network before ``apply_tp`` keeps its slice, so a checkpoint restores at
+any model-axis size, and on one card.
 """
 
 from __future__ import annotations
@@ -154,14 +161,51 @@ def _slice_(p: nn.Parameter, dim: int, sl: slice, group,
             optimizer: Optional[torch.optim.Optimizer]) -> None:
     """Keep ``p``'s slice along ``dim`` IN PLACE (the same Parameter, so
     an optimizer's references hold), and its Adam moments' with it; the
-    parameter records the model group its slices span (``tp_group``)."""
+    parameter records the model group its slices span (``tp_group``) and
+    the dimension (``tp_dim``: the torch layout's axis of the sharded one
+    in ``tp_param_shardings``' spec)."""
     idx = (slice(None),) * dim + (sl,)
     state = optimizer.state.get(p, {}) if optimizer is not None else {}
     for k, v in state.items():
         if isinstance(v, torch.Tensor) and v.shape == p.shape:
             state[k] = v[idx].clone()
     p.data = p.data[idx].clone()
-    p.tp_group = group
+    p.tp_group, p.tp_dim = group, dim
+
+
+def gather_whole(t: torch.Tensor, p: nn.Parameter) -> torch.Tensor:
+    """``t`` (``p`` itself, or a tensor of its shape such as an Adam
+    moment) whole: the model ranks' slices joined in rank order along the
+    dimension ``p`` was sliced on; ``t`` as it is for a replicated
+    parameter. Every rank of the model group calls it."""
+    group = getattr(p, "tp_group", None)
+    if group is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.detach().contiguous(), group=group)
+    return torch.cat(parts, dim=p.tp_dim)
+
+
+def whole_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module.state_dict()`` in the single-card layout: each
+    model-sharded parameter gathered whole (``gather_whole``)."""
+    params = dict(module.named_parameters())
+    return {k: gather_whole(v, params[k]) if k in params else v
+            for k, v in module.state_dict().items()}
+
+
+def whole_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+    """``optimizer.state_dict()`` in the single-card layout: the moments
+    of each model-sharded parameter gathered whole; the live state is
+    left as it is."""
+    sd = optimizer.state_dict()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {i: {k: (gather_whole(v, params[i])
+                     if isinstance(v, torch.Tensor)
+                     and v.shape == params[i].shape else v)
+                 for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return {**sd, "state": state}
 
 
 def global_norm(norms, params) -> torch.Tensor:

@@ -44,9 +44,13 @@ rows (``shard_batch``), its draws from a generator of its own (given
 draws are the global batch's: each rank reads its rows), and the
 gradients are meaned over the data group; the loss is meaned, the PSNR
 taken from the meaned MSE and the mIoU from the summed confusion matrix.
+The VQ codec's batch statistics are the global batch's too
+(``codec/semantic_vq.py``): the usage loss, the usage counts and the
+re-seeding candidates, the code perplexity (from the summed histogram) and
+the index error rate; the VQ loss and the kept-token fraction are meaned,
+and the re-seeding coins are the first rank's, the same on every rank.
 Rank 0 writes the metrics and the checkpoint (each other rank its
-generator beside it). Data-parallel training of the VQ codec is refused:
-its batch statistics (usage, perplexity, dead codes) are not pooled here.
+generator beside it).
 ``train.iters_per_dispatch`` (the chunked step) has no counterpart:
 PyTorch runs eagerly, so there is no per-dispatch round trip to amortize,
 and the value is ignored.
@@ -82,6 +86,7 @@ from multimodal_sc_torch.codec.camera_vit import ViTJSCC
 from multimodal_sc_torch.codec.semantic_vq import (VQCameraJSCC,
                                                    check_digital_camera,
                                                    init_codebook_from_batch,
+                                                   reseed_coin,
                                                    reseed_dead_codes)
 from multimodal_sc_torch.config.configs import ExperimentConfig
 from multimodal_sc_torch.device import card_name, resolve_device, synchronize
@@ -98,7 +103,9 @@ from multimodal_sc_torch.obs.metrics_writer import (MetricsWriter, Timer,
 from multimodal_sc_torch.obs.profiling import NaNWatchdog, maybe_trace
 from multimodal_sc_torch.rl.dqn import clip_by_global_norm_
 from multimodal_sc_torch.runtime.mesh import (Mesh, all_reduce_mean_,
+                                              data_parallel,
                                               init_distributed,
+                                              local_batch_size,
                                               mesh_from_config, replicate,
                                               shard_batch, shard_seed)
 from multimodal_sc_torch.runtime.prefetch import prefetch_to_device
@@ -189,6 +196,17 @@ class StepDraws(NamedTuple):
     keep: Optional[torch.Tensor] = None     # (B,) kept fractions, vq_prune
     select: Optional[torch.Tensor] = None   # (B, N) random selection scores
     uep: Optional[torch.Tensor] = None      # (P, B, H, W, 3) UEP probes
+
+
+def shard_draws(mesh: Mesh, draws: StepDraws) -> StepDraws:
+    """This rank's rows of a global batch's draws: every per-example draw
+    by its batch axis (the UEP probes' second), the coin whole."""
+    uep = draws.uep
+    if uep is not None:
+        b = local_batch_size(mesh, uep.shape[1])
+        uep = uep[:, mesh.data_index * b:(mesh.data_index + 1) * b]
+    return shard_batch(mesh, draws._replace(coin=None, uep=None))._replace(
+        coin=draws.coin, uep=uep)
 
 
 def _rate(model, m: Optional[torch.Tensor]):
@@ -285,15 +303,17 @@ def loss_fn(cfg: ExperimentConfig, model: CameraJSCC, img, seg,
     return (recon - img).square().mean(), (recon, None)
 
 
-def vq_loss_fn(model: VQCameraJSCC, img, draws: StepDraws, generator=None):
+def vq_loss_fn(model: VQCameraJSCC, img, draws: StepDraws, generator=None,
+               mesh: Optional[Mesh] = None):
     """``(loss, (recon, aux))`` of the VQ codec at the step's draws: MSE
     plus the VQ loss, the digital link inside the forward; a pruned codec
     sends ``draws.keep`` of its tokens, selected at random (every drop
-    pattern a deployed ranking can make)."""
+    pattern a deployed ranking can make). ``mesh``: ``img`` is this rank's
+    rows of a global batch, whose statistics the codec pools."""
     kw = ({"keep": draws.keep, "select": "random",
            "select_draws": draws.select} if model.vq_prune else {})
     recon, aux = model(img, draws.snr_db, generator, noise=draws.channel,
-                       uep_draws=draws.uep, **kw)
+                       uep_draws=draws.uep, data_mesh=mesh, **kw)
     return (recon - img).square().mean() + aux["vq_loss"], (recon, aux)
 
 
@@ -308,11 +328,7 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
     _check_ported(cfg)
     with_seg = _with_seg(cfg)
     vq = cfg.camera.arch == "vq"
-    dp = mesh is not None and mesh.data > 1
-    if dp and vq:
-        raise ValueError("data-parallel training of the VQ codec "
-                         "(camera.arch='vq') is not ported; run it on one "
-                         "data shard")
+    dp = data_parallel(mesh)
 
     def train_step(state: TrainState, batch, draws=None):
         model, opt = state.params, state.opt_state
@@ -320,22 +336,30 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
         if isinstance(draws, torch.Tensor):
             draws = StepDraws(channel=draws)
         if dp and draws is not None:
-            draws = shard_batch(mesh, draws)
+            draws = shard_draws(mesh, draws)
         draws = draw_step(cfg, img.shape[0], state.generator, img.device,
                           draws)
         if vq:
             loss, (recon, aux) = vq_loss_fn(model, img, draws,
-                                            state.generator)
+                                            state.generator,
+                                            mesh if dp else None)
         else:
             loss, (recon, logits) = loss_fn(cfg, model, img, seg, draws,
                                             state.generator)
         params = list(model.parameters())
         grads = list(torch.autograd.grad(loss, params))
+        # The VQ entries that are plain means of this rank's rows; the
+        # others are the global batch's already.
+        meaned = [k for k in ("vq_loss", "token_keep_frac")
+                  if vq and k in aux]
         with torch.no_grad():
             loss = loss.detach()
             if dp:
-                loss, err = all_reduce_mean_(grads, mesh,
-                                             [loss, mse(recon, img)])
+                loss, err, *vals = all_reduce_mean_(
+                    grads, mesh, [loss, mse(recon, img),
+                                  *(aux[k].detach() for k in meaned)])
+                if vq:
+                    aux = {**aux, **dict(zip(meaned, vals))}
             clip_by_global_norm_(grads, cfg.train.grad_clip)
             for p, g in zip(params, grads):
                 p.grad = g
@@ -358,10 +382,13 @@ def make_train_step(cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
                     "vq_loss", "index_error_rate", "code_perplexity")})
             if vq and "vq_counts" in aux:
                 # Dead codes jump to the batch's worst-quantised encoder
-                # outputs, after the optimizer step.
+                # outputs, after the optimizer step; the coin the same on
+                # every rank.
+                coin = reseed_coin(aux["vq_counts"], state.generator,
+                                   draws.coin, mesh if dp else None)
                 new_cb, n_rs = reseed_dead_codes(
                     model.codebook, aux["vq_counts"], aux["vq_candidates"],
-                    state.generator, cfg.camera.vq_reseed, coin=draws.coin)
+                    state.generator, cfg.camera.vq_reseed, coin=coin)
                 model.codebook.copy_(new_cb)
                 metrics["vq_reseeded"] = n_rs.float()
             if vq and "token_keep_frac" in aux:
@@ -432,6 +459,8 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         init_codebook_from_batch(state.params, init_img, torch.Generator(
             device=dev).manual_seed((tr.seed * 0x9E3779B1 + 0xCB)
                                     & 0xFFFFFFFF))
+        if dp:
+            replicate(mesh, state.params.codebook)
     # The batches of an uninterrupted run from here on.
     data._step = start
     batches = prefetch_to_device(data, size=2, device=dev,

@@ -19,8 +19,12 @@ the processes out as ``mesh.data_axis`` x ``mesh.model_axis``
 of one global batch (``rl/ppo.py``), the model axis puts the network under
 tensor parallelism (``shard_state``). Metrics, prints and the result come
 from rank 0; the rate is each card's own. A checkpoint holds the
-replicated fields once and each data shard's envs and generator beside
-them; a resume needs the world size that wrote it.
+replicated fields once, in the single-card layout (the network, the EMA
+and the Adam moments gathered whole from the model ranks, as orbax writes
+the JAX package's global arrays), and each data shard's envs and
+generator beside them. A resume restores the whole network, then keeps
+this model rank's slice: it may run at another model-axis size, or on one
+card (``eval-policy``), but needs the data-axis size that wrote it.
 ``train.iters_per_dispatch`` has no counterpart: PyTorch runs eagerly, so
 there is no per-dispatch round trip to amortize, and the value is ignored.
 
@@ -89,15 +93,13 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
     watchdog = NaNWatchdog()
     ckpt = None
     if cfg.train.checkpoint_dir:
-        if mesh.model > 1:
-            raise ValueError("checkpoints of a tensor-parallel run "
-                             "(mesh.model_axis > 1) are not ported")
         ckpt = CheckpointManager(cfg.train.checkpoint_dir)
         guard_world(ckpt, mesh.data)
         if lead:
             ckpt.save_config(cfg.to_json())
-        restored = (restore_sharded(ckpt, state, mesh) if sharded
-                    else ckpt.restore_latest(state))
+        # Any mesh's checkpoint: the data shards' parts, the number of
+        # shards left out of the state.
+        restored = restore_sharded(ckpt, state, mesh)
         if restored is not None:
             state = restored
     # Tensor parallelism once the whole network is in place.
@@ -122,7 +124,7 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
                 watchdog.check(it, last)
             if ckpt and it % cfg.train.checkpoint_every == 0:
                 t_ck = time.perf_counter()
-                if sharded:
+                if mesh.size > 1:
                     save_sharded(ckpt, it, state, mesh, SHARD_FIELDS)
                 else:
                     ckpt.save(it, state)

@@ -410,8 +410,9 @@ def test_fusion_transformer_bf16_matches_jax(mode):
 
 def test_mha_block_plain_versions_take_bf16():
     """Both plain versions keep bf16 activations bf16 beside f32
-    parameters; the wrapper refuses mixed activations and the f32 mode on
-    bf16 ones."""
+    parameters; the wrapper refuses mixed activations and head dims no
+    kernel takes (the f32 mode on bf16 activations has an instance of its
+    own: ``tests/test_torch_f32mode_bf16.py``)."""
     g = torch.Generator().manual_seed(24)
     p = {k: (torch.randn(128, 128, generator=g) / 12 if k.startswith("w")
              else 0.1 * torch.randn(128, generator=g))
@@ -426,8 +427,8 @@ def test_mha_block_plain_versions_take_bf16():
     flat = tuple(p[k] for k in tmha.PARAM_KEYS)
     with pytest.raises(TypeError, match="both float32 or both bfloat16"):
         tmha._mha_block_cuda(x_q, x_kv.float(), flat, 4, 0.18, True)
-    with pytest.raises(TypeError, match="f32 mode"):
-        tmha._mha_block_cuda(x_q, x_kv, flat, 4, 0.18, False)
+    with pytest.raises(ValueError, match="head dims 8-64"):
+        tmha._mha_block_cuda(x_q, x_kv, flat, 1, 0.18, False)
 
 
 # --- scatter_max on bf16 ------------------------------------------------------

@@ -220,12 +220,12 @@ def test_flash_plain_versions_match_jax_kernels_bf16():
 
 
 def test_packed_kernel_refuses_bf16_in_its_f32_mode():
-    """On a CUDA tensor a bf16 input with ``mxu_bf16=False`` raises before
-    any launch (its route would round dK and dV once); here the check that
-    decides it."""
+    """The f32 mode no longer refuses bf16 tensors: with ``mxu_bf16=False``
+    they take its bf16-I/O instance (the flash kernels with T = bf16, dK
+    and dV rounded per 128-query block); here the rule that decides each
+    launcher mode."""
     z = torch.zeros(1, 8, 128, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="bf16 mode only"):
-        tpacked._mode(z, False)
+    assert tpacked._mode(z, False) == tpacked._MODE_F32_BF16_IO
     assert tpacked._mode(z, True) == tpacked._MODE_BF16_IO
     assert tpacked._mode(z.float(), True) == tpacked._MODE_BF16
     assert tpacked._mode(z.float(), False) == tpacked._MODE_F32

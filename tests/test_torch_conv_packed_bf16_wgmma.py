@@ -272,12 +272,12 @@ def test_bf16_wgmma_packed_forward_model_matches_jax_and_plain_version(name):
 
 
 def test_packed_forward_wrapper_refuses_what_no_kernel_takes():
-    """The forward's launcher takes one dtype for q, k and v, and bf16
-    tensors only in the bf16 mode (the bf16 wgmma kernel); the wrapper
-    refuses anything else before it reaches the card."""
+    """The forward's launcher takes one dtype for q, k and v (bf16 in
+    either mode) and head dims 8-64; the wrapper refuses anything else
+    before it reaches the card."""
     q = torch.zeros(1, 8, 128)
     with pytest.raises(TypeError, match="one dtype"):
         tpacked._fwd_cuda(q, q.to(BF16), q, 4, 0.25, True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tpacked._fwd_cuda(q.to(BF16), q.to(BF16), q.to(BF16), 4, 0.25,
+    with pytest.raises(ValueError, match="head dims"):
+        tpacked._fwd_cuda(q.to(BF16), q.to(BF16), q.to(BF16), 1, 0.25,
                           False)

@@ -147,8 +147,46 @@ def test_packed_attention_bf16_io_backward_on_the_card():
                                              bf16=True, lse=lse)
     for a, w in zip(got, want):
         _bf16_io_close(a, w)
-    with pytest.raises(NotImplementedError):
-        ap.packed_attention(q, k, v, 4, mxu_bf16=False)
+    # The f32 mode on the same bf16 tensors: the flash kernels' bf16-I/O
+    # instances, held to the f32-mode plain version (dK and dV per block).
+    counts = (ap.launches_fwd_f32io_bf16, ap.launches_bwd_f32io_bf16)
+    out = ap.packed_attention(*ins, 4, mxu_bf16=False)
+    got = torch.autograd.grad(out, ins, do)
+    assert (ap.launches_fwd_f32io_bf16, ap.launches_bwd_f32io_bf16) == (
+        counts[0] + 1, counts[1] + 1)
+    want_out, lse = ap.packed_attention_fwd_reference(q, k, v, 4)
+    _bf16_io_close(out.detach(), want_out)
+    want = ap.packed_attention_bwd_reference(q, k, v, out.detach(), do, 4,
+                                             lse=lse)
+    for a, w in zip(got, want):
+        _bf16_io_close(a, w)
+
+
+@pytest.mark.cuda
+def test_mha_block_f32_mode_on_bf16_activations_on_the_card():
+    """``mha_block``'s f32 mode on bf16 activations: within 1e-4 plus a
+    bf16 step of the plain version (widened, f32, rounded once), counted
+    as its instance; two runs bit-equal."""
+    from multimodal_sc_torch.kernels import mha_block as tmha
+
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    p = {k: (torch.randn(128, 128, generator=g, device="cuda") / 11.3
+             if k.startswith("w") else
+             0.1 * torch.randn(128, generator=g, device="cuda"))
+         for k in tmha.PARAM_KEYS}
+    x_q, x_kv = (torch.randn(8, n, 128, generator=g, device="cuda").to(
+        torch.bfloat16) for n in (65, 300))
+    before = tmha.launches_f32io_bf16
+    out = tmha.mha_block(x_q, x_kv, p, 4, mxu_bf16=False)
+    assert tmha.launches_f32io_bf16 == before + 1
+    assert torch.equal(out, tmha.mha_block(x_q, x_kv, p, 4, mxu_bf16=False))
+    want = tmha.mha_block_reference(x_q, x_kv, p, 4)
+    _, e = torch.frexp(want.float().abs().clamp(min=2.0 ** -126))
+    step = torch.ldexp(torch.ones_like(want, dtype=torch.float32), e - 8)
+    diff = (out.float() - want.float()).abs()
+    assert bool((diff <= 1e-4 + 1e-4 * want.float().abs() + step).all())
+    assert diff.mean().item() < 1e-5
 
 
 def _flash_inputs():

@@ -538,10 +538,13 @@ def test_jscc_step_on_two_ranks_matches_one_process(pool, extra):
 
 
 def test_data_parallel_refuses_the_digital_codecs():
+    """Data-parallel training of the digital codecs is no longer refused:
+    a VQ JSCC step builds on a data axis of two ranks, and PPO shards a
+    digital trunk's envs over any data axis of more than one rank
+    (``tests/test_torch_distributed_vq.py`` holds both to JAX on a
+    mesh)."""
     mesh = _fake_mesh(2)
-    with pytest.raises(ValueError, match="data-parallel training of the VQ"):
-        tjscc.make_train_step(
-            t_preset("c1").override_str(["camera.arch=vq"]), mesh=mesh)
-    with pytest.raises(ValueError, match="data-parallel PPO of a digital"):
-        tppo.init(t_preset("c5").override_str(["camera.arch=vq"]), 0, "cpu",
-                  mesh)
+    assert callable(tjscc.make_train_step(
+        t_preset("c1").override_str(["camera.arch=vq"]), mesh=mesh))
+    assert tmesh.data_parallel(mesh)
+    assert not tmesh.data_parallel(_fake_mesh(1, 2))

@@ -395,12 +395,13 @@ def tp_dqn_iterations(iters: int, data: int, model: int, extra=()):
 
 
 def ppo_update(cfg_over, rollout, last_value, params, perms, noises,
-               update: int = 0, adam=None):
+               update: int = 0, adam=None, keep=None, coins=None):
     """One data-parallel PPO update (``rl/ppo.py`` ``_update`` over the
     mesh) on this rank's envs of the given global rollout, with the given
-    permutations and each global minibatch's link draws: the network and
-    metrics afterwards. ``adam`` is ``(count, exp_avg, exp_avg_sq)``, the
-    moments by parameter name, to start from (default: a fresh Adam)."""
+    permutations and each global minibatch's link draws (a ``None`` field
+    drawn), kept fractions and re-seeding coins: the network and metrics
+    afterwards. ``adam`` is ``(count, exp_avg, exp_avg_sq)``, the moments
+    by parameter name, to start from (default: a fresh Adam)."""
     from multimodal_sc_torch.config import get_preset
     from multimodal_sc_torch.rl import ppo
     from multimodal_sc_torch.rl.dqn import learner_forward
@@ -425,10 +426,16 @@ def ppo_update(cfg_over, rollout, last_value, params, perms, noises,
     b = ro.reward.shape[1] // mesh.data
     sl = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     local = ppo.Rollout(*(x[:, sl] for x in ro))
+    def tensors(xs):
+        return tuple(None if x is None else torch.tensor(x) for x in xs)
+
     draws = ppo.UpdateDraws(
         perms=[torch.tensor(p) for p in perms],
-        noise=[[LinkDraws(*(torch.tensor(x) for x in n)) for n in epoch]
-               for epoch in noises])
+        noise=[[LinkDraws(*tensors(n)) for n in epoch] for epoch in noises],
+        keep=None if keep is None else [[torch.tensor(k) for k in epoch]
+                                        for epoch in keep],
+        coins=None if coins is None else [[tensors(c) for c in epoch]
+                                          for epoch in coins])
     state, metrics = ppo._update(cfg, state, local,
                                  torch.tensor(last_value)[sl],
                                  learner_forward(cfg, ActorCritic), draws,
@@ -462,6 +469,28 @@ def jscc_step(cfg_over, params, batch, draws, seed: int = 0):
     return {"params": _numpy_state(state.params),
             "equal": _equal_across_ranks(_flat_params(state.params)),
             "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def ppo_tp_driver(ckpt_dir: str, steps: int, every: int, cfg_over=()):
+    """``train.ppo.run`` on a data 1 x model 2 mesh with checkpoints every
+    ``every`` updates: this rank's slices of the final network, EMA and
+    Adam moments, and the network gathered whole."""
+    from multimodal_sc_torch.config import get_preset
+    from multimodal_sc_torch.runtime.tp import whole_state_dict
+    from multimodal_sc_torch.train import ppo as train_ppo
+
+    cfg = get_preset("c5").override_str(list(cfg_over) + [
+        "mesh.model_axis=2", f"train.steps={steps}",
+        f"train.checkpoint_every={every}",
+        f"train.checkpoint_dir={ckpt_dir}"])
+    state, _ = train_ppo.run(cfg, device="cpu")
+    moments = [v.numpy().copy() for st in state.opt_state.state.values()
+               for v in st.values() if v.dim() > 0]
+    return {"params": _numpy_state(state.params),
+            "ema": _numpy_state(state.ema_params), "moments": moments,
+            "whole": {k: v.numpy().copy()
+                      for k, v in whole_state_dict(state.params).items()},
+            "update": state.update}
 
 
 def jscc_batch_rows(seed: int, batch: int):
