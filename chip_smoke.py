@@ -232,7 +232,7 @@ Last the distributed path (``runtime/mesh.py``, ``rl/dqn_sharded.py``,
   on the flash kernels: their launches are counted, the packed kernels'
   must be 0;
 * (f) one c1_vq step (usage loss and re-seeding on) on the two ranks of
-  (b), each on its rows of a global batch of 8 and of its draws, against
+  (b), each on its rows of c1's global batch of 64 and of its draws, against
   the same step in this process within 1e-5 / 1e-4: the usage loss, the
   counts, the candidates, perplexity and index errors pooled;
 * (g) c5 (rollout 16, one epoch of two minibatch steps) at data 1 x model
@@ -1918,12 +1918,13 @@ def _check_packed_f32_mode_bf16():
         plain = _device_ms(lambda: ap.packed_attention_fwd_reference(
             q, k, v, heads, scale))
         sdpa = _device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        # f32-grade products: S and P V, 4 operations per score and column,
-        # each at least three TF32 passes; q, k, v read and the output
-        # written once in bf16.
+        # Passes by operand type: a widened bf16 value splits into TF32
+        # with a zero low part, so S = Q K^T (bf16 by bf16) needs one TF32
+        # pass and P V (f32 P by bf16 V) two, 2 operations per score and
+        # column each; q, k, v read and the output written once in bf16.
         work = b * lq * lk * dm
-        bound, by = _bound_ms(3 * 4 * work, 2 * 2 * b * (lq + lk) * dm,
-                              PEAK_TF32)
+        bound, by = _bound_ms((1 + 2) * 2 * work,
+                              2 * 2 * b * (lq + lk) * dm, PEAK_TF32)
         line += (f"; fwd kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
                  f"{bound:.4f} ms ({by}), SDPA on the widened f32 tensors "
                  f"{sdpa:.4f} ms (a reference only)")
@@ -1940,10 +1941,12 @@ def _check_packed_f32_mode_bf16():
         lib_out = F.scaled_dot_product_attention(qh, kh, vh)
         bsdpa = _device_ms(lambda: torch.autograd.grad(
             lib_out, (qh, kh, vh), doh, retain_graph=True))
-        # S, dP and dQ (6), S, dP, dV and dK (8) per score and column, three
-        # TF32 passes each; q, k, v, O, dO and lse read, dq, dk, dv written
-        # once.
-        bound, by = _bound_ms(3 * 14 * work,
+        # Per kernel, 2 operations per score and column a product: S and dP
+        # (bf16 by bf16) one TF32 pass each, dQ = dS K, dV = P^T dO and
+        # dK = dS^T Q (f32 by bf16) two; the dQ kernel S, dP, dQ (1 + 1 +
+        # 2), the dK/dV kernel S, dP, dV, dK (1 + 1 + 2 + 2). q, k, v, O,
+        # dO and lse read, dq, dk, dv written once.
+        bound, by = _bound_ms((4 + 6) * 2 * work,
                               2 * b * (4 * lq + 4 * lk) * dm
                               + 4 * b * heads * lq, PEAK_TF32)
         line += (f"; bwd kernels {bms:.4f} ms, plain {bplain:.3f} ms, bound "
@@ -3127,13 +3130,13 @@ class _HeldCodes:
         self.tie, self.worst = tie, 0.0
 
     def __call__(self, z_e, codebook, beta=0.25, usage_coef=0.0,
-                 usage_temp=0.5, with_stats=False):
+                 usage_temp=0.5, with_stats=False, mesh=None):
         import torch
 
         from multimodal_sc_torch.codec import semantic_vq
 
         out = self.orig(z_e, codebook, beta, usage_coef, usage_temp,
-                        with_stats)
+                        with_stats, mesh)
         if self.mode == "record":
             self.codes.append(out[1])
             return out
@@ -6077,10 +6080,9 @@ DIST_RANK_ITERS = 8
 DIST_TIMEOUT_S = 400
 DIST_ATTN_SHAPE = (64, 4, 256, 32)
 DIST_TP_LR = 1e-2
-# (f) c1_vq with usage and re-seeding, a global batch of 8 (512 tokens: a
-# nearest-code tie that two sums in other orders break apart is rare).
+# (f) c1_vq with usage and re-seeding at c1's global batch.
 DIST_VQ = C1_VQ + ["camera.vq_usage_coef=0.1", "camera.vq_reseed=0.3"]
-DIST_VQ_BATCH = 8
+DIST_VQ_BATCH = 64
 # (g) and (h): c5 cut to 16 steps of rollout and one epoch of two
 # minibatch steps an update.
 DIST_C5_CUT = ["rl.rollout_length=16", "rl.ppo_epochs=1",

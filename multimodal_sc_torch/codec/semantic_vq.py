@@ -469,12 +469,10 @@ class VQEncoderTokens(nn.Module):
         :func:`vector_quantize` when ``vq_reseed > 0`` and ``with_stats``,
         else None (what the JAX module sows, returned). ``mesh``: pool the
         batch statistics over its data group (:func:`vector_quantize`)."""
-        # ``mesh`` only where pooled: stand-ins for vector_quantize that
-        # hold a route's codes take the one-process arguments.
         out = vector_quantize(z_e, self.codebook, self.vq_beta,
                               self.vq_usage_coef, self.vq_usage_temp,
                               with_stats=with_stats and self.vq_reseed > 0,
-                              **({} if mesh is None else {"mesh": mesh}))
+                              mesh=mesh)
         z_ste, idx, vq_loss = out[:3]
         b, h, w, _ = z_e.shape
         return (idx.reshape(b, h * w), vq_loss,

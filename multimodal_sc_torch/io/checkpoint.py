@@ -289,20 +289,23 @@ def _whole(state: NamedTuple) -> NamedTuple:
 
 def save_sharded(ckpt: CheckpointManager, step: int, state: NamedTuple,
                  mesh, shard_fields) -> None:
-    """The checkpoint of ``step`` of a run on a mesh of several processes
-    (``runtime/mesh.py``): the first rank writes every field (its own
-    shard's among them) and the number of data shards; the first model
-    rank of each other data shard writes its ``shard_fields`` beside it.
-    On a model axis of several ranks the networks and the optimizer
-    moments are written whole (``_whole``), so the checkpoint restores at
-    any model-axis size and on one card. Returns when every rank has
-    written."""
+    """The checkpoint of ``step`` of a run on a mesh (``runtime/mesh.py``):
+    the first rank writes every field (its own shard's among them) and,
+    past one data shard, their number; the first model rank of each other
+    data shard writes its ``shard_fields`` beside it. On a model axis of
+    several ranks the networks and the optimizer moments are written
+    whole (``_whole``), so the checkpoint restores at any model-axis size
+    and on one card. A mesh of one process writes what ``ckpt.save``
+    does. Returns when every rank has written."""
     import torch.distributed as dist
 
     if mesh.model > 1:
         state = _whole(state)
     if mesh.rank == 0:
-        ckpt.save(step, state, extra={"data_shards": mesh.data})
+        ckpt.save(step, state, extra={"data_shards": mesh.data}
+                  if mesh.data > 1 else None)
+    if mesh.size == 1:
+        return
     dist.barrier()
     if mesh.data_index != 0 and mesh.model_index == 0:
         ckpt.save_shard(step, mesh.data_index, state, shard_fields)

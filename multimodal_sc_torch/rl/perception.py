@@ -224,7 +224,7 @@ class SemanticPerception(nn.Module):
             z_e, self.lid_codebook, lid.vq_beta, lid.vq_usage_coef,
             lid.vq_usage_temp,
             with_stats=sown is not None and lid.vq_reseed > 0,
-            **({} if data_mesh is None else {"mesh": data_mesh}))
+            mesh=data_mesh)
         z_ste, idx_tx, vq_loss = out[:3]
         idx_tx = idx_tx.reshape(b, h * w)
         z_ste = z_ste.reshape(b, h * w, lid.vq_dim)

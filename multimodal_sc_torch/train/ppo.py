@@ -78,7 +78,6 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
     dev = resolve_device(device)
     init_distributed(dev)
     mesh = mesh_from_config(cfg.mesh)
-    sharded = mesh.data > 1
     lead = mesh.rank == 0
     state = ppo_lib.init(cfg, cfg.train.seed, dev, mesh)
     nets = (state.params, state.ema_params)
@@ -124,10 +123,7 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
                 watchdog.check(it, last)
             if ckpt and it % cfg.train.checkpoint_every == 0:
                 t_ck = time.perf_counter()
-                if mesh.size > 1:
-                    save_sharded(ckpt, it, state, mesh, SHARD_FIELDS)
-                else:
-                    ckpt.save(it, state)
+                save_sharded(ckpt, it, state, mesh, SHARD_FIELDS)
                 ckpt_s += time.perf_counter() - t_ck
         synchronize(dev)
     per_update = cfg.rl.rollout_length * cfg.rl.num_envs // mesh.data
@@ -144,7 +140,7 @@ def run(cfg: ExperimentConfig, metrics_path: Optional[str] = None,
         extra["first_dispatch_s"] = round(first_s, 2)
         extra["steady_steps_per_sec_per_chip"] = steps_per_sec_per_chip(
             (n_updates - 1) * per_update, t.elapsed - first_s - ckpt_s)
-    if sharded:
+    if mesh.data > 1:
         extra["data_shards"] = mesh.data
     writer.write(steps, {**last, **extra})
     writer.close()

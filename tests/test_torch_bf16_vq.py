@@ -191,7 +191,9 @@ class _HeldCodes:
         self.i = self.held = self.total = 0
 
     def __call__(self, z_e, codebook, beta=0.25, usage_coef=0.0,
-                 usage_temp=0.5, with_stats=False):
+                 usage_temp=0.5, with_stats=False, mesh=None):
+        # One data shard: there is nothing to pool over.
+        assert mesh is None or mesh.data == 1
         _bf16_valued(z_e, "code features")
         want = self.codes[self.i].reshape(-1)
         self.i += 1
